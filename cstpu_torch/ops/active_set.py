@@ -1,0 +1,229 @@
+"""Fixed-shape masked active-set engine (PyTorch counterpart of
+cstpu.ops.active_set).
+
+State of one instance:
+
+  * `idx`/`mask`   — padded support (insertion order; sorted at extraction)
+  * `cols`         — cached active columns of A (zeros where inactive)
+  * `G`            — exact Gram matrix of the active columns, identity-padded
+  * `Ginv`         — its inverse, identity-padded
+  * `Atb`, `coef`  — A_i' b and the current LS coefficients
+
+Appends update Ginv with the rank-one bordered block-inverse formula;
+deletions and bulk rebuilds recompute it exactly from G by a Cholesky
+solve (`refresh`). The engine is dtype-generic: f64 on the CPU for the
+conformance tests, f32 on the card. Functions return new states and never
+write into their arguments.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+INT32_MAX = torch.iinfo(torch.int32).max
+
+
+class ActiveSet(NamedTuple):
+    idx: torch.Tensor    # int32[kmax] support indices (insertion order), pad m
+    mask: torch.Tensor   # bool[kmax]
+    k: torch.Tensor      # int32[] number of active slots
+    cols: torch.Tensor   # f[n, kmax] active columns of A, zero where inactive
+    G: torch.Tensor      # f[kmax, kmax] Gram, identity on inactive slots
+    Ginv: torch.Tensor   # f[kmax, kmax] inverse Gram, identity on inactive
+    Atb: torch.Tensor    # f[kmax]
+    coef: torch.Tensor   # f[kmax] current LS coefficients
+
+
+def empty(n: int, kmax: int, m: int, dtype, device=None) -> ActiveSet:
+    """Empty active set with capacity kmax over an n x m dictionary."""
+    eye = torch.eye(kmax, dtype=dtype, device=device)
+    return ActiveSet(
+        idx=torch.full((kmax,), m, dtype=torch.int32, device=device),
+        mask=torch.zeros((kmax,), dtype=torch.bool, device=device),
+        k=torch.zeros((), dtype=torch.int32, device=device),
+        cols=torch.zeros((n, kmax), dtype=dtype, device=device),
+        G=eye,
+        Ginv=eye.clone(),
+        Atb=torch.zeros((kmax,), dtype=dtype, device=device),
+        coef=torch.zeros((kmax,), dtype=dtype, device=device),
+    )
+
+
+def contains(st: ActiveSet, i) -> torch.Tensor:
+    """True if atom index i is in the active set."""
+    return torch.any(st.mask & (st.idx == i))
+
+
+def _bordered_ginv(Ginv, u, dinv, p):
+    """[[Ginv + u u'/d, -u/d], [-u'/d, 1/d]] with the border at slot p."""
+    out = Ginv + dinv * torch.outer(u, u)
+    out[p, :] = -dinv * u
+    out[:, p] = -dinv * u
+    out[p, p] = dinv
+    return out
+
+
+def _probe(a, st: ActiveSet):
+    """(u, d, a'a) of column `a` against the OLD active set: u = Ginv g
+    with g the cross terms, d = a'a - g'u its out-of-span energy."""
+    g = torch.where(st.mask, st.cols.T @ a, 0)
+    ata = a @ a
+    u = st.Ginv @ g
+    return u, ata - g @ u, ata
+
+
+def _border(a, b, st: ActiveSet, i, u, d, ata) -> ActiveSet:
+    """Write column `a` as atom i into the first free slot; d is clamped
+    at 1e-12 * a'a before the bordered Ginv update."""
+    p = int(st.k)
+    cols = st.cols.clone()
+    cols[:, p] = a
+    gfull = cols.T @ a                   # zeros at inactive slots, a'a at p
+    G = st.G.clone()
+    G[p, :] = gfull
+    G[:, p] = gfull
+    d = torch.maximum(d, 1e-12 * torch.clamp(ata, min=1e-30))
+    Ginv = _bordered_ginv(st.Ginv, u, 1.0 / d, p)
+    idx = st.idx.clone()
+    idx[p] = int(i)
+    mask = st.mask.clone()
+    mask[p] = True
+    Atb = st.Atb.clone()
+    Atb[p] = a @ b
+    return ActiveSet(idx=idx, mask=mask, k=st.k + 1, cols=cols, G=G,
+                     Ginv=Ginv, Atb=Atb, coef=st.coef)
+
+
+def append_col(a, b, st: ActiveSet, i) -> ActiveSet:
+    """Add the explicit column `a` as atom index i (no refit).
+
+    Callers guard capacity and duplicates. The orthogonal energy d is
+    clamped at 1e-12 * a'a (the degeneracy guard of this ungated form).
+    """
+    return _border(a, b, st, i, *_probe(a, st))
+
+
+def append(A, b, st: ActiveSet, i) -> ActiveSet:
+    """Add atom i at the first free slot (no refit). Caller must `refit`."""
+    return append_col(A[:, int(i)], b, st, i)
+
+
+def append_col_gated(a, b, st: ActiveSet, i, ok) -> ActiveSet:
+    """`append_col` that returns the state unchanged when `ok` is False.
+
+    Two rejections are enforced here for any caller-supplied gate:
+      * capacity — at st.k == kmax nothing is written;
+      * degeneracy — a column numerically inside the active span is
+        rejected (d <= 8 n eps(dtype) ||a||^2): accepting it makes the
+        exact Gram singular and the next `refresh` Cholesky fails.
+    """
+    if not (bool(ok) and int(st.k) < st.idx.shape[0]):
+        return st
+    u, d, ata = _probe(a, st)
+    rtol = 8.0 * a.shape[0] * torch.finfo(a.dtype).eps
+    if not bool(d > rtol * ata):
+        return st
+    return _border(a, b, st, i, u, d, ata)
+
+
+def append_gated(A, b, st: ActiveSet, i, ok) -> ActiveSet:
+    """Gated append by atom index (see append_col_gated)."""
+    return append_col_gated(A[:, int(i)], b, st, i, ok)
+
+
+def refresh(st: ActiveSet) -> ActiveSet:
+    """Recompute Ginv exactly from the exact padded Gram (Cholesky solve)."""
+    kmax = st.G.shape[0]
+    eye = torch.eye(kmax, dtype=st.G.dtype, device=st.G.device)
+    Gpad = torch.where(st.mask[:, None] & st.mask[None, :], st.G, eye)
+    L = torch.linalg.cholesky(Gpad)
+    return st._replace(Ginv=torch.cholesky_solve(eye, L))
+
+
+def delete(st: ActiveSet, pos, m: int) -> ActiveSet:
+    """Remove the active slot at `pos`, compacting left; Ginv is recomputed
+    exactly. No refit."""
+    kmax = st.idx.shape[0]
+    dev = st.idx.device
+    ar = torch.arange(kmax, device=dev)
+    src = torch.clamp(torch.where(ar >= pos, ar + 1, ar), max=kmax - 1)
+    newmask = ar < (st.k - 1)
+    eye = torch.eye(kmax, dtype=st.G.dtype, device=dev)
+    both = newmask[:, None] & newmask[None, :]
+    st2 = ActiveSet(
+        idx=torch.where(newmask, st.idx[src], m).to(torch.int32),
+        mask=newmask,
+        k=st.k - 1,
+        cols=torch.where(newmask[None, :], st.cols[:, src], 0),
+        G=torch.where(both, st.G[src][:, src], eye),
+        Ginv=eye,
+        Atb=torch.where(newmask, st.Atb[src], 0),
+        coef=torch.where(newmask, st.coef[src], 0),
+    )
+    return refresh(st2)
+
+
+def rebuild(A, b, idx, mask) -> ActiveSet:
+    """Construct the state for a given padded support in one shot."""
+    kmax = idx.shape[0]
+    eye = torch.eye(kmax, dtype=A.dtype, device=A.device)
+    safe = torch.where(mask, idx, 0).long()
+    cols = A[:, safe] * mask[None, :].to(A.dtype)
+    G = torch.where(mask[:, None] & mask[None, :], cols.T @ cols, eye)
+    st = ActiveSet(
+        idx=torch.where(mask, idx, A.shape[1]).to(torch.int32),
+        mask=mask,
+        k=mask.sum().to(torch.int32),
+        cols=cols,
+        G=G,
+        Ginv=eye,
+        Atb=cols.T @ b,
+        coef=torch.zeros((kmax,), dtype=A.dtype, device=A.device),
+    )
+    return refresh(st)
+
+
+def refit(st: ActiveSet) -> ActiveSet:
+    """Solve the active LS problem: coef = Ginv @ Atb."""
+    coef = st.Ginv @ torch.where(st.mask, st.Atb, 0)
+    return st._replace(coef=torch.where(st.mask, coef, 0))
+
+
+def residual(st: ActiveSet, b) -> torch.Tensor:
+    """r = b - A_active @ coef, using the cached active columns."""
+    return b - st.cols @ st.coef
+
+
+def gamma(st: ActiveSet) -> torch.Tensor:
+    """diag((A_i'A_i)^-1) over active slots (junk elsewhere; callers mask)."""
+    return torch.diagonal(st.Ginv)
+
+
+def ols_rescaling(A, st: ActiveSet, colnorm2) -> torch.Tensor:
+    """Squared energetic norms ||a_j||^2 - ||proj_active a_j||^2 for all j."""
+    W = st.cols.T @ A
+    return colnorm2 - torch.sum(W * (st.Ginv @ W), dim=0)
+
+
+def active_marker(st: ActiveSet, m: int) -> torch.Tensor:
+    """Dense boolean (m,) marking active atom indices."""
+    z = torch.zeros((m + 1,), dtype=torch.bool, device=st.idx.device)
+    z[torch.where(st.mask, st.idx, m).long()] = st.mask
+    return z[:m]
+
+
+def finalize(st: ActiveSet, m: int):
+    """Sort the active set by atom index and return a SparseSolution."""
+    from cstpu_torch.utils.sparse import SparseSolution
+
+    key = torch.where(st.mask, st.idx, INT32_MAX)
+    order = torch.argsort(key, stable=True)
+    mask = st.mask[order]
+    return SparseSolution(
+        idx=torch.where(mask, st.idx[order], m).to(torch.int32),
+        val=torch.where(mask, st.coef[order], 0),
+        mask=mask,
+        m=int(m),
+    )
