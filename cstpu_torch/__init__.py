@@ -1,13 +1,20 @@
 """cstpu_torch — the PyTorch and CUDA port of cstpu, for NVIDIA Hopper.
 
-A second package beside the JAX one, which stays the reference. This slice
-covers batched OMP over one shared dictionary, `omp_batch`, on two CUDA
-kernels written by hand (cstpu_torch/csrc), with the per-instance matching
-pursuits, the active-set engine and the solution container it rests on.
-It imports torch, numpy and ctypes, never jax.
+A second package beside the JAX one, which stays the reference. It covers
+the batched greedy solvers over one shared dictionary, `omp_batch`,
+`mp_batch`, `gomp_batch` and `fr_batch`, on CUDA kernels written by hand
+(cstpu_torch/csrc), with the per-instance matching pursuits, forward
+regression, the active-set engine and the solution container they rest
+on. It imports torch, numpy and ctypes, never jax.
 """
 
-from cstpu_torch.utils.data import sparse_vector, sparse_data, perturb
+from cstpu_torch.utils.data import (
+    sparse_vector,
+    sparse_data,
+    correlated_data,
+    coherent_data,
+    perturb,
+)
 from cstpu_torch.utils.sparse import (
     SparseSolution,
     support,
@@ -16,13 +23,22 @@ from cstpu_torch.utils.sparse import (
     polish,
 )
 from cstpu_torch.models.matching_pursuit import mp, omp, gomp, oblivious
-from cstpu_torch.models.batched import batch, omp_batch
+from cstpu_torch.models.forward import fr, ols, oomp, ormp, stepwise_regression
+from cstpu_torch.models.batched import (
+    batch,
+    omp_batch,
+    mp_batch,
+    gomp_batch,
+    fr_batch,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "sparse_vector", "sparse_data", "perturb",
+    "sparse_vector", "sparse_data", "correlated_data", "coherent_data",
+    "perturb",
     "SparseSolution", "support", "samesupport", "droptol", "polish",
     "mp", "omp", "gomp", "oblivious",
-    "batch", "omp_batch",
+    "fr", "ols", "oomp", "ormp", "stepwise_regression",
+    "batch", "omp_batch", "mp_batch", "gomp_batch", "fr_batch",
 ]

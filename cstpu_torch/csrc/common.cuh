@@ -1,6 +1,8 @@
-// Shared device helpers of the batched OMP kernels (select_argmax.cu,
-// omp_append.cu): the select tile width, cdt rounding, and the argmax
-// rule of cstpu/ops/fused_solve.py::_solve_kernel (:157-163).
+// Shared device helpers of the batched greedy kernels: the select tile
+// width, cdt rounding, the argmax rule of cstpu/ops/fused_solve.py::
+// _solve_kernel (:157-163), the staging of the select's rows of r, and the
+// gated bordered append that OMP, GOMP and FR share (:165-201, :749-785,
+// :587-611).
 #pragma once
 
 #include <climits>
@@ -14,6 +16,11 @@ namespace cstpu {
 
 // Atoms per select block, and per partial (value, index) it writes.
 constexpr int kTile = 128;
+// Measurement rows per select block, and entries of r staged at once.
+constexpr int kRows = 16;
+constexpr int kChunk = 64;
+// Most picks per GOMP iteration (the l of select_topl, LMAX).
+constexpr int kTopLMax = 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -46,6 +53,19 @@ __device__ __forceinline__ void argmax_combine(float& v, int& i, float v2,
   }
 }
 
+// argmax_combine that carries a payload s along with the winner.
+__device__ __forceinline__ void argmax_combine(float& v, int& i, float& s,
+                                               float v2, int i2, float s2) {
+  if (isnan(v) || isnan(v2)) {
+    v = s = __int_as_float(0x7fc00000);
+    i = INT_MAX;
+  } else if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+    s = s2;
+  }
+}
+
 // argmax_combine over the 32 lanes of a warp; lane 0 holds the result.
 __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -55,11 +75,275 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+__device__ __forceinline__ void warp_argmax(float& v, int& i, float& s) {
+  for (int off = 16; off > 0; off >>= 1) {
+    float v2 = __shfl_down_sync(0xffffffffu, v, off);
+    int i2 = __shfl_down_sync(0xffffffffu, i, off);
+    float s2 = __shfl_down_sync(0xffffffffu, s, off);
+    argmax_combine(v, i, s, v2, i2, s2);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) {
     x += __shfl_down_sync(0xffffffffu, x, off);
   }
   return x;
+}
+
+// Sum of x over the block; every thread gets it. `red` holds one float per
+// warp. Starts and ends with a barrier, so `red` can be reused at once.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_sum(x);
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float acc = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) acc += red[w];
+  __syncthreads();
+  return acc;
+}
+
+// Stage rows row0 .. row0+kRows-1, entries p0 .. p0+kChunk-1 of the (B, n)
+// matrix X into xs[kChunk][kRows], rounded to T; zeros past the edges.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float (*xs)[kRows],
+                                           const float* __restrict__ X,
+                                           int row0, int p0, int B, int n) {
+  for (int e = threadIdx.x; e < kChunk * kRows; e += blockDim.x) {
+    const int q = e / kChunk, pp = e % kChunk;
+    const int row = row0 + q, p = p0 + pp;
+    xs[pp][q] = (row < B && p < n) ? round_cdt<T>(X[(size_t)row * n + p])
+                                   : 0.f;
+  }
+}
+
+// The select's main loop: acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
+// block's kRows rows, products and sums in f32 (FMA on CUDA cores, no
+// TF32). One thread per atom column j (`live` = j < m), so loads of A
+// coalesce; the rows of r are staged in rs, rounded to T, and read back as
+// broadcast float4s. Every thread of the block calls it (it has barriers).
+template <typename T>
+__device__ __forceinline__ void score_tile(float (&acc)[kRows],
+                                           float (*rs)[kRows],
+                                           const float* __restrict__ r,
+                                           const T* __restrict__ A, int row0,
+                                           int j, bool live, int B, int n,
+                                           int m) {
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) acc[q] = 0.f;
+  for (int p0 = 0; p0 < n; p0 += kChunk) {
+    stage_rows<T>(rs, r, row0, p0, B, n);
+    __syncthreads();
+    const int pend = min(kChunk, n - p0);
+    if (live) {
+      const T* a_ptr = A + (size_t)p0 * m + j;
+#pragma unroll 4
+      for (int pp = 0; pp < pend; ++pp) {
+        const float a = to_f32(a_ptr[(size_t)pp * m]);
+        const float4* rq = reinterpret_cast<const float4*>(rs[pp]);
+#pragma unroll
+        for (int q4 = 0; q4 < kRows / 4; ++q4) {
+          const float4 rv = rq[q4];
+          acc[4 * q4 + 0] = fmaf(a, rv.x, acc[4 * q4 + 0]);
+          acc[4 * q4 + 1] = fmaf(a, rv.y, acc[4 * q4 + 1]);
+          acc[4 * q4 + 2] = fmaf(a, rv.z, acc[4 * q4 + 2]);
+          acc[4 * q4 + 3] = fmaf(a, rv.w, acc[4 * q4 + 3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Shared-memory workspace of one row's append (one block per row).
+struct AppendSmem {
+  float* acol;  // n: the gathered, cdt-rounded column in f32
+  float* Gs;    // k * k: Ginv of the row, updated in place
+  float* g;     // k: cols . acol
+  float* u;     // k: Ginv g
+  float* cf;    // k: coefficients, updated in place
+  int* ix;      // k: support slots, updated in place
+  float* sc;    // 4: ata, beta, dinv, step
+  int* flag;    // 1: ok
+};
+
+// Dynamic shared memory that carves an AppendSmem (sc, flag are static).
+__host__ __device__ constexpr size_t append_smem_bytes(int n, int k) {
+  return (size_t)(n + k * k + 3 * k) * sizeof(float) + k * sizeof(int);
+}
+
+__device__ __forceinline__ AppendSmem carve_append_smem(float* smem, int n,
+                                                        int k, float* sc,
+                                                        int* flag) {
+  AppendSmem s;
+  s.acol = smem;
+  s.Gs = s.acol + n;
+  s.g = s.Gs + k * k;
+  s.u = s.g + k;
+  s.cf = s.u + k;
+  s.ix = reinterpret_cast<int*>(s.cf + k);
+  s.sc = sc;
+  s.flag = flag;
+  return s;
+}
+
+// The gated bordered append of one row, the engine of _solve_kernel
+// (:165-201), _gomp_kernel's append_one (:757-784) and _fr_kernel
+// (:587-611). Appends atom `sel` (INT_MAX from a NaN row; gathered at
+// min(sel, m-1)) into `slot`:
+//   acol = A[:, sel] in cdt, upcast; ata, beta = acol.b, g = cols[:slot].acol
+//   u = Ginv g, d = ata - g.u, ok = pre && !dup && d > rtol * ata
+//   Ginv += dinv w w' - okf e e', w = u - e_slot; coef -= s w;
+//   idx[slot] = sel and cols[slot] = acol * okf when slot < k.
+// `slot` == k (a full GOMP row) writes nothing; `pre` must then be false.
+// Ginv, coef and idx live in shared memory (s.Gs, s.cf, s.ix); cols (k, n)
+// of the row in device memory. Every thread calls it; it ends with a
+// barrier and returns ok. s.acol and s.u keep the column and u.
+template <typename T>
+__device__ bool bordered_append(const AppendSmem& s, const T* __restrict__ A,
+                                const float* __restrict__ bb,
+                                float* __restrict__ colsb, int n, int m,
+                                int k, int sel, int slot, bool pre,
+                                float rtol) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int ic = min(sel, m - 1);
+
+  for (int p = tid; p < n; p += blockDim.x) s.acol[p] = to_f32(A[(size_t)p * m + ic]);
+  __syncthreads();
+
+  // g = cols . acol (slots >= slot are still zero), ata, beta
+  for (int q = warp; q < k + 2; q += nwarps) {
+    float acc = 0.f;
+    if (q < slot && q < k) {
+      const float* cs = colsb + (size_t)q * n;
+      for (int p = lane; p < n; p += 32) acc += cs[p] * s.acol[p];
+    } else if (q == k) {
+      for (int p = lane; p < n; p += 32) acc += s.acol[p] * s.acol[p];
+    } else if (q == k + 1) {
+      for (int p = lane; p < n; p += 32) acc += s.acol[p] * bb[p];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (q < k) s.g[q] = acc;
+      else s.sc[q - k] = acc;
+    }
+  }
+  __syncthreads();
+
+  if (tid < k) {
+    float acc = 0.f;
+    for (int c = 0; c < k; ++c) acc += s.Gs[tid * k + c] * s.g[c];
+    s.u[tid] = acc;
+  }
+  __syncthreads();
+
+  // gate and step scalars
+  if (tid == 0) {
+    float gu = 0.f, gc = 0.f;
+    bool dup = false;
+    for (int c = 0; c < k; ++c) {
+      gu += s.g[c] * s.u[c];
+      gc += s.g[c] * s.cf[c];
+      dup |= (s.ix[c] == sel);
+    }
+    const float ata = s.sc[0], beta = s.sc[1];
+    const float d = ata - gu;
+    const bool ok = pre && !dup && (d > rtol * ata);
+    const float okf = ok ? 1.f : 0.f;
+    const float dinv = okf / (d > 0.f ? d : 1.f);
+    s.sc[2] = dinv;
+    s.sc[3] = dinv * (beta - gc);
+    *s.flag = ok;
+  }
+  __syncthreads();
+  const float dinv = s.sc[2], step = s.sc[3];
+  const bool ok = *s.flag;
+  const float okf = ok ? 1.f : 0.f;
+
+  // bordered block-inverse update, coefficients, support, column
+  for (int e = tid; e < k * k; e += blockDim.x) {
+    const int a = e / k, c = e % k;
+    const float wa = s.u[a] - (a == slot ? 1.f : 0.f);
+    const float wc = s.u[c] - (c == slot ? 1.f : 0.f);
+    s.Gs[e] = s.Gs[e] + dinv * wa * wc - ((a == slot && c == slot) ? okf : 0.f);
+  }
+  if (tid < k) {
+    const float w = s.u[tid] - (tid == slot ? 1.f : 0.f);
+    s.cf[tid] -= step * w;
+    if (tid == slot && ok) s.ix[tid] = sel;
+  }
+  if (slot < k) {
+    for (int p = tid; p < n; p += blockDim.x) colsb[(size_t)slot * n + p] = s.acol[p] * okf;
+  }
+  __syncthreads();
+  return ok;
+}
+
+// Per-row staging of the append state between device memory and the
+// AppendSmem: Ginv (k, k), coef (k), idx (k) of row b.
+__device__ __forceinline__ void load_append_state(const AppendSmem& s,
+                                                  const float* Gb,
+                                                  const float* coefb,
+                                                  const int* idxb, int k) {
+  for (int e = threadIdx.x; e < k * k; e += blockDim.x) s.Gs[e] = Gb[e];
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    s.cf[e] = coefb[e];
+    s.ix[e] = idxb[e];
+  }
+}
+
+__device__ __forceinline__ void store_append_state(const AppendSmem& s,
+                                                   float* Gb, float* coefb,
+                                                   int* idxb, int k) {
+  for (int e = threadIdx.x; e < k * k; e += blockDim.x) Gb[e] = s.Gs[e];
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    coefb[e] = s.cf[e];
+    idxb[e] = s.ix[e];
+  }
+}
+
+// r = b - sum_s cols[s] coef[s] for one row (coef in shared memory).
+// Returns this thread's share of ||r||^2.
+__device__ __forceinline__ float residual_row(float* __restrict__ rb,
+                                              const float* __restrict__ bb,
+                                              const float* __restrict__ colsb,
+                                              const float* cf, int n, int k) {
+  float rr = 0.f;
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < k; ++s) acc += colsb[(size_t)s * n + p] * cf[s];
+    const float rp = bb[p] - acc;
+    rb[p] = rp;
+    rr += rp * rp;
+  }
+  return rr;
+}
+
+// Reduce one row's (B, T) select partials to (max, lowest argmax) with
+// argmax_combine; every thread gets the result. red_v/red_i hold one entry
+// per warp.
+__device__ __forceinline__ void reduce_partials_row(const float* pvb,
+                                                    const int* pib,
+                                                    int ntiles, float* red_v,
+                                                    int* red_i, float& v,
+                                                    int& i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = -INFINITY;
+  i = INT_MAX;
+  for (int e = threadIdx.x; e < ntiles; e += blockDim.x) argmax_combine(v, i, pvb[e], pib[e]);
+  warp_argmax(v, i);
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_i[warp] = i;
+  }
+  __syncthreads();
+  v = red_v[0];
+  i = red_i[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) argmax_combine(v, i, red_v[w], red_i[w]);
+  __syncthreads();
 }
 
 }  // namespace cstpu

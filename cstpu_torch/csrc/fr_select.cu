@@ -1,0 +1,144 @@
+// Batched forward regression (FR), stage 1: the rescaling downdate and the
+// OLS select, in one pass over the dictionary.
+//
+// Replaces the two dictionary GEMMs of cstpu/ops/fused_solve.py::_fr_kernel:
+// the q GEMM and its select (:571-580) and the z GEMM of the order-
+// recursive rescaling update (:613-618). The TPU kernel reads A twice per
+// step; here step t's launch first applies step t-1's update with the
+// (aperp, dinv) that fr_append.cu left, then selects, so A is read once:
+//   z     = round_cdt(aperp) . a_j,  resc_j -= dinv * z * z  (written back)
+//   q     = round_cdt(r) . a_j
+//   d2_j  = resc_j > rtol * cn2_j ? q*q / resc_j : -inf
+//   d2_j  = 0 for active atoms (amask), which takes precedence (:576-577),
+//           so a written-back resc that drifts below zero for an active
+//           atom never flips its score
+// and writes per-tile (max d2, lowest argmax) partials (B, T) with the
+// argmax_combine rule (a NaN d2 gives (NaN, INT_MAX)). At step 0 dinv = 0.
+// cn2 is the squared column norm of the f32 dictionary (:640). Products
+// and sums of the GEMMs in f32 on CUDA cores (no TF32); the score and the
+// downdate are rounded one operation at a time as the TPU kernel writes
+// them (__fmul_rn, __fsub_rn, __fdiv_rn), not fused into FMAs.
+//
+// What bounds it on an H100: 2*B*n*m multiply-adds per step (1.07 G at
+// B=64, n=1024, m=8192) on CUDA cores, plus reading and writing resc
+// (B, m) f32 (2 MB each way at that size). Design: common.cuh::
+// score_tile's loop with two accumulators per (row, atom), r and aperp
+// staged side by side in shared memory.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace cstpu {
+
+template <typename T>
+__global__ void __launch_bounds__(kTile)
+fr_select_kernel(const float* __restrict__ r, const float* __restrict__ aperp,
+                 const float* __restrict__ dinv, const T* __restrict__ A,
+                 const float* __restrict__ cn2,
+                 const uint8_t* __restrict__ amask, float* __restrict__ resc,
+                 float* __restrict__ pval, int* __restrict__ pidx, int B,
+                 int n, int m, int ntiles, float rtol) {
+  __shared__ __align__(16) float rs[kChunk][kRows];
+  __shared__ __align__(16) float zs[kChunk][kRows];
+  __shared__ float wv[kRows][kTile / 32];
+  __shared__ int wi[kRows][kTile / 32];
+
+  const int tile = blockIdx.x;
+  const int row0 = blockIdx.y * kRows;
+  const int j = tile * kTile + threadIdx.x;
+  const bool live = j < m;
+
+  float qa[kRows], za[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) qa[q] = za[q] = 0.f;
+
+  for (int p0 = 0; p0 < n; p0 += kChunk) {
+    stage_rows<T>(rs, r, row0, p0, B, n);
+    stage_rows<T>(zs, aperp, row0, p0, B, n);
+    __syncthreads();
+    const int pend = min(kChunk, n - p0);
+    if (live) {
+      const T* a_ptr = A + (size_t)p0 * m + j;
+#pragma unroll 2
+      for (int pp = 0; pp < pend; ++pp) {
+        const float a = to_f32(a_ptr[(size_t)pp * m]);
+        const float4* rq = reinterpret_cast<const float4*>(rs[pp]);
+        const float4* zq = reinterpret_cast<const float4*>(zs[pp]);
+#pragma unroll
+        for (int q4 = 0; q4 < kRows / 4; ++q4) {
+          const float4 rv = rq[q4], zv = zq[q4];
+          qa[4 * q4 + 0] = fmaf(a, rv.x, qa[4 * q4 + 0]);
+          qa[4 * q4 + 1] = fmaf(a, rv.y, qa[4 * q4 + 1]);
+          qa[4 * q4 + 2] = fmaf(a, rv.z, qa[4 * q4 + 2]);
+          qa[4 * q4 + 3] = fmaf(a, rv.w, qa[4 * q4 + 3]);
+          za[4 * q4 + 0] = fmaf(a, zv.x, za[4 * q4 + 0]);
+          za[4 * q4 + 1] = fmaf(a, zv.y, za[4 * q4 + 1]);
+          za[4 * q4 + 2] = fmaf(a, zv.z, za[4 * q4 + 2]);
+          za[4 * q4 + 3] = fmaf(a, zv.w, za[4 * q4 + 3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const float rmin = live ? __fmul_rn(rtol, cn2[j]) : 0.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int row = row0 + q;
+    float v = -INFINITY;
+    int i = INT_MAX;
+    if (live && row < B) {
+      const size_t e = (size_t)row * m + j;
+      const float rj = __fsub_rn(resc[e], __fmul_rn(__fmul_rn(dinv[row], za[q]), za[q]));
+      resc[e] = rj;
+      v = rj > rmin ? __fdiv_rn(__fmul_rn(qa[q], qa[q]), rj) : -INFINITY;
+      if (amask[e]) v = 0.f;
+      i = j;
+    }
+    warp_argmax(v, i);
+    if (lane == 0) {
+      wv[q][warp] = v;
+      wi[q][warp] = i;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows) {
+    const int q = threadIdx.x, row = row0 + q;
+    float v = wv[q][0];
+    int i = wi[q][0];
+    for (int w = 1; w < kTile / 32; ++w) argmax_combine(v, i, wv[q][w], wi[q][w]);
+    if (row < B) {
+      pval[(size_t)row * ntiles + tile] = v;
+      pidx[(size_t)row * ntiles + tile] = i;
+    }
+  }
+}
+
+}  // namespace cstpu
+
+// One FR select for all B rows. r, aperp (B, n) f32, dinv (B,) f32, A
+// (n, m) in cdt, cn2 (m,) f32, amask (B, m) u8 (1 = active), resc (B, m)
+// f32 downdated in place; writes pval (B, ntiles) f32, pidx (B, ntiles)
+// i32, ntiles = ceil(m / kTile). All contiguous. Returns the launch's
+// cudaError_t.
+extern "C" int cstpu_fr_select(const float* r, const float* aperp,
+                               const float* dinv, const void* A, int cdt_bf16,
+                               const float* cn2, const uint8_t* amask,
+                               float* resc, float* pval, int* pidx, int B,
+                               int n, int m, float rtol, void* stream) {
+  using namespace cstpu;
+  const int ntiles = (m + kTile - 1) / kTile;
+  const dim3 grid(ntiles, (B + kRows - 1) / kRows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cdt_bf16) {
+    fr_select_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
+        r, aperp, dinv, static_cast<const __nv_bfloat16*>(A), cn2, amask,
+        resc, pval, pidx, B, n, m, ntiles, rtol);
+  } else {
+    fr_select_kernel<float><<<grid, kTile, 0, s>>>(
+        r, aperp, dinv, static_cast<const float*>(A), cn2, amask, resc, pval,
+        pidx, B, n, m, ntiles, rtol);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

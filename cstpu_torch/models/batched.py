@@ -1,17 +1,22 @@
-"""Batched-first entry points (PyTorch counterpart of the OMP part of
+"""Batched-first entry points (PyTorch counterpart of the greedy part of
 cstpu.models.batched).
 
 A shared dictionary with a batch of measurements is the high-throughput
-workload. On CUDA, `omp_batch` runs the select and append kernels of
-cstpu_torch.ops.fused_solve; elsewhere, and for options the kernels do not
-serve, it runs the per-instance `omp` over the rows.
+workload. On CUDA, `omp_batch`, `mp_batch`, `gomp_batch` and `fr_batch` run
+the kernels of cstpu_torch.ops.fused_solve; elsewhere, and for options or
+shapes the kernels do not serve, they run the per-instance solver over the
+rows (`batch`, where cstpu runs `vmap`). cstpu's one-device-mesh hybrids
+(`_stream_ok` -> `*_sharded_fused`) have no counterpart: the port's select
+kernels stream the dictionary tile by tile at any m, so one kernel path
+serves both regimes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cstpu_torch.models.matching_pursuit import omp
+from cstpu_torch.models.forward import fr
+from cstpu_torch.models.matching_pursuit import gomp, mp, omp
 from cstpu_torch.ops import fused_solve
 from cstpu_torch.utils.sparse import SparseSolution
 
@@ -45,6 +50,13 @@ def _cdt(precision):
     return torch.float32 if precision == "f32" else torch.bfloat16
 
 
+def _kernels_ok(A, Bs, precision) -> bool:
+    """The option, dtype and device conditions every kernel path shares:
+    a kernel precision, a float32 dictionary, 2-D measurements, CUDA."""
+    return (precision in (None, "bf16", "f32") and A.dtype == torch.float32
+            and Bs.ndim == 2 and A.is_cuda and Bs.is_cuda)
+
+
 def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
     """Batched OMP over measurement rows Bs (B, n).
 
@@ -59,14 +71,7 @@ def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
     A = torch.as_tensor(A)
     Bs = torch.as_tensor(Bs)
     kk = int(min(k if k is not None else A.shape[0], *A.shape))
-    fused_ok = (
-        precision in (None, "bf16", "f32")
-        and float(max_residual) == 0.0
-        and A.dtype == torch.float32
-        and Bs.ndim == 2
-        and A.is_cuda
-    )
-    if fused_ok:
+    if _kernels_ok(A, Bs, precision) and float(max_residual) == 0.0:
         cdt = _cdt(precision)
         if fused_solve.supported(A, Bs, kk, cdt):
             sol, _ = fused_solve.omp_fused_solve(A, Bs, kk, corr_dtype=cdt)
@@ -76,3 +81,70 @@ def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
             sol, _ = fused_solve.omp_stream_solve(A, Bs, kk, corr_dtype=cdt)
             return sol
     return batch(omp, k=k, max_residual=max_residual)(A, Bs)
+
+
+def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
+             sparsity=None, precision=None):
+    """Batched forward regression over measurement rows Bs (B, n).
+
+    With a sparsity cap, on CUDA, this runs the fr_select and fr_append
+    kernels: the OLS rescaling is kept order-recursively instead of being
+    re-derived from a (k x m) product per step. `precision` as in
+    omp_batch. Otherwise the rows run through the per-instance `fr`.
+    """
+    A = torch.as_tensor(A)
+    Bs = torch.as_tensor(Bs)
+    if (_kernels_ok(A, Bs, precision) and sparsity is not None
+            and fused_solve.supported_fr(A, Bs, int(sparsity),
+                                         _cdt(precision))):
+        sol, _ = fused_solve.fr_fused_solve(
+            A, Bs, int(sparsity), max_residual, min_decrease,
+            corr_dtype=_cdt(precision))
+        return sol
+    return batch(fr, max_residual=max_residual, min_decrease=min_decrease,
+                 sparsity=sparsity)(A, Bs)
+
+
+def mp_batch(A, Bs, k: int, precision=None):
+    """Batched matching pursuit; returns the dense solutions (B, m).
+
+    On CUDA this runs the signed select and the mp_update kernel;
+    otherwise the rows run through the per-instance `mp`.
+    """
+    A = torch.as_tensor(A)
+    Bs = torch.as_tensor(Bs)
+    if _kernels_ok(A, Bs, precision) and fused_solve.supported_mp(A, Bs):
+        x, _ = fused_solve.mp_fused_solve(A, Bs, int(k),
+                                          corr_dtype=_cdt(precision))
+        return x
+    return batch(mp, k=k)(A, Bs)
+
+
+def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
+    """Batched generalized OMP over measurement rows Bs (B, n).
+
+    On CUDA this runs the select_topl and gomp_append kernels (top-l
+    acquisitions per iteration). `precision` as in omp_batch. Otherwise
+    the rows run through the per-instance `gomp`. The slot width is
+    min(k, m) on every path.
+    """
+    A = torch.as_tensor(A)
+    Bs = torch.as_tensor(Bs)
+    kk = int(min(k if k is not None else A.shape[1], A.shape[1]))
+    if (_kernels_ok(A, Bs, precision)
+            and fused_solve.supported_gomp(A, Bs, int(l), kk)):
+        sol, _ = fused_solve.gomp_fused_solve(A, Bs, int(l), kk,
+                                              max_residual,
+                                              corr_dtype=_cdt(precision))
+        # the kernel path clamps its slot width to min(kk, n); pad back to
+        # the per-instance path's width, so that the returned width does
+        # not depend on the path
+        pad = kk - sol.idx.shape[1]
+        if pad > 0:
+            F = torch.nn.functional
+            sol = SparseSolution(
+                idx=F.pad(sol.idx, (0, pad), value=sol.m),
+                val=F.pad(sol.val, (0, pad)),
+                mask=F.pad(sol.mask, (0, pad)), m=sol.m)
+        return sol
+    return batch(gomp, l=l, k=k, max_residual=max_residual)(A, Bs)

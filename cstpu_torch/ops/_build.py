@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of cstpu_torch.
 
-`nvcc` compiles every `cstpu_torch/csrc/*.cu` for sm_90a into one shared
+`nvcc` compiles every `cstpu_torch/csrc/*.cu` for sm_90a, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, `cstpu_torch/build/libcstpu_kernels.so`,
 at first use and again whenever a source is newer than the library. The
 library is loaded with ctypes; nothing here includes PyTorch's headers, so
@@ -21,19 +22,36 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 LIB = BUILD / "libcstpu_kernels.so"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 # where nvcc is looked for after $CUDA_HOME/bin and $PATH
 NVCC_CANDIDATES = ["/usr/local/cuda/bin/nvcc"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # r, A, cdt_bf16, pval, pidx, B, n, m, stream
-    "cstpu_select_argmax": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # r, A, cdt_bf16, pval, pidx, psig (nullable), B, n, m, stream
+    "cstpu_select_argmax": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r,
     # out_idx, out_coef, B, n, m, k, t, rtol, stream
     "cstpu_omp_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # pval, pidx, psig, ntiles, A, cdt_bf16, x, r, B, n, m, stream
+    "cstpu_mp_update": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
+    # r, A, cdt_bf16, pval, pidx, B, n, m, l, stream
+    "cstpu_select_topl": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # pval, pidx, ntiles, cnt, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r,
+    # kcnt, done, B, n, m, k, cap, rtol, eps2, stream
+    "cstpu_gomp_append": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # r, aperp, dinv, A, cdt_bf16, cn2, amask, resc, pval, pidx, B, n, m,
+    # rtol, stream
+    "cstpu_fr_select": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _F, _P],
+    # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r, aperp,
+    # dinv, amask, done, B, n, m, k, t, rtol, max_eps2, min_d2, stream
+    "cstpu_fr_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 _lib = None
@@ -65,22 +83,44 @@ def stale() -> bool:
     return LIB.stat().st_mtime < newest
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their joined output, or raise with the
+    output of every one that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("cstpu_torch: nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> tuple[float, str]:
     """Compile the library now; returns (seconds, compiler output)."""
     nvcc = find_nvcc()
     BUILD.mkdir(exist_ok=True)
-    tmp = BUILD / f".{LIB.name}.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{os.getpid()}"
+    objs = [BUILD / f".{src.stem}.{tag}.o" for src in sources()]
+    tmp = BUILD / f".{LIB.name}.{tag}"
     t0 = time.perf_counter()
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = done.stdout + done.stderr
-    if done.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources(), objs)])
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"cstpu_torch: nvcc failed ({done.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, LIB)  # atomic: a concurrent loader sees old or new
-    return seconds, log
+    return time.perf_counter() - t0, log
 
 
 def load() -> ctypes.CDLL:

@@ -49,6 +49,31 @@ def sparse_data(gen: torch.Generator, n: int = 32, m: int = 64, k: int = 3,
     return A, x, b
 
 
+def correlated_data(gen: torch.Generator, n: int, m: int, k: int,
+                    normalized: bool = True, dtype=torch.float32,
+                    decay: float = 2.0):
+    """Ill-conditioned dictionary A = (U diag(1/i^decay)) V with correlated
+    columns, U (n, n) and V (n, m) standard normal; columns normalized to
+    unit l2 norm if `normalized`. Returns (A, x, b = A x) with x k-sparse
+    +-1. decay=2 is the reference's spectrum; at large n it collapses the
+    numerical rank, so large problems take a gentler decay (0.25 in suite
+    config 3a)."""
+    dev = gen.device
+    U = torch.randn((n, n), generator=gen, device=dev, dtype=dtype)
+    V = torch.randn((n, m), generator=gen, device=dev, dtype=dtype)
+    s = 1.0 / torch.arange(1, n + 1, device=dev, dtype=dtype) ** decay
+    A = (U * s[None, :]) @ V
+    if normalized:
+        A = A / torch.sqrt(torch.sum(A * A, dim=0, keepdim=True))
+    x = sparse_vector(gen, m, k, dtype=dtype)
+    nz = torch.nonzero(x).flatten()
+    b = torch.sum(A[:, nz] * x[nz], dim=1)
+    return A, x, b
+
+
+coherent_data = correlated_data
+
+
 def perturb(gen: torch.Generator, b, delta: float):
     """Add Gaussian noise rescaled to exact l2 norm `delta` (per row for a
     batched (B, n) measurement matrix)."""

@@ -1,6 +1,12 @@
-"""cstpu_torch.omp_batch against cstpu.omp_batch on the CPU, its dispatch,
-and the port's guards: no jax import, no CPU run of chip_smoke.py, a clear
-error when nvcc is missing."""
+"""cstpu_torch's batched entry points (omp_batch, mp_batch, gomp_batch,
+fr_batch) against cstpu's on the CPU, their dispatch, and the port's
+guards: no jax import, no CPU run of chip_smoke.py, a clear error when
+nvcc is missing.
+
+Tolerances: in f64 supports are identical and values agree to 1e-10
+relative; in f32 to 1e-5 relative (atol 1e-6) on the per-instance paths,
+and 1e-4 absolute where the kernels' plain versions stand in for the
+kernels (cstpu's kernel-against-XLA tolerance)."""
 
 import os
 import subprocess
@@ -53,7 +59,7 @@ def test_options_match_cstpu_and_launch_nothing_on_cpu(kw):
     j = solution_to_numpy(cstpu.omp_batch(A, Bs, 5, **kw))
     np.testing.assert_array_equal(t["idx"], j["idx"])
     np.testing.assert_allclose(t["val"], j["val"], rtol=1e-5, atol=1e-6)
-    assert tfs.LAUNCHES == {"select": 0, "append": 0}
+    assert not any(tfs.LAUNCHES.values())
 
 
 def test_fused_solve_on_cpu_launches_nothing():
@@ -61,7 +67,10 @@ def test_fused_solve_on_cpu_launches_nothing():
     for key in tfs.LAUNCHES:
         tfs.LAUNCHES[key] = 0
     tfs.omp_fused_solve(to_torch(A), to_torch(Bs), 3)
-    assert tfs.LAUNCHES == {"select": 0, "append": 0}
+    tfs.mp_fused_solve(to_torch(A), to_torch(Bs), 3)
+    tfs.gomp_fused_solve(to_torch(A), to_torch(Bs), 2, 4)
+    tfs.fr_fused_solve(to_torch(A), to_torch(Bs), 3)
+    assert not any(tfs.LAUNCHES.values())
 
 
 def test_options_that_leave_the_kernels(monkeypatch):
@@ -123,6 +132,126 @@ def test_build_raises_clearly_without_nvcc(monkeypatch):
 
 def test_build_sources_are_the_package_csrc():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["omp_append.cu", "select_argmax.cu"]
+    assert names == ["fr_append.cu", "fr_select.cu", "gomp_append.cu",
+                     "mp_update.cu", "omp_append.cu", "select_argmax.cu",
+                     "select_topl.cu"]
+    # every C entry point the wrappers call has its ctypes signature
+    assert set(_build._SIGNATURES) == {
+        "cstpu_" + name[:-3] for name in names}
     assert all(p.parent == ROOT / "cstpu_torch" / "csrc"
                for p in _build.sources())
+
+
+# --------------------------------------------------------------------------
+# mp_batch, gomp_batch, fr_batch
+# --------------------------------------------------------------------------
+
+def _tol(dtype):
+    return ({"rtol": 1e-10, "atol": 1e-12} if dtype == jnp.float64
+            else {"rtol": 1e-5, "atol": 1e-6})
+
+
+def _same(tsol, jsol, dtype):
+    t, j = solution_to_numpy(tsol), solution_to_numpy(jsol)
+    np.testing.assert_array_equal(t["idx"], j["idx"])
+    np.testing.assert_array_equal(t["mask"], j["mask"])
+    np.testing.assert_allclose(t["val"], j["val"], **_tol(dtype))
+    return t
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_mp_batch_matches_cstpu(dtype):
+    A, x, Bs = _batch(305, dtype)
+    t = cstpu_torch.mp_batch(to_torch(A), to_torch(Bs), 10)
+    j = cstpu.mp_batch(A, Bs, 10)
+    assert t.shape == (4, 128)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,l,k", [(jnp.float64, 2, 5),
+                                       (jnp.float64, 3, 7),
+                                       (jnp.float32, 1, 3)])
+def test_gomp_batch_matches_cstpu(dtype, l, k):
+    # past the planted count the noiseless rows (0, 2) pick atoms by
+    # rounding noise after their exact fit: only the noisy rows compare
+    A, x, Bs = _batch(306, dtype)
+    Bs = Bs if k <= 3 else Bs[1::2]
+    t = _same(cstpu_torch.gomp_batch(to_torch(A), to_torch(Bs), l, k),
+              cstpu.gomp_batch(A, Bs, l, k), dtype)
+    assert t["idx"].shape == (Bs.shape[0], k)
+    # k=None takes k = m: the slot width is m on both
+    t = cstpu_torch.gomp_batch(to_torch(A), to_torch(Bs[:1]), 16)
+    j = cstpu.gomp_batch(A, Bs[:1], 16, None)
+    assert t.idx.shape == j.idx.shape == (1, 128)
+
+
+@pytest.mark.parametrize("dtype,kw", [(jnp.float64, {"sparsity": 3}),
+                                      (jnp.float64, {}),
+                                      (jnp.float64, {"max_residual": 1e-2}),
+                                      (jnp.float32, {"sparsity": 3})])
+def test_fr_batch_matches_cstpu(dtype, kw):
+    # without sparsity the noiseless rows stop at their exact fit, the
+    # noisy ones at the floor of min_decrease
+    A, x, Bs = _batch(307, dtype)
+    if "sparsity" not in kw:
+        kw = {**kw, "min_decrease": 1e-2}
+    _same(cstpu_torch.fr_batch(to_torch(A), to_torch(Bs), **kw),
+          cstpu.fr_batch(A, Bs, **kw), dtype)
+
+
+def _fake_cuda(monkeypatch):
+    """Make every tensor claim to be on CUDA and route the kernel solves
+    to their plain versions, so that the kernel branches of the batched
+    entry points run on the CPU. Returns the list of branches taken."""
+    calls = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    for name in ("mp", "gomp", "fr"):
+        ref = getattr(tfs, f"{name}_fused_solve_ref")
+        monkeypatch.setattr(
+            tbatched.fused_solve, f"{name}_fused_solve",
+            lambda *a, _ref=ref, _name=name, **kw:
+            calls.append(_name) or _ref(*a, **kw))
+    return calls
+
+
+def test_kernel_branches_match_cstpu(monkeypatch):
+    # the kernel path of each entry point, with the kernels' plain versions
+    # standing in, against cstpu's per-instance paths in f32
+    A, x, Bs = _batch(308)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    xs = tbatched.mp_batch(tA, tB, 6, precision="f32")
+    np.testing.assert_allclose(xs.numpy(), np.asarray(cstpu.mp_batch(A, Bs, 6)),
+                               atol=1e-4)
+    t = solution_to_numpy(tbatched.fr_batch(tA, tB, sparsity=3,
+                                            precision="f32"))
+    j = solution_to_numpy(cstpu.fr_batch(A, Bs, sparsity=3))
+    np.testing.assert_array_equal(t["idx"], j["idx"])
+    np.testing.assert_allclose(t["val"], j["val"], atol=1e-4)
+    # k > n: the kernel path's slot width min(k, n) = 32 is padded back to
+    # the per-instance width min(k, m) = 40 (idx m, val 0, mask False)
+    t = solution_to_numpy(tbatched.gomp_batch(tA, tB, 2, 40,
+                                              precision="f32"))
+    j = solution_to_numpy(cstpu.gomp_batch(A, Bs, 2, 40))
+    assert t["idx"].shape == j["idx"].shape == (4, 40)
+    assert (t["idx"][:, 32:] == 128).all() and not t["mask"][:, 32:].any()
+    assert (t["val"][:, 32:] == 0).all()
+    planted = set(np.flatnonzero(np.asarray(x)).tolist())
+    assert planted <= set(t["idx"][0][t["mask"][0]].tolist())
+    assert calls == ["mp", "fr", "gomp"]
+
+
+def test_greedy_options_that_leave_the_kernels(monkeypatch):
+    # decided by the options, dtypes and gates, not by an exception: no
+    # sparsity (fr), precision="highest", a float64 dictionary
+    A, x, Bs = _batch(309)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    tbatched.fr_batch(tA, tB, min_decrease=1e-2)
+    tbatched.fr_batch(tA, tB, sparsity=3, precision="highest")
+    tbatched.mp_batch(tA, tB, 3, precision="highest")
+    tbatched.gomp_batch(tA, tB, 2, 4, precision="highest")
+    tbatched.gomp_batch(tA.double(), tB.double(), 2, 4)
+    assert calls == []
+    tbatched.gomp_batch(tA, tB, 2, 4)
+    assert calls == ["gomp"]
