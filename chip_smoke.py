@@ -12,9 +12,15 @@ it and read just after:
   mp_batch             batched MP at the bench size, unit-norm dictionary
   gomp_batch(., 4, 32) suite config 2a (B=64, n=1024, m=8192)
   fr_batch(sparsity=16) suite config 3a, correlated dictionary (decay 0.25)
+  sp_batch(., 32, maxiter=8)   suite config 2b, on 2a's problem
+  ompr_batch(., 32, 1e-12)     config 2c, on 2a's problem
+  srr_batch(., 16, 1e-12, maxiter=4)  suite config 3b, on 3a's problem
 
-It checks planted-support recovery, launch counts and agreement with the
-plain solves, and times kernels and solves with CUDA events.
+It checks planted-support recovery, launch counts (for the two-stage paths
+against the formulas for the outer iterations they ran) and agreement with
+the plain solves, and times kernels and solves with CUDA events; the
+two-stage kernels' device time per launch and the paths' idle share come
+from torch.profiler.
 
 The second-to-last line of standard output is a JSON record of the
 kernels; the last line is {"ok": true, "device": {...}}. Any failure
@@ -55,6 +61,15 @@ TIMED_LAUNCHES = 20
 MP_CELL = ("mp", 64, 1024, 8192, 32)
 GOMP_CELL = ("2a", 64, 1024, 8192, 32, 4)
 FR_CELL = ("3a", 64, 1024, 8192, 16, 0.25)
+# the two-stage paths: (name, k, keyword arguments), on 2a's and 3a's
+# problems (benchmarks/suite.py:178-183, :213-220; gomp_ompr_ab.py:31-59)
+SP_CELL = ("2b", 32, {"maxiter": 8})
+OMPR_CELL = ("2c", 32, {"delta": 1e-12})
+SRR_CELL = ("3b", 16, {"delta": 1e-12, "maxiter": 4})
+# one step of a two-stage kernel from identical state: as APPEND_ATOL; the
+# latch `prev <= ||r||^2` is compared where ||r||^2 moved by more than
+# LATCH_RTOL (a swap that re-adds and drops one atom leaves a rounding tie)
+LATCH_RTOL = 1e-5
 
 
 def gpu_line():
@@ -507,6 +522,362 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
     return tm
 
 
+def _clone(st):
+    return type(st)(*(None if x is None else x.clone() for x in st))
+
+
+def _state_err(stk, st, rows, prev0=None):
+    """Max |err| over the float fields of two engine or SP states on
+    `rows`; idx and amask must be equal there, done and fgate where the
+    residual norm moved clearly from prev0."""
+    clear = torch.ones_like(st.done, dtype=torch.bool)
+    if prev0 is not None:
+        clear = (st.prev - prev0).abs() > LATCH_RTOL * prev0.abs()
+    clear = clear & rows
+    err = 0.0
+    for name, a, b in zip(st._fields, stk, st):
+        if a is None or name.startswith("pend"):
+            continue
+        if name in ("idx", "amask"):
+            assert torch.equal(a[rows], b[rows]), name
+        elif name in ("done", "fgate"):
+            assert torch.equal(a[clear], b[clear]), name
+        else:
+            err = max(err, float((a[rows] - b[rows]).abs().max()))
+    assert err <= APPEND_ATOL, err
+    return err
+
+
+def check_twostage_kernels(A, Bg, Ar, Br):
+    """Each two-stage kernel against its plain version on the card from
+    identical state, at the main paths' shapes (2b/2c on 2a's problem, 3b
+    on 3a's), with a NaN row (row 3: masks out, the clean rows solve) and a
+    done row (row 5: left exactly as it was): the masked select, the
+    pending-term select, engine_init, ompr_swap, srr_append,
+    engine_delete and sp_round. Returns each kernel's max |err|."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    bf = torch.bfloat16
+    m = A.shape[1]
+    B = Bg.shape[0]
+    rows = torch.arange(B, device=A.device) != 3
+    err = {}
+    Ac = A.to(bf).contiguous()
+    Ac32 = Ac.float()
+    Bn = Bg.clone()
+    Bn[3] = float("nan")
+
+    # --- OMPR (2c): engine_init, the masked select, ompr_swap -------------
+    k = OMPR_CELL[1]
+    st = ft._init_engine(Bn, k + 1, m)
+    stk = _clone(st)
+    parts = fs._topl_ref(Bn, Ac32, bf, k)
+    ft.engine_init(*parts, Ac, Bn, stk)
+    ft._engine_init_ref(*parts, Ac32, Bn, st)
+    torch.cuda.synchronize()
+    err["engine_init"] = _state_err(stk, st, rows)
+    assert not (stk.idx[3] < m).any()
+    kv, ki = fs.select_argmax(st.r, Ac, amask=st.amask)
+    pv, pi = fs._select_ref(st.r, Ac32, bf, False, st.amask, 1.0)
+    zv, zi = fs.select_argmax(st.r, Ac, amask=torch.zeros_like(st.amask))
+    ov, oi = fs.select_argmax(st.r, Ac)
+    torch.cuda.synchronize()
+    assert torch.equal(zv.nan_to_num(-1.0), ov.nan_to_num(-1.0))
+    assert torch.equal(zi, oi)
+    live = ~torch.isnan(pv)
+    err["select_masked"] = float((kv[live] - pv[live]).abs().max())
+    assert bool(((kv[live] - pv[live]).abs()
+                 <= SELECT_RTOL * pv[live].abs() + 1e-6).all())
+    i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+    assert torch.equal(i, ir) and int(i[3]) == fs.INT_MAX
+    st.done[5] = 1.0
+    stk, prev0 = _clone(st), st.prev.clone()
+    ft.ompr_swap(kv, ki, Ac, Bn, stk, 1.0, 1e-24)
+    ft._ompr_swap_ref(kv, ki, Ac32, Bn, st, 1.0, 1e-24)
+    torch.cuda.synchronize()
+    err["ompr_swap"] = _state_err(stk, st, rows, prev0)
+    assert float(stk.done[3]) == 1.0
+    assert all(torch.equal(a[5].nan_to_num(), b[5].nan_to_num())
+               for a, b in zip(stk, st) if a is not None)
+    print(f"[2c kernels] engine_init (k={k}) max |err| "
+          f"{err['engine_init']:.3e}; masked select: zero mask == OMP's "
+          f"partials bit for bit, picks equal, max |val err| "
+          f"{err['select_masked']:.3e}; ompr_swap idx/amask equal, NaN row "
+          f"latched, done row untouched, max |err| {err['ompr_swap']:.3e} "
+          f"(atol {APPEND_ATOL})")
+
+    # --- SRR (3b): engine_init with pending terms, fr_select, srr_append,
+    # engine_delete -------------------------------------------------------
+    k = SRR_CELL[1]
+    Arc = Ar.to(bf).contiguous()
+    Arc32 = Arc.float()
+    cn2 = torch.sum(Ar * Ar, dim=0)
+    Brn = Br.clone()
+    Brn[3] = float("nan")
+    st = ft._init_engine(Brn, k + 1, m, cn2, npend=k)
+    stk = _clone(st)
+    parts = fs._topl_ref(Brn, Arc32, bf, k)
+    ft.engine_init(*parts, Arc, Brn, stk)
+    ft._engine_init_ref(*parts, Arc32, Brn, st)
+    torch.cuda.synchronize()
+    err["engine_init"] = max(err["engine_init"], _state_err(stk, st, rows))
+    npend = k
+    resc_err = d2_err = 0.0
+    err["srr_append"] = err["engine_delete"] = 0.0
+    for it in range(2):
+        if it == 1:
+            st.done[5] = 1.0
+        row5 = {name: x[5].clone() for name, x in zip(st._fields, st)
+                if x is not None and name not in ("resc", "pend_u",
+                                                  "pend_w")}
+        stk = _clone(st)
+        kv, ki = fs.rescaled_select(Arc, cn2, stk.r, stk.pend_u[:npend],
+                                    stk.pend_w[:npend], 1.0, stk.amask,
+                                    stk.resc)
+        pv, pi = fs._rescaled_select_ref(Arc32, cn2, st.r, st.pend_u[:npend],
+                                         st.pend_w[:npend], 1.0, st.amask,
+                                         st.resc, bf)
+        torch.cuda.synchronize()
+        resc_err = max(resc_err, float((stk.resc[rows]
+                                        - st.resc[rows]).abs().max()))
+        assert resc_err <= RESC_ATOL, resc_err
+        fin = ~torch.isnan(pv) & torch.isfinite(pv)
+        d2_err = max(d2_err, float(((kv[fin] - pv[fin]).abs()
+                                    / pv[fin].abs().clamp(min=1e-30)).max()))
+        assert d2_err <= SELECT_RTOL, d2_err
+        i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+        assert bool((i == ir)[rows].all()) and int(i[3]) == fs.INT_MAX
+        ft.srr_append(kv, ki, Arc, Brn, stk)
+        ft._srr_append_ref(kv, ki, Arc32, Brn, st)
+        torch.cuda.synchronize()
+        err["srr_append"] = max(err["srr_append"], _state_err(stk, st, rows))
+        stk, prev0 = _clone(st), st.prev.clone()
+        ft.engine_delete(Brn, stk, k, 1, 1e-24)
+        ft._engine_delete_ref(Brn, st, k, 1, 1e-24)
+        torch.cuda.synchronize()
+        err["engine_delete"] = max(err["engine_delete"],
+                                   _state_err(stk, st, rows, prev0))
+        if it == 1:   # the done row: state as it was, zero pending terms
+            assert all(torch.equal(getattr(stk, name)[5], b)
+                       for name, b in row5.items())
+            assert not stk.pend_u[:2, 5].any() and not stk.pend_w[:2, 5].any()
+        npend = 2
+    err["fr_select_pending"] = max(resc_err, d2_err)
+    print(f"[3b kernels] engine_init (k={k}, {k} pending terms); two SRR "
+          f"iterations from identical state (row 5 done in the second): "
+          f"fr_select with pending terms "
+          f"resc max |err| {resc_err:.3e} (atol {RESC_ATOL}), d2 max rel err "
+          f"{d2_err:.3e}, picks equal, NaN row INT_MAX; srr_append max |err| "
+          f"{err['srr_append']:.3e}, engine_delete {err['engine_delete']:.3e} "
+          f"(atol {APPEND_ATOL})")
+
+    # --- SP (2b): sp_round, the init round and two more -------------------
+    k = SP_CELL[1]
+    B, n = Bn.shape
+    st = ft._SpState(
+        cols=torch.zeros((B, 2 * k, n), device=A.device),
+        Ginv=torch.eye(k, device=A.device).repeat(B, 1, 1),
+        coef=torch.zeros((B, 2 * k), device=A.device),
+        idx=torch.full((B, 2 * k), m, dtype=torch.int32, device=A.device),
+        Atb=torch.zeros((B, 2 * k), device=A.device), r=Bn.clone(),
+        done=torch.zeros((B,), device=A.device),
+        prev=torch.zeros((B,), device=A.device))
+    err["sp_round"] = 0.0
+    for t in range(3):
+        if t == 2:
+            st.done[5] = 1.0
+        parts = fs._topl_ref(st.r, Ac32, bf, k)
+        stk, prev0 = _clone(st), st.prev.clone()
+        ft.sp_round(*parts, Ac, Bn, stk, 0.0, t == 0)
+        ft._sp_round_ref(*parts, Ac32, Bn, st, 0.0, t == 0)
+        torch.cuda.synchronize()
+        err["sp_round"] = max(err["sp_round"], _state_err(
+            stk, st, rows, None if t == 0 else prev0))
+    assert float(stk.done[3]) == 1.0 and not (stk.idx[3] < m).any()
+    assert all(torch.equal(a[5], b[5]) for a, b in zip(stk, st))
+    print(f"[2b kernels] sp_round (k={k}): init round and two rounds from "
+          f"identical state, idx equal, NaN row latched empty, done row "
+          f"untouched, max |err| {err['sp_round']:.3e} (atol {APPEND_ATOL})")
+    return err
+
+
+def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
+    """sp_batch, ompr_batch and srr_batch once each with zeroed launch
+    counts; the counts against the formulas for the outer iterations, read
+    from the same solve with return_iters (the kernels are deterministic:
+    its solution must equal the main path's bit for bit); recovery and
+    agreement with the plain solves."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_twostage as ft
+
+    out = {"launches": {}, "recovery": {}, "err": {}, "iters": {}}
+    for (cell, k, kw), entry, solve, ref, A_, B_, sup in (
+            (SP_CELL, cstpu_torch.sp_batch, ft.sp_fused_solve,
+             ft.sp_fused_solve_ref, A, Bg, sup_g),
+            (OMPR_CELL, cstpu_torch.ompr_batch, ft.ompr_fused_solve,
+             ft.ompr_fused_solve_ref, A, Bg, sup_g),
+            (SRR_CELL, cstpu_torch.srr_batch, ft.srr_fused_solve,
+             ft.srr_fused_solve_ref, Ar, Br, sup_f)):
+        sol, launches = run_counted(lambda: entry(A_, B_, k, **kw))
+        sol2, _, it = solve(A_, B_, k, return_iters=True, **kw)
+        assert torch.equal(sol.idx, sol2.idx) and torch.equal(sol.val,
+                                                              sol2.val)
+        want = {"2b": dict(select_topl=1 + it, sp_round=1 + it),
+                "2c": dict(select_topl=1, engine_init=1, select=it,
+                           ompr_swap=it),
+                "3b": dict(select_topl=1, engine_init=1, fr_select=it,
+                           srr_append=it, engine_delete=it)}[cell]
+        assert launches == expect_launches(**want), (cell, launches)
+        rec = recovery(sol, sup)
+        assert rec == 1.0, f"{cell} recovery {rec} != 1.0"
+        rsol, _, it_plain = ref(A_, B_, k, return_iters=True, **kw)
+        assert torch.equal(sol.idx, rsol.idx) and torch.equal(sol.mask,
+                                                              rsol.mask)
+        cerr = float((sol.val - rsol.val).abs().max())
+        assert cerr <= COEF_ATOL, cerr
+        out["launches"][cell] = launches
+        out["recovery"][cell] = rec
+        out["err"][cell] = cerr
+        out["iters"][cell] = (it, it_plain)
+        print(f"[main {cell}] {entry.__name__} k={k} {kw} recovery={rec:.3f} "
+              f"iters={it} (plain {it_plain}) launches="
+              f"{ {key: v for key, v in launches.items() if v} }; supports "
+              f"== plain solve, max |coef err| {cerr:.3e} (atol {COEF_ATOL})")
+    return out
+
+
+KERNEL_NAMES = ("select_argmax", "select_topl", "fr_select", "engine_init",
+                "ompr_swap", "srr_append", "engine_delete", "sp_round")
+
+
+def profile_path(fn):
+    """One call of fn under torch.profiler after a warm-up: (device ms by
+    kernel, {name: (launches, device ms)}, other device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per, busy = {}, 0.0
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", 0.0)
+        if dev <= 0:
+            continue
+        busy += dev / 1e3
+        name = next((kn for kn in KERNEL_NAMES if kn + "_kernel" in ev.key),
+                    "other")
+        cnt, ms = per.get(name, (0, 0.0))
+        per[name] = (cnt + (ev.count if name != "other" else 0),
+                     ms + dev / 1e3)
+    return busy, per
+
+
+def twostage_times(A, Bg, Ar, Br, gpu):
+    """Solve times of 2b, 2c and 3b against their plain versions (CUDA
+    events); per-launch device time of every kernel on each path and the
+    path's device busy time and idle share (torch.profiler); plain
+    per-step times of the new kernels' plain versions (CUDA events)."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    bf = torch.bfloat16
+    tm, split = {}, {}
+    for (cell, k, kw), entry, ref, A_, B_ in (
+            (SP_CELL, cstpu_torch.sp_batch, ft.sp_fused_solve_ref, A, Bg),
+            (OMPR_CELL, cstpu_torch.ompr_batch, ft.ompr_fused_solve_ref, A,
+             Bg),
+            (SRR_CELL, cstpu_torch.srr_batch, ft.srr_fused_solve_ref, Ar,
+             Br)):
+        tm[cell] = cuda_ms(lambda: entry(A_, B_, k, **kw).val.sum(),
+                           TIMED_SOLVES)
+        tm["plain_" + cell] = cuda_ms(
+            lambda: ref(A_, B_, k, **kw)[0].val.sum(), TIMED_SOLVES)
+        busy, per = profile_path(lambda: entry(A_, B_, k, **kw))
+        split[cell] = {"wall_ms": tm[cell], "device_busy_ms": busy,
+                       "idle_share": 1.0 - busy / tm[cell],
+                       "kernels": {name: {"launches": c, "ms": ms}
+                                   for name, (c, ms) in per.items()}}
+
+    def per_launch(cell, name):
+        got = split[cell]["kernels"].get(name)
+        return got["ms"] / got["launches"] if got else float("nan")
+
+    launches = partial(per_launch_ms, Bg)
+    m = A.shape[1]
+    Ac32 = A.to(bf).float()
+    Arc32 = Ar.to(bf).float()
+    cn2 = torch.sum(Ar * Ar, dim=0)
+    k = OMPR_CELL[1]
+    st = ft._init_engine(Bg, k + 1, m)
+    parts = fs._topl_ref(Bg, Ac32, bf, k)
+    pl = {"engine_init": launches(
+        lambda: ft._engine_init_ref(*parts, Ac32, Bg, _clone(st)))}
+    ft._engine_init_ref(*parts, Ac32, Bg, st)
+    sparts = fs._select_ref(st.r, Ac32, bf, False, st.amask, 1.0)
+    pl["select_masked"] = launches(
+        lambda: fs._select_ref(st.r, Ac32, bf, False, st.amask, 1.0))
+    pl["ompr_swap"] = launches(
+        lambda: ft._ompr_swap_ref(*sparts, Ac32, Bg, _clone(st), 1.0, 0.0))
+    k = SRR_CELL[1]
+    st = ft._init_engine(Br, k + 1, m, cn2, npend=k)
+    ft._engine_init_ref(*fs._topl_ref(Br, Arc32, bf, k), Arc32, Br, st)
+    for P, key in ((k, "fr_select_init"), (2, "fr_select_pending2")):
+        pl[key] = launches(lambda: fs._rescaled_select_ref(
+            Arc32, cn2, st.r, st.pend_u[:P], st.pend_w[:P], 1.0, st.amask,
+            st.resc.clone(), bf))
+    rparts = fs._rescaled_select_ref(Arc32, cn2, st.r, st.pend_u[:k],
+                                     st.pend_w[:k], 1.0, st.amask,
+                                     st.resc.clone(), bf)
+    pl["srr_append"] = launches(
+        lambda: ft._srr_append_ref(*rparts, Arc32, Br, _clone(st)))
+    ft._srr_append_ref(*rparts, Arc32, Br, st)
+    pl["engine_delete"] = launches(
+        lambda: ft._engine_delete_ref(Br, _clone(st), k, 1, 0.0))
+    k = SP_CELL[1]
+    pl["select_topl32"] = launches(lambda: fs._topl_ref(Bg, Ac32, bf, k))
+    sp = ft._SpState(
+        cols=torch.zeros((Bg.shape[0], 2 * k, Bg.shape[1]), device=A.device),
+        Ginv=torch.eye(k, device=A.device).repeat(Bg.shape[0], 1, 1),
+        coef=torch.zeros((Bg.shape[0], 2 * k), device=A.device),
+        idx=torch.full((Bg.shape[0], 2 * k), m, dtype=torch.int32,
+                       device=A.device),
+        Atb=torch.zeros((Bg.shape[0], 2 * k), device=A.device), r=Bg.clone(),
+        done=torch.zeros((Bg.shape[0],), device=A.device),
+        prev=torch.zeros((Bg.shape[0],), device=A.device))
+    tparts = fs._topl_ref(Bg, Ac32, bf, k)
+    pl["sp_round"] = launches(
+        lambda: ft._sp_round_ref(*tparts, Ac32, Bg, _clone(sp), 0.0, True))
+    kern = {"sp_round": per_launch("2b", "sp_round"),
+            "select_topl32": per_launch("2b", "select_topl"),
+            "engine_init": per_launch("2c", "engine_init"),
+            "select_masked": per_launch("2c", "select_argmax"),
+            "ompr_swap": per_launch("2c", "ompr_swap"),
+            "fr_select_3b": per_launch("3b", "fr_select"),
+            "srr_append": per_launch("3b", "srr_append"),
+            "engine_delete": per_launch("3b", "engine_delete")}
+    print("[time two-stage] " + ", ".join(
+        f"{cell} {tm[cell]:.4f} ms (plain {tm['plain_' + cell]:.4f})"
+        for cell in ("2b", "2c", "3b")) + " | " + gpu)
+    print("[time two-stage kernels, device ms per launch on the paths] "
+          + ", ".join(f"{key} {v:.4f}" for key, v in kern.items())
+          + " | plain ms per call (events): "
+          + ", ".join(f"{key} {v:.4f}" for key, v in pl.items()))
+    for cell in ("2b", "2c", "3b"):
+        sp_ = split[cell]
+        print(f"[split {cell}] wall {sp_['wall_ms']:.4f} ms, device busy "
+              f"{sp_['device_busy_ms']:.4f} ms, idle share "
+              f"{sp_['idle_share']:.4f}; "
+              + ", ".join(f"{name} {v['launches']}x {v['ms']:.4f} ms"
+                          for name, v in sp_["kernels"].items()))
+    return tm, kern, pl, split
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -562,39 +933,93 @@ def main():
     gtm = greedy_times(A, Bs, Bg, Ar, Br, parts, gpu)
     print(f"[greedy] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    print(f"[two-stage] 2b sp_batch k={SP_CELL[1]} and 2c ompr_batch "
+          f"k={OMPR_CELL[1]} on 2a's problem; 3b srr_batch k={SRR_CELL[1]} "
+          f"on 3a's")
+    terr = check_twostage_kernels(A, Bg, Ar, Br)
+    tpaths = twostage_paths(A, Bg, sup_g, Ar, Br, sup_f)
+    ttm, tkern, tplain, _ = twostage_times(A, Bg, Ar, Br, gpu)
+    print(f"[two-stage] done in {time.perf_counter() - t0:.1f} s")
+
     sel_err, app_err, launches, tm = record["bench"]
     fs_line = "cstpu/ops/fused_solve.py"
+    ts_line = "cstpu/ops/fused_twostage.py"
     csrc = "cstpu_torch/csrc"
+    tl = tpaths["launches"]
 
     def entry(name, replaces, launches, err, ms, plain_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
-                "replaces": f"{fs_line}:{replaces}", "launches": launches,
+                "replaces": replaces if ":" in str(replaces)
+                else f"{fs_line}:{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra}
 
     kernels = [
         entry("select_argmax", 127, launches["select"]
-              + paths["mp"]["select"], max(sel_err, gerr["select_signed"]),
+              + paths["mp"]["select"] + tl["2c"]["select"],
+              max(sel_err, gerr["select_signed"], terr["select_masked"]),
               tm["select"], tm["plain_select"],
-              also_replaces=[f"{fs_line}:332", f"{fs_line}:874"],
+              also_replaces=[f"{fs_line}:332", f"{fs_line}:874",
+                             f"{ts_line}:1052"],
               paths={"omp_batch": launches["select"],
-                     "mp_batch": paths["mp"]["select"]},
+                     "mp_batch": paths["mp"]["select"],
+                     "ompr_batch": tl["2c"]["select"]},
               signed_ms=gtm["select_signed"],
-              plain_signed_ms=gtm["plain_select_signed"]),
+              plain_signed_ms=gtm["plain_select_signed"],
+              masked_ms=tkern["select_masked"],
+              plain_masked_ms=tplain["select_masked"]),
         entry("omp_append", 127, launches["append"], app_err, tm["append"],
               tm["plain_append"], also_replaces=[f"{fs_line}:332"]),
         entry("mp_update", 874, paths["mp"]["mp_update"], gerr["mp_update"],
               gtm["mp_update"], gtm["plain_mp_update"]),
-        entry("select_topl", 714, paths["gomp"]["select_topl"],
+        entry("select_topl", 714, paths["gomp"]["select_topl"]
+              + sum(tl[c]["select_topl"] for c in ("2b", "2c", "3b")),
               gerr["select_topl"], gtm["select_topl"],
-              gtm["plain_select_topl"]),
+              gtm["plain_select_topl"],
+              also_replaces=[f"{ts_line}:897", f"{ts_line}:1052",
+                             f"{ts_line}:1191"],
+              paths={"gomp_batch": paths["gomp"]["select_topl"],
+                     **{name: tl[c]["select_topl"] for name, c in (
+                         ("sp_batch", "2b"), ("ompr_batch", "2c"),
+                         ("srr_batch", "3b"))}},
+              l32_ms=tkern["select_topl32"],
+              plain_l32_ms=tplain["select_topl32"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
               gtm["plain_gomp_append"]),
-        entry("fr_select", 532, paths["fr"]["fr_select"], gerr["fr_select"],
-              gtm["fr_select"], gtm["plain_fr_select"]),
+        entry("fr_select", 532, paths["fr"]["fr_select"]
+              + tl["3b"]["fr_select"],
+              max(gerr["fr_select"], terr["fr_select_pending"]),
+              gtm["fr_select"], gtm["plain_fr_select"],
+              also_replaces=[f"{ts_line}:1191"],
+              paths={"fr_batch": paths["fr"]["fr_select"],
+                     "srr_batch": tl["3b"]["fr_select"]},
+              srr_ms=tkern["fr_select_3b"],
+              plain_srr_init_ms=tplain["fr_select_init"],
+              plain_srr_pending2_ms=tplain["fr_select_pending2"]),
         entry("fr_append", 532, paths["fr"]["fr_append"], gerr["fr_append"],
               gtm["fr_append"], gtm["plain_fr_append"]),
+        entry("sp_round", f"{ts_line}:897", tl["2b"]["sp_round"],
+              terr["sp_round"], tkern["sp_round"], tplain["sp_round"]),
+        entry("engine_init", f"{ts_line}:1052", tl["2c"]["engine_init"]
+              + tl["3b"]["engine_init"], terr["engine_init"],
+              tkern["engine_init"], tplain["engine_init"],
+              also_replaces=[f"{ts_line}:1191"],
+              paths={"ompr_batch": tl["2c"]["engine_init"],
+                     "srr_batch": tl["3b"]["engine_init"]}),
+        entry("ompr_swap", f"{ts_line}:1052", tl["2c"]["ompr_swap"],
+              terr["ompr_swap"], tkern["ompr_swap"], tplain["ompr_swap"]),
+        entry("srr_append", f"{ts_line}:1191", tl["3b"]["srr_append"],
+              terr["srr_append"], tkern["srr_append"], tplain["srr_append"]),
+        entry("engine_delete", f"{ts_line}:1191", tl["3b"]["engine_delete"],
+              terr["engine_delete"], tkern["engine_delete"],
+              tplain["engine_delete"]),
     ]
+    print(json.dumps({"kernels": kernels, "two_stage": {
+        "iters": tpaths["iters"], "recovery": tpaths["recovery"],
+        "solve_ms": {c: ttm[c] for c in ("2b", "2c", "3b")},
+        "plain_solve_ms": {c: ttm["plain_" + c] for c in ("2b", "2c", "3b")},
+        "device": gpu}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, which stays the reference. It covers
 the batched greedy solvers over one shared dictionary, `omp_batch`,
-`mp_batch`, `gomp_batch` and `fr_batch`, on CUDA kernels written by hand
+`mp_batch`, `gomp_batch` and `fr_batch`, and the batched two-stage ones,
+`sp_batch`, `ompr_batch` and `srr_batch`, on CUDA kernels written by hand
 (cstpu_torch/csrc), with the per-instance matching pursuits, forward
-regression, the active-set engine and the solution container they rest
-on. It imports torch, numpy and ctypes, never jax.
+regression, two-stage solvers, the active-set engine and the solution
+container they rest on. It imports torch, numpy and ctypes, never jax.
 """
 
 from cstpu_torch.utils.data import (
@@ -24,12 +25,16 @@ from cstpu_torch.utils.sparse import (
 )
 from cstpu_torch.models.matching_pursuit import mp, omp, gomp, oblivious
 from cstpu_torch.models.forward import fr, ols, oomp, ormp, stepwise_regression
+from cstpu_torch.models.twostage import sp, ompr, srr
 from cstpu_torch.models.batched import (
     batch,
     omp_batch,
     mp_batch,
     gomp_batch,
     fr_batch,
+    sp_batch,
+    srr_batch,
+    ompr_batch,
 )
 
 __version__ = "0.1.0"
@@ -40,5 +45,7 @@ __all__ = [
     "SparseSolution", "support", "samesupport", "droptol", "polish",
     "mp", "omp", "gomp", "oblivious",
     "fr", "ols", "oomp", "ormp", "stepwise_regression",
+    "sp", "ompr", "srr",
     "batch", "omp_batch", "mp_batch", "gomp_batch", "fr_batch",
+    "sp_batch", "srr_batch", "ompr_batch",
 ]

@@ -1,8 +1,9 @@
-// Shared device helpers of the batched greedy kernels: the select tile
-// width, cdt rounding, the argmax rule of cstpu/ops/fused_solve.py::
-// _solve_kernel (:157-163), the staging of the select's rows of r, and the
-// gated bordered append that OMP, GOMP and FR share (:165-201, :749-785,
-// :587-611).
+// Shared device helpers of the batched kernels: the select tile width, cdt
+// rounding, the argmax rule of cstpu/ops/fused_solve.py::_solve_kernel
+// (:157-163), the staging of the select's rows of r, the gated bordered
+// append that OMP, GOMP, FR and the two-stage slot engine share (:165-201,
+// :749-785, :587-611; fused_twostage.py:138-190), and the merge of
+// select_topl partials.
 #pragma once
 
 #include <climits>
@@ -190,10 +191,13 @@ __device__ __forceinline__ AppendSmem carve_append_smem(float* smem, int n,
 }
 
 // The gated bordered append of one row, the engine of _solve_kernel
-// (:165-201), _gomp_kernel's append_one (:757-784) and _fr_kernel
-// (:587-611). Appends atom `sel` (INT_MAX from a NaN row; gathered at
-// min(sel, m-1)) into `slot`:
-//   acol = A[:, sel] in cdt, upcast; ata, beta = acol.b, g = cols[:slot].acol
+// (:165-201), _gomp_kernel's append_one (:757-784), _fr_kernel (:587-611)
+// and fused_twostage.py::_Engine.append (:138-190). Appends atom `sel`
+// (INT_MAX from a NaN row; gathered at min(sel, m-1)) into `slot`:
+//   acol = A[:, sel] in cdt, upcast; ata, beta = acol.b,
+//   g = cols[:gslots].acol (0 beyond): the insertion-order solvers pass
+//   gslots = slot (later slots are still zero), the slot engine, whose
+//   occupied slots may lie above the free one, gslots = k
 //   u = Ginv g, d = ata - g.u, ok = pre && !dup && d > rtol * ata
 //   Ginv += dinv w w' - okf e e', w = u - e_slot; coef -= s w;
 //   idx[slot] = sel and cols[slot] = acol * okf when slot < k.
@@ -205,7 +209,7 @@ template <typename T>
 __device__ bool bordered_append(const AppendSmem& s, const T* __restrict__ A,
                                 const float* __restrict__ bb,
                                 float* __restrict__ colsb, int n, int m,
-                                int k, int sel, int slot, bool pre,
+                                int k, int sel, int slot, int gslots, bool pre,
                                 float rtol) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -214,10 +218,10 @@ __device__ bool bordered_append(const AppendSmem& s, const T* __restrict__ A,
   for (int p = tid; p < n; p += blockDim.x) s.acol[p] = to_f32(A[(size_t)p * m + ic]);
   __syncthreads();
 
-  // g = cols . acol (slots >= slot are still zero), ata, beta
+  // g = cols . acol over slots < gslots, ata, beta
   for (int q = warp; q < k + 2; q += nwarps) {
     float acc = 0.f;
-    if (q < slot && q < k) {
+    if (q < gslots && q < k) {
       const float* cs = colsb + (size_t)q * n;
       for (int p = lane; p < n; p += 32) acc += cs[p] * s.acol[p];
     } else if (q == k) {
@@ -343,6 +347,71 @@ __device__ __forceinline__ void reduce_partials_row(const float* pvb,
   v = red_v[0];
   i = red_i[0];
   for (int w = 1; w < (int)(blockDim.x >> 5); ++w) argmax_combine(v, i, red_v[w], red_i[w]);
+  __syncthreads();
+}
+
+// Sum of x over the 32 lanes of a warp; every lane gets it.
+__device__ __forceinline__ float warp_allsum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// max(x, y) and min(x, y) that keep a NaN of either, as jnp.maximum,
+// jnp.max and jnp.min do (fmaxf and fminf drop it).
+__device__ __forceinline__ float max_keep_nan(float x, float y) {
+  return (isnan(x) || isnan(y)) ? x + y : fmaxf(x, y);
+}
+__device__ __forceinline__ float min_keep_nan(float x, float y) {
+  return (isnan(x) || isnan(y)) ? x + y : fminf(x, y);
+}
+
+// A row's top-cnt of its select_topl partials (ncand = ntiles * cnt
+// entries) by value descending, then index ascending, into picks[cnt] and
+// vals[cnt] (shared memory): cnt block-wide argmax passes, each taking the
+// best candidate after the previous pick in that order, so nothing is
+// marked or sorted. A NaN among the partials gives (-inf, INT_MAX)
+// throughout (the TPU kernels' smax/== rule: no pick is made). red_v and
+// red_i hold one entry per warp. Every thread calls it; it ends with a
+// barrier.
+__device__ __forceinline__ void merge_topl_row(const float* pvb,
+                                               const int* pib, int ncand,
+                                               int cnt, int* picks,
+                                               float* vals, float* red_v,
+                                               int* red_i) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  bool nan = false;
+  for (int e = tid; e < ncand; e += blockDim.x) nan |= isnan(pvb[e]);
+  nan = __syncthreads_or(nan);
+  float v_prev = INFINITY;
+  int i_prev = -1;
+  for (int p = 0; p < cnt; ++p) {
+    float v = -INFINITY;
+    int i = INT_MAX;
+    if (!nan) {
+      for (int e = tid; e < ncand; e += blockDim.x) {
+        const float ve = pvb[e];
+        const int ie = pib[e];
+        if (ve < v_prev || (ve == v_prev && ie > i_prev)) argmax_combine(v, i, ve, ie);
+      }
+      warp_argmax(v, i);
+      if (lane == 0) {
+        red_v[warp] = v;
+        red_i[warp] = i;
+      }
+      __syncthreads();
+      v = red_v[0];
+      i = red_i[0];
+      for (int w = 1; w < nwarps; ++w) argmax_combine(v, i, red_v[w], red_i[w]);
+      __syncthreads();
+    }
+    if (tid == 0) {
+      picks[p] = i;
+      vals[p] = v;
+    }
+    v_prev = v;
+    i_prev = i;
+  }
   __syncthreads();
 }
 

@@ -65,7 +65,7 @@ fr_append_kernel(const float* __restrict__ pval, const int* __restrict__ pidx,
 
   const bool accept = (rr > max_eps2) && (dmax > min_d2);
   const bool latched = done[b] > 0.5f;
-  const bool ok = bordered_append(s, A, bb, colsb, n, m, k, sel, t,
+  const bool ok = bordered_append(s, A, bb, colsb, n, m, k, sel, t, t,
                                   accept && !latched, rtol);
 
   // a_perp with slot t written, as the TPU kernel orders it

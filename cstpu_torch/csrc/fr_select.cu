@@ -1,29 +1,37 @@
-// Batched forward regression (FR), stage 1: the rescaling downdate and the
-// OLS select, in one pass over the dictionary.
+// Batched forward regression (FR) and SRR, stage 1: the pending rescaling
+// terms and the OLS select, in one sweep over the dictionary.
 //
 // Replaces the two dictionary GEMMs of cstpu/ops/fused_solve.py::_fr_kernel:
 // the q GEMM and its select (:571-580) and the z GEMM of the order-
 // recursive rescaling update (:613-618). The TPU kernel reads A twice per
 // step; here step t's launch first applies step t-1's update with the
-// (aperp, dinv) that fr_append.cu left, then selects, so A is read once:
-//   z     = round_cdt(aperp) . a_j,  resc_j -= dinv * z * z  (written back)
+// (aperp, dinv) that fr_append.cu left, then selects, so A is read once.
+// For SRR it replaces the z GEMMs of cstpu/ops/fused_twostage.py::_Engine
+// (append :183-189 and delete_ep :199-204) and the select of
+// forward_score (:113-124): appends, and the deletions that never read
+// resc, leave P pending signed rank-one terms (u_p, w_p), and this launch
+// applies all of them in order before it scores:
+//   z_p   = round_cdt(u_p) . a_j,  resc_j += (wsign * w_p) * z_p * z_p
+//           (p = 0..P-1; FR passes P = 1, u = aperp, w = dinv, wsign = -1,
+//           which is resc_j -= dinv * z * z bit for bit)
 //   q     = round_cdt(r) . a_j
 //   d2_j  = resc_j > rtol * cn2_j ? q*q / resc_j : -inf
 //   d2_j  = 0 for active atoms (amask), which takes precedence (:576-577),
 //           so a written-back resc that drifts below zero for an active
 //           atom never flips its score
 // and writes per-tile (max d2, lowest argmax) partials (B, T) with the
-// argmax_combine rule (a NaN d2 gives (NaN, INT_MAX)). At step 0 dinv = 0.
-// cn2 is the squared column norm of the f32 dictionary (:640). Products
-// and sums of the GEMMs in f32 on CUDA cores (no TF32); the score and the
-// downdate are rounded one operation at a time as the TPU kernel writes
-// them (__fmul_rn, __fsub_rn, __fdiv_rn), not fused into FMAs.
+// argmax_combine rule (a NaN d2 gives (NaN, INT_MAX)). cn2 is the squared
+// column norm of the f32 dictionary (:640). Products and sums of the GEMMs
+// in f32 on CUDA cores (no TF32); the score and the updates are rounded one
+// operation at a time as the TPU kernels write them (__fmul_rn, __fadd_rn,
+// __fdiv_rn), not fused into FMAs.
 //
-// What bounds it on an H100: 2*B*n*m multiply-adds per step (1.07 G at
-// B=64, n=1024, m=8192) on CUDA cores, plus reading and writing resc
-// (B, m) f32 (2 MB each way at that size). Design: common.cuh::
-// score_tile's loop with two accumulators per (row, atom), r and aperp
-// staged side by side in shared memory.
+// What bounds it on an H100: (1 + P)*B*n*m multiply-adds per launch (1.07 G
+// for FR at B=64, n=1024, m=8192) on CUDA cores, plus reading and writing
+// resc (B, m) f32 (2 MB each way at that size). Design: common.cuh::
+// score_tile's loop, the first pass with two accumulators per (row, atom)
+// (q and z_0, r and u_0 staged side by side in shared memory), then one
+// pass per further term; resc stays in registers across the passes.
 #include <cstdint>
 
 #include "common.cuh"
@@ -32,9 +40,9 @@ namespace cstpu {
 
 template <typename T>
 __global__ void __launch_bounds__(kTile)
-fr_select_kernel(const float* __restrict__ r, const float* __restrict__ aperp,
-                 const float* __restrict__ dinv, const T* __restrict__ A,
-                 const float* __restrict__ cn2,
+fr_select_kernel(const float* __restrict__ r, const float* __restrict__ U,
+                 const float* __restrict__ W, int P, float wsign,
+                 const T* __restrict__ A, const float* __restrict__ cn2,
                  const uint8_t* __restrict__ amask, float* __restrict__ resc,
                  float* __restrict__ pval, int* __restrict__ pidx, int B,
                  int n, int m, int ntiles, float rtol) {
@@ -48,13 +56,14 @@ fr_select_kernel(const float* __restrict__ r, const float* __restrict__ aperp,
   const int j = tile * kTile + threadIdx.x;
   const bool live = j < m;
 
-  float qa[kRows], za[kRows];
+  float qa[kRows], za[kRows], rj[kRows];
 #pragma unroll
   for (int q = 0; q < kRows; ++q) qa[q] = za[q] = 0.f;
 
+  // pass 0: q and z_0 together
   for (int p0 = 0; p0 < n; p0 += kChunk) {
     stage_rows<T>(rs, r, row0, p0, B, n);
-    stage_rows<T>(zs, aperp, row0, p0, B, n);
+    if (P > 0) stage_rows<T>(zs, U, row0, p0, B, n);
     __syncthreads();
     const int pend = min(kChunk, n - p0);
     if (live) {
@@ -81,6 +90,27 @@ fr_select_kernel(const float* __restrict__ r, const float* __restrict__ aperp,
     __syncthreads();
   }
 
+  // resc read after pass 0, to keep the main loop's registers free
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int row = row0 + q;
+    rj[q] = (live && row < B) ? resc[(size_t)row * m + j] : 0.f;
+  }
+  // the pending terms in order; term p >= 1 takes a pass of its own
+  for (int p = 0; p < P; ++p) {
+    if (p > 0) {
+      score_tile<T>(za, zs, U + (size_t)p * B * n, A, row0, j, live, B, n, m);
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int row = row0 + q;
+      if (live && row < B) {
+        const float w = wsign * W[(size_t)p * B + row];
+        rj[q] = __fadd_rn(rj[q], __fmul_rn(__fmul_rn(w, za[q]), za[q]));
+      }
+    }
+  }
+
   const float rmin = live ? __fmul_rn(rtol, cn2[j]) : 0.f;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -90,9 +120,8 @@ fr_select_kernel(const float* __restrict__ r, const float* __restrict__ aperp,
     int i = INT_MAX;
     if (live && row < B) {
       const size_t e = (size_t)row * m + j;
-      const float rj = __fsub_rn(resc[e], __fmul_rn(__fmul_rn(dinv[row], za[q]), za[q]));
-      resc[e] = rj;
-      v = rj > rmin ? __fdiv_rn(__fmul_rn(qa[q], qa[q]), rj) : -INFINITY;
+      if (P > 0) resc[e] = rj[q];
+      v = rj[q] > rmin ? __fdiv_rn(__fmul_rn(qa[q], qa[q]), rj[q]) : -INFINITY;
       if (amask[e]) v = 0.f;
       i = j;
     }
@@ -117,28 +146,30 @@ fr_select_kernel(const float* __restrict__ r, const float* __restrict__ aperp,
 
 }  // namespace cstpu
 
-// One FR select for all B rows. r, aperp (B, n) f32, dinv (B,) f32, A
-// (n, m) in cdt, cn2 (m,) f32, amask (B, m) u8 (1 = active), resc (B, m)
-// f32 downdated in place; writes pval (B, ntiles) f32, pidx (B, ntiles)
-// i32, ntiles = ceil(m / kTile). All contiguous. Returns the launch's
-// cudaError_t.
-extern "C" int cstpu_fr_select(const float* r, const float* aperp,
-                               const float* dinv, const void* A, int cdt_bf16,
-                               const float* cn2, const uint8_t* amask,
-                               float* resc, float* pval, int* pidx, int B,
-                               int n, int m, float rtol, void* stream) {
+// One FR or SRR select for all B rows. r (B, n) f32, the pending terms U
+// (P, B, n) f32 and W (P, B) f32 (P >= 0; weight wsign * W), A (n, m) in
+// cdt, cn2 (m,) f32, amask (B, m) u8 (1 = active), resc (B, m) f32 updated
+// in place; writes pval (B, ntiles) f32, pidx (B, ntiles) i32, ntiles =
+// ceil(m / kTile). All contiguous. Returns the launch's cudaError_t.
+extern "C" int cstpu_fr_select(const float* r, const float* U, const float* W,
+                               int P, float wsign, const void* A,
+                               int cdt_bf16, const float* cn2,
+                               const uint8_t* amask, float* resc, float* pval,
+                               int* pidx, int B, int n, int m, float rtol,
+                               void* stream) {
   using namespace cstpu;
+  if (P < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = (m + kTile - 1) / kTile;
   const dim3 grid(ntiles, (B + kRows - 1) / kRows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cdt_bf16) {
     fr_select_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
-        r, aperp, dinv, static_cast<const __nv_bfloat16*>(A), cn2, amask,
+        r, U, W, P, wsign, static_cast<const __nv_bfloat16*>(A), cn2, amask,
         resc, pval, pidx, B, n, m, ntiles, rtol);
   } else {
     fr_select_kernel<float><<<grid, kTile, 0, s>>>(
-        r, aperp, dinv, static_cast<const float*>(A), cn2, amask, resc, pval,
-        pidx, B, n, m, ntiles, rtol);
+        r, U, W, P, wsign, static_cast<const float*>(A), cn2, amask, resc,
+        pval, pidx, B, n, m, ntiles, rtol);
   }
   return static_cast<int>(cudaGetLastError());
 }

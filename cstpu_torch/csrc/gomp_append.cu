@@ -20,9 +20,9 @@
 // What bounds it on an H100: latency, as omp_append.cu: cnt dependent
 // appends per launch, each a few dot products of length n per row. Design:
 // one block per row, Ginv/coef/idx in shared memory across the cnt appends
-// (written back once); the merge of the T*cnt partials is cnt block-wide
-// argmax passes, each taking the best candidate after the previous pick,
-// so nothing is marked or sorted.
+// (written back once); the merge of the T*cnt partials is common.cuh::
+// merge_topl_row, cnt block-wide argmax passes, each taking the best
+// candidate after the previous pick, so nothing is marked or sorted.
 #include "common.cuh"
 
 namespace cstpu {
@@ -45,10 +45,10 @@ gomp_append_kernel(const float* __restrict__ pval,
   __shared__ float sc[4];
   __shared__ int s_ok, s_kcnt;
   __shared__ int picks[kTopLMax];
+  __shared__ float vals[kTopLMax];
   const AppendSmem s = carve_append_smem(smem, n, k, sc, &s_ok);
 
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const float* bb = Bs + (size_t)b * n;
   float* colsb = cols + (size_t)b * k * n;
   float* Gb = Ginv + (size_t)b * k * k;
@@ -62,43 +62,14 @@ gomp_append_kernel(const float* __restrict__ pval,
   if (tid == 0) s_kcnt = kcnt[b];
 
   // --- merge the partials into the row's top-cnt ---------------------------
-  bool nan = false;
-  for (int e = tid; e < ncand; e += blockDim.x) nan |= isnan(pvb[e]);
-  nan = __syncthreads_or(nan);
-  float v_prev = INFINITY;
-  int i_prev = -1;
-  for (int p = 0; p < cnt; ++p) {
-    float v = -INFINITY;
-    int i = INT_MAX;
-    if (!nan) {
-      for (int e = tid; e < ncand; e += blockDim.x) {
-        const float ve = pvb[e];
-        const int ie = pib[e];
-        if (ve < v_prev || (ve == v_prev && ie > i_prev)) argmax_combine(v, i, ve, ie);
-      }
-      warp_argmax(v, i);
-      if (lane == 0) {
-        red_v[warp] = v;
-        red_i[warp] = i;
-      }
-      __syncthreads();
-      v = red_v[0];
-      i = red_i[0];
-      for (int w = 1; w < kGompThreads / 32; ++w) argmax_combine(v, i, red_v[w], red_i[w]);
-      __syncthreads();
-    }
-    if (tid == 0) picks[p] = i;
-    v_prev = v;
-    i_prev = i;
-  }
-  __syncthreads();
+  merge_topl_row(pvb, pib, ncand, cnt, picks, vals, red_v, red_i);
 
   // --- the gated appends, in pick order ------------------------------------
   const bool latched = done[b] > 0.5f;
   for (int p = 0; p < cnt; ++p) {
     const int slot = s_kcnt;
     const bool ok = bordered_append(s, A, bb, colsb, n, m, k, picks[p], slot,
-                                    slot < cap && !latched, rtol);
+                                    slot, slot < cap && !latched, rtol);
     if (tid == 0 && ok) s_kcnt = slot + 1;
     __syncthreads();
   }

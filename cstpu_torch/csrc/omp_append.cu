@@ -60,7 +60,7 @@ omp_append_kernel(const float* __restrict__ pval,
   reduce_partials_row(pval + (size_t)b * ntiles, pidx + (size_t)b * ntiles,
                       ntiles, red_v, red_i, v, sel);
 
-  bordered_append(s, A, bb, colsb, n, m, k, sel, t, true, rtol);
+  bordered_append(s, A, bb, colsb, n, m, k, sel, t, t, true, rtol);
   store_append_state(s, Gb, coefb, idxb, k);
   residual_row(r + (size_t)b * n, bb, colsb, s.cf, n, k);
 

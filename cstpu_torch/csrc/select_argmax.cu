@@ -1,12 +1,16 @@
-// Batched OMP and MP, stage 1: select. For every measurement row b and
-// every tile of kTile atoms, the largest |<r_b, a_j>| and its lowest index;
-// on request (MP) also the signed <r_b, a_j> of that winner.
+// Batched OMP, MP and OMPR, stage 1: select. For every measurement row b
+// and every tile of kTile atoms, the largest |<r_b, a_j>| and its lowest
+// index; on request (MP) also the signed <r_b, a_j> of that winner; with an
+// active-atom mask (OMPR) the score where(active, -inf, |eta <r_b, a_j>|).
 //
 // Replaces the select stage of cstpu/ops/fused_solve.py::_solve_kernel
-// (:157-163) and the per-tile select of ::_stream_kernel (:370-385), and,
-// with the signed output, the select of ::_mp_kernel (:890-898), whose
-// step adds the winner's signed score v. Each call is one step; the step
-// loop runs on the host (cstpu_torch/ops/fused_solve.py).
+// (:157-163) and the per-tile select of ::_stream_kernel (:370-385); with
+// the signed output, the select of ::_mp_kernel (:890-898), whose step adds
+// the winner's signed score v; with the mask, the passive-atom select of
+// cstpu/ops/fused_twostage.py::_ompr_kernel (:998-1000), where a masked
+// atom keeps its index, so an all-masked row gives (-inf, lowest index) as
+// the TPU kernel's argmax does. Each call is one step; the step loop runs
+// on the host (cstpu_torch/ops/fused_solve.py, fused_twostage.py).
 //
 // Math: scores = |round_cdt(r) . A_cdt|, products and sums in f32. r is
 // rounded to the correlation dtype before the product, as the TPU kernel
@@ -30,18 +34,22 @@
 // Any n and m: the ragged atom edge is masked (score -inf, index INT_MAX).
 // The signed variant carries the winner's signed score through the same
 // reduction (argmax_combine with a payload), so the winners, and OMP's
-// outputs, are the same with and without it.
+// outputs, are the same with and without it. The masked variant is its
+// own instantiation, so OMP's and MP's code is unchanged by it.
 // Later work: mma/wgmma tiles and TMA loads in place of the FMA loop.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace cstpu {
 
-template <typename T, bool kSigned>
+template <typename T, bool kSigned, bool kMasked>
 __global__ void __launch_bounds__(kTile)
 select_argmax_kernel(const float* __restrict__ r, const T* __restrict__ A,
                      float* __restrict__ pval, int* __restrict__ pidx,
-                     float* __restrict__ psig, int B, int n, int m,
-                     int ntiles) {
+                     float* __restrict__ psig,
+                     const uint8_t* __restrict__ amask, float eta, int B,
+                     int n, int m, int ntiles) {
   __shared__ __align__(16) float rs[kChunk][kRows];
   __shared__ float wv[kRows][kTile / 32];
   __shared__ int wi[kRows][kTile / 32];
@@ -60,6 +68,12 @@ select_argmax_kernel(const float* __restrict__ r, const T* __restrict__ A,
   for (int q = 0; q < kRows; ++q) {
     float v = live ? fabsf(acc[q]) : -INFINITY;
     int i = live ? j : INT_MAX;
+    if constexpr (kMasked) {
+      if (live) {
+        const int row = row0 + q;
+        v = (row < B && amask[(size_t)row * m + j]) ? -INFINITY : fabsf(eta * acc[q]);
+      }
+    }
     if constexpr (kSigned) {
       float sg = acc[q];
       warp_argmax(v, i, sg);
@@ -94,16 +108,20 @@ select_argmax_kernel(const float* __restrict__ r, const T* __restrict__ A,
 
 template <typename T>
 void launch_select(const float* r, const void* A, float* pval, int* pidx,
-                   float* psig, int B, int n, int m, cudaStream_t s) {
+                   float* psig, const uint8_t* amask, float eta, int B, int n,
+                   int m, cudaStream_t s) {
   const int ntiles = (m + kTile - 1) / kTile;
   const dim3 grid(ntiles, (B + kRows - 1) / kRows);
   const T* a = static_cast<const T*>(A);
   if (psig) {
-    select_argmax_kernel<T, true><<<grid, kTile, 0, s>>>(
-        r, a, pval, pidx, psig, B, n, m, ntiles);
+    select_argmax_kernel<T, true, false><<<grid, kTile, 0, s>>>(
+        r, a, pval, pidx, psig, nullptr, 1.f, B, n, m, ntiles);
+  } else if (amask) {
+    select_argmax_kernel<T, false, true><<<grid, kTile, 0, s>>>(
+        r, a, pval, pidx, nullptr, amask, eta, B, n, m, ntiles);
   } else {
-    select_argmax_kernel<T, false><<<grid, kTile, 0, s>>>(
-        r, a, pval, pidx, nullptr, B, n, m, ntiles);
+    select_argmax_kernel<T, false, false><<<grid, kTile, 0, s>>>(
+        r, a, pval, pidx, nullptr, nullptr, 1.f, B, n, m, ntiles);
   }
 }
 
@@ -112,17 +130,22 @@ void launch_select(const float* r, const void* A, float* pval, int* pidx,
 // r (B, n) f32, A (n, m) in cdt (bf16 if cdt_bf16 else f32), all
 // contiguous; writes pval (B, ntiles) f32 and pidx (B, ntiles) i32 with
 // ntiles = ceil(m / kTile), and, when psig is not null, the winners'
-// signed scores psig (B, ntiles) f32. Returns the launch's cudaError_t.
+// signed scores psig (B, ntiles) f32. When amask (B, m) u8 is not null
+// (and psig is), atoms with amask != 0 score -inf and the others
+// |eta * score|. Returns the launch's cudaError_t.
 extern "C" int cstpu_select_argmax(const float* r, const void* A,
                                    int cdt_bf16, float* pval, int* pidx,
-                                   float* psig, int B, int n, int m,
+                                   float* psig, const uint8_t* amask,
+                                   float eta, int B, int n, int m,
                                    void* stream) {
   using namespace cstpu;
+  if (psig && amask) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cdt_bf16) {
-    launch_select<__nv_bfloat16>(r, A, pval, pidx, psig, B, n, m, s);
+    launch_select<__nv_bfloat16>(r, A, pval, pidx, psig, amask, eta, B, n, m,
+                                 s);
   } else {
-    launch_select<float>(r, A, pval, pidx, psig, B, n, m, s);
+    launch_select<float>(r, A, pval, pidx, psig, amask, eta, B, n, m, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
-"""Batched-first entry points (PyTorch counterpart of the greedy part of
-cstpu.models.batched).
+"""Batched-first entry points (PyTorch counterpart of the greedy and
+two-stage parts of cstpu.models.batched).
 
 A shared dictionary with a batch of measurements is the high-throughput
 workload. On CUDA, `omp_batch`, `mp_batch`, `gomp_batch` and `fr_batch` run
-the kernels of cstpu_torch.ops.fused_solve; elsewhere, and for options or
-shapes the kernels do not serve, they run the per-instance solver over the
-rows (`batch`, where cstpu runs `vmap`). cstpu's one-device-mesh hybrids
+the kernels of cstpu_torch.ops.fused_solve, and `sp_batch`, `ompr_batch`
+and `srr_batch` those of cstpu_torch.ops.fused_twostage; elsewhere, and for
+options or shapes the kernels do not serve, they run the per-instance
+solver over the rows (`batch`, where cstpu runs `vmap`). cstpu's one-device-mesh hybrids
 (`_stream_ok` -> `*_sharded_fused`) have no counterpart: the port's select
 kernels stream the dictionary tile by tile at any m, so one kernel path
 serves both regimes.
@@ -17,7 +18,8 @@ import torch
 
 from cstpu_torch.models.forward import fr
 from cstpu_torch.models.matching_pursuit import gomp, mp, omp
-from cstpu_torch.ops import fused_solve
+from cstpu_torch.models.twostage import ompr, sp, srr
+from cstpu_torch.ops import fused_solve, fused_twostage
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -148,3 +150,63 @@ def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
                 mask=F.pad(sol.mask, (0, pad)), m=sol.m)
         return sol
     return batch(gomp, l=l, k=k, max_residual=max_residual)(A, Bs)
+
+
+def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
+    """Batched subspace pursuit over measurement rows Bs (B, n).
+
+    On CUDA this runs the select_topl and sp_round kernels (2k slots: the
+    kept block's exact inverse, the acquired block by its Schur
+    complement). `precision` as in omp_batch. Otherwise the rows run
+    through the per-instance `sp`.
+    """
+    A = torch.as_tensor(A)
+    Bs = torch.as_tensor(Bs)
+    if (_kernels_ok(A, Bs, precision)
+            and fused_twostage.supported_sp(A, Bs, int(k), _cdt(precision))):
+        sol, _ = fused_twostage.sp_fused_solve(A, Bs, int(k), delta, maxiter,
+                                               corr_dtype=_cdt(precision))
+        return sol
+    return batch(sp, k=k, delta=delta, maxiter=maxiter)(A, Bs)
+
+
+def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
+              l: int = 1, initialization: int = 1, precision=None):
+    """Batched stepwise regression with replacement over rows Bs (B, n).
+
+    On CUDA with the default oblivious initialization this runs the
+    engine kernels (forward OLS steps and backward deletions, the
+    rescaling kept through both). `precision` as in omp_batch. Other
+    initializations, and shapes the kernels do not take, run the rows
+    through the per-instance `srr`.
+    """
+    A = torch.as_tensor(A)
+    Bs = torch.as_tensor(Bs)
+    if (_kernels_ok(A, Bs, precision) and initialization == 1
+            and fused_twostage.supported_srr(A, Bs, int(k), int(l),
+                                             _cdt(precision))):
+        sol, _ = fused_twostage.srr_fused_solve(
+            A, Bs, int(k), delta, maxiter, int(l), corr_dtype=_cdt(precision))
+        return sol
+    return batch(srr, k=k, delta=delta, maxiter=maxiter,
+                 initialization=initialization, l=l)(A, Bs)
+
+
+def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
+               maxiter=None, precision=None):
+    """Batched OMP with replacement over measurement rows Bs (B, n).
+
+    On CUDA this runs the engine kernels (the passive-atom select with the
+    active mask, the gradient step, the Schur-downdate delete).
+    `precision` as in omp_batch. Otherwise the rows run through the
+    per-instance `ompr`.
+    """
+    A = torch.as_tensor(A)
+    Bs = torch.as_tensor(Bs)
+    if (_kernels_ok(A, Bs, precision)
+            and fused_twostage.supported_ompr(A, Bs, int(k),
+                                              _cdt(precision))):
+        sol, _ = fused_twostage.ompr_fused_solve(
+            A, Bs, int(k), delta, eta, maxiter, corr_dtype=_cdt(precision))
+        return sol
+    return batch(ompr, k=k, delta=delta, eta=eta, maxiter=maxiter)(A, Bs)

@@ -29,9 +29,12 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 NVCC_CANDIDATES = ["/usr/local/cuda/bin/nvcc"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the slot engine's state: cols, Ginv, coef, idx, Atb, r, amask, done, prev
+_ENG = [_P] * 9
 _SIGNATURES = {
-    # r, A, cdt_bf16, pval, pidx, psig (nullable), B, n, m, stream
-    "cstpu_select_argmax": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # r, A, cdt_bf16, pval, pidx, psig (nullable), amask (nullable), eta,
+    # B, n, m, stream
+    "cstpu_select_argmax": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _P],
     # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r,
     # out_idx, out_coef, B, n, m, k, t, rtol, stream
     "cstpu_omp_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -44,14 +47,34 @@ _SIGNATURES = {
     # kcnt, done, B, n, m, k, cap, rtol, eps2, stream
     "cstpu_gomp_append": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-    # r, aperp, dinv, A, cdt_bf16, cn2, amask, resc, pval, pidx, B, n, m,
-    # rtol, stream
-    "cstpu_fr_select": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                        _I, _F, _P],
+    # r, U, W, P, wsign, A, cdt_bf16, cn2, amask, resc, pval, pidx, B, n,
+    # m, rtol, stream
+    "cstpu_fr_select": [_P, _P, _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _F, _P],
     # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r, aperp,
     # dinv, amask, done, B, n, m, k, t, rtol, max_eps2, min_d2, stream
     "cstpu_fr_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    # pval, pidx, ntiles, cnt, A, cdt_bf16, Bs, engine state, pend_u,
+    # pend_w, fgate (nullable), B, n, m, K, rtol, stream
+    "cstpu_engine_init": [_P, _P, _I, _I, _P, _I, _P, *_ENG, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _P],
+    # pval, pidx, ntiles, A, cdt_bf16, Bs, engine state, B, n, m, K, rtol,
+    # eta, delta2, stream
+    "cstpu_ompr_swap": [_P, _P, _I, _P, _I, _P, *_ENG, _I, _I, _I, _I, _F,
+                        _F, _F, _P],
+    # pval, pidx, ntiles, A, cdt_bf16, Bs, engine state but prev, pend_u,
+    # pend_w, fgate, B, n, m, K, rtol, stream
+    "cstpu_srr_append": [_P, _P, _I, _P, _I, _P, *_ENG[:8], _P, _P, _P, _I,
+                         _I, _I, _I, _F, _P],
+    # Bs, engine state, pend_u, pend_w, fgate, B, n, m, K, k, l, delta2,
+    # stream
+    "cstpu_engine_delete": [_P, *_ENG, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _P],
+    # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, Atb, r,
+    # done, prev, B, n, m, k, rtol, delta2, init, stream
+    "cstpu_sp_round": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _F, _F, _I, _P],
 }
 
 _lib = None

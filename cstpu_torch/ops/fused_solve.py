@@ -116,6 +116,7 @@ class _FrState(NamedTuple):
 _CDTS = (torch.bfloat16, torch.float32)
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
+_U8 = (torch.uint8,)
 
 
 def _check_cdt(corr_dtype):
@@ -143,7 +144,8 @@ def _expect(name: str, dev, *specs) -> None:
 
 
 def _on_cpu(*tensors) -> bool:
-    return not any(x.is_cuda for x in tensors)
+    """True when no tensor of `tensors` (None entries skipped) is on CUDA."""
+    return not any(x is not None and x.is_cuda for x in tensors)
 
 
 def _stream():
@@ -167,33 +169,46 @@ def _tile_argmax(scores):
     return tmax, tidx.to(torch.int32)
 
 
-def _select_ref(r, Ac, cdt, signed: bool = False):
+def _select_ref(r, Ac, cdt, signed: bool = False, amask=None,
+                eta: float = 1.0):
     """Plain select: per-tile (max |score|, lowest argmax), (B, T) each,
-    and with `signed` the winner's signed score as a third (B, T).
+    and with `signed` the winner's signed score as a third (B, T). With an
+    active-atom mask amask (B, m) the score is where(active, -inf,
+    |eta * score|), OMPR's passive select.
 
     `Ac` holds cdt-rounded values in any float dtype. A NaN anywhere in a
     tile makes its partial (NaN, INT_MAX[, NaN])."""
     m = Ac.shape[1]
     scores = torch.matmul(r.to(cdt).float(), Ac.float())
-    tmax, tidx = _tile_argmax(torch.abs(scores))
+    if amask is None:
+        tmax, tidx = _tile_argmax(torch.abs(scores))
+    else:
+        tmax, tidx = _tile_argmax(torch.where(
+            amask.bool(), -torch.inf, torch.abs(_f32(eta) * scores)))
     if not signed:
         return tmax, tidx
     sig = scores.gather(1, tidx.clamp(max=m - 1).long())
     return tmax, tidx, torch.where(torch.isnan(tmax), torch.nan, sig)
 
 
-def select_argmax(r, Ac, signed: bool = False):
+def select_argmax(r, Ac, signed: bool = False, amask=None, eta: float = 1.0):
     """Per-tile select partials for residuals r (B, n) f32 against the
     dictionary Ac (n, m) in its correlation dtype: (pval (B, T) f32,
     pidx (B, T) i32), T = ceil(m / TILE), and with `signed` the winners'
-    signed scores psig (B, T) f32. On CUDA tensors this launches
-    csrc/select_argmax.cu."""
-    if _on_cpu(r, Ac):
-        return _select_ref(r, Ac, Ac.dtype, signed)
+    signed scores psig (B, T) f32. With amask (B, m) u8 the active atoms
+    score -inf and the others |eta * score| (OMPR). On CUDA tensors this
+    launches csrc/select_argmax.cu."""
+    if _on_cpu(r, Ac, amask):
+        return _select_ref(r, Ac, Ac.dtype, signed, amask, eta)
     B, n = r.shape
     m = Ac.shape[1] if Ac.ndim == 2 else 0
     _expect("select_argmax", r.device, (r, _F32, (B, n)),
             (Ac, _CDTS, (n, m)))
+    if amask is not None:
+        if signed:
+            raise ValueError("select_argmax: a mask and a signed output "
+                             "are not served together")
+        _expect("select_argmax", r.device, (amask, _U8, (B, m)))
     T = -(-m // TILE)
     pval = torch.empty((B, T), dtype=torch.float32, device=r.device)
     pidx = torch.empty((B, T), dtype=torch.int32, device=r.device)
@@ -203,7 +218,9 @@ def select_argmax(r, Ac, signed: bool = False):
         err = lib.cstpu_select_argmax(
             r.data_ptr(), Ac.data_ptr(), int(Ac.dtype == torch.bfloat16),
             pval.data_ptr(), pidx.data_ptr(),
-            psig.data_ptr() if signed else None, B, n, m, _stream())
+            psig.data_ptr() if signed else None,
+            None if amask is None else amask.data_ptr(), float(eta), B, n,
+            m, _stream())
     _build.check(err, "cstpu_select_argmax")
     LAUNCHES["select"] += 1
     return (pval, pidx, psig) if signed else (pval, pidx)
@@ -253,46 +270,69 @@ def select_topl(r, Ac, l: int):
     return pval, pidx
 
 
-def _fr_select_ref(Ac, cn2, st: _FrState, cdt):
-    """Plain FR select: downdates st.resc in place with the last append's
-    (aperp, dinv), then per-tile (max, lowest argmax) of the OLS score
-    q^2 / resc, with active atoms at 0 and degenerate ones at -inf."""
+def _rescaled_select_ref(Ac, cn2, r, U, W, wsign: float, amask, resc, cdt):
+    """Plain rescaled select: applies the P pending rank-one terms to resc
+    in place, resc += (wsign * W[p]) (U[p] . a_j)^2 for p = 0..P-1 in
+    order (U (P, B, n) rounded to cdt, W (P, B)), then per-tile (max,
+    lowest argmax) of the OLS score q^2 / resc, with active atoms at 0 and
+    degenerate ones at -inf."""
     n = Ac.shape[0]
     Af = Ac.float()
-    z = torch.matmul(st.aperp.to(cdt).float(), Af)
-    st.resc.sub_(st.dinv[:, None] * z * z)
-    q = torch.matmul(st.r.to(cdt).float(), Af)
+    for p in range(U.shape[0]):
+        z = torch.matmul(U[p].to(cdt).float(), Af)
+        resc.add_((wsign * W[p])[:, None] * z * z)
+    q = torch.matmul(r.to(cdt).float(), Af)
     rmin = _f32(_degeneracy_rtol(n)) * cn2[None, :]
-    d2 = torch.where(st.resc > rmin, q * q / st.resc, -torch.inf)
-    return _tile_argmax(torch.where(st.amask.bool(), 0.0, d2))
+    d2 = torch.where(resc > rmin, q * q / resc, -torch.inf)
+    return _tile_argmax(torch.where(amask.bool(), 0.0, d2))
 
 
-def fr_select(Ac, cn2, st: _FrState):
-    """FR select partials (pval, pidx), (B, T) each, for the state `st`
-    against Ac (n, m) in its correlation dtype and the f32 squared column
-    norms cn2 (m,); downdates st.resc in place. On CUDA tensors this
-    launches csrc/fr_select.cu."""
-    if _on_cpu(Ac, cn2, *st):
-        return _fr_select_ref(Ac, cn2, st, Ac.dtype)
-    B, n = st.r.shape
+def _fr_select_ref(Ac, cn2, st: _FrState, cdt):
+    """Plain FR select: downdates st.resc in place with the last append's
+    (aperp, dinv), resc -= dinv (aperp . a_j)^2, then scores as
+    `_rescaled_select_ref`."""
+    return _rescaled_select_ref(Ac, cn2, st.r, st.aperp[None],
+                                st.dinv[None], -1.0, st.amask, st.resc, cdt)
+
+
+def rescaled_select(Ac, cn2, r, U, W, wsign: float, amask, resc):
+    """Rescaled select partials (pval, pidx), (B, T) each: the P pending
+    terms of U (P, B, n) f32 and W (P, B) f32 go into resc (B, m) f32 in
+    place, then the OLS score with the active mask amask (B, m) u8, against
+    Ac (n, m) in its correlation dtype and the f32 squared column norms cn2
+    (m,). On CUDA tensors this launches csrc/fr_select.cu."""
+    if _on_cpu(Ac, cn2, r, U, W, amask, resc):
+        return _rescaled_select_ref(Ac, cn2, r, U, W, wsign, amask, resc,
+                                    Ac.dtype)
+    B, n = r.shape
     m = Ac.shape[1] if Ac.ndim == 2 else 0
+    P = U.shape[0] if U.ndim == 3 else -1
     _expect("fr_select", Ac.device, (Ac, _CDTS, (n, m)), (cn2, _F32, (m,)),
-            (st.r, _F32, (B, n)), (st.aperp, _F32, (B, n)),
-            (st.dinv, _F32, (B,)), (st.amask, (torch.uint8,), (B, m)),
-            (st.resc, _F32, (B, m)))
+            (r, _F32, (B, n)), (U, _F32, (P, B, n)), (W, _F32, (P, B)),
+            (amask, _U8, (B, m)), (resc, _F32, (B, m)))
     T = -(-m // TILE)
     pval = torch.empty((B, T), dtype=torch.float32, device=Ac.device)
     pidx = torch.empty((B, T), dtype=torch.int32, device=Ac.device)
     lib = _build.load()
     with torch.cuda.device(Ac.device):
         err = lib.cstpu_fr_select(
-            st.r.data_ptr(), st.aperp.data_ptr(), st.dinv.data_ptr(),
+            r.data_ptr(), U.data_ptr(), W.data_ptr(), P, float(wsign),
             Ac.data_ptr(), int(Ac.dtype == torch.bfloat16), cn2.data_ptr(),
-            st.amask.data_ptr(), st.resc.data_ptr(), pval.data_ptr(),
+            amask.data_ptr(), resc.data_ptr(), pval.data_ptr(),
             pidx.data_ptr(), B, n, m, _degeneracy_rtol(n), _stream())
     _build.check(err, "cstpu_fr_select")
     LAUNCHES["fr_select"] += 1
     return pval, pidx
+
+
+def fr_select(Ac, cn2, st: _FrState):
+    """FR select partials (pval, pidx), (B, T) each, for the state `st`
+    against Ac (n, m) in its correlation dtype and the f32 squared column
+    norms cn2 (m,); downdates st.resc in place with the last append's
+    (aperp, dinv), one pending term. On CUDA tensors this launches
+    csrc/fr_select.cu."""
+    return rescaled_select(Ac, cn2, st.r, st.aperp[None], st.dinv[None],
+                           -1.0, st.amask, st.resc)
 
 
 # --------------------------------------------------------------------------
@@ -437,17 +477,27 @@ def mp_update(pval, pidx, psig, Ac, x, r):
     LAUNCHES["mp_update"] += 1
 
 
-def _merge_topl(pval, pidx, cnt: int):
+def _merge_topl_vals(pval, pidx, cnt: int):
     """Each row's top-cnt of its (B, T, l) partials, value descending then
-    index ascending, (B, cnt); all INT_MAX for a row holding a NaN."""
+    index ascending: (values, indices), (B, cnt) each; a row holding a NaN
+    gets (-inf, INT_MAX) throughout."""
     B = pval.shape[0]
     v, i = pval.reshape(B, -1), pidx.reshape(B, -1)
     by_idx = torch.argsort(i, dim=1, stable=True)
     v, i = v.gather(1, by_idx), i.gather(1, by_idx)
     by_val = torch.argsort(v, dim=1, descending=True, stable=True)
+    vals = v.gather(1, by_val)[:, :cnt]
     picks = i.gather(1, by_val)[:, :cnt]
-    return torch.where(torch.isnan(pval.reshape(B, -1)).any(1, keepdim=True),
-                       INT_MAX, picks)
+    nan = torch.isnan(pval.reshape(B, -1)).any(1, keepdim=True)
+    return (torch.where(nan, -torch.inf, vals),
+            torch.where(nan, INT_MAX, picks))
+
+
+def _merge_topl(pval, pidx, cnt: int):
+    """Each row's top-cnt picks of its (B, T, l) partials, value
+    descending then index ascending, (B, cnt); all INT_MAX for a row
+    holding a NaN."""
+    return _merge_topl_vals(pval, pidx, cnt)[1]
 
 
 def _gomp_append_ref(pval, pidx, Ac, Bs, st: _GompState, cap: int,
@@ -541,7 +591,7 @@ def fr_append(pval, pidx, Ac, Bs, st: _FrState, t: int, max_eps2: float,
             (st.cols, _F32, (B, k, n)), (st.Ginv, _F32, (B, k, k)),
             (st.coef, _F32, (B, k)), (st.idx, _I32, (B, k)),
             (st.r, _F32, (B, n)), (st.aperp, _F32, (B, n)),
-            (st.dinv, _F32, (B,)), (st.amask, (torch.uint8,), (B, m)),
+            (st.dinv, _F32, (B,)), (st.amask, _U8, (B, m)),
             (st.done, _F32, (B,)))
     lib = _build.load()
     with torch.cuda.device(Bs.device):

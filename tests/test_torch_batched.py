@@ -1,7 +1,7 @@
 """cstpu_torch's batched entry points (omp_batch, mp_batch, gomp_batch,
-fr_batch) against cstpu's on the CPU, their dispatch, and the port's
-guards: no jax import, no CPU run of chip_smoke.py, a clear error when
-nvcc is missing.
+fr_batch, sp_batch, ompr_batch, srr_batch) against cstpu's on the CPU,
+their dispatch, and the port's guards: no jax import, no CPU run of
+chip_smoke.py, a clear error when nvcc is missing.
 
 Tolerances: in f64 supports are identical and values agree to 1e-10
 relative; in f32 to 1e-5 relative (atol 1e-6) on the per-instance paths,
@@ -23,6 +23,7 @@ import cstpu_torch
 from cstpu_torch.models import batched as tbatched
 from cstpu_torch.ops import _build
 from cstpu_torch.ops import fused_solve as tfs
+from cstpu_torch.ops import fused_twostage as tft
 from cstpu_torch.utils.interop import solution_to_numpy, to_torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -132,9 +133,10 @@ def test_build_raises_clearly_without_nvcc(monkeypatch):
 
 def test_build_sources_are_the_package_csrc():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["fr_append.cu", "fr_select.cu", "gomp_append.cu",
-                     "mp_update.cu", "omp_append.cu", "select_argmax.cu",
-                     "select_topl.cu"]
+    assert names == ["engine_delete.cu", "engine_init.cu", "fr_append.cu",
+                     "fr_select.cu", "gomp_append.cu", "mp_update.cu",
+                     "omp_append.cu", "ompr_swap.cu", "select_argmax.cu",
+                     "select_topl.cu", "sp_round.cu", "srr_append.cu"]
     # every C entry point the wrappers call has its ctypes signature
     assert set(_build._SIGNATURES) == {
         "cstpu_" + name[:-3] for name in names}
@@ -205,12 +207,14 @@ def _fake_cuda(monkeypatch):
     entry points run on the CPU. Returns the list of branches taken."""
     calls = []
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    for name in ("mp", "gomp", "fr"):
-        ref = getattr(tfs, f"{name}_fused_solve_ref")
-        monkeypatch.setattr(
-            tbatched.fused_solve, f"{name}_fused_solve",
-            lambda *a, _ref=ref, _name=name, **kw:
-            calls.append(_name) or _ref(*a, **kw))
+    for mod, names in ((tbatched.fused_solve, ("mp", "gomp", "fr")),
+                       (tbatched.fused_twostage, ("sp", "ompr", "srr"))):
+        for name in names:
+            ref = getattr(mod, f"{name}_fused_solve_ref")
+            monkeypatch.setattr(
+                mod, f"{name}_fused_solve",
+                lambda *a, _ref=ref, _name=name, **kw:
+                calls.append(_name) or _ref(*a, **kw))
     return calls
 
 
@@ -255,3 +259,74 @@ def test_greedy_options_that_leave_the_kernels(monkeypatch):
     assert calls == []
     tbatched.gomp_batch(tA, tB, 2, 4)
     assert calls == ["gomp"]
+
+
+# --------------------------------------------------------------------------
+# sp_batch, ompr_batch, srr_batch
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_twostage_batch_matches_cstpu(dtype):
+    # noisy rows only: past an exact fit the extra slots of SP and SRR pick
+    # atoms by rounding noise
+    A, x, Bs = _batch(310, dtype)
+    Bs = Bs[1::2]
+    tA, tB = to_torch(A), to_torch(Bs)
+    t = _same(cstpu_torch.sp_batch(tA, tB, 3, maxiter=8),
+              cstpu.sp_batch(A, Bs, 3, maxiter=8), dtype)
+    assert t["idx"].shape == (2, 6)
+    t = _same(cstpu_torch.ompr_batch(tA, tB, 3, 1e-10, maxiter=16),
+              cstpu.ompr_batch(A, Bs, 3, 1e-10, maxiter=16), dtype)
+    assert t["idx"].shape == (2, 4)
+    for init in (1, 2):
+        t = _same(cstpu_torch.srr_batch(tA, tB, 3, l=2, initialization=init),
+                  cstpu.srr_batch(A, Bs, 3, l=2, initialization=init), dtype)
+        assert t["idx"].shape == (2, 5)
+    planted = set(np.flatnonzero(np.asarray(x)).tolist())
+    assert planted <= set(t["idx"][0][t["mask"][0]].tolist())
+
+
+def test_twostage_kernel_branches_match_cstpu(monkeypatch):
+    # the kernel path of each two-stage entry point, with the kernels'
+    # plain versions standing in, against cstpu's per-instance paths in f32
+    A, x, Bs = _batch(311)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    for got, want in (
+            (tbatched.sp_batch(tA, tB, 3, maxiter=8, precision="f32"),
+             cstpu.sp_batch(A, Bs, 3, maxiter=8)),
+            (tbatched.ompr_batch(tA, tB, 3, 1e-10, maxiter=16,
+                                 precision="f32"),
+             cstpu.ompr_batch(A, Bs, 3, 1e-10, maxiter=16)),
+            (tbatched.srr_batch(tA, tB, 3, l=2, precision="f32"),
+             cstpu.srr_batch(A, Bs, 3, l=2))):
+        t, j = solution_to_numpy(got), solution_to_numpy(want)
+        np.testing.assert_array_equal(t["idx"], j["idx"])
+        np.testing.assert_allclose(t["val"], j["val"], atol=1e-4)
+    assert calls == ["sp", "ompr", "srr"]
+
+
+def test_twostage_options_that_leave_the_kernels(monkeypatch):
+    # decided by the options and dtypes, not by an exception:
+    # initialization 2, precision="highest", a float64 dictionary
+    A, x, Bs = _batch(312)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    tbatched.srr_batch(tA, tB, 3, initialization=2)
+    tbatched.sp_batch(tA, tB, 3, precision="highest")
+    tbatched.ompr_batch(tA.double(), tB.double(), 3, 1e-10, maxiter=4)
+    assert calls == []
+    tbatched.srr_batch(tA, tB, 3, maxiter=2)
+    assert calls == ["srr"]
+
+
+def test_twostage_fused_solves_on_cpu_launch_nothing():
+    A, x, Bs = _batch(313)
+    for key in tfs.LAUNCHES:
+        tfs.LAUNCHES[key] = 0
+    tA, tB = to_torch(A), to_torch(Bs)
+    _, _, it = tft.sp_fused_solve(tA, tB, 3, return_iters=True)
+    assert it >= 1
+    tft.ompr_fused_solve(tA, tB, 3, 1e-10)
+    tft.srr_fused_solve(tA, tB, 3)
+    assert not any(tfs.LAUNCHES.values())

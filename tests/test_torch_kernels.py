@@ -1,7 +1,8 @@
 """The CUDA kernels of cstpu_torch (select_argmax, omp_append, mp_update,
-select_topl, gomp_append, fr_select, fr_append) against their plain PyTorch
-versions, on the card. Marked `gpu`: without a CUDA device every test here
-skips.
+select_topl, gomp_append, fr_select, fr_append, and the two-stage ones:
+engine_init, ompr_swap, srr_append, engine_delete, sp_round) against their
+plain PyTorch versions, on the card. Marked `gpu`: without a CUDA device
+every test here skips.
 
 On a GPU machine (no JAX needed, so the JAX suite's conftest is skipped):
 
@@ -13,6 +14,7 @@ import torch
 
 from chip_smoke import planted
 from cstpu_torch.ops import fused_solve as fs
+from cstpu_torch.ops import fused_twostage as ft
 
 pytestmark = pytest.mark.gpu
 
@@ -342,3 +344,281 @@ def test_greedy_wrappers_reject_bad_cuda_inputs(dev):
     pv, pi, ps = fs.select_argmax(Bs, Ac, signed=True)
     with pytest.raises(ValueError):
         fs.mp_update(pv, pi, ps, Ac, torch.zeros((4, 255), device=dev), Bs)
+
+
+# --------------------------------------------------------------------------
+# Two-stage kernels: the masked select, the pending-term select, the slot
+# engine (engine_init, ompr_swap, srr_append, engine_delete) and sp_round
+# --------------------------------------------------------------------------
+
+STATE_ATOL = 1e-4    # one engine step from identical state, as ATOL
+# The latch `prev <= ||r||^2` compares two residual norms of one support
+# when a swap re-adds and drops the same atom: a tie up to rounding, which
+# the kernel and the plain version may break differently (so may cstpu's
+# TPU and interpret runs). `done` is held equal where the norm moved by
+# more than LATCH_RTOL.
+LATCH_RTOL = 1e-5
+EXACT = ("idx", "amask")
+LATCHED = ("done", "fgate")    # SRR's forward gate is `not done`
+
+
+def _clone(st):
+    return type(st)(*(None if x is None else x.clone() for x in st))
+
+
+def _same_state(stk, st, rows=None, prev0=None):
+    """Exact fields equal, the rest within STATE_ATOL (on `rows`); `done`
+    equal where the residual norm moved clearly from prev0 (everywhere
+    without it)."""
+    sel = slice(None) if rows is None else rows
+    clear = torch.ones_like(st.done, dtype=torch.bool)
+    if prev0 is not None:
+        clear = (st.prev - prev0).abs() > LATCH_RTOL * prev0.abs()
+    for name, a, b in zip(st._fields, stk, st):
+        if a is None or name.startswith("pend"):
+            continue
+        if name in LATCHED:
+            assert torch.equal(a[sel][clear[sel]], b[sel][clear[sel]]), name
+            continue
+        if name in EXACT:
+            assert torch.equal(a[sel], b[sel]), name
+        else:
+            torch.testing.assert_close(a[sel], b[sel], rtol=0, atol=STATE_ATOL,
+                                       equal_nan=True, msg=name)
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_masked_select_matches_plain(dev, B, n, m, cdt):
+    A, Bs, _ = _problem(dev, B, n, m, 3)
+    Ac = A.to(cdt).contiguous()
+    gen = torch.Generator(dev).manual_seed(3)
+    amask = (torch.rand((B, m), device=dev, generator=gen) < 0.3).to(torch.uint8)
+    amask[0] = 1                                   # everything masked
+    kv, ki = fs.select_argmax(Bs, Ac, amask=amask, eta=0.5)
+    pv, pi = fs._select_ref(Bs, Ac.float(), cdt, False, amask, 0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    assert float(_reduce(kv, ki)[0][0]) == -torch.inf
+    assert int(_reduce(kv, ki)[1][0]) == 0         # the TPU argmax's index
+    scores = torch.where(amask.bool(), -torch.inf,
+                         torch.abs(0.5 * (Bs.to(cdt).float() @ Ac.float())))
+    clear = _clear(scores[1:])
+    assert bool(((_reduce(kv, ki)[1] == _reduce(pv, pi)[1])[1:] | ~clear).all())
+    # nothing masked and eta = 1: OMP's partials, bit for bit
+    zero = torch.zeros_like(amask)
+    mv, mi = fs.select_argmax(Bs, Ac, amask=zero)
+    ov, oi = fs.select_argmax(Bs, Ac)
+    torch.cuda.synchronize()
+    assert torch.equal(mv, ov) and torch.equal(mi, oi)
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_rescaled_select_pending_terms_match_plain(dev, B, n, m, cdt):
+    A, Bs, _ = _problem(dev, B, n, m, 3)
+    Ac = A.to(cdt).contiguous()
+    cn2 = torch.sum(A * A, dim=0)
+    gen = torch.Generator(dev).manual_seed(4)
+    U = 0.1 * torch.randn((3, B, n), device=dev, generator=gen)
+    W = torch.tensor([-0.5, 0.25, -0.125], device=dev)[:, None].repeat(1, B)
+    amask = torch.zeros((B, m), dtype=torch.uint8, device=dev)
+    amask[:, 7] = 1
+    resc = cn2[None].repeat(B, 1)
+    rk = resc.clone()
+    kv, ki = fs.rescaled_select(Ac, cn2, Bs, U, W, 1.0, amask, rk)
+    pv, pi = fs._rescaled_select_ref(Ac, cn2, Bs, U, W, 1.0, amask, resc, cdt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rk, resc, rtol=0, atol=ATOL)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    assert bool((kv >= 0).all())                   # active atom 7 scores 0
+    # FR's one-term form, and the same with a zero second term: bit for bit
+    r1, r2 = cn2[None].repeat(B, 1), cn2[None].repeat(B, 1)
+    one = fs.rescaled_select(Ac, cn2, Bs, U[:1], W[:1], -1.0, amask, r1)
+    U2, W2 = U[:2].clone(), W[:2].clone()
+    U2[1], W2[1] = 0.0, 0.0
+    two = fs.rescaled_select(Ac, cn2, Bs, U2, W2, -1.0, amask, r2)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2) and all(map(torch.equal, one, two))
+
+
+def _noisy(dev, B, n, m, k):
+    """A planted problem with noise of norm ~0.02 sqrt(n) on rows 1.. (so
+    residual norms stay above rounding) and a NaN in row 0."""
+    A, Bs, _ = _problem(dev, B, n, m, k)
+    Bs[1:] += 0.02 * torch.randn(Bs[1:].shape, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(5))
+    Bs[0, 0] = float("nan")
+    return A, Bs
+
+
+def _ompr_setup(dev, B, n, m, k, cdt):
+    A, Bs = _noisy(dev, B, n, m, k)
+    Ac = A.to(cdt).contiguous()
+    return Ac, Ac.float(), Bs
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_ompr_kernels_match_plain_every_iteration(dev, B, n, m, cdt):
+    k = 4
+    Ac, Ac32, Bs = _ompr_setup(dev, B, n, m, k, cdt)
+    st = ft._init_engine(Bs, k + 1, m)
+    stk = _clone(st)
+    parts = fs._topl_ref(Bs, Ac32, cdt, k)
+    ft.engine_init(*parts, Ac, Bs, stk)
+    ft._engine_init_ref(*parts, Ac32, Bs, st)
+    torch.cuda.synchronize()
+    _same_state(stk, st, slice(1, None))
+    assert torch.equal(stk.idx[0], st.idx[0]) and not (stk.idx[0] < m).any()
+    for t in range(4):
+        parts = fs._select_ref(st.r, Ac32, cdt, False, st.amask, 1.0)
+        stk, prev0 = _clone(st), st.prev.clone()
+        ft.ompr_swap(*parts, Ac, Bs, stk, 1.0, 0.0)
+        ft._ompr_swap_ref(*parts, Ac32, Bs, st, 1.0, 0.0)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(1, None), prev0)
+        assert float(stk.done[0]) == float(st.done[0]) == 1.0, t
+    # a done row is left exactly as it was
+    st.done[1] = 1.0
+    before = _clone(st)
+    ft.ompr_swap(*fs._select_ref(st.r, Ac32, cdt, False, st.amask, 1.0),
+                 Ac, Bs, st, 1.0, 0.0)
+    torch.cuda.synchronize()
+    for a, b in zip(st, before):
+        if a is not None:
+            assert torch.equal(a[1].nan_to_num(), b[1].nan_to_num())
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+@pytest.mark.parametrize("l", [1, 2])
+def test_srr_kernels_match_plain_every_step(dev, B, n, m, cdt, l):
+    k = 3
+    Ac, Ac32, Bs = _ompr_setup(dev, B, n, m, k, cdt)
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    st = ft._init_engine(Bs, k + l, m, cn2, npend=max(k, l + 1))
+    stk = _clone(st)
+    parts = fs._topl_ref(Bs, Ac32, cdt, k)
+    ft.engine_init(*parts, Ac, Bs, stk)
+    ft._engine_init_ref(*parts, Ac32, Bs, st)
+    torch.cuda.synchronize()
+    _same_state(stk, st, slice(1, None))
+    torch.testing.assert_close(stk.pend_u[:, 1:], st.pend_u[:, 1:], rtol=0,
+                               atol=STATE_ATOL)
+    npend = k
+    for it in range(3):
+        for _ in range(l):
+            stk = _clone(st)
+            kv, ki = fs.rescaled_select(Ac, cn2, stk.r, stk.pend_u[:npend],
+                                        stk.pend_w[:npend], 1.0, stk.amask,
+                                        stk.resc)
+            pv, pi = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:npend],
+                                             st.pend_w[:npend], 1.0, st.amask,
+                                             st.resc, cdt)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(stk.resc[1:], st.resc[1:], rtol=0,
+                                       atol=ATOL)
+            assert torch.equal(_reduce(kv, ki)[1][1:], _reduce(pv, pi)[1][1:])
+            ft.srr_append(kv, ki, Ac, Bs, stk)
+            ft._srr_append_ref(kv, ki, Ac32, Bs, st)
+            torch.cuda.synchronize()
+            _same_state(stk, st, slice(1, None))
+            npend = 1
+        stk, prev0 = _clone(st), st.prev.clone()
+        ft.engine_delete(Bs, stk, k, l, 0.0)
+        ft._engine_delete_ref(Bs, st, k, l, 0.0)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(1, None), prev0)
+        torch.testing.assert_close(stk.pend_w[:l + 1, 1:], st.pend_w[:l + 1, 1:],
+                                   rtol=0, atol=STATE_ATOL)
+        npend = l + 1
+        assert float(stk.done[0]) == 0.0, it  # a NaN row never latches (cstpu)
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_sp_round_matches_plain_every_round(dev, B, n, m, cdt):
+    k = 4 if n < 100 else 8
+    A, Bs = _noisy(dev, B, n, m, k)
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    st = ft._SpState(
+        cols=torch.zeros((B, 2 * k, n), device=dev),
+        Ginv=torch.eye(k, device=dev).repeat(B, 1, 1),
+        coef=torch.zeros((B, 2 * k), device=dev),
+        idx=torch.full((B, 2 * k), m, dtype=torch.int32, device=dev),
+        Atb=torch.zeros((B, 2 * k), device=dev), r=Bs.clone(),
+        done=torch.zeros((B,), device=dev), prev=torch.zeros((B,), device=dev))
+    for t in range(4):
+        parts = fs._topl_ref(st.r, Ac32, cdt, k)
+        stk, prev0 = _clone(st), st.prev.clone()
+        ft.sp_round(*parts, Ac, Bs, stk, 0.0, t == 0)
+        ft._sp_round_ref(*parts, Ac32, Bs, st, 0.0, t == 0)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(1, None), None if t == 0 else prev0)
+        assert torch.equal(stk.idx[0], st.idx[0])
+        assert float(stk.done[0]) == float(st.done[0])
+    assert float(st.done[0]) == 1.0                # the NaN row latched
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_twostage_solves_match_plain_and_recover(dev, B, n, m, cdt):
+    k = 3 if n < 100 else 8
+    A, Bs, sup = _problem(dev, B, n, m, k)
+    want = sup.sort(1).values
+
+    def launches(fn):
+        before = dict(fs.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {key: fs.LAUNCHES[key] - before[key] for key in before
+                     if fs.LAUNCHES[key] != before[key]}
+
+    (sol, _, it), got = launches(lambda: ft.sp_fused_solve(
+        A, Bs, k, maxiter=8, corr_dtype=cdt, return_iters=True))
+    assert got == {"select_topl": 1 + it, "sp_round": 1 + it}, got
+    ref, _, it_ref = ft.sp_fused_solve_ref(A, Bs, k, maxiter=8, corr_dtype=cdt,
+                                           return_iters=True)
+    solves = [(sol, ref)]
+    (sol, _, it), got = launches(lambda: ft.ompr_fused_solve(
+        A, Bs, k, 1e-6, corr_dtype=cdt, return_iters=True))
+    assert got == {"select_topl": 1, "engine_init": 1, "select": it,
+                   "ompr_swap": it}, got
+    solves.append((sol, ft.ompr_fused_solve_ref(A, Bs, k, 1e-6,
+                                                corr_dtype=cdt)[0]))
+    (sol, _, it), got = launches(lambda: ft.srr_fused_solve(
+        A, Bs, k, maxiter=4, corr_dtype=cdt, return_iters=True))
+    assert got == {"select_topl": 1, "engine_init": 1, "fr_select": it,
+                   "srr_append": it, "engine_delete": it}, got
+    solves.append((sol, ft.srr_fused_solve_ref(A, Bs, k, maxiter=4,
+                                               corr_dtype=cdt)[0]))
+    for sol, ref in solves:
+        assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
+        torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-3)
+        if n >= 1000:
+            have = torch.where(sol.mask, sol.idx, m).sort(1).values
+            assert torch.equal(have[:, :k].long(), want)
+
+
+def test_twostage_wrappers_reject_bad_cuda_inputs(dev):
+    A, Bs, _ = _problem(dev, 4, 32, 256, 2)
+    Ac = A.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        fs.select_argmax(Bs, Ac, signed=True,
+                         amask=torch.zeros((4, 256), dtype=torch.uint8,
+                                           device=dev))
+    with pytest.raises(ValueError):
+        fs.select_argmax(Bs, Ac, amask=torch.zeros((4, 255), dtype=torch.uint8,
+                                                   device=dev))
+    st = ft._init_engine(Bs, 3, 256)
+    pv, pi = fs.select_topl(Bs, Ac, 2)
+    with pytest.raises(ValueError):
+        ft.engine_init(pv, pi, Ac, Bs.cpu(), st)
+    with pytest.raises(ValueError):
+        ft.srr_append(*fs.select_argmax(Bs, Ac), Ac, Bs, st)  # no SRR state
+    with pytest.raises(ValueError):
+        ft.sp_round(pv, pi, Ac, Bs, ft._SpState(*(
+            torch.zeros(1, device=dev) for _ in ft._SpState._fields)), 0.0,
+            True)
