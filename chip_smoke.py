@@ -15,12 +15,21 @@ it and read just after:
   sp_batch(., 32, maxiter=8)   suite config 2b, on 2a's problem
   ompr_batch(., 32, 1e-12)     config 2c, on 2a's problem
   srr_batch(., 16, 1e-12, maxiter=4)  suite config 3b, on 3a's problem
+  rmp_batch(., delta=1e-2, kmax=32), foba_batch(., 1e-2, kmax=32)
+                       suite config 3d (n=1024, m=8192, 16 planted ones),
+                       at the suite's B=8 and at B=64
+  fbr_batch(., sparsity=32), lace_batch(., sparsity=32)
+                       suite config 3e (square n=m=1024, 32 planted ones:
+                       992 deletions per row), at B=8 and at B=64
 
-It checks planted-support recovery, launch counts (for the two-stage paths
-against the formulas for the outer iterations they ran) and agreement with
-the plain solves, and times kernels and solves with CUDA events; the
-two-stage kernels' device time per launch and the paths' idle share come
-from torch.profiler.
+It checks planted-support recovery, launch counts (for the two-stage,
+stepwise and backward paths against the formulas for the iterations they
+ran) and agreement with the plain solves, and times kernels and solves with
+CUDA events; the later kernels' device time per launch and the paths' idle
+share come from torch.profiler. Every kernel's time stands beside its bound
+on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
+the peak rate of their type) and, where one PyTorch call computes the same
+function, that call's time.
 
 The second-to-last line of standard output is a JSON record of the
 kernels; the last line is {"ok": true, "device": {...}}. Any failure
@@ -70,6 +79,17 @@ SRR_CELL = ("3b", 16, {"delta": 1e-12, "maxiter": 4})
 # latch `prev <= ||r||^2` is compared where ||r||^2 moved by more than
 # LATCH_RTOL (a swap that re-adds and drops one atom leaves a rounding tie)
 LATCH_RTOL = 1e-5
+# the stepwise paths, suite config 3d (benchmarks/suite.py:239-265): n, m,
+# planted k, delta, kmax; and the backward ones, config 3e (:268-294): n, m,
+# sparsity. Each at the suite's batch and at the other paths'.
+STEP_CELL = ("3d", 1024, 8192, 16, 1e-2, 32)
+BW_CELL = ("3e", 1024, 1024, 32)
+BATCHES = (8, 64)
+TIMED_SLOW = 3   # timed calls of the solves that take tenths of a second
+# published peaks of one H100 SXM: device memory bytes/s, dense FLOP/s by
+# operand type (bf16 on the tensor cores, f32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def gpu_line():
@@ -126,6 +146,43 @@ def run_counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, dict(fs.LAUNCHES)
+
+
+def bound(nbytes, flops, kind):
+    """The least ms an H100 could take: the bytes (each input read once,
+    each output written once) over the memory rate, or the operations over
+    the peak rate of their operand type `kind`, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def select_bound(B, n, m, cdt_bytes=2, terms=0, outs=1):
+    """A select launch: A (n, m) in cdt, r and `terms` pending vectors
+    (B, n) f32, with terms also the rescalings (B, m) f32 both ways, the
+    active mask and the column norms; `outs` (value, index) partials per
+    tile and row. 2 B n m multiply-adds per product with A."""
+    tiles = -(-m // 128)
+    nbytes = (n * m * cdt_bytes + (1 + terms) * B * n * 4
+              + B * tiles * outs * 8)
+    if terms:
+        nbytes += 2 * B * m * 4 + B * m + m * 4
+    return bound(nbytes, 2 * (1 + terms) * B * n * m,
+                 "bf16" if cdt_bytes == 2 else "f32")
+
+
+def engine_bound(B, K, n, appends=0, deletes=0, refits=1, cdt_bytes=2):
+    """A per-row update launch on a K-slot state: the columns (B, K, n),
+    Ginv (B, K, K), r and b read, Ginv and r written, one column in per
+    append, one vector out per append or delete (the new column, the
+    pending term, the cleared slot); all f32 arithmetic."""
+    nbytes = 4 * B * (K * n + 2 * K * K + 3 * n + 6 * K)
+    nbytes += appends * B * n * (cdt_bytes + 8) + deletes * B * n * 8
+    flops = B * (appends * (4 * K * n + 5 * K * K)
+                 + deletes * (2 * K * n + 3 * K * K)
+                 + refits * (2 * K * n + 2 * K * K))
+    return bound(nbytes, flops, "f32")
 
 
 def cuda_ms(fn, reps):
@@ -748,7 +805,8 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 
 
 KERNEL_NAMES = ("select_argmax", "select_topl", "fr_select", "engine_init",
-                "ompr_swap", "srr_append", "engine_delete", "sp_round")
+                "ompr_swap", "srr_append", "engine_delete", "sp_round",
+                "rmp_append", "engine_backward", "bw_select", "bw_downdate")
 
 
 def profile_path(fn):
@@ -878,6 +936,424 @@ def twostage_times(A, Bg, Ar, Br, gpu):
 
 
 
+def _pend_err(stk, st, rows):
+    """Max |err| of the pending terms on `rows`: the weights everywhere, the
+    vectors where the weight is not 0."""
+    w_err = float((stk.pend_w[:, rows] - st.pend_w[:, rows]).abs().max())
+    live = st.pend_w[:, rows] != 0
+    u_err = float((stk.pend_u[:, rows][live]
+                   - st.pend_u[:, rows][live]).abs().max()) if live.any() \
+        else 0.0
+    assert max(w_err, u_err) <= APPEND_ATOL, (w_err, u_err)
+    return max(w_err, u_err)
+
+
+def check_stepwise_kernels(A, gen):
+    """rmp_append and engine_backward against their plain versions on the
+    card from identical state, at 3d's shapes (B=64, K=kmax=32), every
+    launch of a forward stage, a backward stage of each rule and six FoBa
+    iterations: row 3 is NaN (its gate closes at once), row 7 carries 40
+    planted atoms (it fills the 32 slots and reports the cap), row 5 is
+    done in the second pass (left exactly as it was). Returns each kernel's
+    max |err|."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    bf = torch.bfloat16
+    _, n, m, k, delta, K = STEP_CELL
+    B = 64
+    delta2 = delta * delta
+    Bs, _ = planted_ones(gen, A, B, k)
+    Bs[7] = planted_ones(gen, A, 1, 40)[0][0]
+    Bs[3] = float("nan")
+    rows = torch.arange(B, device=A.device) != 3
+    Ac = A.to(bf).contiguous()
+    Ac32 = Ac.float()
+    cn2 = torch.sum(A * A, dim=0)
+    floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+    err = {"rmp_append": 0.0, "rmp_append_foba": 0.0, "engine_backward": 0.0}
+
+    def select_both(stk, st, npend):
+        kv, ki = fs.rescaled_select(Ac, cn2, stk.r, stk.pend_u[:npend],
+                                    stk.pend_w[:npend], 1.0, stk.amask,
+                                    stk.resc)
+        pv, pi = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:npend],
+                                         st.pend_w[:npend], 1.0, st.amask,
+                                         st.resc, bf)
+        torch.cuda.synchronize()
+        resc_err = float((stk.resc[rows] - st.resc[rows]).abs().max())
+        assert resc_err <= RESC_ATOL, resc_err
+        i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+        assert bool((i == ir)[rows].all()), "fr_select picks disagree"
+        return kv, ki, resc_err
+
+    def append_both(stk, st, kv, ki, foba):
+        ft.rmp_append(kv, ki, Ac, Bs, stk, delta2, floor2, foba)
+        ft._rmp_append_ref(kv, ki, Ac32, Bs, st, delta2, floor2, foba)
+        torch.cuda.synchronize()
+        key = "rmp_append_foba" if foba else "rmp_append"
+        err[key] = max(err[key], _state_err(stk, st, rows),
+                       _pend_err(stk, st, rows))
+
+    def backward_both(st, kfinal):
+        stk = _clone(st)
+        ft.engine_backward(Bs, stk, delta2, kfinal)
+        ft._engine_backward_ref(Bs, st, delta2, kfinal)
+        torch.cuda.synchronize()
+        err["engine_backward"] = max(err["engine_backward"],
+                                     _state_err(stk, st, rows),
+                                     _pend_err(stk, st, rows))
+        return stk
+
+    # --- RMP: a forward stage, then both backward rules from its end ------
+    st = ft._init_engine(Bs, K, m, cn2, npend=K + 1, stepwise=True)
+    npend, steps, resc_err = 1, 0, 0.0
+    while steps < K + 1 and bool((st.fgate > 0.5).any()):
+        stk = _clone(st)
+        kv, ki, e = select_both(stk, st, npend)
+        append_both(stk, st, kv, ki, False)
+        resc_err = max(resc_err, e)
+        npend = 1
+        steps += 1
+    assert steps == K + 1, steps           # row 7 runs into the cap
+    capped = st.capped > 0.5
+    assert capped.tolist() == [b == 7 for b in range(B)], capped
+    assert torch.equal(stk.capped, st.capped)
+    nact = (st.idx < m).sum(1)
+    assert int(nact[3]) == 0 and int(nact[7]) == K
+    assert bool((nact[rows & ~capped] == k).all()), nact
+    fwd = _clone(st)
+    stk = backward_both(st, -1)            # delta rule: nothing to delete
+    assert not st.ndel[rows].any() and not stk.ndel.any()
+    assert float(stk.done[3]) == float(st.done[3]) == 1.0   # NaN row: no step
+    st = _clone(fwd)
+    kfin = k // 2
+    stk = backward_both(st, kfin)          # k rule: down to k / 2 atoms
+    assert st.ndel[rows].tolist() == stk.ndel[rows].tolist() \
+        == [(K if b == 7 else k) - kfin for b in range(B) if b != 3]
+    # the second pass: the next select applies the deletions' pending terms
+    # (K - k / 2 + 1 of them); row 5 is done and must stay exactly as it is
+    st.done[5] = 1.0
+    st.fgate[5] = 0.0
+    row5 = {name: x[5].clone() for name, x in zip(st._fields, st)
+            if x is not None and name not in ("resc", "pend_u", "pend_w",
+                                              "ndel")}
+    npend = 1 + int(st.ndel.max())
+    for _ in range(3):
+        stk = _clone(st)
+        kv, ki, e = select_both(stk, st, npend)
+        append_both(stk, st, kv, ki, False)
+        resc_err = max(resc_err, e)
+        npend = 1
+    stk = backward_both(st, kfin)
+    assert all(torch.equal(getattr(stk, name)[5], b)
+               for name, b in row5.items())
+    assert not stk.pend_w[:, 5].any() and float(stk.ndel[5]) == 0.0
+    print(f"[3d kernels] rmp_append: a forward stage of {steps} launches from "
+          f"identical state (NaN row closed, row 7 capped at {K} slots, "
+          f"fr_select resc max |err| {resc_err:.3e}) and 3 launches of a "
+          f"second pass after {K - kfin + 1} pending terms"
+          f", max |err| {err['rmp_append']:.3e}; engine_backward: delta rule "
+          f"(no deletion), k rule ({k - kfin} and {K - kfin} deletions), done "
+          f"row untouched, "
+          f"max |err| {err['engine_backward']:.3e} (atol {APPEND_ATOL})")
+
+    # --- FoBa: six iterations; in the fourth and fifth the select's scores
+    # are multiplied by 100, so that the gain / 4 rule deletes atoms ---------
+    st = ft._init_engine(Bs, K, m, cn2, npend=K + 1, stepwise=True)
+    npend, most = 1, 0
+    for t in range(6):
+        stk = _clone(st)
+        kv, ki, e = select_both(stk, st, npend)
+        if t in (3, 4):
+            kv = kv * 100.0
+        append_both(stk, st, kv, ki, True)
+        assert torch.equal(stk.ndel[rows], st.ndel[rows])
+        npend = 1 + int(st.ndel.max())
+        most = max(most, npend - 1)
+    assert most >= 2, most
+    print(f"[3d kernels] rmp_append with foba: six iterations from identical "
+          f"state, up to {most} deletions in one launch, max |err| "
+          f"{err['rmp_append_foba']:.3e} (atol {APPEND_ATOL})")
+    return err
+
+
+def check_backward_kernels(A2, Bs2):
+    """bw_select and bw_downdate against their plain versions on the card
+    from identical state at 3e's shapes (B=8, m=1024), 40 FBR steps and 10
+    LACE steps: row 1 is rejected at its first step (its ||r||^2 set above
+    the threshold) and skipped from then on, row 2 has a NaN init (it
+    latches `failed` and stops). The kernels round as the plain versions
+    do, so every field must be equal bit for bit."""
+    from cstpu_torch.ops import fused_backward as fb
+
+    st = fb._bw_init(A2, Bs2)
+    st.nr2[1] = 1.0
+    st.G[2] = float("nan")
+    st.coef[2] = float("nan")
+    st.diag[2] = float("nan")
+    err = {"bw_select": 0.0, "bw_downdate": 0.0}
+    clean = torch.arange(Bs2.shape[0], device=A2.device) != 2
+    for t in range(50):
+        select_abs = t >= 40
+        stk = _clone(st)
+        fb.bw_select(stk, 0.5, float("inf"), select_abs)
+        fb._bw_select_ref(st, 0.5, float("inf"), select_abs)
+        torch.cuda.synchronize()
+        for name, a, b in zip(st._fields, stk, st):
+            if name != "G":
+                err["bw_select"] = max(err["bw_select"], float(
+                    (a[clean] - b[clean]).abs().max()))
+                assert torch.equal(a.isnan(), b.isnan()), (t, name)
+        fb.bw_downdate(stk)
+        fb._bw_downdate_ref(st)
+        torch.cuda.synchronize()
+        err["bw_downdate"] = max(err["bw_downdate"], float(
+            (stk.G[clean] - st.G[clean]).abs().max()))
+        assert err["bw_select"] == 0.0 and err["bw_downdate"] == 0.0, (t, err)
+        if t == 0:
+            assert stk.run.tolist() == st.run.tolist() \
+                == [1.0, 0.0, 0.0] + [1.0] * (Bs2.shape[0] - 3)
+            assert stk.failed.tolist() == st.failed.tolist() \
+                == [0.0, 0.0, 1.0] + [0.0] * (Bs2.shape[0] - 3)
+    m = A2.shape[1]
+    assert int(stk.alive[1].sum()) == m and int(stk.alive[0].sum()) == m - 50
+    assert stk.run[clean].tolist() == [1.0, 0.0] + [1.0] * (Bs2.shape[0] - 3)
+    print(f"[3e kernels] bw_select and bw_downdate: 40 FBR and 10 LACE steps "
+          f"from identical state at B={Bs2.shape[0]}, m={m}: every field equal "
+          f"bit for bit (max |err| {err['bw_select']:.1e}, "
+          f"{err['bw_downdate']:.1e}); rejected row skipped, NaN init latched "
+          f"failed and stopped")
+    return err
+
+
+def stepwise_paths(A, gen):
+    """rmp_batch (delta) and foba_batch of config 3d once each per batch
+    size with zeroed launch counts: the counts against the formulas for the
+    steps the same solve reports, recovery, no capped row, and agreement
+    with the plain solves. Returns the record and the problems."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_twostage as ft
+
+    cell, n, m, k, delta, kmax = STEP_CELL
+    out, problems = {}, {}
+    for B in BATCHES:
+        Bs, sup = planted_ones(gen, A, B, k)
+        problems[B] = Bs
+        for name, entry, solve, ref in (
+                ("rmp", lambda: cstpu_torch.rmp_batch(A, Bs, delta=delta,
+                                                      kmax=kmax),
+                 lambda **kw: ft.rmp_fused_solve(A, Bs, delta=delta,
+                                                 kmax=kmax, **kw),
+                 lambda: ft.rmp_fused_solve_ref(A, Bs, delta=delta,
+                                                kmax=kmax)),
+                ("foba", lambda: cstpu_torch.foba_batch(A, Bs, delta,
+                                                        kmax=kmax),
+                 lambda **kw: ft.foba_fused_solve(A, Bs, delta, kmax=kmax,
+                                                  **kw),
+                 lambda: ft.foba_fused_solve_ref(A, Bs, delta, kmax=kmax))):
+            sol, launches = run_counted(entry)
+            sol2, _, capped, it = solve(return_iters=True)
+            assert torch.equal(sol.idx, sol2.idx) and torch.equal(sol.val,
+                                                                  sol2.val)
+            assert not capped.any(), capped
+            if name == "rmp":
+                passes, steps = it
+                want = dict(fr_select=steps, rmp_append=steps,
+                            engine_backward=passes)
+                assert passes == 1 and steps == k + 1, it
+            else:
+                want = dict(fr_select=it, rmp_append=it)
+                assert it == k + 1, it
+            assert launches == expect_launches(**want), (name, B, launches)
+            rec = recovery(sol, sup)
+            assert rec == 1.0, f"{cell} {name} B={B} recovery {rec} != 1.0"
+            assert int(sol.mask.sum()) == B * k   # the planted atoms only
+            rsol, _, rcapped = ref()
+            assert torch.equal(sol.idx, rsol.idx) and not rcapped.any()
+            cerr = float((sol.val - rsol.val).abs().max())
+            assert cerr <= COEF_ATOL, cerr
+            out[(name, B)] = {"launches": launches, "recovery": rec,
+                              "err": cerr, "iters": it}
+            print(f"[main {cell}] {name}_batch B={B} delta={delta} kmax={kmax} "
+                  f"recovery={rec:.3f} iters={it} launches="
+                  f"{ {key: v for key, v in launches.items() if v} }; no row "
+                  f"capped, supports == plain solve, max |coef err| "
+                  f"{cerr:.3e} (atol {COEF_ATOL})")
+    return out, problems
+
+
+def backward_paths(A2, gen):
+    """fbr_batch and lace_batch of config 3e once each per batch size with
+    zeroed launch counts: 992 deletion steps, two launches each; recovery,
+    no failed row, supports equal to the plain solves."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_backward as fb
+
+    cell, n, m, k = BW_CELL
+    out, problems = {}, {}
+    for B in BATCHES:
+        Bs, sup = planted_ones(gen, A2, B, k)
+        problems[B] = Bs
+        for name, entry, solve, ref in (
+                ("fbr", cstpu_torch.fbr_batch, fb.fbr_fused_solve,
+                 fb.fbr_fused_solve_ref),
+                ("lace", cstpu_torch.lace_batch, fb.lace_fused_solve,
+                 fb.lace_fused_solve_ref)):
+            (sol, failed), launches = run_counted(
+                lambda: entry(A2, Bs, sparsity=k, return_failed=True))
+            sol2, _, steps = solve(A2, Bs, sparsity=k, return_iters=True)
+            assert torch.equal(sol.idx, sol2.idx) and torch.equal(sol.val,
+                                                                  sol2.val)
+            assert steps == m - k, steps
+            assert launches == expect_launches(bw_select=steps,
+                                               bw_downdate=steps), launches
+            assert not failed.any(), failed
+            rec = recovery(sol, sup)
+            assert rec == 1.0, f"{cell} {name} B={B} recovery {rec} != 1.0"
+            assert int(sol.mask.sum()) == B * k
+            rsol, rfailed = ref(A2, Bs, sparsity=k)
+            assert torch.equal(sol.idx, rsol.idx) and not rfailed.any()
+            cerr = float((sol.val - rsol.val).abs().max())
+            assert cerr <= COEF_ATOL, cerr
+            out[(name, B)] = {"launches": launches, "recovery": rec,
+                              "err": cerr, "iters": steps}
+            print(f"[main {cell}] {name}_batch B={B} sparsity={k} "
+                  f"recovery={rec:.3f} deletion steps={steps} launches="
+                  f"{ {key: v for key, v in launches.items() if v} }; no row "
+                  f"failed, supports == plain solve, max |coef err| "
+                  f"{cerr:.3e} (atol {COEF_ATOL})")
+    return out, problems
+
+
+def _split(wall, fn):
+    """The profiler's time split of one call of fn beside its wall ms."""
+    busy, per = profile_path(fn)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall,
+            "kernels": {name: {"launches": c, "ms": ms}
+                        for name, (c, ms) in per.items()}}
+
+
+def _print_splits(tm, split, keys, gpu):
+    for key in keys:
+        sp_ = split[key]
+        print(f"[time {key}] {tm[key]:.4f} ms (plain {tm['plain_' + key]:.4f})"
+              f" | {gpu}")
+        print(f"[split {key}] wall {sp_['wall_ms']:.4f} ms, device busy "
+              f"{sp_['device_busy_ms']:.4f} ms, idle share "
+              f"{sp_['idle_share']:.4f}; "
+              + ", ".join(f"{name} {v['launches']}x {v['ms']:.4f} ms"
+                          for name, v in sp_["kernels"].items()))
+
+
+def stepwise_times(A, problems, gpu):
+    """Solve times of 3d's two paths per batch size against their plain
+    versions (CUDA events), the profiler's split, and per-call times of the
+    new kernels' plain versions at B=8."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    cell, n, m, k, delta, kmax = STEP_CELL
+    tm, split = {}, {}
+    for B, Bs in problems.items():
+        for name, entry, ref in (
+                ("rmp", lambda: cstpu_torch.rmp_batch(A, Bs, delta=delta,
+                                                      kmax=kmax),
+                 lambda: ft.rmp_fused_solve_ref(A, Bs, delta=delta,
+                                                kmax=kmax)[0]),
+                ("foba", lambda: cstpu_torch.foba_batch(A, Bs, delta,
+                                                        kmax=kmax),
+                 lambda: ft.foba_fused_solve_ref(A, Bs, delta,
+                                                 kmax=kmax)[0])):
+            key = f"{cell} {name} B={B}"
+            tm[key] = cuda_ms(lambda: entry().val.sum(), TIMED_SOLVES)
+            tm["plain_" + key] = cuda_ms(lambda: ref().val.sum(), TIMED_SLOW)
+            split[key] = _split(tm[key], entry)
+    _print_splits(tm, split, [key for key in tm if not key.startswith("plain")],
+                  gpu)
+    # plain per-call times at B=8, mid-solve: 8 atoms in
+    bf = torch.bfloat16
+    Bs = problems[BATCHES[0]]
+    Ac32 = A.to(bf).float()
+    cn2 = torch.sum(A * A, dim=0)
+    floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+    st = ft._init_engine(Bs, kmax, m, cn2, npend=kmax + 1, stepwise=True)
+    for _ in range(8):
+        ft._rmp_append_ref(*fs._rescaled_select_ref(
+            Ac32, cn2, st.r, st.pend_u[:1], st.pend_w[:1], 1.0, st.amask,
+            st.resc, bf), Ac32, Bs, st, delta * delta, floor2, False)
+    launches = partial(per_launch_ms, Bs)
+    parts = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:1],
+                                    st.pend_w[:1], 1.0, st.amask,
+                                    st.resc.clone(), bf)
+    pl = {"fr_select_b8": launches(lambda: fs._rescaled_select_ref(
+        Ac32, cn2, st.r, st.pend_u[:1], st.pend_w[:1], 1.0, st.amask,
+        st.resc.clone(), bf)),
+        "rmp_append": launches(lambda: ft._rmp_append_ref(
+            *parts, Ac32, Bs, _clone(st), delta * delta, floor2, False)),
+        "rmp_append_foba": launches(lambda: ft._rmp_append_ref(
+            *parts, Ac32, Bs, _clone(st), delta * delta, floor2, True)),
+        "engine_backward": launches(lambda: ft._engine_backward_ref(
+            Bs, _clone(st), delta * delta, -1))}
+    print("[time 3d plain ms per call at B=8 (events, a state copy "
+          "included)] " + ", ".join(f"{key} {v:.4f}" for key, v in pl.items()))
+    return tm, split, pl
+
+
+def backward_times(A2, problems, gpu):
+    """Solve times of 3e's two paths per batch size against their plain
+    versions (CUDA events), the profiler's split, and per-call times of the
+    kernels, their plain versions and the one PyTorch call that makes
+    bw_downdate's update (torch.baddbmm) at both batch sizes."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_backward as fb
+
+    cell, n, m, k = BW_CELL
+    tm, split, per_call = {}, {}, {}
+    for B, Bs in problems.items():
+        for name, entry, ref in (
+                ("fbr", cstpu_torch.fbr_batch, fb.fbr_fused_solve_ref),
+                ("lace", cstpu_torch.lace_batch, fb.lace_fused_solve_ref)):
+            key = f"{cell} {name} B={B}"
+            tm[key] = cuda_ms(lambda: entry(A2, Bs, sparsity=k).val.sum(),
+                              TIMED_SLOW)
+            tm["plain_" + key] = cuda_ms(
+                lambda: ref(A2, Bs, sparsity=k)[0].val.sum(), TIMED_SLOW)
+            split[key] = _split(tm[key], lambda: entry(A2, Bs, sparsity=k))
+        st = fb._bw_init(A2, Bs)
+        for _ in range(8):
+            fb._bw_select_ref(st, float("inf"), float("inf"), False)
+            fb._bw_downdate_ref(st)
+        launches = partial(per_launch_ms, Bs)
+        inf = float("inf")
+        sel_state, down_state = _clone(st), _clone(st)
+        sel_state.alive.fill_(1.0)   # so that 100 timed selects all step
+        per_call[B] = {
+            "bw_select": launches(lambda: (
+                sel_state.run.fill_(1.0),
+                fb.bw_select(sel_state, inf, inf, False))),
+            "plain_bw_select": launches(lambda: (
+                sel_state.run.fill_(1.0),
+                fb._bw_select_ref(sel_state, inf, inf, False))),
+            "bw_downdate": launches(lambda: fb.bw_downdate(down_state)),
+            "plain_bw_downdate": launches(
+                lambda: fb._bw_downdate_ref(down_state)),
+            "baddbmm": launches(lambda: down_state.G.baddbmm_(
+                down_state.gcol[:, :, None],
+                (down_state.g * down_state.sc[:, :1])[:, None, :],
+                alpha=-1.0))}
+        del st, sel_state, down_state
+        torch.cuda.empty_cache()
+    _print_splits(tm, split, [key for key in tm if not key.startswith("plain")],
+                  gpu)
+    for B, pc in per_call.items():
+        print(f"[time 3e ms per call at B={B} (events, the wrapper included)] "
+              + ", ".join(f"{key} {v:.4f}" for key, v in pc.items()))
+    return tm, split, per_call
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -942,23 +1418,70 @@ def main():
     ttm, tkern, tplain, _ = twostage_times(A, Bg, Ar, Br, gpu)
     print(f"[two-stage] done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    cell, n, m, k, delta, kmax = STEP_CELL
+    print(f"[stepwise] {cell} rmp_batch(delta={delta}, kmax={kmax}) and "
+          f"foba_batch({delta}, kmax={kmax}) on the unit-norm Gaussian "
+          f"dictionary n={n} m={m}, {k} planted ones, B in {BATCHES}")
+    serr = check_stepwise_kernels(A, gen)
+    spaths, sprob = stepwise_paths(A, gen)
+    stm, ssplit, splain = stepwise_times(A, sprob, gpu)
+    print(f"[stepwise] done in {time.perf_counter() - t0:.1f} s")
+    del Ar, Br, Bg, sprob
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    from cstpu_torch.utils.data import sparse_data
+
+    cell, n, m, k = BW_CELL
+    print(f"[backward] {cell} fbr_batch and lace_batch(sparsity={k}) on a "
+          f"square unit-norm Gaussian dictionary n=m={m}, {k} planted ones, "
+          f"B in {BATCHES}: {m - k} deletions per row")
+    A2 = sparse_data(gen, n, m, 1)[0].contiguous()
+    berr = check_backward_kernels(A2, planted_ones(gen, A2, BATCHES[0], k)[0])
+    bpaths, bprob = backward_paths(A2, gen)
+    btm, bsplit, bcall = backward_times(A2, bprob, gpu)
+    print(f"[backward] done in {time.perf_counter() - t0:.1f} s")
+
     sel_err, app_err, launches, tm = record["bench"]
     fs_line = "cstpu/ops/fused_solve.py"
     ts_line = "cstpu/ops/fused_twostage.py"
     csrc = "cstpu_torch/csrc"
     tl = tpaths["launches"]
 
-    def entry(name, replaces, launches, err, ms, plain_ms, **extra):
+    def entry(name, replaces, launches, err, ms, plain_ms, bound_,
+              library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
                 "replaces": replaces if ":" in str(replaces)
                 else f"{fs_line}:{replaces}", "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_,
+                "library_ms": library_ms, **extra}
+
+    # the shapes the bounds are computed from: the cells' own
+    _, B, n, m, k = CELLS[0]
+    T = -(-m // 128)
+    kg, l = GOMP_CELL[4], GOMP_CELL[5]
+    kf, ks, ko, kr = FR_CELL[4], SP_CELL[1], OMPR_CELL[1], SRR_CELL[1]
+    _, n3, m3, k3, _, K3 = STEP_CELL
+    _, n4, m4, k4 = BW_CELL
+    B0 = BATCHES[0]
+    sl = {key: v["launches"] for key, v in spaths.items()}
+    bl = {key: v["launches"] for key, v in bpaths.items()}
+
+    def on_path(split, key, name):
+        """Profiler device ms per launch of kernel `name` on path `key`."""
+        got = split[key]["kernels"][name]
+        return got["ms"] / got["launches"]
+
+    d_rmp, d_foba = f"3d rmp B={B0}", f"3d foba B={B0}"
+    d_fbr, d_lace = f"3e fbr B={B0}", f"3e lace B={B0}"
+    big = BATCHES[1]
 
     kernels = [
         entry("select_argmax", 127, launches["select"]
               + paths["mp"]["select"] + tl["2c"]["select"],
               max(sel_err, gerr["select_signed"], terr["select_masked"]),
-              tm["select"], tm["plain_select"],
+              tm["select"], tm["plain_select"], select_bound(B, n, m),
               also_replaces=[f"{fs_line}:332", f"{fs_line}:874",
                              f"{ts_line}:1052"],
               paths={"omp_batch": launches["select"],
@@ -969,13 +1492,15 @@ def main():
               masked_ms=tkern["select_masked"],
               plain_masked_ms=tplain["select_masked"]),
         entry("omp_append", 127, launches["append"], app_err, tm["append"],
-              tm["plain_append"], also_replaces=[f"{fs_line}:332"]),
+              tm["plain_append"], engine_bound(B, k, n, appends=1),
+              also_replaces=[f"{fs_line}:332"]),
         entry("mp_update", 874, paths["mp"]["mp_update"], gerr["mp_update"],
-              gtm["mp_update"], gtm["plain_mp_update"]),
+              gtm["mp_update"], gtm["plain_mp_update"],
+              bound(B * (T * 12 + n * 2 + 2 * n * 4 + 8), 2 * B * n, "f32")),
         entry("select_topl", 714, paths["gomp"]["select_topl"]
               + sum(tl[c]["select_topl"] for c in ("2b", "2c", "3b")),
               gerr["select_topl"], gtm["select_topl"],
-              gtm["plain_select_topl"],
+              gtm["plain_select_topl"], select_bound(B, n, m, outs=l),
               also_replaces=[f"{ts_line}:897", f"{ts_line}:1052",
                              f"{ts_line}:1191"],
               paths={"gomp_batch": paths["gomp"]["select_topl"],
@@ -986,39 +1511,118 @@ def main():
               plain_l32_ms=tplain["select_topl32"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
-              gtm["plain_gomp_append"]),
+              gtm["plain_gomp_append"], engine_bound(B, kg, n, appends=l)),
         entry("fr_select", 532, paths["fr"]["fr_select"]
-              + tl["3b"]["fr_select"],
+              + tl["3b"]["fr_select"]
+              + sum(v["fr_select"] for v in sl.values()),
               max(gerr["fr_select"], terr["fr_select_pending"]),
               gtm["fr_select"], gtm["plain_fr_select"],
-              also_replaces=[f"{ts_line}:1191"],
+              select_bound(B, n, m, terms=1),
+              also_replaces=[f"{ts_line}:1191", f"{ts_line}:1368",
+                             f"{ts_line}:1499"],
               paths={"fr_batch": paths["fr"]["fr_select"],
-                     "srr_batch": tl["3b"]["fr_select"]},
+                     "srr_batch": tl["3b"]["fr_select"],
+                     **{f"{name}_batch B={b}": v["fr_select"]
+                        for (name, b), v in sl.items()}},
+              rmp_b8_ms=on_path(ssplit, d_rmp, "fr_select"),
+              rmp_b64_ms=on_path(ssplit, f"3d rmp B={big}", "fr_select"),
+              plain_rmp_b8_ms=splain["fr_select_b8"],
               srr_ms=tkern["fr_select_3b"],
               plain_srr_init_ms=tplain["fr_select_init"],
               plain_srr_pending2_ms=tplain["fr_select_pending2"]),
         entry("fr_append", 532, paths["fr"]["fr_append"], gerr["fr_append"],
-              gtm["fr_append"], gtm["plain_fr_append"]),
+              gtm["fr_append"], gtm["plain_fr_append"],
+              engine_bound(B, kf, n, appends=1)),
         entry("sp_round", f"{ts_line}:897", tl["2b"]["sp_round"],
-              terr["sp_round"], tkern["sp_round"], tplain["sp_round"]),
+              terr["sp_round"], tkern["sp_round"], tplain["sp_round"],
+              # 2k slots, k acquired columns in, the compaction's k out; the
+              # blocks G12, G22 and the rebuilt Gram, then O(k^3) solves
+              bound(4 * B * (4 * ks * n + 2 * ks * ks + 3 * n)
+                    + B * ks * n * 2,
+                    B * (6 * ks * ks * n + 8 * ks ** 3), "f32")),
         entry("engine_init", f"{ts_line}:1052", tl["2c"]["engine_init"]
               + tl["3b"]["engine_init"], terr["engine_init"],
               tkern["engine_init"], tplain["engine_init"],
+              engine_bound(B, ko + 1, n, appends=ko),
               also_replaces=[f"{ts_line}:1191"],
               paths={"ompr_batch": tl["2c"]["engine_init"],
                      "srr_batch": tl["3b"]["engine_init"]}),
         entry("ompr_swap", f"{ts_line}:1052", tl["2c"]["ompr_swap"],
-              terr["ompr_swap"], tkern["ompr_swap"], tplain["ompr_swap"]),
+              terr["ompr_swap"], tkern["ompr_swap"], tplain["ompr_swap"],
+              engine_bound(B, ko + 1, n, appends=1, deletes=1)),
         entry("srr_append", f"{ts_line}:1191", tl["3b"]["srr_append"],
-              terr["srr_append"], tkern["srr_append"], tplain["srr_append"]),
+              terr["srr_append"], tkern["srr_append"], tplain["srr_append"],
+              engine_bound(B, kr + 1, n, appends=1)),
         entry("engine_delete", f"{ts_line}:1191", tl["3b"]["engine_delete"],
               terr["engine_delete"], tkern["engine_delete"],
-              tplain["engine_delete"]),
+              tplain["engine_delete"],
+              engine_bound(B, kr + 1, n, deletes=1)),
+        # the stepwise and backward kernels: ms is the profiler's device
+        # time per launch on the B=8 path, the bound that launch's
+        entry("rmp_append", f"{ts_line}:1368",
+              sum(v["rmp_append"] for v in sl.values()),
+              max(serr["rmp_append"], serr["rmp_append_foba"]),
+              on_path(ssplit, d_rmp, "rmp_append"), splain["rmp_append"],
+              engine_bound(B0, K3, n3, appends=1),
+              also_replaces=[f"{ts_line}:1499"],
+              paths={f"{name}_batch B={b}": v["rmp_append"]
+                     for (name, b), v in sl.items()},
+              foba_ms=on_path(ssplit, d_foba, "rmp_append"),
+              plain_foba_ms=splain["rmp_append_foba"],
+              b64_ms=on_path(ssplit, f"3d rmp B={big}", "rmp_append")),
+        entry("engine_backward", f"{ts_line}:1368",
+              sum(v["engine_backward"] for v in sl.values()),
+              serr["engine_backward"],
+              on_path(ssplit, d_rmp, "engine_backward"),
+              splain["engine_backward"],
+              # this run's stage deletes nothing: the scores and the latch
+              engine_bound(B0, K3, n3, refits=0),
+              paths={f"{name}_batch B={b}": v["engine_backward"]
+                     for (name, b), v in sl.items() if name == "rmp"}),
+        entry("bw_select", "cstpu/ops/fused_backward.py:184",
+              sum(v["bw_select"] for v in bl.values()), berr["bw_select"],
+              on_path(bsplit, d_fbr, "bw_select"),
+              bcall[B0]["plain_bw_select"],
+              # coef, diag, alive both ways, a row and a column of G in, g
+              # and gcol out; ~10 operations an atom
+              bound(10 * B0 * m4 * 4, 10 * B0 * m4, "f32"),
+              paths={f"{name}_batch B={b}": v["bw_select"]
+                     for (name, b), v in bl.items()},
+              event_ms=bcall[B0]["bw_select"],
+              lace_ms=on_path(bsplit, d_lace, "bw_select"),
+              b64_ms=on_path(bsplit, f"3e fbr B={big}", "bw_select")),
+        entry("bw_downdate", "cstpu/ops/fused_backward.py:184",
+              sum(v["bw_downdate"] for v in bl.values()), berr["bw_downdate"],
+              on_path(bsplit, d_fbr, "bw_downdate"),
+              bcall[B0]["plain_bw_downdate"],
+              bound(2 * B0 * m4 * m4 * 4 + 2 * B0 * m4 * 4,
+                    3 * B0 * m4 * m4, "f32"),
+              library_ms=bcall[B0]["baddbmm"],
+              paths={f"{name}_batch B={b}": v["bw_downdate"]
+                     for (name, b), v in bl.items()},
+              event_ms=bcall[B0]["bw_downdate"],
+              b64_ms=on_path(bsplit, f"3e fbr B={big}", "bw_downdate"),
+              b64_event_ms=bcall[big]["bw_downdate"],
+              b64_plain_ms=bcall[big]["plain_bw_downdate"],
+              b64_library_ms=bcall[big]["baddbmm"],
+              b64_bound_ms=bound(2 * big * m4 * m4 * 4, 3 * big * m4 * m4,
+                                 "f32")["bound_ms"]),
     ]
+    assert all({"bound_ms", "bound_by", "library_ms"} <= set(kn)
+               for kn in kernels)
     print(json.dumps({"kernels": kernels, "two_stage": {
         "iters": tpaths["iters"], "recovery": tpaths["recovery"],
         "solve_ms": {c: ttm[c] for c in ("2b", "2c", "3b")},
         "plain_solve_ms": {c: ttm["plain_" + c] for c in ("2b", "2c", "3b")},
+        "device": gpu}, "stepwise_backward": {
+        "solve_ms": {**stm, **btm},
+        "paths": {f"{cell_} {name} B={b}": {"recovery": v["recovery"],
+                                            "iters": v["iters"],
+                                            "coef_err": v["err"]}
+                  for cell_, rec in (("3d", spaths), ("3e", bpaths))
+                  for (name, b), v in rec.items()},
+        "idle_share": {key: v["idle_share"]
+                       for key, v in {**ssplit, **bsplit}.items()},
         "device": gpu}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,13 @@
 
 A second package beside the JAX one, which stays the reference. It covers
 the batched greedy solvers over one shared dictionary, `omp_batch`,
-`mp_batch`, `gomp_batch` and `fr_batch`, and the batched two-stage ones,
-`sp_batch`, `ompr_batch` and `srr_batch`, on CUDA kernels written by hand
-(cstpu_torch/csrc), with the per-instance matching pursuits, forward
-regression, two-stage solvers, the active-set engine and the solution
-container they rest on. It imports torch, numpy and ctypes, never jax.
+`mp_batch`, `gomp_batch` and `fr_batch`, the batched two-stage ones,
+`sp_batch`, `ompr_batch` and `srr_batch`, the stepwise ones, `rmp_batch`
+and `foba_batch`, and the backward family, `fbr_batch` and `lace_batch`
+(with `br_batch` over the per-instance solver), on CUDA kernels written by
+hand (cstpu_torch/csrc), with the per-instance matching pursuits, forward
+and backward regression, two-stage and stepwise solvers, the active-set
+engine and the solution container they rest on. It imports torch, numpy and ctypes, never jax.
 """
 
 from cstpu_torch.utils.data import (
@@ -26,6 +28,8 @@ from cstpu_torch.utils.sparse import (
 from cstpu_torch.models.matching_pursuit import mp, omp, gomp, oblivious
 from cstpu_torch.models.forward import fr, ols, oomp, ormp, stepwise_regression
 from cstpu_torch.models.twostage import sp, ompr, srr
+from cstpu_torch.models.stepwise import rmp, foba
+from cstpu_torch.models.backward import br, fbr, lace
 from cstpu_torch.models.batched import (
     batch,
     omp_batch,
@@ -35,6 +39,11 @@ from cstpu_torch.models.batched import (
     sp_batch,
     srr_batch,
     ompr_batch,
+    rmp_batch,
+    foba_batch,
+    br_batch,
+    fbr_batch,
+    lace_batch,
 )
 
 __version__ = "0.1.0"
@@ -45,7 +54,8 @@ __all__ = [
     "SparseSolution", "support", "samesupport", "droptol", "polish",
     "mp", "omp", "gomp", "oblivious",
     "fr", "ols", "oomp", "ormp", "stepwise_regression",
-    "sp", "ompr", "srr",
+    "sp", "ompr", "srr", "rmp", "foba", "br", "fbr", "lace",
     "batch", "omp_batch", "mp_batch", "gomp_batch", "fr_batch",
-    "sp_batch", "srr_batch", "ompr_batch",
+    "sp_batch", "srr_batch", "ompr_batch", "rmp_batch", "foba_batch",
+    "br_batch", "fbr_batch", "lace_batch",
 ]

@@ -1,6 +1,7 @@
 // The slot engine of the two-stage kernels, one block per row: device
 // counterparts of cstpu/ops/fused_twostage.py::_Engine (:42-238) that
-// engine_init.cu, ompr_swap.cu, srr_append.cu and engine_delete.cu share.
+// engine_init.cu, ompr_swap.cu, srr_append.cu, engine_delete.cu,
+// rmp_append.cu and engine_backward.cu share.
 //
 // A row's state: cols (K, n) and r (n) in device memory; Ginv (K, K), coef,
 // idx and Atb (K) staged in shared memory for the launch. An append goes to
@@ -169,6 +170,56 @@ __device__ __forceinline__ float engine_refit(const EngineSmem& s,
   }
   __syncthreads();
   return residual_row(rb, bb, colsb, s.a.cf, n, K);
+}
+
+// A row's backward stage, the per-row form of the stage loops of
+// _rmp_kernel (:1301-1336) and _foba_kernel (:1461-1475): while the rule
+// accepts, delete the slot of least coef^2 / max(Ginv_pp, 1e-30) (lowest
+// slot on ties, backward_min :126-136) and refit. The rule is
+//   kfinal >= 0:  nactive > kfinal && dmin < inf    (RMP's k variant)
+//   kfinal <  0:  dmin < thr       (RMP's delta variant, FoBa's gain / 4)
+// and a NaN dmin rejects. The TPU loops are batch-wide with a per-row gate
+// that, once closed, makes every later step a no-op on the row, so the
+// per-row loop leaves the same state. Deletion j leaves its restore term
+// (v, 1/q_p) in pending slot 1 + j of pend_u (P, B, n) and pend_w (P, B);
+// the weights of slots 1 + count .. K are zeroed, so a later select that
+// applies more slots than this row filled adds nothing. At most K
+// deletions (P >= K + 1). s_p and s_acc are shared ints. Every thread
+// calls it; returns the number of deletions.
+__device__ inline int engine_backward_loop(
+    const EngineSmem& s, const float* __restrict__ bb,
+    float* __restrict__ colsb, float* __restrict__ rb,
+    uint8_t* __restrict__ amaskb, float* __restrict__ pend_u,
+    float* __restrict__ pend_w, int B, int b, int n, int m, int K, float thr,
+    int kfinal, int* s_p, int* s_acc) {
+  const int tid = threadIdx.x;
+  int nd = 0;
+  for (int j = 0; j < K + 1; ++j) {
+    if (tid == 0) {
+      float dmin = INFINITY;
+      for (int e = 0; e < K; ++e) {
+        const float c = s.a.cf[e];
+        const float d2 = s.a.ix[e] < m ? c * c / max_keep_nan(s.a.Gs[e * K + e], 1e-30f) : INFINITY;
+        s.v0[e] = d2;
+        dmin = min_keep_nan(dmin, d2);
+      }
+      int p = K;
+      for (int e = K - 1; e >= 0; --e) p = s.v0[e] == dmin ? e : p;
+      *s_p = p;
+      *s_acc = kfinal >= 0 ? (engine_nactive(s, K, m) > kfinal && dmin < INFINITY)
+                           : (dmin < thr);
+    }
+    __syncthreads();
+    if (!*s_acc) break;
+    engine_delete(s, colsb, amaskb, n, m, K, *s_p, true,
+                  pend_u + ((size_t)(1 + nd) * B + b) * n,
+                  pend_w + (size_t)(1 + nd) * B + b);
+    engine_refit(s, bb, colsb, rb, n, K);
+    __syncthreads();  // the next round's scores read the refit coef
+    ++nd;
+  }
+  for (int e = 1 + nd + tid; e <= K; e += blockDim.x) pend_w[(size_t)e * B + b] = 0.f;
+  return nd;
 }
 
 }  // namespace cstpu

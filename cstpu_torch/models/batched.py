@@ -1,12 +1,16 @@
-"""Batched-first entry points (PyTorch counterpart of the greedy and
-two-stage parts of cstpu.models.batched).
+"""Batched-first entry points (PyTorch counterpart of the greedy,
+two-stage, stepwise and backward parts of cstpu.models.batched).
 
 A shared dictionary with a batch of measurements is the high-throughput
 workload. On CUDA, `omp_batch`, `mp_batch`, `gomp_batch` and `fr_batch` run
-the kernels of cstpu_torch.ops.fused_solve, and `sp_batch`, `ompr_batch`
-and `srr_batch` those of cstpu_torch.ops.fused_twostage; elsewhere, and for
-options or shapes the kernels do not serve, they run the per-instance
-solver over the rows (`batch`, where cstpu runs `vmap`). cstpu's one-device-mesh hybrids
+the kernels of cstpu_torch.ops.fused_solve, `sp_batch`, `ompr_batch`,
+`srr_batch`, `rmp_batch` and `foba_batch` those of
+cstpu_torch.ops.fused_twostage, and `fbr_batch` and `lace_batch` those of
+cstpu_torch.ops.fused_backward; for CPU tensors, and for options or shapes
+the kernels do not serve, they run the per-instance solver over the rows
+(`batch`, where cstpu runs `vmap`). Tensors are solved where they lie;
+inputs that are not tensors (numpy arrays, lists) go to the card, and
+without one that raises: a CPU run is asked for with CPU tensors. cstpu's one-device-mesh hybrids
 (`_stream_ok` -> `*_sharded_fused`) have no counterpart: the port's select
 kernels stream the dictionary tile by tile at any m, so one kernel path
 serves both regimes.
@@ -16,10 +20,12 @@ from __future__ import annotations
 
 import torch
 
+from cstpu_torch.models.backward import br, fbr, lace
 from cstpu_torch.models.forward import fr
 from cstpu_torch.models.matching_pursuit import gomp, mp, omp
+from cstpu_torch.models.stepwise import foba, rmp
 from cstpu_torch.models.twostage import ompr, sp, srr
-from cstpu_torch.ops import fused_solve, fused_twostage
+from cstpu_torch.ops import fused_backward, fused_solve, fused_twostage
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -47,6 +53,23 @@ def batch(solver, **fixed):
     return batched
 
 
+def _inputs(A, Bs):
+    """The dictionary and the measurements as tensors. A tensor keeps its
+    device: that is how a caller asks for the CPU. What is not a tensor
+    goes where the other argument lies when that one is a tensor, else to
+    the CUDA device; without one this raises instead of solving on the
+    CPU unasked."""
+    given = [x.device for x in (A, Bs) if isinstance(x, torch.Tensor)]
+    if not given and not torch.cuda.is_available():
+        raise RuntimeError(
+            "cstpu_torch: the inputs are not tensors and no CUDA device is "
+            "available; pass CPU tensors (torch.as_tensor(...)) to solve "
+            "on the CPU")
+    dev = given[0] if given else torch.device("cuda")
+    return tuple(x if isinstance(x, torch.Tensor)
+                 else torch.as_tensor(x, device=dev) for x in (A, Bs))
+
+
 def _cdt(precision):
     """Correlation dtype for a `precision` option (None/'bf16' -> bf16)."""
     return torch.float32 if precision == "f32" else torch.bfloat16
@@ -56,7 +79,11 @@ def _kernels_ok(A, Bs, precision) -> bool:
     """The option, dtype and device conditions every kernel path shares:
     a kernel precision, a float32 dictionary, 2-D measurements, CUDA."""
     return (precision in (None, "bf16", "f32") and A.dtype == torch.float32
-            and Bs.ndim == 2 and A.is_cuda and Bs.is_cuda)
+            and Bs.ndim == 2 and _on_card(A, Bs))
+
+
+def _on_card(A, Bs) -> bool:
+    return A.is_cuda and Bs.is_cuda
 
 
 def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
@@ -70,8 +97,7 @@ def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
     residual) is f32. Otherwise, or for shapes the kernels do not take,
     the rows run through the per-instance `omp`.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     kk = int(min(k if k is not None else A.shape[0], *A.shape))
     if _kernels_ok(A, Bs, precision) and float(max_residual) == 0.0:
         cdt = _cdt(precision)
@@ -94,8 +120,7 @@ def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
     re-derived from a (k x m) product per step. `precision` as in
     omp_batch. Otherwise the rows run through the per-instance `fr`.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision) and sparsity is not None
             and fused_solve.supported_fr(A, Bs, int(sparsity),
                                          _cdt(precision))):
@@ -113,8 +138,7 @@ def mp_batch(A, Bs, k: int, precision=None):
     On CUDA this runs the signed select and the mp_update kernel;
     otherwise the rows run through the per-instance `mp`.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     if _kernels_ok(A, Bs, precision) and fused_solve.supported_mp(A, Bs):
         x, _ = fused_solve.mp_fused_solve(A, Bs, int(k),
                                           corr_dtype=_cdt(precision))
@@ -130,8 +154,7 @@ def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
     the rows run through the per-instance `gomp`. The slot width is
     min(k, m) on every path.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     kk = int(min(k if k is not None else A.shape[1], A.shape[1]))
     if (_kernels_ok(A, Bs, precision)
             and fused_solve.supported_gomp(A, Bs, int(l), kk)):
@@ -160,8 +183,7 @@ def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
     complement). `precision` as in omp_batch. Otherwise the rows run
     through the per-instance `sp`.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision)
             and fused_twostage.supported_sp(A, Bs, int(k), _cdt(precision))):
         sol, _ = fused_twostage.sp_fused_solve(A, Bs, int(k), delta, maxiter,
@@ -180,8 +202,7 @@ def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
     initializations, and shapes the kernels do not take, run the rows
     through the per-instance `srr`.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision) and initialization == 1
             and fused_twostage.supported_srr(A, Bs, int(k), int(l),
                                              _cdt(precision))):
@@ -201,8 +222,7 @@ def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
     `precision` as in omp_batch. Otherwise the rows run through the
     per-instance `ompr`.
     """
-    A = torch.as_tensor(A)
-    Bs = torch.as_tensor(Bs)
+    A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision)
             and fused_twostage.supported_ompr(A, Bs, int(k),
                                               _cdt(precision))):
@@ -210,3 +230,150 @@ def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
             A, Bs, int(k), delta, eta, maxiter, corr_dtype=_cdt(precision))
         return sol
     return batch(ompr, k=k, delta=delta, eta=eta, maxiter=maxiter)(A, Bs)
+
+
+def _merge_solution_rows(sol, redo, rows, m: int):
+    """`sol` (batched SparseSolution) with its `rows` replaced by the rows
+    of `redo`, both padded to the wider slot width (idx m, val 0, mask
+    False)."""
+    def pad_to(x, w):
+        pad = w - x.idx.shape[1]
+        if pad <= 0:
+            return x
+        F = torch.nn.functional
+        return SparseSolution(idx=F.pad(x.idx, (0, pad), value=m),
+                              val=F.pad(x.val, (0, pad)),
+                              mask=F.pad(x.mask, (0, pad)), m=m)
+
+    w = max(sol.idx.shape[1], redo.idx.shape[1])
+    sol, redo = pad_to(sol, w), pad_to(redo, w)
+    out = [x.clone() for x in (sol.idx, sol.val, sol.mask)]
+    for dst, src in zip(out, (redo.idx, redo.val, redo.mask)):
+        dst[rows] = src.to(dst.dtype)
+    return SparseSolution(idx=out[0], val=out[1], mask=out[2], m=m)
+
+
+def _resolve_capped(sol, capped, A, Bs, solver):
+    """The rows the kernels report as capped (their forward stage wanted
+    an atom beyond the kmax slots) solved again by the uncapped
+    per-instance `solver` and merged in, so that the cap never changes a
+    result."""
+    rows = torch.nonzero(capped)[:, 0]
+    if rows.numel() == 0:
+        return sol
+    return _merge_solution_rows(sol, solver(A, Bs[rows]), rows, A.shape[1])
+
+
+def rmp_batch(A, Bs, k=None, delta=None, maxiter: int = 1, kmax: int = 32,
+              precision=None):
+    """Batched RMP over measurement rows Bs (B, n); exactly one of k and
+    delta.
+
+    On CUDA both variants run the RMP kernels with a `kmax`-slot active
+    set; rows whose forward stage outgrows the cap are reported by the
+    kernels and solved again by the per-instance `rmp`, so the cap only
+    decides where the work is done. (The k variant's forward stage runs to
+    exhaustion: where that support exceeds kmax the per-instance path does
+    the work; raise kmax to keep it on the kernels.) `precision` as in
+    omp_batch. Otherwise the rows run through the per-instance `rmp`.
+    """
+    if (k is None) == (delta is None):
+        raise ValueError("specify exactly one of k or delta")
+    A, Bs = _inputs(A, Bs)
+    each = batch(rmp, k=k, delta=delta, maxiter=maxiter)
+    if (_kernels_ok(A, Bs, precision) and (k is None or int(k) <= int(kmax))
+            and fused_twostage.supported_rmp(A, Bs, int(kmax),
+                                             _cdt(precision))):
+        sol, _, capped = fused_twostage.rmp_fused_solve(
+            A, Bs, k=k, delta=delta, maxiter=maxiter, kmax=int(kmax),
+            corr_dtype=_cdt(precision))
+        return _resolve_capped(sol, capped, A, Bs, each)
+    return each(A, Bs)
+
+
+def foba_batch(A, Bs, delta: float, kmax: int = 32, precision=None):
+    """Batched FoBa over measurement rows Bs (B, n).
+
+    On CUDA this runs the FoBa kernels (per iteration a forward step and
+    the deletions its gain allows), with rmp_batch's kmax cap and
+    re-solve of capped rows. Otherwise the rows run through the
+    per-instance `foba`.
+    """
+    A, Bs = _inputs(A, Bs)
+    each = batch(foba, delta=delta)
+    if (_kernels_ok(A, Bs, precision)
+            and fused_twostage.supported_rmp(A, Bs, int(kmax),
+                                             _cdt(precision))):
+        sol, _, capped = fused_twostage.foba_fused_solve(
+            A, Bs, delta, kmax=int(kmax), corr_dtype=_cdt(precision))
+        return _resolve_capped(sol, capped, A, Bs, each)
+    return each(A, Bs)
+
+
+def _stops(max_residual, max_increase) -> dict:
+    """The stopping thresholds that were given (None: the solver's own
+    default, no bound)."""
+    given = {"max_residual": max_residual, "max_increase": max_increase}
+    return {key: v for key, v in given.items() if v is not None}
+
+
+def br_batch(A, Bs, max_residual=None, max_increase=None, sparsity: int = 0,
+             naive: bool = False):
+    """Batched backward regression: the per-instance `br` over the rows
+    (BR re-solves its state at every deletion; it has no kernel path)."""
+    A, Bs = _inputs(A, Bs)
+    return batch(br, sparsity=sparsity, naive=naive,
+                 **_stops(max_residual, max_increase))(A, Bs)
+
+
+def _split_failed(results):
+    """[(solution, failed), ...] per row -> (stacked solution, (B,) bool)."""
+    return (_stack([sol for sol, _ in results]),
+            torch.stack([failed for _, failed in results]))
+
+
+def _unpack_failed(out, return_failed: bool):
+    sol, failed = out
+    return (sol, failed) if return_failed else sol
+
+
+def fbr_batch(A, Bs, max_residual=None, max_increase=None, sparsity: int = 0,
+              return_failed: bool = False):
+    """Batched fast backward regression. With `return_failed=True` also
+    returns the per-row (B,) instability flags.
+
+    On CUDA this runs the deletion kernels of
+    cstpu_torch.ops.fused_backward: the Gram inverse is factorized once
+    for the batch, and every row downdates its own copy. Otherwise the
+    rows run through the per-instance `fbr`.
+    """
+    A, Bs = _inputs(A, Bs)
+    kw = _stops(max_residual, max_increase)
+    if _on_card(A, Bs) and fused_backward.supported_backward(A, Bs):
+        out = fused_backward.fbr_fused_solve(A, Bs, sparsity=sparsity, **kw)
+    else:
+        out = _split_failed([fbr(A, bb, sparsity=sparsity, return_failed=True,
+                                 **kw) for bb in Bs])
+    return _unpack_failed(out, return_failed)
+
+
+def lace_batch(A, Bs, max_residual=None, max_increase=None,
+               sparsity: int = 0, return_failed: bool = False):
+    """Batched LACE. On CUDA this runs the deletion kernels with the
+    min-|coefficient| selection (cstpu_torch.ops.fused_backward); otherwise
+    the rows run through the per-instance `lace`.
+
+    With `return_failed=True` also returns per-row (B,) flags that mean
+    "numerical instability was met while solving this row" on both paths:
+    the kernels' downdate guard (the row stops deleting), or, on the
+    per-instance path, whose refits are exact solves with no tracked
+    factor to go indefinite, a non-finite active coefficient.
+    """
+    A, Bs = _inputs(A, Bs)
+    kw = _stops(max_residual, max_increase)
+    if _on_card(A, Bs) and fused_backward.supported_backward(A, Bs):
+        out = fused_backward.lace_fused_solve(A, Bs, sparsity=sparsity, **kw)
+    else:
+        sol = batch(lace, sparsity=sparsity, **kw)(A, Bs)
+        out = sol, torch.any(~torch.isfinite(sol.val) & sol.mask, dim=-1)
+    return _unpack_failed(out, return_failed)

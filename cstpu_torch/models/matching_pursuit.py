@@ -4,7 +4,7 @@
 Each solver is a Python loop over the fixed-shape active set of
 cstpu_torch.ops.active_set, one instance at a time.
 
-Semantics kept from cstpu:
+Semantics of cstpu that are kept:
   * OMP stalls (returns unchanged) when the argmax atom is already active.
   * epsilon stopping checks the post-update residual norm.
   * GOMP runs floor(k/l) l-atom steps plus one unconditional remainder step.

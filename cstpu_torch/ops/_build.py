@@ -75,6 +75,20 @@ _SIGNATURES = {
     # done, prev, B, n, m, k, rtol, delta2, init, stream
     "cstpu_sp_round": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # pval, pidx, ntiles, A, cdt_bf16, Bs, engine state but prev, pend_u,
+    # pend_w, fgate, acc, capped, ndel, floor2, B, n, m, K, rtol, delta2,
+    # foba, stream
+    "cstpu_rmp_append": [_P, _P, _I, _P, _I, _P, *_ENG[:8], _P, _P, _P, _P,
+                         _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # Bs, engine state but prev, pend_u, pend_w, fgate, acc, ndel, B, n, m,
+    # K, delta2, kfinal, stream
+    "cstpu_engine_backward": [_P, *_ENG[:8], _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _F, _I, _P],
+    # G, coef, diag, alive, nr2, run, failed, g, gcol, sc, B, m, max_eps2,
+    # max_delta2, select_abs, stream
+    "cstpu_bw_select": [_P] * 10 + [_I, _I, _F, _F, _I, _P],
+    # G, g, gcol, sc, B, m, stream
+    "cstpu_bw_downdate": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -1,10 +1,11 @@
 """Batched two-stage solvers on hand-written CUDA kernels (PyTorch
 counterpart of cstpu.ops.fused_twostage): subspace pursuit (SP), OMP with
-replacement (OMPR) and stepwise regression with replacement (SRR).
+replacement (OMPR), stepwise regression with replacement (SRR), relevance
+matching pursuit (RMP) and FoBa.
 
 cstpu runs each whole solve in one Pallas launch (`_sp_kernel`,
-`_ompr_kernel`, `_srr_kernel`), its outer loop an in-kernel while loop
-over a per-row done latch. Here the outer loop runs on the host: after each
+`_ompr_kernel`, `_srr_kernel`, `_rmp_kernel`, `_foba_kernel`), its outer
+loop an in-kernel while loop over a per-row done latch. Here the outer loop runs on the host: after each
 outer iteration it reads the done latch (one small device-to-host copy) and
 stops when every row is done or maxiter is reached, so the returned
 `iters` is cstpu's. Each iteration launches a select kernel, which sweeps
@@ -30,6 +31,19 @@ the dictionary, and update kernels, one block per row (cstpu_torch/csrc):
   init  select_topl + engine_init for OMPR and SRR: the top-k of
         |round_cdt(b) . A| and k gated appends in that order (cstpu's
         `oblivious_init`), the refit and the first residual norm
+  RMP   fr_select      as SRR's, from the empty state
+        rmp_append     one forward step: the append gated by the exhaustion
+                       floor, the gain delta^2 and the size; `capped` where
+                       only the K-slot cap stood in the way; run by the
+                       host until every row has rejected (one read of the
+                       forward gates per step)
+        engine_backward  the whole backward stage in one launch, a loop per
+                       row (delta variant: while the increase < delta^2; k
+                       variant: down to k atoms), and the pass's latch: a
+                       row is done when neither stage accepted a step
+  FoBa  fr_select + rmp_append with its `foba` flag: the forward step and,
+        after an accepted one, the deletions while the increase stays
+        below a quarter of the step's gain, in one launch per iteration
 
 OMPR and SRR share cstpu's slot engine (`_Engine`): an append goes to each
 row's first free slot, so after deletions the occupied slots need not be
@@ -39,7 +53,11 @@ which restores the identity pad at slot p. SRR keeps cstpu's rescaling
 through appends and deletions; a deletion never reads it, so each term
 (u, w) waits in a small pending buffer and the next select applies all of
 them, resc_j += w (round_cdt(u) . a_j)^2, in the order cstpu applies
-them, in its single pass over A.
+them, in its single pass over A. RMP's and FoBa's backward stages can
+leave up to K such terms (slots 1..K of K+1; slot 0 is the append's), each
+row its own count, so the select after a stage that deleted d atoms makes
+d + 1 passes over A, d the largest count of the batch; the slots a row did
+not fill carry weight 0 and add nothing.
 
 SP keeps what `_sp_kernel` decides (acquisition order, pre-gate, CG with
 its 8-eps lift and noise-floor exit, prune ties, pivot rejections, the
@@ -58,7 +76,7 @@ Slots come back in engine order and go through `_sorted_solution`.
 
 Every kernel has its plain PyTorch version beside it (`_engine_init_ref`,
 `_ompr_swap_ref`, `_srr_append_ref`, `_engine_delete_ref`,
-`_sp_round_ref`); each `*_fused_solve_ref` is the whole solve on them. A
+`_sp_round_ref`, `_rmp_append_ref`, `_engine_backward_ref`); each `*_fused_solve_ref` is the whole solve on them. A
 wrapper runs the plain version only for tensors on the CPU; on CUDA
 tensors it launches its kernel or raises. A row that is done is left
 exactly as it is by every kernel and every plain version.
@@ -80,13 +98,14 @@ from cstpu_torch.ops.fused_solve import (
     _stream, _topl_ref, rescaled_select, select_argmax, select_topl)
 
 LAUNCHES.update(engine_init=0, ompr_swap=0, srr_append=0, engine_delete=0,
-                sp_round=0)
+                sp_round=0, rmp_append=0, engine_backward=0)
 
 EPS8 = 8.0 * 1.1920929e-07   # SP's CG lift and noise floor, 8 f32 ulps
 
 
 class _EngState(NamedTuple):
-    """Slot-engine state of OMPR and SRR (cstpu's `_Engine` buffers)."""
+    """Slot-engine state of OMPR, SRR, RMP and FoBa (cstpu's `_Engine`
+    buffers and the latches of its loops)."""
     cols: torch.Tensor   # (B, K, n) f32, slot s = column of atom idx[s]
     Ginv: torch.Tensor   # (B, K, K) f32, identity on free slots
     coef: torch.Tensor   # (B, K) f32
@@ -100,6 +119,9 @@ class _EngState(NamedTuple):
     pend_u: torch.Tensor | None = None  # SRR: (P, B, n) f32 pending vectors
     pend_w: torch.Tensor | None = None  # SRR: (P, B) f32 pending weights
     fgate: torch.Tensor | None = None   # SRR: (B,) f32 forward gate
+    acc: torch.Tensor | None = None     # RMP: (B,) f32 a step was accepted
+    capped: torch.Tensor | None = None  # RMP: (B,) f32 the slot cap hit
+    ndel: torch.Tensor | None = None    # RMP: (B,) f32 deletions, last stage
 
 
 class _SpState(NamedTuple):
@@ -312,6 +334,95 @@ def _engine_delete_ref(Bs, st: _EngState, k: int, l: int, delta2: float):
         st.pend_w[1 + j].copy_(torch.where(live, inv, 0.0))
 
 
+def _backward_loop_ref(Bs, st: _EngState, gate, thr, kfinal: int):
+    """The backward stage loop of `_rmp_kernel` (:1301-1336) and
+    `_foba_kernel` (:1461-1475): batch-wide steps with a per-row gate that
+    closes at the row's first rejection, at most K + 1. A step deletes the
+    min coef^2 / gamma slot where the rule accepts (kfinal >= 0: more than
+    kfinal atoms and a finite score; else score < thr, thr a number or
+    (B,)) and refits. Deletion j of a row leaves its restore term in
+    pending slot 1 + j; the weights of the slots a row did not fill are 0
+    (every slot of a row whose gate is closed: its vectors stay as they
+    were). Returns each row's deletion count (B,) f32."""
+    m = st.amask.shape[1]
+    K = st.idx.shape[1]
+    g = gate.clone()
+    nd = torch.zeros_like(st.done)
+    st.pend_w[1:].zero_()
+    for j in range(K + 1):
+        if not bool(g.any()):
+            break
+        act = st.idx < m
+        gam = torch.clamp(torch.diagonal(st.Ginv, dim1=1, dim2=2), min=1e-30)
+        d2 = torch.where(act, st.coef * st.coef / gam, torch.inf)
+        dmin = d2.amin(dim=1)
+        p = _lowest(d2 == dmin[:, None], K)
+        if kfinal >= 0:
+            acc = g & (act.sum(dim=1) > kfinal) & (dmin < torch.inf)
+        else:
+            acc = g & (dmin < thr)
+        v, inv = _delete_ep_ref(st, p, acc, m)
+        _refit_ref(Bs, st)
+        st.pend_u[1 + j].copy_(torch.where(acc[:, None], v, st.pend_u[1 + j]))
+        st.pend_w[1 + j].copy_(inv)
+        nd += acc.float()
+        g = acc
+    return nd
+
+
+def _rmp_append_ref(pval, pidx, Ac, Bs, st: _EngState, delta2: float,
+                    floor2, foba: bool):
+    """Plain RMP forward step (`_rmp_kernel` forward_step, :1287-1299) or,
+    with `foba`, FoBa iteration (`_foba_kernel` body, :1447-1476) from the
+    rescaled select partials, on the rows whose forward gate is open; the
+    append's term goes to pending slot 0, FoBa's deletions to slots 1..
+    (zero weights on the other rows)."""
+    n, m = Ac.shape
+    K = st.idx.shape[1]
+    live = (st.done < 0.5) & (st.fgate > 0.5)
+
+    def step():
+        dmax, i = _reduce_partials(pval, pidx)
+        nat = (st.idx < m).sum(dim=1)
+        wanted = ((_rnorm2(st.r) > floor2) & (dmax > _f32(delta2))
+                  & (nat < min(n, m)))
+        full = nat >= K
+        st.capped.copy_(torch.maximum(st.capped, (wanted & full).float()))
+        ok, acol, u, dinv = _engine_append_ref(Ac, Bs, st, i, wanted & ~full)
+        aperp = acol - torch.sum(st.cols * u[:, :, None], dim=1)
+        _refit_ref(Bs, st)
+        st.fgate.mul_(ok.float())
+        st.acc.copy_(torch.maximum(st.acc, ok.float()))
+        if foba:
+            st.ndel.copy_(_backward_loop_ref(
+                Bs, st, ok & live, torch.clamp(dmax, min=0.0) * 0.25, -1))
+        return aperp, dinv
+
+    aperp, dinv = _keep_rows(st, live, step)
+    st.pend_u[0].copy_(torch.where(live[:, None], aperp, 0.0))
+    st.pend_w[0].copy_(torch.where(live, -dinv, 0.0))
+    if foba:   # a closed row made no deletion
+        st.ndel.mul_(live.float())
+
+
+def _engine_backward_ref(Bs, st: _EngState, delta2: float, kfinal: int):
+    """Plain RMP backward stage and outer latch (`_rmp_kernel` :1301-1344)
+    on the rows that are not done: the deletion loop, then done where
+    neither stage of the pass accepted a step, fgate = not done, acc = 0."""
+    live = st.done < 0.5
+
+    def step():
+        nd = _backward_loop_ref(Bs, st, live, _f32(delta2), int(kfinal))
+        progressed = (st.acc > 0.5) | (nd > 0)
+        st.done.copy_(torch.where(progressed, st.done, 1.0))
+        st.fgate.copy_(progressed.float())
+        st.acc.zero_()
+        st.ndel.copy_(nd)
+
+    _keep_rows(st, live, step)
+    st.ndel.mul_(live.float())
+
+
 # --------------------------------------------------------------------------
 # SP, plain (cstpu/ops/fused_twostage.py::_sp_kernel)
 # --------------------------------------------------------------------------
@@ -489,6 +600,9 @@ def _expect_engine(name: str, st: _EngState, Bs, Ac=None):
         _expect(name, Bs.device, (st.resc, _F32, (B, m)),
                 (st.pend_u, _F32, (P, B, n)), (st.pend_w, _F32, (P, B)),
                 (st.fgate, _F32, (B,)))
+    if st.acc is not None:
+        _expect(name, Bs.device, (st.acc, _F32, (B,)),
+                (st.capped, _F32, (B,)), (st.ndel, _F32, (B,)))
     return B, K, n, m
 
 
@@ -600,6 +714,61 @@ def engine_delete(Bs, st: _EngState, k: int, l: int, delta2: float):
     LAUNCHES["engine_delete"] += 1
 
 
+def _expect_stepwise(name: str, st: _EngState):
+    """RMP's and FoBa's kernels need the rescaling state, the latches and
+    K + 1 pending slots."""
+    K = st.idx.shape[1]
+    if st.resc is None or st.acc is None or st.pend_u.shape[0] < K + 1:
+        raise ValueError(f"{name}: needs RMP's state (rescaling, latches, "
+                         f"{K + 1} pending slots)")
+
+
+def rmp_append(pval, pidx, Ac, Bs, st: _EngState, delta2: float, floor2,
+               foba: bool):
+    """One RMP forward step, or with `foba` one FoBa iteration, from the
+    rescaled select partials (B, T), updating `st` in place; floor2 (B,)
+    f32 is the squared exhaustion floor. On CUDA tensors this launches
+    csrc/rmp_append.cu."""
+    if _on_cpu(pval, pidx, Ac, Bs, floor2, *st):
+        return _rmp_append_ref(pval, pidx, Ac, Bs, st, delta2, floor2, foba)
+    B, K, n, m = _expect_engine("rmp_append", st, Bs, Ac)
+    _expect_stepwise("rmp_append", st)
+    T = -(-m // TILE)
+    _expect("rmp_append", Bs.device, (pval, _F32, (B, T)),
+            (pidx, _I32, (B, T)), (floor2, _F32, (B,)))
+    lib = _build.load()
+    with torch.cuda.device(Bs.device):
+        err = lib.cstpu_rmp_append(
+            pval.data_ptr(), pidx.data_ptr(), T, Ac.data_ptr(),
+            int(Ac.dtype == torch.bfloat16), Bs.data_ptr(),
+            *_state_ptrs(st)[:8], st.pend_u.data_ptr(), st.pend_w.data_ptr(),
+            st.fgate.data_ptr(), st.acc.data_ptr(), st.capped.data_ptr(),
+            st.ndel.data_ptr(), floor2.data_ptr(), B, n, m, K,
+            _degeneracy_rtol(n), float(delta2), int(bool(foba)), _stream())
+    _build.check(err, "cstpu_rmp_append")
+    LAUNCHES["rmp_append"] += 1
+
+
+def engine_backward(Bs, st: _EngState, delta2: float, kfinal: int):
+    """RMP's backward stage (kfinal < 0: while the increase < delta2; else
+    down to kfinal atoms) with its restore terms (pending slots 1..), the
+    refits and the pass's latch, updating `st` in place. On CUDA tensors
+    this launches csrc/engine_backward.cu."""
+    if _on_cpu(Bs, *st):
+        return _engine_backward_ref(Bs, st, delta2, kfinal)
+    B, K, n, m = _expect_engine("engine_backward", st, Bs)
+    _expect_stepwise("engine_backward", st)
+    lib = _build.load()
+    with torch.cuda.device(Bs.device):
+        err = lib.cstpu_engine_backward(
+            Bs.data_ptr(), *_state_ptrs(st)[:8], st.pend_u.data_ptr(),
+            st.pend_w.data_ptr(), st.fgate.data_ptr(), st.acc.data_ptr(),
+            st.ndel.data_ptr(), B, n, m, K, float(delta2), int(kfinal),
+            _stream())
+    _build.check(err, "cstpu_engine_backward")
+    LAUNCHES["engine_backward"] += 1
+
+
 def sp_round(pval, pidx, Ac, Bs, st: _SpState, delta2: float, init: bool):
     """One SP round from the select_topl partials (B, T, k), updating `st`
     in place (the init round sets prev and latches nothing). On CUDA
@@ -633,8 +802,10 @@ def sp_round(pval, pidx, Ac, Bs, st: _SpState, delta2: float, init: bool):
 # The solves
 # --------------------------------------------------------------------------
 
-def _init_engine(Bs, K: int, m: int, cn2=None, npend: int = 0) -> _EngState:
-    """Empty engine state with K slots; SRR's fields when cn2 is given."""
+def _init_engine(Bs, K: int, m: int, cn2=None, npend: int = 0,
+                 stepwise: bool = False) -> _EngState:
+    """Empty engine state with K slots; SRR's fields when cn2 is given, and
+    with `stepwise` RMP's latches (every forward gate open)."""
     B, n = Bs.shape
     dev = Bs.device
 
@@ -644,6 +815,9 @@ def _init_engine(Bs, K: int, m: int, cn2=None, npend: int = 0) -> _EngState:
     srr = {} if cn2 is None else dict(
         resc=cn2[None, :].repeat(B, 1), pend_u=zeros(npend, B, n),
         pend_w=zeros(npend, B), fgate=zeros(B))
+    if stepwise:
+        srr.update(fgate=torch.ones((B,), dtype=torch.float32, device=dev),
+                   acc=zeros(B), capped=zeros(B), ndel=zeros(B))
     return _EngState(**_slot_state(Bs, K, m), Atb=zeros(B, K),
                      amask=torch.zeros((B, m), dtype=torch.uint8, device=dev),
                      done=zeros(B), prev=zeros(B), **srr)
@@ -794,6 +968,135 @@ def srr_fused_solve_ref(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
                      return_iters)
 
 
+def _stepwise_setup(A, Bs, K: int, corr_dtype, upcast: bool):
+    """(Ac, Bs, cn2, floor2, empty state) of an RMP or FoBa solve with K
+    slots: floor2 = 64 n eps^2 ||b||^2, the squared exhaustion floor."""
+    n, m = A.shape
+    cn2 = torch.sum(A.float() * A.float(), dim=0)  # the f32 dictionary's
+    Ac, Bs = _prepare(A, Bs, corr_dtype, upcast)
+    floor2 = _f32(64.0 * n * (1.1920929e-07 ** 2)) * torch.sum(Bs * Bs, dim=1)
+    return Ac, Bs, cn2, floor2, _init_engine(Bs, K, m, cn2, npend=K + 1,
+                                             stepwise=True)
+
+
+def _latches(*xs):
+    """The (B,) latches xs on the host, one device-to-host copy."""
+    return torch.stack(xs).cpu()
+
+
+def _stepwise_result(st: _EngState, m: int, iters, return_iters: bool):
+    out = (_sorted_solution(st.idx, st.coef, m), st.r, st.capped > 0.5)
+    return (*out, iters) if return_iters else out
+
+
+def _rmp(A, Bs, k, delta, maxiter: int, kmax: int, corr_dtype, kernels,
+         upcast: bool, return_iters: bool):
+    if (k is None) == (delta is None):
+        raise ValueError("specify exactly one of k or delta")
+    K = int(kmax)
+    if k is not None:
+        if int(k) > K:
+            raise ValueError(f"k = {k} exceeds the kmax = {kmax} slot cap")
+        # one pass: forward to exhaustion, backward down to k atoms
+        kfinal, delta2, maxiter = int(k), 0.0, 1
+    else:
+        kfinal, delta2 = -1, float(delta) ** 2
+    m = A.shape[1]
+    Ac, Bs, cn2, floor2, st = _stepwise_setup(A, Bs, K, corr_dtype, upcast)
+    select, append, backward = kernels
+    npend = 1            # slot 0 of the empty state: a zero term
+    t = fsteps = 0
+    live = True
+    while t < int(maxiter) and live:
+        # forward stage: at most K + 1 steps, the last of a row a rejection;
+        # a row whose gate closed is left as it is by every later step
+        j, advancing = 0, True
+        while j < K + 1 and advancing:
+            append(*select(Ac, cn2, st.r, st.pend_u[:npend],
+                           st.pend_w[:npend], 1.0, st.amask, st.resc),
+                   Ac, Bs, st, delta2, floor2, False)
+            npend = 1
+            j += 1
+            advancing = bool((st.fgate.cpu() > 0.5).any())
+        fsteps += j
+        backward(Bs, st, delta2, kfinal)
+        done, ndel = _latches(st.done, st.ndel)
+        live = bool((done < 0.5).any())
+        npend = 1 + int(ndel.max())
+        t += 1
+    return _stepwise_result(st, m, (t, fsteps), return_iters)
+
+
+def rmp_fused_solve(A, Bs, k: int | None = None, delta: float | None = None,
+                    maxiter: int = 1, kmax: int = 32,
+                    corr_dtype=torch.bfloat16, return_iters: bool = False):
+    """Batched RMP on the fr_select, rmp_append and engine_backward kernels
+    with a kmax-slot cap: `delta` alternates a forward stage to exhaustion
+    with a backward stage at delta, up to maxiter passes, a row stopping
+    when neither stage accepted a step; `k` is one pass, forward to the
+    exhaustion floor and backward down to k atoms (k > kmax raises).
+    Exactly one of k and delta. Returns (SparseSolution (B, kmax) sorted by
+    atom index, residuals (B, n) f32, capped (B,) bool): a capped row's
+    forward stage wanted an atom beyond the cap and must be re-solved
+    uncapped. With return_iters also (outer passes, forward steps)."""
+    return _rmp(A, Bs, k, delta, maxiter, kmax, corr_dtype,
+                (rescaled_select, rmp_append, engine_backward), False,
+                return_iters)
+
+
+def rmp_fused_solve_ref(A, Bs, k: int | None = None,
+                        delta: float | None = None, maxiter: int = 1,
+                        kmax: int = 32, corr_dtype=torch.bfloat16,
+                        return_iters: bool = False):
+    """rmp_fused_solve on the plain versions of its kernels."""
+    cdt = _check_cdt(corr_dtype)
+    return _rmp(A, Bs, k, delta, maxiter, kmax, cdt,
+                (partial(_rescaled_select_ref, cdt=cdt), _rmp_append_ref,
+                 _engine_backward_ref), True, return_iters)
+
+
+def _foba(A, Bs, delta, kmax: int, corr_dtype, kernels, upcast: bool,
+          return_iters: bool):
+    n, m = A.shape
+    K = int(kmax)
+    delta2 = float(delta) ** 2
+    Ac, Bs, cn2, floor2, st = _stepwise_setup(A, Bs, K, corr_dtype, upcast)
+    select, append = kernels
+    npend = 1            # slot 0 of the empty state: a zero term
+    t = 0
+    while t < n:   # the reference's bound; ends when every row has rejected
+        append(*select(Ac, cn2, st.r, st.pend_u[:npend], st.pend_w[:npend],
+                       1.0, st.amask, st.resc),
+               Ac, Bs, st, delta2, floor2, True)
+        t += 1
+        alive, ndel = _latches(st.fgate, st.ndel)
+        if not bool((alive > 0.5).any()):
+            break
+        npend = 1 + int(ndel.max())
+    return _stepwise_result(st, m, t, return_iters)
+
+
+def foba_fused_solve(A, Bs, delta: float, kmax: int = 32,
+                     corr_dtype=torch.bfloat16, return_iters: bool = False):
+    """Batched FoBa on the fr_select and rmp_append kernels with a kmax-slot
+    cap: per iteration one forward step and, after an accepted one, the
+    deletions whose increase stays below a quarter of the step's gain; at
+    most n iterations, ending when every row's forward step was rejected.
+    Returns as rmp_fused_solve; with return_iters also the iterations."""
+    return _foba(A, Bs, delta, kmax, corr_dtype,
+                 (rescaled_select, rmp_append), False, return_iters)
+
+
+def foba_fused_solve_ref(A, Bs, delta: float, kmax: int = 32,
+                         corr_dtype=torch.bfloat16,
+                         return_iters: bool = False):
+    """foba_fused_solve on the plain versions of its kernels."""
+    cdt = _check_cdt(corr_dtype)
+    return _foba(A, Bs, delta, kmax, cdt,
+                 (partial(_rescaled_select_ref, cdt=cdt), _rmp_append_ref),
+                 True, return_iters)
+
+
 # --------------------------------------------------------------------------
 # Shape gates
 # --------------------------------------------------------------------------
@@ -825,3 +1128,12 @@ def supported_srr(A, Bs, k: int, l: int = 1,
     k, l = int(k), int(l)
     return (_rows_ok(A, Bs) and 1 <= k <= LMAX and l >= 1 and k + l <= KMAX
             and _engine_smem(A.shape[0], k + l) <= SMEM_MAX)
+
+
+def supported_rmp(A, Bs, kmax: int, corr_dtype=torch.bfloat16) -> bool:
+    """Shape gate of rmp_fused_solve and foba_fused_solve: kmax slots
+    within the engine kernels' shared memory (fr_select takes any number of
+    pending terms, one pass over A each)."""
+    K = int(kmax)
+    return (_rows_ok(A, Bs) and 1 <= K <= KMAX
+            and _engine_smem(A.shape[0], K) <= SMEM_MAX)

@@ -2,7 +2,7 @@
 cstpu.utils.data).
 
 Every generator takes an explicit `torch.Generator` and builds its tensors
-on that generator's device. The numbers differ from cstpu's for the same
+on that generator's device. The numbers are not cstpu's for the same
 seed (another random stream), so parity tests never use these: they draw
 their problems with numpy or cstpu and hand the same arrays to both
 packages.

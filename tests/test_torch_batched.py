@@ -1,5 +1,6 @@
 """cstpu_torch's batched entry points (omp_batch, mp_batch, gomp_batch,
-fr_batch, sp_batch, ompr_batch, srr_batch) against cstpu's on the CPU,
+fr_batch, sp_batch, ompr_batch, srr_batch, rmp_batch, foba_batch, br_batch,
+fbr_batch, lace_batch) against cstpu's on the CPU,
 their dispatch, and the port's guards: no jax import, no CPU run of
 chip_smoke.py, a clear error when nvcc is missing.
 
@@ -133,10 +134,12 @@ def test_build_raises_clearly_without_nvcc(monkeypatch):
 
 def test_build_sources_are_the_package_csrc():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["engine_delete.cu", "engine_init.cu", "fr_append.cu",
+    assert names == ["bw_downdate.cu", "bw_select.cu", "engine_backward.cu",
+                     "engine_delete.cu", "engine_init.cu", "fr_append.cu",
                      "fr_select.cu", "gomp_append.cu", "mp_update.cu",
-                     "omp_append.cu", "ompr_swap.cu", "select_argmax.cu",
-                     "select_topl.cu", "sp_round.cu", "srr_append.cu"]
+                     "omp_append.cu", "ompr_swap.cu", "rmp_append.cu",
+                     "select_argmax.cu", "select_topl.cu", "sp_round.cu",
+                     "srr_append.cu"]
     # every C entry point the wrappers call has its ctypes signature
     assert set(_build._SIGNATURES) == {
         "cstpu_" + name[:-3] for name in names}
@@ -208,7 +211,9 @@ def _fake_cuda(monkeypatch):
     calls = []
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     for mod, names in ((tbatched.fused_solve, ("mp", "gomp", "fr")),
-                       (tbatched.fused_twostage, ("sp", "ompr", "srr"))):
+                       (tbatched.fused_twostage, ("sp", "ompr", "srr", "rmp",
+                                                  "foba")),
+                       (tbatched.fused_backward, ("fbr", "lace"))):
         for name in names:
             ref = getattr(mod, f"{name}_fused_solve_ref")
             monkeypatch.setattr(
@@ -330,3 +335,231 @@ def test_twostage_fused_solves_on_cpu_launch_nothing():
     tft.ompr_fused_solve(tA, tB, 3, 1e-10)
     tft.srr_fused_solve(tA, tB, 3)
     assert not any(tfs.LAUNCHES.values())
+
+
+# --------------------------------------------------------------------------
+# Inputs that are not tensors
+# --------------------------------------------------------------------------
+
+def test_non_tensor_inputs_raise_without_a_cuda_device():
+    # numpy inputs would go to the card; without one every entry point
+    # raises instead of solving on the CPU unasked
+    A, x, Bs = _batch(320)
+    nA, nB = np.asarray(A), np.asarray(Bs)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: numpy inputs are taken")
+    calls = {"omp_batch": (3,), "mp_batch": (3,), "gomp_batch": (2, 4),
+             "fr_batch": (), "sp_batch": (3,), "ompr_batch": (3, 1e-10),
+             "srr_batch": (3,), "foba_batch": (1e-2,), "br_batch": (),
+             "fbr_batch": (), "lace_batch": ()}
+    for name, args in calls.items():
+        with pytest.raises(RuntimeError, match="CPU tensors"):
+            getattr(cstpu_torch, name)(nA, nB, *args)
+    with pytest.raises(RuntimeError, match="CPU tensors"):
+        cstpu_torch.rmp_batch(nA.tolist(), nB.tolist(), delta=1e-2)
+
+
+def test_tensor_inputs_keep_their_device():
+    # CPU tensors ask for the CPU; an input that is not a tensor follows the
+    # one that is
+    A, x, Bs = _batch(321)
+    tA, tB = tbatched._inputs(to_torch(A), np.array(Bs))
+    assert tA.device == tB.device == torch.device("cpu")
+    assert isinstance(tB, torch.Tensor)
+    np.testing.assert_array_equal(tB.numpy(), np.asarray(Bs))
+    same = tbatched._inputs(tA, tB)
+    assert same[0] is tA and same[1] is tB
+    sol = cstpu_torch.omp_batch(np.array(A), tB, 3)
+    assert sol.idx.device == torch.device("cpu")
+    np.testing.assert_array_equal(
+        sol.idx.numpy(), np.asarray(cstpu.omp_batch(A, Bs, 3).idx))
+
+
+# --------------------------------------------------------------------------
+# rmp_batch, foba_batch, br_batch, fbr_batch, lace_batch
+# --------------------------------------------------------------------------
+
+def _dense(sol):
+    t = solution_to_numpy(sol)
+    out = np.zeros((t["idx"].shape[0], t["m"] + 1), t["val"].dtype)
+    np.put_along_axis(out, np.where(t["mask"], t["idx"], t["m"]),
+                      np.where(t["mask"], t["val"], 0), axis=1)
+    return out[:, :-1]
+
+
+def _jdense(sol):
+    import jax
+
+    return np.asarray(jax.vmap(lambda s: s.todense())(sol))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_stepwise_batch_matches_cstpu(dtype):
+    A, x, Bs = _batch(322, dtype)
+    tA, tB = to_torch(A), to_torch(Bs)
+    _same(cstpu_torch.rmp_batch(tA, tB, delta=1e-2),
+          cstpu.rmp_batch(A, Bs, delta=1e-2), dtype)
+    _same(cstpu_torch.rmp_batch(tA, tB, delta=1e-2, maxiter=3),
+          cstpu.rmp_batch(A, Bs, delta=1e-2, maxiter=3), dtype)
+    t = _same(cstpu_torch.foba_batch(tA, tB, 1e-2),
+              cstpu.foba_batch(A, Bs, 1e-2), dtype)
+    assert t["idx"].shape == (4, 32)             # min(n, m) slots
+    if dtype == jnp.float64:   # the k variant: exhaustion is f64's here
+        _same(cstpu_torch.rmp_batch(tA, tB[:1], k=3),
+              cstpu.rmp_batch(A, Bs[:1], k=3), dtype)
+    for kw in ({}, {"k": 3, "delta": 1e-2}):
+        with pytest.raises(ValueError, match="exactly one"):
+            cstpu_torch.rmp_batch(tA, tB, **kw)
+
+
+def _square(seed, dtype=jnp.float32):
+    from conftest import planted_problem
+
+    A, x, b, y = planted_problem(seed, n=32, m=32, k=3, noise=5e-3,
+                                 dtype=dtype)
+    return A, x, jnp.stack([y, 2.0 * y, b - 0.1 * y])
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_backward_batch_matches_cstpu(dtype):
+    A, x, Bs = _square(323, dtype)
+    tA, tB = to_torch(A), to_torch(Bs)
+    planted = set(np.flatnonzero(np.asarray(x)).tolist())
+    atol = 1e-8 if dtype == jnp.float64 else 1e-3
+    for name, kws in (("br_batch", ({"sparsity": 3}, {"max_increase": 1e-2},
+                                    {"sparsity": 3, "naive": True})),
+                      ("fbr_batch", ({"sparsity": 3}, {"max_residual": 3e-2})),
+                      ("lace_batch", ({"sparsity": 3}, {"max_increase": 1e-2}))):
+        for kw in kws:
+            tsol = getattr(cstpu_torch, name)(tA, tB, **kw)
+            jsol = getattr(cstpu, name)(A, Bs, **kw)
+            t, j = solution_to_numpy(tsol), solution_to_numpy(jsol)
+            np.testing.assert_array_equal(t["idx"], j["idx"])
+            np.testing.assert_allclose(t["val"], j["val"], rtol=0, atol=atol)
+            assert set(t["idx"][0][t["mask"][0]].tolist()) == planted
+
+
+def test_backward_batch_return_failed():
+    A, x, Bs = _square(324, jnp.float64)
+    tA, tB = to_torch(A), to_torch(Bs)
+    sol, failed = cstpu_torch.fbr_batch(tA, tB, sparsity=3,
+                                        return_failed=True)
+    assert failed.shape == (3,) and failed.dtype == torch.bool
+    assert not failed.any() and sol.idx.shape == (3, 32)
+    # LACE's per-instance path: a non-finite active coefficient is the flag
+    bad = tB.clone()
+    bad[1] = float("nan")
+    sol, failed = cstpu_torch.lace_batch(tA, bad, sparsity=3,
+                                         return_failed=True)
+    _, jfailed = cstpu.lace_batch(A, jnp.asarray(bad.numpy()), sparsity=3,
+                                  return_failed=True)
+    assert failed.tolist() == np.asarray(jfailed).tolist() == [False, True,
+                                                               False]
+    assert isinstance(cstpu_torch.lace_batch(tA, tB, sparsity=3),
+                      cstpu_torch.SparseSolution)
+
+
+def test_stepwise_and_backward_kernel_branches_match_cstpu(monkeypatch):
+    # the kernel path of each new entry point, with the kernels' plain
+    # versions standing in, against cstpu's per-instance paths in f32
+    A, x, Bs = _batch(325)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    for got, want in (
+            (tbatched.rmp_batch(tA, tB, delta=1e-2, kmax=8, precision="f32"),
+             cstpu.rmp_batch(A, Bs, delta=1e-2)),
+            (tbatched.rmp_batch(tA, tB, delta=1e-2, maxiter=2, kmax=8),
+             cstpu.rmp_batch(A, Bs, delta=1e-2, maxiter=2)),
+            (tbatched.foba_batch(tA, tB, 1e-2, kmax=8, precision="f32"),
+             cstpu.foba_batch(A, Bs, 1e-2))):
+        assert got.idx.shape == (4, 8)
+        np.testing.assert_allclose(_dense(got), _jdense(want), atol=2e-3)
+    A2, x2, Bs2 = _square(326)
+    tA2, tB2 = to_torch(A2), to_torch(Bs2)
+    for name in ("fbr_batch", "lace_batch"):
+        got, failed = getattr(tbatched, name)(tA2, tB2, sparsity=3,
+                                              return_failed=True)
+        want = getattr(cstpu, name)(A2, Bs2, sparsity=3)
+        assert not failed.any()
+        np.testing.assert_allclose(_dense(got), _jdense(want), atol=1e-3)
+    tbatched.br_batch(tA2, tB2, sparsity=3)            # no kernel path
+    assert calls == ["rmp", "rmp", "foba", "fbr", "lace"]
+
+
+def test_capped_rows_are_resolved_uncapped(monkeypatch):
+    # kmax = 2 cannot hold the 3 planted atoms: the kernels report every row
+    # capped and the per-instance solver does the work, so the result is the
+    # uncapped one, at the wider slot width
+    A, x, Bs = _batch(327)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    redone = []
+    real_rmp, real_foba = tbatched.rmp, tbatched.foba
+    monkeypatch.setattr(tbatched, "rmp", lambda *a, **kw:
+                        redone.append("rmp") or real_rmp(*a, **kw))
+    monkeypatch.setattr(tbatched, "foba", lambda *a, **kw:
+                        redone.append("foba") or real_foba(*a, **kw))
+    got = tbatched.rmp_batch(tA, tB, delta=1e-2, kmax=2)
+    assert got.idx.shape == (4, 32) and redone == ["rmp"] * 4
+    np.testing.assert_allclose(
+        _dense(got), _jdense(cstpu.rmp_batch(A, Bs, delta=1e-2)), atol=1e-4)
+    got = tbatched.foba_batch(tA, tB, 1e-2, kmax=2)
+    assert redone[4:] == ["foba"] * 4
+    np.testing.assert_allclose(
+        _dense(got), _jdense(cstpu.foba_batch(A, Bs, 1e-2)), atol=1e-4)
+    assert calls == ["rmp", "foba"]
+    # k > kmax never reaches the kernels
+    tbatched.rmp_batch(tA, tB[:1], k=3, kmax=2)
+    assert calls == ["rmp", "foba"]
+
+
+def test_merge_solution_rows_pads_and_overwrites():
+    S = cstpu_torch.SparseSolution
+    sol = S(idx=torch.tensor([[1, 9], [2, 9], [3, 4]], dtype=torch.int32),
+            val=torch.tensor([[1.0, 0.0], [2.0, 0.0], [3.0, 4.0]]),
+            mask=torch.tensor([[True, False], [True, False], [True, True]]),
+            m=9)
+    redo = S(idx=torch.tensor([[5, 6, 7]], dtype=torch.int32),
+             val=torch.tensor([[5.0, 6.0, 7.0]]),
+             mask=torch.tensor([[True, True, True]]), m=9)
+    out = tbatched._merge_solution_rows(sol, redo, torch.tensor([1]), 9)
+    assert out.idx.tolist() == [[1, 9, 9], [5, 6, 7], [3, 4, 9]]
+    assert out.val.tolist() == [[1.0, 0.0, 0.0], [5.0, 6.0, 7.0],
+                                [3.0, 4.0, 0.0]]
+    assert out.mask.tolist() == [[True, False, False], [True, True, True],
+                                 [True, True, False]]
+    assert sol.idx.shape == (3, 2)                 # the input is not written
+
+
+def test_stepwise_and_backward_options_that_leave_the_kernels(monkeypatch):
+    # decided by the options, dtypes and gates, not by an exception
+    A, x, Bs = _batch(328)
+    calls = _fake_cuda(monkeypatch)
+    tA, tB = to_torch(A), to_torch(Bs)
+    tbatched.rmp_batch(tA, tB, delta=1e-2, precision="highest")
+    tbatched.foba_batch(tA.double(), tB.double(), 1e-2)
+    tbatched.rmp_batch(tA, tB, delta=1e-2, kmax=200)       # beyond KMAX
+    A2, x2, Bs2 = _square(329, jnp.float64)
+    tbatched.fbr_batch(to_torch(A2), to_torch(Bs2), sparsity=3)   # f64
+    tbatched.lace_batch(to_torch(A2)[:, :30].float(),
+                        to_torch(Bs2).float(), sparsity=3)        # m % 4
+    assert calls == []
+
+
+def test_stepwise_and_backward_fused_solves_on_cpu_launch_nothing():
+    A, x, Bs = _batch(330)
+    A2, x2, Bs2 = _square(331)
+    for key in tfs.LAUNCHES:
+        tfs.LAUNCHES[key] = 0
+    tA, tB = to_torch(A), to_torch(Bs)
+    *_, (t, f) = tft.rmp_fused_solve(tA, tB, delta=1e-2, kmax=8,
+                                     return_iters=True)
+    assert t == 1 and f >= 4
+    tft.foba_fused_solve(tA, tB, 1e-2, kmax=8)
+    tbatched.fused_backward.fbr_fused_solve(to_torch(A2), to_torch(Bs2),
+                                            sparsity=3)
+    tbatched.fused_backward.lace_fused_solve(to_torch(A2), to_torch(Bs2),
+                                             sparsity=3)
+    assert not any(tfs.LAUNCHES.values())
+    assert {"rmp_append", "engine_backward", "bw_select",
+            "bw_downdate"} <= set(tfs.LAUNCHES)

@@ -1,7 +1,8 @@
 """The CUDA kernels of cstpu_torch (select_argmax, omp_append, mp_update,
-select_topl, gomp_append, fr_select, fr_append, and the two-stage ones:
-engine_init, ompr_swap, srr_append, engine_delete, sp_round) against their
-plain PyTorch versions, on the card. Marked `gpu`: without a CUDA device
+select_topl, gomp_append, fr_select, fr_append, the two-stage ones:
+engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
+ones: rmp_append, engine_backward, and the backward family's: bw_select,
+bw_downdate) against their plain PyTorch versions, on the card. Marked `gpu`: without a CUDA device
 every test here skips.
 
 On a GPU machine (no JAX needed, so the JAX suite's conftest is skipped):
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import planted
+from cstpu_torch.ops import fused_backward as fb
 from cstpu_torch.ops import fused_solve as fs
 from cstpu_torch.ops import fused_twostage as ft
 
@@ -622,3 +624,290 @@ def test_twostage_wrappers_reject_bad_cuda_inputs(dev):
         ft.sp_round(pv, pi, Ac, Bs, ft._SpState(*(
             torch.zeros(1, device=dev) for _ in ft._SpState._fields)), 0.0,
             True)
+
+
+# --------------------------------------------------------------------------
+# Stepwise kernels (RMP, FoBa): rmp_append and engine_backward
+# --------------------------------------------------------------------------
+
+def _stepwise_setup(dev, B, n, m, k, K, cdt):
+    """(Ac, Ac32, Bs, cn2, floor2, state): a noisy planted problem with a
+    NaN row 0 and the empty K-slot RMP state."""
+    Ac, Ac32, Bs = _ompr_setup(dev, B, n, m, k, cdt)
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+    st = ft._init_engine(Bs, K, m, cn2, npend=K + 1, stepwise=True)
+    return Ac, Ac32, Bs, cn2, floor2, st
+
+
+def _select_both(Ac, Ac32, cn2, stk, st, npend, cdt):
+    """The pending-term select on the kernel's and the plain state; the
+    rescalings and the picks must agree on the clean rows."""
+    kv, ki = fs.rescaled_select(Ac, cn2, stk.r, stk.pend_u[:npend],
+                                stk.pend_w[:npend], 1.0, stk.amask, stk.resc)
+    pv, pi = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:npend],
+                                     st.pend_w[:npend], 1.0, st.amask,
+                                     st.resc, cdt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(stk.resc[1:], st.resc[1:], rtol=0, atol=ATOL)
+    assert torch.equal(_reduce(kv, ki)[1][1:], _reduce(pv, pi)[1][1:])
+    return kv, ki
+
+
+def _same_pending(stk, st, slots):
+    torch.testing.assert_close(stk.pend_w[:slots, 1:], st.pend_w[:slots, 1:],
+                               rtol=0, atol=STATE_ATOL)
+    live = st.pend_w[:slots, 1:] != 0
+    torch.testing.assert_close(stk.pend_u[:slots, 1:][live],
+                               st.pend_u[:slots, 1:][live], rtol=0,
+                               atol=STATE_ATOL)
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+@pytest.mark.parametrize("kfinal", [-1, 2])
+def test_rmp_kernels_match_plain_every_step(dev, B, n, m, cdt, kfinal):
+    # two outer passes, every launch from the plain version's state: the
+    # delta variant's backward stage deletes nothing on the clean rows
+    # (delta 0.15: above the noise's gains, below the unit coefficients'),
+    # the k variant's cuts the 4 planted atoms to 2 and leaves two restore
+    # terms
+    k, K, delta2 = 4, 6, 0.15 ** 2
+    Ac, Ac32, Bs, cn2, floor2, st = _stepwise_setup(dev, B, n, m, k, K, cdt)
+    npend = 1
+    for outer in range(2):
+        steps = 0
+        while steps < K + 1 and bool((st.fgate > 0.5).any()):
+            stk = _clone(st)
+            kv, ki = _select_both(Ac, Ac32, cn2, stk, st, npend, cdt)
+            ft.rmp_append(kv, ki, Ac, Bs, stk, delta2, floor2, False)
+            ft._rmp_append_ref(kv, ki, Ac32, Bs, st, delta2, floor2, False)
+            torch.cuda.synchronize()
+            _same_state(stk, st, slice(1, None))
+            _same_pending(stk, st, 1)
+            npend = 1
+            steps += 1
+        # the second pass adds again what the k variant's stage deleted
+        assert steps == 1 + (k if outer == 0 else max(k - kfinal, 0)
+                             if kfinal >= 0 else 0), steps
+        assert float(st.fgate[0]) == float(stk.fgate[0]) == 0.0   # NaN row
+        stk = _clone(st)
+        ft.engine_backward(Bs, stk, delta2, kfinal)
+        ft._engine_backward_ref(Bs, st, delta2, kfinal)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(1, None))
+        _same_pending(stk, st, K + 1)
+        want = k - kfinal if kfinal >= 0 else 0
+        assert (st.ndel[1:] == want).all(), st.ndel
+        npend = 1 + int(st.ndel.max())
+    assert not st.capped[1:].any() and not stk.capped[1:].any()
+    # the second pass of the delta variant accepted nothing: every row done
+    if kfinal < 0:
+        assert (st.done[1:] == 1.0).all() and (stk.done[1:] == 1.0).all()
+    # a done row is left exactly as it was; its pending weights and its
+    # deletion count, which size the next select's passes, are zeroed
+    st.done[1] = 1.0
+    st.pend_w[:, 1] = 0.5
+    before = _clone(st)
+    parts = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:0],
+                                    st.pend_w[:0], 1.0, st.amask,
+                                    st.resc.clone(), cdt)
+    ft.rmp_append(*parts, Ac, Bs, st, delta2, floor2, False)
+    ft.engine_backward(Bs, st, delta2, kfinal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(st._fields, st, before):
+        if a is not None and not name.startswith("pend") and name != "ndel":
+            assert torch.equal(a[1], b[1]), name
+    assert not st.pend_w[:, 1].any() and float(st.ndel[1]) == 0.0
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_rmp_append_reports_the_cap(dev, B, n, m, cdt):
+    # K = 2 slots against 4 planted atoms: the third forward step wants an
+    # atom, finds no slot, and sets capped on every clean row
+    Ac, Ac32, Bs, cn2, floor2, st = _stepwise_setup(dev, B, n, m, 4, 2, cdt)
+    npend = 1
+    for _ in range(3):
+        stk = _clone(st)
+        kv, ki = _select_both(Ac, Ac32, cn2, stk, st, npend, cdt)
+        ft.rmp_append(kv, ki, Ac, Bs, stk, 1e-4, floor2, False)
+        ft._rmp_append_ref(kv, ki, Ac32, Bs, st, 1e-4, floor2, False)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(1, None))
+    assert (stk.capped[1:] == 1.0).all() and (st.capped[1:] == 1.0).all()
+    assert float(stk.capped[0]) == float(st.capped[0]) == 0.0
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_foba_kernel_matches_plain_every_iteration(dev, B, n, m, cdt):
+    # on unit planted atoms FoBa's gain / 4 rule deletes nothing by itself,
+    # so iterations 2 and 3 get their select scores multiplied by 100: the
+    # rule's bound becomes 25 gains and the loop deletes several atoms,
+    # which the later iterations add again
+    k, K, delta2 = 4, 6, 0.15 ** 2
+    Ac, Ac32, Bs, cn2, floor2, st = _stepwise_setup(dev, B, n, m, k, K, cdt)
+    npend, t, ndel_seen = 1, 0, 0
+    while t < 12 and bool((st.fgate > 0.5).any()):
+        stk = _clone(st)
+        kv, ki = _select_both(Ac, Ac32, cn2, stk, st, npend, cdt)
+        if t in (2, 3):
+            kv = kv * 100.0
+        ft.rmp_append(kv, ki, Ac, Bs, stk, delta2, floor2, True)
+        ft._rmp_append_ref(kv, ki, Ac32, Bs, st, delta2, floor2, True)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(1, None))
+        _same_pending(stk, st, K + 1)
+        npend = 1 + int(st.ndel.max())
+        ndel_seen = max(ndel_seen, int(st.ndel[1:].max()))
+        t += 1
+    assert k + 1 <= t < 12 and not st.fgate[1:].any()
+    assert ndel_seen >= 2 and ((st.idx[1:] < m).sum(1) == k).all()
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stepwise_solves_match_plain_and_recover(dev, B, n, m, cdt):
+    k = 3 if n < 100 else 8
+    A, Bs, sup = _problem(dev, B, n, m, k)
+    want = sup.sort(1).values
+
+    def launches(fn):
+        before = dict(fs.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {key: fs.LAUNCHES[key] - before[key] for key in before
+                     if fs.LAUNCHES[key] != before[key]}
+
+    solves = []
+    for kw in ({"delta": 1e-2, "maxiter": 2}, {"k": k}):
+        (sol, _, cap, (t, f)), got = launches(lambda: ft.rmp_fused_solve(
+            A, Bs, kmax=12, corr_dtype=cdt, return_iters=True, **kw))
+        assert got == {"fr_select": f, "rmp_append": f,
+                       "engine_backward": t}, got
+        ref, _, cap_ref = ft.rmp_fused_solve_ref(A, Bs, kmax=12,
+                                                 corr_dtype=cdt, **kw)
+        assert torch.equal(cap, cap_ref)
+        if "delta" in kw:
+            assert not cap.any()
+            solves.append((sol, ref))
+    (sol, _, cap, t), got = launches(lambda: ft.foba_fused_solve(
+        A, Bs, 1e-2, kmax=12, corr_dtype=cdt, return_iters=True))
+    assert got == {"fr_select": t, "rmp_append": t}, got
+    assert not cap.any()
+    solves.append((sol, ft.foba_fused_solve_ref(A, Bs, 1e-2, kmax=12,
+                                                corr_dtype=cdt)[0]))
+    for sol, ref in solves:
+        assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
+        torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-3)
+        if n >= 1000:
+            have = torch.where(sol.mask, sol.idx, m).sort(1).values
+            assert torch.equal(have[:, :k].long(), want)
+    # kmax = 2 cannot hold the support: every row reports the cap
+    _, _, cap = ft.rmp_fused_solve(A, Bs, delta=1e-2, kmax=2, corr_dtype=cdt)
+    assert cap.all()
+
+
+# --------------------------------------------------------------------------
+# Backward kernels (FBR, LACE): bw_select and bw_downdate
+# --------------------------------------------------------------------------
+
+BW_SIZES = [(3, 48, 40), (8, 128, 128), (8, 1024, 1024)]   # B, n, m
+
+
+def _bw_problem(dev, B, n, m, k=3):
+    """Unit-norm Gaussian (n, m) dictionary, m <= n, and B rows of k planted
+    ones plus noise of relative size ~1e-3."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((n, m), device=dev, generator=gen)
+    A = A / A.norm(dim=0, keepdim=True)
+    sup = torch.stack([torch.randperm(m, generator=gen, device=dev)[:k]
+                       for _ in range(B)])
+    Bs = A[:, sup].sum(-1).T.contiguous()
+    Bs += 1e-3 * torch.randn(Bs.shape, device=dev, generator=gen)
+    return A, Bs, sup
+
+
+@pytest.mark.parametrize("B,n,m", BW_SIZES)
+@pytest.mark.parametrize("select_abs", [False, True])
+def test_bw_kernels_match_plain_every_step(dev, B, n, m, select_abs):
+    # the kernels round every product and sum as the plain version's tensor
+    # operations do, so the states agree bit for bit (the selection has no
+    # sums); row 1 stops early at a threshold and is skipped from then on
+    A, Bs, _ = _bw_problem(dev, B, n, m)
+    st = fb._bw_init(A, Bs)
+    st.nr2[1] = 1.0                    # its first step exceeds max_eps2
+    for t in range(min(m - 3, 24)):
+        stk = _clone(st)
+        fb.bw_select(stk, 0.5, float("inf"), select_abs)
+        fb._bw_select_ref(st, 0.5, float("inf"), select_abs)
+        torch.cuda.synchronize()
+        for name, a, b in zip(st._fields, stk, st):
+            assert torch.equal(a, b), (t, name)
+        fb.bw_downdate(stk)
+        fb._bw_downdate_ref(st)
+        torch.cuda.synchronize()
+        assert torch.equal(stk.G, st.G), t
+    assert float(st.run[1]) == 0.0 and st.run[[0, 2]].all()
+    assert int(st.alive[1].sum()) == m and int(st.alive[0].sum()) == m - t - 1
+    assert not st.failed.any()
+
+
+def test_bw_select_latches_failed_on_nan(dev):
+    A, Bs, _ = _bw_problem(dev, 4, 48, 40)
+    st = fb._bw_init(A, Bs)
+    st.coef[1] = float("nan")          # NaN scores: nothing is selected
+    st.nr2[2] = -1e9                   # an indefinite state: d2 + nr2 < 0
+    stk = _clone(st)
+    fb.bw_select(stk, float("inf"), float("inf"), False)
+    fb._bw_select_ref(st, float("inf"), float("inf"), False)
+    torch.cuda.synchronize()
+    assert stk.failed.tolist() == st.failed.tolist() == [0.0, 1.0, 1.0, 0.0]
+    assert stk.run.tolist() == st.run.tolist() == [1.0, 0.0, 0.0, 1.0]
+    assert torch.equal(stk.alive, st.alive) and int(stk.alive[2].sum()) == 40
+
+
+@pytest.mark.parametrize("B,n,m", BW_SIZES)
+def test_backward_solves_match_plain_and_recover(dev, B, n, m):
+    A, Bs, sup = _bw_problem(dev, B, n, m)
+    want = sup.sort(1).values
+    for solve, ref in ((fb.fbr_fused_solve, fb.fbr_fused_solve_ref),
+                       (fb.lace_fused_solve, fb.lace_fused_solve_ref)):
+        before = dict(fs.LAUNCHES)
+        sol, failed, t = solve(A, Bs, sparsity=3, return_iters=True)
+        torch.cuda.synchronize()
+        assert t == m - 3
+        assert fs.LAUNCHES["bw_select"] - before["bw_select"] == t
+        assert fs.LAUNCHES["bw_downdate"] - before["bw_downdate"] == t
+        rsol, rfailed = ref(A, Bs, sparsity=3)
+        assert torch.equal(sol.idx, rsol.idx) and torch.equal(failed, rfailed)
+        assert not failed.any()
+        torch.testing.assert_close(sol.val, rsol.val, rtol=0, atol=1e-4)
+        have = torch.where(sol.mask, sol.idx, m).sort(1).values[:, :3]
+        assert torch.equal(have.long(), want)
+    # a threshold stop: far fewer steps than m, read at the latch interval
+    sol, failed, t = fb.fbr_fused_solve(A, Bs, max_increase=0.1,
+                                        return_iters=True)
+    assert not failed.any() and t <= -(-(m - 2) // fb.CHECK_EVERY) * fb.CHECK_EVERY
+    have = torch.where(sol.mask, sol.idx, m).sort(1).values[:, :3]
+    assert torch.equal(have.long(), want)
+
+
+def test_stepwise_and_backward_wrappers_reject_bad_cuda_inputs(dev):
+    A, Bs, _ = _problem(dev, 4, 32, 256, 2)
+    Ac = A.to(torch.bfloat16)
+    cn2 = torch.sum(A * A, dim=0)
+    floor2 = torch.zeros((4,), device=dev)
+    st = ft._init_engine(Bs, 3, 256, cn2, npend=2)     # SRR's state
+    with pytest.raises(ValueError):
+        ft.rmp_append(*fs.select_argmax(Bs, Ac), Ac, Bs, st, 0.0, floor2,
+                      False)
+    with pytest.raises(ValueError):
+        ft.engine_backward(Bs, st, 0.0, -1)
+    A2, B2, _ = _bw_problem(dev, 2, 48, 40)
+    bw = fb._bw_init(A2, B2)
+    with pytest.raises(ValueError):
+        fb.bw_select(bw._replace(coef=bw.coef.double()), 1.0, 1.0, False)
+    with pytest.raises(ValueError):
+        fb.bw_downdate(bw._replace(G=bw.G[:, :, :39]))
