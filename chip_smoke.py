@@ -21,10 +21,18 @@ it and read just after:
   fbr_batch(., sparsity=32), lace_batch(., sparsity=32)
                        suite config 3e (square n=m=1024, 32 planted ones:
                        992 deletions per row), at B=8 and at B=64
+  omp_sharded_fused(., 32, mesh)  suite config 5c (B=8, n=1024, m=131072)
+                       on a mesh of one shard and of four shards on the one
+                       card, both collective forms; and config 5m
+                       (m=1,048,576, a 4 GB dictionary) on one shard
+  mp/gomp/ompr/sp_sharded_fused   on 5c's dictionary with planted ones, four
+                       shards; correlate_argmax on 5c's dictionary
 
 It checks planted-support recovery, launch counts (for the two-stage,
-stepwise and backward paths against the formulas for the iterations they
-ran) and agreement with the plain solves, and times kernels and solves with
+stepwise, backward and sharded paths against the formulas for the
+iterations they ran: a streaming select per shard and step) and agreement
+with the plain solves (for the sharded paths also across shard counts,
+collective forms and with the unsharded batch solvers), and times kernels and solves with
 CUDA events; the later kernels' device time per launch and the paths' idle
 share come from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
@@ -806,7 +814,9 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 
 KERNEL_NAMES = ("select_argmax", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
-                "rmp_append", "engine_backward", "bw_select", "bw_downdate")
+                "rmp_append", "engine_backward", "bw_select", "bw_downdate",
+                "stream_sweep", "stream_finish", "stream_topl_sweep",
+                "stream_topl_finish")
 
 
 def profile_path(fn):
@@ -1354,6 +1364,446 @@ def backward_times(A2, problems, gpu):
     return tm, split, per_call
 
 
+# the sharded paths, suite configs 5c and 5m (benchmarks/suite.py:447-511):
+# (name, B, n, m, k); the other four sharded solvers run on 5c's dictionary
+# with planted ones (2a's construction) on SHARDS shards
+SHARD_CELLS = {"5c": (8, 1024, 131072, 32), "5m": (8, 1024, 1 << 20, 32)}
+SHARDS = 4
+# shapes the stream kernels are held against their plain twins at: a whole
+# 5c dictionary as one shard, and one of its four shards
+STREAM_WIDTHS = (131072, 32768)
+TPU_SELECT = "cstpu/ops/stream_select.py"
+TPU_ARGMAX = "cstpu/ops/pallas_kernels.py"
+
+
+def stream_bound(B, n, m, cdt_bytes=2, l=1, masked=False):
+    """A streaming select: the shard (n, m) in cdt and R (B, n) f32 read
+    once, with `masked` also M (B, m) f32; l (value, index) pairs per row
+    written. 2 B n m operations."""
+    nbytes = n * m * cdt_bytes + B * n * 4 + B * l * 8
+    if masked:
+        nbytes += B * m * 4
+    return bound(nbytes, 2 * B * n * m, "bf16" if cdt_bytes == 2 else "f32")
+
+
+def _clear_rows(scores, depth=1):
+    """Rows whose `depth` best scores stand clear of each other and of the
+    next by more than GAP_RTOL of the best."""
+    top = scores.nan_to_num(nan=-1.0, neginf=-1.0).topk(depth + 1,
+                                                        dim=1).values
+    return ((top[:, :-1] - top[:, 1:]) > GAP_RTOL * top[:, :1]).all(dim=1)
+
+
+def _hold(name, kern, plain, clear, errs):
+    """A select's (val, idx) against its plain twin's: indices equal on the
+    clear rows, finite values to SELECT_RTOL relative, the same entries
+    infinite or NaN. Records the largest absolute value error."""
+    (kv, ki), (pv, pi) = kern, plain
+    assert torch.equal(ki[clear], pi[clear]), f"{name}: idx disagree"
+    fin = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(kv), fin), f"{name}: finite pattern"
+    assert torch.equal(torch.isnan(kv), torch.isnan(pv)), f"{name}: NaN"
+    err = (kv[fin] - pv[fin]).abs()
+    assert bool((err <= SELECT_RTOL * pv[fin].abs() + 1e-7).all()), (
+        name, float(err.max()))
+    errs[name] = max(errs.get(name, 0.0), float(err.max()) if fin.any()
+                     else 0.0)
+
+
+def check_stream_kernels(dev):
+    """select_stream, select_masked_stream, select_topl_stream (l=4 and 32)
+    and corr_argmax against their plain twins on the card, at the sharded
+    paths' shapes (B=8, n=1024, bf16 and f32), with a column repeated
+    within and across tiles, a NaN row of R, a row with every atom
+    excluded, and then one poisoned atom."""
+    from cstpu_torch.ops import corr_argmax as ca
+    from cstpu_torch.ops import stream_select as ss
+
+    B, n = SHARD_CELLS["5c"][:2]
+    errs = {}
+    for m in STREAM_WIDTHS:
+        for cdt in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            A = torch.randn((n, m), device=dev, generator=gen)
+            A = (A / A.norm(dim=0)).to(cdt)
+            R = torch.randn((B, n), device=dev, generator=gen)
+            tm = ss._stream_tile(m, n, A.element_size(),
+                                 ss.STREAM_TILE_BYTES)
+            a0, a1, a2 = 70, min(tm, m // 2) - 3, m - 5    # one column, thrice
+            A[:, a1] = A[:, a0]
+            A[:, a2] = A[:, a0]
+            R[0] = A[:, a0].float()
+            R[1, 5] = float("nan")
+            M = torch.zeros((B, m), device=dev)
+            M[:, a0] = -torch.inf
+            M[3] = -torch.inf
+            for poisoned in (False, True):
+                if poisoned:
+                    best = int(ss._abs_scores(A, R[2:3]).argmax())
+                    A[:, best] = float("nan")
+                sc = ss._abs_scores(A, R)
+                # what the tile rule leaves of the scores: tiles that hold
+                # a NaN take no part
+                nan_tile = torch.isnan(sc.view(B, m // tm, tm)).any(dim=2)
+                live = torch.where(nan_tile[:, :, None], -torch.inf,
+                                   sc.view(B, m // tm, tm)).view(B, m)
+                k6 = ss.correlate_select_stream(A, R)
+                p6 = ss.correlate_select_stream_ref(A, R)
+                _hold("select_stream", k6, p6, _clear_rows(live), errs)
+                k9 = ss.correlate_select_masked_stream(A, R, M)
+                p9 = ss.correlate_select_masked_stream_ref(A, R, M)
+                _hold("select_masked_stream", k9, p9, _clear_rows(live + M),
+                      errs)
+                for l in (4, 32):
+                    k7 = ss.correlate_select_topl_stream(A, R, l)
+                    p7 = ss.correlate_select_topl_stream_ref(A, R, l)
+                    _hold("select_topl_stream", k7, p7,
+                          _clear_rows(live, depth=l), errs)
+                    # as sets on every row (the tied one too): the sorted
+                    # values agree, and row 0 holds the same atoms
+                    ks, ps = k7[0].sort(dim=1).values, p7[0].sort(dim=1).values
+                    fin = torch.isfinite(ps)
+                    assert bool(((ks - ps)[fin].abs()
+                                 <= SELECT_RTOL * ps[fin].abs() + 1e-7).all())
+                    assert (sorted(k7[1][0].tolist())
+                            == sorted(p7[1][0].tolist()))
+                    assert bool((k7[0][1] == -torch.inf).all())
+                    assert bool((k7[1][1] == 0).all())
+                tile10 = ca._pick_tile(m)
+                first = torch.isnan(sc.view(B, m // tile10, tile10)).any(
+                    dim=2).int().argmax(dim=1) * tile10
+                seen = torch.where(
+                    (torch.arange(m, device=dev)[None, :] < first[:, None])
+                    | ~torch.isnan(sc).any(dim=1, keepdim=True), sc,
+                    -torch.inf)
+                ki, kv = ca.correlate_argmax(A, R.T)
+                pi, pv = ca.correlate_argmax_ref(A, R.T)
+                _hold("corr_argmax", (kv, ki), (pv, pi), _clear_rows(seen),
+                      errs)
+                torch.cuda.synchronize()
+                # the built cases: the tied row against the plain twin, the
+                # NaN row, the row with every atom excluded
+                for kern, plain in ((k6, p6), (k9, p9), ((kv, ki), (pv, pi))):
+                    assert int(kern[1][0]) == int(plain[1][0])
+                assert float(k6[0][1]) == float("-inf") and int(k6[1][1]) == 0
+                assert float(k9[0][3]) == float("-inf") and int(k9[1][3]) == 0
+                assert bool(torch.isnan(kv[1]))
+                if poisoned:
+                    lo = best // tm * tm
+                    for val, got in (k6, k9, k7):    # no pick from its tile
+                        assert not bool(((got >= lo) & (got < lo + tm)
+                                         & (val > -torch.inf)).any())
+                    assert bool(torch.isnan(kv).all())
+                else:
+                    assert int(k6[1][0]) == a0 and int(k9[1][0]) == a1
+                    assert {a0, a1, a2} <= set(k7[1][0].tolist())
+                    assert int(ki[0]) == a0 and not bool(torch.isnan(kv[0]))
+            del A, R, M, sc, live, seen
+            torch.cuda.empty_cache()
+    print("[stream kernels] K6, K9, K7 (l=4, 32), K10 == plain twins at "
+          f"m_local in {STREAM_WIDTHS}, bf16 and f32: ties -> lowest index "
+          "within and across tiles, NaN row -> (-inf, 0) / NaN (K10), "
+          "all-excluded row -> (-inf, 0), poisoned atom -> its tile skipped "
+          "/ NaN visible (K10); max |val err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol {SELECT_RTOL})")
+    return errs
+
+
+def _supports(sol):
+    """Per row the sorted tuple of active atom indices."""
+    idx = torch.where(sol.mask, sol.idx, sol.m).cpu().numpy()
+    return [tuple(sorted(int(i) for i in row if i < sol.m)) for row in idx]
+
+
+def unit_dictionary(gen, n, m):
+    """Unit-norm Gaussian dictionary, normalised in place (no second copy of
+    a dictionary that takes gigabytes)."""
+    A = torch.randn((n, m), generator=gen, device=gen.device)
+    A /= torch.linalg.vector_norm(A, dim=0, keepdim=True)
+    return A
+
+
+def planted_pm1(gen, A, B, k):
+    """B measurements of k-sparse +-1 signals on random supports."""
+    m = A.shape[1]
+    sup = torch.stack([torch.randperm(m, generator=gen, device=A.device)[:k]
+                       for _ in range(B)])
+    sign = torch.randint(0, 2, (B, k), generator=gen,
+                         device=A.device).float() * 2 - 1
+    return (A[:, sup] * sign[None]).sum(-1).T.contiguous(), sup
+
+
+def sharded_omp_path(cell, A, Bs, sup, shard_counts, plain: bool):
+    """omp_sharded_fused on the cell's problem, once per shard count and
+    collective form with the launch counts zeroed just before: recovery
+    1.000, launches = shards x steps, supports equal across shard counts,
+    forms, the plain solve (when `plain`) and omp_batch."""
+    import cstpu_torch
+    from cstpu_torch.parallel import sharded as sh
+
+    k = SHARD_CELLS[cell][3]
+    out, first = {}, None
+    for s in shard_counts:
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(A, mesh)
+        for fuse in (True, False):
+            (sol, iters), launches = run_counted(
+                lambda: cstpu_torch.omp_sharded_fused(
+                    Ash, Bs, k, mesh, fuse_collectives=fuse,
+                    return_iters=True))
+            assert iters == [k], iters
+            assert launches == expect_launches(select_stream=s * k), launches
+            rec = recovery(sol, sup)
+            assert rec == 1.0, f"{cell} s={s} fuse={fuse}: recovery {rec}"
+            if first is None:
+                first = sol
+            assert torch.equal(sol.idx, first.idx), (cell, s, fuse)
+            bitwise = torch.equal(sol.val, first.val)
+            cerr = float((sol.val - first.val).abs().max())
+            assert cerr <= COEF_ATOL, cerr
+            out[(s, fuse)] = {"launches": launches["select_stream"],
+                              "recovery": rec, "bitwise_val": bitwise}
+            print(f"[main {cell}] omp_sharded_fused shards={s} "
+                  f"fuse_collectives={fuse} recovery={rec:.3f} steps={iters} "
+                  f"select_stream launches={launches['select_stream']}; "
+                  f"supports == first run, coefficients "
+                  f"{'bit-equal' if bitwise else f'within {cerr:.3e}'}")
+        if plain:
+            ref = sh.omp_sharded_fused_ref(Ash, Bs, k, mesh)
+            assert _supports(ref) == _supports(first), (cell, s, "plain")
+            cerr = float((ref.val - first.val).abs().max())
+            assert cerr <= COEF_ATOL, cerr
+            print(f"[main {cell}] shards={s}: supports == plain solve, max "
+                  f"|coef err| {cerr:.3e} (atol {COEF_ATOL})")
+        del Ash
+    ub = cstpu_torch.omp_batch(A, Bs, k)
+    assert _supports(ub) == _supports(first), (cell, "omp_batch")
+    print(f"[main {cell}] supports == omp_batch's on the same rows")
+    return out
+
+
+def sharded_other_paths(A, gen):
+    """mp/gomp/ompr/sp_sharded_fused on 5c's dictionary with planted ones,
+    B=8, SHARDS shards: launch counts against the iterations run, recovery
+    (all but MP), supports equal to the plain solve's and to the unsharded
+    *_batch's; MP's x and r against the plain solve."""
+    import cstpu_torch
+    from cstpu_torch.parallel import sharded as sh
+
+    B, n, m, k = SHARD_CELLS["5c"]
+    s = SHARDS
+    Bs, sup = planted_ones(gen, A, B, k)
+    mesh = cstpu_torch.make_mesh((1, s))
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+    out = {}
+
+    x, launches = run_counted(
+        lambda: cstpu_torch.mp_sharded_fused(Ash, Bs, k, mesh))
+    assert launches == expect_launches(select_stream=s * k), launches
+    xp = sh.mp_sharded_fused_ref(Ash, Bs, k, mesh)
+    xerr = float((x - xp).abs().max())
+    r, rp = Bs - x @ A.T, Bs - xp @ A.T
+    rerr = float((r - rp).abs().max())
+    assert xerr <= MP_ATOL and rerr <= MP_ATOL, (xerr, rerr)
+    fall = float((r.norm(dim=1) / Bs.norm(dim=1)).max())
+    assert fall < 1.0, fall
+    out["mp"] = {"launches": launches, "err": max(xerr, rerr)}
+    print(f"[main 5c mp] mp_sharded_fused shards={s} launches="
+          f"{launches['select_stream']}; max |x err| {xerr:.3e}, |r err| "
+          f"{rerr:.3e} against the plain solve (atol {MP_ATOL}); ||r||/||b|| "
+          f"<= {fall:.3f}")
+
+    cases = (
+        ("gomp", lambda f, **kw: f(Ash, Bs, 4, k, mesh, **kw),
+         cstpu_torch.gomp_sharded_fused, sh.gomp_sharded_fused_ref,
+         lambda: cstpu_torch.gomp_batch(A, Bs, 4, k),
+         lambda it: {"select_topl_stream": s * it}),
+        ("ompr", lambda f, **kw: f(Ash, Bs, k, mesh, delta=1e-12, **kw),
+         cstpu_torch.ompr_sharded_fused, sh.ompr_sharded_fused_ref,
+         lambda: cstpu_torch.ompr_batch(A, Bs, k, 1e-12),
+         lambda it: {"select_topl_stream": s,
+                     "select_masked_stream": s * it}),
+        ("sp", lambda f, **kw: f(Ash, Bs, k, mesh, maxiter=8, **kw),
+         cstpu_torch.sp_sharded_fused, sh.sp_sharded_fused_ref,
+         lambda: cstpu_torch.sp_batch(A, Bs, k, maxiter=8),
+         lambda it: {"select_topl_stream": s * (1 + it)}),
+    )
+    for name, call, entry, ref, unsharded, want in cases:
+        (sol, iters), launches = run_counted(
+            lambda: call(entry, return_iters=True))
+        assert launches == expect_launches(**want(iters[0])), (name, launches)
+        rec = recovery(sol, sup)
+        assert rec == 1.0, f"{name}: recovery {rec}"
+        plain, it_plain = call(ref, return_iters=True)
+        assert _supports(plain) == _supports(sol), f"{name}: plain solve"
+        assert _supports(unsharded()) == _supports(sol), f"{name}: unsharded"
+        cerr = float((sol.val - plain.val).abs().max())
+        assert cerr <= COEF_ATOL, (name, cerr)
+        out[name] = {"launches": launches, "iters": iters[0],
+                     "plain_iters": it_plain[0], "recovery": rec,
+                     "err": cerr}
+        print(f"[main 5c {name}] {entry.__name__} shards={s} recovery="
+              f"{rec:.3f} iters={iters[0]} (plain {it_plain[0]}) launches="
+              f"{ {key: v for key, v in launches.items() if v} }; supports "
+              f"== plain solve == unsharded batch solve, max |coef err| "
+              f"{cerr:.3e} (atol {COEF_ATOL})")
+    return out, Bs
+
+
+def corr_argmax_path(A, Bs):
+    """The package's correlate_argmax on 5c's dictionary with R as (n, B),
+    launch count zeroed just before: every row's pick is the first pick of
+    the streaming select on the same inputs."""
+    import cstpu_torch
+    from cstpu_torch.ops import stream_select as ss
+
+    Ac = A.to(torch.bfloat16)
+    R = Bs.T.contiguous()                       # (n, B)
+    (idx, val), launches = run_counted(
+        lambda: cstpu_torch.correlate_argmax(Ac, R))
+    assert launches == expect_launches(corr_argmax=1), launches
+    sval, sidx = ss.correlate_select_stream(Ac, Bs)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, sidx) and torch.equal(val, sval)
+    assert not bool(torch.isnan(val).any())
+    print(f"[main 5c corr_argmax] correlate_argmax(A, R (n, B)) launches="
+          f"{launches['corr_argmax']}; idx and val == select_stream's on the "
+          f"same inputs")
+    return launches["corr_argmax"]
+
+
+def sharded_times(A5c, Bs5c, Bones, gpu):
+    """Solve times (CUDA events) and the profiler's split of the 5c paths;
+    per-call times of the four stream kernels and their plain twins at
+    5c's shapes (the wrapper and both launches included)."""
+    import cstpu_torch
+    from cstpu_torch.ops import corr_argmax as ca
+    from cstpu_torch.ops import stream_select as ss
+    from cstpu_torch.parallel import sharded as sh
+
+    B, n, m, k = SHARD_CELLS["5c"]
+    tm, split = {}, {}
+    for s in (1, SHARDS):
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(A5c, mesh)
+        for fuse in (True, False):
+            key = f"5c omp s={s} fuse={int(fuse)}"
+            fn = lambda: cstpu_torch.omp_sharded_fused(
+                Ash, Bs5c, k, mesh, fuse_collectives=fuse)
+            tm[key] = cuda_ms(lambda: fn().val.sum(), TIMED_SOLVES)
+            if fuse:
+                split[key] = _split(tm[key], fn)
+        if s == 1:
+            tm["plain_5c omp s=1 fuse=1"] = cuda_ms(
+                lambda: sh.omp_sharded_fused_ref(Ash, Bs5c, k,
+                                                 mesh).val.sum(), TIMED_SLOW)
+    tm["5b-rows omp_batch B=8"] = cuda_ms(
+        lambda: cstpu_torch.omp_batch(A5c, Bs5c, k).val.sum(), TIMED_SOLVES)
+    others = (
+        ("mp", lambda f: f(Ash, Bones, k, mesh),
+         cstpu_torch.mp_sharded_fused, sh.mp_sharded_fused_ref),
+        ("gomp", lambda f: f(Ash, Bones, 4, k, mesh).val,
+         cstpu_torch.gomp_sharded_fused, sh.gomp_sharded_fused_ref),
+        ("ompr", lambda f: f(Ash, Bones, k, mesh, delta=1e-12).val,
+         cstpu_torch.ompr_sharded_fused, sh.ompr_sharded_fused_ref),
+        ("sp", lambda f: f(Ash, Bones, k, mesh, maxiter=8).val,
+         cstpu_torch.sp_sharded_fused, sh.sp_sharded_fused_ref))
+    for name, call, entry, ref in others:       # mesh, Ash: SHARDS shards
+        key = f"5c {name} s={SHARDS}"
+        tm[key] = cuda_ms(lambda: call(entry).sum(), TIMED_SLOW)
+        tm["plain_" + key] = cuda_ms(lambda: call(ref).sum(), TIMED_SLOW)
+        split[key] = _split(tm[key], lambda: call(entry))
+    for key in split:
+        sp_ = split[key]
+        plain = tm.get("plain_" + key)
+        print(f"[time {key}] {tm[key]:.4f} ms"
+              + (f" (plain {plain:.4f})" if plain else "") + f" | {gpu}")
+        print(f"[split {key}] wall {sp_['wall_ms']:.4f} ms, device busy "
+              f"{sp_['device_busy_ms']:.4f} ms, idle share "
+              f"{sp_['idle_share']:.4f}; "
+              + ", ".join(f"{nm} {v['launches']}x {v['ms']:.4f} ms"
+                          for nm, v in sp_["kernels"].items()))
+    print("[time 5c] " + ", ".join(
+        f"{key} {v:.4f} ms" for key, v in tm.items() if key not in split)
+        + f" | {gpu}")
+
+    # per-call times at the shapes of the paths
+    bf = torch.bfloat16
+    per = {}
+    launches = partial(per_launch_ms, Bs5c)
+    once = lambda fn: cuda_ms(lambda: fn()[0].flatten()[0], TIMED_SLOW)
+    for ml in STREAM_WIDTHS:
+        Ac = A5c[:, :ml].to(bf)
+        M = torch.zeros((B, ml), device=A5c.device)
+        M[:, :k] = -torch.inf
+        RT = Bs5c.T.contiguous()
+        for name, kern, plain in (
+                ("select_stream", lambda: ss.correlate_select_stream(Ac, Bs5c),
+                 lambda: ss.correlate_select_stream_ref(Ac, Bs5c)),
+                ("select_masked_stream",
+                 lambda: ss.correlate_select_masked_stream(Ac, Bs5c, M),
+                 lambda: ss.correlate_select_masked_stream_ref(Ac, Bs5c, M)),
+                ("select_topl_stream l=4",
+                 lambda: ss.correlate_select_topl_stream(Ac, Bs5c, 4),
+                 lambda: ss.correlate_select_topl_stream_ref(Ac, Bs5c, 4)),
+                ("select_topl_stream l=32",
+                 lambda: ss.correlate_select_topl_stream(Ac, Bs5c, 32),
+                 lambda: ss.correlate_select_topl_stream_ref(Ac, Bs5c, 32)),
+                ("corr_argmax", lambda: ca.correlate_argmax(Ac, RT),
+                 lambda: ca.correlate_argmax_ref(Ac, RT))):
+            per[(name, ml)] = launches(kern)
+            per[("plain_" + name, ml)] = once(plain)
+        del Ac, M
+    for ml in STREAM_WIDTHS:
+        print(f"[time stream kernels, ms per call at B={B}, n={n}, "
+              f"m_local={ml}, bf16 (events, wrapper and both launches)] "
+              + ", ".join(f"{name} {v:.4f}" for (name, w), v in per.items()
+                          if w == ml) + f" | {gpu}")
+    return tm, split, per
+
+
+def sharded_5m(dev, gpu):
+    """Suite config 5m: omp_sharded_fused at m = 2^20 on one shard (the f32
+    master copy sharded as a view, the bf16 copy cast once): recovery,
+    launches, supports equal with both collective forms and to omp_batch's;
+    solve time, the profiler's split and the sweep's time per call."""
+    import cstpu_torch
+    from cstpu_torch.ops import stream_select as ss
+
+    B, n, m, k = SHARD_CELLS["5m"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    A = unit_dictionary(gen, n, m)
+    Bs, sup = planted_pm1(gen, A, B, k)
+    print(f"[5m] B={B} n={n} m={m} k={k}: f32 dictionary "
+          f"{A.numel() * 4 / 2**30:.1f} GiB")
+    paths = sharded_omp_path("5m", A, Bs, sup, (1,), plain=False)
+    mesh = cstpu_torch.make_mesh((1, 1))
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+    fn = lambda: cstpu_torch.omp_sharded_fused(Ash, Bs, k, mesh)
+    tm = {"5m omp s=1 fuse=1": cuda_ms(lambda: fn().val.sum(), TIMED_SLOW)}
+    split = {"5m omp s=1 fuse=1": _split(tm["5m omp s=1 fuse=1"], fn)}
+    tm["5m omp_batch B=8"] = cuda_ms(
+        lambda: cstpu_torch.omp_batch(A, Bs, k).val.sum(), TIMED_SLOW)
+    Ac = Ash.corr(torch.bfloat16)[0][0]
+    sweep = per_launch_ms(Bs, lambda: ss.correlate_select_stream(Ac, Bs))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sp_ = split["5m omp s=1 fuse=1"]
+    print(f"[time 5m] omp_sharded_fused {tm['5m omp s=1 fuse=1']:.4f} ms, "
+          f"omp_batch on the same rows {tm['5m omp_batch B=8']:.4f} ms; "
+          f"select_stream {sweep:.4f} ms per call; peak device memory "
+          f"{peak:.2f} GiB | {gpu}")
+    print(f"[split 5m] wall {sp_['wall_ms']:.4f} ms, device busy "
+          f"{sp_['device_busy_ms']:.4f} ms, idle share "
+          f"{sp_['idle_share']:.4f}; "
+          + ", ".join(f"{nm} {v['launches']}x {v['ms']:.4f} ms"
+                      for nm, v in sp_["kernels"].items()))
+    del A, Ash, Ac
+    torch.cuda.empty_cache()
+    return paths, tm, split, sweep, peak
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1442,6 +1892,26 @@ def main():
     bpaths, bprob = backward_paths(A2, gen)
     btm, bsplit, bcall = backward_times(A2, bprob, gpu)
     print(f"[backward] done in {time.perf_counter() - t0:.1f} s")
+    del A2, bprob
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    B5, n5, m5, k5 = SHARD_CELLS["5c"]
+    print(f"[sharded] 5c omp_sharded_fused on 1 and {SHARDS} shards, then "
+          f"mp/gomp/ompr/sp_sharded_fused on {SHARDS} shards: B={B5} n={n5} "
+          f"m={m5} k={k5}; 5m at m={SHARD_CELLS['5m'][2]} on one shard")
+    xerr = check_stream_kernels(dev)
+    gen5 = torch.Generator(device=dev).manual_seed(SEED)
+    A5 = unit_dictionary(gen5, n5, m5)
+    Bs5, sup5 = planted_pm1(gen5, A5, B5, k5)
+    p5c = sharded_omp_path("5c", A5, Bs5, sup5, (1, SHARDS), plain=True)
+    pother, Bones = sharded_other_paths(A5, gen5)
+    k10_launches = corr_argmax_path(A5, Bs5)
+    xtm, xsplit, xper = sharded_times(A5, Bs5, Bones, gpu)
+    del A5
+    torch.cuda.empty_cache()
+    p5m, tm5m, split5m, sweep5m, peak5m = sharded_5m(dev, gpu)
+    print(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
 
     sel_err, app_err, launches, tm = record["bench"]
     fs_line = "cstpu/ops/fused_solve.py"
@@ -1450,8 +1920,9 @@ def main():
     tl = tpaths["launches"]
 
     def entry(name, replaces, launches, err, ms, plain_ms, bound_,
-              library_ms=None, **extra):
-        return {"name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
+              library_ms=None, source=None, **extra):
+        return {"name": name, "route": "cuda",
+                "source": source or f"{csrc}/{name}.cu",
                 "replaces": replaces if ":" in str(replaces)
                 else f"{fs_line}:{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_,
@@ -1608,8 +2079,96 @@ def main():
               b64_bound_ms=bound(2 * big * m4 * m4 * 4, 3 * big * m4 * m4,
                                  "f32")["bound_ms"]),
     ]
+    # the streaming selects of the sharded solvers: ms is the event time per
+    # call (the wrapper, the sweep and the finishing stage) at 5c's shard
+    # shapes, B=8, bf16; the bound is that call's
+    stream_src = f"{csrc}/stream_select.cu"
+    whole, part = STREAM_WIDTHS
+    m5m = SHARD_CELLS["5m"][2]
+    omp5c = {f"omp_sharded_fused 5c s={s_} fuse={int(f_)}": v["launches"]
+             for (s_, f_), v in p5c.items()}
+    omp5m = {f"omp_sharded_fused 5m s={s_} fuse={int(f_)}": v["launches"]
+             for (s_, f_), v in p5m.items()}
+    ol = {name: v["launches"] for name, v in pother.items()}
+
+    def device_ms(split, key, *names):
+        """Profiler device ms per select on path `key`: its kernels' time
+        over the launches of the first."""
+        got = split[key]["kernels"]
+        return sum(got[nm]["ms"] for nm in names) / got[names[0]]["launches"]
+
+    top1_paths = {**omp5c, **omp5m,
+                  "mp_sharded_fused 5c": ol["mp"]["select_stream"]}
+    topl_paths = {f"{name}_sharded_fused 5c": ol[name]["select_topl_stream"]
+                  for name in ("gomp", "ompr", "sp")}
+    kernels += [
+        entry("select_stream", f"{TPU_SELECT}:88", sum(top1_paths.values()),
+              xerr["select_stream"], xper[("select_stream", whole)],
+              xper[("plain_select_stream", whole)],
+              stream_bound(B5, n5, whole), source=stream_src,
+              paths=top1_paths,
+              device_ms=device_ms(xsplit, "5c omp s=1 fuse=1", "stream_sweep",
+                                  "stream_finish"),
+              shard_ms=xper[("select_stream", part)],
+              shard_plain_ms=xper[("plain_select_stream", part)],
+              shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
+              m5_ms=sweep5m,
+              m5_device_ms=device_ms(split5m, "5m omp s=1 fuse=1",
+                                     "stream_sweep", "stream_finish"),
+              m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"]),
+        entry("select_topl_stream", f"{TPU_SELECT}:187",
+              sum(topl_paths.values()), xerr["select_topl_stream"],
+              xper[("select_topl_stream l=32", part)],
+              xper[("plain_select_topl_stream l=32", part)],
+              stream_bound(B5, n5, part, l=32), source=stream_src,
+              paths=topl_paths,
+              device_ms=device_ms(xsplit, f"5c sp s={SHARDS}",
+                                  "stream_topl_sweep", "stream_topl_finish"),
+              l4_ms=xper[("select_topl_stream l=4", part)],
+              l4_plain_ms=xper[("plain_select_topl_stream l=4", part)],
+              l4_device_ms=device_ms(xsplit, f"5c gomp s={SHARDS}",
+                                     "stream_topl_sweep",
+                                     "stream_topl_finish"),
+              whole_l32_ms=xper[("select_topl_stream l=32", whole)],
+              whole_l32_plain_ms=xper[("plain_select_topl_stream l=32",
+                                       whole)],
+              whole_l32_bound_ms=stream_bound(B5, n5, whole,
+                                              l=32)["bound_ms"]),
+        entry("select_masked_stream", f"{TPU_SELECT}:385",
+              ol["ompr"]["select_masked_stream"],
+              xerr["select_masked_stream"],
+              xper[("select_masked_stream", part)],
+              xper[("plain_select_masked_stream", part)],
+              stream_bound(B5, n5, part, masked=True), source=stream_src,
+              paths={"ompr_sharded_fused 5c":
+                     ol["ompr"]["select_masked_stream"]},
+              whole_ms=xper[("select_masked_stream", whole)],
+              whole_plain_ms=xper[("plain_select_masked_stream", whole)],
+              whole_bound_ms=stream_bound(B5, n5, whole,
+                                          masked=True)["bound_ms"]),
+        entry("corr_argmax", f"{TPU_ARGMAX}:86", k10_launches,
+              xerr["corr_argmax"], xper[("corr_argmax", whole)],
+              xper[("plain_corr_argmax", whole)],
+              stream_bound(B5, n5, whole), source=stream_src,
+              paths={"correlate_argmax 5c": k10_launches},
+              shard_ms=xper[("corr_argmax", part)],
+              shard_plain_ms=xper[("plain_corr_argmax", part)]),
+    ]
+    assert all(kn["launches"] > 0 for kn in kernels)
     assert all({"bound_ms", "bound_by", "library_ms"} <= set(kn)
                for kn in kernels)
+    print(json.dumps({"sharded": {
+        "solve_ms": {**xtm, **tm5m},
+        "idle_share": {key: v["idle_share"]
+                       for key, v in {**xsplit, **split5m}.items()},
+        "device_busy_ms": {key: v["device_busy_ms"]
+                           for key, v in {**xsplit, **split5m}.items()},
+        "paths": {**{key: p5c[(s_, f_)] for key, (s_, f_) in zip(
+            omp5c, p5c)}, **{key: p5m[(s_, f_)] for key, (s_, f_) in zip(
+                omp5m, p5m)},
+            **{name: {key: v for key, v in rec.items() if key != "launches"}
+               for name, rec in pother.items()}},
+        "peak_gib_5m": peak5m, "device": gpu}}))
     print(json.dumps({"kernels": kernels, "two_stage": {
         "iters": tpaths["iters"], "recovery": tpaths["recovery"],
         "solve_ms": {c: ttm[c] for c in ("2b", "2c", "3b")},

@@ -8,7 +8,14 @@ and `foba_batch`, and the backward family, `fbr_batch` and `lace_batch`
 (with `br_batch` over the per-instance solver), on CUDA kernels written by
 hand (cstpu_torch/csrc), with the per-instance matching pursuits, forward
 and backward regression, two-stage and stepwise solvers, the active-set
-engine and the solution container they rest on. It imports torch, numpy and ctypes, never jax.
+engine and the solution container they rest on; and the column-sharded
+greedy solvers for dictionaries beyond one kernel's reach,
+`omp_sharded_fused`, `mp_sharded_fused`, `gomp_sharded_fused`,
+`ompr_sharded_fused` and `sp_sharded_fused` over a mesh of shards
+(`make_mesh`, `shard_dictionary`, `shard_batch`), with the plain
+`omp_sharded` beside them, on the streaming select kernels
+(cstpu_torch.ops.stream_select, cstpu_torch.ops.corr_argmax). It imports
+torch, numpy and ctypes, never jax.
 """
 
 from cstpu_torch.utils.data import (
@@ -45,6 +52,18 @@ from cstpu_torch.models.batched import (
     fbr_batch,
     lace_batch,
 )
+from cstpu_torch.parallel import (
+    make_mesh,
+    shard_dictionary,
+    shard_batch,
+    omp_sharded,
+    omp_sharded_fused,
+    mp_sharded_fused,
+    gomp_sharded_fused,
+    ompr_sharded_fused,
+    sp_sharded_fused,
+)
+from cstpu_torch.ops.corr_argmax import correlate_argmax
 
 __version__ = "0.1.0"
 
@@ -58,4 +77,8 @@ __all__ = [
     "batch", "omp_batch", "mp_batch", "gomp_batch", "fr_batch",
     "sp_batch", "srr_batch", "ompr_batch", "rmp_batch", "foba_batch",
     "br_batch", "fbr_batch", "lace_batch",
+    "make_mesh", "shard_dictionary", "shard_batch",
+    "omp_sharded", "omp_sharded_fused", "mp_sharded_fused",
+    "gomp_sharded_fused", "ompr_sharded_fused", "sp_sharded_fused",
+    "correlate_argmax",
 ]

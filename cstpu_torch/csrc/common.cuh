@@ -2,8 +2,8 @@
 // rounding, the argmax rule of cstpu/ops/fused_solve.py::_solve_kernel
 // (:157-163), the staging of the select's rows of r, the gated bordered
 // append that OMP, GOMP, FR and the two-stage slot engine share (:165-201,
-// :749-785, :587-611; fused_twostage.py:138-190), and the merge of
-// select_topl partials.
+// :749-785, :587-611; fused_twostage.py:138-190), the top-l epilogue of a
+// select block and the merge of select_topl partials.
 #pragma once
 
 #include <climits>
@@ -108,41 +108,57 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 
 // Stage rows row0 .. row0+kRows-1, entries p0 .. p0+kChunk-1 of the (B, n)
 // matrix X into xs[kChunk][kRows], rounded to T; zeros past the edges.
+// Entry (row, p) of X lies at X[row * ldr + p * ldp], so that an (n, B)
+// matrix is read in place with ldr = 1, ldp = B.
 template <typename T>
 __device__ __forceinline__ void stage_rows(float (*xs)[kRows],
                                            const float* __restrict__ X,
-                                           int row0, int p0, int B, int n) {
+                                           int row0, int p0, int B, int n,
+                                           size_t ldr, size_t ldp) {
   for (int e = threadIdx.x; e < kChunk * kRows; e += blockDim.x) {
     const int q = e / kChunk, pp = e % kChunk;
     const int row = row0 + q, p = p0 + pp;
-    xs[pp][q] = (row < B && p < n) ? round_cdt<T>(X[(size_t)row * n + p])
+    xs[pp][q] = (row < B && p < n) ? round_cdt<T>(X[row * ldr + p * ldp])
                                    : 0.f;
   }
 }
 
+// The same for a contiguous (B, n) matrix.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float (*xs)[kRows],
+                                           const float* __restrict__ X,
+                                           int row0, int p0, int B, int n) {
+  stage_rows<T>(xs, X, row0, p0, B, n, (size_t)n, (size_t)1);
+}
+
 // The select's main loop: acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
 // block's kRows rows, products and sums in f32 (FMA on CUDA cores, no
-// TF32). One thread per atom column j (`live` = j < m), so loads of A
-// coalesce; the rows of r are staged in rs, rounded to T, and read back as
-// broadcast float4s. Every thread of the block calls it (it has barriers).
+// TF32), each atom's sum in the order p = 0 .. n-1 whatever the tile, the
+// batch or the width of the dictionary. One thread per atom column j
+// (`live` = j < m), so loads of A coalesce; the rows of r are staged in rs,
+// rounded to T, and read back as broadcast float4s. Rows of A are lda
+// entries apart (a column slice of a wider dictionary is read in place),
+// entry (row, p) of r lies at r[row * ldr + p * ldp]. Every thread of the
+// block calls it (it has barriers).
 template <typename T>
 __device__ __forceinline__ void score_tile(float (&acc)[kRows],
                                            float (*rs)[kRows],
                                            const float* __restrict__ r,
                                            const T* __restrict__ A, int row0,
                                            int j, bool live, int B, int n,
-                                           int m) {
+                                           size_t lda, size_t ldr,
+                                           size_t ldp) {
 #pragma unroll
   for (int q = 0; q < kRows; ++q) acc[q] = 0.f;
   for (int p0 = 0; p0 < n; p0 += kChunk) {
-    stage_rows<T>(rs, r, row0, p0, B, n);
+    stage_rows<T>(rs, r, row0, p0, B, n, ldr, ldp);
     __syncthreads();
     const int pend = min(kChunk, n - p0);
     if (live) {
-      const T* a_ptr = A + (size_t)p0 * m + j;
+      const T* a_ptr = A + (size_t)p0 * lda + j;
 #pragma unroll 4
       for (int pp = 0; pp < pend; ++pp) {
-        const float a = to_f32(a_ptr[(size_t)pp * m]);
+        const float a = to_f32(a_ptr[(size_t)pp * lda]);
         const float4* rq = reinterpret_cast<const float4*>(rs[pp]);
 #pragma unroll
         for (int q4 = 0; q4 < kRows / 4; ++q4) {
@@ -155,6 +171,76 @@ __device__ __forceinline__ void score_tile(float (&acc)[kRows],
       }
     }
     __syncthreads();
+  }
+}
+
+// The same for a contiguous (n, m) dictionary and a contiguous (B, n) r.
+template <typename T>
+__device__ __forceinline__ void score_tile(float (&acc)[kRows],
+                                           float (*rs)[kRows],
+                                           const float* __restrict__ r,
+                                           const T* __restrict__ A, int row0,
+                                           int j, bool live, int B, int n,
+                                           int m) {
+  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, (size_t)m, (size_t)n,
+                (size_t)1);
+}
+
+// The top-l epilogue of a select block: from the block's scores ss[q][c]
+// (-inf past the atom edge) the l largest of every row, ordered by value
+// descending and then by index ascending, into pval/pidx (B, ntiles, l). A
+// tile holding a NaN writes l (NaN, INT_MAX); a tile with fewer than l
+// atoms pads with (-inf, INT_MAX). Each warp takes whole rows: l rounds in
+// which every lane offers its best candidate after the previous pick and a
+// warp argmax picks the next. Call after a barrier that follows the writes
+// to ss.
+__device__ __forceinline__ void topl_partials(float (*ss)[kTile],
+                                              int tile, int row0, int B,
+                                              int m, int ntiles, int l,
+                                              float* __restrict__ pval,
+                                              int* __restrict__ pidx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kPer = kTile / 32;  // candidates per lane
+  for (int q = warp; q < kRows; q += kTile / 32) {
+    const int row = row0 + q;
+    if (row >= B) break;
+    float cv[kPer];
+    int ci[kPer];
+    bool nan = false;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      const int col = lane + 32 * c;
+      cv[c] = ss[q][col];
+      ci[c] = (tile * kTile + col < m) ? tile * kTile + col : INT_MAX;
+      nan |= isnan(cv[c]);
+    }
+    nan = __any_sync(0xffffffffu, nan);
+    float* pv = pval + ((size_t)row * ntiles + tile) * l;
+    int* pi = pidx + ((size_t)row * ntiles + tile) * l;
+    float pv_prev = INFINITY;
+    int pi_prev = -1;
+    for (int p = 0; p < l; ++p) {
+      float v = -INFINITY;
+      int i = INT_MAX;
+      if (!nan) {
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          const bool after = cv[c] < pv_prev || (cv[c] == pv_prev && ci[c] > pi_prev);
+          if (after) argmax_combine(v, i, cv[c], ci[c]);
+        }
+        warp_argmax(v, i);
+        v = __shfl_sync(0xffffffffu, v, 0);
+        i = __shfl_sync(0xffffffffu, i, 0);
+      } else {
+        v = __int_as_float(0x7fc00000);
+      }
+      if (lane == 0) {
+        pv[p] = v;
+        pi[p] = i;
+      }
+      pv_prev = v;
+      pi_prev = i;
+    }
   }
 }
 

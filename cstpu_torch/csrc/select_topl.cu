@@ -17,13 +17,11 @@
 // the OMP select (0.54 G at B=64, n=1024, m=8192); the top-l epilogue is
 // small beside them. Design: the main loop is common.cuh::score_tile, as
 // in select_argmax.cu (one thread per atom, kRows rows of r staged in
-// shared memory); the epilogue
-// stages the block's kRows x kTile scores in shared memory, and each warp
-// takes whole rows: l rounds in which every lane offers its best candidate
-// after the previous pick (order: value descending, index ascending) and a
-// warp argmax picks the next. Partials (B, T, l); the ragged atom edge, and
-// a tile with fewer than l atoms, give (-inf, INT_MAX) pads, which lose to
-// every score.
+// shared memory); the epilogue stages the block's kRows x kTile scores in
+// shared memory and common.cuh::topl_partials takes each row's top l from
+// them (order: value descending, index ascending). Partials (B, T, l); the
+// ragged atom edge, and a tile with fewer than l atoms, give (-inf,
+// INT_MAX) pads, which lose to every score.
 #include "common.cuh"
 
 namespace cstpu {
@@ -48,49 +46,7 @@ select_topl_kernel(const float* __restrict__ r, const T* __restrict__ A,
   for (int q = 0; q < kRows; ++q) ss[q][threadIdx.x] = live ? fabsf(acc[q]) : -INFINITY;
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kPer = kTile / 32;  // candidates per lane
-  for (int q = warp; q < kRows; q += kTile / 32) {
-    const int row = row0 + q;
-    if (row >= B) break;
-    float cv[kPer];
-    int ci[kPer];
-    bool nan = false;
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int col = lane + 32 * c;
-      cv[c] = ss[q][col];
-      ci[c] = (tile * kTile + col < m) ? tile * kTile + col : INT_MAX;
-      nan |= isnan(cv[c]);
-    }
-    nan = __any_sync(0xffffffffu, nan);
-    float* pv = pval + ((size_t)row * ntiles + tile) * l;
-    int* pi = pidx + ((size_t)row * ntiles + tile) * l;
-    float pv_prev = INFINITY;
-    int pi_prev = -1;
-    for (int p = 0; p < l; ++p) {
-      float v = -INFINITY;
-      int i = INT_MAX;
-      if (!nan) {
-#pragma unroll
-        for (int c = 0; c < kPer; ++c) {
-          const bool after = cv[c] < pv_prev || (cv[c] == pv_prev && ci[c] > pi_prev);
-          if (after) argmax_combine(v, i, cv[c], ci[c]);
-        }
-        warp_argmax(v, i);
-        v = __shfl_sync(0xffffffffu, v, 0);
-        i = __shfl_sync(0xffffffffu, i, 0);
-      } else {
-        v = __int_as_float(0x7fc00000);
-      }
-      if (lane == 0) {
-        pv[p] = v;
-        pi[p] = i;
-      }
-      pv_prev = v;
-      pi_prev = i;
-    }
-  }
+  topl_partials(ss, tile, row0, B, m, ntiles, l, pval, pidx);
 }
 
 }  // namespace cstpu

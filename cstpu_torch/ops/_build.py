@@ -29,6 +29,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 NVCC_CANDIDATES = ["/usr/local/cuda/bin/nvcc"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # the slot engine's state: cols, Ginv, coef, idx, Atb, r, amask, done, prev
 _ENG = [_P] * 9
 _SIGNATURES = {
@@ -89,6 +90,13 @@ _SIGNATURES = {
     "cstpu_bw_select": [_P] * 10 + [_I, _I, _F, _F, _I, _P],
     # G, g, gcol, sc, B, m, stream
     "cstpu_bw_downdate": [_P, _P, _P, _P, _I, _I, _P],
+    # r, ldr, ldp, A, lda, cdt_bf16, M (nullable), pval, pidx, val, idx, B,
+    # n, m, bpt, nan_visible, stream
+    "cstpu_stream_select": [_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _P],
+    # r, A, lda, cdt_bf16, pval, pidx, val, idx, B, n, m, l, bpt, stream
+    "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
 }
 
 _lib = None

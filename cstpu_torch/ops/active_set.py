@@ -227,3 +227,143 @@ def finalize(st: ActiveSet, m: int):
         mask=mask,
         m=int(m),
     )
+
+
+# --------------------------------------------------------------------------
+# Batched forms: the same state with a leading batch axis B on every field
+# (idx, mask, Atb, coef (B, kmax); k (B,); cols (B, n, kmax); G, Ginv (B,
+# kmax, kmax)), what cstpu gets by vmapping the functions above. Gates are
+# boolean masks and nothing here reads a value back to the host, so a step
+# of a batched solver is a fixed chain of tensor operations. Dtype-generic.
+# --------------------------------------------------------------------------
+
+def empty_batched(B: int, n: int, kmax: int, m: int, dtype,
+                  device=None) -> ActiveSet:
+    """B empty active sets with capacity kmax over an n x m dictionary."""
+    eye = torch.eye(kmax, dtype=dtype, device=device).expand(B, kmax, kmax)
+    return ActiveSet(
+        idx=torch.full((B, kmax), m, dtype=torch.int32, device=device),
+        mask=torch.zeros((B, kmax), dtype=torch.bool, device=device),
+        k=torch.zeros((B,), dtype=torch.int32, device=device),
+        cols=torch.zeros((B, n, kmax), dtype=dtype, device=device),
+        G=eye.clone(),
+        Ginv=eye.clone(),
+        Atb=torch.zeros((B, kmax), dtype=dtype, device=device),
+        coef=torch.zeros((B, kmax), dtype=dtype, device=device),
+    )
+
+
+def contains_batched(st: ActiveSet, i) -> torch.Tensor:
+    """(B,) bool: atom index i[b] is in row b's active set."""
+    return torch.any(st.mask & (st.idx == i[:, None]), dim=1)
+
+
+def where_rows(gate, new: ActiveSet, old: ActiveSet) -> ActiveSet:
+    """Row b of `new` where gate[b], else of `old` (cstpu's vmapped
+    `tree_where`)."""
+    def pick(x, y):
+        return torch.where(gate.view((-1,) + (1,) * (x.ndim - 1)), x, y)
+    return ActiveSet(*(pick(x, y) for x, y in zip(new, old)))
+
+
+def append_col_gated_batched(a, b, st: ActiveSet, i, ok) -> ActiveSet:
+    """`append_col_gated` for every row: the column a[b] (B, n) goes in as
+    atom i[b] at row b's first free slot where ok[b]; rows at capacity
+    (k == kmax) or whose column is degenerate against the active span
+    (d <= 8 n eps(dtype) ||a||^2) keep their state. No refit."""
+    kmax = st.idx.shape[1]
+    g = torch.where(st.mask, torch.einsum("bnk,bn->bk", st.cols, a), 0)
+    ata = torch.sum(a * a, dim=1)
+    u = torch.einsum("bkj,bj->bk", st.Ginv, g)
+    d = ata - torch.sum(g * u, dim=1)
+    rtol = 8.0 * a.shape[1] * torch.finfo(a.dtype).eps
+    ok = ok & (st.k < kmax) & (d > rtol * ata)
+    slot = torch.arange(kmax, device=a.device)
+    at_p = (slot == st.k[:, None]) & ok[:, None]              # (B, kmax)
+    row_p, col_p = at_p[:, :, None], at_p[:, None, :]
+    cols = torch.where(col_p, a[:, :, None], st.cols)
+    gfull = torch.einsum("bnk,bn->bk", cols, a)  # 0 on free slots, a'a at p
+    G = torch.where(row_p, gfull[:, None, :], st.G)
+    G = torch.where(col_p, gfull[:, :, None], G)
+    dinv = 1.0 / torch.maximum(d, 1e-12 * torch.clamp(ata, min=1e-30))
+    border = -dinv[:, None] * u
+    Ginv = st.Ginv + dinv[:, None, None] * u[:, :, None] * u[:, None, :]
+    Ginv = torch.where(row_p, border[:, None, :], Ginv)
+    Ginv = torch.where(col_p, border[:, :, None], Ginv)
+    Ginv = torch.where(row_p & col_p, dinv[:, None, None], Ginv)
+    Ginv = torch.where(ok[:, None, None], Ginv, st.Ginv)
+    return ActiveSet(
+        idx=torch.where(at_p, i[:, None].to(torch.int32), st.idx),
+        mask=st.mask | at_p,
+        k=st.k + ok.to(torch.int32),
+        cols=cols, G=G, Ginv=Ginv,
+        Atb=torch.where(at_p, torch.sum(a * b, dim=1)[:, None], st.Atb),
+        coef=st.coef,
+    )
+
+
+def refresh_batched(st: ActiveSet) -> ActiveSet:
+    """Recompute every row's Ginv exactly from its padded Gram; a row whose
+    Gram is not positive definite gets a NaN inverse (no exception)."""
+    from cstpu_torch.ops.util import cholesky_nan
+
+    kmax = st.G.shape[1]
+    eye = torch.eye(kmax, dtype=st.G.dtype, device=st.G.device)
+    Gpad = torch.where(st.mask[:, :, None] & st.mask[:, None, :], st.G, eye)
+    L = cholesky_nan(Gpad)
+    return st._replace(Ginv=torch.cholesky_solve(eye.expand_as(L), L))
+
+
+def delete_batched(st: ActiveSet, pos, m: int) -> ActiveSet:
+    """Remove row b's active slot pos[b], compacting left; Ginv is
+    recomputed exactly. No refit."""
+    B, n, kmax = st.cols.shape
+    ar = torch.arange(kmax, device=st.idx.device).expand(B, kmax)
+    src = torch.clamp(torch.where(ar >= pos[:, None], ar + 1, ar),
+                      max=kmax - 1)
+    newmask = ar < (st.k - 1)[:, None]
+    eye = torch.eye(kmax, dtype=st.G.dtype, device=st.G.device)
+    both = newmask[:, :, None] & newmask[:, None, :]
+    G = st.G.gather(1, src[:, :, None].expand(B, kmax, kmax))
+    G = G.gather(2, src[:, None, :].expand(B, kmax, kmax))
+    st2 = ActiveSet(
+        idx=torch.where(newmask, st.idx.gather(1, src), m).to(torch.int32),
+        mask=newmask,
+        k=st.k - 1,
+        cols=torch.where(newmask[:, None, :],
+                         st.cols.gather(2, src[:, None, :].expand(B, n, kmax)),
+                         0),
+        G=torch.where(both, G, eye),
+        Ginv=eye.expand(B, kmax, kmax),
+        Atb=torch.where(newmask, st.Atb.gather(1, src), 0),
+        coef=torch.where(newmask, st.coef.gather(1, src), 0),
+    )
+    return refresh_batched(st2)
+
+
+def refit_batched(st: ActiveSet) -> ActiveSet:
+    """coef = Ginv @ Atb for every row."""
+    coef = torch.einsum("bkj,bj->bk", st.Ginv,
+                        torch.where(st.mask, st.Atb, 0))
+    return st._replace(coef=torch.where(st.mask, coef, 0))
+
+
+def residual_batched(st: ActiveSet, b) -> torch.Tensor:
+    """r (B, n) = b - cols @ coef, from the cached active columns."""
+    return b - torch.einsum("bnk,bk->bn", st.cols, st.coef)
+
+
+def finalize_batched(st: ActiveSet, m: int):
+    """Sort every row's active set by atom index; a batched
+    SparseSolution."""
+    from cstpu_torch.utils.sparse import SparseSolution
+
+    key = torch.where(st.mask, st.idx, INT32_MAX)
+    order = torch.argsort(key, dim=1, stable=True)
+    mask = st.mask.gather(1, order)
+    return SparseSolution(
+        idx=torch.where(mask, st.idx.gather(1, order), m).to(torch.int32),
+        val=torch.where(mask, st.coef.gather(1, order), 0),
+        mask=mask,
+        m=int(m),
+    )

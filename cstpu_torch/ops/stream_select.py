@@ -1,0 +1,285 @@
+"""Per-step streaming correlate+select (PyTorch counterpart of
+cstpu.ops.stream_select), the building block of the column-sharded solvers.
+
+One sweep of a dictionary shard A (n, m; already in its correlation dtype)
+against a batch of residuals R (B, n) returns, per row, the finished
+selection over the shard:
+
+  correlate_select_stream         val[b] = max_j |<a_j, r_b>|, idx[b] its
+                                  lowest argmax
+  correlate_select_topl_stream    the l largest |<a_j, r_b>| of the row
+  correlate_select_masked_stream  the first with |R A| + M, M (B, m) f32,
+                                  0 on eligible atoms and -inf on the others
+
+The winning column is fetched afterwards by the caller, from the
+full-precision shard. `fr_step_select` of cstpu is not ported yet.
+
+cstpu's kernels walk the shard tile by tile, `_stream_tile(m, n, itemsize,
+8 MB)` atoms at a time, and carry a running pair or l running slots from
+tile to tile. Their rule, which the port keeps with `_stream_tile` as its
+definition (the tile decides which atoms share a NaN's fate, nothing about
+the launch):
+
+  * the running pair starts at (-inf, 0) and a tile replaces it only if its
+    maximum is strictly larger, so the lowest index wins ties within a tile
+    and across tiles;
+  * a tile that holds a NaN score is skipped whole (its maximum is NaN and
+    `NaN > x` is false): a NaN row of R gives (-inf, 0);
+  * top-l: l slots start at (-inf, 0); every tile offers its own top l,
+    best first (lowest index on ties), each written over the lowest slot
+    that holds the running minimum if it is strictly larger. The slots come
+    back in that order, NOT sorted; mask on val > -inf.
+
+On CUDA tensors each function launches csrc/stream_select.cu (a sweep that
+writes partials per row and per 128 atoms, then a finishing stage that
+folds them under the rule above: two launches per select) and counts one
+in `fused_solve.LAUNCHES`. On CPU tensors, and only there, it runs its
+plain twin (`*_ref`), which reproduces the rule tile by tile in torch
+operations. Products and sums are f32 whatever the dtype of R; the scores
+of the two differ by the order of the sums (~1e-6 relative).
+
+What stays of cstpu's shape limits: m must be a multiple of 128 with a
+tile inside the 8 MB budget (`_stream_tile` > 0), because the tile defines
+the NaN rule; the top-l select serves l <= 32. The TPU's `B % 8 == 0` and
+`n % 8 == 0` are not needed: `supported_select` keeps them only so that it
+answers as cstpu's gate does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cstpu_torch.ops import _build
+from cstpu_torch.ops.fused_solve import (
+    _CDTS, INT_MAX, LAUNCHES, LMAX, TILE, _on_cpu, _stream)
+
+LAUNCHES.update(select_stream=0, select_topl_stream=0,
+                select_masked_stream=0)
+
+STREAM_TILE_BYTES = 8 * 1024 * 1024
+
+
+def _stream_tile(m: int, n: int, itemsize: int, target_bytes: int) -> int:
+    """Largest multiple of 128 that divides m with tm * n * itemsize within
+    target_bytes; 0 if there is none."""
+    best = 0
+    tm = 128
+    while tm * n * itemsize <= target_bytes and tm <= m:
+        if m % tm == 0:
+            best = tm
+        tm += 128
+    return best
+
+
+def supported_select(A, B: int, corr_dtype=torch.bfloat16) -> bool:
+    """cstpu's gate: n and B multiples of 8, m a multiple of 128, and a
+    streamable tile at the width of `corr_dtype` (the dtype the dictionary
+    is streamed in). The port's kernels need only the last two."""
+    n, m = A.shape
+    if n % 8 or B % 8 or m % 128:
+        return False
+    itemsize = torch.empty((), dtype=corr_dtype).element_size()
+    return _stream_tile(m, n, itemsize, STREAM_TILE_BYTES) > 0
+
+
+def _tile_of(A, name: str) -> int:
+    n, m = A.shape
+    tm = _stream_tile(m, n, A.element_size(), STREAM_TILE_BYTES)
+    if tm == 0:
+        raise ValueError(
+            f"{name}: no streamable tile for a ({n}, {m}) {A.dtype} "
+            f"dictionary: m must be a multiple of 128 with 128 * n * "
+            f"itemsize within {STREAM_TILE_BYTES} bytes")
+    return tm
+
+
+def _abs_scores(A, R):
+    """|round_cdt(R) . A| in f32, (B, m)."""
+    return torch.abs(torch.matmul(R.float().to(A.dtype).float(), A.float()))
+
+
+def _tile_top1(scores, tm: int):
+    """Per tile of tm atoms (max, lowest argmax), (B, T) each; a NaN in a
+    tile makes its maximum NaN (and its argmax INT_MAX)."""
+    B, m = scores.shape
+    s = scores.view(B, m // tm, tm)
+    tmax = torch.amax(s, dim=2)
+    col = torch.arange(m, device=scores.device).view(1, m // tm, tm)
+    tidx = torch.amin(torch.where(s == tmax[..., None], col, INT_MAX), dim=2)
+    return tmax, tidx
+
+
+def _fold_top1(scores, tm: int, nan_visible: bool = False):
+    """The running pair over the tiles, in one pass: from (-inf, 0), the
+    largest tile maximum and, among equal ones, the earliest tile's lowest
+    index; tiles whose maximum is NaN take no part. With `nan_visible`
+    (cstpu.ops.pallas_kernels' rule) the fold ends at the first such tile
+    and the value is NaN from there on."""
+    tmax, tidx = _tile_top1(scores, tm)
+    nan = torch.isnan(tmax)
+    live = ~nan
+    if nan_visible:
+        live = torch.cumsum(nan, dim=1) == 0
+    v = torch.where(live, tmax, -torch.inf)
+    best = torch.amax(v, dim=1)
+    idx = torch.amin(torch.where(live & (v == best[:, None]), tidx, INT_MAX),
+                     dim=1)
+    idx = torch.where(best > -torch.inf, idx, 0).to(torch.int32)
+    if nan_visible:
+        best = torch.where(nan.any(dim=1), torch.nan, best)
+    return best, idx
+
+
+def _require_f32_mask(M, B: int, m: int, dev, name: str) -> None:
+    if (M.dtype != torch.float32 or tuple(M.shape) != (B, m)
+            or M.device != dev or not M.is_contiguous()):
+        raise ValueError(f"{name}: M must be a contiguous ({B}, {m}) float32 "
+                         f"tensor on {dev}, got {tuple(M.shape)} {M.dtype} "
+                         f"{M.device}")
+
+
+def _check_shard(A, R, name: str):
+    """Shapes and layout the kernels take: A (n, m) bf16 or f32 with unit
+    column stride (a column slice of a wider dictionary is read in place),
+    R (B, n) on the same device. Returns (B, n, m)."""
+    if A.ndim != 2 or R.ndim != 2 or R.shape[1] != A.shape[0]:
+        raise ValueError(f"{name}: need A (n, m) and R (B, n), got "
+                         f"{tuple(A.shape)} and {tuple(R.shape)}")
+    if A.dtype not in _CDTS:
+        raise ValueError(f"{name}: the dictionary must be torch.bfloat16 or "
+                         f"torch.float32 (pre-cast to the correlation "
+                         f"dtype), got {A.dtype}")
+    if A.device != R.device:
+        raise ValueError(f"{name}: A on {A.device}, R on {R.device}")
+    if A.is_cuda and (A.stride(1) != 1 or A.stride(0) < A.shape[1]):
+        raise ValueError(f"{name}: A must have unit column stride, got "
+                         f"strides {A.stride()}")
+    return R.shape[0], A.shape[0], A.shape[1]
+
+
+def _launch_top1(A, R, ldr: int, ldp: int, B: int, M, bpt: int,
+                 nan_visible: bool, count: str):
+    """Sweep and finish one top-1 select on the card; R's entry (b, p) lies
+    at R.data_ptr() + 4 (b ldr + p ldp)."""
+    n, m = A.shape
+    dev = A.device
+    pval = torch.empty((B, m // TILE), dtype=torch.float32, device=dev)
+    pidx = torch.empty((B, m // TILE), dtype=torch.int32, device=dev)
+    val = torch.empty((B,), dtype=torch.float32, device=dev)
+    idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.cstpu_stream_select(
+            R.data_ptr(), ldr, ldp, A.data_ptr(), A.stride(0),
+            int(A.dtype == torch.bfloat16),
+            None if M is None else M.data_ptr(), pval.data_ptr(),
+            pidx.data_ptr(), val.data_ptr(), idx.data_ptr(), B, n, m, bpt,
+            int(nan_visible), _stream())
+    _build.check(err, "cstpu_stream_select")
+    LAUNCHES[count] += 1
+    return val, idx
+
+
+def correlate_select_stream_ref(A, R):
+    """Plain twin of `correlate_select_stream`."""
+    _check_shard(A, R, "correlate_select_stream")
+    return _fold_top1(_abs_scores(A, R),
+                      _tile_of(A, "correlate_select_stream"))
+
+
+def correlate_select_stream(A, R):
+    """One selection sweep of A (n, m; pre-cast to the correlation dtype)
+    against residuals R (B, n). Returns (val (B,) f32, idx (B,) i32)."""
+    if _on_cpu(A, R):
+        return correlate_select_stream_ref(A, R)
+    B, n, m = _check_shard(A, R, "correlate_select_stream")
+    tm = _tile_of(A, "correlate_select_stream")
+    R = R.float().contiguous()
+    return _launch_top1(A, R, n, 1, B, None, tm // TILE, False,
+                        "select_stream")
+
+
+def correlate_select_masked_stream_ref(A, R, M):
+    """Plain twin of `correlate_select_masked_stream`."""
+    B, n, m = _check_shard(A, R, "correlate_select_masked_stream")
+    _require_f32_mask(M, B, m, A.device, "correlate_select_masked_stream")
+    return _fold_top1(_abs_scores(A, R) + M,
+                      _tile_of(A, "correlate_select_masked_stream"))
+
+
+def correlate_select_masked_stream(A, R, M):
+    """Masked top-1 selection sweep: scores |R A| + M, M (B, m) f32 with 0
+    on eligible atoms and -inf on excluded ones, added in f32. Returns
+    (val (B,) f32, idx (B,) i32); a row with every atom excluded gives
+    (-inf, 0)."""
+    if _on_cpu(A, R, M):
+        return correlate_select_masked_stream_ref(A, R, M)
+    B, n, m = _check_shard(A, R, "correlate_select_masked_stream")
+    _require_f32_mask(M, B, m, A.device, "correlate_select_masked_stream")
+    tm = _tile_of(A, "correlate_select_masked_stream")
+    R = R.float().contiguous()
+    return _launch_top1(A, R, n, 1, B, M, tm // TILE, False,
+                        "select_masked_stream")
+
+
+def _check_l(l: int, name: str) -> int:
+    l = int(l)
+    if not 1 <= l <= LMAX:
+        raise ValueError(f"{name}: l={l} outside 1..{LMAX}")
+    return l
+
+
+def correlate_select_topl_stream_ref(A, R, l: int):
+    """Plain twin of `correlate_select_topl_stream`: the running l slots,
+    tile by tile and candidate by candidate, for all rows at once."""
+    B, n, m = _check_shard(A, R, "correlate_select_topl_stream")
+    l = _check_l(l, "correlate_select_topl_stream")
+    tm = _tile_of(A, "correlate_select_topl_stream")
+    dev = A.device
+    s = _abs_scores(A, R).view(B, m // tm, tm)
+    # a tile's own top l: value descending, lowest index first among equals
+    cv, order = torch.sort(s, dim=2, descending=True, stable=True)
+    cv = cv[..., :l]
+    ci = (order[..., :l]
+          + tm * torch.arange(m // tm, device=dev).view(1, -1, 1))
+    skip = torch.isnan(s).any(dim=2)
+    val = torch.full((B, l), -torch.inf, dtype=torch.float32, device=dev)
+    idx = torch.zeros((B, l), dtype=torch.int32, device=dev)
+    slot = torch.arange(l, device=dev).view(1, l)
+    for t in range(m // tm):
+        for c in range(l):                 # l <= 32 < 128 <= tm
+            rmin = torch.amin(val, dim=1, keepdim=True)
+            p = torch.amin(torch.where(val == rmin, slot, INT_MAX), dim=1,
+                           keepdim=True)
+            cand = cv[:, t, c:c + 1]
+            take = (slot == p) & (cand > rmin) & ~skip[:, t:t + 1]
+            val = torch.where(take, cand, val)
+            idx = torch.where(take, ci[:, t, c:c + 1].to(torch.int32), idx)
+    return val, idx
+
+
+def correlate_select_topl_stream(A, R, l: int):
+    """Top-l selection sweep of A (n, m; pre-cast to the correlation dtype)
+    against residuals R (B, n), 1 <= l <= 32. Returns (val (B, l) f32, idx
+    (B, l) i32), NOT sorted by value: the slots are in the running set's
+    own order, as cstpu leaves them; mask on val > -inf."""
+    if _on_cpu(A, R):
+        return correlate_select_topl_stream_ref(A, R, l)
+    B, n, m = _check_shard(A, R, "correlate_select_topl_stream")
+    l = _check_l(l, "correlate_select_topl_stream")
+    tm = _tile_of(A, "correlate_select_topl_stream")
+    R = R.float().contiguous()
+    dev = A.device
+    pval = torch.empty((B, m // TILE, l), dtype=torch.float32, device=dev)
+    pidx = torch.empty((B, m // TILE, l), dtype=torch.int32, device=dev)
+    val = torch.empty((B, l), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, l), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.cstpu_stream_topl(
+            R.data_ptr(), A.data_ptr(), A.stride(0),
+            int(A.dtype == torch.bfloat16), pval.data_ptr(), pidx.data_ptr(),
+            val.data_ptr(), idx.data_ptr(), B, n, m, l, tm // TILE, _stream())
+    _build.check(err, "cstpu_stream_topl")
+    LAUNCHES["select_topl_stream"] += 1
+    return val, idx

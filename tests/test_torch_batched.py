@@ -139,10 +139,11 @@ def test_build_sources_are_the_package_csrc():
                      "fr_select.cu", "gomp_append.cu", "mp_update.cu",
                      "omp_append.cu", "ompr_swap.cu", "rmp_append.cu",
                      "select_argmax.cu", "select_topl.cu", "sp_round.cu",
-                     "srr_append.cu"]
-    # every C entry point the wrappers call has its ctypes signature
+                     "srr_append.cu", "stream_select.cu"]
+    # every C entry point the wrappers call has its ctypes signature: one
+    # per source, and stream_select.cu's second one for the top-l select
     assert set(_build._SIGNATURES) == {
-        "cstpu_" + name[:-3] for name in names}
+        "cstpu_" + name[:-3] for name in names} | {"cstpu_stream_topl"}
     assert all(p.parent == ROOT / "cstpu_torch" / "csrc"
                for p in _build.sources())
 

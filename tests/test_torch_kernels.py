@@ -1,9 +1,11 @@
 """The CUDA kernels of cstpu_torch (select_argmax, omp_append, mp_update,
 select_topl, gomp_append, fr_select, fr_append, the two-stage ones:
 engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
-ones: rmp_append, engine_backward, and the backward family's: bw_select,
-bw_downdate) against their plain PyTorch versions, on the card. Marked `gpu`: without a CUDA device
-every test here skips.
+ones: rmp_append, engine_backward, the backward family's: bw_select,
+bw_downdate, and the streaming selects of the sharded solvers:
+stream_select.cu's top-1, masked top-1, top-l and (n, B) argmax) against
+their plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
+device every test here skips.
 
 On a GPU machine (no JAX needed, so the JAX suite's conftest is skipped):
 
@@ -14,9 +16,11 @@ import pytest
 import torch
 
 from chip_smoke import planted
+from cstpu_torch.ops import corr_argmax as ca
 from cstpu_torch.ops import fused_backward as fb
 from cstpu_torch.ops import fused_solve as fs
 from cstpu_torch.ops import fused_twostage as ft
+from cstpu_torch.ops import stream_select as ss
 
 pytestmark = pytest.mark.gpu
 
@@ -911,3 +915,221 @@ def test_stepwise_and_backward_wrappers_reject_bad_cuda_inputs(dev):
         fb.bw_select(bw._replace(coef=bw.coef.double()), 1.0, 1.0, False)
     with pytest.raises(ValueError):
         fb.bw_downdate(bw._replace(G=bw.G[:, :, :39]))
+
+
+# --------------------------------------------------------------------------
+# The streaming selects of the sharded solvers (csrc/stream_select.cu)
+# --------------------------------------------------------------------------
+
+# ragged batch and n; one tile; several tiles (4096 atoms in bf16, 2048 in
+# f32 at n=1024)
+STREAM_SIZES = [(5, 40, 384), (8, 64, 1152), (8, 1024, 8192)]
+
+
+def _stream_inputs(dev, B, n, m, cdt, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((n, m), device=dev, generator=gen)
+    A = (A / A.norm(dim=0)).to(cdt)
+    R = torch.randn((B, n), device=dev, generator=gen)
+    return A, R
+
+
+def _clear_rows(scores, depth=1):
+    top = scores.topk(depth + 1, dim=1).values
+    return ((top[:, :-1] - top[:, 1:]) > RTOL * top[:, :1]).all(dim=1)
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stream_top1_and_masked_match_plain(dev, B, n, m, cdt):
+    A, R = _stream_inputs(dev, B, n, m, cdt)
+    before = dict(fs.LAUNCHES)
+    kv, ki = ss.correlate_select_stream(A, R)
+    pv, pi = ss.correlate_select_stream_ref(A, R)
+    assert kv.dtype == torch.float32 and ki.dtype == torch.int32
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    scores = torch.abs(R.to(cdt).float() @ A.float())
+    clear = _clear_rows(scores)
+    assert bool(((ki == pi) | ~clear).all()) and int(clear.sum()) >= B - 2
+    M = torch.zeros((B, m), device=dev)
+    M.scatter_(1, scores.topk(3, dim=1).indices, -torch.inf)
+    M[B - 1] = -torch.inf                       # every atom excluded
+    kv, ki = ss.correlate_select_masked_stream(A, R, M)
+    pv, pi = ss.correlate_select_masked_stream_ref(A, R, M)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    clear = _clear_rows((scores + M).nan_to_num(neginf=-1.0))
+    assert bool(((ki == pi) | ~clear).all())
+    assert kv[B - 1] == -torch.inf and ki[B - 1] == 0
+    assert bool((M[torch.arange(B - 1), ki[:B - 1].long()] == 0).all())
+    assert fs.LAUNCHES["select_stream"] - before["select_stream"] == 1
+    assert (fs.LAUNCHES["select_masked_stream"]
+            - before["select_masked_stream"]) == 1
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_SIZES)
+@pytest.mark.parametrize("l", [1, 4, 32])
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stream_topl_matches_plain(dev, B, n, m, l, cdt):
+    A, R = _stream_inputs(dev, B, n, m, cdt, seed=1)
+    before = fs.LAUNCHES["select_topl_stream"]
+    kv, ki = ss.correlate_select_topl_stream(A, R, l)
+    pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
+    assert tuple(kv.shape) == tuple(ki.shape) == (B, l)
+    scores = torch.abs(R.to(cdt).float() @ A.float())
+    clear = _clear_rows(scores, depth=l)
+    # slot for slot where nothing ties; values as sorted sets everywhere
+    assert torch.equal(ki[clear], pi[clear]) and int(clear.sum()) >= 1
+    torch.testing.assert_close(kv.sort(dim=1).values, pv.sort(dim=1).values,
+                               rtol=RTOL, atol=1e-6)
+    assert fs.LAUNCHES["select_topl_stream"] - before == 1
+
+
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stream_ties_nan_row_and_poisoned_atom(dev, cdt):
+    B, n, m = 8, 1024, 8192
+    A, R = _stream_inputs(dev, B, n, m, cdt, seed=2)
+    tm = ss._stream_tile(m, n, A.element_size(), ss.STREAM_TILE_BYTES)
+    assert m // tm >= 2
+    # one column three times: twice in the first tile, once in the last
+    A[:, 1900] = A[:, 700]
+    A[:, 7000] = A[:, 700]
+    R[0] = A[:, 700].float()
+    R[1, 5] = float("nan")
+    kv, ki = ss.correlate_select_stream(A, R)
+    assert ki[0] == 700 and kv[1] == -torch.inf and ki[1] == 0
+    M = torch.zeros((B, m), device=dev)
+    M[:, 700] = -torch.inf
+    assert ss.correlate_select_masked_stream(A, R, M)[1][0] == 1900
+    tv, ti = ss.correlate_select_topl_stream(A, R, 2)
+    assert sorted(ti[0].tolist()) == [700, 1900]
+    assert bool((tv[1] == -torch.inf).all()) and bool((ti[1] == 0).all())
+    ci, cv = ca.correlate_argmax(A, R.T)
+    assert ci[0] == 700 and torch.isnan(cv[1]) and not torch.isnan(cv[0])
+    # a poisoned atom: its tile is skipped whole by K6, K7 and K9, and K10
+    # reports NaN with the index it had before that tile
+    best = int(torch.abs(R[2].to(cdt).float() @ A.float()).argmax())
+    A[:, best] = float("nan")
+    for kern, ref in (
+            (ss.correlate_select_stream(A, R),
+             ss.correlate_select_stream_ref(A, R)),
+            (ss.correlate_select_masked_stream(A, R, M),
+             ss.correlate_select_masked_stream_ref(A, R, M)),
+            (ss.correlate_select_topl_stream(A, R, 4),
+             ss.correlate_select_topl_stream_ref(A, R, 4))):
+        assert torch.equal(kern[1], ref[1])
+        torch.testing.assert_close(kern[0], ref[0], rtol=RTOL, atol=1e-6)
+        lo = best // tm * tm
+        assert not bool(((kern[1] >= lo) & (kern[1] < lo + tm))[2:].any())
+    ci, cv = ca.correlate_argmax(A, R.T)
+    pi, pv = ca.correlate_argmax_ref(A, R.T)
+    assert bool(torch.isnan(cv).all()) and bool(torch.isnan(pv).all())
+    assert torch.equal(ci, pi)
+
+
+def test_stream_topl_evicts_the_lowest_slot_among_equal_minima(dev):
+    n, m = 8256, 384                           # three tiles of 128 atoms
+    assert ss._stream_tile(m, n, 4, ss.STREAM_TILE_BYTES) == 128
+    gen = torch.Generator(device=dev).manual_seed(5)
+    A = 0.01 * torch.randn((n, m), device=dev, generator=gen)
+    a = torch.randn((n,), device=dev, generator=gen)
+    a /= a.norm()
+    A[:, 3] = A[:, 9] = 0.5 * a
+    A[:, 300] = a
+    R = a.repeat(8, 1)
+    kv, ki = ss.correlate_select_topl_stream(A, R, 2)
+    pv, pi = ss.correlate_select_topl_stream_ref(A, R, 2)
+    assert ki.tolist() == pi.tolist() == [[300, 9]] * 8
+
+
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stream_selects_read_a_column_slice_in_place(dev, cdt):
+    B, n, m = 8, 64, 1024
+    A, R = _stream_inputs(dev, B, n, 4 * m, cdt, seed=3)
+    view = A[:, m:2 * m]
+    assert not view.is_contiguous()
+    for fn, extra in ((ss.correlate_select_stream, ()),
+                      (ss.correlate_select_topl_stream, (4,)),
+                      (ss.correlate_select_masked_stream,
+                       (torch.zeros((B, m), device=dev),))):
+        got, want = fn(view, R, *extra), fn(view.contiguous(), R, *extra)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ci, cv = ca.correlate_argmax(view, R.T)
+    wi, wv = ca.correlate_argmax(view.contiguous(), R.T.contiguous())
+    assert torch.equal(ci, wi) and torch.equal(cv, wv)
+
+
+@pytest.mark.parametrize("cdt", CDTS)
+def test_corr_argmax_matches_plain(dev, cdt):
+    for B, n, m in ((8, 64, 1024), (5, 40, 640), (64, 1024, 8192)):
+        A, R = _stream_inputs(dev, B, n, m, cdt, seed=4)
+        before = fs.LAUNCHES["corr_argmax"]
+        ki, kv = ca.correlate_argmax(A, R.T)          # (n, B), strided
+        pi, pv = ca.correlate_argmax_ref(A, R.T)
+        torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+        clear = _clear_rows(torch.abs(R.to(cdt).float() @ A.float()))
+        assert bool(((ki == pi) | ~clear).all())
+        i1, v1 = ca.correlate_argmax(A, R[0])         # one residual
+        assert i1.ndim == 0 and v1.ndim == 0
+        torch.testing.assert_close(v1, kv[0], rtol=RTOL, atol=1e-6)
+        assert fs.LAUNCHES["corr_argmax"] - before == 2
+
+
+def test_stream_wrappers_reject_bad_cuda_inputs(dev):
+    A, R = _stream_inputs(dev, 8, 64, 1024, torch.float32)
+    with pytest.raises(ValueError):
+        ss.correlate_select_stream(A[:, :1000], R)
+    with pytest.raises(ValueError):
+        ss.correlate_select_stream(A.T.contiguous().T, R)   # column-major
+    with pytest.raises(ValueError):
+        ss.correlate_select_stream(A, R.cpu())
+    with pytest.raises(ValueError):
+        ss.correlate_select_topl_stream(A, R, 33)
+    with pytest.raises(ValueError):
+        ss.correlate_select_masked_stream(A, R, torch.zeros((8, 1024),
+                                                            device=dev).bool())
+    with pytest.raises(ValueError):
+        ca.correlate_argmax(A.double(), R.T)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_solvers_run_on_the_kernels(dev, shards):
+    from cstpu_torch.parallel import make_mesh, sharded as sh
+
+    B, n, m, k = 8, 256, 4096, 8
+    A, Bs, sup = _problem(dev, B, n, m, k, seed=3)
+    mesh = make_mesh((1, shards))
+    want = sup.sort(1).values
+
+    def counted(fn):
+        before = dict(fs.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {key: v - before[key] for key, v in fs.LAUNCHES.items()
+                     if v != before[key]}
+
+    for fuse in (True, False):
+        sol, cnt = counted(lambda: sh.omp_sharded_fused(
+            A, Bs, k, mesh, fuse_collectives=fuse))
+        assert cnt == {"select_stream": shards * k}
+        ref = sh.omp_sharded_fused_ref(A, Bs, k, mesh, fuse_collectives=fuse)
+        assert torch.equal(sol.idx, ref.idx)
+        assert torch.equal(sol.idx.long(), want)
+        torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-4)
+    x, cnt = counted(lambda: sh.mp_sharded_fused(A, Bs, k, mesh))
+    assert cnt == {"select_stream": shards * k}
+    torch.testing.assert_close(x, sh.mp_sharded_fused_ref(A, Bs, k, mesh),
+                               rtol=0, atol=1e-4)
+    sol, cnt = counted(lambda: sh.gomp_sharded_fused(A, Bs, 3, k, mesh))
+    assert cnt == {"select_topl_stream": shards * 3}      # 2 steps + rest
+    assert torch.equal(sol.idx, sh.gomp_sharded_fused_ref(A, Bs, 3, k,
+                                                          mesh).idx)
+    sol, cnt = counted(lambda: sh.sp_sharded_fused(A, Bs, k, mesh, maxiter=4))
+    assert cnt["select_topl_stream"] % shards == 0 and len(cnt) == 1
+    assert torch.equal(sol.idx, sh.sp_sharded_fused_ref(A, Bs, k, mesh,
+                                                        maxiter=4).idx)
+    assert torch.equal(sol.idx[:, :k].long(), want)
+    sol, cnt = counted(lambda: sh.ompr_sharded_fused(A, Bs, k, mesh))
+    assert cnt["select_topl_stream"] == shards
+    assert cnt["select_masked_stream"] % shards == 0
+    assert torch.equal(sol.idx, sh.ompr_sharded_fused_ref(A, Bs, k, mesh).idx)
+    assert torch.equal(sol.idx[:, :k].long(), want)
