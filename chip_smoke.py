@@ -27,6 +27,14 @@ it and read just after:
                        (m=1,048,576, a 4 GB dictionary) on one shard
   mp/gomp/ompr/sp_sharded_fused   on 5c's dictionary with planted ones, four
                        shards; correlate_argmax on 5c's dictionary
+  fr_sharded_fused(., 16, mesh)   config 3a widened to 5c's width (B=8,
+                       n=1024, m=131072, correlated dictionary, decay 0.25),
+                       one shard and four, both collective forms
+  srr_sharded_fused(., 16, 1e-12, maxiter=16)  config 3b on the same
+                       dictionary, four shards
+  rmp/foba_sharded_fused(., 1e-2, kmax=32)  config 3d at m=131072 (5c's
+                       dictionary, 16 planted ones), four shards
+  omp_sharded_rows     a tall dictionary (n=65536, m=512) on four row shards
 
 It checks planted-support recovery, launch counts (for the two-stage,
 stepwise, backward and sharded paths against the formulas for the
@@ -166,14 +174,17 @@ def bound(nbytes, flops, kind):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def select_bound(B, n, m, cdt_bytes=2, terms=0, outs=1):
+def select_bound(B, n, m, cdt_bytes=2, terms=0, outs=1, masked=False):
     """A select launch: A (n, m) in cdt, r and `terms` pending vectors
     (B, n) f32, with terms also the rescalings (B, m) f32 both ways, the
-    active mask and the column norms; `outs` (value, index) partials per
-    tile and row. 2 B n m multiply-adds per product with A."""
+    active mask and the column norms, with `masked` the active mask alone;
+    `outs` (value, index) partials per tile and row (1.5 with the signed
+    score). 2 B n m multiply-adds per product with A."""
     tiles = -(-m // 128)
     nbytes = (n * m * cdt_bytes + (1 + terms) * B * n * 4
               + B * tiles * outs * 8)
+    if masked:
+        nbytes += B * m
     if terms:
         nbytes += 2 * B * m * 4 + B * m + m * 4
     return bound(nbytes, 2 * (1 + terms) * B * n * m,
@@ -312,6 +323,11 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     launches = partial(per_launch_ms, Bs)
     sel = launches(lambda: fs.select_argmax(r, Ac_sel))
     sel_p = launches(lambda: fs._select_ref(r, Ac_sel32, torch.bfloat16))
+    # the yardstick: one torch.matmul (cuBLAS, f32) gives the select's
+    # scores, without its abs and argmax; the port's kernel path never
+    # calls it
+    r32 = r.to(torch.bfloat16).float()
+    gemm = launches(lambda: torch.matmul(r32, Ac_sel32))
     t = k // 2
     _, *out = fs._init_state(Bs, k, A.shape[1])
     Ac32 = Ac.float()
@@ -320,9 +336,11 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     print(f"[time] solve {solve:.4f} ms (plain {plain:.4f} ms), "
           f"{B * k / (solve / 1e3):.1f} atoms/s (plain "
           f"{B * k / (plain / 1e3):.1f}); select {sel:.4f} ms (plain "
-          f"{sel_p:.4f}); append {app:.4f} ms (plain {app_p:.4f}) | {gpu}")
+          f"{sel_p:.4f}; torch.matmul of the scores alone {gemm:.4f}); "
+          f"append {app:.4f} ms (plain {app_p:.4f}) | {gpu}")
     return {"solve": solve, "plain_solve": plain, "select": sel,
-            "plain_select": sel_p, "append": app, "plain_append": app_p}
+            "plain_select": sel_p, "select_gemm": gemm, "append": app,
+            "plain_append": app_p}
 
 
 def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
@@ -816,7 +834,7 @@ KERNEL_NAMES = ("select_argmax", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
-                "stream_topl_finish")
+                "stream_topl_finish", "fr_step_sweep")
 
 
 def profile_path(fn):
@@ -1804,6 +1822,363 @@ def sharded_5m(dev, gpu):
     return paths, tm, split, sweep, peak
 
 
+# the forward-regression family on the sharded path: suite configs 3a, 3b
+# (benchmarks/suite.py:186-220) and 3d (:239-265) at 5c's width; FR's and
+# SRR's k, SRR's keyword arguments, then delta, kmax and planted k of RMP
+# and FoBa; the row-sharded OMP's tall shape (n, m, k)
+# SRR: 3b's maxiter=4 leaves two of the eight rows short of their planted
+# support at this width (a replacement per iteration; srr_batch and the
+# sharded solver alike), so the wide cell allows 16 and the rows take 7
+FR5_K, FR5_DECAY = 16, 0.25
+SRR5_KW = {"delta": 1e-12, "maxiter": 16}
+STEP5 = (1e-2, 32, 16)
+ROWS_CELL = (65536, 512, 16)
+
+
+def fr_step_bound(B, n, m, cdt_bytes=2, use_v=False):
+    """One fr_step_select: the shard (n, m) in cdt read once, resc (B, m)
+    f32 read and written, R, W (and V) (B, n) f32, the column norms, the
+    two index columns in and a (value, index) pair per row out; two
+    products with the shard, three with V."""
+    terms = 3 if use_v else 2
+    nbytes = (n * m * cdt_bytes + 2 * B * m * 4 + terms * B * n * 4 + m * 4
+              + B * 8 + B * 8)
+    return bound(nbytes, 2 * terms * B * n * m,
+                 "bf16" if cdt_bytes == 2 else "f32")
+
+
+def check_fr_step_kernel(dev):
+    """fr_step_select against its plain twin on the card at the sharded
+    paths' shapes (B=8, n=1024, bf16 and f32, with and without V): a marked
+    and a restored atom, a column repeated within and across tiles, a NaN
+    row, an all-degenerate row, then one poisoned atom. Values to
+    SELECT_RTOL, indices on the clear rows, the written-back resc to
+    RESC_ATOL with its -1 marks and NaNs in the same places."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    B, n = SHARD_CELLS["5c"][:2]
+    deg = fs._degeneracy_rtol(n)
+    errs = {"fr_step_select": 0.0, "resc": 0.0}
+    for m in STREAM_WIDTHS:
+        for cdt in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            A = torch.randn((n, m), device=dev, generator=gen)
+            A = (A / A.norm(dim=0)).to(cdt)
+            R = torch.randn((B, n), device=dev, generator=gen)
+            W = 0.5 * torch.randn((B, n), device=dev, generator=gen) / n ** 0.5
+            V = 0.5 * torch.randn((B, n), device=dev, generator=gen) / n ** 0.5
+            tm = ss._stream_tile(m, n, A.element_size(),
+                                 ss.STREAM_TILE_BYTES)
+            a0, a1, a2 = 70, min(tm, m // 2) - 3, m - 5    # one column, thrice
+            A[:, a1] = A[:, a0]
+            A[:, a2] = A[:, a0]
+            R[0] = A[:, a0].float() + 0.01 * R[0]
+            R[1, 5] = float("nan")
+            W[0] = V[0] = 0.0            # the tied row keeps equal rescalings
+            W[3] = V[3] = 0.0
+            il = torch.full((B, 2), -1, dtype=torch.int32, device=dev)
+            il[4:6, 0] = 77                       # rows 4, 5 mark atom 77
+            il[5:7, 1] = 40                       # rows 5, 6 restore atom 40
+            for poisoned in (False, True):
+                if poisoned:
+                    best = int((ss._abs_scores(A, R[2:3])).argmax())
+                    A[:, best] = float("nan")
+                cn2 = torch.sum(A.float() ** 2, dim=0).nan_to_num(nan=1.0)
+                resc0 = cn2.repeat(B, 1)
+                resc0[:, 40] = -1.0               # an atom already active
+                resc0[3] = 0.0                    # an all-degenerate row
+                for use_v in (False, True):
+                    rk, rp = resc0.clone(), resc0.clone()
+                    Vv = V if use_v else None
+                    kv, ki, _ = ss.fr_step_select(A, R, W, il, cn2, rk, deg,
+                                                  V=Vv)
+                    pv, pi, _ = ss.fr_step_select_ref(A, R, W, il, cn2, rp,
+                                                      deg, V=Vv)
+                    torch.cuda.synchronize()
+                    q = R.to(cdt).float() @ A.float()
+                    d2 = torch.where(rp > deg * cn2, q * q / rp, -torch.inf)
+                    nan_tile = torch.isnan(d2.view(B, m // tm, tm)).any(dim=2)
+                    live = torch.where(nan_tile[:, :, None], -torch.inf,
+                                       d2.view(B, m // tm, tm)).view(B, m)
+                    _hold("fr_step_select", (kv, ki), (pv, pi),
+                          _clear_rows(live), errs)
+                    assert torch.equal(rk == -1.0, rp == -1.0)
+                    assert torch.equal(torch.isnan(rk), torch.isnan(rp))
+                    rerr = float((rk - rp).nan_to_num(nan=0.0).abs().max())
+                    assert rerr <= RESC_ATOL, rerr
+                    errs["resc"] = max(errs["resc"], rerr)
+                    # the built cases
+                    assert int(ki[0]) == int(pi[0]) == a0
+                    assert float(kv[1]) == float("-inf") and int(ki[1]) == 0
+                    assert float(kv[3]) == float("-inf") and int(ki[3]) == 0
+                    assert bool((rk[4:6, 77] == -1.0).all())
+                    assert bool((rk[[0, 1, 2, 3, 6, 7], 77] != -1.0).all())
+                    assert bool((rk[[0, 2, 4, 7], 40] < 0).all())
+                    assert bool((rk[5:7, 40] > -1.0).all())
+                    if poisoned:
+                        assert bool(torch.isnan(rk[:, best]).all())
+                        assert not bool((ki == best).any())
+                # marking the lowest copy moves the tied row's pick on
+                rk = resc0.clone()
+                rk[0, a0] = -1.0
+                _, ki, _ = ss.fr_step_select(A, R, W, il, cn2, rk, deg)
+                assert int(ki[0]) == a1, int(ki[0])
+            del A, R, W, V, resc0, rk, rp, q, d2, live
+            torch.cuda.empty_cache()
+    print("[fr_step kernel] K8 == plain twin at m_local in "
+          f"{STREAM_WIDTHS}, bf16 and f32, with and without V: mark -> -1, "
+          "restore on a zero base, ties -> lowest index within and across "
+          "tiles, NaN row and all-degenerate row -> (-inf, 0), poisoned atom "
+          "-> NaN resc, scored -inf; max |d2 err| "
+          f"{errs['fr_step_select']:.3e} (rtol {SELECT_RTOL}), max |resc "
+          f"err| {errs['resc']:.3e} (atol {RESC_ATOL})")
+    return errs
+
+
+def sharded_fr_paths(Ar, Br, sup):
+    """fr_sharded_fused on the correlated dictionary at 5c's width, once per
+    shard count and collective form with the launch counts zeroed just
+    before: recovery 1.000, launches = shards x steps, supports equal across
+    shard counts and forms, to the plain solve's and to fr_batch's."""
+    import cstpu_torch
+    from cstpu_torch.parallel import sharded as sh
+
+    k = FR5_K
+    out, first = {}, None
+    for s in (1, SHARDS):
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(Ar, mesh)
+        for fuse in (True, False):
+            (sol, steps), launches = run_counted(
+                lambda: cstpu_torch.fr_sharded_fused(
+                    Ash, Br, k, mesh, fuse_collectives=fuse,
+                    return_iters=True))
+            assert steps == [k], steps
+            assert launches == expect_launches(fr_step_select=s * k), launches
+            rec = recovery(sol, sup)
+            assert rec == 1.0, f"fr s={s} fuse={fuse}: recovery {rec}"
+            if first is None:
+                first = sol
+            assert torch.equal(sol.idx, first.idx), ("fr", s, fuse)
+            cerr = float((sol.val - first.val).abs().max())
+            assert cerr <= COEF_ATOL, cerr
+            out[(s, fuse)] = {"launches": launches["fr_step_select"],
+                              "recovery": rec, "steps": steps[0]}
+            print(f"[main 3a-wide] fr_sharded_fused shards={s} "
+                  f"fuse_collectives={fuse} recovery={rec:.3f} steps={steps} "
+                  f"fr_step_select launches={launches['fr_step_select']}; "
+                  f"supports == first run, coefficients within {cerr:.3e}")
+        ref = sh.fr_sharded_fused_ref(Ash, Br, k, mesh)
+        assert _supports(ref) == _supports(first), ("fr", s, "plain")
+        cerr = float((ref.val - first.val).abs().max())
+        assert cerr <= COEF_ATOL, cerr
+        print(f"[main 3a-wide] shards={s}: supports == plain solve, max "
+              f"|coef err| {cerr:.3e} (atol {COEF_ATOL})")
+        del Ash
+    ub = cstpu_torch.fr_batch(Ar, Br, sparsity=k)
+    assert _supports(ub) == _supports(first), "fr_batch"
+    print("[main 3a-wide] supports == fr_batch's on the same rows")
+    return out
+
+
+def sharded_srr_rmp_foba_paths(Ar, Br, sup_r, A, Bo, sup_o):
+    """srr_sharded_fused on the correlated dictionary and rmp/foba_sharded_
+    fused on the unit-norm Gaussian one, m=131072, B=8, SHARDS shards, each
+    once with the launch counts zeroed just before: launches against the
+    sweeps run, recovery 1.000, no row capped, supports equal to the plain
+    solve's and to srr/rmp/foba_batch's."""
+    import cstpu_torch
+    from cstpu_torch.parallel import sharded as sh
+
+    s = SHARDS
+    delta, kmax, _ = STEP5
+    mesh = cstpu_torch.make_mesh((1, s))
+    out = {}
+    Ash = cstpu_torch.shard_dictionary(Ar, mesh)
+    (sol, iters), launches = run_counted(
+        lambda: cstpu_torch.srr_sharded_fused(Ash, Br, FR5_K, mesh, **SRR5_KW,
+                                              return_iters=True))
+    assert launches == expect_launches(
+        select_topl_stream=s, fr_step_select=s * iters[0]), launches
+    rec = recovery(sol, sup_r)
+    assert rec == 1.0, f"srr: recovery {rec}"
+    plain, it_plain = sh.srr_sharded_fused_ref(Ash, Br, FR5_K, mesh,
+                                               **SRR5_KW, return_iters=True)
+    assert _supports(plain) == _supports(sol), "srr: plain solve"
+    ub = cstpu_torch.srr_batch(Ar, Br, FR5_K, **SRR5_KW)
+    assert _supports(ub) == _supports(sol), "srr: srr_batch"
+    cerr = float((sol.val - plain.val).abs().max())
+    assert cerr <= COEF_ATOL, ("srr", cerr)
+    out["srr"] = {"launches": launches, "iters": iters[0],
+                  "plain_iters": it_plain[0], "recovery": rec, "err": cerr}
+    print(f"[main 3b-wide] srr_sharded_fused shards={s} recovery={rec:.3f} "
+          f"iters={iters[0]} (plain {it_plain[0]}) launches="
+          f"{ {key: v for key, v in launches.items() if v} }; supports == "
+          f"plain solve == srr_batch, max |coef err| {cerr:.3e} "
+          f"(atol {COEF_ATOL})")
+    del Ash
+
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+    for name, entry, ref, unsharded in (
+            ("rmp", cstpu_torch.rmp_sharded_fused, sh.rmp_sharded_fused_ref,
+             lambda: cstpu_torch.rmp_batch(A, Bo, delta=delta, kmax=kmax)),
+            ("foba", cstpu_torch.foba_sharded_fused,
+             sh.foba_sharded_fused_ref,
+             lambda: cstpu_torch.foba_batch(A, Bo, delta, kmax=kmax))):
+        (sol, capped, counts), launches = run_counted(
+            lambda: entry(Ash, Bo, delta, mesh, kmax=kmax, return_iters=True))
+        sweeps, reads = counts[0]["sweeps"], counts[0]["flag_reads"]
+        assert launches == expect_launches(fr_step_select=s * sweeps), launches
+        rec = recovery(sol, sup_o)
+        assert rec == 1.0, f"{name}: recovery {rec}"
+        assert not bool(capped.any()), f"{name}: a row was capped"
+        plain, pcapped = ref(Ash, Bo, delta, mesh, kmax=kmax)
+        assert _supports(plain) == _supports(sol), f"{name}: plain solve"
+        assert torch.equal(pcapped, capped)
+        assert _supports(unsharded()) == _supports(sol), f"{name}: unsharded"
+        cerr = float((sol.val - plain.val).abs().max())
+        assert cerr <= COEF_ATOL, (name, cerr)
+        out[name] = {"launches": launches, "sweeps": sweeps,
+                     "flag_reads": reads, "recovery": rec, "err": cerr}
+        print(f"[main 3d-wide {name}] {name}_sharded_fused shards={s} "
+              f"recovery={rec:.3f} capped=0 sweeps={sweeps} host flag reads="
+              f"{reads} fr_step_select launches="
+              f"{launches['fr_step_select']}; supports == plain solve == "
+              f"{name}_batch, max |coef err| {cerr:.3e} (atol {COEF_ATOL})")
+    return out
+
+
+def sharded_rows_path(dev):
+    """omp_sharded_rows once at a tall shape on SHARDS row shards: the
+    planted support recovered, the solution equal to omp_sharded's (the
+    column-sharded plain solver) on the same problem. It runs no kernel."""
+    import cstpu_torch
+
+    n, m, k = ROWS_CELL
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    A = unit_dictionary(gen, n, m)
+    b, sup = planted_pm1(gen, A, 1, k)
+    mesh = cstpu_torch.make_mesh((1, SHARDS))
+    sol, launches = run_counted(
+        lambda: cstpu_torch.omp_sharded_rows(A, b[0], k, mesh))
+    assert not any(launches.values()), launches
+    ref = cstpu_torch.omp_sharded(A, b[0], k, mesh)
+    assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
+    assert sorted(sol.idx.tolist()) == sorted(sup[0].tolist())
+    cerr = float((sol.val - ref.val).abs().max())
+    assert cerr <= COEF_ATOL, cerr
+    ms = cuda_ms(lambda: cstpu_torch.omp_sharded_rows(A, b[0], k,
+                                                      mesh).val.sum(),
+                 TIMED_SLOW)
+    print(f"[main rows] omp_sharded_rows n={n} m={m} k={k} on {SHARDS} row "
+          f"shards: support == planted == omp_sharded's, max |coef err| "
+          f"{cerr:.3e} (atol {COEF_ATOL}); {ms:.4f} ms per solve")
+    return {"ms": ms, "err": cerr}
+
+
+def sharded_fr_times(Ar, Br, A, Bo, gpu):
+    """Solve times (CUDA events) and the profiler's split of the sharded
+    forward-regression paths; per-call times of fr_step_select and its
+    plain twin, with and without V, at the two shard widths (the wrapper and
+    both launches included)."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+    from cstpu_torch.parallel import sharded as sh
+
+    B, n = Br.shape
+    k = FR5_K
+    delta, kmax, _ = STEP5
+    tm, split = {}, {}
+    for s in (1, SHARDS):
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(Ar, mesh)
+        for fuse in (True, False):
+            key = f"3a-wide fr s={s} fuse={int(fuse)}"
+            fn = lambda: cstpu_torch.fr_sharded_fused(
+                Ash, Br, k, mesh, fuse_collectives=fuse)
+            tm[key] = cuda_ms(lambda: fn().val.sum(), TIMED_SOLVES)
+            if fuse:
+                split[key] = _split(tm[key], fn)
+        if s == 1:
+            tm["plain_3a-wide fr s=1 fuse=1"] = cuda_ms(
+                lambda: sh.fr_sharded_fused_ref(Ash, Br, k, mesh).val.sum(),
+                TIMED_SLOW)
+    tm["3a-wide fr_batch B=8"] = cuda_ms(
+        lambda: cstpu_torch.fr_batch(Ar, Br, sparsity=k).val.sum(),
+        TIMED_SOLVES)
+    key = f"3b-wide srr s={SHARDS}"          # mesh, Ash: SHARDS shards of Ar
+    fn = lambda: cstpu_torch.srr_sharded_fused(Ash, Br, k, mesh, **SRR5_KW)
+    tm[key] = cuda_ms(lambda: fn().val.sum(), TIMED_SLOW)
+    tm["plain_" + key] = cuda_ms(
+        lambda: sh.srr_sharded_fused_ref(Ash, Br, k, mesh,
+                                         **SRR5_KW).val.sum(), TIMED_SLOW)
+    split[key] = _split(tm[key], fn)
+    tm["3b-wide srr_batch B=8"] = cuda_ms(
+        lambda: cstpu_torch.srr_batch(Ar, Br, k, **SRR5_KW).val.sum(),
+        TIMED_SLOW)
+    del Ash
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+    for name, entry, ref, unsharded in (
+            ("rmp", cstpu_torch.rmp_sharded_fused, sh.rmp_sharded_fused_ref,
+             lambda: cstpu_torch.rmp_batch(A, Bo, delta=delta, kmax=kmax)),
+            ("foba", cstpu_torch.foba_sharded_fused,
+             sh.foba_sharded_fused_ref,
+             lambda: cstpu_torch.foba_batch(A, Bo, delta, kmax=kmax))):
+        key = f"3d-wide {name} s={SHARDS}"
+        fn = lambda: entry(Ash, Bo, delta, mesh, kmax=kmax)
+        tm[key] = cuda_ms(lambda: fn()[0].val.sum(), TIMED_SLOW)
+        tm["plain_" + key] = cuda_ms(
+            lambda: ref(Ash, Bo, delta, mesh, kmax=kmax)[0].val.sum(),
+            TIMED_SLOW)
+        split[key] = _split(tm[key], fn)
+        tm[f"3d-wide {name}_batch B=8"] = cuda_ms(
+            lambda: unsharded().val.sum(), TIMED_SLOW)
+    for key in split:
+        sp_ = split[key]
+        plain = tm.get("plain_" + key)
+        print(f"[time {key}] {tm[key]:.4f} ms"
+              + (f" (plain {plain:.4f})" if plain else "") + f" | {gpu}")
+        print(f"[split {key}] wall {sp_['wall_ms']:.4f} ms, device busy "
+              f"{sp_['device_busy_ms']:.4f} ms, idle share "
+              f"{sp_['idle_share']:.4f}; "
+              + ", ".join(f"{nm} {v['launches']}x {v['ms']:.4f} ms"
+                          for nm, v in sp_["kernels"].items()))
+    print("[time fr family] " + ", ".join(
+        f"{key} {v:.4f} ms" for key, v in tm.items() if key not in split)
+        + f" | {gpu}")
+
+    # per-call times at the shapes of the paths
+    bf = torch.bfloat16
+    per = {}
+    deg = fs._degeneracy_rtol(n)
+    il = torch.full((B, 2), -1, dtype=torch.int32, device=Ar.device)
+    W = Br / n ** 0.5
+    launches = partial(per_launch_ms, Br)
+    once = lambda fn: cuda_ms(lambda: fn()[0].flatten()[0], TIMED_SLOW)
+    for ml in STREAM_WIDTHS:
+        Ac = Ar[:, :ml].to(bf)
+        cn2 = torch.sum(Ar[:, :ml] ** 2, dim=0)
+        resc = cn2.repeat(B, 1)
+        for name, V in (("fr_step_select", None), ("fr_step_select V", W)):
+            # resc is reset by no one between the calls: it only drifts
+            # down by z^2 each call, far from the threshold in 100 calls
+            per[(name, ml)] = launches(
+                lambda: ss.fr_step_select(Ac, Br, 1e-2 * W, il, cn2, resc,
+                                          deg, V=V))
+            per[("plain_" + name, ml)] = once(
+                lambda: ss.fr_step_select_ref(Ac, Br, 1e-2 * W, il, cn2, resc,
+                                              deg, V=V))
+        del Ac, resc
+    for ml in STREAM_WIDTHS:
+        print(f"[time fr_step kernel, ms per call at B={B}, n={n}, "
+              f"m_local={ml}, bf16 (events, wrapper and both launches)] "
+              + ", ".join(f"{name} {v:.4f}" for (name, w), v in per.items()
+                          if w == ml) + f" | {gpu}")
+    return tm, split, per
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1908,12 +2283,31 @@ def main():
     pother, Bones = sharded_other_paths(A5, gen5)
     k10_launches = corr_argmax_path(A5, Bs5)
     xtm, xsplit, xper = sharded_times(A5, Bs5, Bones, gpu)
-    del A5
+    print(f"[sharded] greedy solvers done in {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    print(f"[sharded fr] fr_sharded_fused(k={FR5_K}) on 1 and {SHARDS} "
+          f"shards and srr_sharded_fused on correlated_data(decay="
+          f"{FR5_DECAY}), rmp/foba_sharded_fused(delta={STEP5[0]}, kmax="
+          f"{STEP5[1]}) on 5c's dictionary with {STEP5[2]} planted ones: "
+          f"B={B5} n={n5} m={m5}")
+    frerr = check_fr_step_kernel(dev)
+    Ar5 = correlated_data(gen5, n5, m5, FR5_K,
+                          decay=FR5_DECAY)[0].contiguous()
+    Br5, supr5 = planted_ones(gen5, Ar5, B5, FR5_K)
+    Bo5, supo5 = planted_ones(gen5, A5, B5, STEP5[2])
+    pfr = sharded_fr_paths(Ar5, Br5, supr5)
+    pfam = sharded_srr_rmp_foba_paths(Ar5, Br5, supr5, A5, Bo5, supo5)
+    ftm, fsplit, fper = sharded_fr_times(Ar5, Br5, A5, Bo5, gpu)
+    del A5, Ar5
     torch.cuda.empty_cache()
+    prow = sharded_rows_path(dev)
+    print(f"[sharded fr] done in {time.perf_counter() - t1:.1f} s")
     p5m, tm5m, split5m, sweep5m, peak5m = sharded_5m(dev, gpu)
     print(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
 
     sel_err, app_err, launches, tm = record["bench"]
+    tm5b = record["5b"][3]
     fs_line = "cstpu/ops/fused_solve.py"
     ts_line = "cstpu/ops/fused_twostage.py"
     csrc = "cstpu_torch/csrc"
@@ -1958,10 +2352,19 @@ def main():
               paths={"omp_batch": launches["select"],
                      "mp_batch": paths["mp"]["select"],
                      "ompr_batch": tl["2c"]["select"]},
+              # the yardstick beside it: torch.matmul of the scores alone
+              library_ms=tm["select_gemm"],
               signed_ms=gtm["select_signed"],
               plain_signed_ms=gtm["plain_select_signed"],
+              signed_bound_ms=select_bound(B, n, m, outs=1.5)["bound_ms"],
               masked_ms=tkern["select_masked"],
-              plain_masked_ms=tplain["select_masked"]),
+              plain_masked_ms=tplain["select_masked"],
+              masked_bound_ms=select_bound(B, n, m,
+                                           masked=True)["bound_ms"],
+              m131072_ms=tm5b["select"],
+              m131072_plain_ms=tm5b["plain_select"],
+              m131072_library_ms=tm5b["select_gemm"],
+              m131072_bound_ms=select_bound(B, n, CELLS[1][3])["bound_ms"]),
         entry("omp_append", 127, launches["append"], app_err, tm["append"],
               tm["plain_append"], engine_bound(B, k, n, appends=1),
               also_replaces=[f"{fs_line}:332"]),
@@ -1979,7 +2382,8 @@ def main():
                          ("sp_batch", "2b"), ("ompr_batch", "2c"),
                          ("srr_batch", "3b"))}},
               l32_ms=tkern["select_topl32"],
-              plain_l32_ms=tplain["select_topl32"]),
+              plain_l32_ms=tplain["select_topl32"],
+              l32_bound_ms=select_bound(B, n, m, outs=ks)["bound_ms"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
               gtm["plain_gomp_append"], engine_bound(B, kg, n, appends=l)),
@@ -1998,9 +2402,19 @@ def main():
               rmp_b8_ms=on_path(ssplit, d_rmp, "fr_select"),
               rmp_b64_ms=on_path(ssplit, f"3d rmp B={big}", "fr_select"),
               plain_rmp_b8_ms=splain["fr_select_b8"],
+              rmp_b8_bound_ms=select_bound(B0, n3, m3, terms=1)["bound_ms"],
+              rmp_b64_bound_ms=select_bound(big, n3, m3,
+                                            terms=1)["bound_ms"],
               srr_ms=tkern["fr_select_3b"],
               plain_srr_init_ms=tplain["fr_select_init"],
-              plain_srr_pending2_ms=tplain["fr_select_pending2"]),
+              plain_srr_pending2_ms=tplain["fr_select_pending2"],
+              # SRR's first select applies the init's k pending terms, the
+              # later ones an append's and a deletion's: the mean launch
+              srr_bound_ms=(
+                  select_bound(B, n, m, terms=kr)["bound_ms"]
+                  + (tl["3b"]["fr_select"] - 1)
+                  * select_bound(B, n, m, terms=2)["bound_ms"])
+              / tl["3b"]["fr_select"]),
         entry("fr_append", 532, paths["fr"]["fr_append"], gerr["fr_append"],
               gtm["fr_append"], gtm["plain_fr_append"],
               engine_bound(B, kf, n, appends=1)),
@@ -2154,6 +2568,33 @@ def main():
               shard_ms=xper[("corr_argmax", part)],
               shard_plain_ms=xper[("plain_corr_argmax", part)]),
     ]
+    # fr_step_select: as the streaming selects, at B=8, bf16, the whole 5c
+    # width without V; the shard's width and the V variant beside it
+    fr_paths = {f"fr_sharded_fused s={s_} fuse={int(f_)}": v["launches"]
+                for (s_, f_), v in pfr.items()}
+    fam_paths = {f"{name}_sharded_fused s={SHARDS}":
+                 pfam[name]["launches"]["fr_step_select"]
+                 for name in ("srr", "rmp", "foba")}
+    kernels.append(entry(
+        "fr_step_select", f"{TPU_SELECT}:322",
+        sum(fr_paths.values()) + sum(fam_paths.values()),
+        frerr["fr_step_select"], fper[("fr_step_select", whole)],
+        fper[("plain_fr_step_select", whole)], fr_step_bound(B5, n5, whole),
+        paths={**fr_paths, **fam_paths}, resc_max_abs_err=frerr["resc"],
+        device_ms=device_ms(fsplit, "3a-wide fr s=1 fuse=1", "fr_step_sweep",
+                            "stream_finish"),
+        v_ms=fper[("fr_step_select V", whole)],
+        v_plain_ms=fper[("plain_fr_step_select V", whole)],
+        v_bound_ms=fr_step_bound(B5, n5, whole, use_v=True)["bound_ms"],
+        shard_ms=fper[("fr_step_select", part)],
+        shard_plain_ms=fper[("plain_fr_step_select", part)],
+        shard_bound_ms=fr_step_bound(B5, n5, part)["bound_ms"],
+        shard_v_ms=fper[("fr_step_select V", part)],
+        shard_v_plain_ms=fper[("plain_fr_step_select V", part)],
+        shard_v_bound_ms=fr_step_bound(B5, n5, part,
+                                       use_v=True)["bound_ms"],
+        srr_device_ms=device_ms(fsplit, f"3b-wide srr s={SHARDS}",
+                                "fr_step_sweep", "stream_finish")))
     assert all(kn["launches"] > 0 for kn in kernels)
     assert all({"bound_ms", "bound_by", "library_ms"} <= set(kn)
                for kn in kernels)
@@ -2169,6 +2610,16 @@ def main():
             **{name: {key: v for key, v in rec.items() if key != "launches"}
                for name, rec in pother.items()}},
         "peak_gib_5m": peak5m, "device": gpu}}))
+    print(json.dumps({"sharded_fr": {
+        "solve_ms": ftm,
+        "idle_share": {key: v["idle_share"] for key, v in fsplit.items()},
+        "device_busy_ms": {key: v["device_busy_ms"]
+                           for key, v in fsplit.items()},
+        "paths": {**{key: pfr[(s_, f_)] for key, (s_, f_) in zip(
+            fr_paths, pfr)},
+            **{name: {key: v for key, v in rec.items() if key != "launches"}
+               for name, rec in pfam.items()}},
+        "omp_sharded_rows": prow, "device": gpu}}))
     print(json.dumps({"kernels": kernels, "two_stage": {
         "iters": tpaths["iters"], "recovery": tpaths["recovery"],
         "solve_ms": {c: ttm[c] for c in ("2b", "2c", "3b")},

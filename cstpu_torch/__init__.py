@@ -9,18 +9,21 @@ and `foba_batch`, and the backward family, `fbr_batch` and `lace_batch`
 hand (cstpu_torch/csrc), with the per-instance matching pursuits, forward
 and backward regression, two-stage and stepwise solvers, the active-set
 engine and the solution container they rest on; and the column-sharded
-greedy solvers for dictionaries beyond one kernel's reach,
-`omp_sharded_fused`, `mp_sharded_fused`, `gomp_sharded_fused`,
-`ompr_sharded_fused` and `sp_sharded_fused` over a mesh of shards
+solvers for dictionaries beyond one kernel's reach, `omp_sharded_fused`,
+`mp_sharded_fused`, `gomp_sharded_fused`, `ompr_sharded_fused`,
+`sp_sharded_fused`, `fr_sharded_fused`, `srr_sharded_fused`,
+`rmp_sharded_fused` and `foba_sharded_fused` over a mesh of shards
 (`make_mesh`, `shard_dictionary`, `shard_batch`), with the plain
-`omp_sharded` beside them, on the streaming select kernels
-(cstpu_torch.ops.stream_select, cstpu_torch.ops.corr_argmax). It imports
-torch, numpy and ctypes, never jax.
+`omp_sharded` and the row-sharded `omp_sharded_rows` beside them, on the
+streaming select kernels (cstpu_torch.ops.stream_select,
+cstpu_torch.ops.corr_argmax). It imports torch, numpy and ctypes, never
+jax.
 """
 
 from cstpu_torch.utils.data import (
     sparse_vector,
     sparse_data,
+    gaussian_data,
     correlated_data,
     coherent_data,
     perturb,
@@ -57,19 +60,24 @@ from cstpu_torch.parallel import (
     shard_dictionary,
     shard_batch,
     omp_sharded,
+    omp_sharded_rows,
     omp_sharded_fused,
     mp_sharded_fused,
     gomp_sharded_fused,
     ompr_sharded_fused,
     sp_sharded_fused,
+    fr_sharded_fused,
+    srr_sharded_fused,
+    rmp_sharded_fused,
+    foba_sharded_fused,
 )
 from cstpu_torch.ops.corr_argmax import correlate_argmax
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "sparse_vector", "sparse_data", "correlated_data", "coherent_data",
-    "perturb",
+    "sparse_vector", "sparse_data", "gaussian_data", "correlated_data",
+    "coherent_data", "perturb",
     "SparseSolution", "support", "samesupport", "droptol", "polish",
     "mp", "omp", "gomp", "oblivious",
     "fr", "ols", "oomp", "ormp", "stepwise_regression",
@@ -78,7 +86,9 @@ __all__ = [
     "sp_batch", "srr_batch", "ompr_batch", "rmp_batch", "foba_batch",
     "br_batch", "fbr_batch", "lace_batch",
     "make_mesh", "shard_dictionary", "shard_batch",
-    "omp_sharded", "omp_sharded_fused", "mp_sharded_fused",
-    "gomp_sharded_fused", "ompr_sharded_fused", "sp_sharded_fused",
+    "omp_sharded", "omp_sharded_rows", "omp_sharded_fused",
+    "mp_sharded_fused", "gomp_sharded_fused", "ompr_sharded_fused",
+    "sp_sharded_fused", "fr_sharded_fused", "srr_sharded_fused",
+    "rmp_sharded_fused", "foba_sharded_fused",
     "correlate_argmax",
 ]

@@ -23,6 +23,18 @@ constexpr int kChunk = 64;
 // Most picks per GOMP iteration (the l of select_topl, LMAX).
 constexpr int kTopLMax = 32;
 
+// The top-1 finishing stage of the streaming selects, defined in
+// stream_select.cu and shared with fr_step_select.cu. `stream_tiling_ok`: m a
+// multiple of kTile, and the tile of the NaN rule (bpt sweep blocks) a whole
+// number of blocks that divides the shard. `launch_stream_finish` folds a
+// sweep's partials pval/pidx (B, nblocks) into val/idx (B,): the running
+// pair from (-inf, 0), strict `>` across tiles, a tile that holds a NaN
+// skipped whole, or with nan_visible ending the fold with a NaN value.
+bool stream_tiling_ok(int m, int bpt);
+cudaError_t launch_stream_finish(const float* pval, const int* pidx, int B,
+                                 int nblocks, int bpt, int nan_visible,
+                                 float* val, int* idx, cudaStream_t s);
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -28,7 +28,8 @@
 //     (value descending, index ascending), each inserted over the lowest
 //     slot that holds the running minimum, only if strictly larger; a tile
 //     that holds a NaN is skipped. The slots come back in that order,
-//     unsorted, as the TPU kernel leaves them.
+//     unsorted, as the TPU kernel leaves them. l <= kTile: a lane of the
+//     finishing warp holds up to four slots.
 //
 // What bounds it on an H100: a sweep reads the cdt shard once (256 MB in
 // bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and does 2 B n m
@@ -187,12 +188,13 @@ stream_topl_sweep_kernel(const float* __restrict__ r,
   topl_partials(ss, tile, row0, B, m, nblocks, l, pval, pidx);
 }
 
-// Finish, top-l: one warp per row, lane s holds slot s. Tile by tile, in
-// order, the tile's candidates are drawn best first from its bpt sorted
-// block lists (pos[c] = entries of list c already drawn) and inserted over
-// the lowest slot that holds the running minimum while they are strictly
-// larger; the first that is not ends the tile, since the candidates fall
-// and the minimum rises.
+// Finish, top-l: one warp per row, lane s holds slots s, s + 32, ... (kPer
+// of them, so l <= 32 kPer). Tile by tile, in order, the tile's candidates
+// are drawn best first from its bpt sorted block lists (pos[c] = entries of
+// list c already drawn) and inserted over the lowest slot that holds the
+// running minimum while they are strictly larger; the first that is not
+// ends the tile, since the candidates fall and the minimum rises.
+template <int kPer>
 __global__ void __launch_bounds__(32)
 stream_topl_finish_kernel(const float* __restrict__ pval,
                           const int* __restrict__ pidx, int nblocks, int bpt,
@@ -205,9 +207,14 @@ stream_topl_finish_kernel(const float* __restrict__ pval,
   const int* pi = pidx + (size_t)row * nblocks * l;
   const int ntile = nblocks / bpt;
 
-  // lanes past l hold +inf, so they are never the running minimum's slot
-  float sv = lane < l ? -INFINITY : INFINITY;
-  int si = 0;
+  // slots past l hold +inf, so they are never the running minimum's slot
+  float sv[kPer];
+  int si[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    sv[c] = lane + 32 * c < l ? -INFINITY : INFINITY;
+    si[c] = 0;
+  }
   for (int t = 0; t < ntile; ++t) {
     const int b0 = t * bpt;
     bool nan = false;  // a block that holds a NaN wrote NaN to all l entries
@@ -230,30 +237,53 @@ stream_topl_finish_kernel(const float* __restrict__ pval,
       warp_argmax(v, i);
       v = __shfl_sync(0xffffffffu, v, 0);
       i = __shfl_sync(0xffffffffu, i, 0);
-      float rmin = sv;
+      float rmin = sv[0];
+#pragma unroll
+      for (int c = 1; c < kPer; ++c) rmin = fminf(rmin, sv[c]);
       for (int off = 16; off > 0; off >>= 1) {
         rmin = fminf(rmin, __shfl_xor_sync(0xffffffffu, rmin, off));
       }
       if (!(v > rmin)) break;
-      const unsigned eq = __ballot_sync(0xffffffffu, sv == rmin);
-      if (lane == __ffs(eq) - 1) {
-        sv = v;
-        si = i;
+      bool placed = false;  // the same in every lane
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        const unsigned eq = __ballot_sync(0xffffffffu, sv[c] == rmin);
+        if (!placed && eq) {
+          if (lane == __ffs(eq) - 1) {
+            sv[c] = v;
+            si[c] = i;
+          }
+          placed = true;
+        }
       }
       if (lane == 0) pos[i / kTile - b0] += 1;
       __syncwarp();
     }
   }
-  if (lane < l) {
-    val[(size_t)row * l + lane] = sv;
-    idx[(size_t)row * l + lane] = si;
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const int slot = lane + 32 * c;
+    if (slot < l) {
+      val[(size_t)row * l + slot] = sv[c];
+      idx[(size_t)row * l + slot] = si[c];
+    }
   }
 }
 
-// m a multiple of kTile, and the tile a whole number of sweep blocks that
-// divides the shard.
-static bool tiling_ok(int m, int bpt) {
+// Most slots of the streamed top-l: a sweep block's width, four per lane of
+// the finishing warp.
+constexpr int kStreamTopLMax = kTile;
+
+bool stream_tiling_ok(int m, int bpt) {
   return m > 0 && m % kTile == 0 && bpt >= 1 && (m / kTile) % bpt == 0;
+}
+
+cudaError_t launch_stream_finish(const float* pval, const int* pidx, int B,
+                                 int nblocks, int bpt, int nan_visible,
+                                 float* val, int* idx, cudaStream_t s) {
+  stream_finish_kernel<<<B, kFinishThreads, 0, s>>>(pval, pidx, nblocks, bpt,
+                                                    nan_visible, val, idx);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -289,7 +319,7 @@ extern "C" int cstpu_stream_select(const float* r, long long ldr,
                                    float* val, int* idx, int B, int n, int m,
                                    int bpt, int nan_visible, void* stream) {
   using namespace cstpu;
-  if (!tiling_ok(m, bpt) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!stream_tiling_ok(m, bpt) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cdt_bf16) {
     launch_sweep<__nv_bfloat16>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
@@ -298,13 +328,12 @@ extern "C" int cstpu_stream_select(const float* r, long long ldr,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stream_finish_kernel<<<B, kFinishThreads, 0, s>>>(pval, pidx, m / kTile, bpt,
-                                                    nan_visible, val, idx);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_stream_finish(pval, pidx, B, m / kTile, bpt,
+                                              nan_visible, val, idx, s));
 }
 
 // Top-l select of one shard: r (B, n) f32 contiguous, A as above, 1 <= l <=
-// kTopLMax. Scratch pval, pidx (B, m / kTile, l); writes val (B, l) f32 and
+// kStreamTopLMax. Scratch pval, pidx (B, m / kTile, l); writes val (B, l) f32 and
 // idx (B, l) i32, slots in the running set's own order, (-inf, 0) where
 // never filled. Returns the first launch error.
 extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
@@ -312,7 +341,7 @@ extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
                                  float* val, int* idx, int B, int n, int m,
                                  int l, int bpt, void* stream) {
   using namespace cstpu;
-  if (!tiling_ok(m, bpt) || B < 1 || l < 1 || l > kTopLMax) {
+  if (!stream_tiling_ok(m, bpt) || B < 1 || l < 1 || l > kStreamTopLMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nblocks = m / kTile;
@@ -328,7 +357,15 @@ extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stream_topl_finish_kernel<<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l, val,
-                                               idx);
+  if (l <= 32) {
+    stream_topl_finish_kernel<1><<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l,
+                                                    val, idx);
+  } else if (l <= 64) {
+    stream_topl_finish_kernel<2><<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l,
+                                                    val, idx);
+  } else {
+    stream_topl_finish_kernel<4><<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l,
+                                                    val, idx);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,15 @@ cstpu_torch.ops.fused_backward; for CPU tensors, and for options or shapes
 the kernels do not serve, they run the per-instance solver over the rows
 (`batch`, where cstpu runs `vmap`). Tensors are solved where they lie;
 inputs that are not tensors (numpy arrays, lists) go to the card, and
-without one that raises: a CPU run is asked for with CPU tensors. cstpu's one-device-mesh hybrids
-(`_stream_ok` -> `*_sharded_fused`) have no counterpart: the port's select
-kernels stream the dictionary tile by tile at any m, so one kernel path
-serves both regimes.
+without one that raises: a CPU run is asked for with CPU tensors.
+
+Between the two lies cstpu's middle route: where a solver's own kernel gate
+fails (k beyond the append kernels' 128 slots, a top-k beyond select_topl's
+32 picks) and the streaming gate `stream_select.supported_select` passes,
+`fr_batch`, `mp_batch`, `sp_batch`, `gomp_batch`, `srr_batch` and
+`ompr_batch` run the column-sharded solver of cstpu_torch.parallel.sharded
+on a one-shard mesh on the dictionary's device (CUDA only), instead of the
+loop over rows.
 """
 
 from __future__ import annotations
@@ -25,7 +30,12 @@ from cstpu_torch.models.forward import fr
 from cstpu_torch.models.matching_pursuit import gomp, mp, omp
 from cstpu_torch.models.stepwise import foba, rmp
 from cstpu_torch.models.twostage import ompr, sp, srr
+from functools import lru_cache
+
 from cstpu_torch.ops import fused_backward, fused_solve, fused_twostage
+from cstpu_torch.ops import stream_select
+from cstpu_torch.parallel import sharded
+from cstpu_torch.parallel.mesh import Mesh
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -86,6 +96,23 @@ def _on_card(A, Bs) -> bool:
     return A.is_cuda and Bs.is_cuda
 
 
+@lru_cache(maxsize=8)
+def _one_shard_mesh(device) -> Mesh:
+    """The trivial (1, 1) mesh on `device`: lets the entry points use the
+    sharded solvers, whose results do not depend on the shard count, as the
+    path for shapes beyond their own kernels' gates."""
+    return Mesh(((device,),))
+
+
+def _stream_ok(A, Bs, precision) -> bool:
+    """Gate of the middle route: the conditions of every kernel path, and a
+    streamable tile at the width of the dtype the dictionary is streamed
+    in."""
+    return (_kernels_ok(A, Bs, precision)
+            and stream_select.supported_select(A, Bs.shape[0],
+                                               _cdt(precision)))
+
+
 def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
     """Batched OMP over measurement rows Bs (B, n).
 
@@ -128,6 +155,10 @@ def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
             A, Bs, int(sparsity), max_residual, min_decrease,
             corr_dtype=_cdt(precision))
         return sol
+    if sparsity is not None and _stream_ok(A, Bs, precision):
+        return sharded.fr_sharded_fused(
+            A, Bs, int(sparsity), _one_shard_mesh(A.device), max_residual,
+            min_decrease, corr_dtype=_cdt(precision))
     return batch(fr, max_residual=max_residual, min_decrease=min_decrease,
                  sparsity=sparsity)(A, Bs)
 
@@ -143,6 +174,10 @@ def mp_batch(A, Bs, k: int, precision=None):
         x, _ = fused_solve.mp_fused_solve(A, Bs, int(k),
                                           corr_dtype=_cdt(precision))
         return x
+    if _stream_ok(A, Bs, precision):
+        return sharded.mp_sharded_fused(A, Bs, int(k),
+                                        _one_shard_mesh(A.device),
+                                        corr_dtype=_cdt(precision))
     return batch(mp, k=k)(A, Bs)
 
 
@@ -172,6 +207,10 @@ def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
                 val=F.pad(sol.val, (0, pad)),
                 mask=F.pad(sol.mask, (0, pad)), m=sol.m)
         return sol
+    if _stream_ok(A, Bs, precision):
+        return sharded.gomp_sharded_fused(
+            A, Bs, int(l), kk, _one_shard_mesh(A.device), max_residual,
+            corr_dtype=_cdt(precision))
     return batch(gomp, l=l, k=k, max_residual=max_residual)(A, Bs)
 
 
@@ -189,6 +228,10 @@ def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
         sol, _ = fused_twostage.sp_fused_solve(A, Bs, int(k), delta, maxiter,
                                                corr_dtype=_cdt(precision))
         return sol
+    if _stream_ok(A, Bs, precision):
+        return sharded.sp_sharded_fused(
+            A, Bs, int(k), _one_shard_mesh(A.device), delta, maxiter,
+            corr_dtype=_cdt(precision))
     return batch(sp, k=k, delta=delta, maxiter=maxiter)(A, Bs)
 
 
@@ -209,6 +252,10 @@ def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
         sol, _ = fused_twostage.srr_fused_solve(
             A, Bs, int(k), delta, maxiter, int(l), corr_dtype=_cdt(precision))
         return sol
+    if initialization == 1 and int(l) == 1 and _stream_ok(A, Bs, precision):
+        return sharded.srr_sharded_fused(
+            A, Bs, int(k), _one_shard_mesh(A.device), delta, maxiter,
+            corr_dtype=_cdt(precision))
     return batch(srr, k=k, delta=delta, maxiter=maxiter,
                  initialization=initialization, l=l)(A, Bs)
 
@@ -229,6 +276,10 @@ def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
         sol, _ = fused_twostage.ompr_fused_solve(
             A, Bs, int(k), delta, eta, maxiter, corr_dtype=_cdt(precision))
         return sol
+    if _stream_ok(A, Bs, precision):
+        return sharded.ompr_sharded_fused(
+            A, Bs, int(k), _one_shard_mesh(A.device), delta, eta, maxiter,
+            corr_dtype=_cdt(precision))
     return batch(ompr, k=k, delta=delta, eta=eta, maxiter=maxiter)(A, Bs)
 
 

@@ -97,6 +97,10 @@ _SIGNATURES = {
     # r, A, lda, cdt_bf16, pval, pidx, val, idx, B, n, m, l, bpt, stream
     "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
+    # r, w, v (nullable), A, lda, cdt_bf16, il, cn2, resc, pval, pidx, val,
+    # idx, B, n, m, bpt, deg, stream
+    "cstpu_fr_step_select": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None

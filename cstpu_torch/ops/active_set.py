@@ -353,6 +353,38 @@ def residual_batched(st: ActiveSet, b) -> torch.Tensor:
     return b - torch.einsum("bnk,bk->bn", st.cols, st.coef)
 
 
+def gamma_batched(st: ActiveSet) -> torch.Tensor:
+    """(B, kmax): every row's diag((A_i'A_i)^-1) over its active slots (junk
+    elsewhere; callers mask)."""
+    return torch.diagonal(st.Ginv, dim1=1, dim2=2)
+
+
+def w_of(st: ActiveSet, a) -> torch.Tensor:
+    """Orthonormalized direction of column `a` (n,) against one instance's
+    active set: w = a_perp / sqrt(d), d = a'a - g'u clamped at 1e-12 * a'a.
+    It carries an append's rescaling downdate (resc_j -= (w'a_j)^2) into the
+    next streamed sweep of the sharded FR/SRR/RMP/FoBa solvers. Always
+    f32, whatever the dictionary's dtype: it feeds the f32 rescaling."""
+    g = torch.where(st.mask, st.cols.T @ a, 0)
+    u = st.Ginv @ g
+    aperp = a - st.cols @ u
+    ata = a @ a
+    d = torch.maximum(ata - g @ u, 1e-12 * torch.clamp(ata, min=1e-30))
+    return (aperp * torch.sqrt(1.0 / d)).to(torch.float32)
+
+
+def w_of_batched(st: ActiveSet, a) -> torch.Tensor:
+    """`w_of` for every row: a (B, n) against row b's active set, (B, n)
+    f32."""
+    g = torch.where(st.mask, torch.einsum("bnk,bn->bk", st.cols, a), 0)
+    u = torch.einsum("bkj,bj->bk", st.Ginv, g)
+    aperp = a - torch.einsum("bnk,bk->bn", st.cols, u)
+    ata = torch.sum(a * a, dim=1)
+    d = torch.maximum(ata - torch.sum(g * u, dim=1),
+                      1e-12 * torch.clamp(ata, min=1e-30))
+    return (aperp * torch.sqrt(1.0 / d)[:, None]).to(torch.float32)
+
+
 def finalize_batched(st: ActiveSet, m: int):
     """Sort every row's active set by atom index; a batched
     SparseSolution."""

@@ -1107,7 +1107,8 @@ def _rows_ok(A, Bs) -> bool:
 
 def supported_sp(A, Bs, k: int, corr_dtype=torch.bfloat16) -> bool:
     """Shape gate of sp_fused_solve: 2k <= n, the top-k acquisition within
-    select_topl (k <= LMAX), sp_round's blocks within shared memory."""
+    select_topl (k <= LMAX), sp_round's blocks within shared memory. Beyond
+    it `sp_batch` takes the sharded solver on a one-shard mesh."""
     k = int(k)
     return (_rows_ok(A, Bs) and 1 <= k <= LMAX and 2 * k <= A.shape[0]
             and _sp_smem(k) <= SMEM_MAX)

@@ -10,9 +10,13 @@ selection over the shard:
   correlate_select_topl_stream    the l largest |<a_j, r_b>| of the row
   correlate_select_masked_stream  the first with |R A| + M, M (B, m) f32,
                                   0 on eligible atoms and -inf on the others
+  fr_step_select                  one forward-regression step: the pending
+                                  rescaling terms go into resc (B, m) in
+                                  place, then the top-1 of the OLS score
+                                  (R A)^2 / resc
 
 The winning column is fetched afterwards by the caller, from the
-full-precision shard. `fr_step_select` of cstpu is not ported yet.
+full-precision shard.
 
 cstpu's kernels walk the shard tile by tile, `_stream_tile(m, n, itemsize,
 8 MB)` atoms at a time, and carry a running pair or l running slots from
@@ -30,17 +34,19 @@ the launch):
     that holds the running minimum if it is strictly larger. The slots come
     back in that order, NOT sorted; mask on val > -inf.
 
-On CUDA tensors each function launches csrc/stream_select.cu (a sweep that
-writes partials per row and per 128 atoms, then a finishing stage that
-folds them under the rule above: two launches per select) and counts one
-in `fused_solve.LAUNCHES`. On CPU tensors, and only there, it runs its
+On CUDA tensors each function launches csrc/stream_select.cu, or
+csrc/fr_step_select.cu for `fr_step_select` (a sweep that writes partials
+per row and per 128 atoms, then a finishing stage that folds them under the
+rule above: two launches per select) and counts one in
+`fused_solve.LAUNCHES`. On CPU tensors, and only there, it runs its
 plain twin (`*_ref`), which reproduces the rule tile by tile in torch
 operations. Products and sums are f32 whatever the dtype of R; the scores
 of the two differ by the order of the sums (~1e-6 relative).
 
 What stays of cstpu's shape limits: m must be a multiple of 128 with a
 tile inside the 8 MB budget (`_stream_tile` > 0), because the tile defines
-the NaN rule; the top-l select serves l <= 32. The TPU's `B % 8 == 0` and
+the NaN rule. The top-l kernel serves l <= 128 (`STREAM_LMAX`, the sweep
+block's width; cstpu's has no cap, and neither has the plain twin). The TPU's `B % 8 == 0` and
 `n % 8 == 0` are not needed: `supported_select` keeps them only so that it
 answers as cstpu's gate does.
 """
@@ -51,12 +57,13 @@ import torch
 
 from cstpu_torch.ops import _build
 from cstpu_torch.ops.fused_solve import (
-    _CDTS, INT_MAX, LAUNCHES, LMAX, TILE, _on_cpu, _stream)
+    _CDTS, INT_MAX, LAUNCHES, TILE, _f32, _on_cpu, _stream)
 
 LAUNCHES.update(select_stream=0, select_topl_stream=0,
-                select_masked_stream=0)
+                select_masked_stream=0, fr_step_select=0)
 
 STREAM_TILE_BYTES = 8 * 1024 * 1024
+STREAM_LMAX = TILE     # most slots of the top-l kernel (kStreamTopLMax)
 
 
 def _stream_tile(m: int, n: int, itemsize: int, target_bytes: int) -> int:
@@ -130,12 +137,13 @@ def _fold_top1(scores, tm: int, nan_visible: bool = False):
     return best, idx
 
 
-def _require_f32_mask(M, B: int, m: int, dev, name: str) -> None:
+def _require_f32_mask(M, B: int, m: int, dev, name: str,
+                      what: str = "M") -> None:
     if (M.dtype != torch.float32 or tuple(M.shape) != (B, m)
             or M.device != dev or not M.is_contiguous()):
-        raise ValueError(f"{name}: M must be a contiguous ({B}, {m}) float32 "
-                         f"tensor on {dev}, got {tuple(M.shape)} {M.dtype} "
-                         f"{M.device}")
+        raise ValueError(f"{name}: {what} must be a contiguous ({B}, {m}) "
+                         f"float32 tensor on {dev}, got {tuple(M.shape)} "
+                         f"{M.dtype} {M.device}")
 
 
 def _check_shard(A, R, name: str):
@@ -222,18 +230,13 @@ def correlate_select_masked_stream(A, R, M):
                         "select_masked_stream")
 
 
-def _check_l(l: int, name: str) -> int:
-    l = int(l)
-    if not 1 <= l <= LMAX:
-        raise ValueError(f"{name}: l={l} outside 1..{LMAX}")
-    return l
-
-
 def correlate_select_topl_stream_ref(A, R, l: int):
     """Plain twin of `correlate_select_topl_stream`: the running l slots,
     tile by tile and candidate by candidate, for all rows at once."""
     B, n, m = _check_shard(A, R, "correlate_select_topl_stream")
-    l = _check_l(l, "correlate_select_topl_stream")
+    l = int(l)
+    if l < 1:
+        raise ValueError(f"correlate_select_topl_stream: l={l} < 1")
     tm = _tile_of(A, "correlate_select_topl_stream")
     dev = A.device
     s = _abs_scores(A, R).view(B, m // tm, tm)
@@ -247,7 +250,7 @@ def correlate_select_topl_stream_ref(A, R, l: int):
     idx = torch.zeros((B, l), dtype=torch.int32, device=dev)
     slot = torch.arange(l, device=dev).view(1, l)
     for t in range(m // tm):
-        for c in range(l):                 # l <= 32 < 128 <= tm
+        for c in range(min(l, tm)):        # a tile has tm candidates
             rmin = torch.amin(val, dim=1, keepdim=True)
             p = torch.amin(torch.where(val == rmin, slot, INT_MAX), dim=1,
                            keepdim=True)
@@ -260,13 +263,16 @@ def correlate_select_topl_stream_ref(A, R, l: int):
 
 def correlate_select_topl_stream(A, R, l: int):
     """Top-l selection sweep of A (n, m; pre-cast to the correlation dtype)
-    against residuals R (B, n), 1 <= l <= 32. Returns (val (B, l) f32, idx
-    (B, l) i32), NOT sorted by value: the slots are in the running set's
-    own order, as cstpu leaves them; mask on val > -inf."""
+    against residuals R (B, n), 1 <= l <= 128 on the card. Returns (val
+    (B, l) f32, idx (B, l) i32), NOT sorted by value: the slots are in the
+    running set's own order, as cstpu leaves them; mask on val > -inf."""
     if _on_cpu(A, R):
         return correlate_select_topl_stream_ref(A, R, l)
     B, n, m = _check_shard(A, R, "correlate_select_topl_stream")
-    l = _check_l(l, "correlate_select_topl_stream")
+    l = int(l)
+    if not 1 <= l <= STREAM_LMAX:
+        raise ValueError(f"correlate_select_topl_stream: l={l} outside "
+                         f"1..{STREAM_LMAX}")
     tm = _tile_of(A, "correlate_select_topl_stream")
     R = R.float().contiguous()
     dev = A.device
@@ -283,3 +289,93 @@ def correlate_select_topl_stream(A, R, l: int):
     _build.check(err, "cstpu_stream_topl")
     LAUNCHES["select_topl_stream"] += 1
     return val, idx
+
+
+def _check_fr_step(A, R, W, V, il, cn2, resc):
+    """Shapes of `fr_step_select`; resc is updated in place, so it must be
+    the caller's own contiguous f32 buffer. Returns (B, n, m, cn2 (m,))."""
+    name = "fr_step_select"
+    B, n, m = _check_shard(A, R, name)
+    dev = A.device
+    for x, what in ((W, "W"), (V, "V")):
+        if x is not None and (tuple(x.shape) != (B, n) or x.device != dev):
+            raise ValueError(f"{name}: {what} must be ({B}, {n}) on {dev}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    if tuple(il.shape) != (B, 2) or il.device != dev:
+        raise ValueError(f"{name}: il must be ({B}, 2) [mark, restore] on "
+                         f"{dev}, got {tuple(il.shape)} on {il.device}")
+    cn2 = cn2.reshape(-1)
+    if (cn2.dtype != torch.float32 or cn2.shape[0] != m or cn2.device != dev):
+        raise ValueError(f"{name}: cn2 must hold {m} float32 squared column "
+                         f"norms on {dev}, got {tuple(cn2.shape)} {cn2.dtype}")
+    _require_f32_mask(resc, B, m, dev, name, "resc")
+    return B, n, m, cn2
+
+
+def fr_step_select_ref(A, R, W, il, cn2, resc, deg: float, V=None):
+    """Plain twin of `fr_step_select`: the same update of resc, in place
+    and one rounded operation at a time, and the same fold."""
+    B, n, m, cn2 = _check_fr_step(A, R, W, V, il, cn2, resc)
+    tm = _tile_of(A, "fr_step_select")
+    Af = A.float()
+
+    def dots(X):
+        return torch.matmul(X.float().to(A.dtype).float(), Af)
+
+    q, z = dots(R), dots(W)
+    col = torch.arange(m, device=A.device)[None, :]
+    x = torch.where(col == il[:, 1:2], 0.0, resc)
+    x = x - z * z
+    if V is not None:
+        zv = dots(V)
+        x = x + zv * zv
+    x = torch.where(col == il[:, 0:1], -1.0, x)
+    resc.copy_(x)
+    rmin = _f32(deg) * cn2[None, :]
+    d2 = torch.where(x > rmin, q * q / x, -torch.inf)
+    return (*_fold_top1(d2, tm), resc)
+
+
+def fr_step_select(A, R, W, il, cn2, resc, deg: float, V=None):
+    """One forward-regression selection sweep with the pending rescaling
+    terms folded in.
+
+    A (n, m; pre-cast to the correlation dtype), R residuals (B, n), W the
+    previous append's scaled orthogonal direction (B, n; zeros on step 0 or
+    after a rejection), il (B, 2) i32 [mark, restore] LOCAL atom indices per
+    row (-1 for none: `mark` excludes the atom the previous step appended,
+    `restore` brings a deleted atom back on a zero base), cn2 (m,) f32
+    squared column norms of the full-precision shard, resc (B, m) f32 the
+    current rescaling, `deg` the degeneracy threshold, V the scaled freed
+    direction of a deferred deletion (B, n) or None. R, W and V are rounded
+    to the correlation dtype. Per atom: resc = 0 at `restore`, resc -= z z,
+    resc += zv zv, resc = -1 at `mark`, then d2 = q q / resc where resc >
+    deg * cn2, else -inf.
+
+    resc is UPDATED IN PLACE (cstpu donates its buffer). Returns (d2max (B,)
+    f32, idx (B,) i32, resc): the top-1 of d2 under the rule at the top of
+    this module; a row with every atom degenerate gives (-inf, 0)."""
+    if _on_cpu(A, R, W, V, il, cn2, resc):
+        return fr_step_select_ref(A, R, W, il, cn2, resc, deg, V)
+    B, n, m, cn2 = _check_fr_step(A, R, W, V, il, cn2, resc)
+    tm = _tile_of(A, "fr_step_select")
+    dev = A.device
+    R, W = R.float().contiguous(), W.float().contiguous()
+    V = None if V is None else V.float().contiguous()
+    il = il.to(torch.int32).contiguous()
+    cn2 = cn2.contiguous()
+    pval = torch.empty((B, m // TILE), dtype=torch.float32, device=dev)
+    pidx = torch.empty((B, m // TILE), dtype=torch.int32, device=dev)
+    val = torch.empty((B,), dtype=torch.float32, device=dev)
+    idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.cstpu_fr_step_select(
+            R.data_ptr(), W.data_ptr(), None if V is None else V.data_ptr(),
+            A.data_ptr(), A.stride(0), int(A.dtype == torch.bfloat16),
+            il.data_ptr(), cn2.data_ptr(), resc.data_ptr(), pval.data_ptr(),
+            pidx.data_ptr(), val.data_ptr(), idx.data_ptr(), B, n, m,
+            tm // TILE, float(deg), _stream())
+    _build.check(err, "cstpu_fr_step_select")
+    LAUNCHES["fr_step_select"] += 1
+    return val, idx, resc

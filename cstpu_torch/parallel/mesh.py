@@ -129,6 +129,19 @@ def shard_dictionary(A, mesh: Mesh) -> ShardedDictionary:
     return ShardedDictionary(shards, (n, m), A.dtype, mesh)
 
 
+def shard_rows(x, mesh: Mesh) -> tuple:
+    """Cut x, a dictionary (n, m) or a measurement (n,), into row slices
+    over the 'atoms' axis, slice j on the first batch row's shard j (the cut
+    of the row-sharded OMP). A slice on x's own device is a view of x."""
+    s = mesh.shape["atoms"]
+    n = x.shape[0]
+    if n % s:
+        raise ValueError(f"n = {n} not divisible by shards {s}")
+    nl = n // s
+    return tuple(x[j * nl:(j + 1) * nl].to(dev)
+                 for j, dev in enumerate(mesh.devices[0]))
+
+
 def shard_batch(b, mesh: Mesh) -> tuple:
     """Cut measurements b (B, n) into row slices over the 'batch' axis,
     slice i on batch row i's home device; a single measurement (n,) is

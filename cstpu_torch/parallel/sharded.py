@@ -1,6 +1,9 @@
 """Column-sharded greedy pursuit over a mesh of shards (PyTorch counterpart
 of cstpu.parallel.sharded): OMP, MP, GOMP, OMPR and SP on the streaming
-select kernels, and the plain `omp_sharded` they are verified against.
+select kernels, forward regression (FR), SRR, RMP and FoBa on the combined
+rescaling-and-select kernel (`stream_select.fr_step_select`), the plain
+`omp_sharded` they are verified against, and the row-sharded
+`omp_sharded_rows` for a long measurement axis.
 
 The dictionary A is column-sharded over the mesh's 'atoms' axis. Per step
 every shard sweeps its own atoms with one streaming select
@@ -29,6 +32,17 @@ home device, where cstpu computes them replicated on every shard. The
 independently, one after the other. cstpu's `lax.while_loop` is a Python
 loop here that reads `all(done)` once per step.
 
+The forward-regression family keeps, per shard and on the shard's device,
+the OLS rescaling of its own atoms, resc (B, m_local) f32, which
+`fr_step_select` updates in place. What an append or a deletion does to it
+is deferred to the next sweep: the previous append's scaled orthogonal
+direction W with the atom to mark as active, a deletion's freed direction V
+with the atom to restore (SRR), or is applied at once by one product over
+the full-precision shard (RMP's and FoBa's deletions, which are rare). RMP
+and FoBa nest loops that end on the data; each `lax.while_loop` of cstpu is
+a Python loop that reads one flag per iteration, and with `return_iters`
+the solvers report their sweeps and those reads.
+
 `A` may be a tensor or the result of `shard_dictionary` (then no shard is
 cut or cast twice); `Bs` a tensor or the result of `shard_batch`. Results
 are gathered on the first batch row's home device.
@@ -36,12 +50,14 @@ are gathered on the first batch row's home device.
 Shape limits. What remains of cstpu's: m divisible by the atom shards, B
 by the batch shards, a per-shard atom width that is a multiple of 128 with
 a streamable tile (`stream_select._stream_tile`, which defines the NaN
-rule), l <= 32 for the top-l select (so k <= 32 for SP and OMPR). Dropped,
-because only the TPU's tiling needed them: n % 8 == 0 and a per-shard
-batch that is a multiple of 8.
+rule). The port's own: on the card the top-l kernel holds l <= 128 slots
+(`stream_select.STREAM_LMAX`; GOMP's l, the k of SP's, OMPR's and SRR's
+top-k). Dropped, because only the TPU's tiling needed them: n % 8 == 0 and
+a per-shard batch that is a multiple of 8.
 
 With `return_iters` the solvers whose loops end on the data (OMP, GOMP,
-SP, OMPR) also return the steps or outer iterations each batch row ran.
+SP, OMPR, FR, SRR) also return the steps or outer iterations each batch row
+ran; RMP and FoBa return `{"sweeps": ..., "flag_reads": ...}` per batch row.
 
 Every `*_sharded_fused` has a twin `*_sharded_fused_ref` that runs the same
 body on the selects' plain versions; on CPU tensors both are the same.
@@ -56,8 +72,10 @@ import torch
 
 from cstpu_torch.ops import active_set as aset
 from cstpu_torch.ops import stream_select as ss
+from cstpu_torch.ops.fused_solve import _degeneracy_rtol
+from cstpu_torch.ops.util import cholesky_nan, true_f32
 from cstpu_torch.parallel.mesh import Mesh, ShardedDictionary, shard_batch, \
-    shard_dictionary
+    shard_dictionary, shard_rows
 from cstpu_torch.utils.sparse import SparseSolution
 
 INT_MAX = torch.iinfo(torch.int32).max
@@ -68,18 +86,21 @@ _F64_EXACT_INT = 1 << 53
 
 
 class _Selects(NamedTuple):
-    """The three streaming selects a body calls."""
+    """The four streaming selects a body calls."""
     top1: object
     topl: object
     masked: object
+    fr_step: object
 
 
 _KERNELS = _Selects(ss.correlate_select_stream,
                     ss.correlate_select_topl_stream,
-                    ss.correlate_select_masked_stream)
+                    ss.correlate_select_masked_stream,
+                    ss.fr_step_select)
 _PLAIN = _Selects(ss.correlate_select_stream_ref,
                   ss.correlate_select_topl_stream_ref,
-                  ss.correlate_select_masked_stream_ref)
+                  ss.correlate_select_masked_stream_ref,
+                  ss.fr_step_select_ref)
 
 
 class _Row(NamedTuple):
@@ -507,7 +528,7 @@ def gomp_sharded_fused(A, Bs, l: int, k: int, mesh: Mesh,
                        return_iters: bool = False, *,
                        _select: _Selects = _KERNELS):
     """Column-sharded batched GOMP on the per-shard streaming top-l kernel
-    (l <= 32). Semantics of `gomp`."""
+    (l <= 128 on the card). Semantics of `gomp`."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "gomp_sharded_fused")
     k = int(min(k if k is not None else m, m))
@@ -599,7 +620,8 @@ def sp_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                      return_iters: bool = False, *,
                      _select: _Selects = _KERNELS):
     """Column-sharded batched Subspace Pursuit on the per-shard streaming
-    top-k kernel (k <= 32). Semantics of `sp`; the solution has 2k slots."""
+    top-k kernel (k <= 128 on the card). Semantics of `sp`; the solution has
+    2k slots."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "sp_sharded_fused")
     k = int(k)
@@ -687,8 +709,8 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                        return_iters: bool = False, *,
                        _select: _Selects = _KERNELS):
     """Column-sharded batched OMP with replacement on the masked streaming
-    select kernel (k <= 32 for the top-k init). Semantics of `ompr`; the
-    solution has k + 1 slots."""
+    select kernel (k <= 128 on the card, for the top-k init). Semantics of
+    `ompr`; the solution has k + 1 slots."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "ompr_sharded_fused")
     maxiter = int(maxiter if maxiter is not None else n)
@@ -697,8 +719,487 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
         for row, b in zip(rows, slices)], return_iters)
 
 
+# --------------------------------------------------------------------------
+# The forward-regression family: FR, SRR, RMP, FoBa
+# --------------------------------------------------------------------------
+
+def _colnorm2(A_local):
+    """Squared column norms of a shard in f32, (m_local,), block by block so
+    that no second shard-sized temporary is made."""
+    ml = A_local.shape[1]
+    out = torch.empty((ml,), dtype=torch.float32, device=A_local.device)
+    step = 16384
+    for c0 in range(0, ml, step):
+        x = A_local[:, c0:c0 + step].float()
+        out[c0:c0 + step] = torch.sum(x * x, dim=0)
+    return out
+
+
+def _local_idx(gidx, j: int, ml: int):
+    """The global atom indices gidx (B,; -1 for none) as local ones on shard
+    j: -1 where there is none or another shard owns the atom."""
+    owned = (gidx >= 0) & (torch.div(gidx, ml, rounding_mode="floor") == j)
+    return torch.where(owned, gidx % ml, -1).to(torch.int32)
+
+
+class _Rescaling:
+    """The per-shard OLS rescaling of one batch row's atoms and the sweep
+    that maintains it: cn2[j] (m_local,) and resc[j] (B, m_local) f32 on
+    shard j's device, resc starting at cn2 for every row."""
+
+    def __init__(self, row: _Row, B: int, n: int):
+        self.row = row
+        self.deg = _degeneracy_rtol(n)
+        self.cn2 = [_colnorm2(A_local) for A_local in row.A]
+        self.resc = [c[None, :].repeat(B, 1) for c in self.cn2]
+        self.none = torch.full((B,), -1, dtype=torch.int32, device=row.home)
+        self.sweeps = 0
+
+    def select(self, r, W, mark, V=None, restore=None):
+        """One `fr_step_select` per shard and the merge of the shards' best
+        atoms: (col (B, n), gsel (B,) i32, dmax (B,)). W (and V) are the
+        pending directions (B, n) f32, `mark` and `restore` GLOBAL atom
+        indices (B,; -1 for none); each shard is told of its own atoms
+        only."""
+        row = self.row
+        restore = self.none if restore is None else restore
+        lvals, lidxs = [], []
+        for j, (Ac, dev) in enumerate(zip(row.Ac, row.devs)):
+            il = torch.stack([_local_idx(mark, j, row.m_local),
+                              _local_idx(restore, j, row.m_local)],
+                             dim=1).to(dev)
+            lv, li, _ = row.sel.fr_step(
+                Ac, r.to(dev), W.to(dev), il, self.cn2[j], self.resc[j],
+                self.deg, V=None if V is None else V.to(dev))
+            lvals.append(lv)
+            lidxs.append(li)
+        self.sweeps += 1
+        col, gsel, dmax, _ = _select_top1(row, lvals, lidxs)
+        return col, gsel, dmax
+
+    def init_from(self, st: aset.ActiveSet, active):
+        """The rescaling of a non-empty starting support, computed directly
+        per shard in true f32: resc_j = cn2_j - a_j' C Ginv C' a_j, and -1
+        on the atoms of `active`, a list of (gsel (B,), on (B,)) pairs."""
+        row = self.row
+        B, n, kmax = st.cols.shape
+        for j, (A_local, dev) in enumerate(zip(row.A, row.devs)):
+            cols = st.cols.to(dev).float()
+            Ginv = st.Ginv.to(dev)
+            with true_f32():
+                Z = (cols.transpose(1, 2).reshape(B * kmax, n)
+                     @ A_local.float()).view(B, kmax, -1).to(Ginv.dtype)
+                GZ = Ginv @ Z
+            resc = (self.cn2[j][None, :] - torch.sum(Z * GZ, dim=1)).float()
+            for gsel, on in active:
+                loc = _local_idx(torch.where(on, gsel, -1), j,
+                                 row.m_local).to(dev).long()
+                hit = loc >= 0
+                loc = loc.clamp(min=0)[:, None]
+                resc.scatter_(1, loc, torch.where(hit[:, None], -1.0,
+                                                  resc.gather(1, loc)))
+            self.resc[j] = resc.contiguous()
+
+    def apply_delete(self, v, didx, eager):
+        """A deletion's rescaling update, applied at once: resc_j += (v'a_j)^2
+        over the full-precision shard in true f32 for the rows of `eager`,
+        and the deleted atom didx (B,; global) restored on a zero base, its
+        own (v'a)^2 being its exact rescaling after the deletion."""
+        row = self.row
+        ve = v * eager[:, None].to(v.dtype)
+        for j, (A_local, dev) in enumerate(zip(row.A, row.devs)):
+            with true_f32():
+                z = ve.to(dev) @ A_local.float()               # (B, m_local)
+            zz = z * z
+            self.resc[j] += zz
+            loc = _local_idx(torch.where(eager, didx, -1), j,
+                             row.m_local).to(dev).long()
+            hit = loc >= 0
+            loc = loc.clamp(min=0)[:, None]
+            self.resc[j].scatter_(1, loc, torch.where(
+                hit[:, None], zz.gather(1, loc), self.resc[j].gather(1, loc)))
+
+
+def _append_refit(st: aset.ActiveSet, col, Bs, gsel, accept):
+    return aset.refit_batched(
+        aset.append_col_gated_batched(col, Bs, st, gsel, accept))
+
+
+def _delete_candidate(st: aset.ActiveSet):
+    """Every row's deletion candidate, the slot of least coef^2 / gamma
+    (lowest slot on ties), and its freed span direction from the state
+    BEFORE the delete: (pos (B,), dmin (B,), didx (B,) i32, v (B, n) f32)."""
+    gam = aset.gamma_batched(st)
+    d2 = torch.where(st.mask,
+                     st.coef * st.coef / torch.clamp(gam, min=1e-30),
+                     torch.inf)
+    pos = torch.argmin(d2, dim=1)
+    at = pos[:, None]
+    dmin = d2.gather(1, at)[:, 0]
+    didx = st.idx.gather(1, at)[:, 0]
+    qv = st.Ginv.gather(2, at[:, None, :].expand(-1, st.Ginv.shape[1], 1))
+    qv = qv[:, :, 0]                                           # Ginv e_pos
+    qpp = qv.gather(1, at)[:, 0]
+    v = (torch.einsum("bnk,bk->bn", st.cols, qv)
+         * torch.sqrt(1.0 / torch.clamp(qpp, min=1e-30))[:, None])
+    return pos, dmin, didx, v.to(torch.float32)
+
+
+def _delete_refit(st: aset.ActiveSet, pos, m: int, gate):
+    st2 = aset.refit_batched(aset.delete_batched(st, pos, m))
+    return aset.where_rows(gate, st2, st)
+
+
+def _fr_fused_row(row: _Row, Bs, k: int, max_eps2: float, min_d2: float,
+                  m: int):
+    """Batched forward regression over a batch row's shards. Each shard
+    keeps the OLS rescaling of ITS atoms; `fr_step_select` folds the
+    previous append's rank-one downdate and this step's scoring into one
+    pass over the shard. The scaled orthogonal direction w of each accepted
+    append comes from the cached active columns and rides into the next
+    sweep. Parity: cstpu.parallel.sharded._fr_fused_shard_body."""
+    B, n = Bs.shape
+    kcap = min(n, k)
+    st = aset.empty_batched(B, n, k, m, Bs.dtype, row.home)
+    resc = _Rescaling(row, B, n)
+    W = torch.zeros((B, n), dtype=torch.float32, device=row.home)
+    mark = resc.none
+    done = torch.zeros((B,), dtype=torch.bool, device=row.home)
+    for t in range(k):
+        if t and bool(done.all()):
+            break
+        r = aset.residual_batched(st, Bs)
+        col, gsel, dmax = resc.select(r, W, mark)
+        rnorm2 = torch.sum(r * r, dim=1)
+        accept = (~done & (rnorm2 > max_eps2) & (dmax > min_d2)
+                  & (st.k < kcap))
+        # w for the NEXT sweep's downdate, from the state before the append
+        W = aset.w_of_batched(st, col) * accept[:, None]
+        mark = torch.where(accept, gsel, -1)
+        st = _append_refit(st, col, Bs, gsel, accept)
+        done = done | ~accept
+    return aset.finalize_batched(st, m), resc.sweeps
+
+
+def fr_sharded_fused(A, Bs, sparsity: int, mesh: Mesh,
+                     max_residual: float = 0.0, min_decrease: float = 0.0,
+                     corr_dtype=torch.bfloat16,
+                     fuse_collectives: bool | None = None,
+                     return_iters: bool = False, *,
+                     _select: _Selects = _KERNELS):
+    """Column-sharded batched forward regression (OLS rule) on the combined
+    rescaling-and-select streaming kernel: one pass over the dictionary per
+    step. Semantics of `fr` with a sparsity cap."""
+    rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
+                                _select, "fr_sharded_fused")
+    k = int(min(sparsity, n, m))
+    return _cat_solutions([
+        _fr_fused_row(row, b, k, float(max_residual) ** 2,
+                      float(min_decrease) ** 2, m)
+        for row, b in zip(rows, slices)], return_iters)
+
+
+def _srr_fused_row(row: _Row, Bs, k: int, maxiter: int, delta: float, m: int):
+    """Batched SRR (l = 1, oblivious init) over a batch row's shards. The
+    top-k of |A'b| starts the support and its rescaling is computed
+    directly. Then every iteration is ONE sweep that carries both deferred
+    identities, the previous append's downdate (W, mark) and the previous
+    deletion's update (V, restore), followed by the append and, while the
+    support exceeds k, the delete of the least coef^2 / gamma slot.
+    Parity: cstpu.parallel.sharded._srr_fused_shard_body."""
+    B, n = Bs.shape
+    kmax = min(k + 1, m)
+    st = aset.empty_batched(B, n, kmax, m, Bs.dtype, row.home)
+    resc = _Rescaling(row, B, n)
+
+    # oblivious top-k init
+    gsels, cols = _select_topl(row, Bs, k)
+    active = []
+    for gsel, col in zip(gsels, cols):
+        ok = ~aset.contains_batched(st, gsel)
+        st = aset.append_col_gated_batched(col, Bs, st, gsel, ok)
+        active.append((gsel, ok))
+    st = aset.refit_batched(st)
+    resc.init_from(st, active)
+
+    def resnorm(st):
+        return torch.linalg.norm(aset.residual_batched(st, Bs), dim=1)
+
+    res = resnorm(st)
+    W = torch.zeros((B, n), dtype=torch.float32, device=row.home)
+    V = torch.zeros_like(W)
+    mark = restore = resc.none
+    done = torch.zeros((B,), dtype=torch.bool, device=row.home)
+    iters = 0
+    for t in range(maxiter):
+        if t and bool(done.all()):
+            break
+        iters += 1
+        gate = ~done
+        r = aset.residual_batched(st, Bs)
+        col, gsel, dmax = resc.select(r, W, mark, V, restore)
+        rnorm2 = torch.sum(r * r, dim=1)
+        accept = gate & (rnorm2 > 0) & (dmax > 0) & (st.k < kmax)
+        W = aset.w_of_batched(st, col) * accept[:, None]
+        mark = torch.where(accept, gsel, -1)
+        st2 = _append_refit(st, col, Bs, gsel, accept)
+
+        # backward: delete the least coef^2 / gamma slot while count > k
+        dodel = gate & (st2.k > k)
+        pos, _, didx, v = _delete_candidate(st2)
+        V = v * dodel[:, None]
+        restore = torch.where(dodel, didx, -1)
+        st = _delete_refit(st2, pos, m, dodel)
+        # deleting the atom just appended: its pending -w^2 and the
+        # delete's +v^2 cancel (w == v), the atom is neither marked nor
+        # restored and its rescaling still holds the value from before the
+        # append, so all four pending channels are cleared
+        same = dodel & accept & (didx == gsel)
+        W = W * ~same[:, None]
+        V = V * ~same[:, None]
+        mark = torch.where(same, -1, mark)
+        restore = torch.where(same, -1, restore)
+
+        new_res = torch.where(gate, resnorm(st), res)
+        done = done | (new_res <= delta) | (res <= new_res)
+        res = new_res
+    return aset.finalize_batched(st, m), iters
+
+
+def srr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
+                      maxiter: int | None = None, corr_dtype=torch.bfloat16,
+                      fuse_collectives: bool | None = None,
+                      return_iters: bool = False, *,
+                      _select: _Selects = _KERNELS):
+    """Column-sharded batched SRR (l = 1, oblivious init): one streamed pass
+    over the dictionary per replacement iteration. Semantics of `srr`; the
+    solution has min(k + 1, m) slots."""
+    rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
+                                _select, "srr_sharded_fused")
+    k = int(k)
+    maxiter = int(maxiter if maxiter is not None else 4 * k)
+    return _cat_solutions([
+        _srr_fused_row(row, b, k, maxiter, float(delta), m)
+        for row, b in zip(rows, slices)], return_iters)
+
+
+def _rmp_foba_row(row: _Row, Bs, kmax: int, maxiter: int, delta2: float,
+                  m: int, foba: bool):
+    """Batched RMP (delta variant) or FoBa over a batch row's shards.
+    Forward steps are one sweep each, the previous append's downdate folded
+    in; a backward deletion's rescaling identity is applied at once by one
+    product over the local full-precision shard (deletions are rare, sweeps
+    are not). The kmax slot cap with its per-row `capped` flag is the
+    contract of the batched kernels: rows the cap refused are solved again
+    by the caller. Returns (solution, capped (B,), counts).
+    Parity: cstpu.parallel.sharded._rmp_fused_shard_body."""
+    B, n = Bs.shape
+    home = row.home
+    st = aset.empty_batched(B, n, kmax, m, Bs.dtype, home)
+    resc = _Rescaling(row, B, n)
+    limit = min(n, m)
+    reads = 0
+
+    def flag(x) -> bool:
+        """One value read back to the host: what cstpu's `lax.while_loop`
+        conditions are here."""
+        nonlocal reads
+        reads += 1
+        return bool(x)
+
+    def forward_step(st, W, mark, gate, capped):
+        r = aset.residual_batched(st, Bs)
+        col, gsel, dmax = resc.select(r, W, mark)
+        rnorm2 = torch.sum(r * r, dim=1)
+        wanted = gate & (rnorm2 > 0) & (dmax > delta2) & (st.k < limit)
+        full = st.k >= kmax
+        accept = wanted & ~full
+        W = aset.w_of_batched(st, col) * accept[:, None]
+        pend = torch.where(accept, gsel, -1)
+        st = _append_refit(st, col, Bs, gsel, accept)
+        return st, W, pend, accept, capped | (wanted & full), dmax
+
+    def bwd_once(st, W, mark, pend, g, floor):
+        """One gated delete of the rows of g whose least coef^2 / gamma lies
+        below `floor`; where the deleted atom IS the pending one, the
+        pending forward channels are cancelled instead of applying the
+        update (the -w^2 and the +v^2 cancel). Returns also whether any row
+        deleted (one flag read)."""
+        pos, dmin, didx, v = _delete_candidate(st)
+        acc = g & (dmin < floor)
+        if not flag(acc.any()):
+            return st, W, mark, pend, acc, False
+        same = acc & (pend >= 0) & (didx == pend)
+        resc.apply_delete(v, didx, acc & ~same)
+        st = _delete_refit(st, pos, m, acc)
+        W = W * ~same[:, None]
+        mark = torch.where(same, -1, mark)
+        pend = torch.where(same, -1, pend)
+        return st, W, mark, pend, acc, True
+
+    W = torch.zeros((B, n), dtype=torch.float32, device=home)
+    mark = pend = resc.none
+    capped = torch.zeros((B,), dtype=torch.bool, device=home)
+    if not foba:
+        done = torch.zeros((B,), dtype=torch.bool, device=home)
+        for t in range(maxiter):
+            if t and flag(done.all()):
+                break
+            alive = ~done
+            # forward stage: until no live row accepts
+            g = alive
+            facc = torch.zeros_like(done)
+            while True:
+                st, W, mark2, acc, capped, _ = forward_step(
+                    st, W, mark, g, capped)
+                pend = torch.where(g, mark2, pend)
+                mark = mark2
+                g = g & acc
+                facc = facc | acc
+                if not flag(g.any()):
+                    break
+            # backward stage: until no live row deletes
+            g = alive
+            bacc = torch.zeros_like(done)
+            while True:
+                st, W, mark, pend, acc, went = bwd_once(
+                    st, W, mark, pend, g, delta2)
+                g = g & acc
+                bacc = bacc | acc
+                if not went:
+                    break
+            done = done | ~(facc | bacc)
+    else:
+        alive = torch.ones((B,), dtype=torch.bool, device=home)
+        for t in range(maxiter):
+            if t and not flag(alive.any()):
+                break
+            st, W, mark2, acc, capped, dmax = forward_step(
+                st, W, mark, alive, capped)
+            pend = torch.where(alive, mark2, pend)
+            mark = mark2
+            floor = torch.clamp(dmax, min=0.0) * 0.25
+            g = alive & acc
+            while True:
+                st, W, mark, pend, bacc, went = bwd_once(
+                    st, W, mark, pend, g, floor)
+                g = g & bacc
+                if not went:
+                    break
+            alive = alive & acc
+    counts = {"sweeps": resc.sweeps, "flag_reads": reads}
+    return aset.finalize_batched(st, m), capped, counts
+
+
+def _rmp_foba_sharded(A, Bs, mesh: Mesh, kmax: int, maxiter: int,
+                      delta: float, corr_dtype, fuse_collectives,
+                      return_iters: bool, foba: bool, select: _Selects):
+    rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
+                                select, "rmp/foba_sharded_fused")
+    out = [_rmp_foba_row(row, b, int(kmax), int(maxiter), float(delta) ** 2,
+                         m, foba) for row, b in zip(rows, slices)]
+    sol = _cat_solutions([(x, None) for x, _, _ in out])
+    capped = torch.cat([c.to(sol.idx.device) for _, c, _ in out])
+    if return_iters:
+        return sol, capped, [counts for _, _, counts in out]
+    return sol, capped
+
+
+def rmp_sharded_fused(A, Bs, delta: float, mesh: Mesh, kmax: int = 32,
+                      maxiter: int = 1, corr_dtype=torch.bfloat16,
+                      fuse_collectives: bool | None = None,
+                      return_iters: bool = False, *,
+                      _select: _Selects = _KERNELS):
+    """Column-sharded batched RMP (delta variant) with the kmax cap and the
+    `capped` contract. Returns (SparseSolution, capped (B,) bool)."""
+    return _rmp_foba_sharded(A, Bs, mesh, kmax, maxiter, delta, corr_dtype,
+                             fuse_collectives, return_iters, False, _select)
+
+
+def foba_sharded_fused(A, Bs, delta: float, mesh: Mesh, kmax: int = 32,
+                       corr_dtype=torch.bfloat16,
+                       fuse_collectives: bool | None = None,
+                       return_iters: bool = False, *,
+                       _select: _Selects = _KERNELS):
+    """Column-sharded batched FoBa (a deletion must cost less than a quarter
+    of the last forward gain). Returns (SparseSolution, capped (B,) bool)."""
+    return _rmp_foba_sharded(A, Bs, mesh, kmax, int(A.shape[0]), delta,
+                             corr_dtype, fuse_collectives, return_iters,
+                             True, _select)
+
+
+# --------------------------------------------------------------------------
+# Row-sharded OMP: the strategy for a long measurement axis
+# --------------------------------------------------------------------------
+
+def omp_sharded_rows(A, b, k: int, mesh: Mesh, max_residual: float = 0.0):
+    """OMP with the dictionary ROW-sharded over the 'atoms' axis of the
+    mesh, and b likewise: the strategy for n >> m. Per step every shard
+    correlates its own measurement rows and one m-length psum gives the
+    global correlation; the selection and the k x k Cholesky refit are
+    computed once, at home, and the Gram and A'b updates are psums of the
+    shards' partial products. Plain tensor operations in the dictionary's
+    own precision, one instance b (n,). Semantics of `omp`."""
+    A, b = torch.as_tensor(A), torch.as_tensor(b)
+    n, m = A.shape
+    k = int(min(k if k is not None else n, n, m))
+    A_loc = shard_rows(A, mesh)
+    b_loc = shard_rows(b.to(A.dtype), mesh)
+    devs, home = mesh.devices[0], mesh.home(0)
+    dtype = A.dtype
+
+    idx = torch.full((k,), m, dtype=torch.int32, device=home)
+    mask = torch.zeros((k,), dtype=torch.bool, device=home)
+    G = torch.eye(k, dtype=dtype, device=home)
+    Atb = torch.zeros((k,), dtype=dtype, device=home)
+    coef = torch.zeros((k,), dtype=dtype, device=home)
+    cols = [torch.zeros((x.shape[0], k), dtype=dtype, device=dev)
+            for x, dev in zip(A_loc, devs)]
+
+    def residual_local(coef):
+        return [bl - c @ coef.to(dev)
+                for bl, c, dev in zip(b_loc, cols, devs)]
+
+    count = 0
+    for _ in range(k):
+        r_loc = residual_local(coef)
+        scores = torch.abs(mesh.psum(
+            [r @ Al for r, Al in zip(r_loc, A_loc)], home))
+        i = int(torch.argmax(scores))
+        if bool(torch.any(mask & (idx == i))) or count >= k:
+            break                       # stalled: present or full
+        a_loc = [Al[:, i] for Al in A_loc]
+        for c, a in zip(cols, a_loc):
+            c[:, count] = a
+        g = mesh.psum([c.T @ a for c, a in zip(cols, a_loc)], home)
+        G[count, :] = g
+        G[:, count] = g
+        idx[count] = i
+        mask[count] = True
+        Atb[count] = mesh.psum([a @ bl for a, bl in zip(a_loc, b_loc)], home)
+        count += 1
+        L = cholesky_nan(G)
+        coef = torch.cholesky_solve(
+            torch.where(mask, Atb, 0)[:, None], L)[:, 0]
+        coef = torch.where(mask, coef, 0)
+        rn2 = mesh.psum([torch.sum(r * r).to(home)
+                         for r in residual_local(coef)], home)
+        if bool(torch.sqrt(rn2) < max_residual):
+            break
+
+    order = torch.argsort(torch.where(mask, idx, INT_MAX), stable=True)
+    mask = mask[order]
+    return SparseSolution(
+        idx=torch.where(mask, idx[order], m).to(torch.int32),
+        val=torch.where(mask, coef[order], 0), mask=mask, m=int(m))
+
+
 omp_sharded_fused_ref = partial(omp_sharded_fused, _select=_PLAIN)
 mp_sharded_fused_ref = partial(mp_sharded_fused, _select=_PLAIN)
 gomp_sharded_fused_ref = partial(gomp_sharded_fused, _select=_PLAIN)
 sp_sharded_fused_ref = partial(sp_sharded_fused, _select=_PLAIN)
 ompr_sharded_fused_ref = partial(ompr_sharded_fused, _select=_PLAIN)
+fr_sharded_fused_ref = partial(fr_sharded_fused, _select=_PLAIN)
+srr_sharded_fused_ref = partial(srr_sharded_fused, _select=_PLAIN)
+rmp_sharded_fused_ref = partial(rmp_sharded_fused, _select=_PLAIN)
+foba_sharded_fused_ref = partial(foba_sharded_fused, _select=_PLAIN)

@@ -49,6 +49,9 @@ def sparse_data(gen: torch.Generator, n: int = 32, m: int = 64, k: int = 3,
     return A, x, b
 
 
+gaussian_data = sparse_data
+
+
 def correlated_data(gen: torch.Generator, n: int, m: int, k: int,
                     normalized: bool = True, dtype=torch.float32,
                     decay: float = 2.0):

@@ -200,3 +200,38 @@ def test_matches_cstpu_vmapped_engine(dtype):
     j = solution_to_numpy(jax.vmap(lambda s: jas.finalize(s, M))(js))
     np.testing.assert_array_equal(t["idx"], j["idx"])
     np.testing.assert_allclose(t["val"], j["val"], atol=tol)
+
+
+def test_gamma_and_w_of_batched():
+    # the two engine pieces of the sharded forward-regression family: every
+    # row of the batched forms equals the per-instance form, and both equal
+    # cstpu's `_w_of` and `gamma`
+    from cstpu.parallel.sharded import _w_of
+
+    A, Bs, st, singles = _filled(seed=3)
+    np.testing.assert_allclose(
+        tas.gamma_batched(st).numpy(),
+        torch.stack([tas.gamma(one) for one in singles]).numpy(), atol=ATOL)
+    a = A[:, [7, 11, 13, 17, 19]].T.contiguous()
+    a[1] = singles[1].cols[:, 0]          # a column already in the span: the
+    #                                       floor on d keeps w finite
+    W = tas.w_of_batched(st, a)
+    assert W.dtype == torch.float32 and tuple(W.shape) == (B, N)
+    for b, one in enumerate(singles):
+        w = tas.w_of(one, a[b])
+        assert w.dtype == torch.float32
+        np.testing.assert_allclose(W[b].numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        jst = jas.ActiveSet(*(jnp.asarray(x.numpy()) for x in one))
+        if b == 1:
+            continue     # d is rounding noise under the floor on both sides
+        np.testing.assert_allclose(
+            w.numpy(), np.asarray(_w_of(jst, jnp.asarray(a[b].numpy()))),
+            rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(tas.gamma(one).numpy(),
+                                   np.asarray(jas.gamma(jst)), atol=ATOL)
+    assert torch.isfinite(W).all()
+    # w is orthogonal to the active columns and has unit energy d / d
+    live = [0, 2, 3, 4]
+    proj = torch.einsum("bnk,bn->bk", st.cols.float(), W)[live]
+    assert float(proj.abs().max()) < 1e-5

@@ -136,7 +136,8 @@ def test_build_sources_are_the_package_csrc():
     names = sorted(p.name for p in _build.sources())
     assert names == ["bw_downdate.cu", "bw_select.cu", "engine_backward.cu",
                      "engine_delete.cu", "engine_init.cu", "fr_append.cu",
-                     "fr_select.cu", "gomp_append.cu", "mp_update.cu",
+                     "fr_select.cu", "fr_step_select.cu", "gomp_append.cu",
+                     "mp_update.cu",
                      "omp_append.cu", "ompr_swap.cu", "rmp_append.cu",
                      "select_argmax.cu", "select_topl.cu", "sp_round.cu",
                      "srr_append.cu", "stream_select.cu"]
@@ -564,3 +565,86 @@ def test_stepwise_and_backward_fused_solves_on_cpu_launch_nothing():
     assert not any(tfs.LAUNCHES.values())
     assert {"rmp_append", "engine_backward", "bw_select",
             "bw_downdate"} <= set(tfs.LAUNCHES)
+
+
+# --------------------------------------------------------------------------
+# The middle route: a shape beyond a solver's kernel gate that the streaming
+# gate takes goes to the sharded solver on a one-shard mesh
+# --------------------------------------------------------------------------
+
+def _fake_cuda_middle(monkeypatch):
+    """`_fake_cuda`, and the sharded solvers routed to their twins on the
+    plain selects. Returns (kernel branches taken, sharded branches taken)."""
+    calls = _fake_cuda(monkeypatch)
+    routed = []
+    for name in ("fr", "mp", "sp", "gomp", "srr", "ompr"):
+        ref = getattr(tbatched.sharded, f"{name}_sharded_fused_ref")
+        monkeypatch.setattr(
+            tbatched.sharded, f"{name}_sharded_fused",
+            lambda *a, _ref=ref, _name=name, **kw:
+            routed.append(_name) or _ref(*a, **kw))
+    return calls, routed
+
+
+def test_middle_route_reaches_the_sharded_solvers(monkeypatch):
+    # n=160, m=256, B=8: k = 130 is beyond the append kernels' 128 slots
+    # (fr, gomp), a top-k of 40 beyond select_topl's 32 picks (sp, srr,
+    # ompr). Each result has the supports of the loop over rows on the CPU
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((160, 256)).astype(np.float32)
+    A /= np.linalg.norm(A, axis=0)
+    Bs = rng.standard_normal((8, 160)).astype(np.float32)
+    tA, tB = torch.from_numpy(A), torch.from_numpy(Bs)
+    want = {
+        "fr": cstpu_torch.fr_batch(tA, tB, sparsity=130),
+        "gomp": cstpu_torch.gomp_batch(tA, tB, 2, 130),
+        "sp": cstpu_torch.sp_batch(tA, tB, 40, maxiter=2),
+        "srr": cstpu_torch.srr_batch(tA, tB, 40, maxiter=3),
+        "ompr": cstpu_torch.ompr_batch(tA, tB, 40, 1e-12, maxiter=3),
+    }
+    calls, routed = _fake_cuda_middle(monkeypatch)
+    got = {
+        "fr": tbatched.fr_batch(tA, tB, sparsity=130, precision="f32"),
+        "gomp": tbatched.gomp_batch(tA, tB, 2, 130, precision="f32"),
+        "sp": tbatched.sp_batch(tA, tB, 40, maxiter=2, precision="f32"),
+        "srr": tbatched.srr_batch(tA, tB, 40, maxiter=3, precision="f32"),
+        "ompr": tbatched.ompr_batch(tA, tB, 40, 1e-12, maxiter=3,
+                                    precision="f32"),
+    }
+    assert routed == ["fr", "gomp", "sp", "srr", "ompr"] and calls == []
+    for name, sol in got.items():
+        g, w = solution_to_numpy(sol), solution_to_numpy(want[name])
+        for i in range(8):
+            gi, wi = g["idx"][i][g["mask"][i]], w["idx"][i][w["mask"][i]]
+            np.testing.assert_array_equal(gi, wi, err_msg=name)
+    # what stays off the middle route: options the kernels do not serve, a
+    # batch the streaming gate refuses (B % 8), SRR's other initializations
+    tbatched.fr_batch(tA, tB, sparsity=130, precision="highest")
+    tbatched.sp_batch(tA[:, :128], tB[:4], 40, maxiter=1)
+    tbatched.srr_batch(tA, tB, 40, maxiter=1, l=2)
+    assert len(routed) == 5
+    # mp: its kernel takes any shape with m >= 1, so the route is reached
+    # only when that gate is closed
+    monkeypatch.setattr(tbatched.fused_solve, "supported_mp",
+                        lambda A_, Bs_: False)
+    x = tbatched.mp_batch(tA, tB, 6, precision="f32")
+    assert routed[-1] == "mp"
+    np.testing.assert_allclose(
+        x.numpy(), cstpu_torch.batch(cstpu_torch.mp, k=6)(tA, tB).numpy(),
+        atol=1e-5)
+
+
+def test_one_shard_mesh_is_cached_per_device():
+    mesh = tbatched._one_shard_mesh(torch.device("cpu"))
+    assert mesh is tbatched._one_shard_mesh(torch.device("cpu"))
+    assert mesh.shape == {"batch": 1, "atoms": 1}
+
+
+def test_gaussian_data_is_sparse_data():
+    assert cstpu_torch.gaussian_data is cstpu_torch.sparse_data
+    assert cstpu.gaussian_data is cstpu.sparse_data
+    assert "gaussian_data" in cstpu_torch.__all__
+    gen = torch.Generator().manual_seed(5)
+    A, x, b = cstpu_torch.gaussian_data(gen, n=16, m=32, k=3)
+    assert A.shape == (16, 32) and int((x != 0).sum()) == 3
+    np.testing.assert_allclose((A @ x).numpy(), b.numpy(), atol=1e-6)

@@ -3,8 +3,9 @@ select_topl, gomp_append, fr_select, fr_append, the two-stage ones:
 engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
 ones: rmp_append, engine_backward, the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
-stream_select.cu's top-1, masked top-1, top-l and (n, B) argmax) against
-their plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
+stream_select.cu's top-1, masked top-1, top-l and (n, B) argmax, and
+fr_step_select.cu's rescaling update with its OLS select) against their
+plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
 device every test here skips.
 
 On a GPU machine (no JAX needed, so the JAX suite's conftest is skipped):
@@ -1083,12 +1084,204 @@ def test_stream_wrappers_reject_bad_cuda_inputs(dev):
     with pytest.raises(ValueError):
         ss.correlate_select_stream(A, R.cpu())
     with pytest.raises(ValueError):
-        ss.correlate_select_topl_stream(A, R, 33)
+        ss.correlate_select_topl_stream(A, R, ss.STREAM_LMAX + 1)
     with pytest.raises(ValueError):
         ss.correlate_select_masked_stream(A, R, torch.zeros((8, 1024),
                                                             device=dev).bool())
+    il = torch.full((8, 2), -1, dtype=torch.int32, device=dev)
+    cn2 = torch.ones((1024,), device=dev)
+    resc = torch.ones((8, 1024), device=dev)
+    with pytest.raises(ValueError):              # resc must be f32
+        ss.fr_step_select(A, R, R, il, cn2, resc.double(), 1e-4)
+    with pytest.raises(ValueError):              # ... and contiguous
+        ss.fr_step_select(A, R, R, il, cn2, resc.T.contiguous().T, 1e-4)
+    with pytest.raises(ValueError):
+        ss.fr_step_select(A, R, R[:, :32], il, cn2, resc, 1e-4)
+    with pytest.raises(ValueError):
+        ss.fr_step_select(A, R, R, il[:, :1], cn2, resc, 1e-4)
     with pytest.raises(ValueError):
         ca.correlate_argmax(A.double(), R.T)
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_SIZES)
+@pytest.mark.parametrize("l", [33, 48, 128])
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stream_topl_beyond_32_matches_plain(dev, B, n, m, l, cdt):
+    # two and four slots per lane of the finishing warp; a repeated column
+    # among the best, in the first block, a middle one and the last
+    A, R = _stream_inputs(dev, B, n, m, cdt, seed=6)
+    at = [5, m // 2 + 7, m - 100]
+    A[:, at[1]] = A[:, at[0]]
+    A[:, at[2]] = A[:, at[0]]
+    R[0] = 0.2 * R[0] + 3 * A[:, at[0]].float()
+    kv, ki = ss.correlate_select_topl_stream(A, R, l)
+    pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
+    assert tuple(kv.shape) == tuple(ki.shape) == (B, l)
+    torch.testing.assert_close(kv.sort(dim=1).values, pv.sort(dim=1).values,
+                               rtol=RTOL, atol=1e-6)
+    scores = torch.abs(R.to(cdt).float() @ A.float())
+    # the kept sets agree but for atoms that tie with the l-th score within
+    # the summation noise; slot for slot where no two scores tie at all
+    for b in range(B):
+        odd = set(ki[b].tolist()) ^ set(pi[b].tolist())
+        edge = pv[b].min()
+        assert all(abs(float(scores[b, j] - edge)) <= RTOL * float(pv[b].max())
+                   for j in odd), b
+    scores[:, at[1:]] = -1.0                   # the copies count once
+    clear = _clear_rows(scores, depth=l)
+    assert torch.equal(ki[clear], pi[clear])
+    assert set(at) <= set(ki[0].tolist()) and set(at) <= set(pi[0].tolist())
+
+
+def test_stream_topl_48_evicts_the_lowest_slot_among_equal_minima(dev):
+    n, m, l = 8256, 384, 48                    # three tiles of 128 atoms
+    gen = torch.Generator(device=dev).manual_seed(6)
+    A = 1e-3 * torch.randn((n, m), device=dev, generator=gen)
+    a = torch.randn((n,), device=dev, generator=gen)
+    a /= a.norm()
+    strong = list(range(20, 66))
+    for rank, j in enumerate(strong):
+        A[:, j] = (0.9 - 0.005 * rank) * a
+    A[:, 3] = A[:, 9] = 0.5 * a
+    A[:, 300] = a
+    R = a.repeat(8, 1)
+    kv, ki = ss.correlate_select_topl_stream(A, R, l)
+    pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
+    assert torch.equal(ki, pi)
+    assert sorted(ki[0].tolist()) == sorted(strong + [9, 300])
+
+
+# --------------------------------------------------------------------------
+# fr_step_select (csrc/fr_step_select.cu)
+# --------------------------------------------------------------------------
+
+def _fr_step_inputs(dev, B, n, m, cdt, seed=0):
+    """A shard, residuals, pending directions small enough that no
+    rescaling comes near zero, and a fresh resc = cn2."""
+    A, R = _stream_inputs(dev, B, n, m, cdt, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    W = 0.5 * torch.randn((B, n), device=dev, generator=gen) / n ** 0.5
+    V = 0.5 * torch.randn((B, n), device=dev, generator=gen) / n ** 0.5
+    cn2 = torch.sum(A.float() ** 2, dim=0)
+    il = torch.full((B, 2), -1, dtype=torch.int32, device=dev)
+    return A, R, W, V, il, cn2, cn2.repeat(B, 1)
+
+
+def _fr_step_both(A, R, W, V, il, cn2, resc, deg):
+    """Kernel and twin on clones of resc: ((val, idx, resc), the same)."""
+    rk, rp = resc.clone(), resc.clone()
+    before = fs.LAUNCHES["fr_step_select"]
+    kern = ss.fr_step_select(A, R, W, il, cn2, rk, deg, V=V)
+    plain = ss.fr_step_select_ref(A, R, W, il, cn2, rp, deg, V=V)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["fr_step_select"] - before == 1
+    assert kern[2] is rk and kern[0].dtype == torch.float32
+    assert kern[1].dtype == torch.int32
+    return kern, plain
+
+
+def _same_fr_step(kern, plain, rows=None):
+    """Values to RTOL, the -1 marks and NaNs of resc in the same places,
+    resc to 1e-5 absolute (differences of O(1) terms), indices where the
+    two best scores of the twin's row are clear of each other."""
+    (kv, ki, kr), (pv, pi, pr) = kern, plain
+    rows = slice(None) if rows is None else rows
+    torch.testing.assert_close(kv[rows], pv[rows], rtol=RTOL, atol=1e-6)
+    assert torch.equal(kr == -1.0, pr == -1.0)
+    assert torch.equal(torch.isnan(kr), torch.isnan(pr))
+    torch.testing.assert_close(kr[rows], pr[rows], rtol=0, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_SIZES + [(8, 1024, 32768),
+                                                 (8, 1024, 131072)])
+@pytest.mark.parametrize("use_v", [False, True])
+@pytest.mark.parametrize("cdt", CDTS)
+def test_fr_step_select_matches_plain(dev, B, n, m, use_v, cdt):
+    A, R, W, V, il, cn2, resc = _fr_step_inputs(dev, B, n, m, cdt)
+    deg = fs._degeneracy_rtol(n)
+    resc[:, 40] = -1.0                           # an atom already active
+    il[:3, 0] = 77                               # rows 0-2 mark atom 77
+    il[2:5, 1] = 40                              # rows 2-4 restore atom 40
+    kern, plain = _fr_step_both(A, R, W, V if use_v else None, il, cn2, resc,
+                                deg)
+    _same_fr_step(kern, plain)
+    kr = kern[2]
+    assert bool((kr[:3, 77] == -1.0).all()) and bool((kr[3:, 77] > 0).all())
+    assert bool((kr[:2, 40] < 0).all())
+    q = R.to(cdt).float() @ A.float()
+    d2 = torch.where(plain[2] > deg * cn2, q * q / plain[2], -torch.inf)
+    clear = _clear_rows(d2.nan_to_num(neginf=-1.0))
+    assert bool(((kern[1] == plain[1]) | ~clear).all())
+    assert int(clear.sum()) >= B - 2
+    assert not bool((kern[1][:3] == 77).any())
+
+
+@pytest.mark.parametrize("m", [32768, 131072])
+@pytest.mark.parametrize("cdt", CDTS)
+def test_fr_step_select_nan_tie_and_degenerate_cases(dev, m, cdt):
+    B, n = 8, 1024
+    A, R, W, V, il, cn2, resc = _fr_step_inputs(dev, B, n, m, cdt, seed=1)
+    deg = fs._degeneracy_rtol(n)
+    tm = ss._stream_tile(m, n, A.element_size(), ss.STREAM_TILE_BYTES)
+    # one column three times, twice in one tile and once in the last: the
+    # lowest copy wins, and marking it moves the pick on
+    at = [700, 1900, m - 1000]
+    A[:, at[1]] = A[:, at[0]]
+    A[:, at[2]] = A[:, at[0]]
+    cn2 = torch.sum(A.float() ** 2, dim=0)
+    resc = cn2.repeat(B, 1)
+    R[0] = A[:, at[0]].float() + 0.01 * R[0]
+    R[1, 5] = float("nan")                       # a NaN row
+    resc[3] = 0.0                                # an all-degenerate row
+    W[3] = V[3] = 0.0
+    for hide, pick in (((), at[0]), ((0,), at[1]), ((0, 1), at[2])):
+        resc[0, [at[i] for i in hide]] = -1.0
+        kern, plain = _fr_step_both(A, R, 0 * W, None, il, cn2, resc, deg)
+        _same_fr_step(kern, plain, rows=[0, 2, 3, 4, 5, 6, 7])
+        assert kern[1][0] == pick == plain[1][0]
+        assert kern[0][1] == -torch.inf and kern[1][1] == 0
+        assert kern[0][3] == -torch.inf and kern[1][3] == 0
+    # a poisoned atom: z is NaN for every row, its resc is NaN from now on
+    # and scores -inf; its tile is NOT skipped
+    q = R.to(cdt).float() @ A.float()
+    best = int((q[2] ** 2).argmax())
+    A[:, best] = float("nan")
+    kern, plain = _fr_step_both(A, R, W, V, il, cn2, resc, deg)
+    live = [0, 2, 4, 5, 6, 7]
+    _same_fr_step(kern, plain, rows=live)
+    assert bool(torch.isnan(kern[2][:, best]).all())
+    assert torch.equal(kern[1][live], plain[1][live])
+    assert kern[1][2] != best
+    # a NaN score with a valid rescaling: the tile IS skipped. Two infs in
+    # a row of R meet entries of one sign in every atom (d2 = inf) but for
+    # one atom of tile 0, where inf - inf = NaN: the answer is tile 1's
+    # first atom
+    A, R, W, V, il, cn2, resc = _fr_step_inputs(dev, B, n, m, cdt, seed=2)
+    A[7:9] = (A[7:9].float().abs() + 1e-3).to(cdt)
+    A[8, 100] = -A[8, 100]
+    cn2 = torch.sum(A.float() ** 2, dim=0)
+    resc = cn2.repeat(B, 1)
+    R[2, 7] = R[2, 8] = float("inf")
+    kern, plain = _fr_step_both(A, R, 0 * W, None, il, cn2, resc, deg)
+    _same_fr_step(kern, plain)
+    assert kern[0][2] == torch.inf and kern[1][2] == tm == plain[1][2]
+
+
+@pytest.mark.parametrize("cdt", CDTS)
+def test_fr_step_select_reads_a_column_slice_in_place(dev, cdt):
+    B, n, m = 8, 64, 1024
+    A, R, W, V, il, _, _ = _fr_step_inputs(dev, B, n, 4 * m, cdt, seed=3)
+    view = A[:, m:2 * m]
+    assert not view.is_contiguous()
+    cn2 = torch.sum(view.float() ** 2, dim=0)
+    resc = cn2.repeat(B, 1)
+    deg = fs._degeneracy_rtol(n)
+    ra, rb = resc.clone(), resc.clone()
+    got = ss.fr_step_select(view, R, W, il, cn2, ra, deg, V=V)
+    want = ss.fr_step_select(view.contiguous(), R, W, il, cn2, rb, deg, V=V)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("shards", [1, 4])
@@ -1133,3 +1326,29 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
     assert cnt["select_masked_stream"] % shards == 0
     assert torch.equal(sol.idx, sh.ompr_sharded_fused_ref(A, Bs, k, mesh).idx)
     assert torch.equal(sol.idx[:, :k].long(), want)
+    # the forward-regression family on fr_step_select: one launch per shard
+    # and sweep
+    for fuse in (True, False):
+        (sol, steps), cnt = counted(lambda: sh.fr_sharded_fused(
+            A, Bs, k, mesh, fuse_collectives=fuse, return_iters=True))
+        assert cnt == {"fr_step_select": shards * steps[0]} and steps == [k]
+        ref = sh.fr_sharded_fused_ref(A, Bs, k, mesh, fuse_collectives=fuse)
+        assert torch.equal(sol.idx, ref.idx)
+        assert torch.equal(sol.idx.long(), want)
+        torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-4)
+    (sol, iters), cnt = counted(lambda: sh.srr_sharded_fused(
+        A, Bs, k, mesh, maxiter=4, return_iters=True))
+    assert cnt == {"select_topl_stream": shards,
+                   "fr_step_select": shards * iters[0]}
+    assert torch.equal(sol.idx, sh.srr_sharded_fused_ref(A, Bs, k, mesh,
+                                                         maxiter=4).idx)
+    assert torch.equal(sol.idx[:, :k].long(), want)
+    for fn, ref in ((sh.rmp_sharded_fused, sh.rmp_sharded_fused_ref),
+                    (sh.foba_sharded_fused, sh.foba_sharded_fused_ref)):
+        (sol, capped, counts), cnt = counted(lambda: fn(
+            A, Bs, 1e-2, mesh, kmax=16, return_iters=True))
+        assert cnt == {"fr_step_select": shards * counts[0]["sweeps"]}
+        rsol, rcapped = ref(A, Bs, 1e-2, mesh, kmax=16)
+        assert torch.equal(sol.idx, rsol.idx) and not bool(capped.any())
+        assert torch.equal(capped, rcapped)
+        assert torch.equal(sol.idx[:, :k].long(), want)

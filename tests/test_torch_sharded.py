@@ -380,8 +380,15 @@ def test_shape_errors():
         tsh.omp_sharded_fused(A, Bs[0], 5, _mesh(8), **KW)
     with pytest.raises(ValueError, match="corr_dtype must be"):
         tsh.omp_sharded_fused(A, Bs, 5, _mesh(8), corr_dtype=torch.float64)
-    with pytest.raises(ValueError, match="outside 1..32"):
-        tsh.ompr_sharded_fused(A, Bs, 33, _mesh(8), **KW)
+    # the top-k init is no longer capped at 32 picks: k = 33 solves, with
+    # k + 1 slots
+    assert tsh.ompr_sharded_fused(A, Bs, 33, _mesh(8), maxiter=1,
+                                  **KW).idx.shape == (8, 34)
+    with pytest.raises(ValueError, match="n = 64 not divisible by shards 3"):
+        tsh.omp_sharded_rows(A, Bs[0], 5, _mesh(3))
+    with pytest.raises(ValueError, match="rmp/foba_sharded_fused: "
+                                         "unsupported shard shape"):
+        tsh.rmp_sharded_fused(A, Bs, DELTA, _mesh(16), **KW)
     # what the TPU's tiling needed and the port does not: B and n that are
     # no multiples of 8
     sol = tsh.omp_sharded_fused(A[:60], Bs[:3, :60], 2, _mesh(8), **KW)
@@ -418,5 +425,253 @@ def test_package_exports():
     for name in ("make_mesh", "shard_dictionary", "shard_batch",
                  "omp_sharded", "omp_sharded_fused", "mp_sharded_fused",
                  "gomp_sharded_fused", "ompr_sharded_fused",
-                 "sp_sharded_fused", "correlate_argmax"):
+                 "sp_sharded_fused", "correlate_argmax", "fr_sharded_fused",
+                 "srr_sharded_fused", "rmp_sharded_fused",
+                 "foba_sharded_fused", "omp_sharded_rows"):
         assert name in cstpu_torch.__all__ and hasattr(cstpu_torch, name)
+    from cstpu_torch import parallel
+    import cstpu.parallel as jparallel
+
+    ported = [n for n in jparallel.__all__ if "sharded" in n
+              and not n.startswith(("bp", "ista", "fista", "fsbl", "rmps"))]
+    assert set(ported) <= set(parallel.__all__)
+
+
+# --------------------------------------------------------------------------
+# The forward-regression family on fr_step_select: FR, SRR, RMP, FoBa
+# --------------------------------------------------------------------------
+
+# name -> (port call, cstpu call) on (A, Bs, mesh); RMP and FoBa return
+# (solution, capped)
+FRFAM = {
+    "fr": (lambda A, Bs, mesh, **kw: tsh.fr_sharded_fused(
+               A, Bs, 5, mesh, **kw),
+           lambda A, Bs, mesh, **kw: jsh.fr_sharded_fused(
+               A, Bs, 5, mesh, **kw)),
+    "srr": (lambda A, Bs, mesh, **kw: tsh.srr_sharded_fused(
+                A, Bs, 5, mesh, **kw),
+            lambda A, Bs, mesh, **kw: jsh.srr_sharded_fused(
+                A, Bs, 5, mesh, **kw)),
+    "rmp": (lambda A, Bs, mesh, **kw: tsh.rmp_sharded_fused(
+                A, Bs, DELTA, mesh, kmax=16, **kw),
+            lambda A, Bs, mesh, **kw: jsh.rmp_sharded_fused(
+                A, Bs, DELTA, mesh, kmax=16, **kw)),
+    "foba": (lambda A, Bs, mesh, **kw: tsh.foba_sharded_fused(
+                 A, Bs, DELTA, mesh, kmax=16, **kw),
+             lambda A, Bs, mesh, **kw: jsh.foba_sharded_fused(
+                 A, Bs, DELTA, mesh, kmax=16, **kw)),
+}
+FRSEEDS = {"fr": 76, "srr": 79, "rmp": 83, "foba": 83}
+
+
+def _sol_capped(out):
+    """(solution, capped or None) of a family member's result."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def _same_family(got, want, rtol=1e-4):
+    (gs, gc), (ws, wc) = _sol_capped(got), _sol_capped(want)
+    _same_solution(gs, ws, rtol=rtol)
+    if gc is not None:
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+
+
+def _correlated(seed, k=6, decay=0.5, noise=DELTA):
+    """cstpu's correlated dictionary at n=64, m=1024, eight noisy rows:
+    coherent atoms make the forward stages take wrong atoms first, which
+    the backward stages then delete."""
+    from cstpu import correlated_data
+
+    keys = jax.random.split(jax.random.PRNGKey(seed), 9)
+    A, x, b = correlated_data(keys[0], n=64, m=1024, k=k, dtype=jnp.float32,
+                              decay=decay)
+    return A, jnp.stack([perturb(kk, b, noise) for kk in keys[1:]])
+
+
+@pytest.mark.parametrize("name", list(FRFAM))
+def test_fr_family_matches_cstpu_on_eight_shards(name, jax_mesh):
+    port, ref = FRFAM[name]
+    A, Bs = _problem(FRSEEDS[name])
+    got = port(*_torch(A, Bs), _mesh(8), **KW)
+    _same_family(got, ref(A, Bs, jax_mesh, **JKW))
+    sol, capped = _sol_capped(got)
+    assert sol.val.dtype == F32 and sol.idx.dtype == torch.int32
+    assert capped is None or (capped.dtype == torch.bool
+                              and not capped.any())
+
+
+@pytest.mark.parametrize("name,seed", [("srr", 304), ("rmp", 304),
+                                       ("foba", 304), ("rmp", 306),
+                                       ("foba", 306)])
+def test_fr_family_deletions_match_cstpu(name, seed, jax_mesh, monkeypatch):
+    # a correlated dictionary: the forward stages take wrong atoms first
+    # and the backward stages delete them (seed 304: every row recovers its
+    # six atoms after 48 deletions in the batch; seed 306: some rows run
+    # into the kmax cap). SRR ends every row by deleting the atom it
+    # has just appended, the case that clears all four pending channels
+    port, ref = FRFAM[name]
+    A, Bs = _correlated(seed)
+    deleted, same = [], []
+    candidate, delete = tsh._delete_candidate, tsh._delete_refit
+    select = tsh._Rescaling.select
+
+    def spy_select(self, *a, **kw):
+        out = select(self, *a, **kw)
+        same.append(out[1])
+        return out
+
+    def spy_candidate(st):
+        out = candidate(st)
+        same.append((st.k > 5) & (out[2] == same.pop()))
+        return out
+
+    def spy_delete(st, pos, m, gate):
+        deleted.append(int(gate.sum()))
+        return delete(st, pos, m, gate)
+
+    monkeypatch.setattr(tsh, "_delete_refit", spy_delete)
+    if name == "srr":
+        monkeypatch.setattr(tsh._Rescaling, "select", spy_select)
+        monkeypatch.setattr(tsh, "_delete_candidate", spy_candidate)
+    got = port(*_torch(A, Bs), _mesh(8), **KW)
+    _same_family(got, ref(A, Bs, jax_mesh, **JKW))
+    assert sum(deleted) >= 8
+    if name == "srr":
+        assert sum(int(x.sum()) for x in same) >= 8
+    else:
+        assert bool(got[1].any()) == (seed == 306)
+
+
+@pytest.mark.parametrize("name", list(FRFAM))
+def test_fr_family_is_invariant_under_shards_and_forms(name):
+    # 1, 2, 4 and 8 shards, both collective forms, a (2, 4) mesh: the same
+    # supports, on a problem with deletions
+    port, _ = FRFAM[name]
+    A, Bs = _torch(*_correlated(304))
+    base = port(A, Bs, _mesh(1), fuse_collectives=False, **KW)
+    for s in (1, 2, 4, 8):
+        for fuse in (True, False):
+            _same_family(port(A, Bs, _mesh(s), fuse_collectives=fuse, **KW),
+                         base, rtol=1e-5)
+    _same_family(port(A, Bs, _mesh(4, 2), **KW), base, rtol=1e-5)
+    # the twin on the plain select is the same function on the CPU
+    ref = getattr(tsh, f"{name}_sharded_fused_ref")
+    args = (5,) if name in ("fr", "srr") else (DELTA,)
+    kw = {} if name in ("fr", "srr") else {"kmax": 16}
+    _same_family(ref(A, Bs, *args, _mesh(4), **kw, **KW), base, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(FRFAM))
+def test_fr_family_matches_the_batched_entry_points(name):
+    # the sharded solver and the `*_batch` entry point (per-instance solvers
+    # on the CPU) recover the same supports
+    import cstpu_torch
+
+    A, Bs = _torch(*_problem(FRSEEDS[name]))
+    sol, _ = _sol_capped(FRFAM[name][0](A, Bs, _mesh(4), **KW))
+    want = {"fr": lambda: cstpu_torch.fr_batch(A, Bs, sparsity=5),
+            "srr": lambda: cstpu_torch.srr_batch(A, Bs, 5),
+            "rmp": lambda: cstpu_torch.rmp_batch(A, Bs, delta=DELTA),
+            "foba": lambda: cstpu_torch.foba_batch(A, Bs, DELTA)}[name]()
+    g, w = solution_to_numpy(sol), solution_to_numpy(want)
+    for i in range(8):
+        gi, wi = g["idx"][i][g["mask"][i]], w["idx"][i][w["mask"][i]]
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(g["val"][i][g["mask"][i]],
+                                   w["val"][i][w["mask"][i]], rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_fr_family_counts_and_iteration_reports():
+    A, Bs = _torch(*_problem(76))
+    sol, steps = tsh.fr_sharded_fused(A, Bs, 5, _mesh(4), return_iters=True,
+                                      **KW)
+    assert steps == [5] and sol.idx.shape == (8, 5)
+    # a stopping rule that ends the loop early: the exact rows stop at once
+    sol, steps = tsh.fr_sharded_fused(A, Bs[::2], 9, _mesh(4),
+                                      max_residual=1e-3, return_iters=True,
+                                      **KW)
+    assert steps == [6] and sol.mask.sum(dim=1).tolist() == [5] * 4
+    _, iters = tsh.srr_sharded_fused(A, Bs, 5, _mesh(4), return_iters=True,
+                                     **KW)
+    assert 1 <= iters[0] <= 20
+    for fn in (tsh.rmp_sharded_fused, tsh.foba_sharded_fused):
+        sol, capped, counts = fn(A, Bs, DELTA, _mesh(4, 2), kmax=16,
+                                 return_iters=True, **KW)
+        assert len(counts) == 2 and capped.shape == (8,)
+        for c in counts:
+            assert c["sweeps"] >= 6 and c["flag_reads"] >= c["sweeps"]
+
+
+def test_rmp_cap_reports_capped_rows(jax_mesh):
+    # kmax below the support: every row is refused an atom and says so
+    A, Bs = _problem(83)
+    got = tsh.rmp_sharded_fused(*_torch(A, Bs), DELTA, _mesh(8), kmax=3,
+                                **KW)
+    want = jsh.rmp_sharded_fused(A, Bs, DELTA, jax_mesh, kmax=3, **JKW)
+    _same_family(got, want)
+    assert got[1].all() and got[0].idx.shape == (8, 3)
+
+
+def _wide_problem(seed):
+    """n=128, m=1024 and eight random (not sparse) measurements: the scores
+    of a top-48 are spread out, and a 48-atom fit leaves a real residual."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((128, 1024)).astype(np.float32)
+    A /= np.linalg.norm(A, axis=0)
+    return jnp.asarray(A), jnp.asarray(
+        rng.standard_normal((8, 128)).astype(np.float32))
+
+
+WIDE = {
+    "sp": (lambda A, Bs, mesh, **kw: tsh.sp_sharded_fused(
+               A, Bs, 48, mesh, maxiter=2, **kw),
+           lambda A, Bs, mesh, **kw: jsh.sp_sharded_fused(
+               A, Bs, 48, mesh, maxiter=2, **kw)),
+    "srr": (lambda A, Bs, mesh, **kw: tsh.srr_sharded_fused(
+                A, Bs, 48, mesh, maxiter=4, **kw),
+            lambda A, Bs, mesh, **kw: jsh.srr_sharded_fused(
+                A, Bs, 48, mesh, maxiter=4, **kw)),
+    "ompr": (lambda A, Bs, mesh, **kw: tsh.ompr_sharded_fused(
+                 A, Bs, 48, mesh, maxiter=3, **kw),
+             lambda A, Bs, mesh, **kw: jsh.ompr_sharded_fused(
+                 A, Bs, 48, mesh, maxiter=3, **kw)),
+    "gomp": (lambda A, Bs, mesh, **kw: tsh.gomp_sharded_fused(
+                 A, Bs, 48, 48, mesh, **kw),
+             lambda A, Bs, mesh, **kw: jsh.gomp_sharded_fused(
+                 A, Bs, 48, 48, mesh, **kw)),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_topk_beyond_32_matches_cstpu(name, jax_mesh):
+    # k = 48 (GOMP: l = 48) is beyond the 32 picks the top-l select used to
+    # serve; every shard is 128 atoms wide, so a shard offers 48 of its 128
+    port, ref = WIDE[name]
+    A, Bs = _wide_problem(48)
+    got = port(*_torch(A, Bs), _mesh(8), **KW)
+    _same_solution(got, ref(A, Bs, jax_mesh, **JKW))
+    assert got.mask.sum(dim=1).min() >= 48
+    _same_solution(port(*_torch(A, Bs), _mesh(2), fuse_collectives=False,
+                        **KW), got, rtol=1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_omp_sharded_rows_matches_cstpu(s):
+    # f64, a tall shape (n > m would leave cstpu's generator no room: the
+    # rows are what is cut, so n = 64 over s shards serves)
+    A, Bs = _problem(70, dtype=jnp.float64)
+    tA, tB = _torch(A, Bs)
+    rows_mesh = jmesh.make_mesh((1, s), devices=jax.devices()[:s])
+    for i in (0, 1):
+        want = jsh.omp_sharded_rows(A, Bs[i], 5, rows_mesh)
+        got = tsh.omp_sharded_rows(tA, tB[i], 5, _mesh(s))
+        assert got.idx.shape == (5,) and got.val.dtype == torch.float64
+        _same_solution(got, want, rtol=1e-10, atol=1e-12)
+    # the epsilon stop, and agreement with the column-sharded reference
+    want = jsh.omp_sharded_rows(A, Bs[1], 5, rows_mesh, max_residual=1.5)
+    got = tsh.omp_sharded_rows(tA, tB[1], 5, _mesh(s), max_residual=1.5)
+    _same_solution(got, want, rtol=1e-10, atol=1e-12)
+    assert int(got.mask.sum()) < 5
+    _same_solution(tsh.omp_sharded_rows(tA, tB[1], 5, _mesh(s)),
+                   tsh.omp_sharded(tA, tB[1], 5, _mesh(8)), rtol=1e-10)

@@ -291,8 +291,16 @@ def test_shape_errors():
     with pytest.raises(ValueError, match="128-multiple"):
         tca.correlate_argmax(A, R.T)
     A = torch.zeros((64, 1024))
-    with pytest.raises(ValueError, match="outside 1..32"):
-        tss.correlate_select_topl_stream(A, R, 33)
+    # l = 33 is served now; l < 1 is not
+    assert tss.correlate_select_topl_stream(A, R, 33)[0].shape == (8, 33)
+    with pytest.raises(ValueError, match="l=0 < 1"):
+        tss.correlate_select_topl_stream(A, R, 0)
+    with pytest.raises(ValueError, match="resc must be a contiguous"):
+        tss.fr_step_select(A, R, R, torch.full((8, 2), -1), torch.ones(1024),
+                           torch.ones((8, 1024), dtype=torch.float64), 1e-4)
+    with pytest.raises(ValueError, match=r"il must be \(8, 2\)"):
+        tss.fr_step_select(A, R, R, torch.full((8,), -1), torch.ones(1024),
+                           torch.ones((8, 1024)), 1e-4)
     with pytest.raises(ValueError, match="float32"):
         tss.correlate_select_masked_stream(
             A, R, torch.zeros((8, 1024), dtype=torch.uint8))
@@ -300,3 +308,207 @@ def test_shape_errors():
         tss.correlate_select_stream(A.double(), R)
     with pytest.raises(ValueError, match=r"need A \(n, m\)"):
         tss.correlate_select_stream(A, torch.zeros((8, 32)))
+
+
+# --------------------------------------------------------------------------
+# The top-l select beyond 32 slots
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cdt", ["f32", "bf16"])
+@pytest.mark.parametrize("n,m", SIZES)
+def test_select_topl_stream_48_matches_pallas(n, m, cdt):
+    # l = 48 with a repeated column among the best: cstpu's kept set, ties
+    # included. The repeated column sits at three places (at n=1024 in two
+    # tiles); value for value the sorted sets agree, and index for index
+    A, R = _inputs(12, n, m)
+    at = [5, 700, m - 100]
+    A[:, at] = A[:, [at[0]]]
+    R[:4] = 0.3 * R[:4] + 3 * A[:, at[0]]        # rows 0-3 rank it high
+    tA, jA = _pair(A, cdt)
+    l = 48
+    tv, ti = tss.correlate_select_topl_stream(tA, torch.from_numpy(R), l)
+    jv, ji = jss.correlate_select_topl_stream(jA, jnp.asarray(R), l,
+                                              interpret=True)
+    assert tuple(tv.shape) == tuple(ti.shape) == (8, l)
+    tv, ti, jv, ji = tv.numpy(), ti.numpy(), np.asarray(jv), np.asarray(ji)
+    sc = _scores(tA, R)
+    for b in range(8):
+        np.testing.assert_allclose(np.sort(tv[b]), np.sort(jv[b]), rtol=RTOL)
+        # the repeated column counts once in the clearance of the scores
+        uniq = np.delete(sc[b], at[1:])
+        if _clear(uniq[None], depth=l)[0]:
+            np.testing.assert_array_equal(np.sort(ti[b]), np.sort(ji[b]))
+    for b in range(4):                            # all three copies are kept
+        assert set(at) <= set(ti[b].tolist()) and set(at) <= set(ji[b].tolist())
+
+
+def test_topl_48_evicts_the_lowest_slot_among_equal_minima():
+    # the case of test_topl_evicts_the_lowest_slot_among_equal_minima in a
+    # 48-slot set: 128-atom tiles; tile 0 fills the set with its 48 best,
+    # the two weakest of them one repeated column (atoms 3 and 9); tile 2
+    # then offers ONE larger score, which takes the first slot holding the
+    # minimum, so atom 9 stays and atom 3 goes
+    rng = np.random.default_rng(6)
+    n, m, l = 8256, 384, 48
+    A = 1e-3 * rng.standard_normal((n, m)).astype(np.float32)
+    a = rng.standard_normal(n).astype(np.float32)
+    a /= np.linalg.norm(a)
+    strong = list(range(20, 66))                  # 46 atoms of tile 0
+    for rank, j in enumerate(strong):
+        A[:, j] = (0.9 - 0.005 * rank) * a
+    A[:, 3] = A[:, 9] = 0.5 * a
+    A[:, 300] = a
+    R = np.tile(a, (8, 1))
+    tv, ti = tss.correlate_select_topl_stream(
+        torch.from_numpy(A), torch.from_numpy(R), l)
+    jv, ji = jss.correlate_select_topl_stream(
+        jnp.asarray(A), jnp.asarray(R), l, interpret=True)
+    want = sorted(strong + [9, 300])
+    assert all(sorted(row) == want for row in ti.tolist())
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL)
+
+
+# --------------------------------------------------------------------------
+# fr_step_select: the rescaling update and the OLS select in one sweep
+# --------------------------------------------------------------------------
+
+DEG = 8.0 * 64 * 1.1920929e-07
+
+
+def _fr_inputs(seed, n, m, B=8):
+    """A dictionary, residuals, and pending directions small enough that no
+    rescaling comes near zero (resc - z^2 stays above 0.5)."""
+    rng = np.random.default_rng(seed)
+    A, R = _inputs(seed, n, m, B)
+    W = (0.5 * rng.standard_normal((B, n)) / np.sqrt(n)).astype(np.float32)
+    V = (0.5 * rng.standard_normal((B, n)) / np.sqrt(n)).astype(np.float32)
+    cn2 = np.sum(A * A, axis=0, dtype=np.float32)
+    resc = np.broadcast_to(cn2, (B, m)).copy()
+    il = np.full((B, 2), -1, np.int32)
+    return A, R, W, V, il, cn2, resc
+
+
+def _fr_both(tA, jA, R, W, V, il, cn2, resc, deg=DEG):
+    """(port (val, idx, resc), cstpu (val, idx, resc)) as numpy; the port's
+    resc must be the tensor it was given."""
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    j = lambda x: None if x is None else jnp.asarray(x)
+    tresc = torch.from_numpy(resc.copy())
+    tv, ti, tr = tss.fr_step_select(tA, t(R), t(W), t(il), t(cn2), tresc, deg,
+                                    V=t(V))
+    assert tr is tresc and tv.dtype == torch.float32
+    assert ti.dtype == torch.int32
+    jv, ji, jr = jss.fr_step_select(jA, j(R), j(W), j(il), j(cn2)[None],
+                                    j(resc), deg, V=j(V), interpret=True)
+    return ((tv.numpy(), ti.numpy(), tr.numpy()),
+            (np.asarray(jv), np.asarray(ji), np.asarray(jr)))
+
+
+def _same_step(got, want, rows=slice(None)):
+    (tv, ti, tr), (jv, ji, jr) = got, want
+    np.testing.assert_allclose(tv[rows], jv[rows], rtol=RTOL)
+    np.testing.assert_array_equal(ti[rows], ji[rows])
+    np.testing.assert_array_equal(tr == -1.0, jr == -1.0)
+    np.testing.assert_allclose(tr[rows], jr[rows], rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("cdt", ["f32", "bf16"])
+@pytest.mark.parametrize("use_v", [False, True])
+@pytest.mark.parametrize("n,m", SIZES)
+def test_fr_step_select_matches_pallas(n, m, use_v, cdt):
+    A, R, W, V, il, cn2, resc = _fr_inputs(21, n, m)
+    resc[:, 40] = -1.0                            # an atom already active
+    il[:4, 0] = 77                                # rows 0-3 mark atom 77
+    il[2:6, 1] = 40                               # rows 2-5 restore atom 40
+    tA, jA = _pair(A, cdt)
+    got, want = _fr_both(tA, jA, R, W, V if use_v else None, il, cn2, resc)
+    _same_step(got, want)
+    tr = got[2]
+    assert np.all(tr[:4, 77] == -1.0) and np.all(tr[4:, 77] > 0)
+    # an active atom that is not restored stays negative (it drifts by the
+    # updates, which never reach the threshold)
+    assert np.all(tr[[0, 1, 6, 7], 40] <= -1.0 + (1.0 if use_v else 0.0))
+    assert np.all(tr[[0, 1, 6, 7], 40] < 0)
+    # a restored atom holds exactly the V update on a zero base, less z^2
+    zv = (torch.from_numpy(V).to(tA.dtype).float() @ tA.float()).numpy()
+    zw = (torch.from_numpy(W).to(tA.dtype).float() @ tA.float()).numpy()
+    expect = (zv[2:6, 40] ** 2 if use_v else 0) - zw[2:6, 40] ** 2
+    np.testing.assert_allclose(tr[2:6, 40], expect, rtol=1e-4, atol=1e-7)
+    # the marked and the active atoms are never selected
+    assert not np.any(got[1][:4] == 77)
+
+
+@pytest.mark.parametrize("cdt", ["f32", "bf16"])
+def test_fr_step_select_nan_row_poisoned_atom_degenerate_row(cdt):
+    n, m = 1024, 8192
+    deg = 8.0 * n * 1.1920929e-07
+    A, R, W, V, il, cn2, resc = _fr_inputs(22, n, m)
+    tA, jA = _pair(A, cdt)
+    tm = tss._stream_tile(m, n, tA.element_size(), tss.STREAM_TILE_BYTES)
+    assert m // tm >= 2
+    R[1, 5] = np.nan      # a NaN row: q is NaN everywhere, every tile skipped
+    resc[3] = 0.0         # an all-degenerate row: nothing passes the
+    W[3] = V[3] = 0.0     # threshold, every score is -inf
+    # row 2's best atom is poisoned in the dictionary: z = w . a is NaN for
+    # every row (0 * NaN included), so its resc is NaN from now on, fails
+    # the threshold test and scores -inf: its tile is NOT skipped
+    q = (torch.from_numpy(R).to(tA.dtype).float() @ tA.float()).numpy()
+    best = int(np.nanargmax(q[2] ** 2))
+    tA[:, best] = float("nan")
+    jA = jA.at[:, best].set(jnp.nan)
+    got, want = _fr_both(tA, jA, R, W, V, il, cn2, resc, deg=deg)
+    live = [0, 2, 4, 5, 6, 7]
+    _same_step(got, want, rows=live)
+    lo = best // tm * tm
+    for val, idx, out in (got, want):
+        assert val[1] == -np.inf and idx[1] == 0
+        assert val[3] == -np.inf and idx[3] == 0
+        assert np.all(np.isnan(out[:, best]))
+        assert not np.any(idx[live] == best)
+        # rows still pick inside the poisoned atom's tile
+        assert np.any((idx[live] >= lo) & (idx[live] < lo + tm))
+
+
+@pytest.mark.parametrize("cdt", ["f32", "bf16"])
+def test_fr_step_select_skips_a_tile_whose_score_is_nan(cdt):
+    # a NaN in q with a valid rescaling makes d2 NaN, and the tile that
+    # holds it is skipped whole. Row 2 of R carries two infs that meet
+    # entries of one sign in every atom (q = inf, d2 = inf) but for atom
+    # 100, where the signs differ: inf - inf = NaN. Tile 0 is skipped and
+    # the row's answer is the first atom of tile 1, at d2 = inf
+    n, m = 1024, 8192
+    A, R, W, V, il, cn2, resc = _fr_inputs(23, n, m)
+    W[:] = 0.0
+    A[7:9] = np.abs(A[7:9]) + 1e-3
+    A[8, 100] = -A[8, 100]
+    cn2 = np.sum(A * A, axis=0, dtype=np.float32)
+    resc = np.broadcast_to(cn2, resc.shape).copy()
+    R[2, 7] = R[2, 8] = np.inf
+    tA, jA = _pair(A, cdt)
+    tm = tss._stream_tile(m, n, tA.element_size(), tss.STREAM_TILE_BYTES)
+    got, want = _fr_both(tA, jA, R, W, None, il, cn2, resc,
+                         deg=8.0 * n * 1.1920929e-07)
+    _same_step(got, want)
+    for val, idx, _ in (got, want):
+        assert val[2] == np.inf and idx[2] == tm
+
+
+@pytest.mark.parametrize("cdt", ["f32", "bf16"])
+def test_fr_step_select_ties_go_to_the_lowest_index_across_tiles(cdt):
+    # n=1024, m=8192: the repeated column sits twice in one tile and once in
+    # a later one, with equal rescalings: the lowest copy wins; marking it
+    # moves the pick to the second, then to the third
+    at = [700, 1900, 7000]
+    A, R = _tied(1024, 8192, at)
+    _, _, W, V, il, cn2, resc = _fr_inputs(24, 1024, 8192)
+    cn2 = np.sum(A * A, axis=0, dtype=np.float32)
+    resc = np.broadcast_to(cn2, resc.shape).copy()
+    W[:] = 0.0
+    tA, jA = _pair(A, cdt)
+    for hide, pick in (([], 700), ([700], 1900), ([700, 1900], 7000)):
+        resc[:, hide] = -1.0
+        got, want = _fr_both(tA, jA, R, W, None, il, cn2, resc,
+                             deg=8.0 * 1024 * 1.2e-7)
+        _same_step(got, want)
+        assert np.all(got[1] == pick) and np.all(want[1] == pick)
