@@ -41,8 +41,13 @@ stepwise, backward and sharded paths against the formulas for the
 iterations they ran: a streaming select per shard and step) and agreement
 with the plain solves (for the sharded paths also across shard counts,
 collective forms and with the unsharded batch solvers), and times kernels and solves with
-CUDA events; the later kernels' device time per launch and the paths' idle
-share come from torch.profiler. Every kernel's time stands beside its bound
+CUDA events. The top-1 selects have two hand-written variants, a
+tensor-core one for bf16 correlation and a CUDA-core one: both are held
+against the plain twins, the bf16 paths must have taken the first and the
+f32 paths (omp_batch, omp/ompr_sharded_fused and correlate_argmax with f32
+correlation, at a smaller depth) the second, by their own launch counts;
+the later kernels' device time per launch and the paths' idle share come
+from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
 the peak rate of their type) and, where one PyTorch call computes the same
 function, that call's time.
@@ -54,6 +59,7 @@ once with an error.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -75,7 +81,8 @@ APPEND_ATOL = 1e-4
 # kernel solve against plain solve: identical supports, coefficients to
 COEF_ATOL = 1e-3
 # MP's dense x and r against the plain solve: 32 steps of f32 updates whose
-# scores are sums of n=1024 products in another order (~1e-6 relative each)
+# scores are sums of n=1024 products in another order (~1e-6 relative each);
+# on the rows whose picks all stand clear of their runners-up (GAP_RTOL)
 MP_ATOL = 1e-3
 # FR's written-back rescalings after steps from identical state: absolute,
 # they are differences of O(1) terms
@@ -222,8 +229,10 @@ def cuda_ms(fn, reps):
 
 
 def check_select(A, Bs):
-    """select_argmax against _select_ref on the card, with a duplicated
-    column (lowest index wins) and a NaN row (index INT_MAX)."""
+    """select_argmax, its tensor-core variant (the one a bf16 dictionary
+    takes) and its CUDA-core variant, against _select_ref on the card, with
+    a duplicated column (lowest index wins) and a NaN row (index INT_MAX).
+    Returns (max |val err| by variant, r, Ac)."""
     from cstpu_torch.ops import fused_solve as fs
 
     m = A.shape[1]
@@ -232,24 +241,31 @@ def check_select(A, Bs):
     r = Bs.clone()
     r[0] = Ac[:, 123].float()
     r[1, 5] = float("nan")
-    kv, ki = fs._reduce_partials(*fs.select_argmax(r, Ac))
     pv, pi = fs._reduce_partials(*fs._select_ref(r, Ac.float(),
                                                  torch.bfloat16))
-    torch.cuda.synchronize()
-    assert ki[0].item() == pi[0].item() == 123, (ki[0], pi[0])
-    assert ki[1].item() == pi[1].item() == fs.INT_MAX, (ki[1], pi[1])
-    assert torch.isnan(kv[1]) and torch.isnan(pv[1])
     scores = torch.abs(r.to(torch.bfloat16).float() @ Ac.float())
     top2 = scores[2:].topk(2, dim=1).values
     clear = (top2[:, 0] - top2[:, 1]) > GAP_RTOL * top2[:, 0]
-    agree = (ki[2:] == pi[2:]) | ~clear
-    assert bool(agree.all()), "select idx disagree beyond the noise gap"
-    err = (kv[2:] - pv[2:]).abs()
-    assert bool((err <= SELECT_RTOL * pv[2:].abs()).all()), float(err.max())
-    print(f"[select] idx agree on {int(clear.sum())}/{len(clear)} clear rows, "
-          f"tie->123, NaN row->INT_MAX; max |val err| {float(err.max()):.3e} "
-          f"(rtol {SELECT_RTOL})")
-    return float(err.max()), r, Ac
+    errs = {}
+    for key, mma in (("select_mma", None), ("select", False)):
+        _, counts = run_counted(lambda: fs.select_argmax(r, Ac, mma=mma))
+        assert counts == expect_launches(**{key: 1}), (key, counts)
+        kv, ki = fs._reduce_partials(*fs.select_argmax(r, Ac, mma=mma))
+        torch.cuda.synchronize()
+        assert ki[0].item() == pi[0].item() == 123, (ki[0], pi[0])
+        assert ki[1].item() == pi[1].item() == fs.INT_MAX, (ki[1], pi[1])
+        assert torch.isnan(kv[1]) and torch.isnan(pv[1])
+        agree = (ki[2:] == pi[2:]) | ~clear
+        assert bool(agree.all()), "select idx disagree beyond the noise gap"
+        err = (kv[2:] - pv[2:]).abs()
+        assert bool((err <= SELECT_RTOL * pv[2:].abs()).all()), float(
+            err.max())
+        errs[key] = float(err.max())
+    print(f"[select] tensor-core and CUDA-core variants: idx agree on "
+          f"{int(clear.sum())}/{len(clear)} clear rows, tie->123, NaN "
+          f"row->INT_MAX; max |val err| {errs['select_mma']:.3e} and "
+          f"{errs['select']:.3e} (rtol {SELECT_RTOL})")
+    return errs, r, Ac
 
 
 def check_append(A, Bs, k):
@@ -286,7 +302,8 @@ def main_path(A, Bs, sup, k):
     from cstpu_torch.ops import fused_solve as fs
 
     sol, launches = run_counted(lambda: cstpu_torch.omp_batch(A, Bs, k))
-    assert launches == expect_launches(select=k, append=k), launches
+    # a bf16 dictionary must have taken the tensor-core select
+    assert launches == expect_launches(select_mma=k, append=k), launches
     rec = recovery(sol, sup)
     assert rec == 1.0, f"planted-support recovery {rec} != 1.0"
     ref, _ = fs.omp_fused_solve_ref(A, Bs, k)
@@ -299,6 +316,28 @@ def main_path(A, Bs, sup, k):
     return launches
 
 
+def f32_main_path(A, Bs, sup, k):
+    """omp_batch with f32 correlation once with zeroed launch counts: true
+    f32 stays on the CUDA-core select; recovery and the plain f32 solve's
+    agreement."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+
+    sol, launches = run_counted(
+        lambda: cstpu_torch.omp_batch(A, Bs, k, precision="f32"))
+    assert launches == expect_launches(select=k, append=k), launches
+    rec = recovery(sol, sup)
+    assert rec == 1.0, f"planted-support recovery {rec} != 1.0"
+    ref, _ = fs.omp_fused_solve_ref(A, Bs, k, torch.float32)
+    assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
+    cerr = float((sol.val - ref.val).abs().max())
+    assert cerr <= COEF_ATOL, cerr
+    print(f"[main f32] omp_batch(precision='f32') k={k} recovery={rec:.3f} "
+          f"launches={launches}: the CUDA-core select; supports == plain "
+          f"solve, max |coef err| {cerr:.3e} (atol {COEF_ATOL})")
+    return launches
+
+
 def per_launch_ms(x, fn):
     """Median ms per call of fn, over 5 timed runs of TIMED_LAUNCHES calls;
     each run ends by fetching an element of x."""
@@ -307,6 +346,24 @@ def per_launch_ms(x, fn):
             fn()
         return x.flatten()[0]
     return cuda_ms(run, 5) / TIMED_LAUNCHES
+
+
+def device_ms_per_call(fn, reps=TIMED_LAUNCHES):
+    """Device ms per call of fn under torch.profiler: the kernels' own time
+    over `reps` calls (after a warm-up), whatever the host takes between
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(max(getattr(ev, "self_device_time_total", 0.0), 0.0)
+               for ev in prof.key_averages())
+    return busy / 1e3 / reps
 
 
 def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
@@ -321,7 +378,18 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     Ac_sel32 = Ac_sel.float()
 
     launches = partial(per_launch_ms, Bs)
+    # the tensor-core variant, the CUDA-core one (the earlier time), the
+    # CUDA-core one in f32, and the first one's device time (its wrapper
+    # may take longer than its kernels)
     sel = launches(lambda: fs.select_argmax(r, Ac_sel))
+    sel_simt = launches(lambda: fs.select_argmax(r, Ac_sel, mma=False))
+    sel_f32 = launches(lambda: fs.select_argmax(r, Ac_sel32))
+    sel_dev = device_ms_per_call(lambda: fs.select_argmax(r, Ac_sel))
+    # ... and by batch rows: a block re-reads its rows of r for every tile,
+    # so the time over the dictionary's bytes grows with the rows
+    by_rows = {rows: device_ms_per_call(
+        lambda: fs.select_argmax(r[:rows].contiguous(), Ac_sel))
+        for rows in (8, 16, 32) if rows < B}
     sel_p = launches(lambda: fs._select_ref(r, Ac_sel32, torch.bfloat16))
     # the yardstick: one torch.matmul (cuBLAS, f32) gives the select's
     # scores, without its abs and argmax; the port's kernel path never
@@ -335,10 +403,22 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     app_p = launches(lambda: fs._append_ref(*parts, Ac32, Bs, st, t, *out))
     print(f"[time] solve {solve:.4f} ms (plain {plain:.4f} ms), "
           f"{B * k / (solve / 1e3):.1f} atoms/s (plain "
-          f"{B * k / (plain / 1e3):.1f}); select {sel:.4f} ms (plain "
-          f"{sel_p:.4f}; torch.matmul of the scores alone {gemm:.4f}); "
-          f"append {app:.4f} ms (plain {app_p:.4f}) | {gpu}")
+          f"{B * k / (plain / 1e3):.1f}); select, tensor cores {sel:.4f} ms "
+          f"per call, {sel_dev:.4f} on the device ("
+          + ", ".join(f"{v:.4f} at B={rows}" for rows, v in by_rows.items())
+          + f"; CUDA cores {sel_simt:.4f}, "
+          f"in f32 {sel_f32:.4f}; plain {sel_p:.4f}; torch.matmul of the "
+          f"scores alone {gemm:.4f}); append {app:.4f} ms (plain "
+          f"{app_p:.4f}) | {gpu}")
+    busy, per = profile_path(lambda: cstpu_torch.omp_batch(A, Bs, k))
+    print(f"[split omp_batch B={B} m={A.shape[1]}] wall {solve:.4f} ms, "
+          f"device busy {busy:.4f} ms, idle share {1.0 - busy / solve:.4f}; "
+          + ", ".join(f"{name} {c}x {ms:.4f} ms"
+                      for name, (c, ms) in per.items()))
     return {"solve": solve, "plain_solve": plain, "select": sel,
+            "select_simt": sel_simt, "select_f32": sel_f32,
+            "select_device": sel_dev, "select_device_by_rows": by_rows,
+            "device_busy": busy,
             "plain_select": sel_p, "select_gemm": gemm, "append": app,
             "plain_append": app_p}
 
@@ -360,18 +440,20 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
     r = Bs.clone()
     r[0] = 2.0 * Ac[:, 77].float()
     r[1, 9] = float("nan")
-    pv, pi, ps = fs.select_argmax(r, Ac, signed=True)
-    pv0, pi0 = fs.select_argmax(r, Ac)
     rv, ri, rs = fs._select_ref(r, Ac32, bf, signed=True)
-    torch.cuda.synchronize()
-    assert torch.equal(pi, pi0) and torch.equal(pv.nan_to_num(-1.0),
-                                                pv0.nan_to_num(-1.0))
-    i, ir = fs._reduce_partials(pv, pi)[1], fs._reduce_partials(rv, ri)[1]
-    assert int(i[0]) == int(ir[0]) == 77 and int(i[1]) == fs.INT_MAX
-    same = (pi == ri) & ~torch.isnan(pv)
-    err["select_signed"] = float((ps[same] - rs[same]).abs().max())
-    assert bool(((ps[same] - rs[same]).abs()
-                 <= SELECT_RTOL * rs[same].abs() + 1e-6).all())
+    # the CUDA-core variant first, then the one the path takes
+    for key, mma in (("select_signed_simt", False), ("select_signed", None)):
+        pv, pi, ps = fs.select_argmax(r, Ac, signed=True, mma=mma)
+        pv0, pi0 = fs.select_argmax(r, Ac, mma=mma)
+        torch.cuda.synchronize()
+        assert torch.equal(pi, pi0) and torch.equal(pv.nan_to_num(-1.0),
+                                                    pv0.nan_to_num(-1.0))
+        i, ir = fs._reduce_partials(pv, pi)[1], fs._reduce_partials(rv, ri)[1]
+        assert int(i[0]) == int(ir[0]) == 77 and int(i[1]) == fs.INT_MAX
+        same = (pi == ri) & ~torch.isnan(pv)
+        err[key] = float((ps[same] - rs[same]).abs().max())
+        assert bool(((ps[same] - rs[same]).abs()
+                     <= SELECT_RTOL * rs[same].abs() + 1e-6).all())
     x = torch.zeros((Bs.shape[0], m), device=A.device)
     xr, rk, rr = x.clone(), r.clone(), r.clone()
     fs.mp_update(pv, pi, ps, Ac, x, rk)
@@ -478,6 +560,27 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
     return err, {"mp": (pv0, pi0, ps, Ac), "fr": (stk, Arc, cn2, kv, ki)}
 
 
+def mp_clear_rows(A, Bs, k):
+    """Rows of the plain bf16 MP solve whose every pick stood clear of its
+    runner-up by more than GAP_RTOL of the top score. MP compares dense x
+    and r after k picks, and two picks within the sums' noise may come in
+    either order (the order moves x by their atoms' inner product), so, as
+    for the select itself, a solve is compared on its clear rows."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    bf = torch.bfloat16
+    Ac32 = A.to(bf).float()
+    r = Bs.clone()
+    x = torch.zeros((Bs.shape[0], A.shape[1]), device=A.device)
+    clear = torch.ones((Bs.shape[0],), dtype=torch.bool, device=A.device)
+    for _ in range(k):
+        top2 = torch.abs(r.to(bf).float() @ Ac32).topk(2, dim=1).values
+        clear &= (top2[:, 0] - top2[:, 1]) > GAP_RTOL * top2[:, 0]
+        fs._mp_update_ref(*fs._select_ref(r, Ac32, bf, signed=True), Ac32, x,
+                          r)
+    return clear
+
+
 def greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f):
     """mp_batch, gomp_batch and fr_batch once each with zeroed launch
     counts; recovery and agreement with the plain solves."""
@@ -486,18 +589,23 @@ def greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f):
 
     _, B, n, m, k = MP_CELL
     x, launches_mp = run_counted(lambda: cstpu_torch.mp_batch(A, Bs, k))
-    assert launches_mp == expect_launches(select=k, mp_update=k), launches_mp
+    assert launches_mp == expect_launches(select_mma=k, mp_update=k), \
+        launches_mp
     xr, rr = fs.mp_fused_solve_ref(A, Bs, k)
     Ac32 = A.to(torch.bfloat16).float()
     r = Bs - x @ Ac32.T
-    x_err = float((x - xr).abs().max())
-    r_err = float((r - rr).abs().max())
+    clear = mp_clear_rows(A, Bs, k)
+    assert int(clear.sum()) >= 3 * B // 4, int(clear.sum())
+    x_err = float((x - xr)[clear].abs().max())
+    r_err = float((r - rr)[clear].abs().max())
     assert x_err <= MP_ATOL and r_err <= MP_ATOL, (x_err, r_err)
     fall = r.norm(dim=1) / Bs.norm(dim=1)
     assert bool((fall < 1).all()), "MP residual did not fall"
     print(f"[main mp] mp_batch k={k} launches={launches_mp}; x, r vs plain "
-          f"max |err| {x_err:.3e}, {r_err:.3e} (atol {MP_ATOL}); ||r||/||b|| "
-          f"max {float(fall.max()):.4f}")
+          f"on the {int(clear.sum())}/{B} rows whose picks all stand clear "
+          f"(gap {GAP_RTOL}): max |err| {x_err:.3e}, {r_err:.3e} (atol "
+          f"{MP_ATOL}; all rows {float((x - xr).abs().max()):.3e}); "
+          f"||r||/||b|| max {float(fall.max()):.4f}")
 
     _, B, n, m, k, l = GOMP_CELL
     sol, launches_g = run_counted(
@@ -560,11 +668,21 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
         tm["plain_" + name + "_atoms_per_s"] = atoms / (tm["plain_" + name]
                                                        / 1e3)
 
+    busy, per = profile_path(lambda: cstpu_torch.mp_batch(A, Bs, k))
+    tm["mp_device_busy"] = busy
+    print(f"[split mp] wall {tm['mp']:.4f} ms, device busy {busy:.4f} ms, "
+          f"idle share {1.0 - busy / tm['mp']:.4f}; "
+          + ", ".join(f"{name} {c}x {ms:.4f} ms"
+                      for name, (c, ms) in per.items()))
     launches = partial(per_launch_ms, Bs)
     pv, pi, ps, Ac = parts["mp"]
     Ac32 = Ac.float()
     r = Bs.clone()
     tm["select_signed"] = launches(lambda: fs.select_argmax(r, Ac, True))
+    tm["select_signed_simt"] = launches(
+        lambda: fs.select_argmax(r, Ac, True, mma=False))
+    tm["select_signed_device"] = device_ms_per_call(
+        lambda: fs.select_argmax(r, Ac, True))
     tm["plain_select_signed"] = launches(
         lambda: fs._select_ref(r, Ac32, bf, True))
     x = torch.zeros((B, A.shape[1]), device=A.device)
@@ -597,6 +715,8 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
         f"{name} {tm[name]:.4f} ms (plain {tm['plain_' + name]:.4f})"
         for name in ("mp", "gomp", "fr", "select_signed", "mp_update",
                      "select_topl", "gomp_append", "fr_select", "fr_append"))
+        + f"; select_signed on CUDA cores {tm['select_signed_simt']:.4f}, "
+        f"on the device {tm['select_signed_device']:.4f}"
         + f"; atoms/s mp {tm['mp_atoms_per_s']:.1f} (plain "
         f"{tm['plain_mp_atoms_per_s']:.1f}), gomp {tm['gomp_atoms_per_s']:.1f}"
         f" (plain {tm['plain_gomp_atoms_per_s']:.1f}), fr "
@@ -661,19 +781,22 @@ def check_twostage_kernels(A, Bg, Ar, Br):
     torch.cuda.synchronize()
     err["engine_init"] = _state_err(stk, st, rows)
     assert not (stk.idx[3] < m).any()
-    kv, ki = fs.select_argmax(st.r, Ac, amask=st.amask)
     pv, pi = fs._select_ref(st.r, Ac32, bf, False, st.amask, 1.0)
-    zv, zi = fs.select_argmax(st.r, Ac, amask=torch.zeros_like(st.amask))
-    ov, oi = fs.select_argmax(st.r, Ac)
-    torch.cuda.synchronize()
-    assert torch.equal(zv.nan_to_num(-1.0), ov.nan_to_num(-1.0))
-    assert torch.equal(zi, oi)
     live = ~torch.isnan(pv)
-    err["select_masked"] = float((kv[live] - pv[live]).abs().max())
-    assert bool(((kv[live] - pv[live]).abs()
-                 <= SELECT_RTOL * pv[live].abs() + 1e-6).all())
-    i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
-    assert torch.equal(i, ir) and int(i[3]) == fs.INT_MAX
+    # the CUDA-core variant first, then the one the path takes
+    for key, mma in (("select_masked_simt", False), ("select_masked", None)):
+        kv, ki = fs.select_argmax(st.r, Ac, amask=st.amask, mma=mma)
+        zv, zi = fs.select_argmax(st.r, Ac, mma=mma,
+                                  amask=torch.zeros_like(st.amask))
+        ov, oi = fs.select_argmax(st.r, Ac, mma=mma)
+        torch.cuda.synchronize()
+        assert torch.equal(zv.nan_to_num(-1.0), ov.nan_to_num(-1.0))
+        assert torch.equal(zi, oi)
+        err[key] = float((kv[live] - pv[live]).abs().max())
+        assert bool(((kv[live] - pv[live]).abs()
+                     <= SELECT_RTOL * pv[live].abs() + 1e-6).all())
+        i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+        assert torch.equal(i, ir) and int(i[3]) == fs.INT_MAX
     st.done[5] = 1.0
     stk, prev0 = _clone(st), st.prev.clone()
     ft.ompr_swap(kv, ki, Ac, Bn, stk, 1.0, 1e-24)
@@ -807,7 +930,7 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
         assert torch.equal(sol.idx, sol2.idx) and torch.equal(sol.val,
                                                               sol2.val)
         want = {"2b": dict(select_topl=1 + it, sp_round=1 + it),
-                "2c": dict(select_topl=1, engine_init=1, select=it,
+                "2c": dict(select_topl=1, engine_init=1, select_mma=it,
                            ompr_swap=it),
                 "3b": dict(select_topl=1, engine_init=1, fr_select=it,
                            srr_append=it, engine_delete=it)}[cell]
@@ -830,7 +953,8 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
     return out
 
 
-KERNEL_NAMES = ("select_argmax", "select_topl", "fr_select", "engine_init",
+KERNEL_NAMES = ("select_argmax", "top1_mma", "round_rows", "omp_append",
+                "mp_update", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
@@ -907,6 +1031,13 @@ def twostage_times(A, Bg, Ar, Br, gpu):
     sparts = fs._select_ref(st.r, Ac32, bf, False, st.amask, 1.0)
     pl["select_masked"] = launches(
         lambda: fs._select_ref(st.r, Ac32, bf, False, st.amask, 1.0))
+    Ac = A.to(bf).contiguous()
+    # the masked select per call (events): tensor cores, then CUDA cores
+    pl["select_masked_call"] = launches(
+        lambda: fs.select_argmax(st.r, Ac, amask=st.amask))
+    pl["select_masked_simt"] = launches(
+        lambda: fs.select_argmax(st.r, Ac, amask=st.amask, mma=False))
+    del Ac
     pl["ompr_swap"] = launches(
         lambda: ft._ompr_swap_ref(*sparts, Ac32, Bg, _clone(st), 1.0, 0.0))
     k = SRR_CELL[1]
@@ -941,7 +1072,10 @@ def twostage_times(A, Bg, Ar, Br, gpu):
     kern = {"sp_round": per_launch("2b", "sp_round"),
             "select_topl32": per_launch("2b", "select_topl"),
             "engine_init": per_launch("2c", "engine_init"),
-            "select_masked": per_launch("2c", "select_argmax"),
+            # the tensor-core select's two kernels over its launches
+            "select_masked": (split["2c"]["kernels"]["top1_mma"]["ms"]
+                              + split["2c"]["kernels"]["round_rows"]["ms"])
+            / split["2c"]["kernels"]["top1_mma"]["launches"],
             "ompr_swap": per_launch("2c", "ompr_swap"),
             "fr_select_3b": per_launch("3b", "fr_select"),
             "srr_append": per_launch("3b", "srr_append"),
@@ -951,7 +1085,7 @@ def twostage_times(A, Bg, Ar, Br, gpu):
         for cell in ("2b", "2c", "3b")) + " | " + gpu)
     print("[time two-stage kernels, device ms per launch on the paths] "
           + ", ".join(f"{key} {v:.4f}" for key, v in kern.items())
-          + " | plain ms per call (events): "
+          + " | plain (and the masked select's own) ms per call (events): "
           + ", ".join(f"{key} {v:.4f}" for key, v in pl.items()))
     for cell in ("2b", "2c", "3b"):
         sp_ = split[cell]
@@ -1465,13 +1599,20 @@ def check_stream_kernels(dev):
                 nan_tile = torch.isnan(sc.view(B, m // tm, tm)).any(dim=2)
                 live = torch.where(nan_tile[:, :, None], -torch.inf,
                                    sc.view(B, m // tm, tm)).view(B, m)
-                k6 = ss.correlate_select_stream(A, R)
                 p6 = ss.correlate_select_stream_ref(A, R)
-                _hold("select_stream", k6, p6, _clear_rows(live), errs)
-                k9 = ss.correlate_select_masked_stream(A, R, M)
                 p9 = ss.correlate_select_masked_stream_ref(A, R, M)
-                _hold("select_masked_stream", k9, p9, _clear_rows(live + M),
-                      errs)
+                # bf16 takes the tensor-core sweep; hold the CUDA-core one
+                # on it too (f32 always takes the CUDA-core one)
+                bf16 = cdt == torch.bfloat16
+                forced = (False, None) if bf16 else (None,)
+                for mma in forced:
+                    sfx = "_mma" if bf16 and mma is None else ""
+                    k6 = ss.correlate_select_stream(A, R, mma=mma)
+                    _hold("select_stream" + sfx, k6, p6, _clear_rows(live),
+                          errs)
+                    k9 = ss.correlate_select_masked_stream(A, R, M, mma=mma)
+                    _hold("select_masked_stream" + sfx, k9, p9,
+                          _clear_rows(live + M), errs)
                 for l in (4, 32):
                     k7 = ss.correlate_select_topl_stream(A, R, l)
                     p7 = ss.correlate_select_topl_stream_ref(A, R, l)
@@ -1494,10 +1635,12 @@ def check_stream_kernels(dev):
                     (torch.arange(m, device=dev)[None, :] < first[:, None])
                     | ~torch.isnan(sc).any(dim=1, keepdim=True), sc,
                     -torch.inf)
-                ki, kv = ca.correlate_argmax(A, R.T)
                 pi, pv = ca.correlate_argmax_ref(A, R.T)
-                _hold("corr_argmax", (kv, ki), (pv, pi), _clear_rows(seen),
-                      errs)
+                for mma in forced:
+                    sfx = "_mma" if bf16 and mma is None else ""
+                    ki, kv = ca.correlate_argmax(A, R.T, mma=mma)
+                    _hold("corr_argmax" + sfx, (kv, ki), (pv, pi),
+                          _clear_rows(seen), errs)
                 torch.cuda.synchronize()
                 # the built cases: the tied row against the plain twin, the
                 # NaN row, the row with every atom excluded
@@ -1519,11 +1662,165 @@ def check_stream_kernels(dev):
             del A, R, M, sc, live, seen
             torch.cuda.empty_cache()
     print("[stream kernels] K6, K9, K7 (l=4, 32), K10 == plain twins at "
-          f"m_local in {STREAM_WIDTHS}, bf16 and f32: ties -> lowest index "
+          f"m_local in {STREAM_WIDTHS}, bf16 (tensor-core and CUDA-core "
+          "sweeps) and f32: ties -> lowest index "
           "within and across tiles, NaN row -> (-inf, 0) / NaN (K10), "
           "all-excluded row -> (-inf, 0), poisoned atom -> its tile skipped "
           "/ NaN visible (K10); max |val err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol {SELECT_RTOL})")
+    return errs
+
+
+# the top-1 selects at awkward shapes (B, n, m): batches off the row-chunk
+# widths of the tensor-core loop, an n that is no multiple of its k-step or
+# its stage, a ragged m; the last three can stream (m a multiple of 128)
+MMA_SHAPES = ((1, 64, 128), (9, 1000, 8232), (65, 1024, 8192),
+              (200, 256, 1024), (8, 1000, 8192))
+
+
+def _tile_clear(scores):
+    """Per row and tile of 128 atoms, True where the tile's best score
+    stands clear of its second by more than GAP_RTOL of it."""
+    B, m = scores.shape
+    T = -(-m // 128)
+    s = torch.nn.functional.pad(scores.nan_to_num(nan=-1.0, neginf=-1.0),
+                                (0, T * 128 - m), value=-1.0).view(B, T, 128)
+    top = s.topk(2, dim=2).values
+    return (top[..., 0] - top[..., 1]) > GAP_RTOL * top[..., 0]
+
+
+def check_mma_selects(dev):
+    """Both hand-written variants of every top-1 select against the plain
+    twins at MMA_SHAPES, bf16: the per-tile partials of select_argmax
+    (plain, signed, masked with an all-masked row), and where the shape
+    streams K6, K9 (+M), K10 (R as (n, B), read through its strides) and a
+    column slice of a wider dictionary (row pitch > m) read in place; with a
+    column repeated within and across tiles, a NaN row and then a poisoned
+    atom. Forcing the tensor-core loop on a misaligned or f32 dictionary
+    must fail, and the predicate must send those to the CUDA cores."""
+    from cstpu_torch.ops import corr_argmax as ca
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    bf = torch.bfloat16
+    errs = {}
+    for B, n, m in MMA_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        A = torch.randn((n, m), device=dev, generator=gen)
+        Ac = (A / A.norm(dim=0)).to(bf)
+        r = torch.randn((B, n), device=dev, generator=gen)
+        a0, a1, a2 = 5, 14, m - 3              # one column, thrice
+        Ac[:, a1] = Ac[:, a0]
+        Ac[:, a2] = Ac[:, a0]
+        r[0] = Ac[:, a0].float()
+        if B > 2:
+            r[1, 3] = float("nan")
+        amask = (torch.rand((B, m), device=dev, generator=gen) < 0.3).to(
+            torch.uint8)
+        amask[:, a0] = 1
+        amask[:, a1] = 0
+        full = B - 1 if B > 3 else None        # a row with every atom active
+        if full:
+            amask[full] = 1
+        streams = m % 128 == 0
+        tm = ss._stream_tile(m, n, 2, ss.STREAM_TILE_BYTES) if streams else m
+        M = torch.where(amask.bool(), -torch.inf, 0.0)
+        for poisoned in (False, True):
+            if poisoned:
+                Ac[:, m // 2 + 1] = float("nan")
+            Ac32 = Ac.float()
+            sc = torch.abs(r.to(bf).float() @ Ac32)
+            want = fs._select_ref(r, Ac32, bf, signed=True)
+            want_m = fs._select_ref(r, Ac32, bf, False, amask, 0.5)
+            clear = _tile_clear(sc)
+            clear_m = _tile_clear(torch.where(amask.bool(), -torch.inf,
+                                              0.5 * sc))
+            for mma in (True, False):
+                sfx = "_mma" if mma else ""
+                pv, pi, ps = fs.select_argmax(r, Ac, signed=True, mma=mma)
+                qv, qi = fs.select_argmax(r, Ac, mma=mma)
+                mv, mi = fs.select_argmax(r, Ac, amask=amask, eta=0.5,
+                                          mma=mma)
+                torch.cuda.synchronize()
+                assert torch.equal(pi, qi) and torch.equal(
+                    pv.nan_to_num(-1.0), qv.nan_to_num(-1.0))
+                _hold("select" + sfx, (pv, pi), want[:2], clear, errs)
+                same = (pi == want[1]) & torch.isfinite(want[0])
+                assert bool(((ps[same] - want[2][same]).abs() <= SELECT_RTOL
+                             * want[2][same].abs() + 1e-6).all())
+                _hold("select_masked" + sfx, (mv, mi), want_m, clear_m, errs)
+                # a fully masked row keeps (-inf, the tile's first atom)
+                if full:
+                    assert torch.equal(mi[full], want_m[1][full])
+                if not poisoned:
+                    last = a2 if a2 >= 128 else a0
+                    assert int(pi[0, 0]) == a0 and int(pi[0, -1]) == last
+                    assert float(pv[0, 0]) == float(pv[0, -1])
+                    assert int(mi[0, 0]) == a1
+                if B > 2:
+                    assert bool(torch.isnan(pv[1]).all())
+                    assert bool((pi[1] == fs.INT_MAX).all())
+                if not streams:
+                    continue
+                # tiles of the NaN rule that hold a NaN take no part
+                tiles = sc.view(B, m // tm, tm)
+                live = torch.where(torch.isnan(tiles).any(dim=2, keepdim=True),
+                                   -torch.inf, tiles).view(B, m)
+                _hold("select_stream" + sfx,
+                      ss.correlate_select_stream(Ac, r, mma=mma),
+                      ss.correlate_select_stream_ref(Ac, r),
+                      _clear_rows(live), errs)
+                _hold("select_masked_stream" + sfx,
+                      ss.correlate_select_masked_stream(Ac, r, M, mma=mma),
+                      ss.correlate_select_masked_stream_ref(Ac, r, M),
+                      _clear_rows(live + M), errs)
+                if not poisoned:
+                    rt = r.T                   # (n, B) as a strided view
+                    ki, kv = ca.correlate_argmax(Ac, rt, mma=mma)
+                    wi, wv = ca.correlate_argmax_ref(Ac, rt)
+                    _hold("corr_argmax" + sfx, (kv, ki), (wv, wi),
+                          _clear_rows(sc), errs)
+                    pad = torch.ones((n, 128), dtype=bf, device=dev)
+                    wide = torch.cat([pad, pad, Ac, pad], dim=1)
+                    part = wide[:, 256:256 + m]
+                    assert part.stride(0) == m + 384
+                    got = ss.correlate_select_stream(part, r, mma=mma)
+                    torch.cuda.synchronize()
+                    copy = ss.correlate_select_stream(Ac, r, mma=mma)
+                    assert torch.equal(got[0].nan_to_num(-1.0),
+                                       copy[0].nan_to_num(-1.0))
+                    assert torch.equal(got[1], copy[1])
+        del A, Ac, Ac32, sc
+    # what the tensor-core loop does not take: f32, a base off 16 bytes, a
+    # pitch off 8 entries; the predicate sends them to the CUDA cores
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.randn((64, 1032), device=dev, generator=gen).to(bf)
+    r = torch.randn((8, 64), device=dev, generator=gen)
+    odd = A[:, 4:1028]                         # base off by 8 bytes
+    thin = torch.randn((64, 1028), device=dev, generator=gen).to(bf)
+    for bad, fn in (
+            ("f32", lambda **kw: fs.select_argmax(r, A.float(), **kw)),
+            ("misaligned base",
+             lambda **kw: ss.correlate_select_stream(odd, r, **kw)),
+            ("pitch off 16 bytes",
+             lambda **kw: fs.select_argmax(r, thin, **kw))):
+        try:
+            fn(mma=True)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"tensor-core select took {bad}")
+        _, counts = run_counted(fn)
+        assert not any(v for key, v in counts.items() if key.endswith("_mma"))
+        assert sum(counts.values()) == 1, counts
+    torch.cuda.synchronize()
+    print(f"[mma selects] tensor-core and CUDA-core variants == plain twins "
+          f"at (B, n, m) in {MMA_SHAPES}: plain, signed, masked, +M, R as "
+          f"(n, B), a column slice read in place; ties, NaN row, all-masked "
+          f"row, poisoned atom; f32, a misaligned base and an odd pitch "
+          f"refused by the tensor-core loop and sent to the CUDA cores; max "
+          f"|val err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (rtol {SELECT_RTOL})")
     return errs
 
@@ -1555,8 +1852,9 @@ def planted_pm1(gen, A, B, k):
 def sharded_omp_path(cell, A, Bs, sup, shard_counts, plain: bool):
     """omp_sharded_fused on the cell's problem, once per shard count and
     collective form with the launch counts zeroed just before: recovery
-    1.000, launches = shards x steps, supports equal across shard counts,
-    forms, the plain solve (when `plain`) and omp_batch."""
+    1.000, launches = shards x steps, all of the tensor-core sweep, supports
+    equal across shard counts, forms, the plain solve (when `plain`) and
+    omp_batch."""
     import cstpu_torch
     from cstpu_torch.parallel import sharded as sh
 
@@ -1571,7 +1869,8 @@ def sharded_omp_path(cell, A, Bs, sup, shard_counts, plain: bool):
                     Ash, Bs, k, mesh, fuse_collectives=fuse,
                     return_iters=True))
             assert iters == [k], iters
-            assert launches == expect_launches(select_stream=s * k), launches
+            assert launches == expect_launches(select_stream_mma=s * k), \
+                launches
             rec = recovery(sol, sup)
             assert rec == 1.0, f"{cell} s={s} fuse={fuse}: recovery {rec}"
             if first is None:
@@ -1580,11 +1879,12 @@ def sharded_omp_path(cell, A, Bs, sup, shard_counts, plain: bool):
             bitwise = torch.equal(sol.val, first.val)
             cerr = float((sol.val - first.val).abs().max())
             assert cerr <= COEF_ATOL, cerr
-            out[(s, fuse)] = {"launches": launches["select_stream"],
+            out[(s, fuse)] = {"launches": launches["select_stream_mma"],
                               "recovery": rec, "bitwise_val": bitwise}
             print(f"[main {cell}] omp_sharded_fused shards={s} "
                   f"fuse_collectives={fuse} recovery={rec:.3f} steps={iters} "
-                  f"select_stream launches={launches['select_stream']}; "
+                  f"select_stream_mma launches="
+                  f"{launches['select_stream_mma']}; "
                   f"supports == first run, coefficients "
                   f"{'bit-equal' if bitwise else f'within {cerr:.3e}'}")
         if plain:
@@ -1618,18 +1918,21 @@ def sharded_other_paths(A, gen):
 
     x, launches = run_counted(
         lambda: cstpu_torch.mp_sharded_fused(Ash, Bs, k, mesh))
-    assert launches == expect_launches(select_stream=s * k), launches
+    assert launches == expect_launches(select_stream_mma=s * k), launches
     xp = sh.mp_sharded_fused_ref(Ash, Bs, k, mesh)
-    xerr = float((x - xp).abs().max())
+    clear = mp_clear_rows(A, Bs, k)
+    assert int(clear.sum()) >= 3 * B // 4, int(clear.sum())
+    xerr = float((x - xp)[clear].abs().max())
     r, rp = Bs - x @ A.T, Bs - xp @ A.T
-    rerr = float((r - rp).abs().max())
+    rerr = float((r - rp)[clear].abs().max())
     assert xerr <= MP_ATOL and rerr <= MP_ATOL, (xerr, rerr)
     fall = float((r.norm(dim=1) / Bs.norm(dim=1)).max())
     assert fall < 1.0, fall
     out["mp"] = {"launches": launches, "err": max(xerr, rerr)}
     print(f"[main 5c mp] mp_sharded_fused shards={s} launches="
-          f"{launches['select_stream']}; max |x err| {xerr:.3e}, |r err| "
-          f"{rerr:.3e} against the plain solve (atol {MP_ATOL}); ||r||/||b|| "
+          f"{launches['select_stream_mma']}; max |x err| {xerr:.3e}, |r err| "
+          f"{rerr:.3e} against the plain solve on the {int(clear.sum())}/{B} "
+          f"clear rows (atol {MP_ATOL}); ||r||/||b|| "
           f"<= {fall:.3f}")
 
     cases = (
@@ -1641,7 +1944,7 @@ def sharded_other_paths(A, gen):
          cstpu_torch.ompr_sharded_fused, sh.ompr_sharded_fused_ref,
          lambda: cstpu_torch.ompr_batch(A, Bs, k, 1e-12),
          lambda it: {"select_topl_stream": s,
-                     "select_masked_stream": s * it}),
+                     "select_masked_stream_mma": s * it}),
         ("sp", lambda f, **kw: f(Ash, Bs, k, mesh, maxiter=8, **kw),
          cstpu_torch.sp_sharded_fused, sh.sp_sharded_fused_ref,
          lambda: cstpu_torch.sp_batch(A, Bs, k, maxiter=8),
@@ -1666,7 +1969,7 @@ def sharded_other_paths(A, gen):
               f"{ {key: v for key, v in launches.items() if v} }; supports "
               f"== plain solve == unsharded batch solve, max |coef err| "
               f"{cerr:.3e} (atol {COEF_ATOL})")
-    return out, Bs
+    return out, Bs, sup
 
 
 def corr_argmax_path(A, Bs):
@@ -1680,15 +1983,70 @@ def corr_argmax_path(A, Bs):
     R = Bs.T.contiguous()                       # (n, B)
     (idx, val), launches = run_counted(
         lambda: cstpu_torch.correlate_argmax(Ac, R))
-    assert launches == expect_launches(corr_argmax=1), launches
+    assert launches == expect_launches(corr_argmax_mma=1), launches
     sval, sidx = ss.correlate_select_stream(Ac, Bs)
     torch.cuda.synchronize()
     assert torch.equal(idx, sidx) and torch.equal(val, sval)
     assert not bool(torch.isnan(val).any())
     print(f"[main 5c corr_argmax] correlate_argmax(A, R (n, B)) launches="
-          f"{launches['corr_argmax']}; idx and val == select_stream's on the "
-          f"same inputs")
-    return launches["corr_argmax"]
+          f"{launches['corr_argmax_mma']}; idx and val == select_stream's on "
+          f"the same inputs")
+    return launches["corr_argmax_mma"]
+
+
+F32_STEPS = 8   # depth of the f32-correlation sharded paths
+
+
+def sharded_f32_paths(A, Bs, sup, Bones, sup_ones):
+    """The sharded paths with f32 correlation, at a smaller depth: they must
+    run on the CUDA-core sweeps (true f32). omp_sharded_fused (F32_STEPS
+    steps of 5c's problem: every pick a planted atom), ompr_sharded_fused on
+    the planted ones (recovery 1.000, supports equal to the plain solve's)
+    and correlate_argmax on the f32 dictionary, each with the launch counts
+    zeroed just before."""
+    import cstpu_torch
+    from cstpu_torch.ops import stream_select as ss
+    from cstpu_torch.parallel import sharded as sh
+
+    B, n, m, k = SHARD_CELLS["5c"]
+    s, f32 = SHARDS, torch.float32
+    mesh = cstpu_torch.make_mesh((1, s))
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+    sol, launches = run_counted(lambda: cstpu_torch.omp_sharded_fused(
+        Ash, Bs, F32_STEPS, mesh, corr_dtype=f32))
+    assert launches == expect_launches(select_stream=s * F32_STEPS), launches
+    got, planted_ = _supports(sol), [set(row) for row in sup.tolist()]
+    assert all(len(g) == F32_STEPS and set(g) <= p
+               for g, p in zip(got, planted_)), "f32 picks off the support"
+    ref = sh.omp_sharded_fused_ref(Ash, Bs, F32_STEPS, mesh, corr_dtype=f32)
+    assert _supports(ref) == got
+    out = {"omp": launches["select_stream"]}
+    (sol, iters), launches = run_counted(lambda: cstpu_torch.ompr_sharded_fused(
+        Ash, Bones, k, mesh, delta=1e-12, corr_dtype=f32, return_iters=True))
+    assert launches == expect_launches(
+        select_topl_stream=s, select_masked_stream=s * iters[0]), launches
+    rec = recovery(sol, sup_ones)
+    assert rec == 1.0, f"ompr f32: recovery {rec}"
+    ref = sh.ompr_sharded_fused_ref(Ash, Bones, k, mesh, delta=1e-12,
+                                    corr_dtype=f32)
+    assert _supports(ref) == _supports(sol)
+    out["ompr"] = launches["select_masked_stream"]
+    R = Bs.T.contiguous()
+    (idx, val), launches = run_counted(
+        lambda: cstpu_torch.correlate_argmax(A, R))
+    assert launches == expect_launches(corr_argmax=1), launches
+    sval, sidx = ss.correlate_select_stream(A, Bs)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, sidx) and torch.equal(val, sval)
+    out["corr_argmax"] = launches["corr_argmax"]
+    print(f"[main 5c f32] f32 correlation runs the CUDA-core sweeps: "
+          f"omp_sharded_fused k={F32_STEPS} shards={s} select_stream "
+          f"launches={out['omp']}, every pick planted, supports == plain "
+          f"solve; ompr_sharded_fused recovery={rec:.3f} iters={iters[0]} "
+          f"select_masked_stream launches={out['ompr']}, supports == plain "
+          f"solve; correlate_argmax launches={out['corr_argmax']}, == "
+          f"select_stream's")
+    return out
 
 
 def sharded_times(A5c, Bs5c, Bones, gpu):
@@ -1772,6 +2130,19 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
                  lambda: ca.correlate_argmax_ref(Ac, RT))):
             per[(name, ml)] = launches(kern)
             per[("plain_" + name, ml)] = once(plain)
+        # the top-1 selects above took the tensor-core sweep: its device
+        # time (the wrapper may take longer than its three kernels), and
+        # the CUDA-core sweep on the same inputs, the earlier time
+        for name, call in (
+                ("select_stream",
+                 lambda **kw: ss.correlate_select_stream(Ac, Bs5c, **kw)),
+                ("select_masked_stream",
+                 lambda **kw: ss.correlate_select_masked_stream(Ac, Bs5c, M,
+                                                                **kw)),
+                ("corr_argmax", lambda **kw: ca.correlate_argmax(Ac, RT,
+                                                                 **kw))):
+            per[(name + " device", ml)] = device_ms_per_call(call)
+            per[(name + " simt", ml)] = launches(lambda: call(mma=False))
         del Ac, M
     for ml in STREAM_WIDTHS:
         print(f"[time stream kernels, ms per call at B={B}, n={n}, "
@@ -1806,12 +2177,24 @@ def sharded_5m(dev, gpu):
         lambda: cstpu_torch.omp_batch(A, Bs, k).val.sum(), TIMED_SLOW)
     Ac = Ash.corr(torch.bfloat16)[0][0]
     sweep = per_launch_ms(Bs, lambda: ss.correlate_select_stream(Ac, Bs))
+    sweep_simt = per_launch_ms(
+        Bs, lambda: ss.correlate_select_stream(Ac, Bs, mma=False))
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # both sweeps against the plain twin at this width (the twin holds a
+    # second f32 copy of the dictionary: after the peak is read)
+    errs = {}
+    want = ss.correlate_select_stream_ref(Ac, Bs)
+    for name, mma in (("select_stream_mma", None), ("select_stream", False)):
+        _hold(name, ss.correlate_select_stream(Ac, Bs, mma=mma), want,
+              _clear_rows(ss._abs_scores(Ac, Bs)), errs)
+    del want
     sp_ = split["5m omp s=1 fuse=1"]
     print(f"[time 5m] omp_sharded_fused {tm['5m omp s=1 fuse=1']:.4f} ms, "
           f"omp_batch on the same rows {tm['5m omp_batch B=8']:.4f} ms; "
-          f"select_stream {sweep:.4f} ms per call; peak device memory "
-          f"{peak:.2f} GiB | {gpu}")
+          f"select_stream {sweep:.4f} ms per call (CUDA-core sweep "
+          f"{sweep_simt:.4f}), both == plain twin, max |val err| "
+          f"{errs['select_stream_mma']:.3e} and {errs['select_stream']:.3e}; "
+          f"peak device memory {peak:.2f} GiB | {gpu}")
     print(f"[split 5m] wall {sp_['wall_ms']:.4f} ms, device busy "
           f"{sp_['device_busy_ms']:.4f} ms, idle share "
           f"{sp_['idle_share']:.4f}; "
@@ -1819,7 +2202,7 @@ def sharded_5m(dev, gpu):
                       for nm, v in sp_["kernels"].items()))
     del A, Ash, Ac
     torch.cuda.empty_cache()
-    return paths, tm, split, sweep, peak
+    return paths, tm, split, (sweep, sweep_simt), peak
 
 
 # the forward-regression family on the sharded path: suite configs 3a, 3b
@@ -2196,9 +2579,19 @@ def main():
     secs, log = _build.build()
     print(f"[build] nvcc {len(_build.sources())} sources -> {_build.LIB.name} "
           f"in {secs:.1f} s")
-    for line in log.splitlines():
+    lines = log.splitlines()
+    for line in lines:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    # the tensor-core selects by name: rows per block (NB), epilogue mode
+    # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem
+    for i, line in enumerate(lines):
+        got = re.search(r"Function properties for .*top1_mma_kernelILi(\d+)"
+                        r"ELi(\d+)E", line)
+        if got:
+            print(f"[build mma] NB={got[1]} mode={got[2]}: "
+                  + " ".join(x.replace("ptxas info    :", "").strip()
+                             for x in lines[i + 1:i + 3]))
 
     dev = torch.device("cuda", 0)
     record = {}
@@ -2210,6 +2603,8 @@ def main():
         sel_err, r, Ac_sel = check_select(A, Bs)
         app_err, st, parts, Ac = check_append(A, Bs, k)
         launches = main_path(A, Bs, sup, k)
+        if name == "bench":
+            f32_launches = f32_main_path(A, Bs, sup, k)
         tm = times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu)
         record[name] = (sel_err, app_err, launches, tm)
         print(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
@@ -2276,12 +2671,14 @@ def main():
           f"mp/gomp/ompr/sp_sharded_fused on {SHARDS} shards: B={B5} n={n5} "
           f"m={m5} k={k5}; 5m at m={SHARD_CELLS['5m'][2]} on one shard")
     xerr = check_stream_kernels(dev)
+    merr = check_mma_selects(dev)
     gen5 = torch.Generator(device=dev).manual_seed(SEED)
     A5 = unit_dictionary(gen5, n5, m5)
     Bs5, sup5 = planted_pm1(gen5, A5, B5, k5)
     p5c = sharded_omp_path("5c", A5, Bs5, sup5, (1, SHARDS), plain=True)
-    pother, Bones = sharded_other_paths(A5, gen5)
+    pother, Bones, sup_ones = sharded_other_paths(A5, gen5)
     k10_launches = corr_argmax_path(A5, Bs5)
+    pf32 = sharded_f32_paths(A5, Bs5, sup5, Bones, sup_ones)
     xtm, xsplit, xper = sharded_times(A5, Bs5, Bones, gpu)
     print(f"[sharded] greedy solvers done in {time.perf_counter() - t0:.1f} s")
 
@@ -2303,7 +2700,8 @@ def main():
     torch.cuda.empty_cache()
     prow = sharded_rows_path(dev)
     print(f"[sharded fr] done in {time.perf_counter() - t1:.1f} s")
-    p5m, tm5m, split5m, sweep5m, peak5m = sharded_5m(dev, gpu)
+    p5m, tm5m, split5m, (sweep5m, sweep5m_simt), peak5m = sharded_5m(dev,
+                                                                     gpu)
     print(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
 
     sel_err, app_err, launches, tm = record["bench"]
@@ -2343,27 +2741,64 @@ def main():
     big = BATCHES[1]
 
     kernels = [
-        entry("select_argmax", 127, launches["select"]
-              + paths["mp"]["select"] + tl["2c"]["select"],
-              max(sel_err, gerr["select_signed"], terr["select_masked"]),
+        # the top-1 select's tensor-core variant: ms is the event time per
+        # call through the wrapper (one rounding launch and the sweep),
+        # device_ms the profiler's time of its kernels, earlier_ms the
+        # CUDA-core variant on the same bf16 inputs
+        entry("select_argmax_mma", 127, launches["select_mma"]
+              + paths["mp"]["select_mma"] + tl["2c"]["select_mma"],
+              max(sel_err["select_mma"], gerr["select_signed"],
+                  terr["select_masked"], merr["select_mma"],
+                  merr["select_masked_mma"]),
               tm["select"], tm["plain_select"], select_bound(B, n, m),
+              source=f"{csrc}/select_argmax.cu",
               also_replaces=[f"{fs_line}:332", f"{fs_line}:874",
                              f"{ts_line}:1052"],
-              paths={"omp_batch": launches["select"],
-                     "mp_batch": paths["mp"]["select"],
-                     "ompr_batch": tl["2c"]["select"]},
+              main_loop=f"{csrc}/mma_select.cuh",
+              paths={"omp_batch": launches["select_mma"],
+                     "omp_batch 5b": record["5b"][2]["select_mma"],
+                     "mp_batch": paths["mp"]["select_mma"],
+                     "ompr_batch": tl["2c"]["select_mma"]},
               # the yardstick beside it: torch.matmul of the scores alone
               library_ms=tm["select_gemm"],
+              device_ms=tm["select_device"],
+              earlier_ms=tm["select_simt"],
               signed_ms=gtm["select_signed"],
+              signed_device_ms=gtm["select_signed_device"],
+              signed_earlier_ms=gtm["select_signed_simt"],
               plain_signed_ms=gtm["plain_select_signed"],
               signed_bound_ms=select_bound(B, n, m, outs=1.5)["bound_ms"],
-              masked_ms=tkern["select_masked"],
+              masked_ms=tplain["select_masked_call"],
+              masked_device_ms=tkern["select_masked"],
+              masked_earlier_ms=tplain["select_masked_simt"],
               plain_masked_ms=tplain["select_masked"],
               masked_bound_ms=select_bound(B, n, m,
                                            masked=True)["bound_ms"],
               m131072_ms=tm5b["select"],
+              m131072_device_ms=tm5b["select_device"],
+              m131072_device_ms_by_rows=tm5b["select_device_by_rows"],
+              device_ms_by_rows=tm["select_device_by_rows"],
+              m131072_earlier_ms=tm5b["select_simt"],
               m131072_plain_ms=tm5b["plain_select"],
               m131072_library_ms=tm5b["select_gemm"],
+              m131072_bound_ms=select_bound(B, n, CELLS[1][3])["bound_ms"]),
+        # its CUDA-core variant: the f32-correlation path runs it; ms is its
+        # time on the bench's bf16 inputs, f32_ms on the f32 dictionary
+        entry("select_argmax", 127, f32_launches["select"],
+              max(sel_err["select"], gerr["select_signed_simt"],
+                  terr["select_masked_simt"], merr["select"],
+                  merr["select_masked"]),
+              tm["select_simt"], tm["plain_select"], select_bound(B, n, m),
+              also_replaces=[f"{fs_line}:332", f"{fs_line}:874",
+                             f"{ts_line}:1052"],
+              paths={"omp_batch precision=f32": f32_launches["select"]},
+              library_ms=tm["select_gemm"],
+              f32_ms=tm["select_f32"],
+              f32_bound_ms=select_bound(B, n, m, cdt_bytes=4)["bound_ms"],
+              signed_ms=gtm["select_signed_simt"],
+              masked_ms=tplain["select_masked_simt"],
+              m131072_ms=tm5b["select_simt"],
+              m131072_f32_ms=tm5b["select_f32"],
               m131072_bound_ms=select_bound(B, n, CELLS[1][3])["bound_ms"]),
         entry("omp_append", 127, launches["append"], app_err, tm["append"],
               tm["plain_append"], engine_bound(B, k, n, appends=1),
@@ -2512,23 +2947,45 @@ def main():
         return sum(got[nm]["ms"] for nm in names) / got[names[0]]["launches"]
 
     top1_paths = {**omp5c, **omp5m,
-                  "mp_sharded_fused 5c": ol["mp"]["select_stream"]}
+                  "mp_sharded_fused 5c": ol["mp"]["select_stream_mma"]}
+    mma_loop = f"{csrc}/mma_select.cuh"
+    sweep_kernels = ("top1_mma", "round_rows", "stream_finish")
     topl_paths = {f"{name}_sharded_fused 5c": ol[name]["select_topl_stream"]
                   for name in ("gomp", "ompr", "sp")}
     kernels += [
-        entry("select_stream", f"{TPU_SELECT}:88", sum(top1_paths.values()),
-              xerr["select_stream"], xper[("select_stream", whole)],
+        # the tensor-core sweeps: ms per call by events, device_ms the
+        # profiler's time of a select's three kernels, earlier_ms the
+        # CUDA-core sweep on the same inputs
+        entry("select_stream_mma", f"{TPU_SELECT}:88",
+              sum(top1_paths.values()),
+              max(xerr["select_stream_mma"], merr["select_stream_mma"]),
+              xper[("select_stream", whole)],
               xper[("plain_select_stream", whole)],
               stream_bound(B5, n5, whole), source=stream_src,
-              paths=top1_paths,
-              device_ms=device_ms(xsplit, "5c omp s=1 fuse=1", "stream_sweep",
-                                  "stream_finish"),
+              main_loop=mma_loop, paths=top1_paths,
+              device_ms=xper[("select_stream device", whole)],
+              path_device_ms=device_ms(xsplit, "5c omp s=1 fuse=1",
+                                       *sweep_kernels),
+              earlier_ms=xper[("select_stream simt", whole)],
               shard_ms=xper[("select_stream", part)],
+              shard_device_ms=xper[("select_stream device", part)],
+              shard_earlier_ms=xper[("select_stream simt", part)],
               shard_plain_ms=xper[("plain_select_stream", part)],
               shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
               m5_ms=sweep5m,
+              m5_earlier_ms=sweep5m_simt,
               m5_device_ms=device_ms(split5m, "5m omp s=1 fuse=1",
-                                     "stream_sweep", "stream_finish"),
+                                     *sweep_kernels),
+              m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"]),
+        entry("select_stream", f"{TPU_SELECT}:88", pf32["omp"],
+              max(xerr["select_stream"], merr["select_stream"]),
+              xper[("select_stream simt", whole)],
+              xper[("plain_select_stream", whole)],
+              stream_bound(B5, n5, whole), source=stream_src,
+              paths={"omp_sharded_fused 5c corr_dtype=f32": pf32["omp"]},
+              shard_ms=xper[("select_stream simt", part)],
+              shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
+              m5_ms=sweep5m_simt,
               m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"]),
         entry("select_topl_stream", f"{TPU_SELECT}:187",
               sum(topl_paths.values()), xerr["select_topl_stream"],
@@ -2548,25 +3005,54 @@ def main():
                                        whole)],
               whole_l32_bound_ms=stream_bound(B5, n5, whole,
                                               l=32)["bound_ms"]),
-        entry("select_masked_stream", f"{TPU_SELECT}:385",
-              ol["ompr"]["select_masked_stream"],
-              xerr["select_masked_stream"],
+        entry("select_masked_stream_mma", f"{TPU_SELECT}:385",
+              ol["ompr"]["select_masked_stream_mma"],
+              max(xerr["select_masked_stream_mma"],
+                  merr["select_masked_stream_mma"]),
               xper[("select_masked_stream", part)],
               xper[("plain_select_masked_stream", part)],
               stream_bound(B5, n5, part, masked=True), source=stream_src,
+              main_loop=mma_loop,
               paths={"ompr_sharded_fused 5c":
-                     ol["ompr"]["select_masked_stream"]},
+                     ol["ompr"]["select_masked_stream_mma"]},
+              device_ms=xper[("select_masked_stream device", part)],
+              earlier_ms=xper[("select_masked_stream simt", part)],
               whole_ms=xper[("select_masked_stream", whole)],
+              whole_device_ms=xper[("select_masked_stream device", whole)],
+              whole_earlier_ms=xper[("select_masked_stream simt", whole)],
               whole_plain_ms=xper[("plain_select_masked_stream", whole)],
               whole_bound_ms=stream_bound(B5, n5, whole,
                                           masked=True)["bound_ms"]),
-        entry("corr_argmax", f"{TPU_ARGMAX}:86", k10_launches,
-              xerr["corr_argmax"], xper[("corr_argmax", whole)],
+        entry("select_masked_stream", f"{TPU_SELECT}:385", pf32["ompr"],
+              max(xerr["select_masked_stream"],
+                  merr["select_masked_stream"]),
+              xper[("select_masked_stream simt", part)],
+              xper[("plain_select_masked_stream", part)],
+              stream_bound(B5, n5, part, masked=True), source=stream_src,
+              paths={"ompr_sharded_fused 5c corr_dtype=f32": pf32["ompr"]},
+              whole_ms=xper[("select_masked_stream simt", whole)],
+              whole_bound_ms=stream_bound(B5, n5, whole,
+                                          masked=True)["bound_ms"]),
+        entry("corr_argmax_mma", f"{TPU_ARGMAX}:86", k10_launches,
+              max(xerr["corr_argmax_mma"], merr["corr_argmax_mma"]),
+              xper[("corr_argmax", whole)],
               xper[("plain_corr_argmax", whole)],
               stream_bound(B5, n5, whole), source=stream_src,
+              main_loop=mma_loop,
               paths={"correlate_argmax 5c": k10_launches},
+              device_ms=xper[("corr_argmax device", whole)],
+              earlier_ms=xper[("corr_argmax simt", whole)],
               shard_ms=xper[("corr_argmax", part)],
+              shard_device_ms=xper[("corr_argmax device", part)],
+              shard_earlier_ms=xper[("corr_argmax simt", part)],
               shard_plain_ms=xper[("plain_corr_argmax", part)]),
+        entry("corr_argmax", f"{TPU_ARGMAX}:86", pf32["corr_argmax"],
+              max(xerr["corr_argmax"], merr["corr_argmax"]),
+              xper[("corr_argmax simt", whole)],
+              xper[("plain_corr_argmax", whole)],
+              stream_bound(B5, n5, whole), source=stream_src,
+              paths={"correlate_argmax 5c f32": pf32["corr_argmax"]},
+              shard_ms=xper[("corr_argmax simt", part)]),
     ]
     # fr_step_select: as the streaming selects, at B=8, bf16, the whole 5c
     # width without V; the shard's width and the V variant beside it

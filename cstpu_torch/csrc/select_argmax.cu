@@ -21,25 +21,45 @@
 // What bounds it on an H100 (sizes computed from the shapes): per step it
 // reads the cdt dictionary (16 MB in bf16 at n=1024, m=8192; it stays in
 // the 50 MB L2 across steps) and does B*n*m multiply-adds (0.54 G at
-// B=64). At about 64 FLOP per dictionary byte it would be bandwidth-bound
-// on tensor cores; on CUDA cores, as here, the multiply-adds bound it.
+// B=64). At about 64 FLOP per dictionary byte the bytes bound it on the
+// tensor cores; on CUDA cores the multiply-adds do.
 //
-// Design: one thread per atom column, kTile atoms per block, RB rows per
-// block. Threads of a warp read neighbouring atoms of one dictionary row,
-// so loads of A coalesce; the block's rows of r sit in shared memory,
-// rounded to cdt, and every thread reads them as broadcast float4s. The
-// epilogue reduces the block's kTile x RB scores to one (max, argmax) per
-// row, so the (B, m) score matrix never reaches device memory; it writes
-// partials (B, T), T = ceil(m / kTile), which the append kernel reduces.
-// Any n and m: the ragged atom edge is masked (score -inf, index INT_MAX).
-// The signed variant carries the winner's signed score through the same
-// reduction (argmax_combine with a payload), so the winners, and OMP's
-// outputs, are the same with and without it. The masked variant is its
-// own instantiation, so OMP's and MP's code is unchanged by it.
-// Later work: mma/wgmma tiles and TMA loads in place of the FMA loop.
+// Two hand-written variants; the Python wrapper picks one by a predicate on
+// dtype, alignment and pitch and passes it as `use_mma`:
+//
+//   tensor cores (bf16 correlation): mma_select.cuh, whose note holds the
+//     design: wgmma on 64-atom halves of the tile with the rows of r as N, a
+//     TMA-fed ring of shared-memory stages, the argmax taken across the
+//     accumulator fragments. The dictionary is read once per select for
+//     B <= 64 (the bench's B = 64 is split in two row chunks of 32 so that
+//     128 blocks share the card; the second read comes from the L2).
+//   CUDA cores (f32 correlation, and what the tensor-core loop does not
+//     take): one thread per atom column, kTile atoms per block, kRows rows
+//     per block. Threads of a warp read neighbouring atoms of one
+//     dictionary row, so loads of A coalesce; the block's rows of r sit in
+//     shared memory, rounded to cdt, and every thread reads them as
+//     broadcast float4s. The multiply-adds bound this one.
+//
+// Either epilogue reduces the block's kTile x rows scores to one (max,
+// argmax) per row, so the (B, m) score matrix never reaches device memory;
+// it writes partials (B, T), T = ceil(m / kTile), which the append kernel
+// reduces. Any n and m: the ragged atom edge is masked (score -inf, index
+// INT_MAX). The signed variant carries the winner's signed score through
+// the same reduction (argmax_combine with a payload), so the winners, and
+// OMP's outputs, are the same with and without it. The masked variant is
+// its own instantiation, so OMP's and MP's code is unchanged by it.
+//
+// This file also defines the host side that both tensor-core selects share
+// (mma_select.cuh declares it): the rounding of r, the tensor maps and
+// their cache, the row split and the shape predicate.
 #include <cstdint>
+#include <cstring>
+#include <mutex>
+
+#include <dlfcn.h>
 
 #include "common.cuh"
+#include "mma_select.cuh"
 
 namespace cstpu {
 
@@ -125,6 +145,112 @@ void launch_select(const float* r, const void* A, float* pval, int* pidx,
   }
 }
 
+namespace mma {
+
+__global__ void round_rows_kernel(const float* __restrict__ r, size_t ldr,
+                                  size_t ldp, __nv_bfloat16* __restrict__ rb,
+                                  int B, int n, int n8) {
+  const size_t total = (size_t)B * n8;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = e / n8, p = e % n8;
+    rb[e] = __float2bfloat16_rn(p < (size_t)n ? r[b * ldr + p * ldp] : 0.f);
+  }
+}
+
+cudaError_t round_rows(const float* r, size_t ldr, size_t ldp,
+                       __nv_bfloat16* rb, int B, int n, int n8,
+                       cudaStream_t s) {
+  const size_t total = (size_t)B * n8;
+  const size_t want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 1024 ? want : 1024);
+  round_rows_kernel<<<blocks, 256, 0, s>>>(r, ldr, ldp, rb, B, n, n8);
+  return cudaGetLastError();
+}
+
+int rows_per_block(int B, int ntiles) {
+  int nb = 8;
+  while (nb < kMaxRows && nb < B) nb *= 2;
+  while (nb > 16 && (long long)ntiles * ((B + nb - 1) / nb) * 2 <= kSMs) {
+    nb /= 2;
+  }
+  return nb;
+}
+
+bool takes(const void* A, long long lda, int B, int n, int m) {
+  return B >= 1 && n >= 1 && m >= 1 && lda >= m && lda % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(A) % 16 == 0;
+}
+
+namespace {
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched from libcuda, which the CUDA runtime has
+// already loaded, so the build links nothing but the runtime.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+struct MapKey {
+  const void* base;
+  uint64_t cols, rows, pitch;
+  uint64_t box_rows;
+};
+
+struct MapSlot {
+  bool used = false;
+  MapKey key{};
+  CUtensorMap map{};
+};
+
+constexpr int kMapSlots = 64;
+std::mutex map_mutex;
+MapSlot map_cache[kMapSlots];
+
+}  // namespace
+
+cudaError_t tensor_map(CUtensorMap* out, const void* base, uint64_t cols,
+                       uint64_t rows, uint64_t pitch, uint32_t box_rows) {
+  const MapKey key{base, cols, rows, pitch, box_rows};
+  const uint64_t h =
+      (reinterpret_cast<uintptr_t>(base) >> 8) * 0x9E3779B97F4A7C15ull +
+      cols * 31 + rows * 131 + pitch * 8191 + box_rows;
+  std::lock_guard<std::mutex> lock(map_mutex);
+  MapSlot& slot = map_cache[(h >> 32) % kMapSlots];
+  if (!slot.used || std::memcmp(&slot.key, &key, sizeof(key)) != 0) {
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorInvalidValue;
+    const cuuint64_t dims[2] = {cols, rows};
+    const cuuint64_t strides[1] = {pitch * sizeof(__nv_bfloat16)};
+    const cuuint32_t box[2] = {kHalf, box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    slot.used = false;
+    const CUresult res = encode(
+        &slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+        const_cast<void*>(base), dims, strides, box, elem,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    slot.key = key;
+    slot.used = true;
+  }
+  *out = slot.map;
+  return cudaSuccess;
+}
+
+}  // namespace mma
+
 }  // namespace cstpu
 
 // r (B, n) f32, A (n, m) in cdt (bf16 if cdt_bf16 else f32), all
@@ -132,15 +258,38 @@ void launch_select(const float* r, const void* A, float* pval, int* pidx,
 // ntiles = ceil(m / kTile), and, when psig is not null, the winners'
 // signed scores psig (B, ntiles) f32. When amask (B, m) u8 is not null
 // (and psig is), atoms with amask != 0 score -inf and the others
-// |eta * score|. Returns the launch's cudaError_t.
+// |eta * score|. With use_mma the tensor-core loop runs, with rb
+// (B, roundup(n, 8)) bf16 as its scratch for the rounded r; it takes bf16
+// only, A aligned to 16 bytes and m a multiple of 8, and the call returns
+// cudaErrorInvalidValue otherwise. Returns the launch's cudaError_t.
 extern "C" int cstpu_select_argmax(const float* r, const void* A,
                                    int cdt_bf16, float* pval, int* pidx,
                                    float* psig, const uint8_t* amask,
                                    float eta, int B, int n, int m,
-                                   void* stream) {
+                                   int use_mma, void* rb, void* stream) {
   using namespace cstpu;
   if (psig && amask) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!cdt_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    const int ntiles = (m + kTile - 1) / kTile;
+    __nv_bfloat16* rbf = static_cast<__nv_bfloat16*>(rb);
+    cudaError_t err;
+    if (psig) {
+      err = mma::launch_top1<mma::kSigned>(r, n, 1, rbf, A, m, pval, pidx,
+                                           psig, nullptr, nullptr, 1.f, B, n,
+                                           m, ntiles, s);
+    } else if (amask) {
+      err = mma::launch_top1<mma::kMasked>(r, n, 1, rbf, A, m, pval, pidx,
+                                           nullptr, amask, nullptr, eta, B, n,
+                                           m, ntiles, s);
+    } else {
+      err = mma::launch_top1<mma::kAbs>(r, n, 1, rbf, A, m, pval, pidx,
+                                        nullptr, nullptr, nullptr, 1.f, B, n,
+                                        m, ntiles, s);
+    }
+    return static_cast<int>(err);
+  }
   if (cdt_bf16) {
     launch_select<__nv_bfloat16>(r, A, pval, pidx, psig, amask, eta, B, n, m,
                                  s);

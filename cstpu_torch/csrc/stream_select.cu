@@ -12,9 +12,14 @@
 // finishing stage that folds them under the TPU kernel's rule.
 //
 // Math: scores = |round_cdt(R) . A_cdt| (+ M in f32), products and sums in
-// f32 on CUDA cores (no TF32), each atom's sum in the order p = 0 .. n-1
-// (common.cuh::score_tile): an atom scores the same whatever the shard it
-// lies in, so merged selections do not depend on the shard count.
+// f32 (no TF32). The top-1 sweeps have two hand-written variants, chosen
+// by the Python wrapper's predicate and passed as `use_mma`: for bf16
+// correlation the tensor-core loop of mma_select.cuh, the one
+// select_argmax.cu runs, and otherwise the CUDA-core loop
+// common.cuh::score_tile (each atom's sum in the order p = 0 .. n-1), which
+// the top-l sweep keeps as well. In either loop an atom scores the same
+// whatever the shard it lies in, so merged selections do not depend on the
+// shard count.
 //
 // The rules of the finishing stages. The TPU kernels' tile is `bpt` sweep
 // blocks wide (the wrapper computes it from `_stream_tile` or `_pick_tile`);
@@ -34,15 +39,16 @@
 // What bounds it on an H100: a sweep reads the cdt shard once (256 MB in
 // bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and does 2 B n m
 // operations; at B=8 that is 8 FLOP per byte, so the bytes bound it. The
-// sweep here is the CUDA-core loop of select_argmax.cu, which computes
-// kRows = 16 rows whatever B is, so at B=8 half its multiply-adds are
-// spent on padding and it runs over its byte bound. The partials are
+// tensor-core sweep fits its row count to B (N = 8 there) and streams the
+// shard through a TMA-fed ring; the CUDA-core sweep computes kRows = 16
+// rows whatever B is, so at B=8 half its multiply-adds are spent on
+// padding and it runs over its byte bound. The partials are
 // (B, m / kTile) pairs, 64 KB at that size; the finishing stage is one
-// block (top-1) or one warp (top-l) per row. Later work: tensor-core tiles
-// and a row count fitted to B.
+// block (top-1) or one warp (top-l) per row.
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma_select.cuh"
 
 namespace cstpu {
 
@@ -311,22 +317,42 @@ void launch_sweep(const float* r, size_t ldr, size_t ldp, const void* A,
 // and bpt sweep blocks make one tile of the NaN rule. Scratch pval (B,
 // m / kTile) f32 and pidx i32; writes val (B,) f32 and idx (B,) i32. With
 // nan_visible a NaN score makes val NaN (K10's rule), else its tile is
-// skipped (K6's and K9's). Returns the first launch error.
+// skipped (K6's and K9's). With use_mma the sweep is the tensor-core one,
+// with rb (B, roundup(n, 8)) bf16 as its scratch for the rounded r; it
+// takes bf16 only, A aligned to 16 bytes and lda a multiple of 8, and the
+// call returns cudaErrorInvalidValue otherwise. Returns the first launch
+// error.
 extern "C" int cstpu_stream_select(const float* r, long long ldr,
                                    long long ldp, const void* A,
                                    long long lda, int cdt_bf16,
                                    const float* M, float* pval, int* pidx,
                                    float* val, int* idx, int B, int n, int m,
-                                   int bpt, int nan_visible, void* stream) {
+                                   int bpt, int nan_visible, int use_mma,
+                                   void* rb, void* stream) {
   using namespace cstpu;
   if (!stream_tiling_ok(m, bpt) || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cdt_bf16) {
-    launch_sweep<__nv_bfloat16>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
+  cudaError_t err;
+  if (use_mma) {
+    if (!cdt_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    __nv_bfloat16* rbf = static_cast<__nv_bfloat16*>(rb);
+    if (M) {
+      err = mma::launch_top1<mma::kAddMask>(r, ldr, ldp, rbf, A, lda, pval,
+                                            pidx, nullptr, nullptr, M, 1.f, B,
+                                            n, m, m / kTile, s);
+    } else {
+      err = mma::launch_top1<mma::kAbs>(r, ldr, ldp, rbf, A, lda, pval, pidx,
+                                        nullptr, nullptr, nullptr, 1.f, B, n,
+                                        m, m / kTile, s);
+    }
   } else {
-    launch_sweep<float>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
+    if (cdt_bf16) {
+      launch_sweep<__nv_bfloat16>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
+    } else {
+      launch_sweep<float>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
+    }
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_stream_finish(pval, pidx, B, m / kTile, bpt,
                                               nan_visible, val, idx, s));

@@ -25,6 +25,8 @@ LIB = BUILD / "libcstpu_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# the tensor-core selects fetch libcuda's tensor-map encoder with dlopen
+LINK_LIBS = ["-ldl"]
 # where nvcc is looked for after $CUDA_HOME/bin and $PATH
 NVCC_CANDIDATES = ["/usr/local/cuda/bin/nvcc"]
 
@@ -34,8 +36,9 @@ _L = ctypes.c_longlong
 _ENG = [_P] * 9
 _SIGNATURES = {
     # r, A, cdt_bf16, pval, pidx, psig (nullable), amask (nullable), eta,
-    # B, n, m, stream
-    "cstpu_select_argmax": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _P],
+    # B, n, m, use_mma, rb (nullable), stream
+    "cstpu_select_argmax": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                            _P, _P],
     # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r,
     # out_idx, out_coef, B, n, m, k, t, rtol, stream
     "cstpu_omp_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -91,9 +94,9 @@ _SIGNATURES = {
     # G, g, gcol, sc, B, m, stream
     "cstpu_bw_downdate": [_P, _P, _P, _P, _I, _I, _P],
     # r, ldr, ldp, A, lda, cdt_bf16, M (nullable), pval, pidx, val, idx, B,
-    # n, m, bpt, nan_visible, stream
+    # n, m, bpt, nan_visible, use_mma, rb (nullable), stream
     "cstpu_stream_select": [_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _P, _P],
     # r, A, lda, cdt_bf16, pval, pidx, val, idx, B, n, m, l, bpt, stream
     "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
@@ -161,7 +164,7 @@ def build() -> tuple[float, str]:
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                         for src, obj in zip(sources(), objs)])
         log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
-                          *map(str, objs)]])
+                          *map(str, objs), *LINK_LIBS]])
     except RuntimeError:
         tmp.unlink(missing_ok=True)
         raise

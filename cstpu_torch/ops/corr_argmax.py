@@ -17,7 +17,9 @@ selection.
 On CUDA tensors this launches csrc/stream_select.cu (the sweep reads R with
 its own strides, so an (n, B) tensor is not transposed into a copy; the
 finishing stage applies the rule above) and counts one under
-`fused_solve.LAUNCHES["corr_argmax"]`. On CPU tensors, and only there, it
+`fused_solve.LAUNCHES["corr_argmax_mma"]` when the sweep is the tensor-core
+variant (a bf16 dictionary that `fused_solve.mma_select_takes`), else under
+`LAUNCHES["corr_argmax"]`. On CPU tensors, and only there, it
 runs the plain twin `correlate_argmax_ref`. Of cstpu's limits the port
 keeps m's 128-multiple tile, which defines the NaN rule; the TPU's VMEM
 budget on n * tile is dropped (`supported` answers without it).
@@ -31,7 +33,7 @@ from cstpu_torch.ops.fused_solve import _CDTS, LAUNCHES, TILE, _on_cpu
 from cstpu_torch.ops.stream_select import (
     _abs_scores, _fold_top1, _launch_top1)
 
-LAUNCHES.update(corr_argmax=0)
+LAUNCHES.update(corr_argmax=0, corr_argmax_mma=0)
 
 
 def _pick_tile(m: int, target: int = 512) -> int:
@@ -75,10 +77,11 @@ def correlate_argmax_ref(A, r):
     return (idx[0], val[0]) if single else (idx, val)
 
 
-def correlate_argmax(A, r):
+def correlate_argmax(A, r, mma=None):
     """Fused |A' r| + argmax. `r` is (n,) or (n, B). Returns (idx, val) as
     0-d tensors for a single residual or (B,) i32 and f32 tensors for a
-    batch. m must have a 128-multiple divisor tile (see `supported`)."""
+    batch. m must have a 128-multiple divisor tile (see `supported`).
+    `mma` = True or False forces a kernel variant."""
     if _on_cpu(A, r):
         return correlate_argmax_ref(A, r)
     R, single = _as_columns(A, r)
@@ -91,5 +94,5 @@ def correlate_argmax(A, r):
     R = R.float()
     val, idx = _launch_top1(A, R, R.stride(1), R.stride(0), R.shape[1], None,
                             _pick_tile(A.shape[1]) // TILE, True,
-                            "corr_argmax")
+                            "corr_argmax", mma)
     return (idx[0], val[0]) if single else (idx, val)

@@ -62,9 +62,12 @@ LMAX = 32              # most GOMP picks per iteration (kTopLMax)
 SMEM_MAX = 232448      # bytes of shared memory one sm_90 block may use
 L2_BYTES = 40 << 20    # cdt dictionary size kept resident in the 50 MB L2
 
-# Kernel launches made by the wrappers below, by kernel.
-LAUNCHES = {"select": 0, "append": 0, "mp_update": 0, "select_topl": 0,
-            "gomp_append": 0, "fr_select": 0, "fr_append": 0}
+# Kernel launches made by the wrappers below, by kernel. A top-1 select has
+# two hand-written variants with a key each: "select_mma" counts the
+# tensor-core loop, "select" the CUDA-core one (see `mma_select_takes`).
+LAUNCHES = {"select": 0, "select_mma": 0, "append": 0, "mp_update": 0,
+            "select_topl": 0, "gomp_append": 0, "fr_select": 0,
+            "fr_append": 0}
 
 
 def _degeneracy_rtol(n: int) -> float:
@@ -191,13 +194,46 @@ def _select_ref(r, Ac, cdt, signed: bool = False, amask=None,
     return tmax, tidx, torch.where(torch.isnan(tmax), torch.nan, sig)
 
 
-def select_argmax(r, Ac, signed: bool = False, amask=None, eta: float = 1.0):
+def mma_select_takes(dtype, data_ptr: int, lda: int, m: int) -> bool:
+    """The variant predicate of the top-1 selects: True when the tensor-core
+    loop (csrc/mma_select.cuh) takes a dictionary of `dtype` at address
+    `data_ptr` with m atoms and rows `lda` entries apart. It takes bf16
+    correlation only (f32 stays true f32 on CUDA cores), and its loads need
+    a base aligned to 16 bytes and a row pitch that is a multiple of 16
+    bytes (8 entries). Any n, any B and a ragged m are fine: the loads
+    zero-fill the edges. What it does not take goes to the CUDA-core
+    kernel, never to the plain twin."""
+    return (dtype == torch.bfloat16 and data_ptr % 16 == 0 and lda % 8 == 0
+            and lda >= m >= 1)
+
+
+def _pick_mma(mma, Ac) -> bool:
+    """The variant a top-1 select runs on the dictionary (view) Ac: the
+    predicate's answer, or the caller's `mma` (True or False) when it
+    forces one; forcing the tensor-core loop on what it does not take
+    makes the C entry point return an error."""
+    if mma is None:
+        return mma_select_takes(Ac.dtype, Ac.data_ptr(), Ac.stride(0),
+                                Ac.shape[1])
+    return bool(mma)
+
+
+def _rounded_scratch(B: int, n: int, dev):
+    """The tensor-core loop's scratch for the bf16-rounded residuals,
+    (B, roundup(n, 8)); the kernel fills it."""
+    return torch.empty((B, -(-n // 8) * 8), dtype=torch.bfloat16, device=dev)
+
+
+def select_argmax(r, Ac, signed: bool = False, amask=None, eta: float = 1.0,
+                  mma=None):
     """Per-tile select partials for residuals r (B, n) f32 against the
     dictionary Ac (n, m) in its correlation dtype: (pval (B, T) f32,
     pidx (B, T) i32), T = ceil(m / TILE), and with `signed` the winners'
     signed scores psig (B, T) f32. With amask (B, m) u8 the active atoms
     score -inf and the others |eta * score| (OMPR). On CUDA tensors this
-    launches csrc/select_argmax.cu."""
+    launches csrc/select_argmax.cu: its tensor-core variant where
+    `mma_select_takes` says so (counted under "select_mma"), else its
+    CUDA-core variant ("select"); `mma` = True or False forces one."""
     if _on_cpu(r, Ac, amask):
         return _select_ref(r, Ac, Ac.dtype, signed, amask, eta)
     B, n = r.shape
@@ -213,6 +249,8 @@ def select_argmax(r, Ac, signed: bool = False, amask=None, eta: float = 1.0):
     pval = torch.empty((B, T), dtype=torch.float32, device=r.device)
     pidx = torch.empty((B, T), dtype=torch.int32, device=r.device)
     psig = torch.empty_like(pval) if signed else None
+    use_mma = _pick_mma(mma, Ac)
+    rb = _rounded_scratch(B, n, r.device) if use_mma else None
     lib = _build.load()
     with torch.cuda.device(r.device):
         err = lib.cstpu_select_argmax(
@@ -220,9 +258,10 @@ def select_argmax(r, Ac, signed: bool = False, amask=None, eta: float = 1.0):
             pval.data_ptr(), pidx.data_ptr(),
             psig.data_ptr() if signed else None,
             None if amask is None else amask.data_ptr(), float(eta), B, n,
-            m, _stream())
+            m, int(use_mma), None if rb is None else rb.data_ptr(),
+            _stream())
     _build.check(err, "cstpu_select_argmax")
-    LAUNCHES["select"] += 1
+    LAUNCHES["select_mma" if use_mma else "select"] += 1
     return (pval, pidx, psig) if signed else (pval, pidx)
 
 

@@ -38,10 +38,14 @@ On CUDA tensors each function launches csrc/stream_select.cu, or
 csrc/fr_step_select.cu for `fr_step_select` (a sweep that writes partials
 per row and per 128 atoms, then a finishing stage that folds them under the
 rule above: two launches per select) and counts one in
-`fused_solve.LAUNCHES`. On CPU tensors, and only there, it runs its
-plain twin (`*_ref`), which reproduces the rule tile by tile in torch
-operations. Products and sums are f32 whatever the dtype of R; the scores
-of the two differ by the order of the sums (~1e-6 relative).
+`fused_solve.LAUNCHES`. The two top-1 sweeps have a tensor-core variant for
+a bf16 shard (csrc/mma_select.cuh; counted under "select_stream_mma" and
+"select_masked_stream_mma") and a CUDA-core variant for f32 correlation and
+for what the first does not take (`fused_solve.mma_select_takes`). On CPU
+tensors, and only there, it runs its plain twin (`*_ref`), which reproduces
+the rule tile by tile in torch operations. Products and sums are f32
+whatever the dtype of R; the scores of the two differ by the order of the
+sums (~1e-6 relative).
 
 What stays of cstpu's shape limits: m must be a multiple of 128 with a
 tile inside the 8 MB budget (`_stream_tile` > 0), because the tile defines
@@ -57,10 +61,14 @@ import torch
 
 from cstpu_torch.ops import _build
 from cstpu_torch.ops.fused_solve import (
-    _CDTS, INT_MAX, LAUNCHES, TILE, _f32, _on_cpu, _stream)
+    _CDTS, INT_MAX, LAUNCHES, TILE, _f32, _on_cpu, _pick_mma,
+    _rounded_scratch, _stream)
 
-LAUNCHES.update(select_stream=0, select_topl_stream=0,
-                select_masked_stream=0, fr_step_select=0)
+# the top-1 selects count their tensor-core variant under "<name>_mma" and
+# their CUDA-core variant under "<name>" (fused_solve.mma_select_takes)
+LAUNCHES.update(select_stream=0, select_stream_mma=0, select_topl_stream=0,
+                select_masked_stream=0, select_masked_stream_mma=0,
+                fr_step_select=0)
 
 STREAM_TILE_BYTES = 8 * 1024 * 1024
 STREAM_LMAX = TILE     # most slots of the top-l kernel (kStreamTopLMax)
@@ -166,15 +174,20 @@ def _check_shard(A, R, name: str):
 
 
 def _launch_top1(A, R, ldr: int, ldp: int, B: int, M, bpt: int,
-                 nan_visible: bool, count: str):
+                 nan_visible: bool, count: str, mma=None):
     """Sweep and finish one top-1 select on the card; R's entry (b, p) lies
-    at R.data_ptr() + 4 (b ldr + p ldp)."""
+    at R.data_ptr() + 4 (b ldr + p ldp). The sweep is the tensor-core
+    variant where `mma_select_takes` says so, counted under `count` +
+    "_mma", else the CUDA-core one, counted under `count`; `mma` = True or
+    False forces one."""
     n, m = A.shape
     dev = A.device
     pval = torch.empty((B, m // TILE), dtype=torch.float32, device=dev)
     pidx = torch.empty((B, m // TILE), dtype=torch.int32, device=dev)
     val = torch.empty((B,), dtype=torch.float32, device=dev)
     idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    use_mma = _pick_mma(mma, A)
+    rb = _rounded_scratch(B, n, dev) if use_mma else None
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.cstpu_stream_select(
@@ -182,9 +195,10 @@ def _launch_top1(A, R, ldr: int, ldp: int, B: int, M, bpt: int,
             int(A.dtype == torch.bfloat16),
             None if M is None else M.data_ptr(), pval.data_ptr(),
             pidx.data_ptr(), val.data_ptr(), idx.data_ptr(), B, n, m, bpt,
-            int(nan_visible), _stream())
+            int(nan_visible), int(use_mma),
+            None if rb is None else rb.data_ptr(), _stream())
     _build.check(err, "cstpu_stream_select")
-    LAUNCHES[count] += 1
+    LAUNCHES[count + "_mma" if use_mma else count] += 1
     return val, idx
 
 
@@ -195,16 +209,17 @@ def correlate_select_stream_ref(A, R):
                       _tile_of(A, "correlate_select_stream"))
 
 
-def correlate_select_stream(A, R):
+def correlate_select_stream(A, R, mma=None):
     """One selection sweep of A (n, m; pre-cast to the correlation dtype)
-    against residuals R (B, n). Returns (val (B,) f32, idx (B,) i32)."""
+    against residuals R (B, n). Returns (val (B,) f32, idx (B,) i32).
+    `mma` forces a kernel variant (see `_launch_top1`)."""
     if _on_cpu(A, R):
         return correlate_select_stream_ref(A, R)
     B, n, m = _check_shard(A, R, "correlate_select_stream")
     tm = _tile_of(A, "correlate_select_stream")
     R = R.float().contiguous()
     return _launch_top1(A, R, n, 1, B, None, tm // TILE, False,
-                        "select_stream")
+                        "select_stream", mma)
 
 
 def correlate_select_masked_stream_ref(A, R, M):
@@ -215,11 +230,11 @@ def correlate_select_masked_stream_ref(A, R, M):
                       _tile_of(A, "correlate_select_masked_stream"))
 
 
-def correlate_select_masked_stream(A, R, M):
+def correlate_select_masked_stream(A, R, M, mma=None):
     """Masked top-1 selection sweep: scores |R A| + M, M (B, m) f32 with 0
     on eligible atoms and -inf on excluded ones, added in f32. Returns
     (val (B,) f32, idx (B,) i32); a row with every atom excluded gives
-    (-inf, 0)."""
+    (-inf, 0). `mma` forces a kernel variant (see `_launch_top1`)."""
     if _on_cpu(A, R, M):
         return correlate_select_masked_stream_ref(A, R, M)
     B, n, m = _check_shard(A, R, "correlate_select_masked_stream")
@@ -227,7 +242,7 @@ def correlate_select_masked_stream(A, R, M):
     tm = _tile_of(A, "correlate_select_masked_stream")
     R = R.float().contiguous()
     return _launch_top1(A, R, n, 1, B, M, tm // TILE, False,
-                        "select_masked_stream")
+                        "select_masked_stream", mma)
 
 
 def correlate_select_topl_stream_ref(A, R, l: int):

@@ -1,9 +1,11 @@
-"""The CUDA kernels of cstpu_torch (select_argmax, omp_append, mp_update,
+"""The CUDA kernels of cstpu_torch (select_argmax in its tensor-core and
+CUDA-core variants, omp_append, mp_update,
 select_topl, gomp_append, fr_select, fr_append, the two-stage ones:
 engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
 ones: rmp_append, engine_backward, the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
-stream_select.cu's top-1, masked top-1, top-l and (n, B) argmax, and
+stream_select.cu's top-1, masked top-1 and (n, B) argmax (each on the
+tensor-core and the CUDA-core sweep), its top-l, and
 fr_step_select.cu's rescaling update with its OLS select) against their
 plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
 device every test here skips.
@@ -48,6 +50,12 @@ def _problem(dev, B, n, m, k, seed=0):
 
 
 _reduce = fs._reduce_partials
+
+
+def _key(name, A):
+    """The launch-count key of the top-1 select `name` on the dictionary
+    (view) A: the tensor-core variant's where the predicate takes A."""
+    return name + "_mma" if fs._pick_mma(None, A) else name
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -128,7 +136,10 @@ def test_solve_matches_plain_and_recovers(dev, B, n, m, cdt):
     before = dict(fs.LAUNCHES)
     sol, r = fs.omp_fused_solve(A, Bs, k, corr_dtype=cdt)
     ref, rr = fs.omp_fused_solve_ref(A, Bs, k, corr_dtype=cdt)
-    assert fs.LAUNCHES["select"] - before["select"] == k
+    key = _key("select", A.to(cdt))
+    assert key == ("select_mma" if cdt == torch.bfloat16 and m % 8 == 0
+                   else "select")
+    assert fs.LAUNCHES[key] - before[key] == k
     assert fs.LAUNCHES["append"] - before["append"] == k
     assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
     torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-3)
@@ -311,7 +322,7 @@ def test_greedy_solves_match_plain_and_recover(dev, B, n, m, cdt):
         return out, {key: fs.LAUNCHES[key] - before[key] for key in before}
 
     (x, r), got = launches(lambda: fs.mp_fused_solve(A, Bs, k, cdt))
-    assert got["select"] == got["mp_update"] == k
+    assert got[_key("select", A.to(cdt))] == got["mp_update"] == k
     xr, rr = fs.mp_fused_solve_ref(A, Bs, k, cdt)
     torch.testing.assert_close(x, xr, rtol=0, atol=1e-3)
     torch.testing.assert_close(r, rr, rtol=0, atol=1e-3)
@@ -591,7 +602,8 @@ def test_twostage_solves_match_plain_and_recover(dev, B, n, m, cdt):
     solves = [(sol, ref)]
     (sol, _, it), got = launches(lambda: ft.ompr_fused_solve(
         A, Bs, k, 1e-6, corr_dtype=cdt, return_iters=True))
-    assert got == {"select_topl": 1, "engine_init": 1, "select": it,
+    assert got == {"select_topl": 1, "engine_init": 1,
+                   _key("select", A.to(cdt)): it,
                    "ompr_swap": it}, got
     solves.append((sol, ft.ompr_fused_solve_ref(A, Bs, k, 1e-6,
                                                 corr_dtype=cdt)[0]))
@@ -962,9 +974,10 @@ def test_stream_top1_and_masked_match_plain(dev, B, n, m, cdt):
     assert bool(((ki == pi) | ~clear).all())
     assert kv[B - 1] == -torch.inf and ki[B - 1] == 0
     assert bool((M[torch.arange(B - 1), ki[:B - 1].long()] == 0).all())
-    assert fs.LAUNCHES["select_stream"] - before["select_stream"] == 1
-    assert (fs.LAUNCHES["select_masked_stream"]
-            - before["select_masked_stream"]) == 1
+    k6, k9 = _key("select_stream", A), _key("select_masked_stream", A)
+    assert k6.endswith("_mma") == (cdt == torch.bfloat16)
+    assert fs.LAUNCHES[k6] - before[k6] == 1
+    assert fs.LAUNCHES[k9] - before[k9] == 1
 
 
 @pytest.mark.parametrize("B,n,m", STREAM_SIZES)
@@ -1063,7 +1076,8 @@ def test_stream_selects_read_a_column_slice_in_place(dev, cdt):
 def test_corr_argmax_matches_plain(dev, cdt):
     for B, n, m in ((8, 64, 1024), (5, 40, 640), (64, 1024, 8192)):
         A, R = _stream_inputs(dev, B, n, m, cdt, seed=4)
-        before = fs.LAUNCHES["corr_argmax"]
+        key = _key("corr_argmax", A)
+        before = fs.LAUNCHES[key]
         ki, kv = ca.correlate_argmax(A, R.T)          # (n, B), strided
         pi, pv = ca.correlate_argmax_ref(A, R.T)
         torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
@@ -1072,7 +1086,7 @@ def test_corr_argmax_matches_plain(dev, cdt):
         i1, v1 = ca.correlate_argmax(A, R[0])         # one residual
         assert i1.ndim == 0 and v1.ndim == 0
         torch.testing.assert_close(v1, kv[0], rtol=RTOL, atol=1e-6)
-        assert fs.LAUNCHES["corr_argmax"] - before == 2
+        assert fs.LAUNCHES[key] - before == 2
 
 
 def test_stream_wrappers_reject_bad_cuda_inputs(dev):
@@ -1303,13 +1317,13 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
     for fuse in (True, False):
         sol, cnt = counted(lambda: sh.omp_sharded_fused(
             A, Bs, k, mesh, fuse_collectives=fuse))
-        assert cnt == {"select_stream": shards * k}
+        assert cnt == {"select_stream_mma": shards * k}
         ref = sh.omp_sharded_fused_ref(A, Bs, k, mesh, fuse_collectives=fuse)
         assert torch.equal(sol.idx, ref.idx)
         assert torch.equal(sol.idx.long(), want)
         torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-4)
     x, cnt = counted(lambda: sh.mp_sharded_fused(A, Bs, k, mesh))
-    assert cnt == {"select_stream": shards * k}
+    assert cnt == {"select_stream_mma": shards * k}
     torch.testing.assert_close(x, sh.mp_sharded_fused_ref(A, Bs, k, mesh),
                                rtol=0, atol=1e-4)
     sol, cnt = counted(lambda: sh.gomp_sharded_fused(A, Bs, 3, k, mesh))
@@ -1323,7 +1337,8 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
     assert torch.equal(sol.idx[:, :k].long(), want)
     sol, cnt = counted(lambda: sh.ompr_sharded_fused(A, Bs, k, mesh))
     assert cnt["select_topl_stream"] == shards
-    assert cnt["select_masked_stream"] % shards == 0
+    assert cnt["select_masked_stream_mma"] % shards == 0
+    assert "select_masked_stream" not in cnt
     assert torch.equal(sol.idx, sh.ompr_sharded_fused_ref(A, Bs, k, mesh).idx)
     assert torch.equal(sol.idx[:, :k].long(), want)
     # the forward-regression family on fr_step_select: one launch per shard
@@ -1352,3 +1367,165 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
         assert torch.equal(sol.idx, rsol.idx) and not bool(capped.any())
         assert torch.equal(capped, rcapped)
         assert torch.equal(sol.idx[:, :k].long(), want)
+
+
+# --------------------------------------------------------------------------
+# The two variants of the top-1 selects: the tensor-core loop of
+# csrc/mma_select.cuh (bf16) and the CUDA-core loop, forced one at a time
+# --------------------------------------------------------------------------
+
+# batches off the row-chunk widths (8, 16, 32, 64 and beyond), an n that is
+# no multiple of the k-step or the stage, ragged m, the bench and a shard
+MMA_SIZES = [(1, 64, 128), (9, 1000, 8232), (65, 1024, 8192),
+             (200, 256, 1024), (8, 1000, 8192), (64, 1024, 8192),
+             (8, 1024, 32768)]
+
+
+def _tile_clear(scores):
+    """(B, T): True where a tile's best score stands clear of its second."""
+    B, m = scores.shape
+    T = -(-m // fs.TILE)
+    s = torch.nn.functional.pad(scores.nan_to_num(nan=-1.0, neginf=-1.0),
+                                (0, T * fs.TILE - m), value=-1.0)
+    top = s.view(B, T, fs.TILE).topk(2, dim=2).values
+    return (top[..., 0] - top[..., 1]) > RTOL * top[..., 0]
+
+
+@pytest.mark.parametrize("B,n,m", MMA_SIZES)
+@pytest.mark.parametrize("mma", [True, False])
+def test_select_variants_match_plain(dev, B, n, m, mma):
+    A, R = _stream_inputs(dev, B, n, m, torch.bfloat16, seed=6)
+    A32 = A.float()
+    key = "select_mma" if mma else "select"
+    before = fs.LAUNCHES[key]
+    pv, pi, ps = fs.select_argmax(R, A, signed=True, mma=mma)
+    qv, qi = fs.select_argmax(R, A, mma=mma)
+    assert fs.LAUNCHES[key] - before == 2
+    rv, ri, rs = fs._select_ref(R, A32, torch.bfloat16, signed=True)
+    assert torch.equal(pv, qv) and torch.equal(pi, qi)
+    torch.testing.assert_close(pv, rv, rtol=RTOL, atol=1e-6)
+    clear = _tile_clear(torch.abs(R.to(torch.bfloat16).float() @ A32))
+    assert torch.equal(pi[clear], ri[clear]) and int(clear.sum()) > 0
+    same = pi == ri
+    torch.testing.assert_close(ps[same], rs[same], rtol=RTOL, atol=1e-6)
+    amask = (torch.rand((B, m), device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+             < 0.3).to(torch.uint8)
+    amask[B - 1] = 1                              # every atom active
+    mv, mi = fs.select_argmax(R, A, amask=amask, eta=0.5, mma=mma)
+    wv, wi = fs._select_ref(R, A32, torch.bfloat16, False, amask, 0.5)
+    fin = torch.isfinite(wv)
+    assert torch.equal(torch.isfinite(mv), fin)
+    torch.testing.assert_close(mv[fin], wv[fin], rtol=RTOL, atol=1e-6)
+    assert torch.equal(mi[B - 1], wi[B - 1])      # (-inf, first atom)
+
+
+@pytest.mark.parametrize("mma", [True, False])
+def test_select_variants_ties_nan_and_poisoned_atom(dev, mma):
+    B, n, m = 8, 1000, 8232                       # ragged last tile
+    A, R = _stream_inputs(dev, B, n, m, torch.bfloat16, seed=8)
+    A[:, 30] = A[:, 9]                            # within a tile
+    A[:, m - 2] = A[:, 9]                         # across tiles, ragged edge
+    R[0] = A[:, 9].float()
+    R[1, 3] = float("nan")
+    pv, pi, ps = fs.select_argmax(R, A, signed=True, mma=mma)
+    v, i = _reduce(pv, pi)
+    assert i[0] == 9 and i[1] == fs.INT_MAX and torch.isnan(v[1])
+    assert pv[0, 0] == pv[0, -1] and pi[0, -1] == m - 2
+    assert bool(torch.isnan(pv[1]).all()) and bool(torch.isnan(ps[1]).all())
+    amask = torch.zeros((B, m), dtype=torch.uint8, device=dev)
+    amask[:, 9] = 1
+    assert _reduce(*fs.select_argmax(R, A, amask=amask, mma=mma))[1][0] == 30
+    A[:, 4100] = float("nan")                     # one atom of tile 32
+    pv, pi = fs.select_argmax(R, A, mma=mma)
+    rv, ri = fs._select_ref(R, A.float(), torch.bfloat16)
+    assert bool(torch.isnan(pv[:, 32]).all())
+    assert bool((pi[:, 32] == fs.INT_MAX).all())
+    assert torch.equal(torch.isnan(pv), torch.isnan(rv))
+    ok = ~torch.isnan(rv)
+    torch.testing.assert_close(pv[ok], rv[ok], rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,n,m", [s for s in MMA_SIZES if s[2] % 128 == 0])
+@pytest.mark.parametrize("mma", [True, False])
+def test_stream_variants_match_plain(dev, B, n, m, mma):
+    A, R = _stream_inputs(dev, B, n, m, torch.bfloat16, seed=9)
+    sfx = "_mma" if mma else ""
+    before = dict(fs.LAUNCHES)
+    scores = torch.abs(R.to(torch.bfloat16).float() @ A.float())
+    clear = _clear_rows(scores)
+    kv, ki = ss.correlate_select_stream(A, R, mma=mma)
+    tv, ti = ss.correlate_select_stream_ref(A, R)
+    torch.testing.assert_close(kv, tv, rtol=RTOL, atol=1e-6)
+    assert torch.equal(ki[clear], ti[clear])
+    M = torch.zeros((B, m), device=dev)
+    M.scatter_(1, scores.topk(3, dim=1).indices, -torch.inf)
+    kv, ki = ss.correlate_select_masked_stream(A, R, M, mma=mma)
+    pv, pi = ss.correlate_select_masked_stream_ref(A, R, M)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    cm = _clear_rows(scores + M)
+    assert torch.equal(ki[cm], pi[cm])
+    ci, cv = ca.correlate_argmax(A, R.T, mma=mma)      # (n, B), strided
+    torch.testing.assert_close(cv, tv, rtol=RTOL, atol=1e-6)
+    assert torch.equal(ci[clear], ti[clear])
+    for name in ("select_stream", "select_masked_stream", "corr_argmax"):
+        assert fs.LAUNCHES[name + sfx] - before[name + sfx] == 1
+    # a column slice of a wider dictionary, read in place
+    wide = torch.cat([A[:, :128], A, A[:, :128]], dim=1)
+    view = wide[:, 128:128 + m]
+    assert view.stride(0) == m + 256 and fs._pick_mma(None, view)
+    got = ss.correlate_select_stream(view, R, mma=mma)
+    want = ss.correlate_select_stream(A, R, mma=mma)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_scores_do_not_depend_on_tile_shard_or_batch(dev):
+    # one column repeated in many tiles scores the same bits in each, in a
+    # shard at any offset, and in a batch of any size: the tensor-core loop
+    # sums every atom in the same order
+    n, m = 1024, 8192
+    A, R = _stream_inputs(dev, 64, n, m, torch.bfloat16, seed=10)
+    for j in range(100, m, 1000):
+        A[:, j] = A[:, 7]
+    ref = None
+    for B in (64, 32, 9, 8, 1):
+        fv, fi = fs.select_argmax(R[:B], A, mma=True)
+        for lo, hi in ((0, m), (2048, 4096), (4096, m)):
+            val, idx = ss.correlate_select_stream(A[:, lo:hi], R[:B],
+                                                  mma=True)
+            # the shard's best is the best of its tiles in the whole sweep
+            assert torch.equal(val, fv[:, lo // fs.TILE:hi // fs.TILE].amax(1))
+            if lo == 0:
+                v, i = _reduce(fv, fi)
+                assert torch.equal(v, val) and torch.equal(i, idx)
+                ref = val if ref is None else ref
+                assert torch.equal(val, ref[:B])
+    R[0] = A[:, 7].float()
+    pv, pi = fs.select_argmax(R, A, mma=True)
+    tiles = [j // fs.TILE for j in [7] + list(range(100, m, 1000))]
+    assert len({float(pv[0, t]) for t in tiles}) == 1
+    assert _reduce(pv, pi)[1][0] == 7
+
+
+def test_forcing_the_tensor_core_loop_on_what_it_does_not_take_fails(dev):
+    A, R = _stream_inputs(dev, 8, 64, 1032, torch.bfloat16, seed=11)
+    thin = A[:, :1028].contiguous()               # pitch off 16 bytes
+    odd = A[:, 4:1028]                            # base off 16 bytes
+    assert not fs._pick_mma(None, thin) and not fs._pick_mma(None, odd)
+    assert not fs._pick_mma(None, A.float()) and fs._pick_mma(None, A)
+    with pytest.raises(RuntimeError):
+        fs.select_argmax(R, thin, mma=True)
+    with pytest.raises(RuntimeError):
+        ss.correlate_select_stream(odd, R, mma=True)
+    with pytest.raises(RuntimeError):
+        fs.select_argmax(R, A.float(), mma=True)
+    before = dict(fs.LAUNCHES)
+    kv, ki = fs.select_argmax(R, thin)            # the CUDA-core variant
+    pv, pi = fs._select_ref(R, thin.float(), torch.bfloat16)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    v, i = ss.correlate_select_stream(odd, R)
+    w, j = ss.correlate_select_stream_ref(odd, R)
+    torch.testing.assert_close(v, w, rtol=RTOL, atol=1e-6)
+    assert fs.LAUNCHES["select"] - before["select"] == 1
+    assert fs.LAUNCHES["select_stream"] - before["select_stream"] == 1
+    assert fs.LAUNCHES["select_mma"] == before["select_mma"]
