@@ -41,10 +41,11 @@ stepwise, backward and sharded paths against the formulas for the
 iterations they ran: a streaming select per shard and step) and agreement
 with the plain solves (for the sharded paths also across shard counts,
 collective forms and with the unsharded batch solvers), and times kernels and solves with
-CUDA events. The top-1 selects have two hand-written variants, a
-tensor-core one for bf16 correlation and a CUDA-core one: both are held
-against the plain twins, the bf16 paths must have taken the first and the
-f32 paths (omp_batch, omp/ompr_sharded_fused and correlate_argmax with f32
+CUDA events. The top-1 selects and the rescaled selects (fr_select,
+fr_step_select) have two hand-written variants, a tensor-core one for bf16
+correlation and a CUDA-core one: both are held against the plain twins, the
+bf16 paths must have taken the first and the f32 paths (omp_batch,
+fr_batch, omp/ompr/fr_sharded_fused and correlate_argmax with f32
 correlation, at a smaller depth) the second, by their own launch counts;
 the later kernels' device time per launch and the paths' idle share come
 from torch.profiler. Every kernel's time stands beside its bound
@@ -58,6 +59,7 @@ raises, so the exit code is not 0. Without a CUDA device it exits at
 once with an error.
 """
 
+import itertools
 import json
 import re
 import statistics
@@ -392,10 +394,13 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
         for rows in (8, 16, 32) if rows < B}
     sel_p = launches(lambda: fs._select_ref(r, Ac_sel32, torch.bfloat16))
     # the yardstick: one torch.matmul (cuBLAS, f32) gives the select's
-    # scores, without its abs and argmax; the port's kernel path never
-    # calls it
+    # scores, without its abs and argmax; beside it the same product on the
+    # tensor cores (bf16 operands, f32 sums, bf16 out); the port's kernel
+    # path calls neither
     r32 = r.to(torch.bfloat16).float()
     gemm = launches(lambda: torch.matmul(r32, Ac_sel32))
+    rb = r.to(torch.bfloat16)
+    gemm_bf16 = launches(lambda: torch.matmul(rb, Ac_sel))
     t = k // 2
     _, *out = fs._init_state(Bs, k, A.shape[1])
     Ac32 = Ac.float()
@@ -408,7 +413,8 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
           + ", ".join(f"{v:.4f} at B={rows}" for rows, v in by_rows.items())
           + f"; CUDA cores {sel_simt:.4f}, "
           f"in f32 {sel_f32:.4f}; plain {sel_p:.4f}; torch.matmul of the "
-          f"scores alone {gemm:.4f}); append {app:.4f} ms (plain "
+          f"scores alone {gemm:.4f}, in bf16 {gemm_bf16:.4f}); append "
+          f"{app:.4f} ms (plain "
           f"{app_p:.4f}) | {gpu}")
     busy, per = profile_path(lambda: cstpu_torch.omp_batch(A, Bs, k))
     print(f"[split omp_batch B={B} m={A.shape[1]}] wall {solve:.4f} ms, "
@@ -419,8 +425,42 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
             "select_simt": sel_simt, "select_f32": sel_f32,
             "select_device": sel_dev, "select_device_by_rows": by_rows,
             "device_busy": busy,
-            "plain_select": sel_p, "select_gemm": gemm, "append": app,
+            "plain_select": sel_p, "select_gemm": gemm,
+            "select_gemm_bf16": gemm_bf16, "append": app,
             "plain_append": app_p}
+
+
+def _hold_rescaled(kern, plain, rk, rp, rows, A32, cn2, r, amask, mma):
+    """A rescaled select's partials (kern) against its plain twin's from
+    identical state, with rk and rp the rescalings each wrote: resc on
+    `rows` to RESC_ATOL, NaN partials in the same places, finite ones to
+    SELECT_RTOL relative, and the picks equal on every row of `rows` for the
+    CUDA-core variant; the tensor-core variant (mma) sums in another order,
+    so its picks are compared on the rows of `rows` whose best score stands
+    clear of the next by GAP_RTOL, and at least three quarters of them must
+    stand clear. Returns (resc err, d2 rel err, rows compared)."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    (kv, ki), (pv, pi) = kern, plain
+    resc_err = float((rk[rows] - rp[rows]).abs().max())
+    assert resc_err <= RESC_ATOL, resc_err
+    assert torch.equal(torch.isnan(kv), torch.isnan(pv))
+    fin = ~torch.isnan(pv) & torch.isfinite(pv)
+    d2_err = float(((kv[fin] - pv[fin]).abs()
+                    / pv[fin].abs().clamp(min=1e-30)).max())
+    assert d2_err <= SELECT_RTOL, d2_err
+    compared = rows
+    if mma:
+        q = r.to(torch.bfloat16).float() @ A32
+        rmin = fs._f32(fs._degeneracy_rtol(A32.shape[0])) * cn2
+        d2 = torch.where(amask.bool(), 0.0,
+                         torch.where(rp > rmin, q * q / rp, -torch.inf))
+        compared = _clear_rows(d2) & rows
+        assert 4 * int(compared.sum()) >= 3 * int(rows.sum()), \
+            (int(compared.sum()), int(rows.sum()))
+    i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+    assert bool((i == ir)[compared].all()), "rescaled select picks disagree"
+    return resc_err, d2_err, compared
 
 
 def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
@@ -516,28 +556,34 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
     cn2 = torch.sum(Ar * Ar, dim=0)
     Brn = Br.clone()
     Brn[3, 0] = float("nan")
-    st = fs._init_fr(Brn, k_fr, cn2)
+    st0 = fs._init_fr(Brn, k_fr, cn2)
     t = k_fr // 2
     for s in range(t):
-        fs._fr_append_ref(*fs._fr_select_ref(Arc32, cn2, st, bf), Arc32, Brn,
-                          st, s, 0.0, 0.0)
-    stk = fs._FrState(*(x.clone() for x in st))
-    kv, ki = fs.fr_select(Arc, cn2, stk)
-    pv, pi = fs._fr_select_ref(Arc32, cn2, st, bf)
-    torch.cuda.synchronize()
-    resc_err = float((stk.resc - st.resc).abs().max())
-    assert resc_err <= RESC_ATOL, resc_err
-    live = ~torch.isnan(pv)
-    assert torch.equal(live, ~torch.isnan(kv))
-    assert (ki[3] == fs.INT_MAX).all()
-    fin = live & torch.isfinite(pv)
-    d2_err = float(((kv[fin] - pv[fin]).abs() / pv[fin].abs().clamp(
-        min=1e-30)).max())
-    assert d2_err <= SELECT_RTOL, d2_err
-    i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+        fs._fr_append_ref(*fs._fr_select_ref(Arc32, cn2, st0, bf), Arc32, Brn,
+                          st0, s, 0.0, 0.0)
     rows = torch.arange(Br.shape[0], device=A.device) != 3
-    assert bool((i == ir)[rows].all()), "fr_select picks disagree"
-    err["fr_select"] = max(resc_err, float((kv[fin] - pv[fin]).abs().max()))
+    # the CUDA-core variant, then the one the path takes, each from a copy
+    # of the same state; the path's goes on to the append
+    for key, mma in (("fr_select", False), ("fr_select_mma", None)):
+        st = fs._FrState(*(x.clone() for x in st0))
+        stk = fs._FrState(*(x.clone() for x in st0))
+        (kv, ki), counts = run_counted(
+            lambda: fs.fr_select(Arc, cn2, stk, mma=mma))
+        assert counts == expect_launches(**{key: 1}), (key, counts)
+        pv, pi = fs._fr_select_ref(Arc32, cn2, st, bf)
+        torch.cuda.synchronize()
+        assert (ki[3] == fs.INT_MAX).all()
+        resc_err, d2_err, same = _hold_rescaled(
+            (kv, ki), (pv, pi), stk.resc, st.resc, rows, Arc32, cn2, st.r,
+            st.amask, mma is None)
+        fin = ~torch.isnan(pv) & torch.isfinite(pv)
+        err[key] = max(resc_err, float((kv[fin] - pv[fin]).abs().max()))
+        print(f"[fr kernels] {key} (step {t}) resc max |err| {resc_err:.3e} "
+              f"(atol {RESC_ATOL}), d2 max rel err {d2_err:.3e} (rtol "
+              f"{SELECT_RTOL}), picks equal on {int(same.sum())}/"
+              f"{int(rows.sum())} rows ("
+              f"{'the clear ones' if mma is None else 'all'}), NaN row "
+              f"INT_MAX")
     fs.fr_append(kv, ki, Arc, Brn, stk, t, 0.0, 0.0)
     fs._fr_append_ref(kv, ki, Arc32, Brn, st, t, 0.0, 0.0)
     torch.cuda.synchronize()
@@ -552,11 +598,8 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
                                         (stk.aperp, st.aperp),
                                         (stk.dinv, st.dinv)))
     assert err["fr_append"] <= APPEND_ATOL, err["fr_append"]
-    print(f"[fr kernels] fr_select (step {t}) resc max |err| {resc_err:.3e} "
-          f"(atol {RESC_ATOL}), d2 max rel err {d2_err:.3e} (rtol "
-          f"{SELECT_RTOL}), picks equal, NaN row INT_MAX; fr_append "
-          f"idx/done/amask equal, NaN row latched, max |err| "
-          f"{err['fr_append']:.3e} (atol {APPEND_ATOL})")
+    print(f"[fr kernels] fr_append idx/done/amask equal, NaN row latched, "
+          f"max |err| {err['fr_append']:.3e} (atol {APPEND_ATOL})")
     return err, {"mp": (pv0, pi0, ps, Ac), "fr": (stk, Arc, cn2, kv, ki)}
 
 
@@ -626,7 +669,8 @@ def greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f):
     _, B, n, m, k, decay = FR_CELL
     sol, launches_f = run_counted(
         lambda: cstpu_torch.fr_batch(Ar, Br, sparsity=k))
-    assert launches_f == expect_launches(fr_select=k, fr_append=k), \
+    # a bf16 dictionary must have taken the tensor-core select
+    assert launches_f == expect_launches(fr_select_mma=k, fr_append=k), \
         launches_f
     rec_f = recovery(sol, sup_f)
     assert rec_f == 1.0, f"fr_batch recovery {rec_f} != 1.0"
@@ -640,6 +684,30 @@ def greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f):
     return {"mp": launches_mp, "gomp": launches_g, "fr": launches_f,
             "recovery": {"2a": rec_g, "3a": rec_f},
             "err": {"mp_x": x_err, "gomp_coef": g_err, "fr_coef": f_err}}
+
+
+def fr_f32_path(Ar, Br, sup):
+    """fr_batch with f32 correlation at 3a's size once with zeroed launch
+    counts: true f32 stays on the CUDA-core rescaled select; recovery and
+    the plain f32 solve's agreement."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+
+    k = FR_CELL[4]
+    sol, launches = run_counted(
+        lambda: cstpu_torch.fr_batch(Ar, Br, sparsity=k, precision="f32"))
+    assert launches == expect_launches(fr_select=k, fr_append=k), launches
+    rec = recovery(sol, sup)
+    assert rec == 1.0, f"fr_batch f32 recovery {rec} != 1.0"
+    ref, _ = fs.fr_fused_solve_ref(Ar, Br, k, corr_dtype=torch.float32)
+    assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
+    cerr = float((sol.val - ref.val).abs().max())
+    assert cerr <= COEF_ATOL, cerr
+    print(f"[main 3a f32] fr_batch(precision='f32') k={k} recovery={rec:.3f} "
+          f"launches={launches['fr_select']}: the CUDA-core rescaled select; "
+          f"supports == plain solve, max |coef err| {cerr:.3e} (atol "
+          f"{COEF_ATOL})")
+    return launches
 
 
 def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
@@ -674,6 +742,17 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
           f"idle share {1.0 - busy / tm['mp']:.4f}; "
           + ", ".join(f"{name} {c}x {ms:.4f} ms"
                       for name, (c, ms) in per.items()))
+    # the profiler's split of 2a and 3a
+    tm["splits"] = {
+        "2a": _split(tm["gomp"], lambda: cstpu_torch.gomp_batch(A, Bg, l, kg)),
+        "3a": _split(tm["fr"], lambda: cstpu_torch.fr_batch(Ar, Br,
+                                                            sparsity=kf))}
+    for key, sp_ in tm["splits"].items():
+        print(f"[split {key}] wall {sp_['wall_ms']:.4f} ms, device busy "
+              f"{sp_['device_busy_ms']:.4f} ms, idle share "
+              f"{sp_['idle_share']:.4f}; "
+              + ", ".join(f"{nm} {v['launches']}x {v['ms']:.4f} ms"
+                          for nm, v in sp_["kernels"].items()))
     launches = partial(per_launch_ms, Bs)
     pv, pi, ps, Ac = parts["mp"]
     Ac32 = Ac.float()
@@ -692,6 +771,12 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
     r = Bg.clone()
     tm["select_topl"] = launches(lambda: fs.select_topl(r, Ac, l))
     tm["plain_select_topl"] = launches(lambda: fs._topl_ref(r, Ac32, bf, l))
+    # the yardstick: one f32 torch.matmul of the products the kernel
+    # computes in its body, here the scores r . A, and the same product in
+    # bf16 on the tensor cores (never called by the port)
+    r32, rb = r.to(bf).float(), r.to(bf)
+    tm["select_topl_gemm"] = launches(lambda: torch.matmul(r32, Ac32))
+    tm["select_topl_gemm_bf16"] = launches(lambda: torch.matmul(rb, Ac))
     st = fs._init_gomp(Bg, kg, A.shape[1])
     gparts = fs._topl_ref(st.r, Ac32, bf, l)
     tm["gomp_append"] = launches(
@@ -702,6 +787,19 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
     stf, Arc, cn2, kv, ki = parts["fr"]
     Arc32 = Arc.float()
     t = kf // 2
+    # the rescaled select: its tensor-core variant (the path's), its device
+    # time, the CUDA-core variant on the same inputs and on the f32
+    # dictionary, and one f32 torch.matmul of its products [r; aperp] . A
+    s = fs._FrState(*(x.clone() for x in stf))
+    tm["fr_select_device"] = device_ms_per_call(
+        lambda: fs.fr_select(Arc, cn2, s))
+    tm["fr_select_simt"] = launches(lambda: fs.fr_select(Arc, cn2, s,
+                                                          mma=False))
+    tm["fr_select_f32"] = launches(lambda: fs.fr_select(Arc32, cn2, s))
+    ru = torch.cat([stf.r, stf.aperp]).to(bf).float()
+    tm["fr_select_gemm"] = launches(lambda: torch.matmul(ru, Arc32))
+    rub = ru.to(bf)
+    tm["fr_select_gemm_bf16"] = launches(lambda: torch.matmul(rub, Arc))
     for key, fn in (
             ("fr_select", lambda s: fs.fr_select(Arc, cn2, s)),
             ("plain_fr_select", lambda s: fs._fr_select_ref(Arc32, cn2, s, bf)),
@@ -717,6 +815,12 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
                      "select_topl", "gomp_append", "fr_select", "fr_append"))
         + f"; select_signed on CUDA cores {tm['select_signed_simt']:.4f}, "
         f"on the device {tm['select_signed_device']:.4f}"
+        + f"; fr_select on the device {tm['fr_select_device']:.4f}, on CUDA "
+        f"cores {tm['fr_select_simt']:.4f} (f32 {tm['fr_select_f32']:.4f}), "
+        f"torch.matmul of its products {tm['fr_select_gemm']:.4f} (bf16 "
+        f"{tm['fr_select_gemm_bf16']:.4f}); select_topl's scores by "
+        f"torch.matmul {tm['select_topl_gemm']:.4f} (bf16 "
+        f"{tm['select_topl_gemm_bf16']:.4f})"
         + f"; atoms/s mp {tm['mp_atoms_per_s']:.1f} (plain "
         f"{tm['plain_mp_atoms_per_s']:.1f}), gomp {tm['gomp_atoms_per_s']:.1f}"
         f" (plain {tm['plain_gomp_atoms_per_s']:.1f}), fr "
@@ -831,13 +935,19 @@ def check_twostage_kernels(A, Bg, Ar, Br):
     npend = k
     resc_err = d2_err = 0.0
     err["srr_append"] = err["engine_delete"] = 0.0
+    err["fr_select_pending_simt"] = 0.0
+    nclear = int(rows.sum())
     for it in range(2):
         if it == 1:
             st.done[5] = 1.0
         row5 = {name: x[5].clone() for name, x in zip(st._fields, st)
                 if x is not None and name not in ("resc", "pend_u",
                                                   "pend_w")}
-        stk = _clone(st)
+        # the CUDA-core variant on a copy, then the one the path takes
+        stk, simt = _clone(st), _clone(st)
+        sparts = fs.rescaled_select(Arc, cn2, simt.r, simt.pend_u[:npend],
+                                    simt.pend_w[:npend], 1.0, simt.amask,
+                                    simt.resc, mma=False)
         kv, ki = fs.rescaled_select(Arc, cn2, stk.r, stk.pend_u[:npend],
                                     stk.pend_w[:npend], 1.0, stk.amask,
                                     stk.resc)
@@ -845,15 +955,16 @@ def check_twostage_kernels(A, Bg, Ar, Br):
                                          st.pend_w[:npend], 1.0, st.amask,
                                          st.resc, bf)
         torch.cuda.synchronize()
-        resc_err = max(resc_err, float((stk.resc[rows]
-                                        - st.resc[rows]).abs().max()))
-        assert resc_err <= RESC_ATOL, resc_err
-        fin = ~torch.isnan(pv) & torch.isfinite(pv)
-        d2_err = max(d2_err, float(((kv[fin] - pv[fin]).abs()
-                                    / pv[fin].abs().clamp(min=1e-30)).max()))
-        assert d2_err <= SELECT_RTOL, d2_err
-        i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
-        assert bool((i == ir)[rows].all()) and int(i[3]) == fs.INT_MAX
+        held = _hold_rescaled(sparts, (pv, pi), simt.resc, st.resc, rows,
+                              Arc32, cn2, st.r, st.amask, False)
+        err["fr_select_pending_simt"] = max(err["fr_select_pending_simt"],
+                                            *held[:2])
+        e_resc, e_d2, same = _hold_rescaled((kv, ki), (pv, pi), stk.resc,
+                                            st.resc, rows, Arc32, cn2, st.r,
+                                            st.amask, True)
+        resc_err, d2_err = max(resc_err, e_resc), max(d2_err, e_d2)
+        nclear = min(nclear, int(same.sum()))
+        assert int(fs._reduce_partials(kv, ki)[1][3]) == fs.INT_MAX
         ft.srr_append(kv, ki, Arc, Brn, stk)
         ft._srr_append_ref(kv, ki, Arc32, Brn, st)
         torch.cuda.synchronize()
@@ -872,9 +983,12 @@ def check_twostage_kernels(A, Bg, Ar, Br):
     err["fr_select_pending"] = max(resc_err, d2_err)
     print(f"[3b kernels] engine_init (k={k}, {k} pending terms); two SRR "
           f"iterations from identical state (row 5 done in the second): "
-          f"fr_select with pending terms "
+          f"fr_select with pending terms, tensor cores: "
           f"resc max |err| {resc_err:.3e} (atol {RESC_ATOL}), d2 max rel err "
-          f"{d2_err:.3e}, picks equal, NaN row INT_MAX; srr_append max |err| "
+          f"{d2_err:.3e}; CUDA cores: max err "
+          f"{err['fr_select_pending_simt']:.3e}; picks equal on all "
+          f"{int(rows.sum())} rows (CUDA cores) and on at least {nclear} "
+          f"clear rows (tensor cores), NaN row INT_MAX; srr_append max |err| "
           f"{err['srr_append']:.3e}, engine_delete {err['engine_delete']:.3e} "
           f"(atol {APPEND_ATOL})")
 
@@ -932,7 +1046,7 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
         want = {"2b": dict(select_topl=1 + it, sp_round=1 + it),
                 "2c": dict(select_topl=1, engine_init=1, select_mma=it,
                            ompr_swap=it),
-                "3b": dict(select_topl=1, engine_init=1, fr_select=it,
+                "3b": dict(select_topl=1, engine_init=1, fr_select_mma=it,
                            srr_append=it, engine_delete=it)}[cell]
         assert launches == expect_launches(**want), (cell, launches)
         rec = recovery(sol, sup)
@@ -953,12 +1067,15 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
     return out
 
 
-KERNEL_NAMES = ("select_argmax", "top1_mma", "round_rows", "omp_append",
-                "mp_update", "select_topl", "fr_select", "engine_init",
+# the kernels by name (a profiler key holds "<name>_kernel"); gomp_append
+# comes before omp_append, whose name is inside its own
+KERNEL_NAMES = ("select_argmax", "top1_mma", "round_rows", "gomp_append",
+                "omp_append", "fr_append", "mp_update", "select_topl",
+                "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
-                "stream_topl_finish", "fr_step_sweep")
+                "stream_topl_finish", "fr_step_sweep", "rescaled_mma")
 
 
 def profile_path(fn):
@@ -1043,10 +1160,26 @@ def twostage_times(A, Bg, Ar, Br, gpu):
     k = SRR_CELL[1]
     st = ft._init_engine(Br, k + 1, m, cn2, npend=k)
     ft._engine_init_ref(*fs._topl_ref(Br, Arc32, bf, k), Arc32, Br, st)
+    Arc = Ar.to(bf).contiguous()
     for P, key in ((k, "fr_select_init"), (2, "fr_select_pending2")):
         pl[key] = launches(lambda: fs._rescaled_select_ref(
             Arc32, cn2, st.r, st.pend_u[:P], st.pend_w[:P], 1.0, st.amask,
             st.resc.clone(), bf))
+        # the kernel's variants per call on the same inputs, the tensor-core
+        # one's device time, and one f32 torch.matmul of the select's
+        # products [r; U] . A
+        resc = st.resc.clone()
+        call = partial(fs.rescaled_select, Arc, cn2, st.r, st.pend_u[:P],
+                       st.pend_w[:P], 1.0, st.amask, resc)
+        pl[key + "_call"] = launches(call)
+        pl[key + "_device"] = device_ms_per_call(call)
+        pl[key + "_simt"] = launches(lambda: call(mma=False))
+        ru = torch.cat([st.r[None], st.pend_u[:P]]).flatten(0, 1)
+        rub = ru.to(bf)
+        ru = rub.float()
+        pl[key + "_gemm"] = launches(lambda: torch.matmul(ru, Arc32))
+        pl[key + "_gemm_bf16"] = launches(lambda: torch.matmul(rub, Arc))
+    del Arc
     rparts = fs._rescaled_select_ref(Arc32, cn2, st.r, st.pend_u[:k],
                                      st.pend_w[:k], 1.0, st.amask,
                                      st.resc.clone(), bf)
@@ -1077,7 +1210,9 @@ def twostage_times(A, Bg, Ar, Br, gpu):
                               + split["2c"]["kernels"]["round_rows"]["ms"])
             / split["2c"]["kernels"]["top1_mma"]["launches"],
             "ompr_swap": per_launch("2c", "ompr_swap"),
-            "fr_select_3b": per_launch("3b", "fr_select"),
+            "fr_select_3b": (split["3b"]["kernels"]["rescaled_mma"]["ms"]
+                             + split["3b"]["kernels"]["round_rows"]["ms"])
+            / split["3b"]["kernels"]["rescaled_mma"]["launches"],
             "srr_append": per_launch("3b", "srr_append"),
             "engine_delete": per_launch("3b", "engine_delete")}
     print("[time two-stage] " + ", ".join(
@@ -1133,9 +1268,15 @@ def check_stepwise_kernels(A, gen):
     Ac32 = Ac.float()
     cn2 = torch.sum(A * A, dim=0)
     floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
-    err = {"rmp_append": 0.0, "rmp_append_foba": 0.0, "engine_backward": 0.0}
+    err = {"rmp_append": 0.0, "rmp_append_foba": 0.0, "engine_backward": 0.0,
+           "fr_select_simt": 0.0}
 
     def select_both(stk, st, npend):
+        # the CUDA-core variant on a copy, then the one the path takes
+        simt = _clone(stk)
+        sparts = fs.rescaled_select(Ac, cn2, simt.r, simt.pend_u[:npend],
+                                    simt.pend_w[:npend], 1.0, simt.amask,
+                                    simt.resc, mma=False)
         kv, ki = fs.rescaled_select(Ac, cn2, stk.r, stk.pend_u[:npend],
                                     stk.pend_w[:npend], 1.0, stk.amask,
                                     stk.resc)
@@ -1143,10 +1284,11 @@ def check_stepwise_kernels(A, gen):
                                          st.pend_w[:npend], 1.0, st.amask,
                                          st.resc, bf)
         torch.cuda.synchronize()
-        resc_err = float((stk.resc[rows] - st.resc[rows]).abs().max())
-        assert resc_err <= RESC_ATOL, resc_err
-        i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
-        assert bool((i == ir)[rows].all()), "fr_select picks disagree"
+        held = _hold_rescaled(sparts, (pv, pi), simt.resc, st.resc, rows,
+                              Ac32, cn2, st.r, st.amask, False)
+        err["fr_select_simt"] = max(err["fr_select_simt"], held[0])
+        resc_err = _hold_rescaled((kv, ki), (pv, pi), stk.resc, st.resc,
+                                  rows, Ac32, cn2, st.r, st.amask, True)[0]
         return kv, ki, resc_err
 
     def append_both(stk, st, kv, ki, foba):
@@ -1213,7 +1355,8 @@ def check_stepwise_kernels(A, gen):
     assert not stk.pend_w[:, 5].any() and float(stk.ndel[5]) == 0.0
     print(f"[3d kernels] rmp_append: a forward stage of {steps} launches from "
           f"identical state (NaN row closed, row 7 capped at {K} slots, "
-          f"fr_select resc max |err| {resc_err:.3e}) and 3 launches of a "
+          f"fr_select resc max |err| {resc_err:.3e}, CUDA-core variant "
+          f"{err['fr_select_simt']:.3e}) and 3 launches of a "
           f"second pass after {K - kfin + 1} pending terms"
           f", max |err| {err['rmp_append']:.3e}; engine_backward: delta rule "
           f"(no deletion), k rule ({k - kfin} and {K - kfin} deletions), done "
@@ -1321,11 +1464,11 @@ def stepwise_paths(A, gen):
             assert not capped.any(), capped
             if name == "rmp":
                 passes, steps = it
-                want = dict(fr_select=steps, rmp_append=steps,
+                want = dict(fr_select_mma=steps, rmp_append=steps,
                             engine_backward=passes)
                 assert passes == 1 and steps == k + 1, it
             else:
-                want = dict(fr_select=it, rmp_append=it)
+                want = dict(fr_select_mma=it, rmp_append=it)
                 assert it == k + 1, it
             assert launches == expect_launches(**want), (name, B, launches)
             rec = recovery(sol, sup)
@@ -1461,6 +1604,33 @@ def stepwise_times(A, problems, gpu):
             Bs, _clone(st), delta * delta, -1))}
     print("[time 3d plain ms per call at B=8 (events, a state copy "
           "included)] " + ", ".join(f"{key} {v:.4f}" for key, v in pl.items()))
+    # the rescaled select at both batch sizes, mid-solve: its tensor-core
+    # variant per call and on the device, the CUDA-core one on the same
+    # inputs, and one f32 torch.matmul of its products [r; u] . A
+    Ac = A.to(bf).contiguous()
+    sel = {}
+    for B, Bs in problems.items():
+        st = ft._init_engine(Bs, kmax, m, cn2, npend=kmax + 1, stepwise=True)
+        fl2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+        for _ in range(8):
+            ft._rmp_append_ref(*fs._rescaled_select_ref(
+                Ac32, cn2, st.r, st.pend_u[:1], st.pend_w[:1], 1.0, st.amask,
+                st.resc, bf), Ac32, Bs, st, delta * delta, fl2, False)
+        call = partial(fs.rescaled_select, Ac, cn2, st.r, st.pend_u[:1],
+                       st.pend_w[:1], 1.0, st.amask, st.resc.clone())
+        ru = torch.cat([st.r, st.pend_u[0]]).to(bf).float()
+        launches = partial(per_launch_ms, Bs)
+        sel[f"fr_select_b{B}_call"] = launches(call)
+        sel[f"fr_select_b{B}_device"] = device_ms_per_call(call)
+        sel[f"fr_select_b{B}_simt"] = launches(lambda: call(mma=False))
+        sel[f"fr_select_b{B}_gemm"] = launches(
+            lambda: torch.matmul(ru, Ac32))
+        rub = ru.to(bf)
+        sel[f"fr_select_b{B}_gemm_bf16"] = launches(
+            lambda: torch.matmul(rub, Ac))
+    print(f"[time 3d fr_select ms per call | {gpu}] "
+          + ", ".join(f"{key} {v:.4f}" for key, v in sel.items()))
+    pl.update(sel)
     return tm, split, pl
 
 
@@ -2143,7 +2313,14 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
                                                                  **kw))):
             per[(name + " device", ml)] = device_ms_per_call(call)
             per[(name + " simt", ml)] = launches(lambda: call(mma=False))
-        del Ac, M
+        # the top-l sweep's yardstick: one f32 torch.matmul of the scores it
+        # computes in its body, R . A_shard
+        Af, R32, Rb = Ac.float(), Bs5c.to(bf).float(), Bs5c.to(bf)
+        per[("select_topl_stream gemm", ml)] = launches(
+            lambda: torch.matmul(R32, Af))
+        per[("select_topl_stream gemm bf16", ml)] = launches(
+            lambda: torch.matmul(Rb, Ac))
+        del Ac, M, Af
     for ml in STREAM_WIDTHS:
         print(f"[time stream kernels, ms per call at B={B}, n={n}, "
               f"m_local={ml}, bf16 (events, wrapper and both launches)] "
@@ -2242,7 +2419,7 @@ def check_fr_step_kernel(dev):
 
     B, n = SHARD_CELLS["5c"][:2]
     deg = fs._degeneracy_rtol(n)
-    errs = {"fr_step_select": 0.0, "resc": 0.0}
+    errs = {"fr_step_select": 0.0, "fr_step_select_mma": 0.0, "resc": 0.0}
     for m in STREAM_WIDTHS:
         for cdt in (torch.bfloat16, torch.float32):
             gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2271,11 +2448,20 @@ def check_fr_step_kernel(dev):
                 resc0 = cn2.repeat(B, 1)
                 resc0[:, 40] = -1.0               # an atom already active
                 resc0[3] = 0.0                    # an all-degenerate row
-                for use_v in (False, True):
+                # bf16: the tensor-core variant (the paths') and the
+                # CUDA-core one; f32: the CUDA-core one
+                variants = ((("fr_step_select_mma", None),
+                             ("fr_step_select", False))
+                            if cdt == torch.bfloat16
+                            else (("fr_step_select", None),))
+                for (key, mma), use_v in itertools.product(variants,
+                                                           (False, True)):
                     rk, rp = resc0.clone(), resc0.clone()
                     Vv = V if use_v else None
-                    kv, ki, _ = ss.fr_step_select(A, R, W, il, cn2, rk, deg,
-                                                  V=Vv)
+                    (kv, ki, _), counts = run_counted(
+                        lambda: ss.fr_step_select(A, R, W, il, cn2, rk, deg,
+                                                  V=Vv, mma=mma))
+                    assert counts == expect_launches(**{key: 1}), counts
                     pv, pi, _ = ss.fr_step_select_ref(A, R, W, il, cn2, rp,
                                                       deg, V=Vv)
                     torch.cuda.synchronize()
@@ -2284,8 +2470,7 @@ def check_fr_step_kernel(dev):
                     nan_tile = torch.isnan(d2.view(B, m // tm, tm)).any(dim=2)
                     live = torch.where(nan_tile[:, :, None], -torch.inf,
                                        d2.view(B, m // tm, tm)).view(B, m)
-                    _hold("fr_step_select", (kv, ki), (pv, pi),
-                          _clear_rows(live), errs)
+                    _hold(key, (kv, ki), (pv, pi), _clear_rows(live), errs)
                     assert torch.equal(rk == -1.0, rp == -1.0)
                     assert torch.equal(torch.isnan(rk), torch.isnan(rp))
                     rerr = float((rk - rp).nan_to_num(nan=0.0).abs().max())
@@ -2303,19 +2488,23 @@ def check_fr_step_kernel(dev):
                         assert bool(torch.isnan(rk[:, best]).all())
                         assert not bool((ki == best).any())
                 # marking the lowest copy moves the tied row's pick on
-                rk = resc0.clone()
-                rk[0, a0] = -1.0
-                _, ki, _ = ss.fr_step_select(A, R, W, il, cn2, rk, deg)
-                assert int(ki[0]) == a1, int(ki[0])
+                for _, mma in variants:
+                    rk = resc0.clone()
+                    rk[0, a0] = -1.0
+                    _, ki, _ = ss.fr_step_select(A, R, W, il, cn2, rk, deg,
+                                                 mma=mma)
+                    assert int(ki[0]) == a1, int(ki[0])
             del A, R, W, V, resc0, rk, rp, q, d2, live
             torch.cuda.empty_cache()
     print("[fr_step kernel] K8 == plain twin at m_local in "
-          f"{STREAM_WIDTHS}, bf16 and f32, with and without V: mark -> -1, "
+          f"{STREAM_WIDTHS}, bf16 (tensor-core and CUDA-core variants) and "
+          "f32, with and without V: mark -> -1, "
           "restore on a zero base, ties -> lowest index within and across "
           "tiles, NaN row and all-degenerate row -> (-inf, 0), poisoned atom "
           "-> NaN resc, scored -inf; max |d2 err| "
-          f"{errs['fr_step_select']:.3e} (rtol {SELECT_RTOL}), max |resc "
-          f"err| {errs['resc']:.3e} (atol {RESC_ATOL})")
+          f"{errs['fr_step_select_mma']:.3e} (tensor cores), "
+          f"{errs['fr_step_select']:.3e} (CUDA cores; rtol {SELECT_RTOL}), "
+          f"max |resc err| {errs['resc']:.3e} (atol {RESC_ATOL})")
     return errs
 
 
@@ -2338,7 +2527,8 @@ def sharded_fr_paths(Ar, Br, sup):
                     Ash, Br, k, mesh, fuse_collectives=fuse,
                     return_iters=True))
             assert steps == [k], steps
-            assert launches == expect_launches(fr_step_select=s * k), launches
+            assert launches == expect_launches(fr_step_select_mma=s * k), \
+                launches
             rec = recovery(sol, sup)
             assert rec == 1.0, f"fr s={s} fuse={fuse}: recovery {rec}"
             if first is None:
@@ -2346,11 +2536,12 @@ def sharded_fr_paths(Ar, Br, sup):
             assert torch.equal(sol.idx, first.idx), ("fr", s, fuse)
             cerr = float((sol.val - first.val).abs().max())
             assert cerr <= COEF_ATOL, cerr
-            out[(s, fuse)] = {"launches": launches["fr_step_select"],
+            out[(s, fuse)] = {"launches": launches["fr_step_select_mma"],
                               "recovery": rec, "steps": steps[0]}
             print(f"[main 3a-wide] fr_sharded_fused shards={s} "
                   f"fuse_collectives={fuse} recovery={rec:.3f} steps={steps} "
-                  f"fr_step_select launches={launches['fr_step_select']}; "
+                  f"fr_step_select_mma launches="
+                  f"{launches['fr_step_select_mma']}; "
                   f"supports == first run, coefficients within {cerr:.3e}")
         ref = sh.fr_sharded_fused_ref(Ash, Br, k, mesh)
         assert _supports(ref) == _supports(first), ("fr", s, "plain")
@@ -2383,7 +2574,7 @@ def sharded_srr_rmp_foba_paths(Ar, Br, sup_r, A, Bo, sup_o):
         lambda: cstpu_torch.srr_sharded_fused(Ash, Br, FR5_K, mesh, **SRR5_KW,
                                               return_iters=True))
     assert launches == expect_launches(
-        select_topl_stream=s, fr_step_select=s * iters[0]), launches
+        select_topl_stream=s, fr_step_select_mma=s * iters[0]), launches
     rec = recovery(sol, sup_r)
     assert rec == 1.0, f"srr: recovery {rec}"
     plain, it_plain = sh.srr_sharded_fused_ref(Ash, Br, FR5_K, mesh,
@@ -2412,7 +2603,8 @@ def sharded_srr_rmp_foba_paths(Ar, Br, sup_r, A, Bo, sup_o):
         (sol, capped, counts), launches = run_counted(
             lambda: entry(Ash, Bo, delta, mesh, kmax=kmax, return_iters=True))
         sweeps, reads = counts[0]["sweeps"], counts[0]["flag_reads"]
-        assert launches == expect_launches(fr_step_select=s * sweeps), launches
+        assert launches == expect_launches(fr_step_select_mma=s * sweeps), \
+            launches
         rec = recovery(sol, sup_o)
         assert rec == 1.0, f"{name}: recovery {rec}"
         assert not bool(capped.any()), f"{name}: a row was capped"
@@ -2426,10 +2618,34 @@ def sharded_srr_rmp_foba_paths(Ar, Br, sup_r, A, Bo, sup_o):
                      "flag_reads": reads, "recovery": rec, "err": cerr}
         print(f"[main 3d-wide {name}] {name}_sharded_fused shards={s} "
               f"recovery={rec:.3f} capped=0 sweeps={sweeps} host flag reads="
-              f"{reads} fr_step_select launches="
-              f"{launches['fr_step_select']}; supports == plain solve == "
+              f"{reads} fr_step_select_mma launches="
+              f"{launches['fr_step_select_mma']}; supports == plain solve == "
               f"{name}_batch, max |coef err| {cerr:.3e} (atol {COEF_ATOL})")
     return out
+
+
+def sharded_fr_f32_path(Ar, Br, sup):
+    """fr_sharded_fused with f32 correlation on one shard at 5c's width,
+    once with zeroed launch counts: true f32 stays on K8's CUDA-core sweep;
+    recovery and the plain f32 solve's supports."""
+    import cstpu_torch
+    from cstpu_torch.parallel import sharded as sh
+
+    k, f32 = FR5_K, torch.float32
+    mesh = cstpu_torch.make_mesh((1, 1))
+    Ash = cstpu_torch.shard_dictionary(Ar, mesh)
+    sol, launches = run_counted(lambda: cstpu_torch.fr_sharded_fused(
+        Ash, Br, k, mesh, corr_dtype=f32))
+    assert launches == expect_launches(fr_step_select=k), launches
+    rec = recovery(sol, sup)
+    assert rec == 1.0, f"fr f32: recovery {rec}"
+    ref = sh.fr_sharded_fused_ref(Ash, Br, k, mesh, corr_dtype=f32)
+    assert _supports(ref) == _supports(sol), "fr f32: plain solve"
+    print(f"[main 3a-wide f32] fr_sharded_fused(corr_dtype=f32) shards=1 "
+          f"recovery={rec:.3f} fr_step_select launches="
+          f"{launches['fr_step_select']}: the CUDA-core sweep; supports == "
+          f"plain solve")
+    return launches["fr_step_select"]
 
 
 def sharded_rows_path(dev):
@@ -2542,18 +2758,30 @@ def sharded_fr_times(Ar, Br, A, Bo, gpu):
     once = lambda fn: cuda_ms(lambda: fn()[0].flatten()[0], TIMED_SLOW)
     for ml in STREAM_WIDTHS:
         Ac = Ar[:, :ml].to(bf)
+        Af = Ac.float()
         cn2 = torch.sum(Ar[:, :ml] ** 2, dim=0)
         resc = cn2.repeat(B, 1)
         for name, V in (("fr_step_select", None), ("fr_step_select V", W)):
             # resc is reset by no one between the calls: it only drifts
             # down by z^2 each call, far from the threshold in 100 calls
-            per[(name, ml)] = launches(
-                lambda: ss.fr_step_select(Ac, Br, 1e-2 * W, il, cn2, resc,
-                                          deg, V=V))
+            call = partial(ss.fr_step_select, Ac, Br, 1e-2 * W, il, cn2, resc,
+                           deg, V=V)
+            per[(name, ml)] = launches(call)
             per[("plain_" + name, ml)] = once(
                 lambda: ss.fr_step_select_ref(Ac, Br, 1e-2 * W, il, cn2, resc,
                                               deg, V=V))
-        del Ac, resc
+            # the tensor-core sweep's device time, the CUDA-core sweep on
+            # the same inputs, and one f32 torch.matmul of the products the
+            # sweep computes, [R; W (; V)] . A_shard
+            per[(name + " device", ml)] = device_ms_per_call(call)
+            per[(name + " simt", ml)] = launches(lambda: call(mma=False))
+            RWb = torch.cat([Br, 1e-2 * W]
+                            + ([V] if V is not None else [])).to(bf)
+            RW = RWb.float()
+            per[(name + " gemm", ml)] = launches(lambda: torch.matmul(RW, Af))
+            per[(name + " gemm bf16", ml)] = launches(
+                lambda: torch.matmul(RWb, Ac))
+        del Ac, Af, resc
     for ml in STREAM_WIDTHS:
         print(f"[time fr_step kernel, ms per call at B={B}, n={n}, "
               f"m_local={ml}, bf16 (events, wrapper and both launches)] "
@@ -2584,14 +2812,22 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
     # the tensor-core selects by name: rows per block (NB), epilogue mode
-    # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem
+    # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem;
+    # the rescaled ones by row groups G, product slots Pn (wgmma's N is
+    # 8 G Pn) and kernel (K8's step or fr_select's)
     for i, line in enumerate(lines):
+        props = " ".join(x.replace("ptxas info    :", "").strip()
+                         for x in lines[i + 1:i + 3])
         got = re.search(r"Function properties for .*top1_mma_kernelILi(\d+)"
                         r"ELi(\d+)E", line)
         if got:
-            print(f"[build mma] NB={got[1]} mode={got[2]}: "
-                  + " ".join(x.replace("ptxas info    :", "").strip()
-                             for x in lines[i + 1:i + 3]))
+            print(f"[build mma] NB={got[1]} mode={got[2]}: {props}")
+        got = re.search(r"Function properties for .*rescaled_mma_kernelILi"
+                        r"(\d+)ELi(\d+)ELb(\d)E", line)
+        if got:
+            print(f"[build mma] rescaled G={got[1]} Pn={got[2]} "
+                  f"{'fr_step_select' if got[3] == '1' else 'fr_select'}: "
+                  f"{props}")
 
     dev = torch.device("cuda", 0)
     record = {}
@@ -2626,6 +2862,7 @@ def main():
           f"k={kf} on correlated_data(decay={decay})")
     gerr, parts = check_greedy_kernels(A, Bs, Ar, Br, l, kf)
     paths = greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f)
+    f32fr = fr_f32_path(Ar, Br, sup_f)
     gtm = greedy_times(A, Bs, Bg, Ar, Br, parts, gpu)
     print(f"[greedy] done in {time.perf_counter() - t0:.1f} s")
 
@@ -2694,6 +2931,7 @@ def main():
     Br5, supr5 = planted_ones(gen5, Ar5, B5, FR5_K)
     Bo5, supo5 = planted_ones(gen5, A5, B5, STEP5[2])
     pfr = sharded_fr_paths(Ar5, Br5, supr5)
+    pfr32 = sharded_fr_f32_path(Ar5, Br5, supr5)
     pfam = sharded_srr_rmp_foba_paths(Ar5, Br5, supr5, A5, Bo5, supo5)
     ftm, fsplit, fper = sharded_fr_times(Ar5, Br5, A5, Bo5, gpu)
     del A5, Ar5
@@ -2736,6 +2974,16 @@ def main():
         got = split[key]["kernels"][name]
         return got["ms"] / got["launches"]
 
+    def rescaled_on_path(split, key):
+        """Profiler device ms per tensor-core rescaled select on path `key`:
+        its sweep and its stacking launch."""
+        got = split[key]["kernels"]
+        return ((got["rescaled_mma"]["ms"] + got["round_rows"]["ms"])
+                / got["rescaled_mma"]["launches"])
+
+    rescaled_loop = f"{csrc}/mma_rescaled.cuh"
+    fr_replaces = [f"{ts_line}:1191", f"{ts_line}:1368", f"{ts_line}:1499"]
+
     d_rmp, d_foba = f"3d rmp B={B0}", f"3d foba B={B0}"
     d_fbr, d_lace = f"3e fbr B={B0}", f"3e lace B={B0}"
     big = BATCHES[1]
@@ -2759,8 +3007,10 @@ def main():
                      "omp_batch 5b": record["5b"][2]["select_mma"],
                      "mp_batch": paths["mp"]["select_mma"],
                      "ompr_batch": tl["2c"]["select_mma"]},
-              # the yardstick beside it: torch.matmul of the scores alone
+              # the yardstick beside it: torch.matmul of the scores alone,
+              # in f32 and (library_bf16_ms) in bf16 on the tensor cores
               library_ms=tm["select_gemm"],
+              library_bf16_ms=tm["select_gemm_bf16"],
               device_ms=tm["select_device"],
               earlier_ms=tm["select_simt"],
               signed_ms=gtm["select_signed"],
@@ -2781,6 +3031,7 @@ def main():
               m131072_earlier_ms=tm5b["select_simt"],
               m131072_plain_ms=tm5b["plain_select"],
               m131072_library_ms=tm5b["select_gemm"],
+              m131072_library_bf16_ms=tm5b["select_gemm_bf16"],
               m131072_bound_ms=select_bound(B, n, CELLS[1][3])["bound_ms"]),
         # its CUDA-core variant: the f32-correlation path runs it; ms is its
         # time on the bench's bf16 inputs, f32_ms on the f32 dictionary
@@ -2793,6 +3044,7 @@ def main():
                              f"{ts_line}:1052"],
               paths={"omp_batch precision=f32": f32_launches["select"]},
               library_ms=tm["select_gemm"],
+              library_bf16_ms=tm["select_gemm_bf16"],
               f32_ms=tm["select_f32"],
               f32_bound_ms=select_bound(B, n, m, cdt_bytes=4)["bound_ms"],
               signed_ms=gtm["select_signed_simt"],
@@ -2812,44 +3064,90 @@ def main():
               gtm["plain_select_topl"], select_bound(B, n, m, outs=l),
               also_replaces=[f"{ts_line}:897", f"{ts_line}:1052",
                              f"{ts_line}:1191"],
+              library_ms=gtm["select_topl_gemm"],
+              library_bf16_ms=gtm["select_topl_gemm_bf16"],
               paths={"gomp_batch": paths["gomp"]["select_topl"],
                      **{name: tl[c]["select_topl"] for name, c in (
                          ("sp_batch", "2b"), ("ompr_batch", "2c"),
                          ("srr_batch", "3b"))}},
               l32_ms=tkern["select_topl32"],
               plain_l32_ms=tplain["select_topl32"],
+              l32_library_ms=gtm["select_topl_gemm"],
+              l32_library_bf16_ms=gtm["select_topl_gemm_bf16"],
               l32_bound_ms=select_bound(B, n, m, outs=ks)["bound_ms"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
               gtm["plain_gomp_append"], engine_bound(B, kg, n, appends=l)),
-        entry("fr_select", 532, paths["fr"]["fr_select"]
-              + tl["3b"]["fr_select"]
-              + sum(v["fr_select"] for v in sl.values()),
-              max(gerr["fr_select"], terr["fr_select_pending"]),
+        # the rescaled select's tensor-core variant: ms is the event time
+        # per call at 3a (the stacking launch and the sweep), device_ms the
+        # profiler's time of its two kernels, earlier_ms the CUDA-core
+        # variant on the same inputs; the same at 3d (B=8 and 64) and at
+        # 3b's two calls (16 pending terms, then 2)
+        entry("fr_select_mma", 532, paths["fr"]["fr_select_mma"]
+              + tl["3b"]["fr_select_mma"]
+              + sum(v["fr_select_mma"] for v in sl.values()),
+              max(gerr["fr_select_mma"], terr["fr_select_pending"]),
               gtm["fr_select"], gtm["plain_fr_select"],
               select_bound(B, n, m, terms=1),
-              also_replaces=[f"{ts_line}:1191", f"{ts_line}:1368",
-                             f"{ts_line}:1499"],
-              paths={"fr_batch": paths["fr"]["fr_select"],
-                     "srr_batch": tl["3b"]["fr_select"],
-                     **{f"{name}_batch B={b}": v["fr_select"]
+              source=f"{csrc}/fr_select.cu", main_loop=rescaled_loop,
+              also_replaces=fr_replaces,
+              paths={"fr_batch": paths["fr"]["fr_select_mma"],
+                     "srr_batch": tl["3b"]["fr_select_mma"],
+                     **{f"{name}_batch B={b}": v["fr_select_mma"]
                         for (name, b), v in sl.items()}},
-              rmp_b8_ms=on_path(ssplit, d_rmp, "fr_select"),
-              rmp_b64_ms=on_path(ssplit, f"3d rmp B={big}", "fr_select"),
+              # the yardstick: one f32 torch.matmul of the select's
+              # products, and the same product in bf16 on the tensor cores
+              library_ms=gtm["fr_select_gemm"],
+              library_bf16_ms=gtm["fr_select_gemm_bf16"],
+              device_ms=gtm["fr_select_device"],
+              path_device_ms=rescaled_on_path(gtm["splits"], "3a"),
+              earlier_ms=gtm["fr_select_simt"],
+              **{f"rmp_b{b}_{key}": splain[f"fr_select_b{b}_{src}"]
+                 for b in (B0, big) for key, src in (
+                     ("ms", "call"), ("device_ms", "device"),
+                     ("earlier_ms", "simt"), ("library_ms", "gemm"),
+                     ("library_bf16_ms", "gemm_bf16"))},
+              rmp_b8_path_device_ms=rescaled_on_path(ssplit, d_rmp),
+              rmp_b64_path_device_ms=rescaled_on_path(
+                  ssplit, f"3d rmp B={big}"),
               plain_rmp_b8_ms=splain["fr_select_b8"],
               rmp_b8_bound_ms=select_bound(B0, n3, m3, terms=1)["bound_ms"],
               rmp_b64_bound_ms=select_bound(big, n3, m3,
                                             terms=1)["bound_ms"],
-              srr_ms=tkern["fr_select_3b"],
+              srr_path_device_ms=tkern["fr_select_3b"],
+              **{f"srr_{P}_{key}": tplain[f"fr_select_{src}_{suf}"]
+                 for P, src in ((kr, "init"), (2, "pending2"))
+                 for key, suf in (("ms", "call"), ("device_ms", "device"),
+                                  ("earlier_ms", "simt"),
+                                  ("library_ms", "gemm"),
+                                  ("library_bf16_ms", "gemm_bf16"))},
               plain_srr_init_ms=tplain["fr_select_init"],
               plain_srr_pending2_ms=tplain["fr_select_pending2"],
+              **{f"srr_{P}_bound_ms": select_bound(B, n, m,
+                                                   terms=P)["bound_ms"]
+                 for P in (kr, 2)},
               # SRR's first select applies the init's k pending terms, the
               # later ones an append's and a deletion's: the mean launch
               srr_bound_ms=(
                   select_bound(B, n, m, terms=kr)["bound_ms"]
-                  + (tl["3b"]["fr_select"] - 1)
+                  + (tl["3b"]["fr_select_mma"] - 1)
                   * select_bound(B, n, m, terms=2)["bound_ms"])
-              / tl["3b"]["fr_select"]),
+              / tl["3b"]["fr_select_mma"]),
+        # its CUDA-core variant: the f32-correlation path runs it; ms is its
+        # time on 3a's bf16 inputs, f32_ms on the f32 dictionary
+        entry("fr_select", 532, f32fr["fr_select"],
+              max(gerr["fr_select"], terr["fr_select_pending_simt"],
+                  serr["fr_select_simt"]),
+              gtm["fr_select_simt"], gtm["plain_fr_select"],
+              select_bound(B, n, m, terms=1), also_replaces=fr_replaces,
+              paths={"fr_batch precision=f32": f32fr["fr_select"]},
+              library_ms=gtm["fr_select_gemm"],
+              library_bf16_ms=gtm["fr_select_gemm_bf16"],
+              f32_ms=gtm["fr_select_f32"],
+              f32_bound_ms=select_bound(B, n, m, cdt_bytes=4,
+                                        terms=1)["bound_ms"],
+              rmp_b8_ms=splain["fr_select_b8_simt"],
+              srr_16_ms=tplain["fr_select_init_simt"]),
         entry("fr_append", 532, paths["fr"]["fr_append"], gerr["fr_append"],
               gtm["fr_append"], gtm["plain_fr_append"],
               engine_bound(B, kf, n, appends=1)),
@@ -2993,6 +3291,8 @@ def main():
               xper[("plain_select_topl_stream l=32", part)],
               stream_bound(B5, n5, part, l=32), source=stream_src,
               paths=topl_paths,
+              library_ms=xper[("select_topl_stream gemm", part)],
+              library_bf16_ms=xper[("select_topl_stream gemm bf16", part)],
               device_ms=device_ms(xsplit, f"5c sp s={SHARDS}",
                                   "stream_topl_sweep", "stream_topl_finish"),
               l4_ms=xper[("select_topl_stream l=4", part)],
@@ -3003,6 +3303,9 @@ def main():
               whole_l32_ms=xper[("select_topl_stream l=32", whole)],
               whole_l32_plain_ms=xper[("plain_select_topl_stream l=32",
                                        whole)],
+              whole_l32_library_ms=xper[("select_topl_stream gemm", whole)],
+              whole_l32_library_bf16_ms=xper[("select_topl_stream gemm bf16",
+                                              whole)],
               whole_l32_bound_ms=stream_bound(B5, n5, whole,
                                               l=32)["bound_ms"]),
         entry("select_masked_stream_mma", f"{TPU_SELECT}:385",
@@ -3055,32 +3358,63 @@ def main():
               shard_ms=xper[("corr_argmax simt", part)]),
     ]
     # fr_step_select: as the streaming selects, at B=8, bf16, the whole 5c
-    # width without V; the shard's width and the V variant beside it
+    # width without V; the shard's width and the V variant beside it. Its
+    # tensor-core variant: ms per call by events (the stacking launch, the
+    # sweep and the finishing stage), device_ms the profiler's, earlier_ms
+    # the CUDA-core sweep on the same inputs
     fr_paths = {f"fr_sharded_fused s={s_} fuse={int(f_)}": v["launches"]
                 for (s_, f_), v in pfr.items()}
     fam_paths = {f"{name}_sharded_fused s={SHARDS}":
-                 pfam[name]["launches"]["fr_step_select"]
+                 pfam[name]["launches"]["fr_step_select_mma"]
                  for name in ("srr", "rmp", "foba")}
+    k8_kernels = ("rescaled_mma", "round_rows", "stream_finish")
+
+    def k8(prefix, name, width):
+        """The K8 numbers of one shape: per call, device, CUDA-core, plain,
+        library, bound."""
+        v = " V" in name
+        return {f"{prefix}ms": fper[(name, width)],
+                f"{prefix}device_ms": fper[(name + " device", width)],
+                f"{prefix}earlier_ms": fper[(name + " simt", width)],
+                f"{prefix}plain_ms": fper[("plain_" + name, width)],
+                f"{prefix}library_ms": fper[(name + " gemm", width)],
+                f"{prefix}library_bf16_ms": fper[(name + " gemm bf16",
+                                                   width)],
+                f"{prefix}bound_ms": fr_step_bound(B5, n5, width,
+                                                   use_v=v)["bound_ms"]}
+
     kernels.append(entry(
-        "fr_step_select", f"{TPU_SELECT}:322",
+        "fr_step_select_mma", f"{TPU_SELECT}:322",
         sum(fr_paths.values()) + sum(fam_paths.values()),
-        frerr["fr_step_select"], fper[("fr_step_select", whole)],
+        frerr["fr_step_select_mma"], fper[("fr_step_select", whole)],
         fper[("plain_fr_step_select", whole)], fr_step_bound(B5, n5, whole),
+        source=f"{csrc}/fr_step_select.cu", main_loop=rescaled_loop,
         paths={**fr_paths, **fam_paths}, resc_max_abs_err=frerr["resc"],
-        device_ms=device_ms(fsplit, "3a-wide fr s=1 fuse=1", "fr_step_sweep",
-                            "stream_finish"),
-        v_ms=fper[("fr_step_select V", whole)],
-        v_plain_ms=fper[("plain_fr_step_select V", whole)],
-        v_bound_ms=fr_step_bound(B5, n5, whole, use_v=True)["bound_ms"],
-        shard_ms=fper[("fr_step_select", part)],
-        shard_plain_ms=fper[("plain_fr_step_select", part)],
-        shard_bound_ms=fr_step_bound(B5, n5, part)["bound_ms"],
-        shard_v_ms=fper[("fr_step_select V", part)],
-        shard_v_plain_ms=fper[("plain_fr_step_select V", part)],
-        shard_v_bound_ms=fr_step_bound(B5, n5, part,
-                                       use_v=True)["bound_ms"],
-        srr_device_ms=device_ms(fsplit, f"3b-wide srr s={SHARDS}",
-                                "fr_step_sweep", "stream_finish")))
+        library_ms=fper[("fr_step_select gemm", whole)],
+        library_bf16_ms=fper[("fr_step_select gemm bf16", whole)],
+        device_ms=fper[("fr_step_select device", whole)],
+        earlier_ms=fper[("fr_step_select simt", whole)],
+        path_device_ms=device_ms(fsplit, "3a-wide fr s=1 fuse=1",
+                                 *k8_kernels),
+        **k8("v_", "fr_step_select V", whole),
+        **k8("shard_", "fr_step_select", part),
+        **k8("shard_v_", "fr_step_select V", part),
+        shard_path_device_ms=device_ms(fsplit, f"3a-wide fr s={SHARDS} "
+                                       "fuse=1", *k8_kernels),
+        srr_path_device_ms=device_ms(fsplit, f"3b-wide srr s={SHARDS}",
+                                     *k8_kernels)))
+    # its CUDA-core variant: the f32-correlation path runs it; ms is its
+    # time on the bf16 inputs above
+    kernels.append(entry(
+        "fr_step_select", f"{TPU_SELECT}:322", pfr32, frerr["fr_step_select"],
+        fper[("fr_step_select simt", whole)],
+        fper[("plain_fr_step_select", whole)], fr_step_bound(B5, n5, whole),
+        paths={"fr_sharded_fused s=1 corr_dtype=f32": pfr32},
+        library_ms=fper[("fr_step_select gemm", whole)],
+        library_bf16_ms=fper[("fr_step_select gemm bf16", whole)],
+        v_ms=fper[("fr_step_select V simt", whole)],
+        shard_ms=fper[("fr_step_select simt", part)],
+        shard_v_ms=fper[("fr_step_select V simt", part)]))
     assert all(kn["launches"] > 0 for kn in kernels)
     assert all({"bound_ms", "bound_by", "library_ms"} <= set(kn)
                for kn in kernels)
@@ -3106,6 +3440,13 @@ def main():
             **{name: {key: v for key, v in rec.items() if key != "launches"}
                for name, rec in pfam.items()}},
         "omp_sharded_rows": prow, "device": gpu}}))
+    print(json.dumps({"greedy": {
+        "solve_ms": {key: gtm[key] for key in ("mp", "gomp", "fr")},
+        "idle_share": {key: v["idle_share"]
+                       for key, v in gtm["splits"].items()},
+        "device_busy_ms": {key: v["device_busy_ms"]
+                           for key, v in gtm["splits"].items()},
+        "device": gpu}}))
     print(json.dumps({"kernels": kernels, "two_stage": {
         "iters": tpaths["iters"], "recovery": tpaths["recovery"],
         "solve_ms": {c: ttm[c] for c in ("2b", "2c", "3b")},

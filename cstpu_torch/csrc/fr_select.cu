@@ -21,20 +21,37 @@
 //           atom never flips its score
 // and writes per-tile (max d2, lowest argmax) partials (B, T) with the
 // argmax_combine rule (a NaN d2 gives (NaN, INT_MAX)). cn2 is the squared
-// column norm of the f32 dictionary (:640). Products and sums of the GEMMs
-// in f32 on CUDA cores (no TF32); the score and the updates are rounded one
-// operation at a time as the TPU kernels write them (__fmul_rn, __fadd_rn,
-// __fdiv_rn), not fused into FMAs.
+// column norm of the f32 dictionary (:640). The score and the updates are
+// rounded one operation at a time as the TPU kernels write them
+// (__fmul_rn, __fadd_rn, __fdiv_rn), not fused into FMAs.
 //
-// What bounds it on an H100: (1 + P)*B*n*m multiply-adds per launch (1.07 G
-// for FR at B=64, n=1024, m=8192) on CUDA cores, plus reading and writing
-// resc (B, m) f32 (2 MB each way at that size). Design: common.cuh::
-// score_tile's loop, the first pass with two accumulators per (row, atom)
-// (q and z_0, r and u_0 staged side by side in shared memory), then one
-// pass per further term; resc stays in registers across the passes.
+// What bounds it on an H100: reading the cdt dictionary (16 MB in bf16 at
+// n=1024, m=8192, resident in the L2 across steps) and resc (B, m) f32 both
+// ways (2 MB each at B=64), against 2 (1 + P) B n m operations: for FR at
+// B=64 that is 2.1 G, 130 per dictionary byte, under the tensor cores' 295,
+// so the bytes bound it; SRR's first call (17 products) comes near the
+// operations' bound.
+//
+// Two hand-written variants; the Python wrapper picks one by the top-1
+// selects' predicate (fused_solve.mma_select_takes) and passes `use_mma`:
+//
+//   tensor cores (bf16 correlation): mma_rescaled.cuh, whose note holds the
+//     design: every product of a step (the P terms, then q) from one read of
+//     a dictionary tile, the rows of all products stacked and interleaved
+//     as wgmma's N operand so that one thread holds every product of its
+//     (row, atom) entries; a step with more than three terms takes further
+//     passes over the same tile from the L2. The operand is stacked by the
+//     top-1 selects' `round_rows` launch (select_argmax.cu).
+//   CUDA cores (f32 correlation, and what the tensor-core loop does not
+//     take): common.cuh::score_tile's loop, the first pass with two
+//     accumulators per (row, atom) (q and z_0, r and u_0 staged side by side
+//     in shared memory), then one pass per further term; resc stays in
+//     registers across the passes. The multiply-adds bound this one (true
+//     f32, FMA, no TF32).
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma_rescaled.cuh"
 
 namespace cstpu {
 
@@ -146,22 +163,50 @@ fr_select_kernel(const float* __restrict__ r, const float* __restrict__ U,
 
 }  // namespace cstpu
 
+// The tensor-core rescaled selects' plan (mma_rescaled.cuh::rescaled_plan)
+// for B rows, nterms rescaling products before the residuals' and ntiles
+// tiles: writes (G, Pn, rows) to out; `rows` is what the stacked operand's
+// scratch must hold. The wrappers size their scratch by it.
+extern "C" int cstpu_rescaled_plan(int B, int nterms, int ntiles, int* out) {
+  if (B < 1 || nterms < 0 || ntiles < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cstpu::mma::RescaledPlan p =
+      cstpu::mma::rescaled_plan(B, nterms, ntiles);
+  out[0] = p.G;
+  out[1] = p.Pn;
+  out[2] = static_cast<int>(p.rows);
+  return 0;
+}
+
 // One FR or SRR select for all B rows. r (B, n) f32, the pending terms U
 // (P, B, n) f32 and W (P, B) f32 (P >= 0; weight wsign * W), A (n, m) in
 // cdt, cn2 (m,) f32, amask (B, m) u8 (1 = active), resc (B, m) f32 updated
 // in place; writes pval (B, ntiles) f32, pidx (B, ntiles) i32, ntiles =
-// ceil(m / kTile). All contiguous. Returns the launch's cudaError_t.
+// ceil(m / kTile). All contiguous. With use_mma the tensor-core loop runs,
+// with sb (sb_rows, roundup(n, 8)) bf16 as the stacked operand's scratch
+// (sb_rows at least cstpu_rescaled_plan's rows); it takes bf16 only, A
+// aligned to 16 bytes and m a multiple of 8, and returns
+// cudaErrorInvalidValue otherwise. Returns the first launch error.
 extern "C" int cstpu_fr_select(const float* r, const float* U, const float* W,
                                int P, float wsign, const void* A,
                                int cdt_bf16, const float* cn2,
                                const uint8_t* amask, float* resc, float* pval,
                                int* pidx, int B, int n, int m, float rtol,
+                               int use_mma, void* sb, long long sb_rows,
                                void* stream) {
   using namespace cstpu;
   if (P < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = (m + kTile - 1) / kTile;
-  const dim3 grid(ntiles, (B + kRows - 1) / kRows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!cdt_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(mma::launch_rescaled<false>(
+        r, U, (size_t)B * n, P, nullptr, W, wsign, A, m, cn2, amask, nullptr,
+        resc, pval, pidx, B, n, m, ntiles, rtol,
+        static_cast<__nv_bfloat16*>(sb), sb_rows, s));
+  }
+  const dim3 grid(ntiles, (B + kRows - 1) / kRows);
   if (cdt_bf16) {
     fr_select_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
         r, U, W, P, wsign, static_cast<const __nv_bfloat16*>(A), cn2, amask,

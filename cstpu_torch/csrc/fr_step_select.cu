@@ -13,8 +13,8 @@
 // score skipped whole).
 //
 // Math, per row b and atom j of the shard (R, W, V rounded to the
-// correlation dtype, products and sums in f32 on CUDA cores, each atom's sum
-// in the order p = 0 .. n-1, so an atom scores the same in any shard):
+// correlation dtype, products and sums in f32, each atom's sum in one fixed
+// order from p = 0, per variant, so an atom scores the same in any shard):
 //   q  = round_cdt(r_b) . a_j,  z = round_cdt(w_b) . a_j,
 //   zv = round_cdt(v_b) . a_j                              (only with V)
 //   resc = 0 where j == restore[b]; resc -= z z; resc += zv zv;
@@ -31,18 +31,30 @@
 //
 // What bounds it on an H100: the sweep reads the cdt shard once (256 MB in
 // bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and reads and writes resc
-// (B, m) f32; it does 2 (2 or 3) B n m operations, at B=8 far below the
-// machine's balance, so the bytes bound it. Design: fr_select.cu's loop (q
-// and z share the first pass over the shard, two accumulators per (row,
-// atom); V takes a pass of its own, which re-reads the block's columns from
-// the L2 cache; resc stays in registers across the passes) with
-// stream_select.cu's strided reads of a column slice. Like those it computes
-// kRows = 16 rows whatever B is, on CUDA cores, and so runs over its byte
-// bound. Later work: tensor-core tiles, one read of the shard for all three
-// products, a row count fitted to B.
+// (B, m) f32; it does 2 (2 or 3) B n m operations, at B=8 16-24 per shard
+// byte, far under the tensor cores' 295, so the bytes bound it.
+//
+// Two hand-written variants; the Python wrapper picks one by the top-1
+// selects' predicate (fused_solve.mma_select_takes) and passes `use_mma`:
+//
+//   tensor cores (bf16 correlation): mma_rescaled.cuh, the loop fr_select.cu
+//     runs too. q, z and zv come from ONE read of the shard: the rounded R,
+//     W and V are stacked, interleaved in groups of 8 rows, as wgmma's N
+//     operand (N = 16 without V, 32 with it, the fourth product slot zero),
+//     so one thread holds all three products of its (row, atom) entries and
+//     updates resc and scores them in registers. The shard's pitch is the
+//     tensor map's: a column slice is read in place.
+//   CUDA cores (f32 correlation, and a base or pitch the bulk loads cannot
+//     address): fr_select.cu's loop (q and z share the first pass over the
+//     shard, two accumulators per (row, atom); V takes a pass of its own,
+//     which re-reads the block's columns; resc stays in registers across the
+//     passes) with stream_select.cu's strided reads of a column slice, kRows
+//     = 16 rows per block whatever B is. The multiply-adds bound it (true
+//     f32, FMA, no TF32).
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma_rescaled.cuh"
 
 namespace cstpu {
 
@@ -179,27 +191,41 @@ void launch_fr_step(const float* r, const float* w, const float* v,
 // local atom indices, -1 for none; cn2 (m,) f32; resc (B, m) f32 is updated
 // in place. m is a multiple of kTile and bpt sweep blocks make one tile of
 // the NaN rule. Scratch pval (B, m / kTile) f32 and pidx i32; writes val
-// (B,) f32 and idx (B,) i32. Returns the first launch error.
+// (B,) f32 and idx (B,) i32. With use_mma the sweep is the tensor-core one,
+// with sb (sb_rows, roundup(n, 8)) bf16 as the stacked operand's scratch
+// (sb_rows at least cstpu_rescaled_plan's rows, fr_select.cu); it takes bf16
+// only, A aligned to 16 bytes and lda a multiple of 8, and the call returns
+// cudaErrorInvalidValue otherwise. Returns the first launch error.
 extern "C" int cstpu_fr_step_select(const float* r, const float* w,
                                     const float* v, const void* A,
                                     long long lda, int cdt_bf16, const int* il,
                                     const float* cn2, float* resc, float* pval,
                                     int* pidx, float* val, int* idx, int B,
                                     int n, int m, int bpt, float deg,
+                                    int use_mma, void* sb, long long sb_rows,
                                     void* stream) {
   using namespace cstpu;
   if (!stream_tiling_ok(m, bpt) || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cdt_bf16) {
-    launch_fr_step<__nv_bfloat16>(r, w, v, A, lda, il, cn2, resc, pval, pidx,
-                                  B, n, m, deg, s);
+  cudaError_t err;
+  if (use_mma) {
+    if (!cdt_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    err = mma::launch_rescaled<true>(
+        r, w, (size_t)B * n, 1, v, nullptr, 0.f, A, lda, cn2, nullptr, il,
+        resc, pval, pidx, B, n, m, m / kTile, deg,
+        static_cast<__nv_bfloat16*>(sb), sb_rows, s);
   } else {
-    launch_fr_step<float>(r, w, v, A, lda, il, cn2, resc, pval, pidx, B, n, m,
-                          deg, s);
+    if (cdt_bf16) {
+      launch_fr_step<__nv_bfloat16>(r, w, v, A, lda, il, cn2, resc, pval,
+                                    pidx, B, n, m, deg, s);
+    } else {
+      launch_fr_step<float>(r, w, v, A, lda, il, cn2, resc, pval, pidx, B, n,
+                            m, deg, s);
+    }
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       launch_stream_finish(pval, pidx, B, m / kTile, bpt, 0, val, idx, s));

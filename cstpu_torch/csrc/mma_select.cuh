@@ -244,17 +244,21 @@ struct Wgmma<64> {
 // acc[h][.] = round_bf16(R[row0 .. row0+NB-1]) . A[:, j0 + 64 h .. + 63] for
 // the two halves h of the tile at atom j0, summed over all n in k-steps of
 // 16 from p = 0. mapA is the dictionary's tensor map (boxes of 64 atoms x
-// kChunk rows), mapR the rounded residuals' (boxes of kChunk entries x NB
-// rows). Every thread of the kThreads-wide block calls it once: warp 4
-// produces, warps 0-3 consume and return with acc in wgmma's fragment
-// layout (see fragment_argmax); the producer's acc is not meaningful.
-// `smem` is the block's dynamic shared memory, smem_bytes<NB>() of it.
-template <int NB>
-__device__ __forceinline__ void score_tile_mma(float (&acc)[2][NB / 2],
-                                               unsigned char* smem,
-                                               const CUtensorMap* mapA,
-                                               const CUtensorMap* mapR,
-                                               int j0, int row0, int n) {
+// kChunk rows), mapR the rounded rows' (boxes of kChunk entries x NB rows).
+// Every thread of the kThreads-wide block calls it once: warp 4 produces,
+// warps 0-3 consume, with acc in wgmma's fragment layout (see
+// fragment_argmax); the producer's acc is not meaningful. `smem` is the
+// block's dynamic shared memory, smem_bytes<NB>() of it. With npass > 1 the
+// loop runs again over the SAME tile for rows row0 + k row_step (pass k):
+// the consumers call epi(k) with each pass's acc complete, and the producer
+// streams every pass through one ring, so pass k + 1's loads overlap pass
+// k's epilogue (the rescaled selects, mma_rescaled.cuh). The top-1 selects
+// take one pass and no epilogue.
+template <int NB, typename Epi>
+__device__ __forceinline__ void score_tile_mma(
+    float (&acc)[2][NB / 2], unsigned char* smem, const CUtensorMap* mapA,
+    const CUtensorMap* mapR, int j0, int row0, int row_step, int npass,
+    int n, Epi&& epi) {
   constexpr uint32_t kStage = stage_bytes<NB>();
   const uint32_t ring = (smem_u32(smem) + 1023u) & ~1023u;
   const uint32_t full = ring + kStages * kStage;  // kStages barriers
@@ -272,50 +276,55 @@ __device__ __forceinline__ void score_tile_mma(float (&acc)[2][NB / 2],
   }
   __syncthreads();
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int e = 0; e < NB / 2; ++e) acc[h][e] = 0.f;
-  }
-
   if (warp == kConsumers / 32) {
     if (lane == 0) {
-      for (int it = 0; it < nk; ++it) {
-        const int s = it % kStages;
+      for (int it = 0; it < npass * nk; ++it) {
+        const int s = it % kStages, kc = it % nk, pass = it / nk;
         if (it >= kStages) mbar_wait(empty + 8 * s, (it / kStages - 1) & 1);
         const uint32_t st = ring + s * kStage, bar = full + 8 * s;
         mbar_expect_tx(bar, kStage);
-        tma_load_2d(st, mapA, bar, j0, it * kChunk);
-        tma_load_2d(st + kHalfBytes, mapA, bar, j0 + kHalf, it * kChunk);
-        tma_load_2d(st + 2 * kHalfBytes, mapR, bar, it * kChunk, row0);
+        tma_load_2d(st, mapA, bar, j0, kc * kChunk);
+        tma_load_2d(st + kHalfBytes, mapA, bar, j0 + kHalf, kc * kChunk);
+        tma_load_2d(st + 2 * kHalfBytes, mapR, bar, kc * kChunk,
+                    row0 + pass * row_step);
       }
     }
   } else {
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
-    for (int it = 0; it < nk; ++it) {
-      const int s = it % kStages;
-      mbar_wait(full + 8 * s, (it / kStages) & 1);
-      const uint32_t st = ring + s * kStage;
-      wgmma_fence();
+    for (int pass = 0; pass < npass; ++pass) {
 #pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        // 16 entries of n on: 16 rows of a half tile, 32 bytes of R's rows
-        const uint64_t db = smem_desc(st + 2 * kHalfBytes + kk * 32, 1024);
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint64_t da =
-              smem_desc(st + h * kHalfBytes + kk * 16 * kRowBytes, 1024);
-          Wgmma<NB>::run(acc[h], da, db);
-        }
+        for (int e = 0; e < NB / 2; ++e) acc[h][e] = 0.f;
       }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's group is done: hand it back
-      if (it > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      for (int kc = 0; kc < nk; ++kc) {
+        const int it = pass * nk + kc, s = it % kStages;
+        mbar_wait(full + 8 * s, (it / kStages) & 1);
+        const uint32_t st = ring + s * kStage;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          // 16 entries of n on: 16 rows of a half tile, 32 bytes of R's rows
+          const uint64_t db = smem_desc(st + 2 * kHalfBytes + kk * 32, 1024);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint64_t da =
+                smem_desc(st + h * kHalfBytes + kk * 16 * kRowBytes, 1024);
+            Wgmma<NB>::run(acc[h], da, db);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's group is done: hand it back
+        if (kc > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+      }
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      // the pass's last stage goes back too, for the next pass's loads
+      if (lane == 0) mbar_arrive(empty + 8 * ((pass * nk + nk - 1) % kStages));
+      epi(pass);
     }
-    wgmma_wait<0>();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
   }
 }
 
@@ -397,7 +406,8 @@ top1_mma_kernel(const __grid_constant__ CUtensorMap mapA,
   const int j0 = tile * kTile, row0 = blockIdx.y * NB;
 
   float acc[2][NB / 2];
-  score_tile_mma<NB>(acc, smem, &mapA, &mapR, j0, row0, n);
+  score_tile_mma<NB>(acc, smem, &mapA, &mapR, j0, row0, 0, 1, n,
+                     [](int) {});
 
   if (threadIdx.x < kConsumers) {
     auto score = [&](int q, int j, float s) -> float {
@@ -437,14 +447,21 @@ top1_mma_kernel(const __grid_constant__ CUtensorMap mapA,
 }
 
 // ------------------------------------------------------------- host ----
-// Defined in select_argmax.cu, used by both selects.
+// Defined in select_argmax.cu, used by the top-1 selects and by the rescaled
+// ones (mma_rescaled.cuh).
 
-// rb[b, p] = round_bf16(r[b ldr + p ldp]) for p < n, 0 for n <= p < n8: the
-// K-major operand of the loop, rows n8 = roundup(n, 8) entries apart (one
-// small launch on stream s).
-cudaError_t round_rows(const float* r, size_t ldr, size_t ldp,
-                       __nv_bfloat16* rb, int B, int n, int n8,
-                       cudaStream_t s);
+// The K-major operand of the loop, rb (rows, n8) bf16 with n8 = roundup(n,
+// 8), from the products' rows rounded to nearest even (one small launch on
+// stream s). The products are u + p ustride for p < nu, then v (when not
+// null), then r; entry (b, c) of each lies at [b ldr + c ldp]. Row
+// ((k ngp + g) Pn + s) 8 + i of rb holds row 8 g + i of product k Pn + s:
+// the products stacked in groups of 8 rows, Pn to a pass, for ngp row groups;
+// zeros past n, past B and past the products. The top-1 selects pass r alone
+// with Pn = 1, ngp = ceil(B / 8) and rows = B, so that rb[b, c] = r[b, c].
+cudaError_t round_rows(const float* r, const float* u, size_t ustride,
+                       int nu, const float* v, size_t ldr, size_t ldp,
+                       __nv_bfloat16* rb, int B, int n, int n8, int Pn,
+                       int ngp, long long rows, cudaStream_t s);
 
 // Rows of a block for a batch of B and a grid of `ntiles` tiles: the
 // smallest width of {8, 16, 32, 64} that holds min(B, 64), halved (not
@@ -493,7 +510,8 @@ cudaError_t launch_top1(const float* r, size_t ldr, size_t ldp,
                         int B, int n, int m, int ldpart, cudaStream_t s) {
   if (rb == nullptr || !takes(A, lda, B, n, m)) return cudaErrorInvalidValue;
   const int n8 = (n + 7) / 8 * 8;
-  cudaError_t err = round_rows(r, ldr, ldp, rb, B, n, n8, s);
+  cudaError_t err = round_rows(r, nullptr, 0, 0, nullptr, ldr, ldp, rb, B, n,
+                               n8, 1, (B + 7) / 8, B, s);
   if (err != cudaSuccess) return err;
   const int nb = rows_per_block(B, (m + kTile - 1) / kTile);
   CUtensorMap mapA, mapR;

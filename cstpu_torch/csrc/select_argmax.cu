@@ -147,24 +147,40 @@ void launch_select(const float* r, const void* A, float* pval, int* pidx,
 
 namespace mma {
 
-__global__ void round_rows_kernel(const float* __restrict__ r, size_t ldr,
-                                  size_t ldp, __nv_bfloat16* __restrict__ rb,
-                                  int B, int n, int n8) {
-  const size_t total = (size_t)B * n8;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const size_t b = e / n8, p = e % n8;
-    rb[e] = __float2bfloat16_rn(p < (size_t)n ? r[b * ldr + p * ldp] : 0.f);
+// Rows of rb along y, entries of a row along x: each thread decodes its row
+// (product, measurement row) once.
+__global__ void round_rows_kernel(const float* __restrict__ r,
+                                  const float* __restrict__ u, size_t ustride,
+                                  int nu, const float* __restrict__ v,
+                                  size_t ldr, size_t ldp,
+                                  __nv_bfloat16* __restrict__ rb, int B, int n,
+                                  int n8, int Pn, int ngp, int rows) {
+  const int nprod = nu + (v ? 1 : 0) + 1;
+  for (int srow = blockIdx.y; srow < rows; srow += gridDim.y) {
+    const int t = srow / 8, s = t % Pn, g = (t / Pn) % ngp;
+    const int p = t / Pn / ngp * Pn + s, b = 8 * g + srow % 8;
+    const bool live = p < nprod && b < B;
+    const float* src = p < nu ? u + (size_t)p * ustride
+                              : (v != nullptr && p == nu ? v : r);
+    src += live ? (size_t)b * ldr : 0;
+    __nv_bfloat16* dst = rb + (size_t)srow * n8;
+    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < n8;
+         c += gridDim.x * blockDim.x) {
+      dst[c] = __float2bfloat16_rn(live && c < n ? src[(size_t)c * ldp] : 0.f);
+    }
   }
 }
 
-cudaError_t round_rows(const float* r, size_t ldr, size_t ldp,
-                       __nv_bfloat16* rb, int B, int n, int n8,
-                       cudaStream_t s) {
-  const size_t total = (size_t)B * n8;
-  const size_t want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 1024 ? want : 1024);
-  round_rows_kernel<<<blocks, 256, 0, s>>>(r, ldr, ldp, rb, B, n, n8);
+cudaError_t round_rows(const float* r, const float* u, size_t ustride,
+                       int nu, const float* v, size_t ldr, size_t ldp,
+                       __nv_bfloat16* rb, int B, int n, int n8, int Pn,
+                       int ngp, long long rows, cudaStream_t s) {
+  const int bx = (n8 + 255) / 256;
+  const dim3 grid(bx < 16 ? bx : 16,
+                  static_cast<unsigned>(rows < 65535 ? rows : 65535));
+  round_rows_kernel<<<grid, 256, 0, s>>>(r, u, ustride, nu, v, ldr, ldp, rb,
+                                         B, n, n8, Pn, ngp,
+                                         static_cast<int>(rows));
   return cudaGetLastError();
 }
 

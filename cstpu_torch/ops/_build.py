@@ -52,9 +52,11 @@ _SIGNATURES = {
     "cstpu_gomp_append": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # r, U, W, P, wsign, A, cdt_bf16, cn2, amask, resc, pval, pidx, B, n,
-    # m, rtol, stream
+    # m, rtol, use_mma, sb (nullable), sb_rows, stream
     "cstpu_fr_select": [_P, _P, _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _I,
-                        _I, _I, _F, _P],
+                        _I, _I, _F, _I, _P, _L, _P],
+    # B, nterms, ntiles, out (3 ints: G, Pn, rows)
+    "cstpu_rescaled_plan": [_I, _I, _I, _P],
     # pval, pidx, ntiles, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r, aperp,
     # dinv, amask, done, B, n, m, k, t, rtol, max_eps2, min_d2, stream
     "cstpu_fr_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -101,9 +103,9 @@ _SIGNATURES = {
     "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
     # r, w, v (nullable), A, lda, cdt_bf16, il, cn2, resc, pval, pidx, val,
-    # idx, B, n, m, bpt, deg, stream
+    # idx, B, n, m, bpt, deg, use_mma, sb (nullable), sb_rows, stream
     "cstpu_fr_step_select": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _F, _P],
+                             _P, _I, _I, _I, _I, _F, _I, _P, _L, _P],
 }
 
 _lib = None

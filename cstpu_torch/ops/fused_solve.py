@@ -47,7 +47,8 @@ updated in place, one set of buffers for all steps.
 
 from __future__ import annotations
 
-from functools import partial
+import ctypes
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import torch
@@ -62,12 +63,13 @@ LMAX = 32              # most GOMP picks per iteration (kTopLMax)
 SMEM_MAX = 232448      # bytes of shared memory one sm_90 block may use
 L2_BYTES = 40 << 20    # cdt dictionary size kept resident in the 50 MB L2
 
-# Kernel launches made by the wrappers below, by kernel. A top-1 select has
-# two hand-written variants with a key each: "select_mma" counts the
-# tensor-core loop, "select" the CUDA-core one (see `mma_select_takes`).
+# Kernel launches made by the wrappers below, by kernel. The top-1 select and
+# the rescaled select have two hand-written variants with a key each:
+# "select_mma" and "fr_select_mma" count the tensor-core loop, "select" and
+# "fr_select" the CUDA-core one (see `mma_select_takes`).
 LAUNCHES = {"select": 0, "select_mma": 0, "append": 0, "mp_update": 0,
             "select_topl": 0, "gomp_append": 0, "fr_select": 0,
-            "fr_append": 0}
+            "fr_select_mma": 0, "fr_append": 0}
 
 
 def _degeneracy_rtol(n: int) -> float:
@@ -224,6 +226,19 @@ def _rounded_scratch(B: int, n: int, dev):
     return torch.empty((B, -(-n // 8) * 8), dtype=torch.bfloat16, device=dev)
 
 
+@lru_cache(maxsize=None)
+def _rescaled_plan(B: int, nterms: int, ntiles: int):
+    """(G, Pn, rows) of the tensor-core rescaled select for B rows, `nterms`
+    rescaling products before the residuals' and `ntiles` tiles, as
+    csrc/mma_rescaled.cuh::rescaled_plan decides it: G row groups of 8 and
+    Pn product slots a block, and the rows the stacked operand's scratch
+    must hold."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.load().cstpu_rescaled_plan(B, nterms, ntiles, out),
+                 "cstpu_rescaled_plan")
+    return tuple(out)
+
+
 def select_argmax(r, Ac, signed: bool = False, amask=None, eta: float = 1.0,
                   mma=None):
     """Per-tile select partials for residuals r (B, n) f32 against the
@@ -334,12 +349,15 @@ def _fr_select_ref(Ac, cn2, st: _FrState, cdt):
                                 st.dinv[None], -1.0, st.amask, st.resc, cdt)
 
 
-def rescaled_select(Ac, cn2, r, U, W, wsign: float, amask, resc):
+def rescaled_select(Ac, cn2, r, U, W, wsign: float, amask, resc, mma=None):
     """Rescaled select partials (pval, pidx), (B, T) each: the P pending
     terms of U (P, B, n) f32 and W (P, B) f32 go into resc (B, m) f32 in
     place, then the OLS score with the active mask amask (B, m) u8, against
     Ac (n, m) in its correlation dtype and the f32 squared column norms cn2
-    (m,). On CUDA tensors this launches csrc/fr_select.cu."""
+    (m,). On CUDA tensors this launches csrc/fr_select.cu: its tensor-core
+    variant where `mma_select_takes` says so (counted under
+    "fr_select_mma"), else its CUDA-core variant ("fr_select"); `mma` =
+    True or False forces one."""
     if _on_cpu(Ac, cn2, r, U, W, amask, resc):
         return _rescaled_select_ref(Ac, cn2, r, U, W, wsign, amask, resc,
                                     Ac.dtype)
@@ -352,26 +370,30 @@ def rescaled_select(Ac, cn2, r, U, W, wsign: float, amask, resc):
     T = -(-m // TILE)
     pval = torch.empty((B, T), dtype=torch.float32, device=Ac.device)
     pidx = torch.empty((B, T), dtype=torch.int32, device=Ac.device)
+    use_mma = _pick_mma(mma, Ac)
+    rows = _rescaled_plan(B, P, T)[2] if use_mma else 0
+    sb = _rounded_scratch(rows, n, Ac.device) if use_mma else None
     lib = _build.load()
     with torch.cuda.device(Ac.device):
         err = lib.cstpu_fr_select(
             r.data_ptr(), U.data_ptr(), W.data_ptr(), P, float(wsign),
             Ac.data_ptr(), int(Ac.dtype == torch.bfloat16), cn2.data_ptr(),
             amask.data_ptr(), resc.data_ptr(), pval.data_ptr(),
-            pidx.data_ptr(), B, n, m, _degeneracy_rtol(n), _stream())
+            pidx.data_ptr(), B, n, m, _degeneracy_rtol(n), int(use_mma),
+            None if sb is None else sb.data_ptr(), rows, _stream())
     _build.check(err, "cstpu_fr_select")
-    LAUNCHES["fr_select"] += 1
+    LAUNCHES["fr_select_mma" if use_mma else "fr_select"] += 1
     return pval, pidx
 
 
-def fr_select(Ac, cn2, st: _FrState):
+def fr_select(Ac, cn2, st: _FrState, mma=None):
     """FR select partials (pval, pidx), (B, T) each, for the state `st`
     against Ac (n, m) in its correlation dtype and the f32 squared column
     norms cn2 (m,); downdates st.resc in place with the last append's
     (aperp, dinv), one pending term. On CUDA tensors this launches
-    csrc/fr_select.cu."""
+    csrc/fr_select.cu (`mma` as `rescaled_select`'s)."""
     return rescaled_select(Ac, cn2, st.r, st.aperp[None], st.dinv[None],
-                           -1.0, st.amask, st.resc)
+                           -1.0, st.amask, st.resc, mma)
 
 
 # --------------------------------------------------------------------------

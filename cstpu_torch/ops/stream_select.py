@@ -38,10 +38,11 @@ On CUDA tensors each function launches csrc/stream_select.cu, or
 csrc/fr_step_select.cu for `fr_step_select` (a sweep that writes partials
 per row and per 128 atoms, then a finishing stage that folds them under the
 rule above: two launches per select) and counts one in
-`fused_solve.LAUNCHES`. The two top-1 sweeps have a tensor-core variant for
-a bf16 shard (csrc/mma_select.cuh; counted under "select_stream_mma" and
-"select_masked_stream_mma") and a CUDA-core variant for f32 correlation and
-for what the first does not take (`fused_solve.mma_select_takes`). On CPU
+`fused_solve.LAUNCHES`. The two top-1 sweeps and `fr_step_select` have a
+tensor-core variant for a bf16 shard (csrc/mma_select.cuh, mma_rescaled.cuh;
+counted under "select_stream_mma", "select_masked_stream_mma" and
+"fr_step_select_mma") and a CUDA-core variant for f32 correlation and for
+what the first does not take (`fused_solve.mma_select_takes`). On CPU
 tensors, and only there, it runs its plain twin (`*_ref`), which reproduces
 the rule tile by tile in torch operations. Products and sums are f32
 whatever the dtype of R; the scores of the two differ by the order of the
@@ -62,13 +63,14 @@ import torch
 from cstpu_torch.ops import _build
 from cstpu_torch.ops.fused_solve import (
     _CDTS, INT_MAX, LAUNCHES, TILE, _f32, _on_cpu, _pick_mma,
-    _rounded_scratch, _stream)
+    _rescaled_plan, _rounded_scratch, _stream)
 
-# the top-1 selects count their tensor-core variant under "<name>_mma" and
-# their CUDA-core variant under "<name>" (fused_solve.mma_select_takes)
+# the top-1 selects and fr_step_select count their tensor-core variant under
+# "<name>_mma" and their CUDA-core variant under "<name>"
+# (fused_solve.mma_select_takes)
 LAUNCHES.update(select_stream=0, select_stream_mma=0, select_topl_stream=0,
                 select_masked_stream=0, select_masked_stream_mma=0,
-                fr_step_select=0)
+                fr_step_select=0, fr_step_select_mma=0)
 
 STREAM_TILE_BYTES = 8 * 1024 * 1024
 STREAM_LMAX = TILE     # most slots of the top-l kernel (kStreamTopLMax)
@@ -351,7 +353,7 @@ def fr_step_select_ref(A, R, W, il, cn2, resc, deg: float, V=None):
     return (*_fold_top1(d2, tm), resc)
 
 
-def fr_step_select(A, R, W, il, cn2, resc, deg: float, V=None):
+def fr_step_select(A, R, W, il, cn2, resc, deg: float, V=None, mma=None):
     """One forward-regression selection sweep with the pending rescaling
     terms folded in.
 
@@ -369,7 +371,11 @@ def fr_step_select(A, R, W, il, cn2, resc, deg: float, V=None):
 
     resc is UPDATED IN PLACE (cstpu donates its buffer). Returns (d2max (B,)
     f32, idx (B,) i32, resc): the top-1 of d2 under the rule at the top of
-    this module; a row with every atom degenerate gives (-inf, 0)."""
+    this module; a row with every atom degenerate gives (-inf, 0). The
+    sweep is the tensor-core variant, one read of the shard for q, z and zv,
+    where `mma_select_takes` says so (counted under "fr_step_select_mma"),
+    else the CUDA-core one ("fr_step_select"); `mma` = True or False forces
+    one."""
     if _on_cpu(A, R, W, V, il, cn2, resc):
         return fr_step_select_ref(A, R, W, il, cn2, resc, deg, V)
     B, n, m, cn2 = _check_fr_step(A, R, W, V, il, cn2, resc)
@@ -383,6 +389,10 @@ def fr_step_select(A, R, W, il, cn2, resc, deg: float, V=None):
     pidx = torch.empty((B, m // TILE), dtype=torch.int32, device=dev)
     val = torch.empty((B,), dtype=torch.float32, device=dev)
     idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    use_mma = _pick_mma(mma, A)
+    rows = (_rescaled_plan(B, 1 if V is None else 2, m // TILE)[2]
+            if use_mma else 0)
+    sb = _rounded_scratch(rows, n, dev) if use_mma else None
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.cstpu_fr_step_select(
@@ -390,7 +400,8 @@ def fr_step_select(A, R, W, il, cn2, resc, deg: float, V=None):
             A.data_ptr(), A.stride(0), int(A.dtype == torch.bfloat16),
             il.data_ptr(), cn2.data_ptr(), resc.data_ptr(), pval.data_ptr(),
             pidx.data_ptr(), val.data_ptr(), idx.data_ptr(), B, n, m,
-            tm // TILE, float(deg), _stream())
+            tm // TILE, float(deg), int(use_mma),
+            None if sb is None else sb.data_ptr(), rows, _stream())
     _build.check(err, "cstpu_fr_step_select")
-    LAUNCHES["fr_step_select"] += 1
+    LAUNCHES["fr_step_select_mma" if use_mma else "fr_step_select"] += 1
     return val, idx, resc

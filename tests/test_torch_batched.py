@@ -142,9 +142,11 @@ def test_build_sources_are_the_package_csrc():
                      "select_argmax.cu", "select_topl.cu", "sp_round.cu",
                      "srr_append.cu", "stream_select.cu"]
     # every C entry point the wrappers call has its ctypes signature: one
-    # per source, and stream_select.cu's second one for the top-l select
+    # per source, stream_select.cu's second one for the top-l select and
+    # fr_select.cu's query of the tensor-core rescaled selects' plan
     assert set(_build._SIGNATURES) == {
-        "cstpu_" + name[:-3] for name in names} | {"cstpu_stream_topl"}
+        "cstpu_" + name[:-3] for name in names} | {"cstpu_stream_topl",
+                                                    "cstpu_rescaled_plan"}
     assert all(p.parent == ROOT / "cstpu_torch" / "csrc"
                for p in _build.sources())
 

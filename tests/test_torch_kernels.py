@@ -1,12 +1,14 @@
 """The CUDA kernels of cstpu_torch (select_argmax in its tensor-core and
 CUDA-core variants, omp_append, mp_update,
-select_topl, gomp_append, fr_select, fr_append, the two-stage ones:
+select_topl, gomp_append, fr_select (tensor-core and CUDA-core variants),
+fr_append, the two-stage ones:
 engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
 ones: rmp_append, engine_backward, the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
 stream_select.cu's top-1, masked top-1 and (n, B) argmax (each on the
 tensor-core and the CUDA-core sweep), its top-l, and
-fr_step_select.cu's rescaling update with its OLS select) against their
+fr_step_select.cu's rescaling update with its OLS select, in both
+variants) against their
 plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
 device every test here skips.
 
@@ -332,7 +334,7 @@ def test_greedy_solves_match_plain_and_recover(dev, B, n, m, cdt):
              ("select_topl", "gomp_append", -(-k // 2))),
             (lambda: fs.fr_fused_solve(A, Bs, k, corr_dtype=cdt),
              lambda: fs.fr_fused_solve_ref(A, Bs, k, corr_dtype=cdt),
-             ("fr_select", "fr_append", k))):
+             (_key("fr_select", A.to(cdt)), "fr_append", k))):
         (sol, _), got = launches(solve)
         assert got[key[0]] == got[key[1]] == key[2], got
         refsol, _ = ref()
@@ -609,7 +611,8 @@ def test_twostage_solves_match_plain_and_recover(dev, B, n, m, cdt):
                                                 corr_dtype=cdt)[0]))
     (sol, _, it), got = launches(lambda: ft.srr_fused_solve(
         A, Bs, k, maxiter=4, corr_dtype=cdt, return_iters=True))
-    assert got == {"select_topl": 1, "engine_init": 1, "fr_select": it,
+    assert got == {"select_topl": 1, "engine_init": 1,
+                   _key("fr_select", A.to(cdt)): it,
                    "srr_append": it, "engine_delete": it}, got
     solves.append((sol, ft.srr_fused_solve_ref(A, Bs, k, maxiter=4,
                                                corr_dtype=cdt)[0]))
@@ -801,7 +804,7 @@ def test_stepwise_solves_match_plain_and_recover(dev, B, n, m, cdt):
     for kw in ({"delta": 1e-2, "maxiter": 2}, {"k": k}):
         (sol, _, cap, (t, f)), got = launches(lambda: ft.rmp_fused_solve(
             A, Bs, kmax=12, corr_dtype=cdt, return_iters=True, **kw))
-        assert got == {"fr_select": f, "rmp_append": f,
+        assert got == {_key("fr_select", A.to(cdt)): f, "rmp_append": f,
                        "engine_backward": t}, got
         ref, _, cap_ref = ft.rmp_fused_solve_ref(A, Bs, kmax=12,
                                                  corr_dtype=cdt, **kw)
@@ -811,7 +814,7 @@ def test_stepwise_solves_match_plain_and_recover(dev, B, n, m, cdt):
             solves.append((sol, ref))
     (sol, _, cap, t), got = launches(lambda: ft.foba_fused_solve(
         A, Bs, 1e-2, kmax=12, corr_dtype=cdt, return_iters=True))
-    assert got == {"fr_select": t, "rmp_append": t}, got
+    assert got == {_key("fr_select", A.to(cdt)): t, "rmp_append": t}, got
     assert not cap.any()
     solves.append((sol, ft.foba_fused_solve_ref(A, Bs, 1e-2, kmax=12,
                                                 corr_dtype=cdt)[0]))
@@ -1184,11 +1187,12 @@ def _fr_step_inputs(dev, B, n, m, cdt, seed=0):
 def _fr_step_both(A, R, W, V, il, cn2, resc, deg):
     """Kernel and twin on clones of resc: ((val, idx, resc), the same)."""
     rk, rp = resc.clone(), resc.clone()
-    before = fs.LAUNCHES["fr_step_select"]
+    key = _key("fr_step_select", A)
+    before = fs.LAUNCHES[key]
     kern = ss.fr_step_select(A, R, W, il, cn2, rk, deg, V=V)
     plain = ss.fr_step_select_ref(A, R, W, il, cn2, rp, deg, V=V)
     torch.cuda.synchronize()
-    assert fs.LAUNCHES["fr_step_select"] - before == 1
+    assert fs.LAUNCHES[key] - before == 1
     assert kern[2] is rk and kern[0].dtype == torch.float32
     assert kern[1].dtype == torch.int32
     return kern, plain
@@ -1346,7 +1350,8 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
     for fuse in (True, False):
         (sol, steps), cnt = counted(lambda: sh.fr_sharded_fused(
             A, Bs, k, mesh, fuse_collectives=fuse, return_iters=True))
-        assert cnt == {"fr_step_select": shards * steps[0]} and steps == [k]
+        assert cnt == {"fr_step_select_mma": shards * steps[0]}
+        assert steps == [k]
         ref = sh.fr_sharded_fused_ref(A, Bs, k, mesh, fuse_collectives=fuse)
         assert torch.equal(sol.idx, ref.idx)
         assert torch.equal(sol.idx.long(), want)
@@ -1354,7 +1359,7 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
     (sol, iters), cnt = counted(lambda: sh.srr_sharded_fused(
         A, Bs, k, mesh, maxiter=4, return_iters=True))
     assert cnt == {"select_topl_stream": shards,
-                   "fr_step_select": shards * iters[0]}
+                   "fr_step_select_mma": shards * iters[0]}
     assert torch.equal(sol.idx, sh.srr_sharded_fused_ref(A, Bs, k, mesh,
                                                          maxiter=4).idx)
     assert torch.equal(sol.idx[:, :k].long(), want)
@@ -1362,7 +1367,7 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
                     (sh.foba_sharded_fused, sh.foba_sharded_fused_ref)):
         (sol, capped, counts), cnt = counted(lambda: fn(
             A, Bs, 1e-2, mesh, kmax=16, return_iters=True))
-        assert cnt == {"fr_step_select": shards * counts[0]["sweeps"]}
+        assert cnt == {"fr_step_select_mma": shards * counts[0]["sweeps"]}
         rsol, rcapped = ref(A, Bs, 1e-2, mesh, kmax=16)
         assert torch.equal(sol.idx, rsol.idx) and not bool(capped.any())
         assert torch.equal(capped, rcapped)
@@ -1529,3 +1534,307 @@ def test_forcing_the_tensor_core_loop_on_what_it_does_not_take_fails(dev):
     assert fs.LAUNCHES["select"] - before["select"] == 1
     assert fs.LAUNCHES["select_stream"] - before["select_stream"] == 1
     assert fs.LAUNCHES["select_mma"] == before["select_mma"]
+
+
+# --------------------------------------------------------------------------
+# The two variants of the rescaled selects, fr_select.cu and
+# fr_step_select.cu: the tensor-core loop of csrc/mma_rescaled.cuh (bf16) and
+# the CUDA-core loop, forced one at a time
+# --------------------------------------------------------------------------
+
+# batches off the row-group widths, an n that is no multiple of the k-step,
+# ragged m, the paths' shapes (3a's B=64, 3d's B=8)
+RESCALED_SIZES = [(1, 1024, 8192), (8, 1024, 8192), (9, 1000, 8232),
+                  (64, 1024, 8192), (65, 1000, 8232)]
+
+
+def _rescaled_inputs(dev, B, n, m, P, seed):
+    """A bf16 dictionary, residuals, P pending terms small enough that no
+    rescaling comes near zero, a fresh resc = cn2 in a buffer with a guard
+    band behind it, and an active mask with one active atom per row."""
+    A, R = _stream_inputs(dev, B, n, m, torch.bfloat16, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    U = 0.3 * torch.randn((P, B, n), device=dev, generator=gen) / n ** 0.5
+    W = torch.rand((P, B), device=dev, generator=gen) - 0.5
+    cn2 = torch.sum(A.float() ** 2, dim=0)
+    buf = torch.full((B * m + 4096,), 7.0, device=dev)
+    resc = buf[:B * m].view(B, m)
+    resc.copy_(cn2.repeat(B, 1))
+    amask = torch.zeros((B, m), dtype=torch.uint8, device=dev)
+    amask[torch.arange(B), (13 * torch.arange(B, device=dev)) % m] = 1
+    return A, R, U, W, cn2, resc, buf, amask
+
+
+def _rescaled_both(A, cn2, R, U, W, wsign, amask, resc, mma):
+    """Kernel (forced variant) on resc, twin on a clone: ((pval, pidx),
+    (pval, pidx), twin's resc); one launch of the variant's key."""
+    rp = resc.clone()
+    key = "fr_select_mma" if mma else "fr_select"
+    before = fs.LAUNCHES[key]
+    kern = fs.rescaled_select(A, cn2, R, U, W, wsign, amask, resc, mma=mma)
+    plain = fs._rescaled_select_ref(A.float(), cn2, R, U, W, wsign, amask, rp,
+                                    torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES[key] - before == 1
+    return kern, plain, rp
+
+
+@pytest.mark.parametrize("B,n,m", RESCALED_SIZES)
+@pytest.mark.parametrize("P", [0, 1, 2, 3, 4, 16])
+@pytest.mark.parametrize("mma", [True, False])
+def test_rescaled_select_variants_match_plain(dev, B, n, m, P, mma):
+    A, R, U, W, cn2, resc, buf, amask = _rescaled_inputs(dev, B, n, m, P,
+                                                         seed=12)
+    (kv, ki), (pv, pi), rp = _rescaled_both(A, cn2, R, U, W, 1.0, amask, resc,
+                                            mma)
+    torch.testing.assert_close(resc, rp, rtol=0, atol=1e-5)
+    assert bool((buf[B * m:] == 7.0).all())         # nothing past m or B
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    q = R.to(torch.bfloat16).float() @ A.float()
+    d2 = torch.where(amask.bool(), 0.0, q * q / rp)
+    clear = _tile_clear(d2)
+    assert torch.equal(ki[clear], pi[clear]) and int(clear.sum()) > 0
+
+
+@pytest.mark.parametrize("mma", [True, False])
+def test_rescaled_select_nan_degenerate_active_and_poisoned(dev, mma):
+    B, n, m, P = 9, 1000, 8232, 1
+    A, R, U, W, cn2, resc, buf, amask = _rescaled_inputs(dev, B, n, m, P,
+                                                         seed=13)
+    R[1, 5] = float("nan")                          # a NaN row
+    resc[3] = 0.0                                   # an all-degenerate row
+    W[:, 3] = 0.0
+    amask[4] = 1                                    # an all-active row
+    A[:, 4100] = float("nan")                       # a poisoned atom
+    (kv, ki), (pv, pi), rp = _rescaled_both(A, cn2, R, U, W, -1.0, amask,
+                                            resc, mma)
+    assert torch.equal(torch.isnan(resc), torch.isnan(rp))
+    assert bool(torch.isnan(resc[:, 4100]).all())   # z is NaN for every row
+    torch.testing.assert_close(resc, rp, rtol=0, atol=1e-5, equal_nan=True)
+    assert torch.equal(torch.isnan(kv), torch.isnan(pv))
+    ok = ~torch.isnan(pv)
+    torch.testing.assert_close(kv[ok], pv[ok], rtol=RTOL, atol=1e-6)
+    v, i = _reduce(kv, ki)
+    assert torch.isnan(v[1]) and i[1] == fs.INT_MAX  # active atoms score 0,
+    assert bool(torch.isnan(kv[1][pv[1].isnan()]).all())   # the rest NaN
+    assert bool((kv[3][~torch.isnan(kv[3])] <= 0).all())   # degenerate
+    assert v[4] == 0 and i[4] == 0                  # all active: (0, first)
+    assert int(ki[4, 5]) == 5 * fs.TILE
+    assert not bool((ki == 4100).any())             # NaN resc scores -inf
+
+
+def test_rescaled_repeated_column_scores_bit_equal(dev):
+    # one column within a tile, across tiles and in the ragged last tile:
+    # the same products, the same rescalings and the same scores, bit for
+    # bit, whatever the batch; the lowest copy wins
+    n, m = 1000, 8232
+    A, R, U, W, cn2, resc, _, amask = _rescaled_inputs(dev, 64, n, m, 2,
+                                                       seed=14)
+    at = [9, 30, 4100, m - 2]
+    for j in at[1:]:
+        A[:, j] = A[:, at[0]]
+    cn2 = torch.sum(A.float() ** 2, dim=0)
+    R[0] = A[:, at[0]].float()
+    amask.zero_()
+    ref = None
+    for B in (64, 9, 1):
+        rk = cn2.repeat(B, 1)
+        pv, pi = fs.rescaled_select(A, cn2, R[:B].contiguous(),
+                                    U[:, :B].contiguous(),
+                                    W[:, :B].contiguous(), 1.0, amask[:B], rk,
+                                    mma=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(rk[:, at[0]], rk[:, j]) for j in at[1:])
+        tiles = [j // fs.TILE for j in at]
+        assert len({float(pv[0, t]) for t in tiles}) == 1
+        assert [int(pi[0, t]) for t in tiles] == [9, 9, 4100, m - 2]
+        assert _reduce(pv, pi)[1][0] == at[0]
+        ref = (rk[0], pv[0]) if ref is None else ref
+        assert torch.equal(rk[0], ref[0]) and torch.equal(pv[0], ref[1])
+
+
+def test_rescaled_products_are_the_top1_loops_bits(dev):
+    # with no pending term and resc = 1 the score is q * q, the square of
+    # the top-1 select's |q|: the two loops sum every product in the same
+    # k-steps, so the values agree bit for bit
+    B, n, m = 64, 1024, 8192
+    A, R, _, _, cn2, _, _, amask = _rescaled_inputs(dev, B, n, m, 0, seed=15)
+    amask.zero_()
+    resc = torch.ones((B, m), device=dev)
+    empty = torch.zeros((0, B, n), device=dev)
+    rv, ri = fs.rescaled_select(A, cn2 * 0, R, empty, empty[:, :, 0], 1.0,
+                                amask, resc, mma=True)
+    tv, ti = fs.select_argmax(R, A, mma=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rv, tv * tv)
+    assert float((ri == ti).float().mean()) > 0.99
+
+
+# (B, rescaling products, tiles) -> (G, Pn, stacked rows): the paths' own
+# shapes first (K8 at B=8 without and with V at m_local = 131072 and 32768;
+# FR at 3a's and 3d's batch; SRR's init with 16 terms, then 2), then batches
+# off the row-group widths
+@pytest.mark.parametrize("B,nterms,ntiles,want", [
+    (8, 1, 1024, (1, 2, 16)),
+    (8, 2, 1024, (1, 4, 32)),
+    (8, 1, 256, (1, 2, 16)),
+    (64, 1, 64, (4, 2, 128)),
+    (8, 1, 64, (1, 2, 16)),
+    (64, 16, 64, (2, 4, 1280)),
+    (64, 2, 64, (2, 4, 256)),
+    (8, 16, 64, (1, 4, 160)),
+    (1, 0, 64, (1, 2, 16)),
+    (16, 1, 64, (1, 2, 32)),         # halved: twice the blocks still fit
+    (65, 3, 65, (2, 4, 320)),
+    (200, 1, 8, (2, 2, 416)),
+])
+def test_rescaled_plan(dev, B, nterms, ntiles, want):
+    assert fs._rescaled_plan(B, nterms, ntiles) == want
+
+
+def test_every_rescaled_plan_fits_an_instantiation(dev):
+    built = {(1, 2), (2, 2), (4, 2), (1, 4), (2, 4)}   # mma_rescaled.cuh
+    for B in (1, 7, 8, 9, 16, 31, 64, 65, 129, 200):
+        for nterms in (0, 1, 2, 3, 4, 7, 16):
+            for ntiles in (1, 8, 64, 65, 256, 1024):
+                G, Pn, rows = fs._rescaled_plan(B, nterms, ntiles)
+                assert (G, Pn) in built
+                nchunks = -(-(-(-B // 8)) // G)
+                npass = -(-(nterms + 1) // Pn)
+                assert rows == npass * nchunks * 8 * G * Pn
+                assert npass * Pn >= nterms + 1 and nchunks * 8 * G >= B
+
+
+def _stack_rows(prods, G, Pn):
+    """The stacked operand row by row: for each pass k, row chunk y, row
+    group g of the chunk and product slot s, the 8 rows of product
+    k Pn + s that the group holds, rounded to bf16, zeros past n and B."""
+    B, n = prods[0].shape
+    nchunks = -(-(-(-B // 8)) // G)
+    zero = torch.zeros((8, -(-n // 8) * 8))
+    out = []
+    for k in range(-(-len(prods) // Pn)):
+        for y in range(nchunks):
+            for g in range(G):
+                for s in range(Pn):
+                    p, b0 = k * Pn + s, 8 * (y * G + g)
+                    rows = zero.clone()
+                    if p < len(prods):
+                        got = prods[p][b0:b0 + 8].cpu()
+                        rows[:got.shape[0], :n] = got
+                    out.append(rows)
+    return torch.cat(out).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,n,m,P", [(8, 40, 1024, 1), (9, 1000, 8232, 0),
+                                     (64, 1024, 8192, 1), (17, 16, 1024, 3),
+                                     (65, 1000, 8232, 16)])
+def test_rescaled_stacked_operand_is_the_products_interleaved(dev, B, n, m,
+                                                              P):
+    # the scratch the rounding launch wrote for the sweep: row chunk y of
+    # pass k holds, in column group g Pn + s of wgmma's N, the rows
+    # 8 (y G + g) .. + 7 of product k Pn + s (the terms, then r), so that
+    # one thread holds every product of its (row, atom) entries
+    from cstpu_torch.ops import _build
+
+    A, R, U, W, cn2, resc, _, amask = _rescaled_inputs(dev, B, n, m, P,
+                                                       seed=19)
+    T = -(-m // fs.TILE)
+    G, Pn, rows = fs._rescaled_plan(B, P, T)
+    sb = torch.full((rows, -(-n // 8) * 8), 7.0, dtype=torch.bfloat16,
+                    device=dev)
+    pval = torch.empty((B, T), device=dev)
+    pidx = torch.empty((B, T), dtype=torch.int32, device=dev)
+    err = _build.load().cstpu_fr_select(
+        R.data_ptr(), U.data_ptr(), W.data_ptr(), P, 1.0, A.data_ptr(), 1,
+        cn2.data_ptr(), amask.data_ptr(), resc.data_ptr(), pval.data_ptr(),
+        pidx.data_ptr(), B, n, m, fs._degeneracy_rtol(n), 1, sb.data_ptr(),
+        rows, fs._stream())
+    _build.check(err, "cstpu_fr_select")
+    torch.cuda.synchronize()
+    assert torch.equal(sb.cpu(), _stack_rows([*U, R], G, Pn))
+
+
+FR_STEP_SIZES = [(1, 1024, 8192), (9, 1000, 8192), (65, 1024, 8192),
+                 (64, 1024, 8192), (8, 1024, 32768), (8, 1024, 131072)]
+
+
+@pytest.mark.parametrize("B,n,m", FR_STEP_SIZES)
+@pytest.mark.parametrize("use_v", [False, True])
+@pytest.mark.parametrize("mma", [True, False])
+def test_fr_step_variants_match_plain(dev, B, n, m, use_v, mma):
+    A, R, W, V, il, cn2, resc = _fr_step_inputs(dev, B, n, m,
+                                                torch.bfloat16, seed=16)
+    deg = fs._degeneracy_rtol(n)
+    resc[:, 40] = -1.0
+    il[:3, 0] = 77
+    il[1:5, 1] = 40
+    buf = torch.full((B * m + 4096,), 7.0, device=dev)
+    rk = buf[:B * m].view(B, m)
+    rk.copy_(resc)
+    rp = resc.clone()
+    key = "fr_step_select_mma" if mma else "fr_step_select"
+    before = fs.LAUNCHES[key]
+    V = V if use_v else None
+    kern = ss.fr_step_select(A, R, W, il, cn2, rk, deg, V=V, mma=mma)
+    plain = ss.fr_step_select_ref(A, R, W, il, cn2, rp, deg, V=V)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES[key] - before == 1
+    assert bool((buf[B * m:] == 7.0).all())
+    _same_fr_step(kern, plain)
+    q = R.to(torch.bfloat16).float() @ A.float()
+    d2 = torch.where(rp > deg * cn2, q * q / rp, -torch.inf)
+    clear = _clear_rows(d2.nan_to_num(neginf=-1.0))
+    assert bool(((kern[1] == plain[1]) | ~clear).all())
+    assert bool((rk[:min(B, 3), 77] == -1.0).all())
+
+
+@pytest.mark.parametrize("mma", [True, False])
+def test_fr_step_variants_read_a_slice_and_repeat_bits_across_shards(dev,
+                                                                     mma):
+    # a shard slice with pitch m + 384 is read in place; one column repeated
+    # in several tiles and in every shard of the dictionary updates and
+    # scores the same bits everywhere
+    B, n, m = 8, 1024, 32768
+    A, R, W, V, il, cn2, resc = _fr_step_inputs(dev, B, n, m,
+                                                torch.bfloat16, seed=17)
+    cols = [7, 300, 4000, m // 4 + 7, m // 2 + 7, 3 * m // 4 + 7, m - 3]
+    for j in cols[1:]:
+        A[:, j] = A[:, cols[0]]
+    cn2 = torch.sum(A.float() ** 2, dim=0)
+    deg = fs._degeneracy_rtol(n)
+    wide = torch.cat([A[:, :128], A, A[:, :256]], dim=1)
+    view = wide[:, 128:128 + m]
+    assert view.stride(0) == m + 384 and fs._pick_mma(None, view)
+    got = ss.fr_step_select(view, R, W, il, cn2, cn2.repeat(B, 1), deg, V=V,
+                            mma=mma)
+    want = ss.fr_step_select(A, R, W, il, cn2, cn2.repeat(B, 1), deg, V=V,
+                             mma=mma)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(torch.equal(want[2][:, cols[0]], want[2][:, j])
+               for j in cols[1:])
+    q = m // 4
+    parts = [ss.fr_step_select(A[:, s * q:(s + 1) * q], R, W, il,
+                               cn2[s * q:(s + 1) * q],
+                               cn2[s * q:(s + 1) * q].repeat(B, 1), deg,
+                               V=V, mma=mma)[2] for s in range(4)]
+    assert torch.equal(torch.cat(parts, dim=1), want[2])
+
+
+def test_forcing_the_tensor_core_rescaled_loop_on_f32_fails(dev):
+    A, R, U, W, cn2, resc, _, amask = _rescaled_inputs(dev, 8, 64, 1024, 1,
+                                                       seed=18)
+    with pytest.raises(RuntimeError):
+        fs.rescaled_select(A.float(), cn2, R, U, W, 1.0, amask, resc,
+                           mma=True)
+    il = torch.full((8, 2), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        ss.fr_step_select(A.float(), R, R, il, cn2, resc, 1e-6, mma=True)
+    before = dict(fs.LAUNCHES)
+    fs.rescaled_select(A[:, :1020].contiguous(), cn2[:1020], R, U, W, 1.0,
+                       amask[:, :1020].contiguous(),
+                       resc[:, :1020].contiguous())   # pitch off 16 bytes
+    assert fs.LAUNCHES["fr_select"] - before["fr_select"] == 1
+    assert fs.LAUNCHES["fr_select_mma"] == before["fr_select_mma"]
