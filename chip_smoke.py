@@ -41,12 +41,14 @@ stepwise, backward and sharded paths against the formulas for the
 iterations they ran: a streaming select per shard and step) and agreement
 with the plain solves (for the sharded paths also across shard counts,
 collective forms and with the unsharded batch solvers), and times kernels and solves with
-CUDA events. The top-1 selects and the rescaled selects (fr_select,
-fr_step_select) have two hand-written variants, a tensor-core one for bf16
-correlation and a CUDA-core one: both are held against the plain twins, the
-bf16 paths must have taken the first and the f32 paths (omp_batch,
-fr_batch, omp/ompr/fr_sharded_fused and correlate_argmax with f32
-correlation, at a smaller depth) the second, by their own launch counts;
+CUDA events. The top-1 selects, the top-l selects (select_topl, K7's sweep)
+and the rescaled selects (fr_select, fr_step_select) have two hand-written
+variants, a tensor-core one for bf16 correlation and a CUDA-core one: both
+are held against the plain twins, the bf16 paths must have taken the first
+and the f32 paths (omp_batch, gomp_batch, fr_batch,
+omp/ompr/fr_sharded_fused and correlate_argmax with f32 correlation, at a
+smaller depth) the second, by their own launch counts; K7's finish, one
+for both sweeps, is held alone against its plain fold;
 the later kernels' device time per launch and the paths' idle share come
 from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
@@ -512,22 +514,31 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
           f"(atol {APPEND_ATOL})")
 
     # --- select_topl and gomp_append (config 2a dictionary) --------------
-    kv, ki = fs.select_topl(r, Ac, l)
     tv, ti = fs._topl_ref(r, Ac32, bf, l)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(tv)
-    assert torch.equal(torch.isfinite(kv), fin)
-    err["select_topl"] = float((kv[fin] - tv[fin]).abs().max())
-    assert bool(((kv[fin] - tv[fin]).abs()
-                 <= SELECT_RTOL * tv[fin].abs() + 1e-6).all())
-    picks, pref = fs._merge_topl(kv, ki, l), fs._merge_topl(tv, ti, l)
-    assert picks[0, :2].tolist() == [77, m - 3], picks[0]
-    assert (picks[1] == fs.INT_MAX).all() and (pref[1] == fs.INT_MAX).all()
+    pref = fs._merge_topl(tv, ti, l)
     scores = torch.abs(r.to(bf).float() @ Ac32)[2:]
     srt = scores.sort(1, descending=True).values[:, :l + 1]
     clear = ((srt[:, :-1] - srt[:, 1:]) > GAP_RTOL * srt[:, :1]).all(1)
-    agree = (picks[2:] == pref[2:]).all(1) | ~clear
-    assert bool(agree.all()), "top-l picks disagree beyond the noise gap"
+    # the CUDA-core variant, then the tensor-core one (the path's)
+    for key, mma in (("select_topl", False), ("select_topl_mma", None)):
+        (kv, ki), counts = run_counted(lambda: fs.select_topl(r, Ac, l,
+                                                              mma=mma))
+        assert counts == expect_launches(**{key: 1}), (key, counts)
+        fin = torch.isfinite(tv)
+        assert torch.equal(torch.isfinite(kv), fin)
+        err[key] = float((kv[fin] - tv[fin]).abs().max())
+        assert bool(((kv[fin] - tv[fin]).abs()
+                     <= SELECT_RTOL * tv[fin].abs() + 1e-6).all())
+        picks = fs._merge_topl(kv, ki, l)
+        assert picks[0, :2].tolist() == [77, m - 3], picks[0]
+        assert (picks[1] == fs.INT_MAX).all() and (pref[1] == fs.INT_MAX).all()
+        agree = (picks[2:] == pref[2:]).all(1) | ~clear
+        assert bool(agree.all()), "top-l picks disagree beyond the noise gap"
+    # one loop: the first of a tile's l is the top-1 select's partial, bits
+    # and index
+    tv1, ti1 = fs.select_argmax(r, Ac, mma=True)
+    assert torch.equal(kv[:, :, 0].view(torch.int32), tv1.view(torch.int32))
+    assert torch.equal(ki[:, :, 0], ti1)
     k = GOMP_CELL[4]
     st = fs._init_gomp(Bs, k, m)
     for _ in range(k // l // 2):
@@ -544,9 +555,12 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
                              ((stk.Ginv, st.Ginv), (stk.coef, st.coef),
                               (stk.r, st.r), (stk.cols, st.cols)))
     assert err["gomp_append"] <= APPEND_ATOL, err["gomp_append"]
-    print(f"[gomp kernels] select_topl l={l}: tie->(77, {m - 3}), NaN row "
-          f"all INT_MAX, picks agree on {int(clear.sum())}/{len(clear)} "
-          f"clear rows, max |val err| {err['select_topl']:.3e}; "
+    print(f"[gomp kernels] select_topl l={l}, tensor-core and CUDA-core "
+          f"variants: tie->(77, {m - 3}), NaN row all INT_MAX, picks agree "
+          f"on {int(clear.sum())}/{len(clear)} clear rows, max |val err| "
+          f"{err['select_topl_mma']:.3e} and {err['select_topl']:.3e}; the "
+          f"tensor-core one's first entry per tile == the top-1 select's "
+          f"partial bit for bit; "
           f"gomp_append (iteration {k // l // 2}) idx/kcnt/done equal, max "
           f"|err| {err['gomp_append']:.3e} (atol {APPEND_ATOL})")
 
@@ -654,8 +668,9 @@ def greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f):
     sol, launches_g = run_counted(
         lambda: cstpu_torch.gomp_batch(A, Bg, l, k))
     it = -(-k // l)
-    assert launches_g == expect_launches(select_topl=it, gomp_append=it), \
-        launches_g
+    # a bf16 dictionary must have taken the tensor-core top-l select
+    assert launches_g == expect_launches(select_topl_mma=it,
+                                         gomp_append=it), launches_g
     rec_g = recovery(sol, sup_g)
     assert rec_g == 1.0, f"gomp_batch recovery {rec_g} != 1.0"
     ref, _ = fs.gomp_fused_solve_ref(A, Bg, l, k)
@@ -707,6 +722,32 @@ def fr_f32_path(Ar, Br, sup):
           f"launches={launches['fr_select']}: the CUDA-core rescaled select; "
           f"supports == plain solve, max |coef err| {cerr:.3e} (atol "
           f"{COEF_ATOL})")
+    return launches
+
+
+def gomp_f32_path(A, Bg, sup):
+    """gomp_batch with f32 correlation at 2a's size once with zeroed launch
+    counts: true f32 stays on the CUDA-core top-l select; recovery and the
+    plain f32 solve's agreement."""
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+
+    _, B, n, m, k, l = GOMP_CELL
+    sol, launches = run_counted(
+        lambda: cstpu_torch.gomp_batch(A, Bg, l, k, precision="f32"))
+    it = -(-k // l)
+    assert launches == expect_launches(select_topl=it, gomp_append=it), \
+        launches
+    rec = recovery(sol, sup)
+    assert rec == 1.0, f"gomp_batch f32 recovery {rec} != 1.0"
+    ref, _ = fs.gomp_fused_solve_ref(A, Bg, l, k, corr_dtype=torch.float32)
+    assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
+    cerr = float((sol.val - ref.val).abs().max())
+    assert cerr <= COEF_ATOL, cerr
+    print(f"[main 2a f32] gomp_batch(precision='f32') l={l} k={k} "
+          f"recovery={rec:.3f} launches={launches['select_topl']}: the "
+          f"CUDA-core top-l select; supports == plain solve, max |coef err| "
+          f"{cerr:.3e} (atol {COEF_ATOL})")
     return launches
 
 
@@ -769,14 +810,35 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
     tm["plain_mp_update"] = launches(
         lambda: fs._mp_update_ref(pv, pi, ps, Ac32, x, r))
     r = Bg.clone()
-    tm["select_topl"] = launches(lambda: fs.select_topl(r, Ac, l))
-    tm["plain_select_topl"] = launches(lambda: fs._topl_ref(r, Ac32, bf, l))
     # the yardstick: one f32 torch.matmul of the products the kernel
     # computes in its body, here the scores r . A, and the same product in
-    # bf16 on the tensor cores (never called by the port)
+    # bf16 on the tensor cores; and that bf16 GEMM followed by torch.topk
+    # over each tile of 128 (never called by the port)
     r32, rb = r.to(bf).float(), r.to(bf)
+    T = -(-A.shape[1] // fs.TILE)
     tm["select_topl_gemm"] = launches(lambda: torch.matmul(r32, Ac32))
     tm["select_topl_gemm_bf16"] = launches(lambda: torch.matmul(rb, Ac))
+    # at 2a's l and at 2b's: the tensor-core variant (the paths') per call
+    # and on the device, the CUDA-core one on the same bf16 inputs, the
+    # plain twin, the composite yardstick
+    for lv, sfx in ((l, ""), (SP_CELL[1], "32")):
+        call = partial(fs.select_topl, r, Ac, lv)
+        tm["select_topl" + sfx] = launches(call)
+        tm["select_topl" + sfx + "_device"] = device_ms_per_call(call)
+        tm["select_topl" + sfx + "_simt"] = launches(
+            lambda: call(mma=False))
+        tm["select_topl" + sfx + "_simt_device"] = device_ms_per_call(
+            lambda: call(mma=False))
+        tm["plain_select_topl" + sfx] = launches(
+            lambda: fs._topl_ref(r, Ac32, bf, lv))
+        tm["select_topl" + sfx + "_gemm_topk"] = launches(
+            lambda: torch.matmul(rb, Ac).view(B, T, fs.TILE).abs().topk(
+                lv, dim=2))
+    # the f32 path's dictionary, and half the rows (16 a block, not 32)
+    tm["select_topl_f32"] = launches(lambda: fs.select_topl(r, Ac32, l))
+    r_half = r[:B // 2].contiguous()
+    tm["select_topl_device_half"] = device_ms_per_call(
+        lambda: fs.select_topl(r_half, Ac, l))
     st = fs._init_gomp(Bg, kg, A.shape[1])
     gparts = fs._topl_ref(st.r, Ac32, bf, l)
     tm["gomp_append"] = launches(
@@ -821,6 +883,16 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
         f"{tm['fr_select_gemm_bf16']:.4f}); select_topl's scores by "
         f"torch.matmul {tm['select_topl_gemm']:.4f} (bf16 "
         f"{tm['select_topl_gemm_bf16']:.4f})"
+        + "; select_topl " + ", ".join(
+            f"l={lv}: tensor cores {tm['select_topl' + sfx]:.4f} per call, "
+            f"{tm['select_topl' + sfx + '_device']:.4f} on the device, CUDA "
+            f"cores {tm['select_topl' + sfx + '_simt']:.4f} "
+            f"({tm['select_topl' + sfx + '_simt_device']:.4f} device), "
+            f"plain {tm['plain_select_topl' + sfx]:.4f}, bf16 GEMM + topk "
+            f"{tm['select_topl' + sfx + '_gemm_topk']:.4f}"
+            for lv, sfx in ((l, ""), (SP_CELL[1], "32")))
+        + f"; f32 dictionary {tm['select_topl_f32']:.4f}, tensor cores at "
+        f"B={B // 2} {tm['select_topl_device_half']:.4f} device"
         + f"; atoms/s mp {tm['mp_atoms_per_s']:.1f} (plain "
         f"{tm['plain_mp_atoms_per_s']:.1f}), gomp {tm['gomp_atoms_per_s']:.1f}"
         f" (plain {tm['plain_gomp_atoms_per_s']:.1f}), fr "
@@ -1043,11 +1115,12 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
         sol2, _, it = solve(A_, B_, k, return_iters=True, **kw)
         assert torch.equal(sol.idx, sol2.idx) and torch.equal(sol.val,
                                                               sol2.val)
-        want = {"2b": dict(select_topl=1 + it, sp_round=1 + it),
-                "2c": dict(select_topl=1, engine_init=1, select_mma=it,
+        want = {"2b": dict(select_topl_mma=1 + it, sp_round=1 + it),
+                "2c": dict(select_topl_mma=1, engine_init=1, select_mma=it,
                            ompr_swap=it),
-                "3b": dict(select_topl=1, engine_init=1, fr_select_mma=it,
-                           srr_append=it, engine_delete=it)}[cell]
+                "3b": dict(select_topl_mma=1, engine_init=1,
+                           fr_select_mma=it, srr_append=it,
+                           engine_delete=it)}[cell]
         assert launches == expect_launches(**want), (cell, launches)
         rec = recovery(sol, sup)
         assert rec == 1.0, f"{cell} recovery {rec} != 1.0"
@@ -1069,25 +1142,28 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 
 # the kernels by name (a profiler key holds "<name>_kernel"); gomp_append
 # comes before omp_append, whose name is inside its own
-KERNEL_NAMES = ("select_argmax", "top1_mma", "round_rows", "gomp_append",
-                "omp_append", "fr_append", "mp_update", "select_topl",
-                "fr_select", "engine_init",
+KERNEL_NAMES = ("select_argmax", "top1_mma", "topl_mma", "round_rows",
+                "gomp_append", "omp_append", "fr_append", "mp_update",
+                "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
-                "stream_topl_finish", "fr_step_sweep", "rescaled_mma")
+                "stream_topl_merge", "stream_topl_fold", "fr_step_sweep",
+                "rescaled_mma")
 
 
-def profile_path(fn):
-    """One call of fn under torch.profiler after a warm-up: (device ms by
-    kernel, {name: (launches, device ms)}, other device ms)."""
+def profile_path(fn, reps=1):
+    """`reps` calls of fn under torch.profiler after a warm-up: (device ms,
+    {name: (launches, device ms)}), "other" for kernels not in
+    KERNEL_NAMES."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     per, busy = {}, 0.0
     for ev in prof.key_averages():
@@ -1202,17 +1278,22 @@ def twostage_times(A, Bg, Ar, Br, gpu):
     tparts = fs._topl_ref(Bg, Ac32, bf, k)
     pl["sp_round"] = launches(
         lambda: ft._sp_round_ref(*tparts, Ac32, Bg, _clone(sp), 0.0, True))
+    # a tensor-core select is its sweep and a rounding launch; the paths'
+    # top-l and top-1 or rescaled selects share the rounding's name, so it
+    # counts at its mean per launch
     kern = {"sp_round": per_launch("2b", "sp_round"),
-            "select_topl32": per_launch("2b", "select_topl"),
+            "select_topl32": per_launch("2b", "topl_mma")
+            + per_launch("2b", "round_rows"),
+            "select_topl32_2c": per_launch("2c", "topl_mma")
+            + per_launch("2c", "round_rows"),
+            "select_topl16_3b": per_launch("3b", "topl_mma")
+            + per_launch("3b", "round_rows"),
             "engine_init": per_launch("2c", "engine_init"),
-            # the tensor-core select's two kernels over its launches
-            "select_masked": (split["2c"]["kernels"]["top1_mma"]["ms"]
-                              + split["2c"]["kernels"]["round_rows"]["ms"])
-            / split["2c"]["kernels"]["top1_mma"]["launches"],
+            "select_masked": per_launch("2c", "top1_mma")
+            + per_launch("2c", "round_rows"),
             "ompr_swap": per_launch("2c", "ompr_swap"),
-            "fr_select_3b": (split["3b"]["kernels"]["rescaled_mma"]["ms"]
-                             + split["3b"]["kernels"]["round_rows"]["ms"])
-            / split["3b"]["kernels"]["rescaled_mma"]["launches"],
+            "fr_select_3b": per_launch("3b", "rescaled_mma")
+            + per_launch("3b", "round_rows"),
             "srr_append": per_launch("3b", "srr_append"),
             "engine_delete": per_launch("3b", "engine_delete")}
     print("[time two-stage] " + ", ".join(
@@ -1783,10 +1864,11 @@ def check_stream_kernels(dev):
                     k9 = ss.correlate_select_masked_stream(A, R, M, mma=mma)
                     _hold("select_masked_stream" + sfx, k9, p9,
                           _clear_rows(live + M), errs)
-                for l in (4, 32):
-                    k7 = ss.correlate_select_topl_stream(A, R, l)
+                for l, mma in itertools.product((4, 32), forced):
+                    sfx = "_mma" if bf16 and mma is None else ""
+                    k7 = ss.correlate_select_topl_stream(A, R, l, mma=mma)
                     p7 = ss.correlate_select_topl_stream_ref(A, R, l)
-                    _hold("select_topl_stream", k7, p7,
+                    _hold("select_topl_stream" + sfx, k7, p7,
                           _clear_rows(live, depth=l), errs)
                     # as sets on every row (the tied one too): the sorted
                     # values agree, and row 0 holds the same atoms
@@ -1798,6 +1880,24 @@ def check_stream_kernels(dev):
                             == sorted(p7[1][0].tolist()))
                     assert bool((k7[0][1] == -torch.inf).all())
                     assert bool((k7[1][1] == 0).all())
+                    # the finish alone on this sweep's partials: the plain
+                    # fold of the same values, bit for bit
+                    pval, pidx = ss.stream_topl_sweep(A, R, l, mma=mma)
+                    want = ss.stream_topl_finish_ref(pval.clone(),
+                                                     pidx.clone(),
+                                                     tm // 128, l)
+                    got = ss.stream_topl_finish(pval, pidx, tm // 128, l)
+                    assert torch.equal(got[0], want[0])
+                    assert torch.equal(got[1], want[1])
+                    errs["stream_topl_finish"] = 0.0
+                if bf16:
+                    # at l = 1 the tensor-core top-l is the top-1 select
+                    v1, i1 = ss.correlate_select_topl_stream(A, R, 1,
+                                                             mma=True)
+                    w1, j1 = ss.correlate_select_stream(A, R, mma=True)
+                    assert torch.equal(v1[:, 0].view(torch.int32),
+                                       w1.view(torch.int32))
+                    assert torch.equal(i1[:, 0], j1)
                 tile10 = ca._pick_tile(m)
                 first = torch.isnan(sc.view(B, m // tile10, tile10)).any(
                     dim=2).int().argmax(dim=1) * tile10
@@ -1821,7 +1921,7 @@ def check_stream_kernels(dev):
                 assert bool(torch.isnan(kv[1]))
                 if poisoned:
                     lo = best // tm * tm
-                    for val, got in (k6, k9, k7):    # no pick from its tile
+                    for val, got in (k6, k9, k7):  # no pick from its tile
                         assert not bool(((got >= lo) & (got < lo + tm)
                                          & (val > -torch.inf)).any())
                     assert bool(torch.isnan(kv).all())
@@ -1831,7 +1931,8 @@ def check_stream_kernels(dev):
                     assert int(ki[0]) == a0 and not bool(torch.isnan(kv[0]))
             del A, R, M, sc, live, seen
             torch.cuda.empty_cache()
-    print("[stream kernels] K6, K9, K7 (l=4, 32), K10 == plain twins at "
+    print("[stream kernels] K6, K9, K7 (l=4, 32; its finish alone bit for "
+          "bit; at l=1 == K6's tensor-core sweep), K10 == plain twins at "
           f"m_local in {STREAM_WIDTHS}, bf16 (tensor-core and CUDA-core "
           "sweeps) and f32: ties -> lowest index "
           "within and across tiles, NaN row -> (-inf, 0) / NaN (K10), "
@@ -1995,6 +2096,127 @@ def check_mma_selects(dev):
     return errs
 
 
+def check_mma_topl(dev):
+    """Both hand-written variants of the top-l selects against the plain
+    twins at MMA_SHAPES, bf16, with a column repeated within and across
+    tiles, a NaN row and a poisoned atom: select_topl's partials at l in
+    (1, 4, 16, 32), values to SELECT_RTOL and index sets on the tiles whose
+    l-th score stands clear of the (l+1)-th, its first entry per tile the
+    top-1 select's partial bit for bit; where the shape streams, K7 at l in
+    (1, 4, 32, 48, 128) (sorted values; slot for slot on the clear rows),
+    its finish alone against the plain fold bit for bit, a column slice
+    (pitch m + 384) read in place, and at l = 1 the top-1 stream select.
+    Forcing the tensor-core loop on f32 or a misaligned base must fail."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    bf = torch.bfloat16
+    errs = {}
+    for B, n, m in MMA_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        A = torch.randn((n, m), device=dev, generator=gen)
+        Ac = (A / A.norm(dim=0)).to(bf)
+        r = torch.randn((B, n), device=dev, generator=gen)
+        a0, a1, a2 = 5, 14, m - 3              # one column, thrice
+        Ac[:, a1] = Ac[:, a0]
+        Ac[:, a2] = Ac[:, a0]
+        r[0] = 0.3 * r[0] + 3.0 * Ac[:, a0].float()
+        if B > 2:
+            r[1, 3] = float("nan")
+        if m >= 1024:
+            Ac[:, m // 2 + 1] = float("nan")    # its tile, every row
+        Ac32 = Ac.float()
+        tv1, ti1 = fs.select_argmax(r, Ac, mma=True)
+        for l, mma in itertools.product((1, 4, 16, 32), (True, False)):
+            key = "select_topl_mma" if mma else "select_topl"
+            kv, ki = fs.select_topl(r, Ac, l, mma=mma)
+            pv, pi = fs._topl_ref(r, Ac32, bf, l)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isnan(kv), torch.isnan(pv))
+            fin = torch.isfinite(pv)
+            assert torch.equal(torch.isfinite(kv), fin)
+            e = (kv[fin] - pv[fin]).abs()
+            assert bool((e <= SELECT_RTOL * pv[fin].abs() + 1e-6).all()), (
+                key, l, float(e.max()))
+            errs[key] = max(errs.get(key, 0.0),
+                            float(e.max()) if e.numel() else 0.0)
+            deeper = fs._topl_ref(r, Ac32, bf, l + 1)[0].nan_to_num(-1.0)
+            clear = (deeper[..., l - 1] - deeper[..., l]
+                     > GAP_RTOL * deeper[..., 0].abs())
+            assert torch.equal(ki.sort(dim=2).values[clear],
+                               pi.sort(dim=2).values[clear]), (key, l)
+            if mma:
+                assert torch.equal(kv[:, :, 0].view(torch.int32),
+                                   tv1.view(torch.int32))
+                assert torch.equal(ki[:, :, 0], ti1)
+        if m % 128:
+            continue
+        tm = ss._stream_tile(m, n, 2, ss.STREAM_TILE_BYTES)
+        sc = torch.abs(r.to(bf).float() @ Ac32)
+        tiles = sc.view(B, m // tm, tm)
+        live = torch.where(torch.isnan(tiles).any(dim=2, keepdim=True),
+                           -1.0, tiles).view(B, m)
+        pad = torch.ones((n, 128), dtype=bf, device=dev)
+        part = torch.cat([pad, pad, Ac, pad], dim=1)[:, 256:256 + m]
+        assert part.stride(0) == m + 384
+        for l, mma in itertools.product((1, 4, 32, 48, 128), (True, False)):
+            key = "select_topl_stream_mma" if mma else "select_topl_stream"
+            kv, ki = ss.correlate_select_topl_stream(Ac, r, l, mma=mma)
+            pv, pi = ss.correlate_select_topl_stream_ref(Ac, r, l)
+            ks, ps = kv.sort(dim=1).values, pv.sort(dim=1).values
+            fin = torch.isfinite(ps)
+            assert torch.equal(torch.isfinite(ks), fin)
+            e = (ks[fin] - ps[fin]).abs()
+            assert bool((e <= SELECT_RTOL * ps[fin].abs() + 1e-6).all()), (
+                key, l, float(e.max()))
+            errs[key] = max(errs.get(key, 0.0),
+                            float(e.max()) if e.numel() else 0.0)
+            clear = _clear_rows(live, depth=min(l, m - 1))
+            clear[0] = False                   # the copies of a0 tie
+            assert torch.equal(ki[clear], pi[clear]), (key, l)
+            if l >= 3 and bool((live[0, [a0, a1, a2]] >= 0).all()):
+                assert {a0, a1, a2} <= set(ki[0].tolist())
+            got = ss.correlate_select_topl_stream(part, r, l, mma=mma)
+            assert torch.equal(got[0], kv) and torch.equal(got[1], ki)
+            pval, pidx = ss.stream_topl_sweep(Ac, r, l, mma=mma)
+            want = ss.stream_topl_finish_ref(pval.clone(), pidx.clone(),
+                                             tm // 128, l)
+            got = ss.stream_topl_finish(pval, pidx, tm // 128, l)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1])
+        v1, i1 = ss.correlate_select_topl_stream(Ac, r, 1, mma=True)
+        w1, j1 = ss.correlate_select_stream(Ac, r, mma=True)
+        assert torch.equal(v1[:, 0].view(torch.int32), w1.view(torch.int32))
+        assert torch.equal(i1[:, 0], j1)
+        del A, Ac, Ac32, sc
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.randn((64, 1032), device=dev, generator=gen).to(bf)
+    r = torch.randn((8, 64), device=dev, generator=gen)
+    odd = A[:, 4:1028]                         # base off by 8 bytes
+    for bad, fn in (
+            ("f32", lambda **kw: fs.select_topl(r, A.float(), 4, **kw)),
+            ("misaligned base",
+             lambda **kw: ss.correlate_select_topl_stream(odd, r, 4, **kw))):
+        try:
+            fn(mma=True)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"tensor-core top-l took {bad}")
+        _, counts = run_counted(fn)
+        assert not any(v for key, v in counts.items() if key.endswith("_mma"))
+    torch.cuda.synchronize()
+    print(f"[mma top-l] tensor-core and CUDA-core variants == plain twins "
+          f"at (B, n, m) in {MMA_SHAPES}: select_topl at l in (1, 4, 16, "
+          f"32), its first entry == the top-1 partial bit for bit; K7 at l "
+          f"in (1, 4, 32, 48, 128), a column slice read in place, the "
+          f"finish alone bit for bit, l=1 == the top-1 stream; ties, NaN "
+          f"row, poisoned atom; f32 and a misaligned base refused; max "
+          f"|val err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol {SELECT_RTOL})")
+    return errs
+
+
 def _supports(sol):
     """Per row the sorted tuple of active atom indices."""
     idx = torch.where(sol.mask, sol.idx, sol.m).cpu().numpy()
@@ -2109,16 +2331,18 @@ def sharded_other_paths(A, gen):
         ("gomp", lambda f, **kw: f(Ash, Bs, 4, k, mesh, **kw),
          cstpu_torch.gomp_sharded_fused, sh.gomp_sharded_fused_ref,
          lambda: cstpu_torch.gomp_batch(A, Bs, 4, k),
-         lambda it: {"select_topl_stream": s * it}),
+         lambda it: {"select_topl_stream_mma": s * it,
+                     "stream_topl_finish": s * it}),
         ("ompr", lambda f, **kw: f(Ash, Bs, k, mesh, delta=1e-12, **kw),
          cstpu_torch.ompr_sharded_fused, sh.ompr_sharded_fused_ref,
          lambda: cstpu_torch.ompr_batch(A, Bs, k, 1e-12),
-         lambda it: {"select_topl_stream": s,
+         lambda it: {"select_topl_stream_mma": s, "stream_topl_finish": s,
                      "select_masked_stream_mma": s * it}),
         ("sp", lambda f, **kw: f(Ash, Bs, k, mesh, maxiter=8, **kw),
          cstpu_torch.sp_sharded_fused, sh.sp_sharded_fused_ref,
          lambda: cstpu_torch.sp_batch(A, Bs, k, maxiter=8),
-         lambda it: {"select_topl_stream": s * (1 + it)}),
+         lambda it: {"select_topl_stream_mma": s * (1 + it),
+                     "stream_topl_finish": s * (1 + it)}),
     )
     for name, call, entry, ref, unsharded, want in cases:
         (sol, iters), launches = run_counted(
@@ -2194,13 +2418,16 @@ def sharded_f32_paths(A, Bs, sup, Bones, sup_ones):
     (sol, iters), launches = run_counted(lambda: cstpu_torch.ompr_sharded_fused(
         Ash, Bones, k, mesh, delta=1e-12, corr_dtype=f32, return_iters=True))
     assert launches == expect_launches(
-        select_topl_stream=s, select_masked_stream=s * iters[0]), launches
+        select_topl_stream=s, stream_topl_finish=s,
+        select_masked_stream=s * iters[0]), launches
     rec = recovery(sol, sup_ones)
     assert rec == 1.0, f"ompr f32: recovery {rec}"
     ref = sh.ompr_sharded_fused_ref(Ash, Bones, k, mesh, delta=1e-12,
                                     corr_dtype=f32)
     assert _supports(ref) == _supports(sol)
     out["ompr"] = launches["select_masked_stream"]
+    out["ompr_topl"] = launches["select_topl_stream"]
+    out["ompr_finish"] = launches["stream_topl_finish"]
     R = Bs.T.contiguous()
     (idx, val), launches = run_counted(
         lambda: cstpu_torch.correlate_argmax(A, R))
@@ -2313,13 +2540,44 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
                                                                  **kw))):
             per[(name + " device", ml)] = device_ms_per_call(call)
             per[(name + " simt", ml)] = launches(lambda: call(mma=False))
-        # the top-l sweep's yardstick: one f32 torch.matmul of the scores it
-        # computes in its body, R . A_shard
+        # the sweeps' yardstick: one f32 torch.matmul of the scores they
+        # compute in their bodies, R . A_shard, the same product in bf16,
+        # and for the top-l that bf16 GEMM followed by torch.topk over each
+        # tile of 128
         Af, R32, Rb = Ac.float(), Bs5c.to(bf).float(), Bs5c.to(bf)
         per[("select_topl_stream gemm", ml)] = launches(
             lambda: torch.matmul(R32, Af))
         per[("select_topl_stream gemm bf16", ml)] = launches(
             lambda: torch.matmul(Rb, Ac))
+        # the top-l: each variant on the device, its sweep and its finish
+        # apart; the finish alone per call, and its plain twin
+        bpt = ss._tile_of(Ac, "sharded_times") // 128
+        for l in (4, 32):
+            pre = f"select_topl_stream l={l}"
+            per[(pre + " gemm topk", ml)] = launches(
+                lambda: torch.matmul(Rb, Ac).view(B, ml // 128, 128).abs()
+                .topk(l, dim=2))
+            per[(pre + " simt", ml)] = launches(
+                lambda: ss.correlate_select_topl_stream(Ac, Bs5c, l,
+                                                        mma=False))
+            for sfx, mma, sweep in ((" ", None, ("topl_mma", "round_rows")),
+                                    (" simt ", False, ("stream_topl_sweep",))):
+                busy, got = profile_path(
+                    lambda: ss.correlate_select_topl_stream(Ac, Bs5c, l,
+                                                            mma=mma),
+                    TIMED_LAUNCHES)
+                ms = {nm: v[1] / TIMED_LAUNCHES for nm, v in got.items()}
+                per[(pre + sfx + "device", ml)] = busy / TIMED_LAUNCHES
+                per[(pre + sfx + "sweep device", ml)] = sum(
+                    ms.get(nm, 0.0) for nm in sweep)
+                per[(pre + sfx + "finish device", ml)] = ms.get(
+                    "stream_topl_merge", 0.0) + ms.get("stream_topl_fold",
+                                                        0.0)
+            pv, pi = ss.stream_topl_sweep(Ac, Bs5c, l)
+            per[(f"stream_topl_finish l={l}", ml)] = launches(
+                lambda: ss.stream_topl_finish(pv, pi, bpt, l))
+            per[(f"plain_stream_topl_finish l={l}", ml)] = once(
+                lambda: ss.stream_topl_finish_ref(pv, pi, bpt, l))
         del Ac, M, Af
     for ml in STREAM_WIDTHS:
         print(f"[time stream kernels, ms per call at B={B}, n={n}, "
@@ -2574,7 +2832,8 @@ def sharded_srr_rmp_foba_paths(Ar, Br, sup_r, A, Bo, sup_o):
         lambda: cstpu_torch.srr_sharded_fused(Ash, Br, FR5_K, mesh, **SRR5_KW,
                                               return_iters=True))
     assert launches == expect_launches(
-        select_topl_stream=s, fr_step_select_mma=s * iters[0]), launches
+        select_topl_stream_mma=s, stream_topl_finish=s,
+        fr_step_select_mma=s * iters[0]), launches
     rec = recovery(sol, sup_r)
     assert rec == 1.0, f"srr: recovery {rec}"
     plain, it_plain = sh.srr_sharded_fused_ref(Ash, Br, FR5_K, mesh,
@@ -2822,6 +3081,14 @@ def main():
                         r"ELi(\d+)E", line)
         if got:
             print(f"[build mma] NB={got[1]} mode={got[2]}: {props}")
+        got = re.search(r"Function properties for .*topl_mma_kernelILi(\d+)E",
+                        line)
+        if got:
+            print(f"[build mma] top-l NB={got[1]}: {props}")
+        got = re.search(r"Function properties for .*stream_topl_(merge|fold)",
+                        line)
+        if got:
+            print(f"[build mma] top-l finish, {got[1]}: {props}")
         got = re.search(r"Function properties for .*rescaled_mma_kernelILi"
                         r"(\d+)ELi(\d+)ELb(\d)E", line)
         if got:
@@ -2863,6 +3130,7 @@ def main():
     gerr, parts = check_greedy_kernels(A, Bs, Ar, Br, l, kf)
     paths = greedy_paths(A, Bs, Bg, sup_g, Ar, Br, sup_f)
     f32fr = fr_f32_path(Ar, Br, sup_f)
+    f32g = gomp_f32_path(A, Bg, sup_g)
     gtm = greedy_times(A, Bs, Bg, Ar, Br, parts, gpu)
     print(f"[greedy] done in {time.perf_counter() - t0:.1f} s")
 
@@ -2909,6 +3177,7 @@ def main():
           f"m={m5} k={k5}; 5m at m={SHARD_CELLS['5m'][2]} on one shard")
     xerr = check_stream_kernels(dev)
     merr = check_mma_selects(dev)
+    lerr = check_mma_topl(dev)
     gen5 = torch.Generator(device=dev).manual_seed(SEED)
     A5 = unit_dictionary(gen5, n5, m5)
     Bs5, sup5 = planted_pm1(gen5, A5, B5, k5)
@@ -3018,6 +3287,10 @@ def main():
               signed_earlier_ms=gtm["select_signed_simt"],
               plain_signed_ms=gtm["plain_select_signed"],
               signed_bound_ms=select_bound(B, n, m, outs=1.5)["bound_ms"],
+              signed_library_ms=tm["select_gemm"],
+              signed_library_bf16_ms=tm["select_gemm_bf16"],
+              masked_library_ms=tm["select_gemm"],
+              masked_library_bf16_ms=tm["select_gemm_bf16"],
               masked_ms=tplain["select_masked_call"],
               masked_device_ms=tkern["select_masked"],
               masked_earlier_ms=tplain["select_masked_simt"],
@@ -3058,23 +3331,60 @@ def main():
         entry("mp_update", 874, paths["mp"]["mp_update"], gerr["mp_update"],
               gtm["mp_update"], gtm["plain_mp_update"],
               bound(B * (T * 12 + n * 2 + 2 * n * 4 + 8), 2 * B * n, "f32")),
-        entry("select_topl", 714, paths["gomp"]["select_topl"]
-              + sum(tl[c]["select_topl"] for c in ("2b", "2c", "3b")),
-              gerr["select_topl"], gtm["select_topl"],
-              gtm["plain_select_topl"], select_bound(B, n, m, outs=l),
+        # the top-l select's tensor-core variant at 2a (l=4) and at 2b's
+        # l=32: ms per call by events (the rounding launch and the sweep),
+        # device_ms the profiler's, earlier_ms the CUDA-core variant on the
+        # same bf16 inputs; library_topk_ms the bf16 GEMM and torch.topk
+        entry("select_topl_mma", 714, paths["gomp"]["select_topl_mma"]
+              + sum(tl[c]["select_topl_mma"] for c in ("2b", "2c", "3b")),
+              max(gerr["select_topl_mma"], lerr["select_topl_mma"]),
+              gtm["select_topl"], gtm["plain_select_topl"],
+              select_bound(B, n, m, outs=l), source=f"{csrc}/select_topl.cu",
+              main_loop=f"{csrc}/mma_topl.cuh",
               also_replaces=[f"{ts_line}:897", f"{ts_line}:1052",
                              f"{ts_line}:1191"],
               library_ms=gtm["select_topl_gemm"],
               library_bf16_ms=gtm["select_topl_gemm_bf16"],
-              paths={"gomp_batch": paths["gomp"]["select_topl"],
-                     **{name: tl[c]["select_topl"] for name, c in (
+              library_topk_ms=gtm["select_topl_gemm_topk"],
+              device_ms=gtm["select_topl_device"],
+              earlier_ms=gtm["select_topl_simt"],
+              earlier_device_ms=gtm["select_topl_simt_device"],
+              half_rows_device_ms=gtm["select_topl_device_half"],
+              paths={"gomp_batch": paths["gomp"]["select_topl_mma"],
+                     **{name: tl[c]["select_topl_mma"] for name, c in (
                          ("sp_batch", "2b"), ("ompr_batch", "2c"),
                          ("srr_batch", "3b"))}},
-              l32_ms=tkern["select_topl32"],
-              plain_l32_ms=tplain["select_topl32"],
+              path_device_ms=on_path(gtm["splits"], "2a", "topl_mma")
+              + on_path(gtm["splits"], "2a", "round_rows"),
+              l32_ms=gtm["select_topl32"],
+              l32_device_ms=gtm["select_topl32_device"],
+              l32_path_device_ms=tkern["select_topl32"],
+              l32_earlier_ms=gtm["select_topl32_simt"],
+              l32_earlier_device_ms=gtm["select_topl32_simt_device"],
+              plain_l32_ms=gtm["plain_select_topl32"],
               l32_library_ms=gtm["select_topl_gemm"],
               l32_library_bf16_ms=gtm["select_topl_gemm_bf16"],
-              l32_bound_ms=select_bound(B, n, m, outs=ks)["bound_ms"]),
+              l32_library_topk_ms=gtm["select_topl32_gemm_topk"],
+              l32_bound_ms=select_bound(B, n, m, outs=ks)["bound_ms"],
+              ompr_init_path_device_ms=tkern["select_topl32_2c"],
+              srr_init_path_device_ms=tkern["select_topl16_3b"]),
+        # its CUDA-core variant: the f32-correlation path runs it; ms is its
+        # time on 2a's bf16 inputs, f32_ms on the f32 dictionary
+        entry("select_topl", 714, f32g["select_topl"],
+              max(gerr["select_topl"], lerr["select_topl"]),
+              gtm["select_topl_simt"], gtm["plain_select_topl"],
+              select_bound(B, n, m, outs=l),
+              also_replaces=[f"{ts_line}:897", f"{ts_line}:1052",
+                             f"{ts_line}:1191"],
+              paths={"gomp_batch precision=f32": f32g["select_topl"]},
+              library_ms=gtm["select_topl_gemm"],
+              library_bf16_ms=gtm["select_topl_gemm_bf16"],
+              device_ms=gtm["select_topl_simt_device"],
+              f32_ms=gtm["select_topl_f32"],
+              f32_bound_ms=select_bound(B, n, m, cdt_bytes=4,
+                                        outs=l)["bound_ms"],
+              l32_ms=gtm["select_topl32_simt"],
+              l32_device_ms=gtm["select_topl32_simt_device"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
               gtm["plain_gomp_append"], engine_bound(B, kg, n, appends=l)),
@@ -3248,8 +3558,59 @@ def main():
                   "mp_sharded_fused 5c": ol["mp"]["select_stream_mma"]}
     mma_loop = f"{csrc}/mma_select.cuh"
     sweep_kernels = ("top1_mma", "round_rows", "stream_finish")
-    topl_paths = {f"{name}_sharded_fused 5c": ol[name]["select_topl_stream"]
+    topl_paths = {f"{name}_sharded_fused 5c":
+                  ol[name]["select_topl_stream_mma"]
                   for name in ("gomp", "ompr", "sp")}
+    topl_paths[f"srr_sharded_fused s={SHARDS}"] = \
+        pfam["srr"]["launches"]["select_topl_stream_mma"]
+    finish_paths = {
+        **{f"{name}_sharded_fused 5c": ol[name]["stream_topl_finish"]
+           for name in ("gomp", "ompr", "sp")},
+        f"srr_sharded_fused s={SHARDS}":
+        pfam["srr"]["launches"]["stream_topl_finish"],
+        "ompr_sharded_fused 5c corr_dtype=f32": pf32["ompr_finish"]}
+    finish_launches = sum(finish_paths.values())
+
+    def stream_library(width, other, prefix="shard_"):
+        """The yardsticks of a sweep at `width` (library_ms, the f32
+        torch.matmul of R . A_shard, and its bf16 GEMM) and at `other`."""
+        return {"library_ms": xper[("select_topl_stream gemm", width)],
+                "library_bf16_ms": xper[("select_topl_stream gemm bf16",
+                                         width)],
+                prefix + "library_ms": xper[("select_topl_stream gemm",
+                                             other)],
+                prefix + "library_bf16_ms": xper[(
+                    "select_topl_stream gemm bf16", other)]}
+
+    def topl_times(width, prefix, variant):
+        """K7's times at `width` for the sweep `variant` (" " tensor
+        cores, " simt " CUDA cores): l=32 and l=4, the device time of a
+        select and of its sweep and finish apart."""
+        out = {}
+        for l, lp in ((32, ""), (4, "l4_")):
+            pre = f"select_topl_stream l={l}{variant}"
+            out[f"{prefix}{lp}device_ms"] = xper[(pre + "device", width)]
+            out[f"{prefix}{lp}sweep_device_ms"] = xper[(pre + "sweep device",
+                                                         width)]
+            out[f"{prefix}{lp}finish_device_ms"] = xper[(
+                pre + "finish device", width)]
+            if prefix or lp:
+                key = f"select_topl_stream l={l}" + (
+                    " simt" if "simt" in variant else "")
+                out[f"{prefix}{lp}ms"] = xper[(key, width)]
+                out[f"{prefix}{lp}plain_ms"] = xper[(
+                    f"plain_select_topl_stream l={l}", width)]
+                out[f"{prefix}{lp}bound_ms"] = stream_bound(
+                    B5, n5, width, l=l)["bound_ms"]
+                out[f"{prefix}{lp}library_topk_ms"] = xper[(
+                    f"select_topl_stream l={l} gemm topk", width)]
+        return out
+
+    def finish_bound(width, l):
+        """The finish reads the sweep's partials (B, width / 128, l) pairs
+        once and writes l pairs a row; a few operations a candidate."""
+        nbytes = B5 * (width // 128) * l * 8 + B5 * l * 8
+        return bound(nbytes, 8 * B5 * (width // 128) * l, "f32")
     kernels += [
         # the tensor-core sweeps: ms per call by events, device_ms the
         # profiler's time of a select's three kernels, earlier_ms the
@@ -3270,6 +3631,7 @@ def main():
               shard_earlier_ms=xper[("select_stream simt", part)],
               shard_plain_ms=xper[("plain_select_stream", part)],
               shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
+              **stream_library(whole, part),
               m5_ms=sweep5m,
               m5_earlier_ms=sweep5m_simt,
               m5_device_ms=device_ms(split5m, "5m omp s=1 fuse=1",
@@ -3285,29 +3647,63 @@ def main():
               shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
               m5_ms=sweep5m_simt,
               m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"]),
-        entry("select_topl_stream", f"{TPU_SELECT}:187",
-              sum(topl_paths.values()), xerr["select_topl_stream"],
+        # the top-l select (K7) at the shard's width, l=32 (sp, ompr): its
+        # tensor-core sweep and the finish, per call by events; device_ms
+        # the profiler's, sweep and finish apart; l4_ at gomp's l, whole_
+        # at 5c's whole width on one shard
+        entry("select_topl_stream_mma", f"{TPU_SELECT}:187",
+              sum(topl_paths.values()),
+              max(xerr["select_topl_stream_mma"],
+                  lerr["select_topl_stream_mma"]),
               xper[("select_topl_stream l=32", part)],
               xper[("plain_select_topl_stream l=32", part)],
               stream_bound(B5, n5, part, l=32), source=stream_src,
-              paths=topl_paths,
-              library_ms=xper[("select_topl_stream gemm", part)],
-              library_bf16_ms=xper[("select_topl_stream gemm bf16", part)],
-              device_ms=device_ms(xsplit, f"5c sp s={SHARDS}",
-                                  "stream_topl_sweep", "stream_topl_finish"),
-              l4_ms=xper[("select_topl_stream l=4", part)],
-              l4_plain_ms=xper[("plain_select_topl_stream l=4", part)],
-              l4_device_ms=device_ms(xsplit, f"5c gomp s={SHARDS}",
-                                     "stream_topl_sweep",
-                                     "stream_topl_finish"),
-              whole_l32_ms=xper[("select_topl_stream l=32", whole)],
-              whole_l32_plain_ms=xper[("plain_select_topl_stream l=32",
-                                       whole)],
-              whole_l32_library_ms=xper[("select_topl_stream gemm", whole)],
-              whole_l32_library_bf16_ms=xper[("select_topl_stream gemm bf16",
-                                              whole)],
-              whole_l32_bound_ms=stream_bound(B5, n5, whole,
-                                              l=32)["bound_ms"]),
+              main_loop=f"{csrc}/mma_topl.cuh", paths=topl_paths,
+              **stream_library(part, whole, "whole_"),
+              library_topk_ms=xper[("select_topl_stream l=32 gemm topk",
+                                    part)],
+              **topl_times(part, "", " "),
+              path_device_ms=device_ms(xsplit, f"5c sp s={SHARDS}",
+                                       "topl_mma", "round_rows",
+                                       "stream_topl_merge",
+                                       "stream_topl_fold"),
+              l4_path_device_ms=device_ms(xsplit, f"5c gomp s={SHARDS}",
+                                          "topl_mma", "round_rows",
+                                          "stream_topl_merge",
+                                          "stream_topl_fold"),
+              **topl_times(whole, "whole_", " ")),
+        # its CUDA-core sweep: the f32-correlation path runs it; ms is its
+        # time on the bf16 inputs above, with the same finish
+        entry("select_topl_stream", f"{TPU_SELECT}:187", pf32["ompr_topl"],
+              max(xerr["select_topl_stream"], lerr["select_topl_stream"]),
+              xper[("select_topl_stream l=32 simt", part)],
+              xper[("plain_select_topl_stream l=32", part)],
+              stream_bound(B5, n5, part, l=32), source=stream_src,
+              paths={"ompr_sharded_fused 5c corr_dtype=f32":
+                     pf32["ompr_topl"]},
+              **stream_library(part, whole, "whole_"),
+              **topl_times(part, "", " simt "),
+              **topl_times(whole, "whole_", " simt ")),
+        # the finish of both sweeps: merge and fold, per call by events on
+        # the sweep's partials at the shard's width; device_ms the
+        # profiler's within a select
+        entry("stream_topl_finish", f"{TPU_SELECT}:187", finish_launches,
+              xerr["stream_topl_finish"],
+              xper[("stream_topl_finish l=32", part)],
+              xper[("plain_stream_topl_finish l=32", part)],
+              finish_bound(part, 32), source=stream_src,
+              paths=finish_paths,
+              device_ms=xper[("select_topl_stream l=32 finish device", part)],
+              l4_ms=xper[("stream_topl_finish l=4", part)],
+              l4_plain_ms=xper[("plain_stream_topl_finish l=4", part)],
+              l4_device_ms=xper[("select_topl_stream l=4 finish device",
+                                 part)],
+              l4_bound_ms=finish_bound(part, 4)["bound_ms"],
+              whole_ms=xper[("stream_topl_finish l=32", whole)],
+              whole_plain_ms=xper[("plain_stream_topl_finish l=32", whole)],
+              whole_device_ms=xper[("select_topl_stream l=32 finish device",
+                                    whole)],
+              whole_bound_ms=finish_bound(whole, 32)["bound_ms"]),
         entry("select_masked_stream_mma", f"{TPU_SELECT}:385",
               ol["ompr"]["select_masked_stream_mma"],
               max(xerr["select_masked_stream_mma"],
@@ -3325,7 +3721,8 @@ def main():
               whole_earlier_ms=xper[("select_masked_stream simt", whole)],
               whole_plain_ms=xper[("plain_select_masked_stream", whole)],
               whole_bound_ms=stream_bound(B5, n5, whole,
-                                          masked=True)["bound_ms"]),
+                                          masked=True)["bound_ms"],
+              **stream_library(part, whole, "whole_")),
         entry("select_masked_stream", f"{TPU_SELECT}:385", pf32["ompr"],
               max(xerr["select_masked_stream"],
                   merr["select_masked_stream"]),
@@ -3348,7 +3745,8 @@ def main():
               shard_ms=xper[("corr_argmax", part)],
               shard_device_ms=xper[("corr_argmax device", part)],
               shard_earlier_ms=xper[("corr_argmax simt", part)],
-              shard_plain_ms=xper[("plain_corr_argmax", part)]),
+              shard_plain_ms=xper[("plain_corr_argmax", part)],
+              **stream_library(whole, part)),
         entry("corr_argmax", f"{TPU_ARGMAX}:86", pf32["corr_argmax"],
               max(xerr["corr_argmax"], merr["corr_argmax"]),
               xper[("corr_argmax simt", whole)],

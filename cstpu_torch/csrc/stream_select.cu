@@ -12,14 +12,14 @@
 // finishing stage that folds them under the TPU kernel's rule.
 //
 // Math: scores = |round_cdt(R) . A_cdt| (+ M in f32), products and sums in
-// f32 (no TF32). The top-1 sweeps have two hand-written variants, chosen
-// by the Python wrapper's predicate and passed as `use_mma`: for bf16
-// correlation the tensor-core loop of mma_select.cuh, the one
-// select_argmax.cu runs, and otherwise the CUDA-core loop
-// common.cuh::score_tile (each atom's sum in the order p = 0 .. n-1), which
-// the top-l sweep keeps as well. In either loop an atom scores the same
-// whatever the shard it lies in, so merged selections do not depend on the
-// shard count.
+// f32 (no TF32). Every sweep has two hand-written variants, chosen by the
+// Python wrapper's predicate and passed as `use_mma`: for bf16 correlation
+// the tensor-core loop of mma_select.cuh, the one select_argmax.cu runs
+// (with mma_topl.cuh's epilogue for the top-l sweep, the one select_topl.cu
+// runs), and otherwise the CUDA-core loop common.cuh::score_tile (each
+// atom's sum in the order p = 0 .. n-1). In either loop an atom scores the
+// same whatever the shard it lies in, so merged selections do not depend on
+// the shard count.
 //
 // The rules of the finishing stages. The TPU kernels' tile is `bpt` sweep
 // blocks wide (the wrapper computes it from `_stream_tile` or `_pick_tile`);
@@ -33,26 +33,37 @@
 //     (value descending, index ascending), each inserted over the lowest
 //     slot that holds the running minimum, only if strictly larger; a tile
 //     that holds a NaN is skipped. The slots come back in that order,
-//     unsorted, as the TPU kernel leaves them. l <= kTile: a lane of the
-//     finishing warp holds up to four slots.
+//     unsorted, as the TPU kernel leaves them. l <= kTile, a sweep block's
+//     width.
 //
 // What bounds it on an H100: a sweep reads the cdt shard once (256 MB in
 // bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and does 2 B n m
 // operations; at B=8 that is 8 FLOP per byte, so the bytes bound it. The
-// tensor-core sweep fits its row count to B (N = 8 there) and streams the
-// shard through a TMA-fed ring; the CUDA-core sweep computes kRows = 16
-// rows whatever B is, so at B=8 half its multiply-adds are spent on
-// padding and it runs over its byte bound. The partials are
-// (B, m / kTile) pairs, 64 KB at that size; the finishing stage is one
-// block (top-1) or one warp (top-l) per row.
+// tensor-core sweeps fit their row count to B (N = 8 there) and stream the
+// shard through a TMA-fed ring; the CUDA-core sweeps compute kRows = 16
+// rows whatever B is, so at B=8 half their multiply-adds are spent on
+// padding and they run over their byte bound. The top-1 partials are
+// (B, m / kTile) pairs, 64 KB at that size, and its finishing stage is one
+// block per row. The top-l partials are l times as many; its finishing
+// stage (cstpu_stream_topl_finish, one for both sweeps) is two launches,
+// so that no thread walks the lists one dependent read after another: one
+// block per (tile, row) merges the tile's sorted block lists into the
+// tile's top l, then one block per row folds the tiles' lists in order,
+// all slots of a tile at once.
 #include <cstdint>
 
 #include "common.cuh"
 #include "mma_select.cuh"
+#include "mma_topl.cuh"
 
 namespace cstpu {
 
 constexpr int kFinishThreads = 256;
+// The top-l finish: threads of a merge block, 64-bit keys a merge buffer
+// holds (two buffers, 32 KB), candidates the fold stages at once (32 KB).
+constexpr int kMergeThreads = 256;
+constexpr int kMergeKeys = 2048;
+constexpr int kFoldKeys = 4096;
 
 // Sweep, top-1: per row and per block of kTile atoms the largest score and
 // its lowest index; a NaN score makes the block's partial (NaN, INT_MAX).
@@ -194,90 +205,151 @@ stream_topl_sweep_kernel(const float* __restrict__ r,
   topl_partials(ss, tile, row0, B, m, nblocks, l, pval, pidx);
 }
 
-// Finish, top-l: one warp per row, lane s holds slots s, s + 32, ... (kPer
-// of them, so l <= 32 kPer). Tile by tile, in order, the tile's candidates
-// are drawn best first from its bpt sorted block lists (pos[c] = entries of
-// list c already drawn) and inserted over the lowest slot that holds the
-// running minimum while they are strictly larger; the first that is not
-// ends the tile, since the candidates fall and the minimum rises.
-template <int kPer>
-__global__ void __launch_bounds__(32)
-stream_topl_finish_kernel(const float* __restrict__ pval,
-                          const int* __restrict__ pidx, int nblocks, int bpt,
-                          int l, float* __restrict__ val,
-                          int* __restrict__ idx) {
-  extern __shared__ unsigned char pos[];  // bpt
+// Finish, top-l, stage 1: one block per (tile, row) merges the tile's bpt
+// sorted block lists into the tile's own top l, in place over the first
+// block's list (rows of pval/pidx (B, nblocks, l)); a tile that holds a NaN
+// writes (NaN, INT_MAX) over all l entries of that list instead. The lists are loaded
+// once, coalesced, as 64-bit keys (value bits high, ~index low; a list
+// padded to L = the power of two >= l with keys 0), kMergeKeys at a time,
+// and merged pairwise in shared memory: an entry's place in the merge of two
+// lists is its own place plus, by binary search, the number of the other
+// list's keys before it. Every level halves the lists and keeps the first L
+// of each merge, so a group costs about 2 G L log2(L) shared-memory reads
+// over the block, and the first group's result carries into the next as its
+// list 0 when the tile has more lists than a group holds.
+__global__ void __launch_bounds__(kMergeThreads)
+stream_topl_merge_kernel(float* __restrict__ pval, int* __restrict__ pidx,
+                         int nblocks, int bpt, int l) {
+  __shared__ unsigned long long buf[2][kMergeKeys];
+  const int t = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
+  int L = 1;
+  while (L < l) L <<= 1;
+  const int G = kMergeKeys / L;  // lists a group holds, >= 16
+  float* pv = pval + ((size_t)row * nblocks + (size_t)t * bpt) * l;
+  int* pi = pidx + ((size_t)row * nblocks + (size_t)t * bpt) * l;
 
-  const int row = blockIdx.x, lane = threadIdx.x;
-  const float* pv = pval + (size_t)row * nblocks * l;
-  const int* pi = pidx + (size_t)row * nblocks * l;
-  const int ntile = nblocks / bpt;
-
-  // slots past l hold +inf, so they are never the running minimum's slot
-  float sv[kPer];
-  int si[kPer];
-#pragma unroll
-  for (int c = 0; c < kPer; ++c) {
-    sv[c] = lane + 32 * c < l ? -INFINITY : INFINITY;
-    si[c] = 0;
-  }
-  for (int t = 0; t < ntile; ++t) {
-    const int b0 = t * bpt;
-    bool nan = false;  // a block that holds a NaN wrote NaN to all l entries
-    for (int c = lane; c < bpt; c += 32) {
-      nan |= isnan(pv[(size_t)(b0 + c) * l]);
-      pos[c] = 0;
+  // a block that holds a NaN wrote NaN to all l entries: the loads see it
+  bool nan = false;
+  int src = 0;
+  for (int first = 0; first < bpt;) {
+    const int keep = first > 0;  // list 0 holds the result so far
+    const int take = min(bpt - first, G - keep);
+    int nl = 1;
+    while (nl < take + keep) nl <<= 1;
+    for (int e = keep * L + tid; e < nl * L; e += kMergeThreads) {
+      const int c = e / L - keep, p = e % L;
+      unsigned long long key = 0;
+      if (c < take && p < l) {
+        const size_t at = (size_t)(first + c) * l + p;
+        const float v = pv[at];
+        nan |= isnan(v);
+        key = v == -INFINITY ? 0ull : mma::topl_key(v, pi[at]);
+      }
+      buf[src][e] = key;
     }
-    __syncwarp();
-    if (__any_sync(0xffffffffu, nan)) continue;
-    for (int round = 0; round < l; ++round) {
-      float v = -INFINITY;
-      int i = INT_MAX;
-      for (int c = lane; c < bpt; c += 32) {
-        const int p = pos[c];
-        if (p < l) {
-          const size_t e = (size_t)(b0 + c) * l + p;
-          argmax_combine(v, i, pv[e], pi[e]);
-        }
-      }
-      warp_argmax(v, i);
-      v = __shfl_sync(0xffffffffu, v, 0);
-      i = __shfl_sync(0xffffffffu, i, 0);
-      float rmin = sv[0];
-#pragma unroll
-      for (int c = 1; c < kPer; ++c) rmin = fminf(rmin, sv[c]);
-      for (int off = 16; off > 0; off >>= 1) {
-        rmin = fminf(rmin, __shfl_xor_sync(0xffffffffu, rmin, off));
-      }
-      if (!(v > rmin)) break;
-      bool placed = false;  // the same in every lane
-#pragma unroll
-      for (int c = 0; c < kPer; ++c) {
-        const unsigned eq = __ballot_sync(0xffffffffu, sv[c] == rmin);
-        if (!placed && eq) {
-          if (lane == __ffs(eq) - 1) {
-            sv[c] = v;
-            si[c] = i;
+    __syncthreads();
+    for (; nl > 1; nl >>= 1) {
+      const unsigned long long* in = buf[src];
+      unsigned long long* out = buf[src ^ 1];
+      for (int e = tid; e < nl * L; e += kMergeThreads) {
+        const int list = e / L, i = e % L;
+        const unsigned long long key = in[e];
+        const unsigned long long* other = in + (list ^ 1) * L;
+        // keys of the other list before this one: larger, or equal and
+        // from the left list (an exact tie of pads keeps list order)
+        int cnt = 0;
+        for (int step = L; step > 0; step >>= 1) {
+          const int k = cnt + step;
+          if (k <= L) {
+            const unsigned long long o = other[k - 1];
+            if (o > key || (o == key && (list & 1))) cnt = k;
           }
-          placed = true;
         }
+        if (i + cnt < L) out[(list >> 1) * L + i + cnt] = key;
       }
-      if (lane == 0) pos[i / kTile - b0] += 1;
-      __syncwarp();
+      __syncthreads();
+      src ^= 1;
     }
+    if (src != 0) {  // the result goes to list 0 of buffer 0
+      for (int p = tid; p < L; p += kMergeThreads) buf[0][p] = buf[1][p];
+      src = 0;
+      __syncthreads();
+    }
+    first += take;
   }
-#pragma unroll
-  for (int c = 0; c < kPer; ++c) {
-    const int slot = lane + 32 * c;
-    if (slot < l) {
-      val[(size_t)row * l + slot] = sv[c];
-      idx[(size_t)row * l + slot] = si[c];
-    }
+  nan = __syncthreads_or(nan);
+  for (int p = tid; p < l; p += kMergeThreads) {
+    const unsigned long long key = buf[0][p];
+    pv[p] = nan ? __int_as_float(0x7fc00000)
+                : key ? __uint_as_float(static_cast<uint32_t>(key >> 32))
+                      : -INFINITY;
+    pi[p] = nan || !key ? INT_MAX : static_cast<int>(~static_cast<uint32_t>(key));
   }
 }
 
-// Most slots of the streamed top-l: a sweep block's width, four per lane of
-// the finishing warp.
+// The order of a float as an unsigned integer (-inf lowest; no NaN here).
+__device__ __forceinline__ uint32_t float_order(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : b | 0x80000000u;
+}
+
+// Finish, top-l, stage 2: one block per row, thread s holds slot s (blockDim
+// >= l). The rule at the top of the file, per tile in order, in parallel:
+// the tile's candidates c_0 > c_1 > ... (its merged list) go over the slots
+// in the order of their values ascending, lowest slot first among equals,
+// c_i over the i-th while c_i > its value. That is what inserting them one
+// by one over the lowest slot that holds the running minimum gives: the
+// candidates fall and the minima rise, so an inserted candidate is never
+// the minimum another one would replace, and the first candidate that fails
+// ends the tile. Each thread finds its slot's place by counting the slots
+// before it (l compares of keys in shared memory, no dependent load); a
+// tile's candidates are staged with the others, kFoldKeys at a time.
+__global__ void __launch_bounds__(kTile)
+stream_topl_fold_kernel(const float* __restrict__ pval,
+                        const int* __restrict__ pidx, int nblocks, int bpt,
+                        int l, float* __restrict__ val,
+                        int* __restrict__ idx) {
+  __shared__ unsigned long long cand[kFoldKeys];
+  __shared__ unsigned long long okey[kTile];
+  const int row = blockIdx.x, s = threadIdx.x;
+  const int ntile = nblocks / bpt;
+  const int chunk = kFoldKeys / l;
+
+  float v = -INFINITY;
+  int ix = 0;
+  for (int t0 = 0; t0 < ntile; t0 += chunk) {
+    const int nt = min(chunk, ntile - t0);
+    for (int e = s; e < nt * l; e += blockDim.x) {
+      const int tt = e / l, p = e % l;
+      const size_t at = ((size_t)row * nblocks + (size_t)(t0 + tt) * bpt) * l + p;
+      const float cv = pval[at];  // a skipped (NaN) tile is keyed 0
+      cand[e] = (isnan(cv) || cv == -INFINITY) ? 0ull
+                                               : mma::topl_key(cv, pidx[at]);
+    }
+    for (int tt = 0; tt < nt; ++tt) {
+      if (s < l) okey[s] = (static_cast<unsigned long long>(float_order(v)) << 32) | s;
+      __syncthreads();
+      if (s < l) {
+        const unsigned long long mine = okey[s];
+        int rank = 0;
+        for (int o = 0; o < l; ++o) rank += okey[o] < mine;
+        const unsigned long long key = cand[tt * l + rank];
+        const float cv = __uint_as_float(static_cast<uint32_t>(key >> 32));
+        if (key != 0 && cv > v) {
+          v = cv;
+          ix = static_cast<int>(~static_cast<uint32_t>(key));
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (s < l) {
+    val[(size_t)row * l + s] = v;
+    idx[(size_t)row * l + s] = ix;
+  }
+}
+
+// Most slots of the streamed top-l: a sweep block's width.
 constexpr int kStreamTopLMax = kTile;
 
 bool stream_tiling_ok(int m, int bpt) {
@@ -358,21 +430,31 @@ extern "C" int cstpu_stream_select(const float* r, long long ldr,
                                               nan_visible, val, idx, s));
 }
 
-// Top-l select of one shard: r (B, n) f32 contiguous, A as above, 1 <= l <=
-// kStreamTopLMax. Scratch pval, pidx (B, m / kTile, l); writes val (B, l) f32 and
-// idx (B, l) i32, slots in the running set's own order, (-inf, 0) where
-// never filled. Returns the first launch error.
+// Top-l sweep of one shard: r (B, n) f32 contiguous, A as above, 1 <= l <=
+// kStreamTopLMax, m a multiple of kTile. Writes the partials pval, pidx
+// (B, m / kTile, l): per row and per kTile atoms the l best, value
+// descending then index ascending, a block holding a NaN all (NaN, INT_MAX).
+// With use_mma the sweep is the tensor-core one, with rb (B, roundup(n, 8))
+// bf16 as its scratch for the rounded r; it takes bf16 only, A aligned to
+// 16 bytes and lda a multiple of 8, and the call returns
+// cudaErrorInvalidValue otherwise. Returns the first launch error.
 extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
-                                 int cdt_bf16, float* pval, int* pidx,
-                                 float* val, int* idx, int B, int n, int m,
-                                 int l, int bpt, void* stream) {
+                                 int cdt_bf16, float* pval, int* pidx, int B,
+                                 int n, int m, int l, int use_mma, void* rb,
+                                 void* stream) {
   using namespace cstpu;
-  if (!stream_tiling_ok(m, bpt) || B < 1 || l < 1 || l > kStreamTopLMax) {
+  if (!stream_tiling_ok(m, 1) || B < 1 || l < 1 || l > kStreamTopLMax) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!cdt_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(mma::launch_topl(
+        r, n, 1, static_cast<__nv_bfloat16*>(rb), A, lda, pval, pidx, B, n,
+        m, l, s));
   }
   const int nblocks = m / kTile;
   const dim3 grid(nblocks, (B + kRows - 1) / kRows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cdt_bf16) {
     stream_topl_sweep_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
         r, static_cast<const __nv_bfloat16*>(A), lda, pval, pidx, B, n, m,
@@ -381,17 +463,31 @@ extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
     stream_topl_sweep_kernel<float><<<grid, kTile, 0, s>>>(
         r, static_cast<const float*>(A), lda, pval, pidx, B, n, m, nblocks, l);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (l <= 32) {
-    stream_topl_finish_kernel<1><<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l,
-                                                    val, idx);
-  } else if (l <= 64) {
-    stream_topl_finish_kernel<2><<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l,
-                                                    val, idx);
-  } else {
-    stream_topl_finish_kernel<4><<<B, 32, bpt, s>>>(pval, pidx, nblocks, bpt, l,
-                                                    val, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The top-l finish of either sweep: folds the partials pval, pidx (B, m /
+// kTile, l), bpt blocks to a tile of the NaN rule, into val (B, l) f32 and
+// idx (B, l) i32, slots in the running set's own order, (-inf, 0) where
+// never filled. The partials are scratch: the merge overwrites the first
+// block list of every tile with the tile's own list. Returns the first
+// launch error.
+extern "C" int cstpu_stream_topl_finish(float* pval, int* pidx, float* val,
+                                        int* idx, int B, int m, int l,
+                                        int bpt, void* stream) {
+  using namespace cstpu;
+  if (!stream_tiling_ok(m, bpt) || B < 1 || l < 1 || l > kStreamTopLMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int nblocks = m / kTile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bpt > 1) {  // one block per tile: its list is the tile's already
+    stream_topl_merge_kernel<<<dim3(nblocks / bpt, B), kMergeThreads, 0, s>>>(
+        pval, pidx, nblocks, bpt, l);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  stream_topl_fold_kernel<<<B, (l + 31) / 32 * 32, 0, s>>>(pval, pidx, nblocks,
+                                                          bpt, l, val, idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,8 +45,8 @@ _SIGNATURES = {
                          _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # pval, pidx, psig, ntiles, A, cdt_bf16, x, r, B, n, m, stream
     "cstpu_mp_update": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
-    # r, A, cdt_bf16, pval, pidx, B, n, m, l, stream
-    "cstpu_select_topl": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # r, A, cdt_bf16, pval, pidx, B, n, m, l, use_mma, rb (nullable), stream
+    "cstpu_select_topl": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # pval, pidx, ntiles, cnt, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r,
     # kcnt, done, B, n, m, k, cap, rtol, eps2, stream
     "cstpu_gomp_append": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -99,9 +99,12 @@ _SIGNATURES = {
     # n, m, bpt, nan_visible, use_mma, rb (nullable), stream
     "cstpu_stream_select": [_P, _L, _L, _P, _L, _I, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _P, _P],
-    # r, A, lda, cdt_bf16, pval, pidx, val, idx, B, n, m, l, bpt, stream
-    "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # r, A, lda, cdt_bf16, pval, pidx, B, n, m, l, use_mma, rb (nullable),
+    # stream
+    "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _P,
                           _P],
+    # pval, pidx, val, idx, B, m, l, bpt, stream
+    "cstpu_stream_topl_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # r, w, v (nullable), A, lda, cdt_bf16, il, cn2, resc, pval, pidx, val,
     # idx, B, n, m, bpt, deg, use_mma, sb (nullable), sb_rows, stream
     "cstpu_fr_step_select": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,

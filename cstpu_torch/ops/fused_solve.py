@@ -63,13 +63,13 @@ LMAX = 32              # most GOMP picks per iteration (kTopLMax)
 SMEM_MAX = 232448      # bytes of shared memory one sm_90 block may use
 L2_BYTES = 40 << 20    # cdt dictionary size kept resident in the 50 MB L2
 
-# Kernel launches made by the wrappers below, by kernel. The top-1 select and
-# the rescaled select have two hand-written variants with a key each:
-# "select_mma" and "fr_select_mma" count the tensor-core loop, "select" and
-# "fr_select" the CUDA-core one (see `mma_select_takes`).
+# Kernel launches made by the wrappers below, by kernel. The selects have
+# two hand-written variants with a key each: "select_mma", "select_topl_mma"
+# and "fr_select_mma" count the tensor-core loop, "select", "select_topl"
+# and "fr_select" the CUDA-core one (see `mma_select_takes`).
 LAUNCHES = {"select": 0, "select_mma": 0, "append": 0, "mp_update": 0,
-            "select_topl": 0, "gomp_append": 0, "fr_select": 0,
-            "fr_select_mma": 0, "fr_append": 0}
+            "select_topl": 0, "select_topl_mma": 0, "gomp_append": 0,
+            "fr_select": 0, "fr_select_mma": 0, "fr_append": 0}
 
 
 def _degeneracy_rtol(n: int) -> float:
@@ -299,10 +299,13 @@ def _topl_ref(r, Ac, cdt, l: int):
             torch.where(nan, INT_MAX, pidx).to(torch.int32))
 
 
-def select_topl(r, Ac, l: int):
+def select_topl(r, Ac, l: int, mma=None):
     """Per-tile top-l partials for residuals r (B, n) f32 against Ac (n, m)
     in its correlation dtype: (pval, pidx), (B, T, l) each, 1 <= l <= LMAX.
-    On CUDA tensors this launches csrc/select_topl.cu."""
+    On CUDA tensors this launches csrc/select_topl.cu: its tensor-core
+    variant (csrc/mma_topl.cuh) where `mma_select_takes` says so (counted
+    under "select_topl_mma"), else its CUDA-core variant ("select_topl");
+    `mma` = True or False forces one."""
     l = int(l)
     if _on_cpu(r, Ac):
         return _topl_ref(r, Ac, Ac.dtype, l)
@@ -314,13 +317,16 @@ def select_topl(r, Ac, l: int):
     T = -(-m // TILE)
     pval = torch.empty((B, T, l), dtype=torch.float32, device=r.device)
     pidx = torch.empty((B, T, l), dtype=torch.int32, device=r.device)
+    use_mma = _pick_mma(mma, Ac)
+    rb = _rounded_scratch(B, n, r.device) if use_mma else None
     lib = _build.load()
     with torch.cuda.device(r.device):
         err = lib.cstpu_select_topl(
             r.data_ptr(), Ac.data_ptr(), int(Ac.dtype == torch.bfloat16),
-            pval.data_ptr(), pidx.data_ptr(), B, n, m, l, _stream())
+            pval.data_ptr(), pidx.data_ptr(), B, n, m, l, int(use_mma),
+            None if rb is None else rb.data_ptr(), _stream())
     _build.check(err, "cstpu_select_topl")
-    LAUNCHES["select_topl"] += 1
+    LAUNCHES["select_topl_mma" if use_mma else "select_topl"] += 1
     return pval, pidx
 
 

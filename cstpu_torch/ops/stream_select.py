@@ -37,12 +37,13 @@ the launch):
 On CUDA tensors each function launches csrc/stream_select.cu, or
 csrc/fr_step_select.cu for `fr_step_select` (a sweep that writes partials
 per row and per 128 atoms, then a finishing stage that folds them under the
-rule above: two launches per select) and counts one in
-`fused_solve.LAUNCHES`. The two top-1 sweeps and `fr_step_select` have a
-tensor-core variant for a bf16 shard (csrc/mma_select.cuh, mma_rescaled.cuh;
-counted under "select_stream_mma", "select_masked_stream_mma" and
-"fr_step_select_mma") and a CUDA-core variant for f32 correlation and for
-what the first does not take (`fused_solve.mma_select_takes`). On CPU
+rule above) and counts one in `fused_solve.LAUNCHES`; the top-l select
+counts its sweep and its finish (`stream_topl_finish`, two launches of its
+own) apart. Every sweep has a tensor-core variant for a bf16 shard
+(csrc/mma_select.cuh, mma_topl.cuh, mma_rescaled.cuh; counted under
+"select_stream_mma", "select_topl_stream_mma", "select_masked_stream_mma"
+and "fr_step_select_mma") and a CUDA-core variant for f32 correlation and
+for what the first does not take (`fused_solve.mma_select_takes`). On CPU
 tensors, and only there, it runs its plain twin (`*_ref`), which reproduces
 the rule tile by tile in torch operations. Products and sums are f32
 whatever the dtype of R; the scores of the two differ by the order of the
@@ -63,12 +64,13 @@ import torch
 from cstpu_torch.ops import _build
 from cstpu_torch.ops.fused_solve import (
     _CDTS, INT_MAX, LAUNCHES, TILE, _f32, _on_cpu, _pick_mma,
-    _rescaled_plan, _rounded_scratch, _stream)
+    _rescaled_plan, _rounded_scratch, _stream, _topl_ref)
 
-# the top-1 selects and fr_step_select count their tensor-core variant under
-# "<name>_mma" and their CUDA-core variant under "<name>"
-# (fused_solve.mma_select_takes)
+# the sweeps count their tensor-core variant under "<name>_mma" and their
+# CUDA-core variant under "<name>" (fused_solve.mma_select_takes); the top-l
+# finish, one for both, under "stream_topl_finish"
 LAUNCHES.update(select_stream=0, select_stream_mma=0, select_topl_stream=0,
+                select_topl_stream_mma=0, stream_topl_finish=0,
                 select_masked_stream=0, select_masked_stream_mma=0,
                 fr_step_select=0, fr_step_select_mma=0)
 
@@ -247,6 +249,28 @@ def correlate_select_masked_stream(A, R, M, mma=None):
                         "select_masked_stream", mma)
 
 
+def _fold_topl(cv, ci, skip, l: int):
+    """The running l slots over the tiles' own candidate lists cv, ci
+    (B, T, c; value descending, index ascending), tile by tile and candidate
+    by candidate, for all rows at once; tiles where skip (B, T) is set take
+    no part."""
+    B, T, c = cv.shape
+    dev = cv.device
+    val = torch.full((B, l), -torch.inf, dtype=torch.float32, device=dev)
+    idx = torch.zeros((B, l), dtype=torch.int32, device=dev)
+    slot = torch.arange(l, device=dev).view(1, l)
+    for t in range(T):
+        for k in range(min(l, c)):
+            rmin = torch.amin(val, dim=1, keepdim=True)
+            p = torch.amin(torch.where(val == rmin, slot, INT_MAX), dim=1,
+                           keepdim=True)
+            cand = cv[:, t, k:k + 1]
+            take = (slot == p) & (cand > rmin) & ~skip[:, t:t + 1]
+            val = torch.where(take, cand, val)
+            idx = torch.where(take, ci[:, t, k:k + 1].to(torch.int32), idx)
+    return val, idx
+
+
 def correlate_select_topl_stream_ref(A, R, l: int):
     """Plain twin of `correlate_select_topl_stream`: the running l slots,
     tile by tile and candidate by candidate, for all rows at once."""
@@ -255,57 +279,109 @@ def correlate_select_topl_stream_ref(A, R, l: int):
     if l < 1:
         raise ValueError(f"correlate_select_topl_stream: l={l} < 1")
     tm = _tile_of(A, "correlate_select_topl_stream")
-    dev = A.device
     s = _abs_scores(A, R).view(B, m // tm, tm)
     # a tile's own top l: value descending, lowest index first among equals
     cv, order = torch.sort(s, dim=2, descending=True, stable=True)
-    cv = cv[..., :l]
     ci = (order[..., :l]
-          + tm * torch.arange(m // tm, device=dev).view(1, -1, 1))
-    skip = torch.isnan(s).any(dim=2)
-    val = torch.full((B, l), -torch.inf, dtype=torch.float32, device=dev)
-    idx = torch.zeros((B, l), dtype=torch.int32, device=dev)
-    slot = torch.arange(l, device=dev).view(1, l)
-    for t in range(m // tm):
-        for c in range(min(l, tm)):        # a tile has tm candidates
-            rmin = torch.amin(val, dim=1, keepdim=True)
-            p = torch.amin(torch.where(val == rmin, slot, INT_MAX), dim=1,
-                           keepdim=True)
-            cand = cv[:, t, c:c + 1]
-            take = (slot == p) & (cand > rmin) & ~skip[:, t:t + 1]
-            val = torch.where(take, cand, val)
-            idx = torch.where(take, ci[:, t, c:c + 1].to(torch.int32), idx)
+          + tm * torch.arange(m // tm, device=A.device).view(1, -1, 1))
+    return _fold_topl(cv[..., :l], ci, torch.isnan(s).any(dim=2), l)
+
+
+def stream_topl_finish_ref(pval, pidx, bpt: int, l: int):
+    """Plain twin of `stream_topl_finish`: each tile's own top l from its
+    bpt block lists (value descending, index ascending; a tile holding a
+    NaN skipped), then the running l slots over the tiles. Leaves the
+    partials as they were."""
+    B, nblocks, _ = pval.shape
+    T = nblocks // bpt
+    v = pval.reshape(B, T, bpt * l)
+    i = pidx.reshape(B, T, bpt * l)
+    o = torch.argsort(i, dim=2, stable=True)      # index ascending, then
+    v, i = v.gather(2, o), i.gather(2, o)
+    o = torch.sort(v, dim=2, descending=True, stable=True).indices
+    cv, ci = v.gather(2, o)[..., :l], i.gather(2, o)[..., :l]
+    return _fold_topl(cv, ci, torch.isnan(v).any(dim=2), l)
+
+
+def stream_topl_finish(pval, pidx, bpt: int, l: int):
+    """The finishing stage of the streamed top-l: the sweep's partials pval
+    (B, nblocks, l) f32 and pidx i32, bpt blocks to a tile of the NaN rule,
+    folded into (val (B, l) f32, idx (B, l) i32) under the rule at the top
+    of this module. On CUDA tensors this launches csrc/stream_select.cu's
+    finish (counted under "stream_topl_finish"), which overwrites the
+    partials; the same for either sweep."""
+    if _on_cpu(pval, pidx):
+        return stream_topl_finish_ref(pval, pidx, bpt, l)
+    B, nblocks = pval.shape[:2]
+    dev = pval.device
+    if (tuple(pval.shape) != (B, nblocks, l) or pval.dtype != torch.float32
+            or pidx.dtype != torch.int32 or pidx.shape != pval.shape
+            or pidx.device != dev or not pval.is_contiguous()
+            or not pidx.is_contiguous()):
+        raise ValueError(f"stream_topl_finish: need contiguous (B, nblocks, "
+                         f"{l}) f32 and i32 partials on one device, got "
+                         f"{tuple(pval.shape)} {pval.dtype}, "
+                         f"{tuple(pidx.shape)} {pidx.dtype}")
+    val = torch.empty((B, l), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, l), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.cstpu_stream_topl_finish(
+            pval.data_ptr(), pidx.data_ptr(), val.data_ptr(), idx.data_ptr(),
+            B, nblocks * TILE, l, int(bpt), _stream())
+    _build.check(err, "cstpu_stream_topl_finish")
+    LAUNCHES["stream_topl_finish"] += 1
     return val, idx
 
 
-def correlate_select_topl_stream(A, R, l: int):
-    """Top-l selection sweep of A (n, m; pre-cast to the correlation dtype)
-    against residuals R (B, n), 1 <= l <= 128 on the card. Returns (val
-    (B, l) f32, idx (B, l) i32), NOT sorted by value: the slots are in the
-    running set's own order, as cstpu leaves them; mask on val > -inf."""
-    if _on_cpu(A, R):
-        return correlate_select_topl_stream_ref(A, R, l)
-    B, n, m = _check_shard(A, R, "correlate_select_topl_stream")
+def stream_topl_sweep(A, R, l: int, mma=None):
+    """The sweep of the streamed top-l on the card: the partials (pval
+    (B, m / 128, l) f32, pidx i32), per row and per 128 atoms the l best,
+    value descending then index ascending, a block holding a NaN all
+    (NaN, INT_MAX). The tensor-core variant (csrc/mma_topl.cuh) where
+    `mma_select_takes` says so, counted under "select_topl_stream_mma",
+    else the CUDA-core one ("select_topl_stream"); `mma` = True or False
+    forces one. On CPU tensors its plain twin, `fused_solve._topl_ref`."""
+    name = "correlate_select_topl_stream"
+    B, n, m = _check_shard(A, R, name)
     l = int(l)
-    if not 1 <= l <= STREAM_LMAX:
-        raise ValueError(f"correlate_select_topl_stream: l={l} outside "
-                         f"1..{STREAM_LMAX}")
-    tm = _tile_of(A, "correlate_select_topl_stream")
+    if not 1 <= l <= STREAM_LMAX or m % TILE:
+        raise ValueError(f"{name}: need 1 <= l <= {STREAM_LMAX} and m a "
+                         f"multiple of {TILE}, got l={l}, m={m}")
+    if _on_cpu(A, R):
+        return _topl_ref(R.float(), A, A.dtype, l)
     R = R.float().contiguous()
     dev = A.device
     pval = torch.empty((B, m // TILE, l), dtype=torch.float32, device=dev)
     pidx = torch.empty((B, m // TILE, l), dtype=torch.int32, device=dev)
-    val = torch.empty((B, l), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, l), dtype=torch.int32, device=dev)
+    use_mma = _pick_mma(mma, A)
+    rb = _rounded_scratch(B, n, dev) if use_mma else None
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.cstpu_stream_topl(
             R.data_ptr(), A.data_ptr(), A.stride(0),
             int(A.dtype == torch.bfloat16), pval.data_ptr(), pidx.data_ptr(),
-            val.data_ptr(), idx.data_ptr(), B, n, m, l, tm // TILE, _stream())
+            B, n, m, l, int(use_mma), None if rb is None else rb.data_ptr(),
+            _stream())
     _build.check(err, "cstpu_stream_topl")
-    LAUNCHES["select_topl_stream"] += 1
-    return val, idx
+    LAUNCHES["select_topl_stream_mma" if use_mma
+             else "select_topl_stream"] += 1
+    return pval, pidx
+
+
+def correlate_select_topl_stream(A, R, l: int, mma=None):
+    """Top-l selection sweep of A (n, m; pre-cast to the correlation dtype)
+    against residuals R (B, n), 1 <= l <= 128 on the card. Returns (val
+    (B, l) f32, idx (B, l) i32), NOT sorted by value: the slots are in the
+    running set's own order, as cstpu leaves them; mask on val > -inf. On
+    the card: `stream_topl_sweep` (`mma` forces its variant), then
+    `stream_topl_finish`."""
+    if _on_cpu(A, R):
+        return correlate_select_topl_stream_ref(A, R, l)
+    _check_shard(A, R, "correlate_select_topl_stream")
+    tm = _tile_of(A, "correlate_select_topl_stream")
+    pval, pidx = stream_topl_sweep(A, R, l, mma)
+    return stream_topl_finish(pval, pidx, tm // TILE, int(l))
 
 
 def _check_fr_step(A, R, W, V, il, cn2, resc):

@@ -1,12 +1,14 @@
 """The CUDA kernels of cstpu_torch (select_argmax in its tensor-core and
 CUDA-core variants, omp_append, mp_update,
-select_topl, gomp_append, fr_select (tensor-core and CUDA-core variants),
+select_topl (tensor-core and CUDA-core variants), gomp_append, fr_select
+(tensor-core and CUDA-core variants),
 fr_append, the two-stage ones:
 engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
 ones: rmp_append, engine_backward, the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
 stream_select.cu's top-1, masked top-1 and (n, B) argmax (each on the
-tensor-core and the CUDA-core sweep), its top-l, and
+tensor-core and the CUDA-core sweep), its top-l (both sweeps, and the
+finish), and
 fr_step_select.cu's rescaling update with its OLS select, in both
 variants) against their
 plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
@@ -55,8 +57,8 @@ _reduce = fs._reduce_partials
 
 
 def _key(name, A):
-    """The launch-count key of the top-1 select `name` on the dictionary
-    (view) A: the tensor-core variant's where the predicate takes A."""
+    """The launch-count key of the select `name` on the dictionary (view) A:
+    the tensor-core variant's where the predicate takes A."""
     return name + "_mma" if fs._pick_mma(None, A) else name
 
 
@@ -331,7 +333,7 @@ def test_greedy_solves_match_plain_and_recover(dev, B, n, m, cdt):
     for solve, ref, key in (
             (lambda: fs.gomp_fused_solve(A, Bs, 2, k, corr_dtype=cdt),
              lambda: fs.gomp_fused_solve_ref(A, Bs, 2, k, corr_dtype=cdt),
-             ("select_topl", "gomp_append", -(-k // 2))),
+             (_key("select_topl", A.to(cdt)), "gomp_append", -(-k // 2))),
             (lambda: fs.fr_fused_solve(A, Bs, k, corr_dtype=cdt),
              lambda: fs.fr_fused_solve_ref(A, Bs, k, corr_dtype=cdt),
              (_key("fr_select", A.to(cdt)), "fr_append", k))):
@@ -598,20 +600,21 @@ def test_twostage_solves_match_plain_and_recover(dev, B, n, m, cdt):
 
     (sol, _, it), got = launches(lambda: ft.sp_fused_solve(
         A, Bs, k, maxiter=8, corr_dtype=cdt, return_iters=True))
-    assert got == {"select_topl": 1 + it, "sp_round": 1 + it}, got
+    assert got == {_key("select_topl", A.to(cdt)): 1 + it,
+                   "sp_round": 1 + it}, got
     ref, _, it_ref = ft.sp_fused_solve_ref(A, Bs, k, maxiter=8, corr_dtype=cdt,
                                            return_iters=True)
     solves = [(sol, ref)]
     (sol, _, it), got = launches(lambda: ft.ompr_fused_solve(
         A, Bs, k, 1e-6, corr_dtype=cdt, return_iters=True))
-    assert got == {"select_topl": 1, "engine_init": 1,
+    assert got == {_key("select_topl", A.to(cdt)): 1, "engine_init": 1,
                    _key("select", A.to(cdt)): it,
                    "ompr_swap": it}, got
     solves.append((sol, ft.ompr_fused_solve_ref(A, Bs, k, 1e-6,
                                                 corr_dtype=cdt)[0]))
     (sol, _, it), got = launches(lambda: ft.srr_fused_solve(
         A, Bs, k, maxiter=4, corr_dtype=cdt, return_iters=True))
-    assert got == {"select_topl": 1, "engine_init": 1,
+    assert got == {_key("select_topl", A.to(cdt)): 1, "engine_init": 1,
                    _key("fr_select", A.to(cdt)): it,
                    "srr_append": it, "engine_delete": it}, got
     solves.append((sol, ft.srr_fused_solve_ref(A, Bs, k, maxiter=4,
@@ -988,7 +991,8 @@ def test_stream_top1_and_masked_match_plain(dev, B, n, m, cdt):
 @pytest.mark.parametrize("cdt", CDTS)
 def test_stream_topl_matches_plain(dev, B, n, m, l, cdt):
     A, R = _stream_inputs(dev, B, n, m, cdt, seed=1)
-    before = fs.LAUNCHES["select_topl_stream"]
+    key = _key("select_topl_stream", A)
+    before = dict(fs.LAUNCHES)
     kv, ki = ss.correlate_select_topl_stream(A, R, l)
     pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
     assert tuple(kv.shape) == tuple(ki.shape) == (B, l)
@@ -998,7 +1002,9 @@ def test_stream_topl_matches_plain(dev, B, n, m, l, cdt):
     assert torch.equal(ki[clear], pi[clear]) and int(clear.sum()) >= 1
     torch.testing.assert_close(kv.sort(dim=1).values, pv.sort(dim=1).values,
                                rtol=RTOL, atol=1e-6)
-    assert fs.LAUNCHES["select_topl_stream"] - before == 1
+    assert key.endswith("_mma") == (cdt == torch.bfloat16)
+    assert fs.LAUNCHES[key] - before[key] == 1
+    assert fs.LAUNCHES["stream_topl_finish"] - before["stream_topl_finish"] == 1
 
 
 @pytest.mark.parametrize("cdt", CDTS)
@@ -1331,16 +1337,18 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
     torch.testing.assert_close(x, sh.mp_sharded_fused_ref(A, Bs, k, mesh),
                                rtol=0, atol=1e-4)
     sol, cnt = counted(lambda: sh.gomp_sharded_fused(A, Bs, 3, k, mesh))
-    assert cnt == {"select_topl_stream": shards * 3}      # 2 steps + rest
+    assert cnt == {"select_topl_stream_mma": shards * 3,   # 2 steps + rest
+                   "stream_topl_finish": shards * 3}
     assert torch.equal(sol.idx, sh.gomp_sharded_fused_ref(A, Bs, 3, k,
                                                           mesh).idx)
     sol, cnt = counted(lambda: sh.sp_sharded_fused(A, Bs, k, mesh, maxiter=4))
-    assert cnt["select_topl_stream"] % shards == 0 and len(cnt) == 1
+    assert cnt["select_topl_stream_mma"] % shards == 0 and len(cnt) == 2
+    assert cnt["stream_topl_finish"] == cnt["select_topl_stream_mma"]
     assert torch.equal(sol.idx, sh.sp_sharded_fused_ref(A, Bs, k, mesh,
                                                         maxiter=4).idx)
     assert torch.equal(sol.idx[:, :k].long(), want)
     sol, cnt = counted(lambda: sh.ompr_sharded_fused(A, Bs, k, mesh))
-    assert cnt["select_topl_stream"] == shards
+    assert cnt["select_topl_stream_mma"] == cnt["stream_topl_finish"] == shards
     assert cnt["select_masked_stream_mma"] % shards == 0
     assert "select_masked_stream" not in cnt
     assert torch.equal(sol.idx, sh.ompr_sharded_fused_ref(A, Bs, k, mesh).idx)
@@ -1358,7 +1366,8 @@ def test_sharded_solvers_run_on_the_kernels(dev, shards):
         torch.testing.assert_close(sol.val, ref.val, rtol=0, atol=1e-4)
     (sol, iters), cnt = counted(lambda: sh.srr_sharded_fused(
         A, Bs, k, mesh, maxiter=4, return_iters=True))
-    assert cnt == {"select_topl_stream": shards,
+    assert cnt == {"select_topl_stream_mma": shards,
+                   "stream_topl_finish": shards,
                    "fr_step_select_mma": shards * iters[0]}
     assert torch.equal(sol.idx, sh.srr_sharded_fused_ref(A, Bs, k, mesh,
                                                          maxiter=4).idx)
@@ -1534,6 +1543,180 @@ def test_forcing_the_tensor_core_loop_on_what_it_does_not_take_fails(dev):
     assert fs.LAUNCHES["select"] - before["select"] == 1
     assert fs.LAUNCHES["select_stream"] - before["select_stream"] == 1
     assert fs.LAUNCHES["select_mma"] == before["select_mma"]
+
+
+# --------------------------------------------------------------------------
+# The two variants of the top-l selects: the tensor-core loop with the
+# sorting epilogue of csrc/mma_topl.cuh (bf16) and the CUDA-core loop,
+# forced one at a time; the streamed top-l's finish (merge and fold)
+# --------------------------------------------------------------------------
+
+# the paths' shapes (2a-3b, the 5c shard), batches 1 to 65 off the row-chunk
+# widths, n = 1000 off the stage, a ragged m
+TOPL_SIZES = [(64, 1024, 8192), (1, 1000, 8232), (7, 1000, 8232),
+              (33, 1000, 8232), (65, 1000, 8232)]
+STREAM_TOPL_SIZES = [(8, 1024, 32768), (1, 1000, 8192), (65, 1000, 12288),
+                     (5, 40, 384)]
+
+
+def _topl_problem(dev, B, n, m, seed):
+    """bf16 dictionary and residuals with one column three times (twice in
+    tile 0, once in the last tile), a NaN row and a poisoned atom."""
+    A, R = _stream_inputs(dev, B, n, m, torch.bfloat16, seed=seed)
+    A[:, 77] = A[:, 5]
+    A[:, m - 3] = A[:, 5]
+    R[0] = 0.2 * R[0] + 3 * A[:, 5].float()
+    if B > 1:
+        R[1, 7] = float("nan")
+    if B > 2:
+        A[:, m // 2 + 11] = float("nan")          # its tile, every row
+    return A, R
+
+
+def _tile_sets_clear(pv1, l):
+    """(B, T): True where a tile's l-th score stands clear of its (l+1)-th
+    (pv1 the plain partials at depth l + 1)."""
+    top = pv1.nan_to_num(nan=-1.0, neginf=-1.0)
+    return (top[..., l - 1] - top[..., l]) > RTOL * top[..., 0].abs()
+
+
+@pytest.mark.parametrize("B,n,m", TOPL_SIZES)
+@pytest.mark.parametrize("l", [1, 4, 16, 32])
+@pytest.mark.parametrize("mma", [True, False])
+def test_select_topl_variants_match_plain(dev, B, n, m, l, mma):
+    A, R = _topl_problem(dev, B, n, m, seed=12)
+    key = "select_topl_mma" if mma else "select_topl"
+    before = dict(fs.LAUNCHES)
+    kv, ki = fs.select_topl(R, A, l, mma=mma)
+    assert fs.LAUNCHES[key] - before[key] == 1
+    assert sum(fs.LAUNCHES.values()) - sum(before.values()) == 1
+    pv, pi = fs._topl_ref(R, A.float(), torch.bfloat16, l)
+    torch.cuda.synchronize()
+    assert kv.shape == pv.shape == (B, -(-m // fs.TILE), l)
+    nan = torch.isnan(pv)
+    assert torch.equal(torch.isnan(kv), nan)
+    assert bool((ki[nan] == fs.INT_MAX).all())
+    assert torch.equal(torch.isinf(kv), torch.isinf(pv))
+    fin = torch.isfinite(pv)
+    # both lists are sorted by value: position for position to 1e-4
+    torch.testing.assert_close(kv[fin], pv[fin], rtol=RTOL, atol=1e-6)
+    # index sets where the l-th score stands clear of the (l+1)-th
+    clear = _tile_sets_clear(fs._topl_ref(R, A.float(), torch.bfloat16,
+                                          l + 1)[0], l)
+    assert int(clear.sum()) > 0
+    assert torch.equal(ki.sort(dim=2).values[clear],
+                       pi.sort(dim=2).values[clear])
+    # the repeated column: equal scores, the lower index first
+    if l >= 2:
+        assert ki[0, 0, :2].tolist() == [5, 77]
+        assert int(ki[0, -1, 0]) == m - 3
+        assert kv[0, 0, 0] == kv[0, 0, 1] == kv[0, -1, 0]
+
+
+@pytest.mark.parametrize("B", [1, 8, 33, 64, 65])
+def test_select_topl_first_entry_is_the_top1_partial(dev, B):
+    # one loop, one instruction sequence: the sort's first key is the top-1
+    # select's (max, lowest argmax) bit for bit, NaN tiles included
+    A, R = _topl_problem(dev, B, 1000, 8232, seed=13)
+    tv, ti = fs.select_argmax(R, A, mma=True)
+    for l in (1, 4, 32):
+        kv, ki = fs.select_topl(R, A, l, mma=True)
+        assert torch.equal(kv[:, :, 0].view(torch.int32), tv.view(torch.int32))
+        assert torch.equal(ki[:, :, 0], ti)
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_TOPL_SIZES)
+@pytest.mark.parametrize("l", [1, 4, 32, 48, 128])
+@pytest.mark.parametrize("mma", [True, False])
+def test_stream_topl_variants_match_plain(dev, B, n, m, l, mma):
+    A, R = _topl_problem(dev, B, n, m, seed=14)
+    if m <= 384:                                  # one tile: no poisoned atom
+        A[:, m // 2 + 11] = A[:, 9]
+    key = "select_topl_stream_mma" if mma else "select_topl_stream"
+    before = dict(fs.LAUNCHES)
+    kv, ki = ss.correlate_select_topl_stream(A, R, l, mma=mma)
+    assert fs.LAUNCHES[key] - before[key] == 1
+    assert fs.LAUNCHES["stream_topl_finish"] - before["stream_topl_finish"] == 1
+    pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
+    assert tuple(kv.shape) == tuple(ki.shape) == (B, l)
+    torch.testing.assert_close(kv.sort(dim=1).values, pv.sort(dim=1).values,
+                               rtol=RTOL, atol=1e-6)
+    scores = torch.abs(R.to(torch.bfloat16).float() @ A.float())
+    tm = ss._stream_tile(m, n, 2, ss.STREAM_TILE_BYTES)
+    bad = torch.isnan(scores.view(B, m // tm, tm)).any(dim=2)
+    scores = torch.where(bad.repeat_interleave(tm, dim=1), -1.0,
+                         scores.nan_to_num(nan=-1.0))
+    if l < m:
+        # slot for slot where the l + 1 best stand clear of each other; the
+        # copies of column 5 tie, so row 0 is held by its set
+        clear = _clear_rows(scores, depth=min(l, m - 1))
+        clear[0] = False
+        assert torch.equal(ki[clear], pi[clear])
+    if l >= 3:
+        assert {5, 77, m - 3} <= set(ki[0].tolist())
+        assert set(ki[0].tolist()) == set(pi[0].tolist())
+    if B > 1:
+        assert bool((kv[1] == -torch.inf).all()) and bool((ki[1] == 0).all())
+    # a column slice of a wider dictionary, pitch m + 384, read in place
+    wide = torch.cat([A[:, :384], A], dim=1)
+    view = wide[:, 384:]
+    assert view.stride(0) == m + 384 and fs._pick_mma(None, view)
+    got = ss.correlate_select_topl_stream(view, R, l, mma=mma)
+    assert torch.equal(got[0], kv) and torch.equal(got[1], ki)
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_TOPL_SIZES)
+def test_stream_topl_at_one_is_the_top1_stream(dev, B, n, m):
+    A, R = _topl_problem(dev, B, n, m, seed=15)
+    tv, ti = ss.correlate_select_stream(A, R, mma=True)
+    kv, ki = ss.correlate_select_topl_stream(A, R, 1, mma=True)
+    assert torch.equal(kv[:, 0].view(torch.int32), tv.view(torch.int32))
+    assert torch.equal(ki[:, 0], ti)
+
+
+@pytest.mark.parametrize("B,n,m", STREAM_TOPL_SIZES)
+@pytest.mark.parametrize("l", [1, 4, 32, 128])
+@pytest.mark.parametrize("mma", [True, False])
+def test_stream_topl_finish_matches_plain(dev, B, n, m, l, mma):
+    # the finish alone, on the sweep's own partials: the same rule on the
+    # same values, so the slots agree bit for bit
+    A, R = _topl_problem(dev, B, n, m, seed=16)
+    A[:, 200] = A[:, 5]                           # ties across blocks
+    tm = ss._stream_tile(m, n, 2, ss.STREAM_TILE_BYTES)
+    pval, pidx = ss.stream_topl_sweep(A, R, l, mma=mma)
+    want = ss.stream_topl_finish_ref(pval.clone(), pidx.clone(), tm // fs.TILE,
+                                     l)
+    before = fs.LAUNCHES["stream_topl_finish"]
+    got = ss.stream_topl_finish(pval, pidx, tm // fs.TILE, l)
+    assert fs.LAUNCHES["stream_topl_finish"] - before == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_forcing_the_tensor_core_topl_on_what_it_does_not_take_fails(dev):
+    A, R = _stream_inputs(dev, 8, 64, 1032, torch.bfloat16, seed=17)
+    thin = A[:, :1028].contiguous()               # pitch off 16 bytes
+    odd = A[:, 4:1028]                            # base off 16 bytes
+    with pytest.raises(RuntimeError):
+        fs.select_topl(R, thin, 4, mma=True)
+    with pytest.raises(RuntimeError):
+        fs.select_topl(R, A.float(), 4, mma=True)
+    with pytest.raises(RuntimeError):
+        ss.correlate_select_topl_stream(odd, R, 4, mma=True)
+    with pytest.raises(RuntimeError):
+        ss.correlate_select_topl_stream(A[:, :1024].float(), R, 4, mma=True)
+    before = dict(fs.LAUNCHES)
+    kv, ki = fs.select_topl(R, thin, 4)           # the CUDA-core variant
+    pv, pi = fs._topl_ref(R, thin.float(), torch.bfloat16, 4)
+    torch.testing.assert_close(kv, pv, rtol=RTOL, atol=1e-6)
+    v, i = ss.correlate_select_topl_stream(odd, R, 4)
+    w, j = ss.correlate_select_topl_stream_ref(odd, R, 4)
+    torch.testing.assert_close(v.sort(1).values, w.sort(1).values, rtol=RTOL,
+                               atol=1e-6)
+    assert fs.LAUNCHES["select_topl"] - before["select_topl"] == 1
+    assert fs.LAUNCHES["select_topl_stream"] - before["select_topl_stream"] == 1
+    assert fs.LAUNCHES["select_topl_mma"] == before["select_topl_mma"]
+    assert (fs.LAUNCHES["select_topl_stream_mma"]
+            == before["select_topl_stream_mma"])
 
 
 # --------------------------------------------------------------------------
