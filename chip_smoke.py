@@ -48,7 +48,10 @@ are held against the plain twins, the bf16 paths must have taken the first
 and the f32 paths (omp_batch, gomp_batch, fr_batch,
 omp/ompr/fr_sharded_fused and correlate_argmax with f32 correlation, at a
 smaller depth) the second, by their own launch counts; K7's finish, one
-for both sweeps, is held alone against its plain fold;
+for both sweeps, is held alone against its plain fold; bw_select (a
+thread-block cluster per row) is held bit for bit at BW_CLUSTER_CASES and
+sp_round (a two-block cluster per row) at SP_ROUND_CASES, and a
+[latency kernels] line sets their device times beside those before them;
 the later kernels' device time per launch and the paths' idle share come
 from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
@@ -1091,6 +1094,13 @@ def check_twostage_kernels(A, Bg, Ar, Br):
     print(f"[2b kernels] sp_round (k={k}): init round and two rounds from "
           f"identical state, idx equal, NaN row latched empty, done row "
           f"untouched, max |err| {err['sp_round']:.3e} (atol {APPEND_ATOL})")
+    for case in SP_ROUND_CASES:
+        e = hold_sp_round(A.device, *case)
+        err["sp_round"] = max(err["sp_round"], e)
+        print(f"[2b kernels] sp_round case (B, n, m, k) = {case}: "
+              f"{SP_ROUNDS} rounds from identical state, idx equal, NaN row "
+              f"empty, poisoned partials no pick, done row untouched, max "
+              f"|err| {e:.3e} (atol {APPEND_ATOL})")
     return err
 
 
@@ -1510,6 +1520,189 @@ def check_backward_kernels(A2, Bs2):
           f"bit for bit (max |err| {err['bw_select']:.1e}, "
           f"{err['bw_downdate']:.1e}); rejected row skipped, NaN init latched "
           f"failed and stopped")
+    del st, stk
+    for B, m_ in BW_CLUSTER_CASES:
+        st, fbr_tie, lace_tie = bw_cluster_state(A2.device, B, m_)
+        steps = hold_bw_select(st, fbr_tie, lace_tie)
+        print(f"[3e kernels] bw_select cluster case B={B} m={m_} (clusters of "
+              f"{min(8, -(-m_ // 128))}): {BW_LACE_FROM} FBR and "
+              f"{BW_STEPS - BW_LACE_FROM} LACE steps bit for bit, row 0 "
+              f"deleted {steps}; ties {fbr_tie} and {lace_tie} across slice "
+              f"boundaries went to the lower atom; rejected row, NaN init and "
+              f"NaN in the last slice stopped at step 0")
+        del st
+        torch.cuda.empty_cache()
+    return err
+
+
+# bw_select's cluster cases (B, m): clusters of 1 block (m = 4, 124) and of
+# 8 (m = 1024, 1028, 4096); one atom a thread held in registers up to
+# m = 1024, slices walked and read again beyond: a ragged last slice at
+# m = 1028 (8 slices of 129, the last 125 atoms), 512 atoms a slice at 4096
+BW_CLUSTER_CASES = [(1, 4), (8, 124), (65, 124), (8, 1024), (64, 1024),
+                    (65, 1028), (1, 1028), (8, 4096)]
+BW_STEPS, BW_LACE_FROM = 50, 40   # 40 FBR steps, then 10 LACE steps
+# device ms per launch and per solve of the kernels redesigned for their
+# latency (bw_select, sp_round, and the merge in engine_init and
+# gomp_append) before the redesign, on the paths chip_smoke.py drives
+# (PERF.md's kernel table and section 5, NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE_MS = {"bw_select 3e fbr B=8": (0.0080, 7.9159),
+             "bw_select 3e fbr B=64": (0.0129, 12.7777),
+             "bw_select 3e lace B=8": (0.0084, 8.2834),
+             "sp_round 2b": (0.5100, 1.5299),
+             "engine_init 2c": (1.0237, 1.0237),
+             "gomp_append 2a": (0.0440, 0.3520)}
+
+
+def bw_slice_bounds(m):
+    """The first atoms of slices 1.. of bw_select's cluster: C = min(8,
+    ceil(m / 128)) blocks of ceil(m / C) atoms (csrc/bw_select.cu)."""
+    C = min(8, -(-m // 128))
+    return list(range(-(-m // C), m, -(-m // C)))
+
+
+def bw_cluster_state(dev, B, m):
+    """The backward state of B rows on a unit-norm Gaussian (2m, m)
+    dictionary (3 planted ones, 1 at m = 4, noise 1e-3), then: row 0 has
+    two atoms of score 0 on both sides of the first slice boundary (the
+    middle atom when there is one slice), row 1 is rejected at its first
+    step (||r||^2 above max_eps2 = 0.5), row 2 has a NaN init, row 3 a NaN
+    coefficient in the last slice only. Returns the state and the pairs of
+    atoms (FBR's tie, LACE's tie at the last boundary)."""
+    from cstpu_torch.ops import fused_backward as fb
+
+    gen = torch.Generator(device=dev).manual_seed(1000 * B + m)
+    A = torch.randn((2 * m, m), device=dev, generator=gen)
+    A = A / A.norm(dim=0, keepdim=True)
+    k = min(3, m - 3)
+    sup = torch.stack([torch.randperm(m, generator=gen, device=dev)[:k]
+                       for _ in range(B)])
+    Bs = A[:, sup].sum(-1).T.contiguous()
+    Bs += 1e-3 * torch.randn(Bs.shape, device=dev, generator=gen)
+    st = fb._bw_init(A, Bs)
+    bounds = bw_slice_bounds(m) or [m // 2]
+    fbr_tie, lace_tie = (bounds[0] - 1, bounds[0]), (bounds[-1] - 1,
+                                                      bounds[-1])
+    st.coef[0, list(fbr_tie)] = 0.0
+    st.diag[0, fbr_tie[1]] = st.diag[0, fbr_tie[0]]
+    if B > 1:
+        st.nr2[1] = 1.0
+    if B > 2:
+        st.G[2] = float("nan")
+        st.coef[2] = float("nan")
+        st.diag[2] = float("nan")
+    if B > 3:
+        st.coef[3, m - 1] = float("nan")
+    return st, fbr_tie, lace_tie
+
+
+def hold_bw_select(st, fbr_tie, lace_tie):
+    """BW_STEPS deletion steps (FBR, then LACE from BW_LACE_FROM, where row
+    0 gets a second tie: 0 and -0 on both sides of the last boundary) of
+    bw_select and bw_downdate against their plain versions from identical
+    state; every field equal bit for bit at every step (NaN where the plain
+    version has NaN). The lower atom of each tie is deleted first; rows 1-3
+    stop at step 0 (row 1 rejected, rows 2-3 failed). Returns the number of
+    steps row 0 took."""
+    from cstpu_torch.ops import fused_backward as fb
+
+    B, m = st.coef.shape
+    inf = float("inf")
+    for t in range(BW_STEPS):
+        select_abs = t >= BW_LACE_FROM
+        if t == BW_LACE_FROM:
+            st.coef[0, lace_tie[0]] = 0.0
+            st.coef[0, lace_tie[1]] = -0.0
+        tie = fbr_tie if t == 0 else lace_tie
+        watch = (t in (0, BW_LACE_FROM) and bool(st.run[0] > 0.5)
+                 and bool((st.alive[0, list(tie)] > 0.5).all()))
+        stk = _clone(st)
+        fb.bw_select(stk, 0.5, inf, select_abs)
+        fb._bw_select_ref(st, 0.5, inf, select_abs)
+        torch.cuda.synchronize()
+        for name, a, b in zip(st._fields, stk, st):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda msg: f"{t} {name}: {msg}")
+        fb.bw_downdate(stk)
+        fb._bw_downdate_ref(st)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(stk.G, st.G, rtol=0, atol=0,
+                                   equal_nan=True)
+        if watch:
+            assert float(st.alive[0, tie[0]]) == 0.0, (t, tie)
+            assert float(st.alive[0, tie[1]]) == 1.0, (t, tie)
+        if t == 0:
+            want = [1.0, 0.0, 0.0, 0.0][:B]
+            assert st.run[:4].tolist() == want, st.run[:4]
+            assert st.failed[:4].tolist() == [0.0, 0.0, 1.0, 1.0][:B]
+    return m - int(st.alive[0].sum())
+
+
+# sp_round's cases (B, n, m, k): k from 1 to 32, n a multiple of the Gram's
+# panel chunk (32) and not, m with a ragged last tile (8264 = 64.5 tiles)
+SP_ROUND_CASES = [(64, 1024, 8192, 32), (65, 1000, 8264, 31),
+                  (1, 1024, 8264, 32), (64, 1000, 8192, 8),
+                  (65, 1024, 8264, 1), (1, 1000, 8192, 31)]
+SP_ROUNDS = 4
+
+
+def sp_empty_state(Bs, k, m):
+    """The empty SP state of k slots (2k slot columns) for rows Bs."""
+    from cstpu_torch.ops import fused_twostage as ft
+
+    B, n = Bs.shape
+    dev = Bs.device
+    return ft._SpState(
+        cols=torch.zeros((B, 2 * k, n), device=dev),
+        Ginv=torch.eye(k, device=dev).repeat(B, 1, 1),
+        coef=torch.zeros((B, 2 * k), device=dev),
+        idx=torch.full((B, 2 * k), m, dtype=torch.int32, device=dev),
+        Atb=torch.zeros((B, 2 * k), device=dev), r=Bs.clone(),
+        done=torch.zeros((B,), device=dev), prev=torch.zeros((B,), device=dev))
+
+
+def hold_sp_round(dev, B, n, m, k):
+    """SP_ROUNDS rounds of sp_round against its plain version from
+    identical state on a planted problem (min(k, 8) +-1 atoms, noise of
+    norm ~0.02 sqrt(n), bf16 dictionary), the init round first: row 3 is a
+    NaN row (it latches empty), row 4's partials hold a NaN every round (no
+    pick is made: it stays empty), row 5 is done from round 2 (left exactly as
+    it was). idx equal, the rest within APPEND_ATOL every round. Returns
+    the max |err|."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    gen = torch.Generator(device=dev).manual_seed(B + n + m + k)
+    A, Bs, _ = planted(gen, B, n, m, min(k, 8))
+    Bs += 0.02 * torch.randn(Bs.shape, device=dev, generator=gen)
+    if B > 3:
+        Bs[3, 0] = float("nan")
+    bf = torch.bfloat16
+    Ac = A.to(bf).contiguous()
+    Ac32 = Ac.float()
+    st = sp_empty_state(Bs, k, m)
+    rows = torch.arange(B, device=dev) != 3
+    err = 0.0
+    for t in range(SP_ROUNDS):
+        if t == 2 and B > 5:
+            st.done[5] = 1.0
+        pv, pi = fs._topl_ref(st.r, Ac32, bf, k)
+        if B > 4:
+            pv[4, pv.shape[1] // 2, k // 2] = float("nan")
+        stk, prev0 = _clone(st), st.prev.clone()
+        row5 = [x[5].clone() for x in st] if t >= 2 and B > 5 else None
+        ft.sp_round(pv, pi, Ac, Bs, stk, 0.0, t == 0)
+        ft._sp_round_ref(pv, pi, Ac32, Bs, st, 0.0, t == 0)
+        torch.cuda.synchronize()
+        err = max(err, _state_err(stk, st, rows, None if t == 0 else prev0))
+        assert torch.equal(stk.idx, st.idx), t
+        if B > 3:
+            assert not (stk.idx[3] < m).any()
+            assert t == 0 or float(stk.done[3]) == 1.0
+        if B > 4:   # no pick, every round: the row stays empty
+            assert not (stk.idx[4] < m).any()
+        if row5 is not None:
+            assert all(torch.equal(a[5], b) for a, b in zip(stk, row5))
     return err
 
 
@@ -3089,6 +3282,15 @@ def main():
                         line)
         if got:
             print(f"[build mma] top-l finish, {got[1]}: {props}")
+        got = re.search(r"Function properties for .*(bw_select_kernelILb[01]E"
+                        r"|sp_round_kernelI(?:13__nv_bfloat16|f)E"
+                        r"|gomp_append_kernelI(?:13__nv_bfloat16|f)E"
+                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)E)", line)
+        if got:
+            name = (got[1].replace("ILb1E", " held")
+                    .replace("ILb0E", " walked").replace("I13__nv_", " ")
+                    .replace("If", " f32").rstrip("E").replace("_kernel", ""))
+            print(f"[build latency] {name}: {props}")
         got = re.search(r"Function properties for .*rescaled_mma_kernelILi"
                         r"(\d+)ELi(\d+)ELb(\d)E", line)
         if got:
@@ -3140,7 +3342,7 @@ def main():
           f"on 3a's")
     terr = check_twostage_kernels(A, Bg, Ar, Br)
     tpaths = twostage_paths(A, Bg, sup_g, Ar, Br, sup_f)
-    ttm, tkern, tplain, _ = twostage_times(A, Bg, Ar, Br, gpu)
+    ttm, tkern, tplain, tsplit = twostage_times(A, Bg, Ar, Br, gpu)
     print(f"[two-stage] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3257,6 +3459,22 @@ def main():
     d_fbr, d_lace = f"3e fbr B={B0}", f"3e lace B={B0}"
     big = BATCHES[1]
 
+    # the one-block-per-row kernels of this slice's redesign: device ms per
+    # launch and per solve on their paths, beside the times before it
+    latency = {
+        "bw_select 3e fbr B=8": (bsplit, d_fbr, "bw_select"),
+        "bw_select 3e fbr B=64": (bsplit, f"3e fbr B={big}", "bw_select"),
+        "bw_select 3e lace B=8": (bsplit, d_lace, "bw_select"),
+        "sp_round 2b": (tsplit, "2b", "sp_round"),
+        "engine_init 2c": (tsplit, "2c", "engine_init"),
+        "gomp_append 2a": (gtm["splits"], "2a", "gomp_append")}
+    print("[latency kernels] device ms per launch (per solve) on the paths, "
+          "before this slice's redesign in brackets (PERF.md, " + gpu + "): "
+          + ", ".join(
+              f"{key} {on_path(sp_, path, name):.4f} "
+              f"({sp_[path]['kernels'][name]['ms']:.4f}) "
+              f"[{BEFORE_MS[key][0]:.4f} ({BEFORE_MS[key][1]:.4f})]"
+              for key, (sp_, path, name) in latency.items()))
     kernels = [
         # the top-1 select's tensor-core variant: ms is the event time per
         # call through the wrapper (one rounding launch and the sweep),
@@ -3511,14 +3729,18 @@ def main():
               sum(v["bw_select"] for v in bl.values()), berr["bw_select"],
               on_path(bsplit, d_fbr, "bw_select"),
               bcall[B0]["plain_bw_select"],
-              # coef, diag, alive both ways, a row and a column of G in, g
-              # and gcol out; ~10 operations an atom
-              bound(10 * B0 * m4 * 4, 10 * B0 * m4, "f32"),
+              # coef, diag, alive both ways, row p of G in, g and gcol out
+              # at 4 bytes an atom; column p of G in at one 32-byte sector
+              # an atom (a strided read); ~10 operations an atom. Its real
+              # floor is latency: a launch and two cluster barriers
+              bound(9 * B0 * m4 * 4 + B0 * m4 * 32, 10 * B0 * m4, "f32"),
               paths={f"{name}_batch B={b}": v["bw_select"]
                      for (name, b), v in bl.items()},
               event_ms=bcall[B0]["bw_select"],
               lace_ms=on_path(bsplit, d_lace, "bw_select"),
-              b64_ms=on_path(bsplit, f"3e fbr B={big}", "bw_select")),
+              b64_ms=on_path(bsplit, f"3e fbr B={big}", "bw_select"),
+              b64_bound_ms=bound(9 * big * m4 * 4 + big * m4 * 32,
+                                 10 * big * m4, "f32")["bound_ms"]),
         entry("bw_downdate", "cstpu/ops/fused_backward.py:184",
               sum(v["bw_downdate"] for v in bl.values()), berr["bw_downdate"],
               on_path(bsplit, d_fbr, "bw_downdate"),

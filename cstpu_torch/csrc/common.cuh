@@ -3,7 +3,8 @@
 // (:157-163), the staging of the select's rows of r, the gated bordered
 // append that OMP, GOMP, FR and the two-stage slot engine share (:165-201,
 // :749-785, :587-611; fused_twostage.py:138-190), the top-l epilogue of a
-// select block and the merge of select_topl partials.
+// select block and the merge of select_topl partials (a warp-sorted top 32
+// and a tree of merges).
 #pragma once
 
 #include <climits>
@@ -256,6 +257,21 @@ __device__ __forceinline__ void topl_partials(float (*ss)[kTile],
   }
 }
 
+// Ask CUDA for the largest L1 a kernel's shared memory leaves. A
+// one-block-per-row append kernel re-reads its row's slot columns (k x n
+// f32: 128 KB at k = 32, n = 1024) on every append; the carveout CUDA
+// picks by default can follow how many blocks the kernel's registers would
+// let an SM hold, and leave those columns a smaller L1, while these
+// launches put one block on an SM (on an H100, engine_init at suite config
+// 2c took 1.03 ms a launch without it and 0.67 with it, on its earlier
+// merge). Returns the call's cudaError_t.
+template <typename F>
+inline cudaError_t prefer_l1(F* kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              static_cast<int>(cudaSharedmemCarveoutMaxL1));
+}
+
 // Shared-memory workspace of one row's append (one block per row).
 struct AppendSmem {
   float* acol;  // n: the gathered, cdt-rounded column in f32
@@ -454,6 +470,18 @@ __device__ __forceinline__ float warp_allsum(float x) {
   return x;
 }
 
+// The two halves of a thread-block cluster barrier: arrive releases this
+// thread's earlier memory operations (distributed shared memory reads
+// included) to the cluster, wait acquires the other blocks'. Every thread
+// of every block of the cluster executes both, in this order.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // max(x, y) and min(x, y) that keep a NaN of either, as jnp.maximum,
 // jnp.max and jnp.min do (fmaxf and fminf drop it).
 __device__ __forceinline__ float max_keep_nan(float x, float y) {
@@ -463,52 +491,126 @@ __device__ __forceinline__ float min_keep_nan(float x, float y) {
   return (isnan(x) || isnan(y)) ? x + y : fminf(x, y);
 }
 
+// The sort key of a merge candidate (v, j): a larger key is a larger value,
+// then a lower index. mma_topl.cuh's encoding (value bits high, ~index low)
+// with the value's bits mapped to an unsigned order for either sign, since
+// a partial may hold -inf (a pad, or an atom a mask excluded); -0 is keyed
+// as +0, so the two tie as they compare. NaN is never keyed (the caller's
+// rule runs first).
+using TopKey = unsigned long long;
+
+__device__ __forceinline__ TopKey merge_key(float v, int j) {
+  unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<TopKey>(u) << 32) | static_cast<unsigned>(~static_cast<unsigned>(j));
+}
+
+__device__ __forceinline__ void merge_unkey(TopKey key, float& v, int& j) {
+  unsigned u = static_cast<unsigned>(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  v = __uint_as_float(u);
+  j = static_cast<int>(~static_cast<unsigned>(key));
+}
+
+// The key of (-inf, INT_MAX): what an exhausted merge returns.
+constexpr TopKey kKeyNone = 0x007fffff80000000ull;
+
+// One step of a bitonic network across the warp, one key a lane: the lane
+// whose bit `j` is clear keeps the larger of the pair when `desc`.
+__device__ __forceinline__ TopKey bitonic_step(TopKey x, int j, bool desc) {
+  const TopKey y = __shfl_xor_sync(0xffffffffu, x, j);
+  const bool lower = ((threadIdx.x & 31) & j) == 0;
+  return (lower == desc) == (x > y) ? x : y;
+}
+
+// The 32 keys of a warp, one a lane, sorted descending across the lanes.
+__device__ __forceinline__ TopKey warp_sort32_desc(TopKey x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) x = bitonic_step(x, j, (lane & k) == 0);
+  }
+  return x;
+}
+
+// The 32 largest of two descending lists a and b (lane t holds entry t of
+// each), descending: max(a_t, b_{31-t}) is bitonic and holds them, five
+// steps sort it.
+__device__ __forceinline__ TopKey warp_merge32_desc(TopKey a, TopKey b) {
+  const TopKey rb = __shfl_sync(0xffffffffu, b, 31 - (threadIdx.x & 31));
+  TopKey x = a > rb ? a : rb;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) x = bitonic_step(x, j, true);
+  return x;
+}
+
 // A row's top-cnt of its select_topl partials (ncand = ntiles * cnt
-// entries) by value descending, then index ascending, into picks[cnt] and
-// vals[cnt] (shared memory): cnt block-wide argmax passes, each taking the
-// best candidate after the previous pick in that order, so nothing is
-// marked or sorted. A NaN among the partials gives (-inf, INT_MAX)
-// throughout (the TPU kernels' smax/== rule: no pick is made). red_v and
-// red_i hold one entry per warp. Every thread calls it; it ends with a
-// barrier.
-__device__ __forceinline__ void merge_topl_row(const float* pvb,
+// entries, cnt <= 32) by value descending, then index ascending, into
+// picks[cnt] and vals[cnt] (shared memory). Each warp keeps a sorted top 32
+// of its share of the candidates as merge_key keys, one a lane: 32 new
+// keys at a time are sorted by a bitonic network and merged in (a batch
+// with no key above the warp's 32nd is skipped); the warps' lists then
+// meet in a tree of merges through skeys (blockDim.x entries of shared
+// memory), log2(warps) block barriers. The keys are distinct (an atom lies
+// in one tile) but for the (-inf, INT_MAX) pads, so the first cnt keys are
+// what cnt passes of "the best candidate after the previous pick" take,
+// (-inf, idx) entries in index order and pads last. A NaN among the
+// partials gives (-inf, INT_MAX) throughout (the TPU kernels' smax/== rule:
+// no pick is made). Every thread calls it; it ends with a barrier. It is
+// compiled out of line (it runs once a launch), so that its sorting
+// networks take no part in how ptxas builds its callers' append loops.
+static __device__ __noinline__ void merge_topl_row(const float* pvb,
                                                const int* pib, int ncand,
                                                int cnt, int* picks,
-                                               float* vals, float* red_v,
-                                               int* red_i) {
+                                               float* vals, TopKey* skeys) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  const int share = (ncand + nwarps - 1) / nwarps;
+  const int e0 = warp * share, e1 = min(ncand, e0 + share);
   bool nan = false;
-  for (int e = tid; e < ncand; e += blockDim.x) nan |= isnan(pvb[e]);
+  TopKey top = kKeyNone;
+  float v = 0.f;  // this lane's candidate of the batch, loaded a batch ahead
+  int id = 0;
+  if (e0 + lane < e1) {
+    v = pvb[e0 + lane];
+    id = pib[e0 + lane];
+  }
+  for (int e = e0; e < e1; e += 32) {
+    float vn = 0.f;
+    int idn = 0;
+    if (e + 32 + lane < e1) {
+      vn = pvb[e + 32 + lane];
+      idn = pib[e + 32 + lane];
+    }
+    TopKey x = kKeyNone;
+    if (e + lane < e1) {
+      nan |= isnan(v);
+      if (!isnan(v)) x = merge_key(v, id);
+    }
+    v = vn;
+    id = idn;
+    const TopKey floor = __shfl_sync(0xffffffffu, top, 31);
+    if (!__any_sync(0xffffffffu, x > floor)) continue;
+    top = warp_merge32_desc(top, warp_sort32_desc(x));
+  }
+  skeys[tid] = top;
   nan = __syncthreads_or(nan);
-  float v_prev = INFINITY;
-  int i_prev = -1;
-  for (int p = 0; p < cnt; ++p) {
+  // level s: the warps w = 0 mod 2s read the lists of w + s = s mod 2s and
+  // write their own, so one barrier a level orders it
+  for (int s = 1; s < nwarps; s <<= 1) {
+    if (warp % (2 * s) == 0 && warp + s < nwarps) {
+      top = warp_merge32_desc(top, skeys[(warp + s) * 32 + lane]);
+      skeys[tid] = top;
+    }
+    __syncthreads();
+  }
+  if (tid < cnt) {
     float v = -INFINITY;
     int i = INT_MAX;
-    if (!nan) {
-      for (int e = tid; e < ncand; e += blockDim.x) {
-        const float ve = pvb[e];
-        const int ie = pib[e];
-        if (ve < v_prev || (ve == v_prev && ie > i_prev)) argmax_combine(v, i, ve, ie);
-      }
-      warp_argmax(v, i);
-      if (lane == 0) {
-        red_v[warp] = v;
-        red_i[warp] = i;
-      }
-      __syncthreads();
-      v = red_v[0];
-      i = red_i[0];
-      for (int w = 1; w < nwarps; ++w) argmax_combine(v, i, red_v[w], red_i[w]);
-      __syncthreads();
-    }
-    if (tid == 0) {
-      picks[p] = i;
-      vals[p] = v;
-    }
-    v_prev = v;
-    i_prev = i;
+    if (!nan) merge_unkey(skeys[tid], v, i);
+    picks[tid] = i;
+    vals[tid] = v;
   }
   __syncthreads();
 }

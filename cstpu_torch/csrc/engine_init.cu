@@ -8,7 +8,8 @@
 // finite score, into the first free slot. Here select_topl.cu has written
 // per-tile top-k partials, and one block per row:
 //   picks = the row's top-cnt of the partials, value descending, index
-//           ascending (common.cuh::merge_topl_row; a NaN row makes none)
+//           ascending (common.cuh::merge_topl_row, warp sorts and a tree
+//           of merges; a NaN row makes none)
 //   cnt gated appends in that order (engine.cuh::engine_append: duplicate,
 //           capacity and d > rtol * ata gates; Atb, amask)
 //   SRR: each append's rescaling term (aperp, -dinv) into pending slot j,
@@ -23,8 +24,10 @@
 
 namespace cstpu {
 
+// One block per row, so minBlocks = 1, as gomp_append.cu: the append
+// loops get the registers to keep their loads in flight.
 template <typename T>
-__global__ void __launch_bounds__(kEngThreads)
+__global__ void __launch_bounds__(kEngThreads, 1)
 engine_init_kernel(const float* __restrict__ pval, const int* __restrict__ pidx,
                    int ntiles, int cnt, const T* __restrict__ A,
                    const float* __restrict__ Bs, float* __restrict__ cols,
@@ -37,7 +40,7 @@ engine_init_kernel(const float* __restrict__ pval, const int* __restrict__ pidx,
                    float rtol) {
   extern __shared__ float smem[];
   __shared__ float red_v[kEngThreads / 32];
-  __shared__ int red_i[kEngThreads / 32];
+  __shared__ TopKey mkeys[kEngThreads];
   __shared__ float sc[4];
   __shared__ int s_ok;
   __shared__ int picks[kTopLMax];
@@ -52,7 +55,7 @@ engine_init_kernel(const float* __restrict__ pval, const int* __restrict__ pidx,
   load_engine_state(s, Ginv + (size_t)b * K * K, coef + (size_t)b * K,
                     idx + (size_t)b * K, Atb + (size_t)b * K, K);
   merge_topl_row(pval + (size_t)b * ntiles * cnt, pidx + (size_t)b * ntiles * cnt,
-                 ntiles * cnt, cnt, picks, vals, red_v, red_i);
+                 ntiles * cnt, cnt, picks, vals, mkeys);
   for (int j = 0; j < cnt; ++j) {
     engine_append(s, A, bb, colsb, amaskb, n, m, K, picks[j], vals[j] > -INFINITY, rtol);
     if (pend_u) {
@@ -81,6 +84,7 @@ int launch_engine_init(const float* pval, const int* pidx, int ntiles, int cnt,
   const size_t smem = engine_smem_bytes(n, K);
   cudaFuncSetAttribute(engine_init_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  prefer_l1(engine_init_kernel<T>);
   engine_init_kernel<T><<<B, kEngThreads, smem, st>>>(
       pval, pidx, ntiles, cnt, static_cast<const T*>(A), Bs, cols, Ginv, coef,
       idx, Atb, r, amask, done, prev, pend_u, pend_w, fgate, B, n, m, K, rtol);

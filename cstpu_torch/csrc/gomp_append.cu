@@ -21,16 +21,20 @@
 // appends per launch, each a few dot products of length n per row. Design:
 // one block per row, Ginv/coef/idx in shared memory across the cnt appends
 // (written back once); the merge of the T*cnt partials is common.cuh::
-// merge_topl_row, cnt block-wide argmax passes, each taking the best
-// candidate after the previous pick, so nothing is marked or sorted.
+// merge_topl_row: each warp sorts its share as 64-bit keys into a top 32,
+// and the warps' lists meet in a tree of merges (three block barriers).
 #include "common.cuh"
 
 namespace cstpu {
 
 constexpr int kGompThreads = 256;
 
+// One block per row, so minBlocks = 1: ptxas then gives the append loops
+// the registers to keep their loads in flight (left to aim at more blocks
+// an SM, it built this kernel with 32 registers, and the loops of
+// common.cuh::bordered_append and residual_row had 4 loads in flight).
 template <typename T>
-__global__ void __launch_bounds__(kGompThreads)
+__global__ void __launch_bounds__(kGompThreads, 1)
 gomp_append_kernel(const float* __restrict__ pval,
                    const int* __restrict__ pidx, int ntiles, int cnt,
                    const T* __restrict__ A, const float* __restrict__ Bs,
@@ -41,7 +45,7 @@ gomp_append_kernel(const float* __restrict__ pval,
                    float rtol, float eps2) {
   extern __shared__ float smem[];
   __shared__ float red_v[kGompThreads / 32];
-  __shared__ int red_i[kGompThreads / 32];
+  __shared__ TopKey mkeys[kGompThreads];
   __shared__ float sc[4];
   __shared__ int s_ok, s_kcnt;
   __shared__ int picks[kTopLMax];
@@ -62,7 +66,7 @@ gomp_append_kernel(const float* __restrict__ pval,
   if (tid == 0) s_kcnt = kcnt[b];
 
   // --- merge the partials into the row's top-cnt ---------------------------
-  merge_topl_row(pvb, pib, ncand, cnt, picks, vals, red_v, red_i);
+  merge_topl_row(pvb, pib, ncand, cnt, picks, vals, mkeys);
 
   // --- the gated appends, in pick order ------------------------------------
   const bool latched = done[b] > 0.5f;
@@ -103,12 +107,14 @@ extern "C" int cstpu_gomp_append(const float* pval, const int* pidx,
   if (cdt_bf16) {
     cudaFuncSetAttribute(gomp_append_kernel<__nv_bfloat16>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    prefer_l1(gomp_append_kernel<__nv_bfloat16>);
     gomp_append_kernel<__nv_bfloat16><<<B, kGompThreads, smem, st>>>(
         pval, pidx, ntiles, cnt, static_cast<const __nv_bfloat16*>(A), Bs,
         cols, Ginv, coef, idx, r, kcnt, done, n, m, k, cap, rtol, eps2);
   } else {
     cudaFuncSetAttribute(gomp_append_kernel<float>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    prefer_l1(gomp_append_kernel<float>);
     gomp_append_kernel<float><<<B, kGompThreads, smem, st>>>(
         pval, pidx, ntiles, cnt, static_cast<const float*>(A), Bs, cols,
         Ginv, coef, idx, r, kcnt, done, n, m, k, cap, rtol, eps2);

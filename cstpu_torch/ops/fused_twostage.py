@@ -142,12 +142,6 @@ def _engine_smem(n: int, K: int) -> int:
     return (n + K * K + 7 * K) * 4 + K * 4
 
 
-def _sp_smem(k: int) -> int:
-    """Dynamic shared memory of sp_round, bytes
-    (csrc/sp_round.cu::sp_smem_bytes)."""
-    return (4 * k * k + 15 * k) * 4 + 7 * k * 4
-
-
 def _rnorm2(r):
     return torch.sum(r * r, dim=1)
 
@@ -779,7 +773,7 @@ def sp_round(pval, pidx, Ac, Bs, st: _SpState, delta2: float, init: bool):
     k = K2 // 2
     m = Ac.shape[1] if Ac.ndim == 2 else 0
     T = -(-m // TILE)
-    if not 1 <= k <= LMAX or K2 != 2 * k or _sp_smem(k) > SMEM_MAX:
+    if not 1 <= k <= LMAX or K2 != 2 * k:
         raise ValueError(f"sp_round: k={k} outside 1..{LMAX}")
     _expect("sp_round", Bs.device, (pval, _F32, (B, T, k)),
             (pidx, _I32, (B, T, k)), (Ac, _CDTS, (n, m)), (Bs, _F32, (B, n)),
@@ -1107,11 +1101,11 @@ def _rows_ok(A, Bs) -> bool:
 
 def supported_sp(A, Bs, k: int, corr_dtype=torch.bfloat16) -> bool:
     """Shape gate of sp_fused_solve: 2k <= n, the top-k acquisition within
-    select_topl (k <= LMAX), sp_round's blocks within shared memory. Beyond
-    it `sp_batch` takes the sharded solver on a one-shard mesh."""
+    select_topl (k <= LMAX; sp_round's shared memory, which csrc/sp_round.cu
+    sizes, then fits a block). Beyond it `sp_batch` takes the sharded solver
+    on a one-shard mesh."""
     k = int(k)
-    return (_rows_ok(A, Bs) and 1 <= k <= LMAX and 2 * k <= A.shape[0]
-            and _sp_smem(k) <= SMEM_MAX)
+    return _rows_ok(A, Bs) and 1 <= k <= LMAX and 2 * k <= A.shape[0]
 
 
 def supported_ompr(A, Bs, k: int, corr_dtype=torch.bfloat16) -> bool:

@@ -22,6 +22,7 @@ On a GPU machine (no JAX needed, so the JAX suite's conftest is skipped):
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import planted
 from cstpu_torch.ops import corr_argmax as ca
 from cstpu_torch.ops import fused_backward as fb
@@ -2021,3 +2022,105 @@ def test_forcing_the_tensor_core_rescaled_loop_on_f32_fails(dev):
                        resc[:, :1020].contiguous())   # pitch off 16 bytes
     assert fs.LAUNCHES["fr_select"] - before["fr_select"] == 1
     assert fs.LAUNCHES["fr_select_mma"] == before["fr_select_mma"]
+
+
+# --------------------------------------------------------------------------
+# The one-block-per-row latency kernels as redesigned: bw_select on a
+# thread-block cluster per row, sp_round on one tiled f32 Gram of its slot
+# columns, and the warp-sorted merge of the top-l partials that sp_round,
+# gomp_append and engine_init share (common.cuh::merge_topl_row)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,m", chip_smoke.BW_CLUSTER_CASES)
+def test_bw_select_cluster_matches_plain_bit_for_bit(dev, B, m):
+    # 40 FBR and 10 LACE steps: ties on both sides of a slice boundary (the
+    # lower atom goes first), a NaN in the last slice only, a row rejected
+    # at step 0 and a NaN init; every field bit for bit, every step
+    st, fbr_tie, lace_tie = chip_smoke.bw_cluster_state(dev, B, m)
+    steps = chip_smoke.hold_bw_select(st, fbr_tie, lace_tie)
+    assert steps >= min(m - 3, 2)
+
+
+def test_bw_select_launch_counts_one_per_step(dev):
+    A, Bs, _ = _bw_problem(dev, 8, 1024, 1024)
+    st = fb._bw_init(A, Bs)
+    before = fs.LAUNCHES["bw_select"]
+    for _ in range(3):
+        fb.bw_select(st, float("inf"), float("inf"), False)
+        fb.bw_downdate(st)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["bw_select"] - before == 3
+    assert int(st.alive.sum()) == 8 * (1024 - 3)     # every step accepted
+
+
+@pytest.mark.parametrize("B,n,m,k", chip_smoke.SP_ROUND_CASES)
+def test_sp_round_tiled_gram_matches_plain_every_round(dev, B, n, m, k):
+    # a NaN row, a poisoned partial and a done row; the state within
+    # APPEND_ATOL of the plain round every round, idx equal
+    err = chip_smoke.hold_sp_round(dev, B, n, m, k)
+    assert err <= chip_smoke.APPEND_ATOL
+
+
+def _crafted_partials(dev, B, m, l):
+    """(B, T, l) top-l partials by hand: row 0 holds the value 2.0 in tiles
+    0 and 3 and 1.0 in tiles 0 and 3, then (-inf, idx) entries in tiles 1
+    and 0 (an atom a mask excluded), then pads; row 1 a NaN; row 2 only
+    (-inf, idx) entries and pads. Rows 3.. are left to the caller."""
+    T = -(-m // 128)
+    pv = torch.full((B, T, l), -torch.inf, device=dev)
+    pi = torch.full((B, T, l), fs.INT_MAX, dtype=torch.int32, device=dev)
+    for row, tile, entries in (
+            (0, 0, [(2.0, 5), (1.0, 7), (-torch.inf, 9)]),
+            (0, 1, [(-torch.inf, 130)]),
+            (0, 3, [(2.0, 400), (1.0, 390)]),
+            (1, 2, [(3.0, 300), (float("nan"), 301)]),
+            (2, 1, [(-torch.inf, 200), (-torch.inf, 131)]),
+            (2, 0, [(-torch.inf, 60)])):
+        for j, (v, i) in enumerate(entries):
+            pv[row, tile, j] = v
+            pi[row, tile, j] = i
+    return pv, pi
+
+
+def test_merge_orders_ties_across_tiles_and_inf_entries(dev):
+    # gomp_append appends its picks whatever their value, in the merge's
+    # order: equal values in index order across tiles, (-inf, idx) entries
+    # after every finite one in index order, pads last, a NaN row no pick
+    B, n, m, l, k = 4, 64, 1024, 6, 8
+    A, Bs, _ = _problem(dev, B, n, m, 2)
+    Ac = A.to(torch.bfloat16).contiguous()
+    Ac32 = Ac.float()
+    pv, pi = _crafted_partials(dev, B, m, l)
+    real = fs._topl_ref(Bs, Ac32, torch.bfloat16, l)
+    pv[3], pi[3] = real[0][3], real[1][3]
+    st = fs._init_gomp(Bs, k, m)
+    stk = fs._GompState(*(x.clone() for x in st))
+    fs.gomp_append(pv, pi, Ac, Bs, stk, k, 0.0)
+    fs._gomp_append_ref(pv, pi, Ac32, Bs, st, k, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(stk.idx, st.idx) and torch.equal(stk.kcnt, st.kcnt)
+    assert stk.idx[0, :6].tolist() == [5, 400, 7, 390, 9, 130]
+    assert stk.idx[2, :3].tolist() == [60, 131, 200]
+    for a, b in ((stk.Ginv, st.Ginv), (stk.coef, st.coef), (stk.r, st.r),
+                 (stk.cols, st.cols)):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL, equal_nan=True)
+
+
+def test_merge_feeds_engine_init_as_the_twin(dev):
+    # engine_init appends only finite picks: row 0's four, in the merge's
+    # order; the NaN row and the row of (-inf, idx) entries stay empty
+    B, n, m, l = 4, 64, 1024, 6
+    A, Bs, _ = _problem(dev, B, n, m, 2)
+    Ac = A.to(torch.bfloat16).contiguous()
+    Ac32 = Ac.float()
+    pv, pi = _crafted_partials(dev, B, m, l)
+    real = fs._topl_ref(Bs, Ac32, torch.bfloat16, l)
+    pv[3], pi[3] = real[0][3], real[1][3]
+    st = ft._init_engine(Bs, l + 1, m)
+    stk = _clone(st)
+    ft.engine_init(pv, pi, Ac, Bs, stk)
+    ft._engine_init_ref(pv, pi, Ac32, Bs, st)
+    torch.cuda.synchronize()
+    _same_state(stk, st)
+    assert stk.idx[0, :4].tolist() == [5, 400, 7, 390]
+    assert not (stk.idx[1:3] < m).any()

@@ -1,0 +1,74 @@
+"""Device time per launch of every kernel on the batched update paths of one
+checkout, for A/B runs of two checkouts on the same card.
+
+    python3 tools/ab_paths.py ROOT TAG
+
+ROOT is a checkout of the repo (this one, or another unpacked with `git
+archive` into a directory that .gitignore lists); its cstpu_torch is
+built from its own sources and imported. TAG labels the output lines. The
+paths are chip_smoke.py's, on its problems (seed 0, NVIDIA H100 shapes):
+the bench OMP solve, suite configs 2a (gomp_batch), 2b (sp_batch), 2c
+(ompr_batch), 3a (fr_batch), 3b (srr_batch), each profiled over three
+solves, and 3e (fbr_batch at B = 8 and 64) over one. Each line gives the
+device busy ms per solve and, per kernel, its launches per solve and its
+device ms per launch (torch.profiler). Run two checkouts alternately in
+one call (A, B, A, B): a card's speed varies between calls.
+"""
+
+import os
+import sys
+from pathlib import Path
+
+
+def main():
+    root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_paths: needs an NVIDIA GPU")
+    import chip_smoke as cs
+    import cstpu_torch
+    from cstpu_torch.ops import _build
+    from cstpu_torch.utils.data import correlated_data, sparse_data
+
+    assert _build.PKG.parent == Path(root), _build.PKG
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    print(f"[ab {tag}] {cs.gpu_line()}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    _, B, n, m, k = cs.MP_CELL
+    A, Bs, _ = cs.planted(gen, B, n, m, k)
+    Bg, _ = cs.planted_ones(gen, A, B, cs.GOMP_CELL[4])
+
+    def show(name, fn, reps=3):
+        busy, per = cs.profile_path(fn, reps)
+        print(f"[ab {tag}] {name} busy/solve {busy / reps:.4f} ms: " + ", ".join(
+            f"{kn} {c // reps}x {ms / c if c else ms / reps:.4f}"
+            for kn, (c, ms) in sorted(per.items())), flush=True)
+
+    show("bench omp", lambda: cstpu_torch.omp_batch(A, Bs, k))
+    show("2a", lambda: cstpu_torch.gomp_batch(A, Bg, cs.GOMP_CELL[5],
+                                             cs.GOMP_CELL[4]))
+    show("2b", lambda: cstpu_torch.sp_batch(A, Bg, cs.SP_CELL[1],
+                                           **cs.SP_CELL[2]))
+    show("2c", lambda: cstpu_torch.ompr_batch(A, Bg, cs.OMPR_CELL[1],
+                                             **cs.OMPR_CELL[2]))
+    _, _, _, _, kf, decay = cs.FR_CELL
+    Ar = correlated_data(gen, n, m, kf, decay=decay)[0].contiguous()
+    Br, _ = cs.planted_ones(gen, Ar, B, kf)
+    show("3a fr", lambda: cstpu_torch.fr_batch(Ar, Br, sparsity=kf))
+    show("3b srr", lambda: cstpu_torch.srr_batch(Ar, Br, cs.SRR_CELL[1],
+                                                 **cs.SRR_CELL[2]))
+    _, n2, m2, k2 = cs.BW_CELL
+    A2 = sparse_data(gen, n2, m2, 1)[0].contiguous()
+    for B3 in cs.BATCHES:
+        Bs3, _ = cs.planted_ones(gen, A2, B3, k2)
+        show(f"3e fbr B={B3}",
+             lambda: cstpu_torch.fbr_batch(A2, Bs3, sparsity=k2), 1)
+
+
+if __name__ == "__main__":
+    main()
