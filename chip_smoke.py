@@ -52,6 +52,10 @@ for both sweeps, is held alone against its plain fold; bw_select (a
 thread-block cluster per row) is held bit for bit at BW_CLUSTER_CASES and
 sp_round (a two-block cluster per row) at SP_ROUND_CASES, and a
 [latency kernels] line sets their device times beside those before them;
+omp_append and fr_append (a thread-block cluster per row over the staged
+slot columns) are held at every step at APPEND_CASES, which take both of
+the plan's instantiations, and an [append kernels] line sets their device
+times, plans and registers beside the times before;
 the later kernels' device time per launch and the paths' idle share come
 from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
@@ -427,6 +431,7 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
           + ", ".join(f"{name} {c}x {ms:.4f} ms"
                       for name, (c, ms) in per.items()))
     return {"solve": solve, "plain_solve": plain, "select": sel,
+            "split": per,
             "select_simt": sel_simt, "select_f32": sel_f32,
             "select_device": sel_dev, "select_device_by_rows": by_rows,
             "device_busy": busy,
@@ -1704,6 +1709,112 @@ def hold_sp_round(dev, B, n, m, k):
         if row5 is not None:
             assert all(torch.equal(a[5], b) for a, b in zip(stk, row5))
     return err
+
+
+# omp_append's and fr_append's grid (csrc/append_cluster.cuh): B = 1, 8
+# (the plan's C = 8) and 64, 65 (C = 2); n a multiple of the slices and not
+# (1000: eight slices of 128 entries, the last 104; 1028: of 132, the last
+# 104); k from 1 to KMAX; m with a ragged last tile. The plan stages the
+# slot columns where they fit (all but k = 128 at C = 2); it streams them
+# there and in the last four cases but the first of them: at the edge of
+# the staged variant's shared memory (k = 32, C = 2: slices of 1664
+# entries fit, of 1668 not), at a larger n at small k, and at k = 128
+# with C = 8
+APPEND_CASES = [(B, n, k) for B in (1, 8, 64, 65) for n in (1000, 1024, 1028)
+                for k in (1, 16, 32, 128)] + [
+    (64, 3328, 32), (64, 3336, 32), (65, 8192, 16), (8, 4096, 128)]
+APPEND_M = 2000
+# device ms per launch of the two kernels before the cluster redesign, on
+# the paths chip_smoke.py drives (PERF.md section 5, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+APPEND_BEFORE_MS = {"omp_append bench": 0.0188, "omp_append 5b": 0.0306,
+                    "fr_append 3a": 0.0249}
+
+
+def _nan_err(a, b):
+    """max |a - b| where both are numbers; the NaNs must lie alike."""
+    nan = torch.isnan(a)
+    assert torch.equal(nan, torch.isnan(b)), "NaNs differ"
+    return float((a - b).abs().masked_fill(nan, 0.0).max()) if a.numel() else 0.0
+
+
+def hold_append(dev, B, n, k, cdt, fr):
+    """k steps of omp_append (fr: fr_append) against its plain version, each
+    from identical state, on a planted problem (min(k, 8) +-1 atoms a row,
+    noise of norm ~0.02 sqrt(n), atom m-1 a copy of m-2). Row 1 is a NaN
+    row; at step 1 row 2's pick is its slot-0 atom again (a duplicate) and
+    row 3's (b = 4 a_{m-2} + ..., so slot 0 holds m-2) the copy m-1 (the
+    rtol gate); FR's row 4 is latched from step 1. idx, done, amask and the
+    sorted support equal; cols, Ginv, coef, r, aperp, dinv within
+    APPEND_ATOL, NaN where the plain version has NaN. Returns (max |err|,
+    the plan the launches took)."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    m = APPEND_M
+    gen = torch.Generator(device=dev).manual_seed(7 * B + n + 3 * k + fr)
+    A, Bs, _ = planted(gen, B, n, m, min(k, 8))
+    A[:, m - 1] = A[:, m - 2]
+    Bs += 0.02 * torch.randn(Bs.shape, device=dev, generator=gen)
+    if B > 1:
+        Bs[1, 3] = float("nan")
+    if B > 3:
+        Bs[3] += 4.0 * A[:, m - 2]
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    cn2 = torch.sum(A * A, dim=0)
+    if fr:
+        st, out = fs._init_fr(Bs, k, cn2), []
+    else:
+        st, *out = fs._init_state(Bs, k, m)
+    err = 0.0
+    plan = fs._append_plan(B, n, k)
+    for t in range(k):
+        if fr and t == 1 and B > 4:
+            st.done[4] = 1.0
+        if fr:
+            pv, pi = fs._fr_select_ref(Ac32, cn2, st, cdt)
+        else:
+            pv, pi = fs._select_ref(st.r, Ac32, cdt)
+        if t == 1:
+            for row, atom in ((2, int(st.idx[2, 0]) if B > 2 else 0),
+                              (3, m - 1)):
+                if row < B:
+                    pv[row], pi[row] = 1.0, atom
+        stk = type(st)(*(x.clone() for x in st))
+        outk = [x.clone() for x in out]
+        if fr:
+            fs.fr_append(pv, pi, Ac, Bs, stk, t, 0.0, 0.0)
+            fs._fr_append_ref(pv, pi, Ac32, Bs, st, t, 0.0, 0.0)
+        else:
+            fs.omp_append(pv, pi, Ac, Bs, stk, t, *outk)
+            fs._append_ref(pv, pi, Ac32, Bs, st, t, *out)
+        torch.cuda.synchronize()
+        assert torch.equal(stk.idx, st.idx), (t, "idx")
+        fields = ["cols", "Ginv", "coef", "r"]
+        if fr:
+            assert torch.equal(stk.done, st.done), (t, "done")
+            assert torch.equal(stk.amask, st.amask), (t, "amask")
+            fields += ["aperp", "dinv"]
+        for name in fields:
+            e = _nan_err(getattr(stk, name), getattr(st, name))
+            assert e <= APPEND_ATOL, (t, name, e)
+            err = max(err, e)
+        if not fr and t == k - 1:
+            assert torch.equal(outk[0], out[0]), "sorted support"
+            err = max(err, _nan_err(outk[1], out[1]))
+            assert err <= APPEND_ATOL, err
+    if B > 1:
+        assert bool(torch.isnan(st.r[1]).all())
+    if k > 1 and B > 3:
+        # the duplicate and the degenerate pick were turned away
+        assert int(st.idx[3, 0]) == m - 2, st.idx[3]
+        assert not bool((st.idx[2:4, 1:] == st.idx[2:4, :1]).any())
+        assert not bool((st.idx[3] == m - 1).any())
+        if fr:
+            assert st.done[2:4].tolist() == [1.0, 1.0], st.done
+    if fr and k > 1 and B > 4:
+        assert not bool((st.idx[4, 1:] < m).any()), st.idx[4]
+    return err, plan
 
 
 def stepwise_paths(A, gen):
@@ -3263,6 +3374,7 @@ def main():
     for line in lines:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    app_regs = {}  # registers of omp_append's and fr_append's kernels
     # the tensor-core selects by name: rows per block (NB), epilogue mode
     # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem;
     # the rescaled ones by row groups G, product slots Pn (wgmma's N is
@@ -3285,12 +3397,18 @@ def main():
         got = re.search(r"Function properties for .*(bw_select_kernelILb[01]E"
                         r"|sp_round_kernelI(?:13__nv_bfloat16|f)E"
                         r"|gomp_append_kernelI(?:13__nv_bfloat16|f)E"
-                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)E)", line)
+                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)E"
+                        r"|(?:omp|fr)_append_kernelI(?:13__nv_bfloat16|f)"
+                        r"Lb[01]E)", line)
         if got:
-            name = (got[1].replace("ILb1E", " held")
+            name = (got[1].replace("Lb1E", " staged")
+                    .replace("Lb0E", " streamed").replace("ILb1E", " held")
                     .replace("ILb0E", " walked").replace("I13__nv_", " ")
                     .replace("If", " f32").rstrip("E").replace("_kernel", ""))
             print(f"[build latency] {name}: {props}")
+            if "_append" in name and not name.startswith("gomp"):
+                app_regs[name] = re.search(r"Used (\d+) registers",
+                                           props)[1]
         got = re.search(r"Function properties for .*rescaled_mma_kernelILi"
                         r"(\d+)ELi(\d+)ELb(\d)E", line)
         if got:
@@ -3299,6 +3417,26 @@ def main():
                   f"{props}")
 
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    grid_err, plans = {}, {}
+    for (B, n, k), cdt, fr in itertools.product(
+            APPEND_CASES, (torch.bfloat16, torch.float32), (False, True)):
+        err, plan = hold_append(dev, B, n, k, cdt, fr)
+        key = ("fr_append" if fr else "omp_append",
+               "staged" if plan.staged else "streamed")
+        grid_err[key] = max(grid_err.get(key, 0.0), err)
+        plans[(B, n, k)] = plan
+    # both kernels held on both of the plan's instantiations
+    assert len(grid_err) == 4, sorted(grid_err)
+    print(f"[append grid] omp_append and fr_append against their plain "
+          f"versions at every step, (B, n, k) in {APPEND_CASES}, bf16 and "
+          f"f32: idx, done, amask equal; max |err| "
+          + ", ".join(f"{kn} {v} {e:.3e}" for (kn, v), e in grid_err.items())
+          + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
+          + ", ".join(f"B={B} n={n} k={k} {p.C}/{p.slice}/{int(p.staged)}"
+                      for (B, n, k), p in plans.items() if n != 1028)
+          + f"; {time.perf_counter() - t0:.1f} s")
+
     record = {}
     for name, B, n, m, k in CELLS:
         t0 = time.perf_counter()
@@ -3475,6 +3613,28 @@ def main():
               f"({sp_[path]['kernels'][name]['ms']:.4f}) "
               f"[{BEFORE_MS[key][0]:.4f} ({BEFORE_MS[key][1]:.4f})]"
               for key, (sp_, path, name) in latency.items()))
+    # omp_append and fr_append (a thread-block cluster per row): device ms
+    # per launch on their paths beside the times before the redesign, the
+    # plans and the registers
+    from cstpu_torch.ops import fused_solve as fs
+
+    app_plan = {"omp_append": fs._append_plan(B, n, k),
+                "fr_append": fs._append_plan(B, n, kf)}
+    app_dev = {"omp_append bench": tm["split"]["omp_append"][1]
+               / tm["split"]["omp_append"][0],
+               "omp_append 5b": tm5b["split"]["omp_append"][1]
+               / tm5b["split"]["omp_append"][0],
+               "fr_append 3a": on_path(gtm["splits"], "3a", "fr_append")}
+    print("[append kernels] device ms per launch on the paths, before the "
+          "cluster redesign in brackets (PERF.md, " + gpu + "): "
+          + ", ".join(f"{key} {v:.4f} [{APPEND_BEFORE_MS[key]:.4f}]"
+                      for key, v in app_dev.items())
+          + "; plans at B=64, n=1024: "
+          + ", ".join(f"{kn} k={kk} C={p.C} slice={p.slice} staged="
+                      f"{int(p.staged)} smem={p.smem} B"
+                      for (kn, p), kk in zip(app_plan.items(), (k, kf)))
+          + "; registers: " + ", ".join(f"{kn} {r}"
+                                        for kn, r in app_regs.items()))
     kernels = [
         # the top-1 select's tensor-core variant: ms is the event time per
         # call through the wrapper (one rounding launch and the sweep),
@@ -3543,9 +3703,20 @@ def main():
               m131072_ms=tm5b["select_simt"],
               m131072_f32_ms=tm5b["select_f32"],
               m131072_bound_ms=select_bound(B, n, CELLS[1][3])["bound_ms"]),
-        entry("omp_append", 127, launches["append"], app_err, tm["append"],
+        # ms is the event time per call through the wrapper; device_ms the
+        # profiler's on the path, m131072_ at 5b; plan the launch's cluster
+        entry("omp_append", 127, launches["append"],
+              max(app_err, record["5b"][1], grid_err[("omp_append", "staged")],
+                  grid_err[("omp_append", "streamed")]), tm["append"],
               tm["plain_append"], engine_bound(B, k, n, appends=1),
-              also_replaces=[f"{fs_line}:332"]),
+              also_replaces=[f"{fs_line}:332"],
+              paths={"omp_batch": launches["append"],
+                     "omp_batch 5b": record["5b"][2]["append"]},
+              device_ms=app_dev["omp_append bench"],
+              m131072_ms=tm5b["append"],
+              m131072_device_ms=app_dev["omp_append 5b"],
+              plan=app_plan["omp_append"]._asdict(),
+              registers=app_regs),
         entry("mp_update", 874, paths["mp"]["mp_update"], gerr["mp_update"],
               gtm["mp_update"], gtm["plain_mp_update"],
               bound(B * (T * 12 + n * 2 + 2 * n * 4 + 8), 2 * B * n, "f32")),
@@ -3676,9 +3847,13 @@ def main():
                                         terms=1)["bound_ms"],
               rmp_b8_ms=splain["fr_select_b8_simt"],
               srr_16_ms=tplain["fr_select_init_simt"]),
-        entry("fr_append", 532, paths["fr"]["fr_append"], gerr["fr_append"],
+        entry("fr_append", 532, paths["fr"]["fr_append"],
+              max(gerr["fr_append"], grid_err[("fr_append", "staged")],
+                  grid_err[("fr_append", "streamed")]),
               gtm["fr_append"], gtm["plain_fr_append"],
-              engine_bound(B, kf, n, appends=1)),
+              engine_bound(B, kf, n, appends=1),
+              device_ms=app_dev["fr_append 3a"],
+              plan=app_plan["fr_append"]._asdict()),
         entry("sp_round", f"{ts_line}:897", tl["2b"]["sp_round"],
               terr["sp_round"], tkern["sp_round"], tplain["sp_round"],
               # 2k slots, k acquired columns in, the compaction's k out; the

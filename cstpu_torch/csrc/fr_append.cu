@@ -8,7 +8,8 @@
 //   accept    = ||r||^2 > max_eps2 && dmax > min_d2   (r before the step;
 //               a NaN row has dmax NaN, so it never accepts)
 //   the gated bordered append of i into slot t with pre = accept && !done
-//   (common.cuh: dup, d > rtol*ata, Ginv, coef, idx, cols)
+//   (common.cuh::bordered_append's math: dup, d > rtol*ata, Ginv, coef,
+//   idx, cols)
 //   aperp = acol - sum_s cols[s] u[s], after slot t is written (:614), and
 //   dinv go to the next fr_select, which downdates resc with them
 //   amask[b, i] = 1 if ok;  r = b - cols'coef;  done = ok ? done : 1
@@ -16,72 +17,19 @@
 // arguments, as the TPU kernel reads them from an operand (:553-554). The
 // slots come back in insertion order; the host sorts them by atom index.
 //
-// What bounds it on an H100: latency, as omp_append.cu (one append and
-// three length-n passes per row per step). Design: omp_append.cu's, one
-// block per row; aperp is written straight to device memory, so the
-// shared-memory budget is omp_append's (n + k*k + 4k words).
-#include <cstdint>
-
-#include "common.cuh"
+// What bounds it on an H100, and the design: omp_append.cu's, the same
+// insertion-order append (append_cluster.cuh, on omp_append.cu's plan):
+// a thread-block cluster per row over the staged live slot columns, which
+// serve g, the residual and aperp from one copy; ||r||^2 is a fourth
+// partial beside g, ata and beta.
+#include "append_cluster.cuh"
 
 namespace cstpu {
 
-constexpr int kFrThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kFrThreads)
-fr_append_kernel(const float* __restrict__ pval, const int* __restrict__ pidx,
-                 int ntiles, const T* __restrict__ A,
-                 const float* __restrict__ Bs, float* __restrict__ cols,
-                 float* __restrict__ Ginv, float* __restrict__ coef,
-                 int* __restrict__ idx, float* __restrict__ r,
-                 float* __restrict__ aperp, float* __restrict__ dinv,
-                 uint8_t* __restrict__ amask, float* __restrict__ done, int n,
-                 int m, int k, int t, float rtol, float max_eps2,
-                 float min_d2) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[kFrThreads / 32];
-  __shared__ int red_i[kFrThreads / 32];
-  __shared__ float sc[4];
-  __shared__ int s_ok;
-  const AppendSmem s = carve_append_smem(smem, n, k, sc, &s_ok);
-
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* bb = Bs + (size_t)b * n;
-  float* rb = r + (size_t)b * n;
-  float* colsb = cols + (size_t)b * k * n;
-  float* Gb = Ginv + (size_t)b * k * k;
-  float* coefb = coef + (size_t)b * k;
-  int* idxb = idx + (size_t)b * k;
-
-  load_append_state(s, Gb, coefb, idxb, k);
-  float dmax;
-  int sel;
-  reduce_partials_row(pval + (size_t)b * ntiles, pidx + (size_t)b * ntiles,
-                      ntiles, red_v, red_i, dmax, sel);
-  float rr = 0.f;
-  for (int p = tid; p < n; p += blockDim.x) rr += rb[p] * rb[p];
-  rr = block_sum(rr, red_v);
-
-  const bool accept = (rr > max_eps2) && (dmax > min_d2);
-  const bool latched = done[b] > 0.5f;
-  const bool ok = bordered_append(s, A, bb, colsb, n, m, k, sel, t, t,
-                                  accept && !latched, rtol);
-
-  // a_perp with slot t written, as the TPU kernel orders it
-  float* ab = aperp + (size_t)b * n;
-  for (int p = tid; p < n; p += blockDim.x) {
-    float acc = 0.f;
-    for (int q = 0; q < k; ++q) acc += colsb[(size_t)q * n + p] * s.u[q];
-    ab[p] = s.acol[p] - acc;
-  }
-  store_append_state(s, Gb, coefb, idxb, k);
-  residual_row(rb, bb, colsb, s.cf, n, k);
-  if (tid == 0) {
-    dinv[b] = s.sc[2];
-    if (!ok) done[b] = 1.f;
-    else if (sel < m) amask[(size_t)b * m + sel] = 1;
-  }
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kAppendThreads, 1)
+fr_append_kernel(const AppendArgs a) {
+  append_cluster_row<T, kStaged, true>(a);
 }
 
 }  // namespace cstpu
@@ -90,7 +38,8 @@ fr_append_kernel(const float* __restrict__ pval, const int* __restrict__ pidx,
 // cstpu_fr_select; A (n, m) in cdt; Bs (B, n) f32; state cols (B,k,n),
 // Ginv (B,k,k), coef (B,k) f32, idx (B,k) i32, amask (B,m) u8 and done
 // (B,) f32 updated in place; r, aperp (B,n) and dinv (B,) f32 overwritten.
-// All contiguous. Returns the launch's cudaError_t.
+// All contiguous. One cluster of the plan's C blocks per row. Returns the
+// launch's cudaError_t (a refused cluster launch included).
 extern "C" int cstpu_fr_append(const float* pval, const int* pidx, int ntiles,
                                const void* A, int cdt_bf16, const float* Bs,
                                float* cols, float* Ginv, float* coef, int* idx,
@@ -99,22 +48,49 @@ extern "C" int cstpu_fr_append(const float* pval, const int* pidx, int ntiles,
                                int m, int k, int t, float rtol, float max_eps2,
                                float min_d2, void* stream) {
   using namespace cstpu;
-  const size_t smem = append_smem_bytes(n, k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cdt_bf16) {
-    cudaFuncSetAttribute(fr_append_kernel<__nv_bfloat16>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    fr_append_kernel<__nv_bfloat16><<<B, kFrThreads, smem, st>>>(
-        pval, pidx, ntiles, static_cast<const __nv_bfloat16*>(A), Bs, cols,
-        Ginv, coef, idx, r, aperp, dinv, amask, done, n, m, k, t, rtol,
-        max_eps2, min_d2);
-  } else {
-    cudaFuncSetAttribute(fr_append_kernel<float>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    fr_append_kernel<float><<<B, kFrThreads, smem, st>>>(
-        pval, pidx, ntiles, static_cast<const float*>(A), Bs, cols, Ginv,
-        coef, idx, r, aperp, dinv, amask, done, n, m, k, t, rtol, max_eps2,
-        min_d2);
+  bool ok = false;
+  const AppendPlan p = append_plan(B, n, k, &ok);
+  // k + 3 threads add up the partials
+  if (!ok || B < 1 || n < 1 || t < 0 || t >= k || k > kAppendThreads - 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  AppendArgs args = {};
+  args.pval = pval;
+  args.pidx = pidx;
+  args.A = A;
+  args.Bs = Bs;
+  args.cols = cols;
+  args.Ginv = Ginv;
+  args.coef = coef;
+  args.idx = idx;
+  args.r = r;
+  args.aperp = aperp;
+  args.dinv = dinv;
+  args.amask = amask;
+  args.done = done;
+  args.max_eps2 = max_eps2;
+  args.min_d2 = min_d2;
+  args.rtol = rtol;
+  args.ntiles = ntiles;
+  args.n = n;
+  args.m = m;
+  args.k = k;
+  args.t = t;
+  args.slice = p.slice;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (cdt_bf16) {
+    err = p.staged
+              ? launch_append_cluster(fr_append_kernel<__nv_bfloat16, true>,
+                                      p, B, args, st)
+              : launch_append_cluster(fr_append_kernel<__nv_bfloat16, false>,
+                                      p, B, args, st);
+  } else {
+    err = p.staged
+              ? launch_append_cluster(fr_append_kernel<float, true>, p, B,
+                                      args, st)
+              : launch_append_cluster(fr_append_kernel<float, false>, p, B,
+                                      args, st);
+  }
+  return static_cast<int>(err);
 }

@@ -60,7 +60,6 @@ constexpr int kStages = 4;       // ring depth
 constexpr int kConsumers = 128;  // one warpgroup
 constexpr int kThreads = kConsumers + 32;
 constexpr int kMaxRows = 64;     // most measurement rows per block (wgmma N)
-constexpr int kSMs = 132;        // the card the row split is tuned for
 constexpr uint32_t kRowBytes = 128;                 // 64 bf16: a swizzle row
 constexpr uint32_t kHalfBytes = kChunk * kRowBytes;  // one half tile's stage
 
@@ -88,44 +87,6 @@ enum Mode {
 };
 
 // ---------------------------------------------------------------- PTX ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // One box of a 2-D tensor map into shared memory; c0 is the coordinate along
 // the contiguous dimension. Completion is counted in bytes on `bar`.
@@ -271,7 +232,7 @@ __device__ __forceinline__ void score_tile_mma(
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumers / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   __syncthreads();

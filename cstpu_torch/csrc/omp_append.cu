@@ -11,79 +11,68 @@
 //   i     = argmax over the select kernel's (B, T) partials, lowest index on
 //           ties, INT_MAX when the row's maximum is NaN (common.cuh)
 //   the gated bordered append of i into slot t (common.cuh::
-//   bordered_append: cdt-rounded column, dup/degeneracy gate, Ginv, coef,
-//   idx, cols), then r = b - cols'coef
+//   bordered_append's math: cdt-rounded column, dup/degeneracy gate, Ginv,
+//   coef, idx, cols), then r = b - cols'coef
 //   at t = k-1: rank sort of (idx, coef), pads (idx m) last, ties by slot
 // All of it in f32, with _degeneracy_rtol(n) in f32 whatever the cdt.
 //
-// What bounds it on an H100: per step it reads k*n + 2n floats of state and
-// one strided dictionary column per row, a few hundred KB at B=64, n=1024,
-// k=32: latency, not bandwidth or arithmetic, bounds it. Design: one block
-// per row; a warp per dot product; the small k x k Ginv, g, u, coef and idx
-// staged in shared memory (KMAX = 128 slots: 64 KB of Ginv), the gathered
-// column too. The column is gathered from A directly, strided by m (n
-// loads per row per step); the TPU kernel's aligned 8-row gather from a
-// transposed copy (:99-124, :244-245) is a TPU workaround not carried over.
-#include "common.cuh"
+// What bounds it on an H100, and the design: append_cluster.cuh (a
+// thread-block cluster per row, the live slot columns staged once in
+// shared memory, the partials added across the cluster through distributed
+// shared memory). The column is gathered from A directly, strided by m; the
+// TPU kernel's aligned 8-row gather from a transposed copy (:99-124,
+// :244-245) is a TPU workaround not carried over. This file also holds the
+// launch plan that fr_append.cu shares.
+#include "append_cluster.cuh"
 
 namespace cstpu {
 
-constexpr int kAppendThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kAppendThreads)
-omp_append_kernel(const float* __restrict__ pval,
-                  const int* __restrict__ pidx, int ntiles,
-                  const T* __restrict__ A, const float* __restrict__ Bs,
-                  float* __restrict__ cols, float* __restrict__ Ginv,
-                  float* __restrict__ coef, int* __restrict__ idx,
-                  float* __restrict__ r, int* __restrict__ out_idx,
-                  float* __restrict__ out_coef, int n, int m, int k, int t,
-                  float rtol) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[kAppendThreads / 32];
-  __shared__ int red_i[kAppendThreads / 32];
-  __shared__ float sc[4];
-  __shared__ int s_ok;
-  const AppendSmem s = carve_append_smem(smem, n, k, sc, &s_ok);
-
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* bb = Bs + (size_t)b * n;
-  float* colsb = cols + (size_t)b * k * n;
-  float* Gb = Ginv + (size_t)b * k * k;
-  float* coefb = coef + (size_t)b * k;
-  int* idxb = idx + (size_t)b * k;
-
-  load_append_state(s, Gb, coefb, idxb, k);
-  float v;
-  int sel;
-  reduce_partials_row(pval + (size_t)b * ntiles, pidx + (size_t)b * ntiles,
-                      ntiles, red_v, red_i, v, sel);
-
-  bordered_append(s, A, bb, colsb, n, m, k, sel, t, t, true, rtol);
-  store_append_state(s, Gb, coefb, idxb, k);
-  residual_row(r + (size_t)b * n, bb, colsb, s.cf, n, k);
-
-  // --- last step: emit (idx, coef) sorted by atom index -------------------
-  if (t == k - 1 && tid < k) {
-    const int key = s.ix[tid];
-    int rank = 0;
-    for (int c = 0; c < k; ++c) {
-      const int kc = s.ix[c];
-      rank += (kc < key) || (kc == key && c < tid);
-    }
-    out_idx[(size_t)b * k + rank] = key;
-    out_coef[(size_t)b * k + rank] = s.cf[tid];
+AppendPlan append_plan(int B, int n, int k, bool* ok) {
+  const auto slice = [n](int c) { return ((n + c - 1) / c + 3) & ~3; };
+  const int by_sms = kSMs / (B > 0 ? B : 1);
+  const int by_n = (n + kAppendMinSlice - 1) / kAppendMinSlice;
+  int C = by_sms < kAppendClusterMax ? by_sms : kAppendClusterMax;
+  C = C < by_n ? C : by_n;
+  C = C > 1 ? C : 1;
+  // a block of one row must hold at least the streamed variant's state
+  while (C < kAppendClusterMax &&
+         append_cluster_smem(slice(C), k, false) > kAppendSmemBudget) {
+    ++C;
   }
+  const int S = slice(C);
+  *ok = append_cluster_smem(S, k, false) <= kAppendSmemBudget;
+  const bool staged = append_cluster_smem(S, k, true) <= kAppendSmemBudget;
+  return AppendPlan{C, S, staged ? 1 : 0, append_cluster_smem(S, k, staged)};
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kAppendThreads, 1)
+omp_append_kernel(const AppendArgs a) {
+  append_cluster_row<T, kStaged, false>(a);
 }
 
 }  // namespace cstpu
+
+// The launch plan of omp_append and fr_append for B rows, n, k:
+// out = {C, slice, staged, dynamic shared memory bytes}. Returns
+// cudaErrorInvalidValue when no plan fits.
+extern "C" int cstpu_append_plan(int B, int n, int k, int* out) {
+  using namespace cstpu;
+  bool ok = false;
+  const AppendPlan p = append_plan(B, n, k, &ok);
+  out[0] = p.C;
+  out[1] = p.slice;
+  out[2] = p.staged;
+  out[3] = static_cast<int>(p.smem);
+  return static_cast<int>(ok ? cudaSuccess : cudaErrorInvalidValue);
+}
 
 // One OMP step t for all B rows. pval/pidx (B, ntiles) from
 // cstpu_select_argmax; A (n, m) in cdt; Bs (B, n) f32; state cols (B,k,n),
 // Ginv (B,k,k), coef (B,k) f32 and idx (B,k) i32 updated in place, r (B,n)
 // f32 overwritten; at t = k-1 out_idx/out_coef (B,k) get the sorted
-// support. All contiguous. Returns the launch's cudaError_t.
+// support. All contiguous. One cluster of the plan's C blocks per row.
+// Returns the launch's cudaError_t (a refused cluster launch included).
 extern "C" int cstpu_omp_append(const float* pval, const int* pidx,
                                 int ntiles, const void* A, int cdt_bf16,
                                 const float* Bs, float* cols, float* Ginv,
@@ -91,20 +80,45 @@ extern "C" int cstpu_omp_append(const float* pval, const int* pidx,
                                 float* out_coef, int B, int n, int m, int k,
                                 int t, float rtol, void* stream) {
   using namespace cstpu;
-  const size_t smem = append_smem_bytes(n, k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cdt_bf16) {
-    cudaFuncSetAttribute(omp_append_kernel<__nv_bfloat16>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    omp_append_kernel<__nv_bfloat16><<<B, kAppendThreads, smem, st>>>(
-        pval, pidx, ntiles, static_cast<const __nv_bfloat16*>(A), Bs, cols,
-        Ginv, coef, idx, r, out_idx, out_coef, n, m, k, t, rtol);
-  } else {
-    cudaFuncSetAttribute(omp_append_kernel<float>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    omp_append_kernel<float><<<B, kAppendThreads, smem, st>>>(
-        pval, pidx, ntiles, static_cast<const float*>(A), Bs, cols, Ginv,
-        coef, idx, r, out_idx, out_coef, n, m, k, t, rtol);
+  bool ok = false;
+  const AppendPlan p = append_plan(B, n, k, &ok);
+  // k + 3 threads add up the partials
+  if (!ok || B < 1 || n < 1 || t < 0 || t >= k || k > kAppendThreads - 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  AppendArgs args = {};
+  args.pval = pval;
+  args.pidx = pidx;
+  args.A = A;
+  args.Bs = Bs;
+  args.cols = cols;
+  args.Ginv = Ginv;
+  args.coef = coef;
+  args.idx = idx;
+  args.r = r;
+  args.out_idx = out_idx;
+  args.out_coef = out_coef;
+  args.rtol = rtol;
+  args.ntiles = ntiles;
+  args.n = n;
+  args.m = m;
+  args.k = k;
+  args.t = t;
+  args.slice = p.slice;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (cdt_bf16) {
+    err = p.staged
+              ? launch_append_cluster(omp_append_kernel<__nv_bfloat16, true>,
+                                      p, B, args, st)
+              : launch_append_cluster(omp_append_kernel<__nv_bfloat16, false>,
+                                      p, B, args, st);
+  } else {
+    err = p.staged
+              ? launch_append_cluster(omp_append_kernel<float, true>, p, B,
+                                      args, st)
+              : launch_append_cluster(omp_append_kernel<float, false>, p, B,
+                                      args, st);
+  }
+  return static_cast<int>(err);
 }

@@ -101,26 +101,6 @@ __host__ __device__ constexpr size_t sp_smem_bytes(int k) {
          (size_t)7 * k * sizeof(int);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // Wait until at most kSpStages - 1 committed groups are still in flight.
 __device__ __forceinline__ void cp_async_wait_stages() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kSpStages - 1) : "memory");

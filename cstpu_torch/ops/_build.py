@@ -43,6 +43,8 @@ _SIGNATURES = {
     # out_idx, out_coef, B, n, m, k, t, rtol, stream
     "cstpu_omp_append": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                          _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # B, n, k, out (4 ints: C, slice, staged, smem bytes)
+    "cstpu_append_plan": [_I, _I, _I, _P],
     # pval, pidx, psig, ntiles, A, cdt_bf16, x, r, B, n, m, stream
     "cstpu_mp_update": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     # r, A, cdt_bf16, pval, pidx, B, n, m, l, use_mma, rb (nullable), stream

@@ -8,7 +8,8 @@ VMEM (`_stream_kernel`). On Hopper a block has at most 227 KB of shared
 memory, while the bench dictionary (16 MB in bf16) fits the 50 MB L2. So
 the port runs a Python loop over the steps, and each step launches a select
 kernel, which sweeps the dictionary and writes per-tile partials, and an
-update kernel, one block per row (cstpu_torch/csrc):
+update kernel, one block per row, or for omp_append and fr_append a
+thread-block cluster per row (cstpu_torch/csrc):
 
   OMP   select_argmax  |round_cdt(r) . A_cdt| -> (max, lowest argmax) (B, T)
         omp_append     reduce, gated bordered append, residual; at the
@@ -132,7 +133,11 @@ def _check_cdt(corr_dtype):
 
 
 def _append_smem(n: int, k: int) -> int:
-    """Dynamic shared memory of the append kernels, bytes."""
+    """Dynamic shared memory, bytes, of a one-block-per-row append
+    (common.cuh::carve_append_smem: gomp_append's, the slot engine's). Every
+    append wrapper admits n and k only where it fits SMEM_MAX: the domain
+    of the OMP/FR path, whose cluster kernels (`_append_plan`) take any n
+    it admits."""
     return (n + k * k + 3 * k) * 4 + k * 4
 
 
@@ -482,7 +487,8 @@ def omp_append(pval, pidx, Ac, Bs, st: _OmpState, t: int, out_idx,
                out_coef):
     """OMP step t from the select partials: updates `st` in place and, at
     t = k-1, writes the index-sorted support into out_idx/out_coef. On
-    CUDA tensors this launches csrc/omp_append.cu."""
+    CUDA tensors this launches csrc/omp_append.cu, a thread-block cluster
+    per row (`_append_plan`)."""
     if _on_cpu(pval, pidx, Ac, Bs, *st, out_idx, out_coef):
         return _append_ref(pval, pidx, Ac, Bs, st, t, out_idx, out_coef)
     B, k, n = st.cols.shape
@@ -508,6 +514,23 @@ def omp_append(pval, pidx, Ac, Bs, st: _OmpState, t: int, out_idx,
             _stream())
     _build.check(err, "cstpu_omp_append")
     LAUNCHES["append"] += 1
+
+
+class _AppendPlan(NamedTuple):
+    C: int        # blocks of a row's thread-block cluster
+    slice: int    # entries of n a block owns (the last block: the rest)
+    staged: bool  # the live slot columns staged in shared memory
+    smem: int     # dynamic shared memory of a block, bytes
+
+
+def _append_plan(B: int, n: int, k: int) -> _AppendPlan:
+    """The launch plan of omp_append and fr_append for B rows, n and k
+    slots, as csrc/omp_append.cu::append_plan decides it."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().cstpu_append_plan(B, n, k, out),
+                 "cstpu_append_plan")
+    C, slice_, staged, smem = out
+    return _AppendPlan(C, slice_, bool(staged), smem)
 
 
 def _mp_update_ref(pval, pidx, psig, Ac, x, r):
@@ -644,7 +667,8 @@ def fr_append(pval, pidx, Ac, Bs, st: _FrState, t: int, max_eps2: float,
     """FR step t from the fr_select partials: the stopping rules, the gated
     append, aperp/dinv for the next select, the residual and the latch,
     updating `st` in place. On CUDA tensors this launches
-    csrc/fr_append.cu."""
+    csrc/fr_append.cu, a thread-block cluster per row on omp_append's
+    plan."""
     if _on_cpu(pval, pidx, Ac, Bs, *st):
         return _fr_append_ref(pval, pidx, Ac, Bs, st, t, max_eps2, min_d2)
     B, k, n = st.cols.shape

@@ -143,12 +143,13 @@ def test_build_sources_are_the_package_csrc():
                      "srr_append.cu", "stream_select.cu"]
     # every C entry point the wrappers call has its ctypes signature: one
     # per source, stream_select.cu's second and third ones for the top-l
-    # sweep and its finish, and fr_select.cu's query of the tensor-core
-    # rescaled selects' plan
+    # sweep and its finish, fr_select.cu's query of the tensor-core
+    # rescaled selects' plan, and omp_append.cu's query of the cluster
+    # append's plan
     assert set(_build._SIGNATURES) == {
         "cstpu_" + name[:-3] for name in names} | {
             "cstpu_stream_topl", "cstpu_stream_topl_finish",
-            "cstpu_rescaled_plan"}
+            "cstpu_rescaled_plan", "cstpu_append_plan"}
     assert all(p.parent == ROOT / "cstpu_torch" / "csrc"
                for p in _build.sources())
 

@@ -2124,3 +2124,70 @@ def test_merge_feeds_engine_init_as_the_twin(dev):
     _same_state(stk, st)
     assert stk.idx[0, :4].tolist() == [5, 400, 7, 390]
     assert not (stk.idx[1:3] < m).any()
+
+
+# --------------------------------------------------------------------------
+# omp_append and fr_append as a thread-block cluster per row over the
+# staged slot columns (csrc/append_cluster.cuh)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,n,k", chip_smoke.APPEND_CASES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_append_cluster_matches_plain_every_step(dev, B, n, k, cdt):
+    # both kernels on the plan's instantiation (the grid takes both); a NaN
+    # row, a duplicate pick, a degenerate column and (FR) a latched row:
+    # idx, done, amask equal, the state within APPEND_ATOL
+    for fr in (False, True):
+        err, plan = chip_smoke.hold_append(dev, B, n, k, cdt, fr)
+        assert err <= chip_smoke.APPEND_ATOL, (fr, plan, err)
+
+
+@pytest.mark.parametrize("B,C", [(1, 8), (8, 8), (16, 8), (20, 6), (64, 2),
+                                 (65, 2), (132, 1), (300, 1)])
+def test_append_plan_fills_the_card(dev, B, C):
+    # C from B alone at these n: B C up to the 132 SMs, at most 8; slices
+    # of a multiple of 4 entries, none empty; staged where (k - 1) slices fit
+    # beside Ginv (at k = 128 from C = 6 on)
+    for n in (1000, 1024, 1028):
+        for k in (1, 16, 32, 128):
+            plan = fs._append_plan(B, n, k)
+            assert plan.C == C and plan.slice % 4 == 0, plan
+            assert (plan.C - 1) * plan.slice < n <= plan.C * plan.slice
+            assert plan.staged == (k < 128 or C > 2), (n, k, plan)
+            assert plan.smem <= fs.SMEM_MAX
+    # the grid's cases past the first 48: the staged variant's edge at
+    # k = 32, C = 2, a larger n at small k, k = 128 at C = 8
+    edge = [fs._append_plan(B2, n2, k2)
+            for B2, n2, k2 in chip_smoke.APPEND_CASES[48:]]
+    assert [(p.C, p.slice, p.staged) for p in edge] == [
+        (2, 1664, True), (2, 1668, False), (2, 4096, False),
+        (8, 512, False)], edge
+    # small n: no block owns fewer than 64 entries (one at n <= 64)
+    assert fs._append_plan(8, 40, 4).C == 1
+    assert fs._append_plan(8, 130, 4).C == 3
+    # at the wrappers' shared-memory limit one block cannot hold a row's
+    # slices: the plan takes more blocks, streamed (four at k = 128)
+    n = 41216
+    assert fs._append_smem(n, 128) <= fs.SMEM_MAX
+    plan = fs._append_plan(200, n, 128)
+    assert plan.C == 4 and not plan.staged and plan.smem <= fs.SMEM_MAX
+
+
+def test_append_wrappers_launch_at_the_budget_edge(dev):
+    # the largest n the wrappers admit at k = 128 and at k = 1: one step
+    # each launches (the cluster's streamed variant) and matches the plain
+    # step
+    for n, k in ((41216, 128), (58107, 1)):
+        assert fs._append_smem(n, k) <= fs.SMEM_MAX
+        A, Bs, _ = _problem(dev, 2, n, 256, 1)
+        Ac = A.to(torch.bfloat16).contiguous()
+        st, *out = fs._init_state(Bs, k, 256)
+        parts = fs._select_ref(st.r, Ac.float(), torch.bfloat16)
+        stk = fs._OmpState(*(x.clone() for x in st))
+        outk = [x.clone() for x in out]
+        fs.omp_append(*parts, Ac, Bs, stk, 0, *outk)
+        fs._append_ref(*parts, Ac.float(), Bs, st, 0, *out)
+        torch.cuda.synchronize()
+        assert torch.equal(stk.idx, st.idx)
+        for a, b in ((stk.Ginv, st.Ginv), (stk.coef, st.coef), (stk.r, st.r)):
+            torch.testing.assert_close(a, b, rtol=0, atol=ATOL)

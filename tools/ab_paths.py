@@ -9,14 +9,17 @@ built from its own sources and imported. TAG labels the output lines. The
 paths are chip_smoke.py's, on its problems (seed 0, NVIDIA H100 shapes):
 the bench OMP solve, suite configs 2a (gomp_batch), 2b (sp_batch), 2c
 (ompr_batch), 3a (fr_batch), 3b (srr_batch), each profiled over three
-solves, and 3e (fbr_batch at B = 8 and 64) over one. Each line gives the
-device busy ms per solve and, per kernel, its launches per solve and its
-device ms per launch (torch.profiler). Run two checkouts alternately in
-one call (A, B, A, B): a card's speed varies between calls.
+solves, 3e (fbr_batch at B = 8 and 64) over one, and 5b (omp_batch at
+m = 131072) over three. Each line gives the device busy ms per solve
+(torch.profiler), the wall ms per solve (host clock, the same solves again
+unprofiled) and, per kernel, its launches per solve and its device ms per
+launch (torch.profiler). Run two checkouts alternately in one call (A, B,
+B, A): a card's speed varies between calls.
 """
 
 import os
 import sys
+import time
 from pathlib import Path
 
 
@@ -45,7 +48,13 @@ def main():
 
     def show(name, fn, reps=3):
         busy, per = cs.profile_path(fn, reps)
-        print(f"[ab {tag}] {name} busy/solve {busy / reps:.4f} ms: " + ", ".join(
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        print(f"[ab {tag}] {name} busy/solve {busy / reps:.4f} ms, "
+              f"wall/solve {wall:.4f} ms: " + ", ".join(
             f"{kn} {c // reps}x {ms / c if c else ms / reps:.4f}"
             for kn, (c, ms) in sorted(per.items())), flush=True)
 
@@ -68,6 +77,14 @@ def main():
         Bs3, _ = cs.planted_ones(gen, A2, B3, k2)
         show(f"3e fbr B={B3}",
              lambda: cstpu_torch.fbr_batch(A2, Bs3, sparsity=k2), 1)
+    del A, Bs, Bg, Ar, Br, A2
+    torch.cuda.empty_cache()
+    # 5b on a generator of its own, so that the problems above stay the
+    # ones of checkouts whose ab_paths.py had no 5b
+    _, B5, n5, m5, k5 = cs.CELLS[1]
+    gen5 = torch.Generator(device=dev).manual_seed(cs.SEED)
+    A5, Bs5, _ = cs.planted(gen5, B5, n5, m5, k5)
+    show("5b omp", lambda: cstpu_torch.omp_batch(A5, Bs5, k5))
 
 
 if __name__ == "__main__":
