@@ -1167,31 +1167,59 @@ KERNEL_NAMES = ("select_argmax", "top1_mma", "topl_mma", "round_rows",
                 "rescaled_mma")
 
 
+# the wrappers whose one count is one launch of one kernel: their LAUNCHES
+# key and that kernel's name in the profile
+PROFILED_KEYS = {"append": "omp_append", **{
+    kn: kn for kn in ("gomp_append", "fr_append", "mp_update", "engine_init",
+                      "ompr_swap", "srr_append", "engine_delete", "sp_round",
+                      "rmp_append", "engine_backward", "bw_select",
+                      "bw_downdate")}}
+PROFILE_TRIES = 4
+
+
 def profile_path(fn, reps=1):
     """`reps` calls of fn under torch.profiler after a warm-up: (device ms,
     {name: (launches, device ms)}), "other" for kernels not in
-    KERNEL_NAMES."""
+    KERNEL_NAMES. The profiler can lose kernel records: a profile whose
+    count of a PROFILED_KEYS kernel differs from the wrapper's LAUNCHES
+    count over the same calls is taken again, up to PROFILE_TRIES times,
+    and then fails."""
     from torch.profiler import ProfilerActivity, profile
+
+    from cstpu_torch.ops.fused_solve import LAUNCHES
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per, busy = {}, 0.0
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", 0.0)
-        if dev <= 0:
-            continue
-        busy += dev / 1e3
-        name = next((kn for kn in KERNEL_NAMES if kn + "_kernel" in ev.key),
-                    "other")
-        cnt, ms = per.get(name, (0, 0.0))
-        per[name] = (cnt + (ev.count if name != "other" else 0),
-                     ms + dev / 1e3)
-    return busy, per
+    for attempt in range(1, PROFILE_TRIES + 1):
+        before = dict(LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = {PROFILED_KEYS[key]: v - before.get(key, 0)
+                    for key, v in LAUNCHES.items()
+                    if key in PROFILED_KEYS and v > before.get(key, 0)}
+        per, busy = {}, 0.0
+        for ev in prof.key_averages():
+            dev = getattr(ev, "self_device_time_total", 0.0)
+            if dev <= 0:
+                continue
+            busy += dev / 1e3
+            name = next((kn for kn in KERNEL_NAMES
+                         if kn + "_kernel" in ev.key), "other")
+            cnt, ms = per.get(name, (0, 0.0))
+            per[name] = (cnt + (ev.count if name != "other" else 0),
+                         ms + dev / 1e3)
+        lost = {name: (per.get(name, (0, 0.0))[0], c)
+                for name, c in launched.items()
+                if per.get(name, (0, 0.0))[0] != c}
+        if not lost:
+            return busy, per
+        print(f"[profile] try {attempt}: the profile's launches differ from "
+              f"the wrappers' counts (profiled, launched): {lost}")
+    raise AssertionError(f"the profiler lost kernel records in "
+                         f"{PROFILE_TRIES} tries: {lost}")
 
 
 def twostage_times(A, Bg, Ar, Br, gpu):
@@ -1815,6 +1843,205 @@ def hold_append(dev, B, n, k, cdt, fr):
     if fr and k > 1 and B > 4:
         assert not bool((st.idx[4, 1:] < m).any()), st.idx[4]
     return err, plan
+
+
+# the slot engine's cluster kernels (rmp_append, engine_init): the grid of
+# (B, n, K), each K with cnt in {1, K} where K <= LMAX, and at the plan's
+# edges: engine_init's picked columns staged up to n = 2520 at K = cnt = 32,
+# C = 2 and streamed from 2524; rmp_append's slot columns streamed at
+# K = 128 with C = 2 (in the grid) and with C = 8 (n = 4096)
+ENGINE_CASES = [(B, n, K) for B in (1, 8, 64, 65) for n in (1000, 1024, 1028)
+                for K in (16, 32, 128)] + [
+    (64, 2520, 32), (64, 2524, 32), (8, 4096, 128)]
+ENGINE_M = 2000
+ENGINE_MODES = ("delta", "k", "foba")
+# device ms per launch of the two kernels before the cluster redesign, on
+# the paths chip_smoke.py drives (PERF.md section 5, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+ENGINE_BEFORE_MS = {"rmp_append 3d rmp B=8": 0.0201,
+                    "rmp_append 3d rmp B=64": 0.0232,
+                    "rmp_append 3d foba B=8": 0.0221,
+                    "rmp_append 3d foba B=64": 0.0248,
+                    "engine_init 2c": 0.2198, "engine_init 3b": 0.1016}
+
+
+def engine_cnts(K):
+    """The init's pick counts held at K slots: 1, and K where K <= LMAX."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    return (1, K) if K <= fs.LMAX else (1,)
+
+
+def _engine_problem(dev, B, n, K, seed):
+    """A unit-norm Gaussian dictionary (m = ENGINE_M, atom m-1 a copy of
+    m-2) and B noisy measurements of min(4, K) +-1 atoms; row 1 a NaN row,
+    row 3 with 4 a_{m-2} added (its twin m-1 meets the rtol gate)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = ENGINE_M
+    A, Bs, _ = planted(gen, B, n, m, min(4, K))
+    A[:, m - 1] = A[:, m - 2]
+    Bs += 0.02 * torch.randn(Bs.shape, device=dev, generator=gen)
+    if B > 1:
+        Bs[1, 3] = float("nan")
+    if B > 3:
+        Bs[3] += 4.0 * A[:, m - 2]
+    return A, Bs, gen
+
+
+def _engine_err(stk, st, fields, exact):
+    """Max |err| of the float fields, the exact ones equal; NaNs alike."""
+    err = 0.0
+    for name in exact:
+        a, b = getattr(stk, name), getattr(st, name)
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), name
+    for name in fields:
+        e = _nan_err(getattr(stk, name), getattr(st, name))
+        assert e <= APPEND_ATOL, (name, e)
+        err = max(err, e)
+    return err
+
+
+def hold_engine_init(dev, B, n, K, cnt, cdt, srr):
+    """engine_init against its plain version from the empty state (K slots,
+    cnt picks; srr: with SRR's pending terms and fgate) on _engine_problem,
+    the partials the plain top-cnt select's, with row 2 holding its first
+    pick twice (a duplicate) and row 3's picks led by m-2 and its twin m-1
+    (the rtol gate) where cnt > 1. idx, amask, done and fgate equal; cols,
+    Ginv, coef, Atb, r, prev and the pending terms within APPEND_ATOL, NaN
+    where the plain version has NaN. Returns (max |err|, the plan)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    A, Bs, _ = _engine_problem(dev, B, n, K, 11 * B + n + 5 * K + 3 * cnt + srr)
+    m = ENGINE_M
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    pv, pi = fs._topl_ref(Bs, Ac32, cdt, cnt)
+    dup = None
+    if B > 2 and pv.shape[1] > 1:
+        # row 2's best candidate a second time, in a tile that does not
+        # hold it
+        v, j = fs._merge_topl_vals(pv[2:3], pi[2:3], 1)
+        dup = int(j[0, 0])
+        tile = 1 if dup // fs.TILE == 0 else 0
+        pv[2, tile, 0], pi[2, tile, 0] = v[0, 0], j[0, 0]
+    cn2 = torch.sum(A * A, dim=0) if srr else None
+    st = ft._init_engine(Bs, K, m, cn2, npend=cnt)
+    stk = _clone(st)
+    plan = ft._engine_plan(B, n, K, cnt)
+    ft.engine_init(pv, pi, Ac, Bs, stk)
+    ft._engine_init_ref(pv, pi, Ac32, Bs, st)
+    torch.cuda.synchronize()
+    fields = ["cols", "Ginv", "coef", "Atb", "r", "prev"]
+    exact = ["idx", "amask", "done"]
+    if srr:
+        fields += ["pend_u", "pend_w"]
+        exact += ["fgate"]
+    err = _engine_err(stk, st, fields, exact)
+    if B > 1:
+        assert not bool((st.idx[1] < m).any()) and bool(torch.isnan(st.r[1]).all())
+    if cnt > 1 and dup is not None:   # the second copy was refused
+        assert int((st.idx[2] == dup).sum()) == 1, st.idx[2]
+        assert int((st.idx[2] < m).sum()) <= cnt - 1, st.idx[2]
+    if cnt > 1 and B > 3:
+        assert int(st.idx[3, 0]) == m - 2 and not bool((st.idx[3] == m - 1).any())
+    return err, plan
+
+
+def _full_row(st, row, Ac32, Bs, atoms):
+    """Row `row` of the engine state set to a full support `atoms` (K of
+    them): its columns, the inverse of their Gram (f64, then f32), Atb,
+    coef = Ginv Atb, idx, amask and r = b - cols' coef."""
+    K = st.idx.shape[1]
+    cols = Ac32[:, atoms].T.contiguous()
+    G = (cols.double() @ cols.double().T)
+    Ginv = torch.linalg.inv(G).float()
+    st.cols[row] = cols
+    st.Ginv[row] = Ginv
+    st.Atb[row] = cols @ Bs[row]
+    st.coef[row] = Ginv @ st.Atb[row]
+    st.idx[row] = atoms.int()
+    st.amask[row, atoms] = 1
+    st.r[row] = Bs[row] - st.coef[row] @ cols
+    assert K == len(atoms)
+
+
+def hold_rmp_append(dev, B, n, K, cdt, mode):
+    """rmp_append against its plain version at every launch, each from
+    identical state (the plain one's), on _engine_problem with K slots;
+    mode "delta": RMP's forward stage to rejection; "k": that stage, the
+    plain backward stage down to 2 atoms (free slots below occupied ones),
+    and a second forward stage; "foba": FoBa iterations, the select scores
+    multiplied by 100 at iterations 2 and 3 so that the gain / 4 rule
+    deletes. Row 1 is a NaN row; at step 1 row 2's pick is its slot-0 atom
+    again (a duplicate) and row 3's the twin m-1 (the rtol gate); row 4
+    starts full (K atoms) and is capped; row 5 is done. idx, amask, fgate,
+    acc, capped, ndel, done equal; cols, Ginv, coef, Atb, r, resc and the
+    pending terms (where their weight is not 0) within APPEND_ATOL.
+    Returns (max |err|, the plan, deletions seen)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    A, Bs, gen = _engine_problem(dev, B, n, K, 13 * B + n + 7 * K
+                                 + ENGINE_MODES.index(mode))
+    m = ENGINE_M
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+    st = ft._init_engine(Bs, K, m, cn2, npend=K + 1, stepwise=True)
+    if B > 4:
+        _full_row(st, 4, Ac32, Bs, torch.randperm(m - 2, generator=gen,
+                                                  device=dev)[:K])
+    if B > 5:
+        st.done[5] = 1.0
+    delta2, foba = 0.15 ** 2, mode == "foba"
+    plan = ft._engine_plan(B, n, K)
+    err, ndel, npend, step, stages = 0.0, 0, 1, 0, 0
+    while True:
+        if not bool(((st.fgate > 0.5) & (st.done < 0.5)).any()):
+            if mode != "k" or stages == 1:
+                break
+            ft._engine_backward_ref(Bs, st, delta2, 2)
+            npend = 1 + int(st.ndel.max())
+            stages = 1
+            continue
+        assert step < 2 * K + 8, step
+        pv, pi = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:npend],
+                                         st.pend_w[:npend], 1.0, st.amask,
+                                         st.resc, cdt)
+        if step == 1:
+            for row, atom in ((2, int(st.idx[2, 0]) if B > 2 else 0),
+                              (3, m - 1)):
+                if row < B:
+                    pv[row], pi[row] = 1.0, atom
+        if foba and step in (2, 3):
+            pv = pv * 100.0
+        stk = _clone(st)
+        ft.rmp_append(pv, pi, Ac, Bs, stk, delta2, floor2, foba)
+        ft._rmp_append_ref(pv, pi, Ac32, Bs, st, delta2, floor2, foba)
+        torch.cuda.synchronize()
+        err = max(err, _engine_err(
+            stk, st, ["cols", "Ginv", "coef", "Atb", "r", "resc"],
+            ["idx", "amask", "fgate", "acc", "capped", "ndel", "done"]))
+        slots = K + 1 if foba else 1
+        e = _nan_err(stk.pend_w[:slots], st.pend_w[:slots])
+        live = (st.pend_w[:slots] != 0)[:, :, None].expand(-1, -1, n)
+        e = max(e, _nan_err(stk.pend_u[:slots][live], st.pend_u[:slots][live]))
+        assert e <= APPEND_ATOL, ("pending", step, e)
+        err = max(err, e)
+        ndel = max(ndel, int(st.ndel.max()))
+        npend = 1 + int(st.ndel.max()) if foba else 1
+        step += 1
+    if B > 3:
+        assert bool(torch.isnan(st.r[1]).all())
+        assert int(st.idx[3, 0]) == m - 2 and not bool((st.idx[3] == m - 1).any())
+        assert int((st.idx[2] == st.idx[2, 0]).sum()) == 1
+    if B > 4:
+        assert float(st.capped[4]) == 1.0 and float(st.capped[0]) == 0.0
+    if mode == "foba":
+        assert ndel >= 2, ndel
+    return err, plan, ndel
 
 
 def stepwise_paths(A, gen):
@@ -3375,6 +3602,7 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
     app_regs = {}  # registers of omp_append's and fr_append's kernels
+    eng_regs = {}  # ... and of rmp_append's and engine_init's
     # the tensor-core selects by name: rows per block (NB), epilogue mode
     # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem;
     # the rescaled ones by row groups G, product slots Pn (wgmma's N is
@@ -3397,18 +3625,21 @@ def main():
         got = re.search(r"Function properties for .*(bw_select_kernelILb[01]E"
                         r"|sp_round_kernelI(?:13__nv_bfloat16|f)E"
                         r"|gomp_append_kernelI(?:13__nv_bfloat16|f)E"
-                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)E"
-                        r"|(?:omp|fr)_append_kernelI(?:13__nv_bfloat16|f)"
-                        r"Lb[01]E)", line)
+                        r"|(?:omp|fr|rmp)_append_kernelI(?:13__nv_bfloat16|f)"
+                        r"Lb[01]E"
+                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)Lb[01]E)",
+                        line)
         if got:
             name = (got[1].replace("Lb1E", " staged")
                     .replace("Lb0E", " streamed").replace("ILb1E", " held")
                     .replace("ILb0E", " walked").replace("I13__nv_", " ")
                     .replace("If", " f32").rstrip("E").replace("_kernel", ""))
             print(f"[build latency] {name}: {props}")
-            if "_append" in name and not name.startswith("gomp"):
-                app_regs[name] = re.search(r"Used (\d+) registers",
-                                           props)[1]
+            regs = re.search(r"Used (\d+) registers", props)[1]
+            if name.startswith(("rmp", "engine_init")):
+                eng_regs[name] = regs
+            elif "_append" in name and not name.startswith("gomp"):
+                app_regs[name] = regs
         got = re.search(r"Function properties for .*rescaled_mma_kernelILi"
                         r"(\d+)ELi(\d+)ELb(\d)E", line)
         if got:
@@ -3435,6 +3666,38 @@ def main():
           + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
           + ", ".join(f"B={B} n={n} k={k} {p.C}/{p.slice}/{int(p.staged)}"
                       for (B, n, k), p in plans.items() if n != 1028)
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    eng_err, eng_plans, eng_ndel = {}, {}, 0
+    for (B, n, K), cdt in itertools.product(
+            ENGINE_CASES, (torch.bfloat16, torch.float32)):
+        for cnt, srr in itertools.product(engine_cnts(K), (False, True)):
+            err, plan = hold_engine_init(dev, B, n, K, cnt, cdt, srr)
+            key = ("engine_init", "staged" if plan.staged else "streamed")
+            eng_err[key] = max(eng_err.get(key, 0.0), err)
+            eng_plans[("engine_init", B, n, K, cnt)] = plan
+        for mode in ENGINE_MODES:
+            err, plan, nd = hold_rmp_append(dev, B, n, K, cdt, mode)
+            key = ("rmp_append", "staged" if plan.staged else "streamed")
+            eng_err[key] = max(eng_err.get(key, 0.0), err)
+            eng_plans[("rmp_append", B, n, K, 0)] = plan
+            eng_ndel = max(eng_ndel, nd)
+    # both kernels held on both of the plan's instantiations
+    assert len(eng_err) == 4, sorted(eng_err)
+    print(f"[engine grid] rmp_append (modes {ENGINE_MODES}: a NaN row, a "
+          f"duplicate pick, the rtol gate, a capped row, a done row; FoBa "
+          f"deleting up to {eng_ndel} atoms a launch) and engine_init (cnt in "
+          f"{{1, K}}, OMPR and SRR; a duplicate pick, the rtol gate, a NaN "
+          f"row) against their plain versions at every launch, (B, n, K) in "
+          f"{ENGINE_CASES}, bf16 and f32: flags, idx, amask equal; max |err| "
+          + ", ".join(f"{kn} {v} {e:.3e}" for (kn, v), e in eng_err.items())
+          + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
+          + ", ".join(f"{kn} B={B} n={n} K={K}"
+                      + (f" cnt={c}" if c else "")
+                      + f" {p.C}/{p.slice}/{int(p.staged)}"
+                      for (kn, B, n, K, c), p in eng_plans.items()
+                      if n in (1024, 2520, 2524, 4096) and B in (8, 64))
           + f"; {time.perf_counter() - t0:.1f} s")
 
     record = {}
@@ -3635,6 +3898,39 @@ def main():
                       for (kn, p), kk in zip(app_plan.items(), (k, kf)))
           + "; registers: " + ", ".join(f"{kn} {r}"
                                         for kn, r in app_regs.items()))
+    # rmp_append and engine_init (a thread-block cluster per row): device
+    # ms per launch on their paths beside the times before the redesign and
+    # the bound at that path's shape, the plans and the registers
+    from cstpu_torch.ops import fused_twostage as ft
+
+    eng_path = {"rmp_append 3d rmp B=8": (ssplit, d_rmp, "rmp_append"),
+                "rmp_append 3d rmp B=64": (ssplit, f"3d rmp B={big}",
+                                           "rmp_append"),
+                "rmp_append 3d foba B=8": (ssplit, d_foba, "rmp_append"),
+                "rmp_append 3d foba B=64": (ssplit, f"3d foba B={big}",
+                                            "rmp_append"),
+                "engine_init 2c": (tsplit, "2c", "engine_init"),
+                "engine_init 3b": (tsplit, "3b", "engine_init")}
+    eng_dev = {key: on_path(*v) for key, v in eng_path.items()}
+    eng_bound = {"rmp_append B=8": engine_bound(B0, K3, n3, appends=1),
+                 "rmp_append B=64": engine_bound(big, K3, n3, appends=1),
+                 "engine_init 2c": engine_bound(B, ko + 1, n, appends=ko),
+                 "engine_init 3b": engine_bound(B, kr + 1, n, appends=kr)}
+    eng_plan = {"rmp_append B=8": ft._engine_plan(B0, n3, K3),
+                "rmp_append B=64": ft._engine_plan(big, n3, K3),
+                "engine_init 2c": ft._engine_plan(B, n, ko + 1, ko),
+                "engine_init 3b": ft._engine_plan(B, n, kr + 1, kr)}
+    print("[engine kernels] device ms per launch on the paths, before the "
+          "cluster redesign in brackets (PERF.md, " + gpu + "): "
+          + ", ".join(f"{key} {v:.4f} [{ENGINE_BEFORE_MS[key]:.4f}]"
+                      for key, v in eng_dev.items())
+          + "; bounds: " + ", ".join(f"{key} {v['bound_ms']:.4f}"
+                                    for key, v in eng_bound.items())
+          + "; plans: " + ", ".join(
+              f"{key} C={p.C} slice={p.slice} staged={int(p.staged)} "
+              f"smem={p.smem} B" for key, p in eng_plan.items())
+          + "; registers: " + ", ".join(f"{kn} {r}"
+                                        for kn, r in eng_regs.items()))
     kernels = [
         # the top-1 select's tensor-core variant: ms is the event time per
         # call through the wrapper (one rounding launch and the sweep),
@@ -3862,12 +4158,19 @@ def main():
                     + B * ks * n * 2,
                     B * (6 * ks * ks * n + 8 * ks ** 3), "f32")),
         entry("engine_init", f"{ts_line}:1052", tl["2c"]["engine_init"]
-              + tl["3b"]["engine_init"], terr["engine_init"],
+              + tl["3b"]["engine_init"],
+              max(terr["engine_init"], eng_err[("engine_init", "staged")],
+                  eng_err[("engine_init", "streamed")]),
               tkern["engine_init"], tplain["engine_init"],
-              engine_bound(B, ko + 1, n, appends=ko),
+              eng_bound["engine_init 2c"],
               also_replaces=[f"{ts_line}:1191"],
               paths={"ompr_batch": tl["2c"]["engine_init"],
-                     "srr_batch": tl["3b"]["engine_init"]}),
+                     "srr_batch": tl["3b"]["engine_init"]},
+              device_ms=eng_dev["engine_init 2c"],
+              device_3b_ms=eng_dev["engine_init 3b"],
+              bound_3b_ms=eng_bound["engine_init 3b"]["bound_ms"],
+              plan=eng_plan["engine_init 2c"]._asdict(),
+              plan_3b=eng_plan["engine_init 3b"]._asdict()),
         entry("ompr_swap", f"{ts_line}:1052", tl["2c"]["ompr_swap"],
               terr["ompr_swap"], tkern["ompr_swap"], tplain["ompr_swap"],
               engine_bound(B, ko + 1, n, appends=1, deletes=1)),
@@ -3882,15 +4185,21 @@ def main():
         # time per launch on the B=8 path, the bound that launch's
         entry("rmp_append", f"{ts_line}:1368",
               sum(v["rmp_append"] for v in sl.values()),
-              max(serr["rmp_append"], serr["rmp_append_foba"]),
-              on_path(ssplit, d_rmp, "rmp_append"), splain["rmp_append"],
-              engine_bound(B0, K3, n3, appends=1),
+              max(serr["rmp_append"], serr["rmp_append_foba"],
+                  eng_err[("rmp_append", "staged")],
+                  eng_err[("rmp_append", "streamed")]),
+              eng_dev["rmp_append 3d rmp B=8"], splain["rmp_append"],
+              eng_bound["rmp_append B=8"],
               also_replaces=[f"{ts_line}:1499"],
               paths={f"{name}_batch B={b}": v["rmp_append"]
                      for (name, b), v in sl.items()},
-              foba_ms=on_path(ssplit, d_foba, "rmp_append"),
+              foba_ms=eng_dev["rmp_append 3d foba B=8"],
               plain_foba_ms=splain["rmp_append_foba"],
-              b64_ms=on_path(ssplit, f"3d rmp B={big}", "rmp_append")),
+              b64_ms=eng_dev["rmp_append 3d rmp B=64"],
+              b64_foba_ms=eng_dev["rmp_append 3d foba B=64"],
+              b64_bound_ms=eng_bound["rmp_append B=64"]["bound_ms"],
+              plan=eng_plan["rmp_append B=8"]._asdict(),
+              plan_b64=eng_plan["rmp_append B=64"]._asdict()),
         entry("engine_backward", f"{ts_line}:1368",
               sum(v["engine_backward"] for v in sl.values()),
               serr["engine_backward"],

@@ -439,11 +439,12 @@ __device__ __forceinline__ void append_cluster_row(const AppendArgs& a) {
 }
 
 // Launch kernel (one of the two instantiations of `p`) for B rows as
-// clusters of p.C blocks. Returns the launch's cudaError_t, a refused
-// cluster launch included.
-template <typename K>
+// clusters of p.C blocks, with its one argument `args` (AppendArgs here,
+// engine_cluster.cuh's for the slot engine). Returns the launch's
+// cudaError_t, a refused cluster launch included.
+template <typename K, typename Args>
 cudaError_t launch_append_cluster(K* kernel, const AppendPlan& p, int B,
-                                  const AppendArgs& args, cudaStream_t st) {
+                                  const Args& args, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err == cudaSuccess) err = prefer_l1(kernel);

@@ -1,7 +1,8 @@
 // The slot engine of the two-stage kernels, one block per row: device
 // counterparts of cstpu/ops/fused_twostage.py::_Engine (:42-238) that
-// engine_init.cu, ompr_swap.cu, srr_append.cu, engine_delete.cu,
-// rmp_append.cu and engine_backward.cu share.
+// ompr_swap.cu, srr_append.cu, engine_delete.cu and engine_backward.cu
+// share (engine_init.cu and rmp_append.cu run the same math as a
+// thread-block cluster per row, engine_cluster.cuh).
 //
 // A row's state: cols (K, n) and r (n) in device memory; Ginv (K, K), coef,
 // idx and Atb (K) staged in shared memory for the launch. An append goes to

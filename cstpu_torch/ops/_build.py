@@ -88,6 +88,8 @@ _SIGNATURES = {
     # foba, stream
     "cstpu_rmp_append": [_P, _P, _I, _P, _I, _P, *_ENG[:8], _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # B, n, K, cnt, out (4 ints: C, slice, staged, smem bytes)
+    "cstpu_engine_plan": [_I, _I, _I, _I, _P],
     # Bs, engine state but prev, pend_u, pend_w, fgate, acc, ndel, B, n, m,
     # K, delta2, kfinal, stream
     "cstpu_engine_backward": [_P, *_ENG[:8], _P, _P, _P, _P, _P, _I, _I, _I,

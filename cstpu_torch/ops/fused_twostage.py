@@ -9,7 +9,9 @@ loop an in-kernel while loop over a per-row done latch. Here the outer loop runs
 outer iteration it reads the done latch (one small device-to-host copy) and
 stops when every row is done or maxiter is reached, so the returned
 `iters` is cstpu's. Each iteration launches a select kernel, which sweeps
-the dictionary, and update kernels, one block per row (cstpu_torch/csrc):
+the dictionary, and update kernels, one block per row, or for engine_init
+and rmp_append a thread-block cluster per row (`_engine_plan`;
+cstpu_torch/csrc):
 
   SP    select_topl    per-tile top-k of |round_cdt(r) . A|     (B, T, k)
         sp_round       the k acquisitions into slots k..2k-1, the blocks
@@ -84,6 +86,7 @@ exactly as it is by every kernel and every plain version.
 
 from __future__ import annotations
 
+import ctypes
 from functools import partial
 from typing import NamedTuple
 
@@ -92,7 +95,8 @@ import torch
 from cstpu_torch.ops import _build
 from cstpu_torch.ops.fused_solve import (
     _CDTS, _F32, _I32, _U8, KMAX, LAUNCHES, LMAX, SMEM_MAX, TILE,
-    _bordered_append_ref, _check_cdt, _degeneracy_rtol, _expect, _f32,
+    _AppendPlan, _bordered_append_ref, _check_cdt, _degeneracy_rtol,
+    _expect, _f32,
     _merge_topl_vals, _on_cpu, _prepare, _reduce_partials,
     _rescaled_select_ref, _select_ref, _slot_state, _sorted_solution,
     _stream, _topl_ref, rescaled_select, select_argmax, select_topl)
@@ -137,8 +141,10 @@ class _SpState(NamedTuple):
 
 
 def _engine_smem(n: int, K: int) -> int:
-    """Dynamic shared memory of the engine kernels, bytes
-    (csrc/engine.cuh::engine_smem_bytes)."""
+    """Dynamic shared memory of the one-block-per-row engine kernels, bytes
+    (csrc/engine.cuh::engine_smem_bytes). Every engine wrapper admits n and
+    K only where it fits SMEM_MAX; the cluster kernels' plans
+    (`_engine_plan`) take any n it admits."""
     return (n + K * K + 7 * K) * 4 + K * 4
 
 
@@ -604,6 +610,18 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _engine_plan(B: int, n: int, K: int, cnt: int = 0) -> _AppendPlan:
+    """The launch plan of rmp_append (cnt = 0) and engine_init (cnt picks)
+    for B rows, n and K slots, as csrc/engine_cluster.cuh::engine_plan
+    decides it: C blocks a row, slices of n, the slot columns (engine_init:
+    the picked ones) staged or streamed, the dynamic shared memory."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().cstpu_engine_plan(B, n, K, cnt, out),
+                 "cstpu_engine_plan")
+    C, slice_, staged, smem = out
+    return _AppendPlan(C, slice_, bool(staged), smem)
+
+
 def _state_ptrs(st: _EngState):
     """Pointers to the engine state of the C entry points: cols, Ginv,
     coef, idx, Atb, r, amask, done, prev."""
@@ -616,7 +634,8 @@ def engine_init(pval, pidx, Ac, Bs, st: _EngState):
     """OMPR's and SRR's init from the select_topl partials (B, T, cnt) of
     |round_cdt(b) . A|: cnt gated appends into the empty state, the refit
     and the first ||r||^2, updating `st` in place (SRR: cnt pending terms,
-    fgate = 1). On CUDA tensors this launches csrc/engine_init.cu."""
+    fgate = 1). On CUDA tensors this launches csrc/engine_init.cu, a
+    thread-block cluster per row (`_engine_plan` with cnt)."""
     if _on_cpu(pval, pidx, Ac, Bs, *st):
         return _engine_init_ref(pval, pidx, Ac, Bs, st)
     B, K, n, m = _expect_engine("engine_init", st, Bs, Ac)
@@ -722,7 +741,7 @@ def rmp_append(pval, pidx, Ac, Bs, st: _EngState, delta2: float, floor2,
     """One RMP forward step, or with `foba` one FoBa iteration, from the
     rescaled select partials (B, T), updating `st` in place; floor2 (B,)
     f32 is the squared exhaustion floor. On CUDA tensors this launches
-    csrc/rmp_append.cu."""
+    csrc/rmp_append.cu, a thread-block cluster per row (`_engine_plan`)."""
     if _on_cpu(pval, pidx, Ac, Bs, floor2, *st):
         return _rmp_append_ref(pval, pidx, Ac, Bs, st, delta2, floor2, foba)
     B, K, n, m = _expect_engine("rmp_append", st, Bs, Ac)

@@ -144,12 +144,12 @@ def test_build_sources_are_the_package_csrc():
     # every C entry point the wrappers call has its ctypes signature: one
     # per source, stream_select.cu's second and third ones for the top-l
     # sweep and its finish, fr_select.cu's query of the tensor-core
-    # rescaled selects' plan, and omp_append.cu's query of the cluster
-    # append's plan
+    # rescaled selects' plan, omp_append.cu's query of the cluster
+    # append's plan and rmp_append.cu's of the slot engine's
     assert set(_build._SIGNATURES) == {
         "cstpu_" + name[:-3] for name in names} | {
             "cstpu_stream_topl", "cstpu_stream_topl_finish",
-            "cstpu_rescaled_plan", "cstpu_append_plan"}
+            "cstpu_rescaled_plan", "cstpu_append_plan", "cstpu_engine_plan"}
     assert all(p.parent == ROOT / "cstpu_torch" / "csrc"
                for p in _build.sources())
 

@@ -481,6 +481,29 @@ def _ompr_setup(dev, B, n, m, k, cdt):
     return Ac, Ac.float(), Bs
 
 
+def _grid_share(B, n, m, parts=1, part=0):
+    """The share of chip_smoke.ENGINE_CASES (the slot engine's cluster
+    kernels' grid) that the SIZES entry (B, n, m) holds, split again into
+    `parts`: the parametrisations of a test hold the whole grid between
+    them."""
+    share = chip_smoke.ENGINE_CASES[SIZES.index((B, n, m))::len(SIZES)]
+    return share[part::parts]
+
+
+def _hold_init_grid(dev, cases, cdt, srr):
+    for B2, n2, K2 in cases:
+        for cnt in chip_smoke.engine_cnts(K2):
+            err, plan = chip_smoke.hold_engine_init(dev, B2, n2, K2, cnt,
+                                                    cdt, srr)
+            assert err <= chip_smoke.APPEND_ATOL, (B2, n2, K2, cnt, plan, err)
+
+
+def _hold_rmp_grid(dev, cases, cdt, mode):
+    for B2, n2, K2 in cases:
+        err, plan, _ = chip_smoke.hold_rmp_append(dev, B2, n2, K2, cdt, mode)
+        assert err <= chip_smoke.APPEND_ATOL, (B2, n2, K2, mode, plan, err)
+
+
 @pytest.mark.parametrize("B,n,m", SIZES)
 @pytest.mark.parametrize("cdt", CDTS)
 def test_ompr_kernels_match_plain_every_iteration(dev, B, n, m, cdt):
@@ -511,6 +534,9 @@ def test_ompr_kernels_match_plain_every_iteration(dev, B, n, m, cdt):
     for a, b in zip(st, before):
         if a is not None:
             assert torch.equal(a[1].nan_to_num(), b[1].nan_to_num())
+    # engine_init (a thread-block cluster per row) over this entry's share
+    # of the grid: a NaN row, a duplicate pick, the rtol gate
+    _hold_init_grid(dev, _grid_share(B, n, m), cdt, False)
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -557,6 +583,9 @@ def test_srr_kernels_match_plain_every_step(dev, B, n, m, cdt, l):
                                    rtol=0, atol=STATE_ATOL)
         npend = l + 1
         assert float(stk.done[0]) == 0.0, it  # a NaN row never latches (cstpu)
+    # engine_init with SRR's pending terms over this entry's share of the
+    # grid, halved between l = 1 and 2
+    _hold_init_grid(dev, _grid_share(B, n, m, 2, l - 1), cdt, True)
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -743,6 +772,13 @@ def test_rmp_kernels_match_plain_every_step(dev, B, n, m, cdt, kfinal):
         if a is not None and not name.startswith("pend") and name != "ndel":
             assert torch.equal(a[1], b[1]), name
     assert not st.pend_w[:, 1].any() and float(st.ndel[1]) == 0.0
+    # rmp_append (a thread-block cluster per row) at every step over this
+    # entry's share of the grid: the delta variant's forward stage, or the
+    # k variant's two stages around a plain backward one (free slots below
+    # occupied ones); a NaN row, a duplicate pick, the rtol gate, a capped
+    # row and a done row
+    _hold_rmp_grid(dev, _grid_share(B, n, m), cdt,
+                   "k" if kfinal >= 0 else "delta")
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -788,6 +824,8 @@ def test_foba_kernel_matches_plain_every_iteration(dev, B, n, m, cdt):
         t += 1
     assert k + 1 <= t < 12 and not st.fgate[1:].any()
     assert ndel_seen >= 2 and ((st.idx[1:] < m).sum(1) == k).all()
+    # and over this entry's share of the grid, deleting rows included
+    _hold_rmp_grid(dev, _grid_share(B, n, m), cdt, "foba")
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -2191,3 +2229,69 @@ def test_append_wrappers_launch_at_the_budget_edge(dev):
         assert torch.equal(stk.idx, st.idx)
         for a, b in ((stk.Ginv, st.Ginv), (stk.coef, st.coef), (stk.r, st.r)):
             torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
+
+
+# --------------------------------------------------------------------------
+# rmp_append and engine_init as a thread-block cluster per row
+# (csrc/engine_cluster.cuh): the plan
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,C", [(1, 8), (8, 8), (16, 8), (20, 6), (64, 2),
+                                 (65, 2), (132, 1), (300, 1)])
+def test_engine_plan_fills_the_card(dev, B, C):
+    # C from B alone at these n, as omp_append's plan; rmp_append stages all
+    # K slot columns where they fit (not at K = 128 with C <= 2), engine_init
+    # its cnt picked ones
+    for n in (1000, 1024, 1028):
+        for K in (16, 32, 128):
+            for cnt in chip_smoke.engine_cnts(K) + (0,):
+                plan = ft._engine_plan(B, n, K, cnt)
+                assert plan.C == C and plan.slice % 4 == 0, plan
+                assert (plan.C - 1) * plan.slice < n <= plan.C * plan.slice
+                assert plan.staged == (cnt > 0 or K < 128 or C > 2), plan
+                assert plan.smem <= fs.SMEM_MAX
+    # the grid's edges: engine_init's picks staged up to n = 2520 at
+    # K = cnt = 32, C = 2; rmp_append streamed at K = 128, C = 8, n = 4096
+    assert ft._engine_plan(64, 2520, 32, 32).staged
+    assert not ft._engine_plan(64, 2524, 32, 32).staged
+    assert not ft._engine_plan(8, 4096, 128).staged
+    # at the wrappers' shared-memory limit the plan takes more blocks
+    for K, cnt in ((128, 0), (128, 32), (33, 32), (1, 0), (1, 1)):
+        n = 1
+        while ft._engine_smem(n + 1, K) <= fs.SMEM_MAX:
+            n += 1
+        plan = ft._engine_plan(200, n, K, cnt)
+        assert plan.smem <= fs.SMEM_MAX and not plan.staged, (K, cnt, plan)
+
+
+def test_engine_wrappers_launch_at_the_budget_edge(dev):
+    # the largest n the wrappers admit at K = 128 and 33: one rmp_append
+    # step and one engine_init launch (the streamed variants) match the
+    # plain versions
+    for K, cnt in ((128, 32), (33, 32)):
+        n = 1
+        while ft._engine_smem(n + 1, K) <= fs.SMEM_MAX:
+            n += 1
+        m = 512
+        A, Bs, _ = _problem(dev, 2, n, m, 4)
+        Ac = A.to(torch.bfloat16).contiguous()
+        Ac32 = Ac.float()
+        cn2 = torch.sum(Ac32 * Ac32, dim=0)
+        st = ft._init_engine(Bs, K, m, cn2, npend=max(cnt, K + 1),
+                             stepwise=True)
+        stk = _clone(st)
+        parts = fs._topl_ref(Bs, Ac32, torch.bfloat16, cnt)
+        ft.engine_init(*parts, Ac, Bs, stk)
+        ft._engine_init_ref(*parts, Ac32, Bs, st)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(0, None))
+        st.fgate.fill_(1.0)
+        floor2 = torch.zeros(2, device=dev)
+        parts = fs._rescaled_select_ref(Ac32, cn2, st.r, st.pend_u[:1],
+                                        st.pend_w[:1], 1.0, st.amask,
+                                        st.resc, torch.bfloat16)
+        stk = _clone(st)
+        ft.rmp_append(*parts, Ac, Bs, stk, 0.0, floor2, True)
+        ft._rmp_append_ref(*parts, Ac32, Bs, st, 0.0, floor2, True)
+        torch.cuda.synchronize()
+        _same_state(stk, st, slice(0, None))

@@ -9,11 +9,11 @@ built from its own sources and imported. TAG labels the output lines. The
 paths are chip_smoke.py's, on its problems (seed 0, NVIDIA H100 shapes):
 the bench OMP solve, suite configs 2a (gomp_batch), 2b (sp_batch), 2c
 (ompr_batch), 3a (fr_batch), 3b (srr_batch), each profiled over three
-solves, 3e (fbr_batch at B = 8 and 64) over one, and 5b (omp_batch at
-m = 131072) over three. Each line gives the device busy ms per solve
-(torch.profiler), the wall ms per solve (host clock, the same solves again
-unprofiled) and, per kernel, its launches per solve and its device ms per
-launch (torch.profiler). Run two checkouts alternately in one call (A, B,
+solves, 3e (fbr_batch at B = 8 and 64) over one, 5b (omp_batch at
+m = 131072) and 3d (rmp_batch and foba_batch at B = 8 and 64) over three.
+Each line gives the device busy ms per solve (torch.profiler), the wall ms
+per solve (host clock, the same solves again unprofiled) and, per kernel,
+its launches per solve and its device ms per launch (torch.profiler). Run two checkouts alternately in one call (A, B,
 B, A): a card's speed varies between calls.
 """
 
@@ -85,6 +85,19 @@ def main():
     gen5 = torch.Generator(device=dev).manual_seed(cs.SEED)
     A5, Bs5, _ = cs.planted(gen5, B5, n5, m5, k5)
     show("5b omp", lambda: cstpu_torch.omp_batch(A5, Bs5, k5))
+    del A5, Bs5
+    torch.cuda.empty_cache()
+    # 3d on a generator of its own too: rmp_batch and foba_batch on the
+    # bench's unit-norm dictionary, 16 planted ones a row, B = 8 and 64
+    _, n3, m3, k3, delta, kmax = cs.STEP_CELL
+    gen3 = torch.Generator(device=dev).manual_seed(cs.SEED)
+    A3, _, _ = cs.planted(gen3, 1, n3, m3, 1)
+    for B3 in cs.BATCHES:
+        Bs3, _ = cs.planted_ones(gen3, A3, B3, k3)
+        show(f"3d rmp B={B3}", lambda: cstpu_torch.rmp_batch(
+            A3, Bs3, delta=delta, kmax=kmax))
+        show(f"3d foba B={B3}", lambda: cstpu_torch.foba_batch(
+            A3, Bs3, delta, kmax=kmax))
 
 
 if __name__ == "__main__":
