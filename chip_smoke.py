@@ -2044,6 +2044,157 @@ def hold_rmp_append(dev, B, n, K, cdt, mode):
     return err, plan, ndel
 
 
+# gomp_append's and ompr_swap's grid (csrc/gomp_ompr_cluster.cuh): B = 1, 8
+# (the plans' C = 8) and 64, 65 (C = 2); n a multiple of the slices and
+# not; GOMP's k in {8, 32, 128} with cnt in {1, 4, 32} (cnt <= k), OMPR's
+# K in {5, 17, 33}. GOMP's plan stages the old slot columns but at k = 128,
+# where it streams them, at B <= 8 with cnt = 32 in rounds of 24 picks; at
+# the edges: staged up to n = 2992 at k = 32, cnt = 4, C = 2 and streamed
+# from 2996, and the largest n the wrapper admits at k = 8 (58016: the
+# picks gathered a chunk of 1024 entries at a time) and at k = 128
+# (41216, cnt = 32: rounds of 4 picks, chunks). OMPR's plan stages all
+# but n >= 3140 at K = 33, C = 2, and the largest n the wrapper admits at
+# K = 33 (56759: C = 8 at B = 1, C = 4 at B = 65)
+GOMP_CASES = [(B, n, k, cnt) for B in (1, 8, 64, 65)
+              for n in (1000, 1024, 1028)
+              for k, cnt in ((8, 1), (8, 4), (32, 1), (32, 4), (32, 32),
+                             (128, 1), (128, 4), (128, 32))] + [
+    (64, 2992, 32, 4), (64, 2996, 32, 4), (1, 58016, 8, 4),
+    (64, 58016, 8, 4), (8, 41216, 128, 32)]
+SWAP_CASES = [(B, n, K) for B in (1, 8, 64, 65) for n in (1000, 1024, 1028)
+              for K in (5, 17, 33)] + [
+    (64, 3136, 33), (64, 3140, 33), (1, 56759, 33), (65, 56759, 33)]
+SWAPS = 4
+# device ms per launch of the two kernels before the cluster redesign, on
+# the paths chip_smoke.py drives (PERF.md section 5, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+SWAP_BEFORE_MS = {"gomp_append 2a": 0.0293, "ompr_swap 2c": 0.0369}
+
+
+def _inject(pv, pi, row, atom, value=1e3):
+    """Row `row`'s partials made to lead with `atom` at `value`: for top-1
+    partials (B, T) every tile; for top-l ones (B, T, l) the head of a tile
+    that does not hold the atom."""
+    if pv.ndim == 2:
+        pv[row], pi[row] = value, atom
+        return
+    tile = 1 if atom // 128 == 0 and pv.shape[1] > 1 else 0
+    pv[row, tile, 0], pi[row, tile, 0] = value, atom
+
+
+def hold_gomp_append(dev, B, n, k, cnt, cdt):
+    """gomp_append against its plain version at every launch, each from
+    identical state (the plain one's), as gomp_fused_solve runs them: k //
+    cnt iterations of cnt picks, then a remainder iteration (k % cnt picks,
+    or cnt // 2 + 1 where cnt divides k) with the latch reset; on
+    _engine_problem with k slots, the eps latch at 0.001 n (a row whose
+    planted atoms are all in stops; one missing keeps it going). Row 1 is a
+    NaN row; row 3's first picks are m-2 and its twin m-1 (the rtol gate),
+    and at iteration 1 row 2's partials lead with its slot-0 atom (a
+    duplicate) and row 3's with m-1 again; row 4 is latched from iteration
+    1 (done). idx, kcnt, done equal; cols, Ginv, coef, r within
+    APPEND_ATOL, NaN where the plain version has NaN. Returns (max |err|,
+    the plan)."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    A, Bs, _ = _engine_problem(dev, B, n, k, 17 * B + n + 3 * k + cnt)
+    m = ENGINE_M
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    cap, eps2 = min(n, k), 0.001 * n
+    st = fs._init_gomp(Bs, k, m)
+    plan = fs._gomp_plan(B, n, k, cnt)
+    counts = [cnt] * (k // cnt) + [k % cnt or cnt // 2 + 1]
+    err = 0.0
+    for it, c in enumerate(counts):
+        if it == len(counts) - 1:
+            st.done.zero_()   # the remainder iteration
+        if it == 1 and B > 4:
+            st.done[4] = 1.0
+        pv, pi = fs._topl_ref(st.r, Ac32, cdt, c)
+        if it == 1:
+            if B > 2:
+                _inject(pv, pi, 2, int(st.idx[2, 0]))
+            if B > 3:
+                _inject(pv, pi, 3, m - 1)
+        stk = _clone(st)
+        fs.gomp_append(pv, pi, Ac, Bs, stk, cap, eps2)
+        fs._gomp_append_ref(pv, pi, Ac32, Bs, st, cap, eps2)
+        torch.cuda.synchronize()
+        err = max(err, _engine_err(stk, st, ["cols", "Ginv", "coef", "r"],
+                                   ["idx", "kcnt", "done"]))
+    if B > 1:
+        assert not bool((st.idx[1] < m).any()) and bool(torch.isnan(st.r[1]).all())
+    if B > 3:
+        assert int(st.idx[3, 0]) == m - 2 and not bool((st.idx[3] == m - 1).any())
+        assert int((st.idx[2] == st.idx[2, 0]).sum()) == 1
+    return err, plan
+
+
+def hold_ompr_swap(dev, B, n, K, cdt):
+    """ompr_swap against its plain version at every launch, each from
+    identical state (the plain one's): the plain init (K - 1 picks), then
+    SWAPS swaps from the plain masked select's partials, on _engine_problem
+    with K slots. Row 1 is a NaN row; row 4 is done throughout (its state
+    must stay as it was, bit for bit); at swap 1 row 2's pick is an atom it
+    holds (a duplicate), row 3's the twin m-1 of its m-2 (the rtol gate),
+    row 5's partials all -1 (change false), and row 6's pick its passive
+    atom nearest to orthogonal to its residual (its |gcoef| the least: the
+    appended atom deleted at once), those rows' latches reset. idx and
+    amask equal, done where res moved clearly from prev and on rows 2, 3,
+    5; cols, Ginv, coef, Atb, r, prev within APPEND_ATOL, NaN where the
+    plain version has NaN. Returns (max |err|, the plan)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    A, Bs, _ = _engine_problem(dev, B, n, K, 19 * B + n + 7 * K)
+    m = ENGINE_M
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    st = ft._init_engine(Bs, K, m)
+    ft._engine_init_ref(*fs._topl_ref(Bs, Ac32, cdt, min(K - 1, fs.LMAX)),
+                        Ac32, Bs, st)
+    if B > 4:
+        st.done[4] = 1.0
+    plan = ft._ompr_plan(B, n, K)
+    err = 0.0
+    for step in range(SWAPS):
+        pv, pi = fs._select_ref(st.r, Ac32, cdt, False, st.amask, 1.0)
+        hand = [row for row in (2, 3, 5, 6) if row < B and step == 1]
+        if hand:
+            st.done[hand] = 0.0
+            if B > 2:
+                _inject(pv, pi, 2, int(st.idx[2][st.idx[2] < m][0]), 1.0)
+            if B > 3:
+                _inject(pv, pi, 3, m - 1, 1.0)
+            if B > 5:
+                pv[5] = -1.0
+            if B > 6:
+                sc = torch.where(st.amask[6] > 0, torch.inf,
+                                 (st.r[6] @ Ac32).abs())
+                _inject(pv, pi, 6, int(sc[:m - 2].argmin()), 1.0)
+        stk, prev0, idx0 = _clone(st), st.prev.clone(), st.idx.clone()
+        ft.ompr_swap(pv, pi, Ac, Bs, stk, 1.0, 0.0)
+        ft._ompr_swap_ref(pv, pi, Ac32, Bs, st, 1.0, 0.0)
+        torch.cuda.synchronize()
+        err = max(err, _engine_err(
+            stk, st, ["cols", "Ginv", "coef", "Atb", "r", "prev"],
+            ["idx", "amask"]))
+        clear = (st.prev - prev0).abs() > LATCH_RTOL * prev0.abs()
+        clear[[row for row in (2, 3, 5) if row < B and step == 1]] = True
+        assert torch.equal(stk.done[clear], st.done[clear]), step
+        if B > 4:   # the done row as it was, bit for bit
+            assert all(torch.equal(x[4].nan_to_num(), y[4].nan_to_num())
+                       for x, y in zip(stk, st) if x is not None)
+        if hand:
+            assert st.done[[row for row in (2, 3, 5) if row < B]].eq(1.0).all()
+            if B > 6:   # the appended atom went at once
+                assert torch.equal(st.idx[6], idx0[6]), (st.idx[6], idx0[6])
+    if B > 1:
+        assert bool(torch.isnan(st.r[1]).all()) and float(st.done[1]) == 1.0
+    return err, plan
+
+
 def stepwise_paths(A, gen):
     """rmp_batch (delta) and foba_batch of config 3d once each per batch
     size with zeroed launch counts: the counts against the formulas for the
@@ -3603,6 +3754,7 @@ def main():
             print(f"[build] {line.strip()}")
     app_regs = {}  # registers of omp_append's and fr_append's kernels
     eng_regs = {}  # ... and of rmp_append's and engine_init's
+    swap_regs = {}  # ... and of gomp_append's and ompr_swap's
     # the tensor-core selects by name: rows per block (NB), epilogue mode
     # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem;
     # the rescaled ones by row groups G, product slots Pn (wgmma's N is
@@ -3622,11 +3774,11 @@ def main():
                         line)
         if got:
             print(f"[build mma] top-l finish, {got[1]}: {props}")
-        got = re.search(r"Function properties for .*(bw_select_kernelILb[01]E"
+        got = re.search(r"Function properties for .*?(bw_select_kernelILb[01]E"
                         r"|sp_round_kernelI(?:13__nv_bfloat16|f)E"
-                        r"|gomp_append_kernelI(?:13__nv_bfloat16|f)E"
-                        r"|(?:omp|fr|rmp)_append_kernelI(?:13__nv_bfloat16|f)"
-                        r"Lb[01]E"
+                        r"|(?:omp|fr|rmp|gomp)_append_kernelI"
+                        r"(?:13__nv_bfloat16|f)Lb[01]E"
+                        r"|ompr_swap_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
                         r"|engine_init_kernelI(?:13__nv_bfloat16|f)Lb[01]E)",
                         line)
         if got:
@@ -3638,7 +3790,9 @@ def main():
             regs = re.search(r"Used (\d+) registers", props)[1]
             if name.startswith(("rmp", "engine_init")):
                 eng_regs[name] = regs
-            elif "_append" in name and not name.startswith("gomp"):
+            elif name.startswith(("gomp", "ompr")):
+                swap_regs[name] = regs
+            elif "_append" in name:
                 app_regs[name] = regs
         got = re.search(r"Function properties for .*rescaled_mma_kernelILi"
                         r"(\d+)ELi(\d+)ELb(\d)E", line)
@@ -3646,6 +3800,14 @@ def main():
             print(f"[build mma] rescaled G={got[1]} Pn={got[2]} "
                   f"{'fr_step_select' if got[3] == '1' else 'fr_select'}: "
                   f"{props}")
+    # the plans the two cluster kernels above take on their main paths
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    _, Bg, ng, _, kg, lg = GOMP_CELL
+    print(f"[build latency] plans: gomp_append at {GOMP_CELL[0]} "
+          f"{fs._gomp_plan(Bg, ng, kg, lg)._asdict()}, ompr_swap at "
+          f"{OMPR_CELL[0]} {ft._ompr_plan(Bg, ng, OMPR_CELL[1] + 1)._asdict()}")
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -3698,6 +3860,45 @@ def main():
                       + f" {p.C}/{p.slice}/{int(p.staged)}"
                       for (kn, B, n, K, c), p in eng_plans.items()
                       if n in (1024, 2520, 2524, 4096) and B in (8, 64))
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    swap_err, swap_plans = {}, {}
+    for (B, n, k, cnt), cdt in itertools.product(
+            GOMP_CASES, (torch.bfloat16, torch.float32)):
+        err, plan = hold_gomp_append(dev, B, n, k, cnt, cdt)
+        key = ("gomp_append", "staged" if plan.staged else "streamed")
+        swap_err[key] = max(swap_err.get(key, 0.0), err)
+        swap_plans[("gomp_append", B, n, k, cnt)] = plan
+    for (B, n, K), cdt in itertools.product(
+            SWAP_CASES, (torch.bfloat16, torch.float32)):
+        err, plan = hold_ompr_swap(dev, B, n, K, cdt)
+        key = ("ompr_swap", "staged" if plan.staged else "streamed")
+        swap_err[key] = max(swap_err.get(key, 0.0), err)
+        swap_plans[("ompr_swap", B, n, K, 0)] = plan
+    # both kernels held on both of the plans' instantiations, GOMP's
+    # exchange in rounds and its picks gathered in chunks among them
+    assert len(swap_err) == 4, sorted(swap_err)
+    gplans = [(c, p) for (kn, *c), p in swap_plans.items()
+              if kn == "gomp_append"]
+    assert any(p.R < c[3] for c, p in gplans), "no GOMP plan in rounds"
+    assert any(p.W < p.slice for _, p in gplans), "no GOMP plan in chunks"
+    print(f"[swap grid] gomp_append (k // cnt iterations and the remainder: "
+          f"a NaN row, a duplicate pick, the rtol gate, a done row, the eps "
+          f"latch) over (B, n, k, cnt) in {GOMP_CASES} and ompr_swap (the "
+          f"plain init, then {SWAPS} swaps: a NaN row, a duplicate pick, the "
+          f"rtol gate, a done row, change false, an appended atom deleted at "
+          f"once) over (B, n, K) in {SWAP_CASES}, bf16 and f32, against "
+          f"their plain versions at every launch: idx, kcnt, amask equal, "
+          f"done equal (OMPR: where res moved clearly, the rounding-tie "
+          f"rule); max |err| "
+          + ", ".join(f"{kn} {v} {e:.3e}" for (kn, v), e in swap_err.items())
+          + f" (atol {APPEND_ATOL}); plans (C, slice, staged[, R, W]): "
+          + ", ".join(f"{kn} B={B} n={n} k={k}" + (f" cnt={c}" if c else "")
+                      + f" {p.C}/{p.slice}/{int(p.staged)}"
+                      + (f"/{p.R}/{p.W}" if c else "")
+                      for (kn, B, n, k, c), p in swap_plans.items()
+                      if B in (8, 64) and (n == 1024 or n > 2000))
           + f"; {time.perf_counter() - t0:.1f} s")
 
     record = {}
@@ -3931,6 +4132,29 @@ def main():
               f"smem={p.smem} B" for key, p in eng_plan.items())
           + "; registers: " + ", ".join(f"{kn} {r}"
                                         for kn, r in eng_regs.items()))
+    # gomp_append and ompr_swap (a thread-block cluster per row): device ms
+    # per launch on their paths beside the times before the redesign and
+    # the bound at that path's shape, the plans and the registers
+    swap_dev = {"gomp_append 2a": on_path(gtm["splits"], "2a",
+                                          "gomp_append"),
+                "ompr_swap 2c": on_path(tsplit, "2c", "ompr_swap")}
+    swap_bound = {"gomp_append 2a": engine_bound(B, kg, n, appends=l),
+                  "ompr_swap 2c": engine_bound(B, ko + 1, n, appends=1,
+                                               deletes=1)}
+    swap_plan = {"gomp_append 2a": fs._gomp_plan(B, n, kg, l),
+                 "ompr_swap 2c": ft._ompr_plan(B, n, ko + 1)}
+    print("[swap kernels] device ms per launch on the paths, before the "
+          "cluster redesign in brackets (PERF.md, " + gpu + "): "
+          + ", ".join(f"{key} {v:.4f} [{SWAP_BEFORE_MS[key]:.4f}]"
+                      for key, v in swap_dev.items())
+          + "; bounds: " + ", ".join(f"{key} {v['bound_ms']:.4f}"
+                                    for key, v in swap_bound.items())
+          + "; plans: " + ", ".join(
+              f"{key} " + " ".join(f"{f}={int(v)}"
+                                   for f, v in p._asdict().items())
+              for key, p in swap_plan.items())
+          + "; registers: " + ", ".join(f"{kn} {r}"
+                                        for kn, r in swap_regs.items()))
     kernels = [
         # the top-1 select's tensor-core variant: ms is the event time per
         # call through the wrapper (one rounding launch and the sweep),
@@ -4072,7 +4296,9 @@ def main():
               l32_device_ms=gtm["select_topl32_simt_device"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
-              gtm["plain_gomp_append"], engine_bound(B, kg, n, appends=l)),
+              gtm["plain_gomp_append"], swap_bound["gomp_append 2a"],
+              device_ms=swap_dev["gomp_append 2a"],
+              plan=swap_plan["gomp_append 2a"]._asdict()),
         # the rescaled select's tensor-core variant: ms is the event time
         # per call at 3a (the stacking launch and the sweep), device_ms the
         # profiler's time of its two kernels, earlier_ms the CUDA-core
@@ -4173,7 +4399,8 @@ def main():
               plan_3b=eng_plan["engine_init 3b"]._asdict()),
         entry("ompr_swap", f"{ts_line}:1052", tl["2c"]["ompr_swap"],
               terr["ompr_swap"], tkern["ompr_swap"], tplain["ompr_swap"],
-              engine_bound(B, ko + 1, n, appends=1, deletes=1)),
+              swap_bound["ompr_swap 2c"], device_ms=swap_dev["ompr_swap 2c"],
+              plan=swap_plan["ompr_swap 2c"]._asdict()),
         entry("srr_append", f"{ts_line}:1191", tl["3b"]["srr_append"],
               terr["srr_append"], tkern["srr_append"], tplain["srr_append"],
               engine_bound(B, kr + 1, n, appends=1)),

@@ -98,6 +98,27 @@ __host__ __device__ constexpr size_t append_cluster_smem(int slice, int k,
          sizeof(float);
 }
 
+// Entries of n a block of a C-block cluster owns: a multiple of 4, the
+// last block the rest (ragged or empty).
+__host__ __device__ constexpr int cluster_slice(int n, int C) {
+  return ((n + C - 1) / C + 3) & ~3;
+}
+
+// The cluster size of the plans for B rows of length n: C = min(8, 132 /
+// B, ceil(n / 64)), so that B C fills the 132 SMs, at least 1, raised while
+// fits(C) is false (the least a block needs does not fit); at most
+// kAppendClusterMax.
+template <typename Fits>
+inline int cluster_size(int B, int n, Fits fits) {
+  const int by_sms = kSMs / (B > 0 ? B : 1);
+  const int by_n = (n + kAppendMinSlice - 1) / kAppendMinSlice;
+  int C = by_sms < kAppendClusterMax ? by_sms : kAppendClusterMax;
+  C = C < by_n ? C : by_n;
+  C = C > 1 ? C : 1;
+  while (C < kAppendClusterMax && !fits(C)) ++C;
+  return C;
+}
+
 // The plan, from (B, n, k) alone; defined in omp_append.cu. `ok` is false
 // when no cluster size up to kAppendClusterMax fits the streamed variant.
 AppendPlan append_plan(int B, int n, int k, bool* ok);

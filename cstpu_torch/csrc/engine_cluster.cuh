@@ -96,29 +96,23 @@ __host__ __device__ constexpr size_t init_cluster_smem(int slice, int K,
          sizeof(float);
 }
 
-// engine_init's static shared memory (the merge's keys, the picks) takes
-// this much of the budget besides.
+// engine_init's and gomp_append's static shared memory (the merge's keys,
+// the picks) takes this much of the budget besides.
 constexpr size_t kInitStaticSmem = 4096;
 
 // The plan of rmp_append (cnt = 0) or engine_init (cnt picks) for B rows,
-// n and K slots: append_plan's rule (C = min(8, 132 / B, ceil(n / 64)),
-// raised while the streamed variant does not fit; staged where it does).
-// `ok` is false when no cluster size up to kAppendClusterMax fits.
+// n and K slots: cluster_size with the streamed variant as the least a
+// block needs; staged where it fits. `ok` is false when no cluster size up
+// to kAppendClusterMax fits.
 inline AppendPlan engine_plan(int B, int n, int K, int cnt, bool* ok) {
   const auto bytes = [K, cnt](int S, bool staged) {
     return cnt > 0 ? init_cluster_smem(S, K, cnt, staged) + kInitStaticSmem
                    : rmp_cluster_smem(S, K, staged);
   };
-  const auto slice = [n](int c) { return ((n + c - 1) / c + 3) & ~3; };
-  const int by_sms = kSMs / (B > 0 ? B : 1);
-  const int by_n = (n + kAppendMinSlice - 1) / kAppendMinSlice;
-  int C = by_sms < kAppendClusterMax ? by_sms : kAppendClusterMax;
-  C = C < by_n ? C : by_n;
-  C = C > 1 ? C : 1;
-  while (C < kAppendClusterMax && bytes(slice(C), false) > kAppendSmemBudget) {
-    ++C;
-  }
-  const int S = slice(C);
+  const int C = cluster_size(B, n, [&](int c) {
+    return bytes(cluster_slice(n, c), false) <= kAppendSmemBudget;
+  });
+  const int S = cluster_slice(n, C);
   *ok = bytes(S, false) <= kAppendSmemBudget;
   const bool staged = bytes(S, true) <= kAppendSmemBudget;
   return AppendPlan{C, S, staged ? 1 : 0,
@@ -146,11 +140,14 @@ __device__ __forceinline__ void cluster_setup(uint64_t* full, uint64_t* second,
 // block's shared memory) to the other blocks: warp w to block rank + 1 + w
 // (mod C), each lane its entries, then an arrive on that block's `full`
 // that releases them; then wait on this block's `full` for theirs. Every
-// thread of every block calls it once, after cluster_setup and a barrier
-// that follows the writes to `mine`.
+// thread of every block calls it once an exchange, after an arrive on the
+// cluster barrier (cluster_setup's for the first; for exchange e > 0 one
+// made once the block has read exchange e - 1's partials) and a barrier
+// that follows the writes to `mine`; exchange e waits on phase e of
+// `full`, parity e & 1.
 __device__ __forceinline__ void cluster_exchange(float* mine, int count,
                                                  uint64_t* full, int C,
-                                                 int rank) {
+                                                 int rank, int parity = 0) {
   if (C == 1) return;
   cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -161,7 +158,7 @@ __device__ __forceinline__ void cluster_exchange(float* mine, int count,
     for (int q = lane; q < count; q += 32) dst[q] = mine[q];
     mbar_arrive_remote(smem_u32(full), d);
   }
-  mbar_wait_cluster(smem_u32(full), 0);
+  mbar_wait_cluster(smem_u32(full), static_cast<uint32_t>(parity));
 }
 
 // out[a] = sum_c M[a K + c] x[c] over c < ncols, for rows a < nrows, kIlp

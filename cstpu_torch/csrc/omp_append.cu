@@ -28,18 +28,11 @@
 namespace cstpu {
 
 AppendPlan append_plan(int B, int n, int k, bool* ok) {
-  const auto slice = [n](int c) { return ((n + c - 1) / c + 3) & ~3; };
-  const int by_sms = kSMs / (B > 0 ? B : 1);
-  const int by_n = (n + kAppendMinSlice - 1) / kAppendMinSlice;
-  int C = by_sms < kAppendClusterMax ? by_sms : kAppendClusterMax;
-  C = C < by_n ? C : by_n;
-  C = C > 1 ? C : 1;
   // a block of one row must hold at least the streamed variant's state
-  while (C < kAppendClusterMax &&
-         append_cluster_smem(slice(C), k, false) > kAppendSmemBudget) {
-    ++C;
-  }
-  const int S = slice(C);
+  const int C = cluster_size(B, n, [&](int c) {
+    return append_cluster_smem(cluster_slice(n, c), k, false) <= kAppendSmemBudget;
+  });
+  const int S = cluster_slice(n, C);
   *ok = append_cluster_smem(S, k, false) <= kAppendSmemBudget;
   const bool staged = append_cluster_smem(S, k, true) <= kAppendSmemBudget;
   return AppendPlan{C, S, staged ? 1 : 0, append_cluster_smem(S, k, staged)};

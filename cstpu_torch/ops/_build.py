@@ -53,6 +53,9 @@ _SIGNATURES = {
     # kcnt, done, B, n, m, k, cap, rtol, eps2, stream
     "cstpu_gomp_append": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # B, n, k, cnt, out (6 ints: C, slice, staged, smem bytes, picks a
+    # round, entries of a pick gathered at once)
+    "cstpu_gomp_plan": [_I, _I, _I, _I, _P],
     # r, U, W, P, wsign, A, cdt_bf16, cn2, amask, resc, pval, pidx, B, n,
     # m, rtol, use_mma, sb (nullable), sb_rows, stream
     "cstpu_fr_select": [_P, _P, _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _I,
@@ -71,6 +74,8 @@ _SIGNATURES = {
     # eta, delta2, stream
     "cstpu_ompr_swap": [_P, _P, _I, _P, _I, _P, *_ENG, _I, _I, _I, _I, _F,
                         _F, _F, _P],
+    # B, n, K, out (4 ints: C, slice, staged, smem bytes)
+    "cstpu_ompr_plan": [_I, _I, _I, _P],
     # pval, pidx, ntiles, A, cdt_bf16, Bs, engine state but prev, pend_u,
     # pend_w, fgate, B, n, m, K, rtol, stream
     "cstpu_srr_append": [_P, _P, _I, _P, _I, _P, *_ENG[:8], _P, _P, _P, _I,

@@ -8,8 +8,8 @@ VMEM (`_stream_kernel`). On Hopper a block has at most 227 KB of shared
 memory, while the bench dictionary (16 MB in bf16) fits the 50 MB L2. So
 the port runs a Python loop over the steps, and each step launches a select
 kernel, which sweeps the dictionary and writes per-tile partials, and an
-update kernel, one block per row, or for omp_append and fr_append a
-thread-block cluster per row (cstpu_torch/csrc):
+update kernel, one block per row, or for omp_append, fr_append and
+gomp_append a thread-block cluster per row (cstpu_torch/csrc):
 
   OMP   select_argmax  |round_cdt(r) . A_cdt| -> (max, lowest argmax) (B, T)
         omp_append     reduce, gated bordered append, residual; at the
@@ -533,6 +533,25 @@ def _append_plan(B: int, n: int, k: int) -> _AppendPlan:
     return _AppendPlan(C, slice_, bool(staged), smem)
 
 
+class _GompPlan(NamedTuple):
+    C: int        # blocks of a row's thread-block cluster
+    slice: int    # entries of n a block owns (the last block: the rest)
+    staged: bool  # the old slot columns and b staged in shared memory
+    smem: int     # dynamic shared memory of a block, bytes
+    R: int        # picks a round: one exchange of partials a round
+    W: int        # entries of a pick's slice gathered at once
+
+
+def _gomp_plan(B: int, n: int, k: int, cnt: int) -> _GompPlan:
+    """The launch plan of gomp_append for B rows, n, k slots and cnt picks,
+    as csrc/gomp_ompr_cluster.cuh::gomp_plan decides it."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.load().cstpu_gomp_plan(B, n, k, cnt, out),
+                 "cstpu_gomp_plan")
+    C, slice_, staged, smem, R, W = out
+    return _GompPlan(C, slice_, bool(staged), smem, R, W)
+
+
 def _mp_update_ref(pval, pidx, psig, Ac, x, r):
     """Plain MP step: x[i] += v, r -= v a_i per row with the winner's
     signed score v; a NaN row (index INT_MAX) is left as it is."""
@@ -611,7 +630,7 @@ def gomp_append(pval, pidx, Ac, Bs, st: _GompState, cap: int, eps2: float):
     """One GOMP iteration from the top-l partials (B, T, cnt): cnt gated
     appends into each row's slot count, the residual and the epsilon
     latch, updating `st` in place. On CUDA tensors this launches
-    csrc/gomp_append.cu."""
+    csrc/gomp_append.cu, a thread-block cluster per row (`_gomp_plan`)."""
     if _on_cpu(pval, pidx, Ac, Bs, *st):
         return _gomp_append_ref(pval, pidx, Ac, Bs, st, cap, eps2)
     B, k, n = st.cols.shape

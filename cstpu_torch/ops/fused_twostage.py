@@ -10,8 +10,8 @@ outer iteration it reads the done latch (one small device-to-host copy) and
 stops when every row is done or maxiter is reached, so the returned
 `iters` is cstpu's. Each iteration launches a select kernel, which sweeps
 the dictionary, and update kernels, one block per row, or for engine_init
-and rmp_append a thread-block cluster per row (`_engine_plan`;
-cstpu_torch/csrc):
+and rmp_append a thread-block cluster per row (`_engine_plan`; ompr_swap
+`_ompr_plan`; cstpu_torch/csrc):
 
   SP    select_topl    per-tile top-k of |round_cdt(r) . A|     (B, T, k)
         sp_round       the k acquisitions into slots k..2k-1, the blocks
@@ -622,6 +622,18 @@ def _engine_plan(B: int, n: int, K: int, cnt: int = 0) -> _AppendPlan:
     return _AppendPlan(C, slice_, bool(staged), smem)
 
 
+def _ompr_plan(B: int, n: int, K: int) -> _AppendPlan:
+    """The launch plan of ompr_swap for B rows, n and K slots, as
+    csrc/gomp_ompr_cluster.cuh::ompr_plan decides it: C blocks a row,
+    slices of n, the slot columns staged or streamed, the dynamic
+    shared memory."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().cstpu_ompr_plan(B, n, K, out),
+                 "cstpu_ompr_plan")
+    C, slice_, staged, smem = out
+    return _AppendPlan(C, slice_, bool(staged), smem)
+
+
 def _state_ptrs(st: _EngState):
     """Pointers to the engine state of the C entry points: cols, Ginv,
     coef, idx, Atb, r, amask, done, prev."""
@@ -661,7 +673,8 @@ def engine_init(pval, pidx, Ac, Bs, st: _EngState):
 def ompr_swap(pval, pidx, Ac, Bs, st: _EngState, eta: float, delta2: float):
     """One OMPR iteration from the masked select partials (B, T): append,
     gradient step, delete, refit and latch, updating `st` in place. On
-    CUDA tensors this launches csrc/ompr_swap.cu."""
+    CUDA tensors this launches csrc/ompr_swap.cu, a thread-block cluster
+    per row (`_ompr_plan`)."""
     if _on_cpu(pval, pidx, Ac, Bs, *st):
         return _ompr_swap_ref(pval, pidx, Ac, Bs, st, eta, delta2)
     B, K, n, m = _expect_engine("ompr_swap", st, Bs, Ac)

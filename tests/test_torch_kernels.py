@@ -57,6 +57,13 @@ def _problem(dev, B, n, m, k, seed=0):
 _reduce = fs._reduce_partials
 
 
+def _share(cases, B, n, m):
+    """The share of a grid of chip_smoke's (`cases`) that the SIZES entry
+    (B, n, m) holds: the parametrisations of a test over SIZES hold the
+    whole grid between them."""
+    return cases[SIZES.index((B, n, m))::len(SIZES)]
+
+
 def _key(name, A):
     """The launch-count key of the select `name` on the dictionary (view) A:
     the tensor-core variant's where the predicate takes A."""
@@ -277,6 +284,12 @@ def test_gomp_append_matches_plain_every_iteration(dev, B, n, m, cdt):
                      (stk.r, st.r), (stk.cols, st.cols)):
             torch.testing.assert_close(a[1:], b[1:], rtol=0, atol=ATOL)
     assert not (fs._sorted_solution(stk.idx, stk.coef, m).mask[0]).any()
+    # gomp_append (a thread-block cluster per row) over this entry's share
+    # of chip_smoke.GOMP_CASES: a NaN row, a duplicate pick, the rtol gate,
+    # a done row, the eps latch, the remainder iteration
+    for B2, n2, k2, cnt in _share(chip_smoke.GOMP_CASES, B, n, m):
+        err, plan = chip_smoke.hold_gomp_append(dev, B2, n2, k2, cnt, cdt)
+        assert err <= chip_smoke.APPEND_ATOL, (B2, n2, k2, cnt, plan, err)
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -486,8 +499,7 @@ def _grid_share(B, n, m, parts=1, part=0):
     kernels' grid) that the SIZES entry (B, n, m) holds, split again into
     `parts`: the parametrisations of a test hold the whole grid between
     them."""
-    share = chip_smoke.ENGINE_CASES[SIZES.index((B, n, m))::len(SIZES)]
-    return share[part::parts]
+    return _share(chip_smoke.ENGINE_CASES, B, n, m)[part::parts]
 
 
 def _hold_init_grid(dev, cases, cdt, srr):
@@ -537,6 +549,12 @@ def test_ompr_kernels_match_plain_every_iteration(dev, B, n, m, cdt):
     # engine_init (a thread-block cluster per row) over this entry's share
     # of the grid: a NaN row, a duplicate pick, the rtol gate
     _hold_init_grid(dev, _grid_share(B, n, m), cdt, False)
+    # ompr_swap (a thread-block cluster per row) over this entry's share of
+    # chip_smoke.SWAP_CASES: a NaN row, a duplicate pick, the rtol gate, a
+    # done row, change false, an appended atom deleted at once
+    for B2, n2, K2 in _share(chip_smoke.SWAP_CASES, B, n, m):
+        err, plan = chip_smoke.hold_ompr_swap(dev, B2, n2, K2, cdt)
+        assert err <= chip_smoke.APPEND_ATOL, (B2, n2, K2, plan, err)
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
