@@ -55,7 +55,11 @@ sp_round (a two-block cluster per row) at SP_ROUND_CASES, and a
 omp_append and fr_append (a thread-block cluster per row over the staged
 slot columns) are held at every step at APPEND_CASES, which take both of
 the plan's instantiations, and an [append kernels] line sets their device
-times, plans and registers beside the times before;
+times, plans and registers beside the times before; mp_update (B C blocks,
+no cluster) is held bit for bit at every step of chained MP steps at
+MP_CASES and srr_append (a cluster per row on the slot engine's core) at
+every launch at SRR_CASES, and an [mp srr kernels] line sets their device
+times, bounds, plans and registers beside the times before;
 the later kernels' device time per launch and the paths' idle share come
 from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
@@ -513,13 +517,13 @@ def check_greedy_kernels(A, Bs, Ar, Br, l, k_fr):
     assert float(x[0, 77]) == float(ps[0, 0]) and float(x[0, m - 3]) == 0
     ok = ~torch.isnan(rr).any(1)
     err["mp_update"] = float((rk[ok] - rr[ok]).abs().max())
-    assert err["mp_update"] <= APPEND_ATOL, err["mp_update"]
+    # r bit for bit: the products and differences rounded as the twin's
+    assert torch.equal(rk.nan_to_num(), rr.nan_to_num()), err["mp_update"]
     assert torch.isnan(rk[1]).any() and torch.equal(rk[1].isnan(),
                                                     rr[1].isnan())
     print(f"[mp kernels] signed select: partials equal to OMP's, tie->77, "
           f"NaN row->INT_MAX, max |signed err| {err['select_signed']:.3e}; "
-          f"mp_update x equal, max |r err| {err['mp_update']:.3e} "
-          f"(atol {APPEND_ATOL})")
+          f"mp_update x and r equal bit for bit")
 
     # --- select_topl and gomp_append (config 2a dictionary) --------------
     tv, ti = fs._topl_ref(r, Ac32, bf, l)
@@ -787,6 +791,7 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
 
     busy, per = profile_path(lambda: cstpu_torch.mp_batch(A, Bs, k))
     tm["mp_device_busy"] = busy
+    tm["mp_split"] = per
     print(f"[split mp] wall {tm['mp']:.4f} ms, device busy {busy:.4f} ms, "
           f"idle share {1.0 - busy / tm['mp']:.4f}; "
           + ", ".join(f"{name} {c}x {ms:.4f} ms"
@@ -1177,13 +1182,33 @@ PROFILED_KEYS = {"append": "omp_append", **{
 PROFILE_TRIES = 4
 
 
-def profile_path(fn, reps=1):
-    """`reps` calls of fn under torch.profiler after a warm-up: (device ms,
-    {name: (launches, device ms)}), "other" for kernels not in
-    KERNEL_NAMES. The profiler can lose kernel records: a profile whose
-    count of a PROFILED_KEYS kernel differs from the wrapper's LAUNCHES
-    count over the same calls is taken again, up to PROFILE_TRIES times,
-    and then fails."""
+def union_ms(spans):
+    """The length of the union of the (start, end) spans: time in which at
+    least one of them ran, so that two overlapping launches count once."""
+    total, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            total += t1 - max(t0, end)
+            end = t1
+    return total
+
+
+def profile_path(fn, reps=1, totals=False):
+    """`reps` calls of fn under torch.profiler after a warm-up: (device busy
+    ms, {name: (launches, device ms)}), "other" for the device work not in
+    KERNEL_NAMES (torch's kernels, copies, sets). Both come from the
+    profile's device events: the busy time is the union of their spans, so
+    that work that overlaps is counted once, and a kernel's ms the sum of
+    its spans. With `totals`, (busy, totals, per) with totals = {"union":
+    busy, "sum": the spans' sum, "key_averages": the sum of
+    self_device_time_total over prof.key_averages()}: on one stream the
+    union and the sum agree; the key_averages sum counts a torch
+    operation's kernels twice, under the operation and under the kernel.
+    The profiler can lose kernel records: a profile whose count of a
+    PROFILED_KEYS kernel differs from the wrapper's LAUNCHES count over the
+    same calls is taken again, up to PROFILE_TRIES times, and then
+    fails."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cstpu_torch.ops.fused_solve import LAUNCHES
@@ -1200,22 +1225,29 @@ def profile_path(fn, reps=1):
         launched = {PROFILED_KEYS[key]: v - before.get(key, 0)
                     for key, v in LAUNCHES.items()
                     if key in PROFILED_KEYS and v > before.get(key, 0)}
-        per, busy = {}, 0.0
-        for ev in prof.key_averages():
-            dev = getattr(ev, "self_device_time_total", 0.0)
-            if dev <= 0:
+        per, spans = {}, []
+        for ev in prof.events():
+            if (ev.device_type != DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False)):
                 continue
-            busy += dev / 1e3
+            t0, t1 = ev.time_range.start, ev.time_range.end
+            spans.append((t0, t1))
             name = next((kn for kn in KERNEL_NAMES
-                         if kn + "_kernel" in ev.key), "other")
+                         if kn + "_kernel" in ev.name), "other")
             cnt, ms = per.get(name, (0, 0.0))
-            per[name] = (cnt + (ev.count if name != "other" else 0),
-                         ms + dev / 1e3)
+            per[name] = (cnt + (name != "other"), ms + (t1 - t0) / 1e3)
+        busy = union_ms(spans) / 1e3
         lost = {name: (per.get(name, (0, 0.0))[0], c)
                 for name, c in launched.items()
                 if per.get(name, (0, 0.0))[0] != c}
         if not lost:
-            return busy, per
+            if not totals:
+                return busy, per
+            keyavg = sum(max(getattr(ev, "self_device_time_total", 0.0), 0.0)
+                         for ev in prof.key_averages()) / 1e3
+            return busy, {"union": busy, "sum": sum(ms for _, ms in
+                                                    per.values()),
+                          "key_averages": keyavg}, per
         print(f"[profile] try {attempt}: the profile's launches differ from "
               f"the wrappers' counts (profiled, launched): {lost}")
     raise AssertionError(f"the profiler lost kernel records in "
@@ -2192,6 +2224,146 @@ def hold_ompr_swap(dev, B, n, K, cdt):
                 assert torch.equal(st.idx[6], idx0[6]), (st.idx[6], idx0[6])
     if B > 1:
         assert bool(torch.isnan(st.r[1]).all()) and float(st.done[1]) == 1.0
+    return err, plan
+
+
+# mp_update's grid (csrc/mp_update.cu: B C blocks, no cluster): B = 1 and 8
+# (C = 8), 64 and 65 (C = 3); n a multiple of 4 (16-byte pieces of r) and
+# not (1001, 1003: entry by entry); n = 8192 at B = 64 (C = 4: the slices
+# capped at what a block's registers hold) and n = 4100 at B = 8 (C = 17)
+MP_CASES = [(B, n) for B in (1, 8, 64, 65) for n in (1000, 1024, 1028)] + [
+    (65, 1001), (1, 1003), (64, 8192), (8, 4100)]
+MP_M = 2000
+MP_STEPS = 4
+# srr_append's grid (csrc/srr_append.cu on engine_cluster.cuh's SRR mode):
+# K slots, l forward steps an iteration (k = max(1, K - l) kept by the
+# plain backward stage), rmp_append's plan: staged throughout the grid,
+# streamed at K = 33 from n = 3136 with C = 2 and at K = 128 with C = 8
+SRR_CASES = [(B, n, K, l) for B in (1, 8, 64, 65) for n in (1000, 1024, 1028)
+             for K in (2, 17, 33) for l in (1, 2, 4)] + [
+    (64, 4096, 33, 1), (65, 4100, 33, 2), (8, 4096, 128, 2)]
+SRR_ITERS = 2
+# device ms per launch of the two kernels before the redesign, on the
+# paths chip_smoke.py drives (PERF.md section 5, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+MP_SRR_BEFORE_MS = {"mp_update mp": 0.0038, "srr_append 3b": 0.0236}
+
+
+def hold_mp_update(dev, B, n, cdt):
+    """MP_STEPS chained MP steps on a planted problem (m = MP_M): at each
+    step the signed select on the card (bf16: the tensor-core loop and the
+    CUDA-core one in turn), then mp_update, against _mp_update_ref on the
+    same partials from the same state: x and r equal bit for bit (NaN where the twin has NaN). Row 1 is
+    a NaN row (x and r untouched); row 2 is 3 a_100, whose twin a_1500 lies
+    in another tile (the tie goes to 100). Returns the plan."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    gen = torch.Generator(device=dev).manual_seed(19 * B + n)
+    m = MP_M
+    A, Bs, _ = planted(gen, B, n, m, 4)
+    A[:, 1500] = A[:, 100]
+    if B > 1:
+        Bs[1, 3] = float("nan")
+    if B > 2:
+        Bs[2] = 3.0 * A[:, 100]
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    x = torch.zeros((B, m), device=dev)
+    r = Bs.clone()
+    for t in range(MP_STEPS):
+        xr, rr = x.clone(), r.clone()
+        mma = cdt == torch.bfloat16 and t % 2 == 0
+        parts = fs.select_argmax(r, Ac, signed=True, mma=mma)
+        fs.mp_update(*parts, Ac, x, r)
+        fs._mp_update_ref(*parts, Ac32, xr, rr)
+        torch.cuda.synchronize()
+        assert torch.equal(x, xr), (B, n, t, float((x - xr).abs().max()))
+        assert torch.equal(r.isnan(), rr.isnan()) and torch.equal(
+            r.nan_to_num(), rr.nan_to_num()), (B, n, t)
+        if t == 0 and B > 2:
+            assert int(fs._reduce_partials(*parts[:2])[1][2]) == 100
+    if B > 1:
+        assert not x[1].any() and torch.equal(r[1].nan_to_num(),
+                                              Bs[1].nan_to_num())
+    if B > 2:
+        assert float(x[2, 1500]) == 0.0 and float(x[2, 100]) != 0.0
+    return fs._mp_plan(B, n)
+
+
+def hold_srr_append(dev, B, n, K, l, cdt):
+    """srr_append against its plain version at every launch, each from
+    identical state (the plain one's), on _engine_problem with K slots:
+    the plain init (k = max(1, K - l) picks), then SRR_ITERS iterations of
+    l forward steps on the plain pending-term select and the plain
+    backward stage back to k. Row 1 is a NaN row; at the first step row 2's
+    pick is its slot-0 atom again (a duplicate) and row 3's the twin m-1 of
+    its atom m-2 (the rtol gate); row 4's forward gate is shut and row 5
+    is done from the start; row 6 starts full (K atoms). idx, amask,
+    fgate, done equal; cols, Ginv, coef, Atb, r, resc and pending slot 0
+    within APPEND_ATOL. Returns (max |err|, the plan)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    A, Bs, gen = _engine_problem(dev, B, n, K, 17 * B + n + 3 * K + l)
+    m = ENGINE_M
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    k = max(1, K - l)
+    cnt = min(k, fs.LMAX)
+    st = ft._init_engine(Bs, K, m, cn2, npend=max(cnt, l + 1))
+    ft._engine_init_ref(*fs._topl_ref(Bs, Ac32, cdt, cnt), Ac32, Bs, st)
+    if B > 4:
+        st.fgate[4] = 0.0
+    if B > 5:
+        st.done[5] = 1.0
+    if B > 6:
+        _full_row(st, 6, Ac32, Bs, torch.randperm(m - 2, generator=gen,
+                                                  device=dev)[:K])
+    plan = ft._engine_plan(B, n, K)
+    err, npend, step = 0.0, cnt, 0
+    for _ in range(SRR_ITERS):
+        for _ in range(l):
+            pv, pi = fs._rescaled_select_ref(
+                Ac32, cn2, st.r, st.pend_u[:npend], st.pend_w[:npend], 1.0,
+                st.amask, st.resc, cdt)
+            if step == 0:
+                for row, atom in ((2, int(st.idx[2, 0]) if B > 2 else 0),
+                                  (3, m - 1)):
+                    if row < B:
+                        pv[row], pi[row] = 1.0, atom
+            pre = _clone(st)
+            stk = _clone(st)
+            ft.srr_append(pv, pi, Ac, Bs, stk)
+            ft._srr_append_ref(pv, pi, Ac32, Bs, st)
+            torch.cuda.synchronize()
+            err = max(err, _engine_err(
+                stk, st, ["cols", "Ginv", "coef", "Atb", "r", "resc"],
+                ["idx", "amask", "fgate", "done"]))
+            e = max(_nan_err(stk.pend_w[:1], st.pend_w[:1]),
+                    _nan_err(stk.pend_u[:1], st.pend_u[:1]))
+            assert e <= APPEND_ATOL, ("pending", step, e)
+            err = max(err, e)
+            if step == 0 and B > 5:
+                # the closed rows as they were, their pending slot 0 zero
+                for row in (4, 5):
+                    assert all(torch.equal(x[row].nan_to_num(),
+                                           y[row].nan_to_num())
+                               for name, x, y in zip(st._fields, stk, pre)
+                               if x is not None and name not in (
+                                   "pend_u", "pend_w"))
+                    assert not stk.pend_u[0, row].any()
+                    assert float(stk.pend_w[0, row]) == 0.0
+                if B > 6:   # the full row refused, its gate shut
+                    assert float(stk.fgate[6]) == 0.0
+            npend = 1
+            step += 1
+        ft._engine_delete_ref(Bs, st, k, l, 0.0)
+        npend = l + 1
+    if B > 3:
+        assert bool(torch.isnan(st.r[1]).all())
+        assert int(st.idx[3, 0]) == m - 2 and not bool((st.idx[3] == m - 1).any())
+        assert int((st.idx[2] == st.idx[2, 0]).sum()) == 1
     return err, plan
 
 
@@ -3755,6 +3927,7 @@ def main():
     app_regs = {}  # registers of omp_append's and fr_append's kernels
     eng_regs = {}  # ... and of rmp_append's and engine_init's
     swap_regs = {}  # ... and of gomp_append's and ompr_swap's
+    mps_regs = {}  # ... and of mp_update's and srr_append's
     # the tensor-core selects by name: rows per block (NB), epilogue mode
     # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem;
     # the rescaled ones by row groups G, product slots Pn (wgmma's N is
@@ -3779,7 +3952,9 @@ def main():
                         r"|(?:omp|fr|rmp|gomp)_append_kernelI"
                         r"(?:13__nv_bfloat16|f)Lb[01]E"
                         r"|ompr_swap_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
-                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)Lb[01]E)",
+                        r"|engine_init_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
+                        r"|srr_append_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
+                        r"|mp_update_kernelI(?:13__nv_bfloat16|f)E)",
                         line)
         if got:
             name = (got[1].replace("Lb1E", " staged")
@@ -3788,7 +3963,9 @@ def main():
                     .replace("If", " f32").rstrip("E").replace("_kernel", ""))
             print(f"[build latency] {name}: {props}")
             regs = re.search(r"Used (\d+) registers", props)[1]
-            if name.startswith(("rmp", "engine_init")):
+            if name.startswith(("mp_update", "srr_append")):
+                mps_regs[name] = regs
+            elif name.startswith(("rmp", "engine_init")):
                 eng_regs[name] = regs
             elif name.startswith(("gomp", "ompr")):
                 swap_regs[name] = regs
@@ -3807,7 +3984,10 @@ def main():
     _, Bg, ng, _, kg, lg = GOMP_CELL
     print(f"[build latency] plans: gomp_append at {GOMP_CELL[0]} "
           f"{fs._gomp_plan(Bg, ng, kg, lg)._asdict()}, ompr_swap at "
-          f"{OMPR_CELL[0]} {ft._ompr_plan(Bg, ng, OMPR_CELL[1] + 1)._asdict()}")
+          f"{OMPR_CELL[0]} {ft._ompr_plan(Bg, ng, OMPR_CELL[1] + 1)._asdict()}"
+          f", mp_update at {MP_CELL[0]} "
+          f"{fs._mp_plan(MP_CELL[1], MP_CELL[2])._asdict()}, srr_append at "
+          f"{SRR_CELL[0]} {ft._engine_plan(Bg, ng, SRR_CELL[1] + 1)._asdict()}")
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -3898,6 +4078,42 @@ def main():
                       + f" {p.C}/{p.slice}/{int(p.staged)}"
                       + (f"/{p.R}/{p.W}" if c else "")
                       for (kn, B, n, k, c), p in swap_plans.items()
+                      if B in (8, 64) and (n == 1024 or n > 2000))
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mp_plans, srr_err, srr_plans = {}, {}, {}
+    for (B, n), cdt in itertools.product(MP_CASES,
+                                         (torch.bfloat16, torch.float32)):
+        mp_plans[(B, n)] = hold_mp_update(dev, B, n, cdt)
+    for (B, n, K, l), cdt in itertools.product(
+            SRR_CASES, (torch.bfloat16, torch.float32)):
+        err, plan = hold_srr_append(dev, B, n, K, l, cdt)
+        key = "staged" if plan.staged else "streamed"
+        srr_err[key] = max(srr_err.get(key, 0.0), err)
+        srr_plans[(B, n, K)] = plan
+    # srr_append held on both of the plan's instantiations; mp_update with r
+    # in 16-byte pieces and entry by entry, and with slices capped by the
+    # registers (C above ceil(132 / B))
+    assert len(srr_err) == 2, sorted(srr_err)
+    assert {n % 4 == 0 for _, n in MP_CASES} == {True, False}
+    assert any(p.C > -(-132 // B) for (B, _), p in mp_plans.items())
+    print(f"[mp srr grid] mp_update ({MP_STEPS} chained steps of the signed "
+          f"select, both loops, then mp_update: a NaN row, a tie across "
+          f"tiles) over (B, n) in {MP_CASES}, m={MP_M}, bf16 and f32: x and "
+          f"r equal to the plain version's bit for bit; plans (C, slice): "
+          + ", ".join(f"B={B} n={n} {p.C}/{p.slice}"
+                      for (B, n), p in mp_plans.items())
+          + f". srr_append (the plain init, {SRR_ITERS} iterations of l "
+          f"forward steps and the plain backward stage: a NaN row, a done "
+          f"row, a shut forward gate, a duplicate pick, the rtol twin, a full "
+          f"state) over (B, n, K, l) in {SRR_CASES}, bf16 and f32, against "
+          f"its plain version at every launch: idx, amask, fgate, done "
+          f"equal; max |err| "
+          + ", ".join(f"{v} {e:.3e}" for v, e in srr_err.items())
+          + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
+          + ", ".join(f"B={B} n={n} K={K} {p.C}/{p.slice}/{int(p.staged)}"
+                      for (B, n, K), p in srr_plans.items()
                       if B in (8, 64) and (n == 1024 or n > 2000))
           + f"; {time.perf_counter() - t0:.1f} s")
 
@@ -4155,6 +4371,33 @@ def main():
               for key, p in swap_plan.items())
           + "; registers: " + ", ".join(f"{kn} {r}"
                                         for kn, r in swap_regs.items()))
+    # mp_update (B C blocks) and srr_append (a thread-block cluster per row
+    # on engine_cluster.cuh's SRR mode): device ms per launch on their
+    # paths beside the times before the redesign and the bounds, the plans
+    # and the registers
+    mp_cnt, mp_ms = gtm["mp_split"]["mp_update"]
+    mps_dev = {"mp_update mp": mp_ms / mp_cnt,
+               "srr_append 3b": on_path(tsplit, "3b", "srr_append")}
+    mp_bound = bound(B * (T * 12 + n * 2 + 2 * n * 4 + 8), 2 * B * n, "f32")
+    mps_bound = {"mp_update mp": mp_bound,
+                 "srr_append 3b": engine_bound(B, kr + 1, n, appends=1)}
+    mps_plan = {"mp_update mp": fs._mp_plan(B, n),
+                "srr_append 3b": ft._engine_plan(B, n, kr + 1)}
+    print("[mp srr kernels] device ms per launch on the paths, before the "
+          "redesign in brackets (PERF.md, " + gpu + "): "
+          + ", ".join(f"{key} {v:.4f} [{MP_SRR_BEFORE_MS[key]:.4f}]"
+                      for key, v in mps_dev.items())
+          + "; bounds: " + ", ".join(f"{key} {v['bound_ms']:.4f}"
+                                    for key, v in mps_bound.items())
+          + "; plans: " + ", ".join(
+              f"{key} " + " ".join(f"{f}={int(v)}"
+                                   for f, v in p._asdict().items())
+              for key, p in mps_plan.items())
+          + "; mp_update launched without a dependent launch (taken out: "
+          "the mp solve's device busy did not drop with it, PERF.md "
+          "section 6)"
+          + "; registers: " + ", ".join(f"{kn} {r}"
+                                        for kn, r in mps_regs.items()))
     kernels = [
         # the top-1 select's tensor-core variant: ms is the event time per
         # call through the wrapper (one rounding launch and the sweep),
@@ -4237,9 +4480,14 @@ def main():
               m131072_device_ms=app_dev["omp_append 5b"],
               plan=app_plan["omp_append"]._asdict(),
               registers=app_regs),
+        # ms is the event time per call through the wrapper; device_ms the
+        # profiler's on the path; plan the launch's grid (B C blocks)
         entry("mp_update", 874, paths["mp"]["mp_update"], gerr["mp_update"],
-              gtm["mp_update"], gtm["plain_mp_update"],
-              bound(B * (T * 12 + n * 2 + 2 * n * 4 + 8), 2 * B * n, "f32")),
+              gtm["mp_update"], gtm["plain_mp_update"], mp_bound,
+              device_ms=mps_dev["mp_update mp"],
+              plan=mps_plan["mp_update mp"]._asdict(),
+              registers={kn: r for kn, r in mps_regs.items()
+                         if kn.startswith("mp_update")}),
         # the top-l select's tensor-core variant at 2a (l=4) and at 2b's
         # l=32: ms per call by events (the rounding launch and the sweep),
         # device_ms the profiler's, earlier_ms the CUDA-core variant on the
@@ -4401,9 +4649,15 @@ def main():
               terr["ompr_swap"], tkern["ompr_swap"], tplain["ompr_swap"],
               swap_bound["ompr_swap 2c"], device_ms=swap_dev["ompr_swap 2c"],
               plan=swap_plan["ompr_swap 2c"]._asdict()),
+        # ms is the profiler's device time per launch on the path; plan the
+        # launch's cluster (rmp_append's plan)
         entry("srr_append", f"{ts_line}:1191", tl["3b"]["srr_append"],
-              terr["srr_append"], tkern["srr_append"], tplain["srr_append"],
-              engine_bound(B, kr + 1, n, appends=1)),
+              max(terr["srr_append"], srr_err["staged"],
+                  srr_err["streamed"]), tkern["srr_append"],
+              tplain["srr_append"], mps_bound["srr_append 3b"],
+              plan=mps_plan["srr_append 3b"]._asdict(),
+              registers={kn: r for kn, r in mps_regs.items()
+                         if kn.startswith("srr_append")}),
         entry("engine_delete", f"{ts_line}:1191", tl["3b"]["engine_delete"],
               terr["engine_delete"], tkern["engine_delete"],
               tplain["engine_delete"],

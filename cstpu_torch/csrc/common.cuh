@@ -101,6 +101,18 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i, float& s) {
   }
 }
 
+// warp_argmax with its payload, the result in every lane: a butterfly of
+// xor shuffles. argmax_combine is a total order, so every lane of every
+// warp that combines the same pairs reaches the same bits.
+__device__ __forceinline__ void warp_argmax_all(float& v, int& i, float& s) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
+    const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    argmax_combine(v, i, s, v2, i2, s2);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) {
     x += __shfl_down_sync(0xffffffffu, x, off);
@@ -441,30 +453,6 @@ __device__ __forceinline__ float residual_row(float* __restrict__ rb,
     rr += rp * rp;
   }
   return rr;
-}
-
-// Reduce one row's (B, T) select partials to (max, lowest argmax) with
-// argmax_combine; every thread gets the result. red_v/red_i hold one entry
-// per warp.
-__device__ __forceinline__ void reduce_partials_row(const float* pvb,
-                                                    const int* pib,
-                                                    int ntiles, float* red_v,
-                                                    int* red_i, float& v,
-                                                    int& i) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = -INFINITY;
-  i = INT_MAX;
-  for (int e = threadIdx.x; e < ntiles; e += blockDim.x) argmax_combine(v, i, pvb[e], pib[e]);
-  warp_argmax(v, i);
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  v = red_v[0];
-  i = red_i[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) argmax_combine(v, i, red_v[w], red_i[w]);
-  __syncthreads();
 }
 
 // Sum of x over the 32 lanes of a warp; every lane gets it.

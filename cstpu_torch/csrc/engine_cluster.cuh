@@ -1,5 +1,5 @@
-// The slot engine's appends (rmp_append.cu, engine_init.cu) as a
-// thread-block cluster per row over staged slot columns.
+// The slot engine's appends (rmp_append.cu, srr_append.cu, engine_init.cu)
+// as a thread-block cluster per row over staged slot columns.
 //
 // The math is engine.cuh's (engine_append, engine_aperp, engine_delete,
 // engine_refit, engine_backward_loop, on common.cuh::bordered_append); what
@@ -236,8 +236,12 @@ struct RmpArgs {
 };
 
 // One RMP forward step (FoBa: and its deletions) of one row, run by every
-// thread of every block of the row's cluster (rmp_append.cu).
-template <typename T, bool kStaged>
+// thread of every block of the row's cluster (rmp_append.cu). With kSrr, one
+// SRR forward step (srr_append.cu): the gate reads no floor and no gain
+// threshold (rr > 0 && vmax > 0), and the step writes no capped, acc or
+// ndel and deletes nothing; a.floor2, a.acc, a.capped, a.ndel may be null
+// and a.foba is not read. The RMP and FoBa instantiations are unchanged.
+template <typename T, bool kStaged, bool kSrr = false>
 __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
   constexpr int nw = kAppendThreads / 32;
   constexpr int kIlp = 4;
@@ -296,7 +300,8 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
     pi[j] = e < a.ntiles ? pib[e] : INT_MAX;
   }
   const int ix_r = tid < K ? a.idx[(size_t)b * K + tid] : 0;
-  const float floor2 = a.floor2[b];
+  const float floor2 = kSrr ? 0.f : a.floor2[b];
+  const bool foba = !kSrr && a.foba;
   const bool closed = a.done[b] > 0.5f || a.fgate[b] < 0.5f;
 
   // --- the staging: Ginv, coef, Atb, the slices of b and r and (kStaged)
@@ -316,9 +321,9 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
   if (closed) {
     for (int i = tid; i < L; i += kAppendThreads) ub[p0 + i] = 0.f;
     if (rank == 0) {
-      const int last = a.foba ? K : 0;
+      const int last = foba ? K : 0;
       for (int e = tid; e <= last; e += kAppendThreads) a.pend_w[(size_t)e * B + b] = 0.f;
-      if (a.foba && tid == 0) a.ndel[b] = 0.f;
+      if (foba && tid == 0) a.ndel[b] = 0.f;
     }
     cp_async_wait_all();
     if (C > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
@@ -447,7 +452,7 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
 
   // --- the gate, in every warp alike --------------------------------------
   const float ata = sc[0], beta = sc[1], rr = sc[2];
-  const bool wanted = rr > floor2 && vmax > a.delta2 && nat < min(n, m);
+  const bool wanted = rr > floor2 && vmax > (kSrr ? 0.f : a.delta2) && nat < min(n, m);
   const bool is_full = nat >= K;
   float gu = 0.f;
   for (int c = lane; c < K; c += 32) gu += g[c] * u[c];
@@ -497,9 +502,9 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
   }
   if (rank == 0 && tid == 0) {
     a.pend_w[b] = -dinv;
-    if (wanted && is_full) a.capped[b] = 1.f;
+    if (!kSrr && wanted && is_full) a.capped[b] = 1.f;
     if (ok) {
-      a.acc[b] = 1.f;
+      if (!kSrr) a.acc[b] = 1.f;
       if (sel < m) a.amask[(size_t)b * m + sel] = 1;
     } else {
       a.fgate[b] = 0.f;
@@ -510,7 +515,7 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
   // (engine_backward_loop with kfinal < 0), K-sized in every block alike;
   // each block writes its slice of the restore terms, and of r after the
   // last deletion ------------------------------------------------------------
-  if (a.foba) {
+  if (foba) {
     int nd = 0;
     if (ok) {
       const float thr = max_keep_nan(vmax, 0.f) * 0.25f;

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "cstpu_append_plan": [_I, _I, _I, _P],
     # pval, pidx, psig, ntiles, A, cdt_bf16, x, r, B, n, m, stream
     "cstpu_mp_update": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P],
+    # B, n, out (3 ints: C, slice, threads a block)
+    "cstpu_mp_plan": [_I, _I, _P],
     # r, A, cdt_bf16, pval, pidx, B, n, m, l, use_mma, rb (nullable), stream
     "cstpu_select_topl": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # pval, pidx, ntiles, cnt, A, cdt_bf16, Bs, cols, Ginv, coef, idx, r,

@@ -9,7 +9,8 @@ memory, while the bench dictionary (16 MB in bf16) fits the 50 MB L2. So
 the port runs a Python loop over the steps, and each step launches a select
 kernel, which sweeps the dictionary and writes per-tile partials, and an
 update kernel, one block per row, or for omp_append, fr_append and
-gomp_append a thread-block cluster per row (cstpu_torch/csrc):
+gomp_append a thread-block cluster per row, for mp_update a grid of
+several blocks per row (cstpu_torch/csrc):
 
   OMP   select_argmax  |round_cdt(r) . A_cdt| -> (max, lowest argmax) (B, T)
         omp_append     reduce, gated bordered append, residual; at the
@@ -565,9 +566,24 @@ def _mp_update_ref(pval, pidx, psig, Ac, x, r):
     r.copy_(torch.where(live[:, None], r - v[:, None] * acol, r))
 
 
+class _MpPlan(NamedTuple):
+    C: int        # blocks a row (a grid of B C blocks, no cluster)
+    slice: int    # entries of n a block owns (the last block: the rest)
+    threads: int  # threads a block
+
+
+def _mp_plan(B: int, n: int) -> _MpPlan:
+    """The launch plan of mp_update for B rows of length n, as
+    csrc/mp_update.cu::mp_plan decides it."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.load().cstpu_mp_plan(B, n, out), "cstpu_mp_plan")
+    return _MpPlan(*out)
+
+
 def mp_update(pval, pidx, psig, Ac, x, r):
     """MP step from the signed select partials: updates x (B, m) and r
-    (B, n) f32 in place. On CUDA tensors this launches csrc/mp_update.cu."""
+    (B, n) f32 in place. On CUDA tensors this launches csrc/mp_update.cu,
+    B C blocks (`_mp_plan`)."""
     if _on_cpu(pval, pidx, psig, Ac, x, r):
         return _mp_update_ref(pval, pidx, psig, Ac, x, r)
     B, n = r.shape

@@ -9,9 +9,9 @@ loop an in-kernel while loop over a per-row done latch. Here the outer loop runs
 outer iteration it reads the done latch (one small device-to-host copy) and
 stops when every row is done or maxiter is reached, so the returned
 `iters` is cstpu's. Each iteration launches a select kernel, which sweeps
-the dictionary, and update kernels, one block per row, or for engine_init
-and rmp_append a thread-block cluster per row (`_engine_plan`; ompr_swap
-`_ompr_plan`; cstpu_torch/csrc):
+the dictionary, and update kernels, one block per row, or for engine_init,
+rmp_append and srr_append a thread-block cluster per row (`_engine_plan`;
+ompr_swap `_ompr_plan`; cstpu_torch/csrc):
 
   SP    select_topl    per-tile top-k of |round_cdt(r) . A|     (B, T, k)
         sp_round       the k acquisitions into slots k..2k-1, the blocks
@@ -611,10 +611,11 @@ def _ptr(x):
 
 
 def _engine_plan(B: int, n: int, K: int, cnt: int = 0) -> _AppendPlan:
-    """The launch plan of rmp_append (cnt = 0) and engine_init (cnt picks)
-    for B rows, n and K slots, as csrc/engine_cluster.cuh::engine_plan
-    decides it: C blocks a row, slices of n, the slot columns (engine_init:
-    the picked ones) staged or streamed, the dynamic shared memory."""
+    """The launch plan of rmp_append and srr_append (cnt = 0) and
+    engine_init (cnt picks) for B rows, n and K slots, as
+    csrc/engine_cluster.cuh::engine_plan decides it: C blocks a row, slices
+    of n, the slot columns (engine_init: the picked ones) staged or
+    streamed, the dynamic shared memory."""
     out = (ctypes.c_int * 4)()
     _build.check(_build.load().cstpu_engine_plan(B, n, K, cnt, out),
                  "cstpu_engine_plan")
@@ -696,7 +697,8 @@ def srr_append(pval, pidx, Ac, Bs, st: _EngState):
     """One SRR forward step from the rescaled select partials (B, T): the
     gated append, the refit and the append's pending term (slot 0),
     updating `st` in place. On CUDA tensors this launches
-    csrc/srr_append.cu."""
+    csrc/srr_append.cu, a thread-block cluster per row (`_engine_plan`,
+    rmp_append's plan)."""
     if _on_cpu(pval, pidx, Ac, Bs, *st):
         return _srr_append_ref(pval, pidx, Ac, Bs, st)
     B, K, n, m = _expect_engine("srr_append", st, Bs, Ac)

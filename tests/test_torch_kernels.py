@@ -212,7 +212,13 @@ def test_signed_select_and_mp_update_match_plain(dev, B, n, m, cdt):
     fs._mp_update_ref(pv, pi, ps, Ac.float(), xr, rr)
     torch.cuda.synchronize()
     assert torch.equal(x, xr) and not x[0].any()
-    torch.testing.assert_close(rk, rr, rtol=0, atol=1e-6, equal_nan=True)
+    # bit for bit: the kernel rounds each product and difference as the twin
+    torch.testing.assert_close(rk, rr, rtol=0, atol=0, equal_nan=True)
+    # mp_update (B C blocks a row) over this entry's share of
+    # chip_smoke.MP_CASES: chained steps of the signed select and the
+    # update, a NaN row, a tie across tiles, x and r bit for bit
+    for B2, n2 in _share(chip_smoke.MP_CASES, B, n, m):
+        chip_smoke.hold_mp_update(dev, B2, n2, cdt)
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)
@@ -604,6 +610,12 @@ def test_srr_kernels_match_plain_every_step(dev, B, n, m, cdt, l):
     # engine_init with SRR's pending terms over this entry's share of the
     # grid, halved between l = 1 and 2
     _hold_init_grid(dev, _grid_share(B, n, m, 2, l - 1), cdt, True)
+    # srr_append (a thread-block cluster per row) over this entry's share of
+    # chip_smoke.SRR_CASES, halved the same way: a NaN row, a done row, a
+    # shut forward gate, a duplicate pick, the rtol twin, a full state
+    for B2, n2, K2, l2 in _share(chip_smoke.SRR_CASES, B, n, m)[l - 1::2]:
+        err, plan = chip_smoke.hold_srr_append(dev, B2, n2, K2, l2, cdt)
+        assert err <= chip_smoke.APPEND_ATOL, (B2, n2, K2, l2, plan, err)
 
 
 @pytest.mark.parametrize("B,n,m", SIZES)

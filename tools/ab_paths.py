@@ -5,22 +5,57 @@ checkout, for A/B runs of two checkouts on the same card.
 
 ROOT is a checkout of the repo (this one, or another unpacked with `git
 archive` into a directory that .gitignore lists); its cstpu_torch is
-built from its own sources and imported. TAG labels the output lines. The
+built from its own sources and imported. The problems and the profiling
+are this script's own checkout's chip_smoke.py (loaded from its file), so
+two checkouts are measured alike. TAG labels the output lines. The
 paths are chip_smoke.py's, on its problems (seed 0, NVIDIA H100 shapes):
 the bench OMP solve, suite configs 2a (gomp_batch), 2b (sp_batch), 2c
 (ompr_batch), 3a (fr_batch), 3b (srr_batch), each profiled over three
 solves, 3e (fbr_batch at B = 8 and 64) over one, 5b (omp_batch at
-m = 131072) and 3d (rmp_batch and foba_batch at B = 8 and 64) over three.
-Each line gives the device busy ms per solve (torch.profiler), the wall ms
-per solve (host clock, the same solves again unprofiled) and, per kernel,
-its launches per solve and its device ms per launch (torch.profiler). Run two checkouts alternately in one call (A, B,
-B, A): a card's speed varies between calls.
+m = 131072), 3d (rmp_batch and foba_batch at B = 8 and 64) and mp
+(mp_batch at the bench size, chip_smoke.MP_CELL) over three.
+Each line gives the update kernels' registers, the device busy ms per
+solve (torch.profiler: the union of the device spans; beside it their
+sum, and the sum over key_averages that chip_smoke.py reported before,
+which counts torch's kernels twice), the wall ms per solve (host clock,
+the same solves again unprofiled) and, per kernel, its launches per solve
+and its device ms per launch (torch.profiler). Run two checkouts
+alternately in one call (A, B, B, A): a card's speed varies between
+calls.
 """
 
+import importlib.util
 import os
+import re
 import sys
 import time
 from pathlib import Path
+
+
+def own_chip_smoke():
+    """This checkout's chip_smoke.py, whatever ROOT is."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def update_registers(log):
+    """(kernel, registers) of the update kernels' instantiations in an
+    nvcc -Xptxas -v log, by their mangled names' stems."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        got = re.search(r"Function properties for _ZN5cstpu\d+(\w+?_kernel)"
+                        r"I(13__nv_bfloat16|f)(Lb[01]E)?", line)
+        regs = re.search(r"Used (\d+) registers", " ".join(lines[i + 1:i + 3]))
+        if got and regs and not got[1].startswith(
+                ("select", "fr_select", "fr_step", "stream")):
+            cdt = "bf16" if got[2].startswith("13") else "f32"
+            inst = {"Lb1E": " staged", "Lb0E": " streamed"}.get(got[3], "")
+            out.append((f"{got[1][:-7]} {cdt}{inst}", int(regs[1])))
+    return out
 
 
 def main():
@@ -31,15 +66,17 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_paths: needs an NVIDIA GPU")
-    import chip_smoke as cs
+    cs = own_chip_smoke()
     import cstpu_torch
     from cstpu_torch.ops import _build
     from cstpu_torch.utils.data import correlated_data, sparse_data
 
     assert _build.PKG.parent == Path(root), _build.PKG
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build()
+    _, log = _build.build()
     print(f"[ab {tag}] {cs.gpu_line()}")
+    print(f"[ab {tag}] registers: " + ", ".join(
+        f"{kn} {regs}" for kn, regs in update_registers(log)))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     _, B, n, m, k = cs.MP_CELL
@@ -47,14 +84,16 @@ def main():
     Bg, _ = cs.planted_ones(gen, A, B, cs.GOMP_CELL[4])
 
     def show(name, fn, reps=3):
-        busy, per = cs.profile_path(fn, reps)
+        busy, tot, per = cs.profile_path(fn, reps, totals=True)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-        print(f"[ab {tag}] {name} busy/solve {busy / reps:.4f} ms, "
-              f"wall/solve {wall:.4f} ms: " + ", ".join(
+        print(f"[ab {tag}] {name} busy/solve {busy / reps:.4f} ms (sum "
+              f"{tot['sum'] / reps:.4f}, key_averages "
+              f"{tot['key_averages'] / reps:.4f}), wall/solve {wall:.4f} ms: "
+              + ", ".join(
             f"{kn} {c // reps}x {ms / c if c else ms / reps:.4f}"
             for kn, (c, ms) in sorted(per.items())), flush=True)
 
@@ -98,6 +137,13 @@ def main():
             A3, Bs3, delta=delta, kmax=kmax))
         show(f"3d foba B={B3}", lambda: cstpu_torch.foba_batch(
             A3, Bs3, delta, kmax=kmax))
+    del A3, Bs3
+    # mp on a generator of its own too: mp_batch on chip_smoke's MP problem
+    # (the bench's planted rows, unit-norm dictionary)
+    _, Bm, nm, mm, km = cs.MP_CELL
+    genm = torch.Generator(device=dev).manual_seed(cs.SEED)
+    Am, Bsm, _ = cs.planted(genm, Bm, nm, mm, km)
+    show("mp", lambda: cstpu_torch.mp_batch(Am, Bsm, km))
 
 
 if __name__ == "__main__":
