@@ -59,7 +59,13 @@ times, plans and registers beside the times before; mp_update (B C blocks,
 no cluster) is held bit for bit at every step of chained MP steps at
 MP_CASES and srr_append (a cluster per row on the slot engine's core) at
 every launch at SRR_CASES, and an [mp srr kernels] line sets their device
-times, bounds, plans and registers beside the times before;
+times, bounds, plans and registers beside the times before; engine_delete
+and engine_backward (a cluster per row on the slot engine's deletions) are
+held at every launch at DELETE_CASES (engine_backward under both of its
+rules), engine_backward is timed in a deleting stage of its own (3d's
+state after its forward stage, down to DELETE_KFINAL atoms a row), and a
+[delete kernels] line sets their device times, bounds from the data,
+plans and registers beside the times before;
 the later kernels' device time per launch and the paths' idle share come
 from torch.profiler. Every kernel's time stands beside its bound
 on an H100 (the bytes it must move over 3.35 TB/s, or its operations over
@@ -2367,6 +2373,288 @@ def hold_srr_append(dev, B, n, K, l, cdt):
     return err, plan
 
 
+# engine_delete's and engine_backward's grid (csrc/engine_cluster.cuh's
+# deletions on engine_plan(B, n, K, 0), the plan of srr_append and
+# rmp_append): B = 1, 8 (C = 8) and 64, 65 (C = 2); n a multiple of the
+# slices and not; K slots with l deletions an SRR iteration (k = max(1,
+# min(K - l, LMAX)) atoms kept); staged throughout the grid, streamed at
+# K = 33 with C = 2 (n = 4096) and at K = 128 with C = 8 (n = 4096).
+# engine_backward runs at each (B, n, K) once per rule.
+DELETE_CASES = [(B, n, K, l) for B in (1, 8, 64, 65)
+                for n in (1000, 1024, 1028) for K in (2, 17, 33)
+                for l in (1, 2, 4)] + [(64, 4096, 33, 1), (8, 4096, 128, 2)]
+DELETE_RULES = ("delta", "k")
+# the timed deleting stage: 3d's 16 atoms a row down to this many
+DELETE_KFINAL = 8
+# device ms per launch of the two kernels before the cluster redesign, on
+# the paths chip_smoke.py drives (PERF.md sections 5 and 6, NVIDIA H100
+# 80GB HBM3, 700.00 W)
+DELETE_BEFORE_MS = {"engine_delete 3b": 0.0174,
+                    "engine_backward 3d rmp B=8": 0.0059,
+                    "engine_backward 3d rmp B=64": 0.0060}
+
+
+def _tie_row(st, row, Bs):
+    """Row `row` of the engine state (and of Bs) set to K orthonormal slot
+    columns, the unit vectors e_0 .. e_{K-1} (atoms 0 .. K-1): Ginv = I and
+    coef = Atb = b[:K], with b[0] = b[1] = 0.5 and b[q] = 1 + q beyond, so
+    that slots 0 and 1 tie for the least score (0.25, bit for bit), slot 0
+    going first, and every other slot scores 4 or more."""
+    K, n = st.cols.shape[1:]
+    dev = Bs.device
+    Bs[row, :K] = 1.0 + torch.arange(K, dtype=torch.float32, device=dev)
+    Bs[row, :2] = 0.5
+    st.cols[row] = torch.eye(K, n, device=dev)
+    st.Ginv[row] = torch.eye(K, device=dev)
+    st.Atb[row] = Bs[row, :K]
+    st.coef[row] = Bs[row, :K]
+    st.idx[row] = torch.arange(K, dtype=torch.int32, device=dev)
+    st.amask[row] = 0
+    st.amask[row, :K] = 1
+    st.r[row] = Bs[row] - st.coef[row] @ st.cols[row]
+
+
+def hold_engine_delete(dev, B, n, K, l, cdt):
+    """engine_delete against its plain version at every launch, each from
+    identical state (the plain one's), on _engine_problem with K slots: the
+    plain init (k picks), then SRR_ITERS iterations of l plain forward
+    steps and the backward stage (l deletions back to k). Row 1 is a NaN
+    row; row 4's forward gate is shut, so its deletions are gated off (zero
+    terms); row 5 is done; row 6 starts full (K atoms) and row 7 holds K
+    orthonormal columns whose slots 0 and 1 tie (_tie_row). idx and amask
+    equal, done and fgate where ||r||^2 moved clearly; cols, Ginv, coef,
+    Atb, r, prev and pending slots 1..l within APPEND_ATOL, NaN where the
+    plain version has NaN. Returns (max |err|, the plan, the most
+    deletions of a row in one launch)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    A, Bs, gen = _engine_problem(dev, B, n, K, 29 * B + n + 7 * K + l)
+    m = ENGINE_M
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    k = max(1, min(K - l, fs.LMAX))
+    st = ft._init_engine(Bs, K, m, cn2, npend=max(k, l + 1))
+    ft._engine_init_ref(*fs._topl_ref(Bs, Ac32, cdt, k), Ac32, Bs, st)
+    if B > 5:
+        st.done[5] = 1.0
+    if B > 6:
+        _full_row(st, 6, Ac32, Bs, torch.randperm(m - 2, generator=gen,
+                                                  device=dev)[:K])
+    if B > 7:
+        _tie_row(st, 7, Bs)
+    delta2 = 1e-4
+    plan = ft._engine_plan(B, n, K)
+    err, most = 0.0, 0
+    for it in range(SRR_ITERS):
+        if B > 4:
+            st.fgate[4] = 0.0
+        npend = k if it == 0 else l + 1
+        for _ in range(l):
+            ft._srr_append_ref(*fs._rescaled_select_ref(
+                Ac32, cn2, st.r, st.pend_u[:npend], st.pend_w[:npend], 1.0,
+                st.amask, st.resc, cdt), Ac32, Bs, st)
+            npend = 1
+        pre, prev0 = _clone(st), st.prev.clone()
+        stk = _clone(st)
+        ft.engine_delete(Bs, stk, k, l, delta2)
+        ft._engine_delete_ref(Bs, st, k, l, delta2)
+        torch.cuda.synchronize()
+        err = max(err, _engine_err(stk, st, ["cols", "Ginv", "coef", "Atb",
+                                             "r", "prev"], ["idx", "amask"]))
+        clear = (st.prev - prev0).abs() > LATCH_RTOL * prev0.abs()
+        for name in ("done", "fgate"):
+            assert torch.equal(getattr(stk, name)[clear],
+                               getattr(st, name)[clear]), (name, it)
+        e = max(_nan_err(stk.pend_w[1:l + 1], st.pend_w[1:l + 1]),
+                _nan_err(stk.pend_u[1:l + 1], st.pend_u[1:l + 1]))
+        assert e <= APPEND_ATOL, ("pending", it, e)
+        err = max(err, e)
+        nd = (pre.idx < m).sum(1) - (st.idx < m).sum(1)
+        most = max(most, int(nd.max()))
+        if B > 5:   # the done row as it was, its pending slots zero
+            assert all(torch.equal(x[5].nan_to_num(), y[5].nan_to_num())
+                       for name, x, y in zip(st._fields, stk, pre)
+                       if x is not None and not name.startswith("pend"))
+            assert not stk.pend_u[1:l + 1, 5].any()
+            assert not stk.pend_w[1:l + 1, 5].any()
+        if B > 4:   # the gated-off deletions' terms are zero
+            assert int(nd[4]) == 0 and not stk.pend_w[1:l + 1, 4].any()
+            assert not stk.pend_u[1:l + 1, 4].any()
+        if it == 0 and B > 6:   # the full row back to k atoms, at most l
+            assert int(nd[6]) == min(l, K - k), nd[6]
+        if it == 0 and B > 7:   # the tie goes to slot 0, then slot 1
+            assert int(stk.idx[7, 0]) == m and float(stk.pend_w[1, 7]) == 1.0
+            if l > 1 and K - 1 > k:
+                assert int(stk.idx[7, 1]) == m
+    if B > 1:   # a NaN row deletes nothing and never latches
+        assert bool(torch.isnan(st.r[1]).all()) and float(st.done[1]) == 0.0
+    return err, plan, most
+
+
+def hold_engine_backward(dev, B, n, K, cdt, rule):
+    """engine_backward against its plain version from identical state (the
+    plain one's after the plain RMP forward stage to rejection at delta
+    0.15 on _engine_problem with K slots): rule "delta" deletes while the
+    increase < 1 (about half the unit planted atoms), rule "k" down to
+    kfinal = 1 atom. Row 3 is 10 (a_5 + a_6), whose two gains are ~100: it
+    rejects at once under the delta rule, with a forward step accepted. Row 1
+    is a NaN row and row 2 is empty (its forward gate shut from the start):
+    both reject at once and latch done; row 5 is done (its pending weights
+    set to 0.5, which the stage must zero); row 6 starts full (K atoms) and
+    row 7 holds K orthonormal columns whose slots 0 and 1 tie (_tie_row).
+    idx, amask, ndel, done, fgate, acc equal; cols, Ginv, coef, Atb, r
+    within APPEND_ATOL, the pending weights 1..K everywhere and their
+    vectors where the weight is not 0; a row that rejects at once keeps its
+    state and r bit for bit. Returns (max |err|, the plan, the most
+    deletions of a row)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    A, Bs, gen = _engine_problem(dev, B, n, K, 31 * B + n + 3 * K
+                                 + DELETE_RULES.index(rule))
+    m = ENGINE_M
+    if B > 3:
+        Bs[3] = 10.0 * (A[:, 5] + A[:, 6])
+    Ac = A.to(cdt).contiguous()
+    Ac32 = Ac.float()
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+    st = ft._init_engine(Bs, K, m, cn2, npend=K + 1, stepwise=True)
+    if B > 2:
+        st.fgate[2] = 0.0
+    steps = 0
+    while bool(((st.fgate > 0.5) & (st.done < 0.5)).any()):
+        assert steps < K + 2, steps
+        ft._rmp_append_ref(*fs._rescaled_select_ref(
+            Ac32, cn2, st.r, st.pend_u[:1], st.pend_w[:1], 1.0, st.amask,
+            st.resc, cdt), Ac32, Bs, st, 0.15 ** 2, floor2, False)
+        steps += 1
+    if B > 5:
+        st.done[5] = 1.0
+        st.pend_w[:, 5] = 0.5
+    if B > 6:
+        _full_row(st, 6, Ac32, Bs, torch.randperm(m - 2, generator=gen,
+                                                  device=dev)[:K])
+        st.acc[6] = 1.0
+    if B > 7:
+        _tie_row(st, 7, Bs)
+        st.acc[7] = 1.0
+    delta2, kfinal = (1.0, -1) if rule == "delta" else (0.0, 1)
+    plan = ft._engine_plan(B, n, K)
+    pre, stk = _clone(st), _clone(st)
+    ft.engine_backward(Bs, stk, delta2, kfinal)
+    ft._engine_backward_ref(Bs, st, delta2, kfinal)
+    torch.cuda.synchronize()
+    err = _engine_err(stk, st, ["cols", "Ginv", "coef", "Atb", "r"],
+                      ["idx", "amask", "ndel", "done", "fgate", "acc"])
+    e = _nan_err(stk.pend_w[1:K + 1], st.pend_w[1:K + 1])
+    live = (st.pend_w[1:K + 1] != 0)[:, :, None].expand(-1, -1, n)
+    e = max(e, _nan_err(stk.pend_u[1:K + 1][live], st.pend_u[1:K + 1][live]))
+    assert e <= APPEND_ATOL, ("pending", e)
+    err = max(err, e)
+    # the rows that reject at once: latched, their state and r untouched
+    for row in (1, 2) + ((3,) if rule == "delta" else ()):
+        if row < B:
+            assert float(stk.ndel[row]) == 0.0, row
+            assert all(torch.equal(getattr(stk, name)[row].nan_to_num(),
+                                   getattr(pre, name)[row].nan_to_num())
+                       for name in ("cols", "Ginv", "coef", "idx", "Atb",
+                                    "r", "amask")), row
+    if B > 2:
+        assert float(stk.done[1]) == float(stk.done[2]) == 1.0
+    if B > 3 and rule == "delta":
+        assert float(stk.done[3]) == 0.0 and float(stk.fgate[3]) == 1.0
+    if B > 5:
+        assert float(stk.ndel[5]) == 0.0 and not stk.pend_w[1:K + 1, 5].any()
+        assert all(torch.equal(getattr(stk, name)[5], getattr(pre, name)[5])
+                   for name in ("cols", "Ginv", "coef", "idx", "Atb", "r"))
+    if B > 7:   # the tie goes to slot 0, then slot 1
+        assert int(stk.idx[7, 0]) == m and float(stk.pend_w[1, 7]) == 1.0
+        want = 2 if rule == "delta" else K - 1
+        assert int(stk.ndel[7]) == want, stk.idx[7]
+        assert want < 2 or int(stk.idx[7, 1]) == m, stk.idx[7]
+    if rule == "k":   # every row down to at most one atom
+        assert bool(((stk.idx < m).sum(1) <= 1)[stk.done < 0.5].all())
+    return err, plan, int(st.ndel.max())
+
+
+def delete_bound(B, K, n, nd, nat, srr=False):
+    """engine_delete or engine_backward on a K-slot state, from this run's
+    data: every row reads coef, idx and Ginv's diagonal and its latches and
+    writes its latches and K pending weights; a row that deletes (nd[b] >
+    0; with `srr` every row, which writes r and its latch) also reads
+    Ginv, Atb, b and its nat[b] occupied slot columns and writes Ginv,
+    coef, idx, Atb, r and, a deletion, a restore term and a cleared column.
+    Operations: a deletion v over the live slots (2 nat n), the downdate
+    and the refit (5 K^2), and r once (2 nat n); all f32."""
+    nbytes, flops = B * 4 * (4 * K + 5), 0
+    for d, a in zip(nd, nat):
+        if d > 0 or srr:
+            nbytes += 4 * (2 * K * K + 4 * K + 2 * n + a * n) + d * 8 * n
+            flops += d * (2 * a * n + 5 * K * K) + 2 * a * n
+    return bound(nbytes, flops, "f32")
+
+
+def deleting_state(A, Bs, kmax, delta):
+    """3d's state after its forward stage, on the card: rescaled_select and
+    rmp_append to rejection from the empty kmax-slot state, as
+    rmp_batch(delta=delta, kmax=kmax) runs them."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import fused_twostage as ft
+
+    n, m = A.shape
+    Ac = A.to(torch.bfloat16).contiguous()
+    cn2 = torch.sum(A * A, dim=0)
+    floor2 = 64.0 * n * (1.1920929e-07 ** 2) * torch.sum(Bs * Bs, dim=1)
+    st = ft._init_engine(Bs, kmax, m, cn2, npend=kmax + 1, stepwise=True)
+    for _ in range(kmax + 1):
+        ft.rmp_append(*fs.rescaled_select(Ac, cn2, st.r, st.pend_u[:1],
+                                          st.pend_w[:1], 1.0, st.amask,
+                                          st.resc),
+                      Ac, Bs, st, delta * delta, floor2, False)
+        if not bool((st.fgate > 0.5).any()):
+            break
+    return st
+
+
+def deleting_times(A, problems):
+    """engine_backward's deleting stage, which no timed path runs: from 3d's
+    state after its forward stage (deleting_state: its k planted atoms a
+    row) at each batch size, the k rule down to DELETE_KFINAL atoms, k -
+    DELETE_KFINAL deletions a row. Held once against its plain version
+    (idx, ndel equal, the rest within APPEND_ATOL); then TIMED_LAUNCHES
+    launches, each on a fresh copy of the state, under torch.profiler.
+    Returns {B: {"ms": device ms per launch, "bound": delete_bound's, "ndel":
+    deletions a row, "plan": the launch's plan}}."""
+    from cstpu_torch.ops import fused_twostage as ft
+
+    _, n, m, k, delta, kmax = STEP_CELL
+    out = {}
+    for B, Bs in problems.items():
+        st = deleting_state(A, Bs, kmax, delta)
+        nat = (st.idx < m).sum(1)
+        assert bool((nat == k).all()), nat
+        stk, ref = _clone(st), _clone(st)
+        ft.engine_backward(Bs, stk, 0.0, DELETE_KFINAL)
+        ft._engine_backward_ref(Bs, ref, 0.0, DELETE_KFINAL)
+        torch.cuda.synchronize()
+        _engine_err(stk, ref, ["cols", "Ginv", "coef", "Atb", "r"],
+                    ["idx", "amask", "ndel", "done", "fgate"])
+        nd = k - DELETE_KFINAL
+        assert bool((stk.ndel == nd).all()), stk.ndel
+        _, per = profile_path(
+            lambda: ft.engine_backward(Bs, _clone(st), 0.0, DELETE_KFINAL),
+            TIMED_LAUNCHES)
+        cnt, ms = per["engine_backward"]
+        assert cnt == TIMED_LAUNCHES, cnt
+        out[B] = {"ms": ms / cnt, "ndel": nd,
+                  "bound": delete_bound(B, kmax, n, [nd] * B, [k] * B),
+                  "plan": ft._engine_plan(B, n, kmax)}
+    return out
+
+
 def stepwise_paths(A, gen):
     """rmp_batch (delta) and foba_batch of config 3d once each per batch
     size with zeroed launch counts: the counts against the formulas for the
@@ -3928,6 +4216,7 @@ def main():
     eng_regs = {}  # ... and of rmp_append's and engine_init's
     swap_regs = {}  # ... and of gomp_append's and ompr_swap's
     mps_regs = {}  # ... and of mp_update's and srr_append's
+    del_regs = {}  # ... and of engine_delete's and engine_backward's
     # the tensor-core selects by name: rows per block (NB), epilogue mode
     # (0 |s|, 1 signed, 2 masked, 3 +M), then registers, spills, static smem;
     # the rescaled ones by row groups G, product slots Pn (wgmma's N is
@@ -3954,17 +4243,24 @@ def main():
                         r"|ompr_swap_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
                         r"|engine_init_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
                         r"|srr_append_kernelI(?:13__nv_bfloat16|f)Lb[01]E"
+                        r"|engine_(?:delete|backward)_kernelILb[01]E"
                         r"|mp_update_kernelI(?:13__nv_bfloat16|f)E)",
                         line)
         if got:
-            name = (got[1].replace("Lb1E", " staged")
-                    .replace("Lb0E", " streamed").replace("ILb1E", " held")
-                    .replace("ILb0E", " walked").replace("I13__nv_", " ")
+            name = (got[1].replace("bw_select_kernelILb1E", "bw_select held")
+                    .replace("bw_select_kernelILb0E", "bw_select walked")
+                    .replace("_kernelILb1E", " staged")
+                    .replace("_kernelILb0E", " streamed")
+                    .replace("Lb1E", " staged")
+                    .replace("Lb0E", " streamed").replace("I13__nv_", " ")
                     .replace("If", " f32").rstrip("E").replace("_kernel", ""))
             print(f"[build latency] {name}: {props}")
             regs = re.search(r"Used (\d+) registers", props)[1]
             if name.startswith(("mp_update", "srr_append")):
                 mps_regs[name] = regs
+            elif name.startswith(("engine_delete", "engine_backward")):
+                spill = re.search(r"(\d+) bytes spill stores", props)[1]
+                del_regs[name] = f"{regs} (spill stores {spill} B)"
             elif name.startswith(("rmp", "engine_init")):
                 eng_regs[name] = regs
             elif name.startswith(("gomp", "ompr")):
@@ -4117,6 +4413,44 @@ def main():
                       if B in (8, 64) and (n == 1024 or n > 2000))
           + f"; {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    del_err, del_plans, del_most = {}, {}, {}
+    for (B, n, K, l), cdt in itertools.product(
+            DELETE_CASES, (torch.bfloat16, torch.float32)):
+        err, plan, most = hold_engine_delete(dev, B, n, K, l, cdt)
+        key = ("engine_delete", "staged" if plan.staged else "streamed")
+        del_err[key] = max(del_err.get(key, 0.0), err)
+        del_most["engine_delete"] = max(del_most.get("engine_delete", 0), most)
+        del_plans[(B, n, K)] = plan
+    for (B, n, K), cdt, rule in itertools.product(
+            dict.fromkeys(c[:3] for c in DELETE_CASES),
+            (torch.bfloat16, torch.float32), DELETE_RULES):
+        err, plan, most = hold_engine_backward(dev, B, n, K, cdt, rule)
+        key = ("engine_backward", "staged" if plan.staged else "streamed")
+        del_err[key] = max(del_err.get(key, 0.0), err)
+        del_most["engine_backward"] = max(del_most.get("engine_backward", 0),
+                                          most)
+    # both kernels held on both of the plan's instantiations
+    assert len(del_err) == 4, sorted(del_err)
+    print(f"[delete grid] engine_delete (the plain init, {SRR_ITERS} "
+          f"iterations of l plain forward steps and the stage: a NaN row, a "
+          f"done row, gated-off deletions, a full row, two slots tied; up to "
+          f"{del_most['engine_delete']} deletions a launch) over (B, n, K, l) "
+          f"in {DELETE_CASES} and engine_backward (the plain forward stage, "
+          f"then rules {DELETE_RULES}: increase < 1, and down to one atom; a "
+          f"NaN row, an empty row and a row with gains of ~100 that reject "
+          f"at once, a done row, a full row, two slots tied; up to "
+          f"{del_most['engine_backward']} deletions a row) over its (B, n, "
+          f"K), bf16 and f32, against their plain versions at every launch: "
+          f"idx, amask, ndel, acc equal, done and fgate equal (SRR: where "
+          f"||r||^2 moved clearly); max |err| "
+          + ", ".join(f"{kn} {v} {e:.3e}" for (kn, v), e in del_err.items())
+          + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
+          + ", ".join(f"B={B} n={n} K={K} {p.C}/{p.slice}/{int(p.staged)}"
+                      for (B, n, K), p in del_plans.items()
+                      if B in (8, 64) and (n == 1024 or n > 2000))
+          + f"; {time.perf_counter() - t0:.1f} s")
+
     record = {}
     for name, B, n, m, k in CELLS:
         t0 = time.perf_counter()
@@ -4171,6 +4505,7 @@ def main():
     serr = check_stepwise_kernels(A, gen)
     spaths, sprob = stepwise_paths(A, gen)
     stm, ssplit, splain = stepwise_times(A, sprob, gpu)
+    dtm = deleting_times(A, sprob)
     print(f"[stepwise] done in {time.perf_counter() - t0:.1f} s")
     del Ar, Br, Bg, sprob
     torch.cuda.empty_cache()
@@ -4398,6 +4733,44 @@ def main():
           "section 6)"
           + "; registers: " + ", ".join(f"{kn} {r}"
                                         for kn, r in mps_regs.items()))
+    # engine_delete and engine_backward (a thread-block cluster per row on
+    # engine_cluster.cuh's deletions): device ms per launch on their paths
+    # (3d's backward stage deletes nothing) and in the timed deleting stage,
+    # beside the times before the redesign, the bounds from the data, the
+    # plans and the registers
+    d_big = f"3d rmp B={big}"
+    del_dev = {"engine_delete 3b": on_path(tsplit, "3b", "engine_delete"),
+               "engine_backward 3d rmp B=8": on_path(ssplit, d_rmp,
+                                                     "engine_backward"),
+               "engine_backward 3d rmp B=64": on_path(ssplit, d_big,
+                                                      "engine_backward"),
+               **{f"engine_backward deleting B={b}": v["ms"]
+                  for b, v in dtm.items()}}
+    del_bound = {"engine_delete 3b": engine_bound(B, kr + 1, n, deletes=1),
+                 "engine_backward 3d rmp B=8": delete_bound(
+                     B0, K3, n3, [0] * B0, [k3] * B0),
+                 "engine_backward 3d rmp B=64": delete_bound(
+                     big, K3, n3, [0] * big, [k3] * big),
+                 **{f"engine_backward deleting B={b}": v["bound"]
+                    for b, v in dtm.items()}}
+    del_plan = {"engine_delete 3b": ft._engine_plan(B, n, kr + 1),
+                "engine_backward B=8": ft._engine_plan(B0, n3, K3),
+                "engine_backward B=64": ft._engine_plan(big, n3, K3)}
+    print("[delete kernels] device ms per launch on the paths and in the "
+          f"deleting stage ({k3} atoms a row down to {DELETE_KFINAL}), before "
+          "the cluster redesign in brackets (PERF.md, " + gpu + "): "
+          + ", ".join(f"{key} {v:.4f}" + (f" [{DELETE_BEFORE_MS[key]:.4f}]"
+                                          if key in DELETE_BEFORE_MS else "")
+                      for key, v in del_dev.items())
+          + "; bounds from the data: " + ", ".join(
+              f"{key} {v['bound_ms']:.6f} ({v['bound_by']})"
+              for key, v in del_bound.items())
+          + "; plans: " + ", ".join(
+              f"{key} " + " ".join(f"{f}={int(v)}"
+                                   for f, v in p._asdict().items())
+              for key, p in del_plan.items())
+          + "; registers: " + ", ".join(f"{kn} {r}"
+                                        for kn, r in del_regs.items()))
     kernels = [
         # the top-1 select's tensor-core variant: ms is the event time per
         # call through the wrapper (one rounding launch and the sweep),
@@ -4658,10 +5031,16 @@ def main():
               plan=mps_plan["srr_append 3b"]._asdict(),
               registers={kn: r for kn, r in mps_regs.items()
                          if kn.startswith("srr_append")}),
+        # ms is the profiler's device time per launch on the path; plan the
+        # launch's cluster (rmp_append's plan)
         entry("engine_delete", f"{ts_line}:1191", tl["3b"]["engine_delete"],
-              terr["engine_delete"], tkern["engine_delete"],
-              tplain["engine_delete"],
-              engine_bound(B, kr + 1, n, deletes=1)),
+              max(terr["engine_delete"], del_err[("engine_delete", "staged")],
+                  del_err[("engine_delete", "streamed")]),
+              del_dev["engine_delete 3b"], tplain["engine_delete"],
+              del_bound["engine_delete 3b"],
+              plan=del_plan["engine_delete 3b"]._asdict(),
+              registers={kn: r for kn, r in del_regs.items()
+                         if kn.startswith("engine_delete")}),
         # the stepwise and backward kernels: ms is the profiler's device
         # time per launch on the B=8 path, the bound that launch's
         entry("rmp_append", f"{ts_line}:1368",
@@ -4683,13 +5062,23 @@ def main():
               plan_b64=eng_plan["rmp_append B=64"]._asdict()),
         entry("engine_backward", f"{ts_line}:1368",
               sum(v["engine_backward"] for v in sl.values()),
-              serr["engine_backward"],
-              on_path(ssplit, d_rmp, "engine_backward"),
+              max(serr["engine_backward"],
+                  del_err[("engine_backward", "staged")],
+                  del_err[("engine_backward", "streamed")]),
+              del_dev["engine_backward 3d rmp B=8"],
               splain["engine_backward"],
-              # this run's stage deletes nothing: the scores and the latch
-              engine_bound(B0, K3, n3, refits=0),
+              # this run's stage deletes nothing: the first scores and the
+              # latch
+              del_bound["engine_backward 3d rmp B=8"],
               paths={f"{name}_batch B={b}": v["engine_backward"]
-                     for (name, b), v in sl.items() if name == "rmp"}),
+                     for (name, b), v in sl.items() if name == "rmp"},
+              b64_ms=del_dev["engine_backward 3d rmp B=64"],
+              **{f"deleting_b{b}_{key}": val for b, v in dtm.items()
+                 for key, val in (("ms", v["ms"]), ("ndel", v["ndel"]),
+                                  ("bound_ms", v["bound"]["bound_ms"]))},
+              plan=del_plan["engine_backward B=8"]._asdict(),
+              registers={kn: r for kn, r in del_regs.items()
+                         if kn.startswith("engine_backward")}),
         entry("bw_select", "cstpu/ops/fused_backward.py:184",
               sum(v["bw_select"] for v in bl.values()), berr["bw_select"],
               on_path(bsplit, d_fbr, "bw_select"),

@@ -3,9 +3,10 @@
 //
 // One launch is one step t: the row's select partials give the pick sel,
 // slot t takes it (the slot equals the step, slots > t are still zero),
-// and the gated bordered append of common.cuh::bordered_append runs with
-// gslots = t, then the residual (and FR's aperp). The math is
-// bordered_append's and residual_row's; what differs is where it runs.
+// and the gated bordered append of cstpu/ops/fused_solve.py (:165-201,
+// :587-611; plain twin cstpu_torch/ops/fused_solve.py::
+// _bordered_append_ref) runs with the cross terms over slots < t, then
+// the residual (and FR's aperp); what differs is where it runs.
 //
 // What bounds it on an H100: latency. A step moves a few hundred KB at
 // B = 64 (the row's t live slot columns, one dictionary column gathered at

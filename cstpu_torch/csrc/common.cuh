@@ -1,8 +1,7 @@
 // Shared device helpers of the batched kernels: the select tile width, cdt
 // rounding, the argmax rule of cstpu/ops/fused_solve.py::_solve_kernel
-// (:157-163), the staging of the select's rows of r, the gated bordered
-// append that OMP, GOMP, FR and the two-stage slot engine share (:165-201,
-// :749-785, :587-611; fused_twostage.py:138-190), the top-l epilogue of a
+// (:157-163), the staging of the select's rows of r, warp and block sums,
+// the cp.async, mbarrier and cluster-barrier PTX, the top-l epilogue of a
 // select block and the merge of select_topl partials (a warp-sorted top 32
 // and a tree of merges).
 #pragma once
@@ -285,174 +284,6 @@ inline cudaError_t prefer_l1(F* kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               static_cast<int>(cudaSharedmemCarveoutMaxL1));
-}
-
-// Shared-memory workspace of one row's append (one block per row).
-struct AppendSmem {
-  float* acol;  // n: the gathered, cdt-rounded column in f32
-  float* Gs;    // k * k: Ginv of the row, updated in place
-  float* g;     // k: cols . acol
-  float* u;     // k: Ginv g
-  float* cf;    // k: coefficients, updated in place
-  int* ix;      // k: support slots, updated in place
-  float* sc;    // 4: ata, beta, dinv, step
-  int* flag;    // 1: ok
-};
-
-// Dynamic shared memory that carves an AppendSmem (sc, flag are static).
-__host__ __device__ constexpr size_t append_smem_bytes(int n, int k) {
-  return (size_t)(n + k * k + 3 * k) * sizeof(float) + k * sizeof(int);
-}
-
-__device__ __forceinline__ AppendSmem carve_append_smem(float* smem, int n,
-                                                        int k, float* sc,
-                                                        int* flag) {
-  AppendSmem s;
-  s.acol = smem;
-  s.Gs = s.acol + n;
-  s.g = s.Gs + k * k;
-  s.u = s.g + k;
-  s.cf = s.u + k;
-  s.ix = reinterpret_cast<int*>(s.cf + k);
-  s.sc = sc;
-  s.flag = flag;
-  return s;
-}
-
-// The gated bordered append of one row, the engine of _solve_kernel
-// (:165-201), _gomp_kernel's append_one (:757-784), _fr_kernel (:587-611)
-// and fused_twostage.py::_Engine.append (:138-190). Appends atom `sel`
-// (INT_MAX from a NaN row; gathered at min(sel, m-1)) into `slot`:
-//   acol = A[:, sel] in cdt, upcast; ata, beta = acol.b,
-//   g = cols[:gslots].acol (0 beyond): the insertion-order solvers pass
-//   gslots = slot (later slots are still zero), the slot engine, whose
-//   occupied slots may lie above the free one, gslots = k
-//   u = Ginv g, d = ata - g.u, ok = pre && !dup && d > rtol * ata
-//   Ginv += dinv w w' - okf e e', w = u - e_slot; coef -= s w;
-//   idx[slot] = sel and cols[slot] = acol * okf when slot < k.
-// `slot` == k (a full GOMP row) writes nothing; `pre` must then be false.
-// Ginv, coef and idx live in shared memory (s.Gs, s.cf, s.ix); cols (k, n)
-// of the row in device memory. Every thread calls it; it ends with a
-// barrier and returns ok. s.acol and s.u keep the column and u.
-template <typename T>
-__device__ bool bordered_append(const AppendSmem& s, const T* __restrict__ A,
-                                const float* __restrict__ bb,
-                                float* __restrict__ colsb, int n, int m,
-                                int k, int sel, int slot, int gslots, bool pre,
-                                float rtol) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int ic = min(sel, m - 1);
-
-  for (int p = tid; p < n; p += blockDim.x) s.acol[p] = to_f32(A[(size_t)p * m + ic]);
-  __syncthreads();
-
-  // g = cols . acol over slots < gslots, ata, beta
-  for (int q = warp; q < k + 2; q += nwarps) {
-    float acc = 0.f;
-    if (q < gslots && q < k) {
-      const float* cs = colsb + (size_t)q * n;
-      for (int p = lane; p < n; p += 32) acc += cs[p] * s.acol[p];
-    } else if (q == k) {
-      for (int p = lane; p < n; p += 32) acc += s.acol[p] * s.acol[p];
-    } else if (q == k + 1) {
-      for (int p = lane; p < n; p += 32) acc += s.acol[p] * bb[p];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      if (q < k) s.g[q] = acc;
-      else s.sc[q - k] = acc;
-    }
-  }
-  __syncthreads();
-
-  if (tid < k) {
-    float acc = 0.f;
-    for (int c = 0; c < k; ++c) acc += s.Gs[tid * k + c] * s.g[c];
-    s.u[tid] = acc;
-  }
-  __syncthreads();
-
-  // gate and step scalars
-  if (tid == 0) {
-    float gu = 0.f, gc = 0.f;
-    bool dup = false;
-    for (int c = 0; c < k; ++c) {
-      gu += s.g[c] * s.u[c];
-      gc += s.g[c] * s.cf[c];
-      dup |= (s.ix[c] == sel);
-    }
-    const float ata = s.sc[0], beta = s.sc[1];
-    const float d = ata - gu;
-    const bool ok = pre && !dup && (d > rtol * ata);
-    const float okf = ok ? 1.f : 0.f;
-    const float dinv = okf / (d > 0.f ? d : 1.f);
-    s.sc[2] = dinv;
-    s.sc[3] = dinv * (beta - gc);
-    *s.flag = ok;
-  }
-  __syncthreads();
-  const float dinv = s.sc[2], step = s.sc[3];
-  const bool ok = *s.flag;
-  const float okf = ok ? 1.f : 0.f;
-
-  // bordered block-inverse update, coefficients, support, column
-  for (int e = tid; e < k * k; e += blockDim.x) {
-    const int a = e / k, c = e % k;
-    const float wa = s.u[a] - (a == slot ? 1.f : 0.f);
-    const float wc = s.u[c] - (c == slot ? 1.f : 0.f);
-    s.Gs[e] = s.Gs[e] + dinv * wa * wc - ((a == slot && c == slot) ? okf : 0.f);
-  }
-  if (tid < k) {
-    const float w = s.u[tid] - (tid == slot ? 1.f : 0.f);
-    s.cf[tid] -= step * w;
-    if (tid == slot && ok) s.ix[tid] = sel;
-  }
-  if (slot < k) {
-    for (int p = tid; p < n; p += blockDim.x) colsb[(size_t)slot * n + p] = s.acol[p] * okf;
-  }
-  __syncthreads();
-  return ok;
-}
-
-// Per-row staging of the append state between device memory and the
-// AppendSmem: Ginv (k, k), coef (k), idx (k) of row b.
-__device__ __forceinline__ void load_append_state(const AppendSmem& s,
-                                                  const float* Gb,
-                                                  const float* coefb,
-                                                  const int* idxb, int k) {
-  for (int e = threadIdx.x; e < k * k; e += blockDim.x) s.Gs[e] = Gb[e];
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    s.cf[e] = coefb[e];
-    s.ix[e] = idxb[e];
-  }
-}
-
-__device__ __forceinline__ void store_append_state(const AppendSmem& s,
-                                                   float* Gb, float* coefb,
-                                                   int* idxb, int k) {
-  for (int e = threadIdx.x; e < k * k; e += blockDim.x) Gb[e] = s.Gs[e];
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    coefb[e] = s.cf[e];
-    idxb[e] = s.ix[e];
-  }
-}
-
-// r = b - sum_s cols[s] coef[s] for one row (coef in shared memory).
-// Returns this thread's share of ||r||^2.
-__device__ __forceinline__ float residual_row(float* __restrict__ rb,
-                                              const float* __restrict__ bb,
-                                              const float* __restrict__ colsb,
-                                              const float* cf, int n, int k) {
-  float rr = 0.f;
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < k; ++s) acc += colsb[(size_t)s * n + p] * cf[s];
-    const float rp = bb[p] - acc;
-    rb[p] = rp;
-    rr += rp * rp;
-  }
-  return rr;
 }
 
 // Sum of x over the 32 lanes of a warp; every lane gets it.

@@ -1,10 +1,12 @@
-// The slot engine's appends (rmp_append.cu, srr_append.cu, engine_init.cu)
-// as a thread-block cluster per row over staged slot columns.
+// The slot engine's launches as a thread-block cluster per row over staged
+// slot columns: the appends (rmp_append.cu, srr_append.cu, engine_init.cu)
+// and the backward deletions (engine_delete.cu, engine_backward.cu).
 //
-// The math is engine.cuh's (engine_append, engine_aperp, engine_delete,
-// engine_refit, engine_backward_loop, on common.cuh::bordered_append); what
-// differs is where it runs, and for the init the order of its sums. The
-// cluster, the cp.async staging and the launch are append_cluster.cuh's,
+// The math is that of cstpu/ops/fused_twostage.py::_Engine (append
+// :138-190, backward_min :126-136, delete_ep :192-216, refit_residual
+// :218-223) and of its plain twins in cstpu_torch/ops/fused_twostage.py;
+// what differs is where it runs, and for the init the order of its sums.
+// The cluster, the cp.async staging and the launch are append_cluster.cuh's,
 // which the insertion-order appends of omp_append.cu and fr_append.cu run
 // on.
 //
@@ -49,7 +51,10 @@
 // only before that block's wait on the barrier it arrives on, so a block
 // may leave before the rest. Every block reads the row's state before it
 // sends and writes it only after it has received, which is after every
-// other block has sent.
+// other block has sent. The deletion kernels have no exchange of partials
+// (engine_delete sends only its share of ||r||^2, one way, to rank 0): a
+// cluster barrier, arrived at once a block has read the row's state and
+// waited on before its first write of it, gives them that order.
 #pragma once
 
 #include "append_cluster.cuh"
@@ -207,6 +212,157 @@ __device__ __forceinline__ int live_slots(const int* ix, int K, int m,
   return nl;
 }
 
+// Start cp.async copies of this block's slices (entries p0 .. p0+L-1) of
+// the row's occupied slot columns (idx < m; a free slot's column is zero
+// and nothing reads it before it is written) into cs[q * S]: warp w the
+// slots w, w + 8, ..., its lanes along the slice, 16-byte pieces with v16.
+__device__ __forceinline__ void stage_occupied(float* cs, const float* colsb,
+                                               const int* ix, int K, int m,
+                                               int n, int p0, int L, int S,
+                                               bool v16) {
+  constexpr int nw = kAppendThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int q_ = warp; q_ < K; q_ += nw) {
+    if (ix[q_] >= m) continue;
+    const float* src = colsb + (size_t)q_ * n + p0;
+    if (v16) {
+      for (int i = 4 * lane; i < L; i += 128) cp_async16(cs + q_ * S + i, src + i);
+    } else {
+      for (int i = lane; i < L; i += 32) cp_async4(cs + q_ * S + i, src + i);
+    }
+  }
+}
+
+// ------------------------------------------------------------ deletions ----
+
+// The next deletion's score, in every warp alike (backward_min): the least
+// coef^2 / max(Ginv_pp, 1e-30) over the occupied slots (dmin: NaN if a
+// score is NaN, inf if no slot is occupied), its slot p (the lowest on
+// ties; K when there is none, a NaN minimum included) and, with kNat, the
+// number of occupied slots nat (else 0). Slot c's Ginv_pp is G[c ld + c]
+// (Ginv itself: ld = K; its diagonal alone: ld = 0).
+template <bool kNat>
+__device__ __forceinline__ void deletion_score(const float* cf,
+                                               const float* G, int ld,
+                                               const int* ix, int K, int m,
+                                               float& dmin, int& p,
+                                               int& nat) {
+  const int lane = threadIdx.x & 31;
+  dmin = INFINITY;
+  for (int c = lane; c < K; c += 32) {
+    const float x = cf[c];
+    const float d2 = ix[c] < m ? x * x / max_keep_nan(G[c * ld + c], 1e-30f) : INFINITY;
+    dmin = min_keep_nan(dmin, d2);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    dmin = min_keep_nan(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
+  }
+  p = K;
+  nat = 0;
+  for (int c0 = 0; c0 < K; c0 += 32) {
+    const int c = c0 + lane;
+    bool hit = false;
+    if (c < K) {
+      const float x = cf[c];
+      const float d2 = ix[c] < m ? x * x / max_keep_nan(G[c * ld + c], 1e-30f) : INFINITY;
+      hit = d2 == dmin;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, hit);
+    if (p == K && bal) p = c0 + __ffs(bal) - 1;
+    if (kNat) nat += __popc(__ballot_sync(0xffffffffu, c < K && ix[c] < m));
+  }
+}
+
+// One row's state in a block's shared memory for its deletions: Ginv
+// (K K), coef, Atb, q (the deleted slot's column of Ginv) and idx (K), the
+// live-slot list (K), the slot columns (staged: this block's slices at
+// cs[s * S]; else the row's, (K, n), in device memory).
+struct DelRow {
+  float* Gs;
+  float* cf;
+  float* atb;
+  float* q;
+  int* ix;
+  int* lst;
+  float* cs;
+  float* colsb;
+  int B, b, n, m, K, S, p0, L, rank;
+};
+
+// The backward deletions of one row, run alike by every thread of every
+// block of the row's cluster (FoBa's in rmp_append, SRR's in engine_delete,
+// RMP's in engine_backward), their results into the batch's pending terms
+// a.pend_u (P, B, n), weights a.pend_w (P, B) and a.amask (B, m) (a: the
+// launch's RmpArgs or DelArgs, read where used): at most jmax times, while accept(dmin, nat)
+// holds for the next score (deletion_score, nat counted with kNat; a NaN
+// dmin must reject), delete
+// slot p (delete_ep): q = Ginv e_p, the restore term v = cols' q over the
+// occupied slots in slot order (this block's slice) and 1/q_pp into pending
+// slot 1 + j (rank 0 the weight, and amask[idx[p]] = 0), the Schur downdate
+// Ginv -= q q' / q_pp with the identity pad put back, column p (this
+// block's slice), idx[p] and Atb[p] cleared, coef = Ginv Atb. No exchange:
+// every block holds the same K-sized state and takes the same steps.
+// Starts with a barrier; idx, Atb, Ginv and the columns are settled on
+// return, coef only after a barrier. Returns the number of deletions.
+template <bool kStaged, bool kNat, typename Args, typename Accept>
+__device__ __forceinline__ int cluster_deletions(const DelRow& d,
+                                                 const Args& a, int jmax,
+                                                 Accept accept) {
+  constexpr int nw = kAppendThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int K = d.K, m = d.m, S = d.S;
+  // slot q's entries of this block: staged, or in device memory
+  const auto col = [&](int q_) -> float* {
+    return kStaged ? d.cs + q_ * S : d.colsb + (size_t)q_ * d.n + d.p0;
+  };
+  int nd = 0;
+  for (int j = 0; j < jmax; ++j) {
+    __syncthreads();  // coef, idx, Atb, Ginv and the columns settled
+    float dmin;
+    int p, nat;
+    deletion_score<kNat>(d.cf, d.Gs, K, d.ix, K, m, dmin, p, nat);
+    if (!accept(dmin, nat)) break;
+    // q = Ginv e_p; v = cols' q over the occupied slots (p included),
+    // taken before the column is cleared
+    if (tid < K) d.q[tid] = d.Gs[tid * K + p];
+    const int nl = live_slots(d.ix, K, m, K, d.lst);
+    __syncthreads();
+    const float qpp = d.q[p];
+    const float inv = 1.f / (qpp > 0.f ? qpp : 1.f);
+    float* vout = a.pend_u + ((size_t)(1 + nd) * d.B + d.b) * d.n;
+    for (int i = tid; i < d.L; i += kAppendThreads) {
+      float accv = 0.f;
+      for (int e = 0; e < nl; ++e) accv += col(d.lst[e])[i] * d.q[d.lst[e]];
+      vout[d.p0 + i] = accv;
+    }
+    if (d.rank == 0 && tid == 0) {
+      a.pend_w[(size_t)(1 + nd) * d.B + d.b] = inv;
+      if (d.ix[p] < m) a.amask[(size_t)d.b * m + d.ix[p]] = 0;
+    }
+    for (int r_ = warp; r_ < K; r_ += nw) {
+      const float qa = d.q[r_];
+      for (int c = lane; c < K; c += 32) {
+        float* x = d.Gs + r_ * K + c;
+        *x = *x - inv * qa * d.q[c] + ((r_ == p && c == p) ? 1.f : 0.f);
+      }
+    }
+    __syncthreads();  // the v pass above read column p
+    for (int i = tid; i < d.L; i += kAppendThreads) {
+      float* x = col(p) + i;
+      *x *= 0.f;
+      if (kStaged) d.colsb[(size_t)p * d.n + d.p0 + i] = *x;
+    }
+    if (tid == 0) {
+      d.ix[p] = m;
+      d.atb[p] *= 0.f;
+    }
+    __syncthreads();
+    cluster_matvec(d.Gs, d.atb, d.cf, K, K, K);  // the refit of coef
+    ++nd;
+  }
+  return nd;
+}
+
 // ------------------------------------------------------------ rmp_append ----
 
 // What one rmp_append launch reads and writes; the pointers are the whole
@@ -332,17 +488,7 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
   if (tid < K) ix[tid] = ix_r;
   __syncthreads();
   if (kStaged) {
-    // warp w the slots w, w + 8, ..., its lanes along the slice
-    const bool v16 = vec && aligned16(colsb);
-    for (int q_ = warp; q_ < K; q_ += nw) {
-      if (ix[q_] >= m) continue;
-      const float* src = colsb + (size_t)q_ * n + p0;
-      if (v16) {
-        for (int i = 4 * lane; i < L; i += 128) cp_async16(cs + q_ * S + i, src + i);
-      } else {
-        for (int i = lane; i < L; i += 32) cp_async4(cs + q_ * S + i, src + i);
-      }
-    }
+    stage_occupied(cs, colsb, ix, K, m, n, p0, L, S, vec && aligned16(colsb));
   }
   cp_async_commit();
 
@@ -512,77 +658,16 @@ __device__ __forceinline__ void rmp_cluster_row(const RmpArgs& a) {
   }
 
   // --- FoBa: the deletions while the increase stays below max(dmax, 0) / 4
-  // (engine_backward_loop with kfinal < 0), K-sized in every block alike;
-  // each block writes its slice of the restore terms, and of r after the
-  // last deletion ------------------------------------------------------------
+  // (cluster_deletions), K-sized in every block alike; each block writes
+  // its slice of the restore terms, and of r after the last deletion ------
   if (foba) {
     int nd = 0;
     if (ok) {
       const float thr = max_keep_nan(vmax, 0.f) * 0.25f;
-      for (int j = 0; j < K + 1; ++j) {
-        __syncthreads();  // coef, idx, Atb, Ginv and the columns settled
-        // the least coef^2 / max(Ginv_pp, 1e-30) over the occupied slots,
-        // the lowest slot on ties; a NaN minimum rejects
-        float dmin = INFINITY;
-        for (int c = lane; c < K; c += 32) {
-          const float x = cf[c];
-          const float d2 = ix[c] < m ? x * x / max_keep_nan(Gs[c * K + c], 1e-30f) : INFINITY;
-          dmin = min_keep_nan(dmin, d2);
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          dmin = min_keep_nan(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
-        }
-        int p = K;
-        for (int c0 = 0; c0 < K; c0 += 32) {
-          const int c = c0 + lane;
-          bool hit = false;
-          if (c < K) {
-            const float x = cf[c];
-            const float d2 = ix[c] < m ? x * x / max_keep_nan(Gs[c * K + c], 1e-30f) : INFINITY;
-            hit = d2 == dmin;
-          }
-          const unsigned bal = __ballot_sync(0xffffffffu, hit);
-          if (p == K && bal) p = c0 + __ffs(bal) - 1;
-        }
-        if (!(dmin < thr)) break;
-        // q = Ginv e_p; v = cols' q over the occupied slots (p included),
-        // taken before the column is cleared
-        if (tid < K) q[tid] = Gs[tid * K + p];
-        nl = live_slots(ix, K, m, K, lst);
-        __syncthreads();
-        const float qpp = q[p];
-        const float inv = 1.f / (qpp > 0.f ? qpp : 1.f);
-        float* vout = a.pend_u + ((size_t)(1 + nd) * B + b) * n;
-        for (int i = tid; i < L; i += kAppendThreads) {
-          float accv = 0.f;
-          for (int e = 0; e < nl; ++e) accv += col(lst[e])[i] * q[lst[e]];
-          vout[p0 + i] = accv;
-        }
-        if (rank == 0 && tid == 0) {
-          a.pend_w[(size_t)(1 + nd) * B + b] = inv;
-          if (ix[p] < m) a.amask[(size_t)b * m + ix[p]] = 0;
-        }
-        for (int r_ = warp; r_ < K; r_ += nw) {
-          const float qa = q[r_];
-          for (int c = lane; c < K; c += 32) {
-            float* x = Gs + r_ * K + c;
-            *x = *x - inv * qa * q[c] + ((r_ == p && c == p) ? 1.f : 0.f);
-          }
-        }
-        __syncthreads();  // the v pass above read column p
-        for (int i = tid; i < L; i += kAppendThreads) {
-          float* x = col(p) + i;
-          *x *= 0.f;
-          if (kStaged) colsb[(size_t)p * n + p0 + i] = *x;
-        }
-        if (tid == 0) {
-          ix[p] = m;
-          atb[p] *= 0.f;
-        }
-        __syncthreads();
-        cluster_matvec(Gs, atb, cf, K, K, K);  // the refit of coef
-        ++nd;
-      }
+      const DelRow d = {Gs, cf, atb, q, ix, lst, cs, colsb,
+                        B,  b,  n,   m, K,  S,   p0, L,     rank};
+      nd = cluster_deletions<kStaged, false>(
+          d, a, K + 1, [thr](float dmin, int) { return dmin < thr; });
       if (rank == 0) {
         for (int e = 1 + nd + tid; e <= K; e += kAppendThreads) a.pend_w[(size_t)e * B + b] = 0.f;
       }
@@ -1120,6 +1205,323 @@ __device__ __forceinline__ void init_cluster_row(const InitArgs& a) {
     a.done[b] = 0.f;
     if (a.fgate) a.fgate[b] = 1.f;
   }
+}
+
+// ------------------------------------------ engine_delete, engine_backward ----
+
+// What one engine_delete or engine_backward launch reads and writes; the
+// pointers are the whole batch's (engine_delete: prev, k and l; its acc
+// and ndel null. engine_backward: acc, ndel and kfinal; its prev null).
+struct DelArgs {
+  const float* Bs;
+  float* cols;
+  float* Ginv;
+  float* coef;
+  int* idx;
+  float* Atb;
+  float* r;
+  uint8_t* amask;
+  float* done;
+  float* prev;
+  float* pend_u;
+  float* pend_w;
+  float* fgate;
+  float* acc;
+  float* ndel;
+  float delta2;
+  int B, n, m, K, kmin, l, slice;  // kmin: SRR's k, RMP's kfinal
+};
+
+// Their shared memory: the staged slot slices (K, staged only), Ginv (K K),
+// the slice of b, coef, Atb, q, Ginv's diagonal (K), idx and the live slots
+// (K). Less than rmp_cluster_smem on the same plan.
+__host__ __device__ constexpr size_t del_cluster_smem(int slice, int K,
+                                                      bool staged) {
+  return ((staged ? (size_t)K * slice : 0) + pad4((size_t)K * K) +
+          (size_t)slice + 6 * (size_t)K) *
+         sizeof(float);
+}
+
+// A block's view of the deletion kernels' shared memory, carved as
+// del_cluster_smem lays it out.
+struct DelSmem {
+  float* cs;
+  float* Gs;
+  float* bs;
+  float* cf;
+  float* atb;
+  float* q;
+  float* dg;
+  int* ix;
+  int* lst;
+};
+
+template <bool kStaged>
+__device__ __forceinline__ DelSmem carve_del_smem(float* smem, int S, int K) {
+  DelSmem s;
+  s.cs = smem;  // slot q at cs[q * S], staged only
+  s.Gs = s.cs + (kStaged ? K * S : 0);
+  s.bs = s.Gs + pad4((size_t)K * K);  // 16-byte aligned
+  s.cf = s.bs + S;
+  s.atb = s.cf + K;
+  s.q = s.atb + K;
+  s.dg = s.q + K;
+  s.ix = reinterpret_cast<int*>(s.dg + K);
+  s.lst = s.ix + K;
+  return s;
+}
+
+// This block's slice of r = b - cols' coef over the occupied slots in slot
+// order, slot 0 standing in when none is (its column is zero, so a NaN row
+// stays NaN, as the all-slot sum of the plain version leaves it). Every
+// thread calls it after a barrier that follows the last write of coef and
+// idx; it starts with live_slots and a barrier. Returns this thread's share
+// of ||r||^2 over the slice.
+template <bool kStaged>
+__device__ __forceinline__ float del_residual(const DelSmem& s,
+                                              const float* colsb,
+                                              float* rb, int n, int m,
+                                              int K, int S, int p0, int L) {
+  int nl = live_slots(s.ix, K, m, K, s.lst);
+  if (nl == 0) {
+    if (threadIdx.x == 0) s.lst[0] = 0;
+    nl = 1;
+  }
+  __syncthreads();
+  float rr = 0.f;
+  for (int i = threadIdx.x; i < L; i += kAppendThreads) {
+    float accr = 0.f;
+    for (int e = 0; e < nl; ++e) {
+      const int q_ = s.lst[e];
+      const float c = kStaged ? s.cs[q_ * S + i] : colsb[(size_t)q_ * n + p0 + i];
+      accr += c * s.cf[q_];
+    }
+    const float ri = s.bs[i] - accr;
+    rb[p0 + i] = ri;
+    rr += ri * ri;
+  }
+  return rr;
+}
+
+// Ginv (each block a share of its rows); rank 0 coef, idx and Atb. After
+// the cluster barrier's wait (C > 1), so that every block of the row has
+// read the state.
+__device__ __forceinline__ void del_store_state(const DelSmem& s, float* Gb,
+                                                float* coefb, int* idxb,
+                                                float* atbb, int K, int C,
+                                                int rank) {
+  constexpr int nw = kAppendThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows = (K + C - 1) / C;
+  const int r1 = min(K, (rank + 1) * rows);
+  for (int r_ = min(K, rank * rows) + warp; r_ < r1; r_ += nw) {
+    for (int c = lane; c < K; c += 32) Gb[r_ * K + c] = s.Gs[r_ * K + c];
+  }
+  if (rank == 0 && threadIdx.x < K) {
+    coefb[threadIdx.x] = s.cf[threadIdx.x];
+    idxb[threadIdx.x] = s.ix[threadIdx.x];
+    atbb[threadIdx.x] = s.atb[threadIdx.x];
+  }
+}
+
+// SRR's backward stage of one row (engine_delete.cu), run by every thread
+// of every block of the row's cluster: the whole state staged at entry
+// (Ginv, coef, Atb, idx, this block's slices of b and of all K slot
+// columns, a free one being zero), then up to l deletions while nactive > k
+// and dmin < inf (cluster_deletions), a zero term in each pending slot
+// 1 + j that no deletion filled, coef = Ginv Atb where none was made, r,
+// and the latch: ||r||^2 from the blocks' shares, sent once to rank 0 and
+// added there in rank order; done |= ||r||^2 <= delta2 || prev <= ||r||^2,
+// prev = ||r||^2, fgate = !done. A done row zeroes its pending slots 1..l.
+template <bool kStaged>
+__device__ __forceinline__ void srr_delete_row(const DelArgs& a) {
+  constexpr int nw = kAppendThreads / 32;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red_v[nw];
+  __shared__ float rrs[kAppendClusterMax];  // rank 0: the blocks' ||r||^2
+  __shared__ uint64_t rfull;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C, tid = threadIdx.x;
+  const int n = a.n, m = a.m, K = a.K, S = a.slice, B = a.B, l = a.l;
+  const int p0 = min(n, rank * S), L = min(n, p0 + S) - p0;
+  const DelSmem s = carve_del_smem<kStaged>(smem, S, K);
+  const float* bb = a.Bs + (size_t)b * n;
+  float* colsb = a.cols + (size_t)b * K * n;
+  float* Gb = a.Ginv + (size_t)b * K * K;
+
+  if (a.done[b] > 0.5f) {
+    for (int j = 1; j <= l; ++j) {
+      float* vb = a.pend_u + ((size_t)j * B + b) * n + p0;
+      for (int i = tid; i < L; i += kAppendThreads) vb[i] = 0.f;
+    }
+    if (rank == 0) {
+      for (int j = 1 + tid; j <= l; j += kAppendThreads) a.pend_w[(size_t)j * B + b] = 0.f;
+    }
+    return;
+  }
+  if (C > 1 && rank == 0 && tid == 0) {
+    mbar_init(smem_u32(&rfull), C - 1);
+    mbar_fence_init();
+  }
+  // --- the whole state at once: idx by loads, the rest by cp.async -------
+  const int ix_r = tid < K ? a.idx[(size_t)b * K + tid] : 0;
+  const bool vec = (n & 3) == 0;  // then a row's slices are 16-byte pieces
+  append_stage(s.Gs, 0, Gb, 0, 1, K * K, ((K * K) & 3) == 0 && aligned16(Gb));
+  append_stage(s.cf, 0, a.coef + (size_t)b * K, 0, 1, K, false);
+  append_stage(s.atb, 0, a.Atb + (size_t)b * K, 0, 1, K, false);
+  append_stage(s.bs, 0, bb + p0, 0, 1, L, vec && aligned16(bb));
+  if (kStaged) {
+    append_stage(s.cs, S, colsb + p0, (size_t)n, K, L, vec && aligned16(colsb));
+  }
+  cp_async_commit();
+  if (tid < K) s.ix[tid] = ix_r;
+  cp_async_wait_all();
+  __syncthreads();
+  if (C > 1) cluster_arrive_release();  // this block has read the state
+
+  const DelRow d = {s.Gs, s.cf, s.atb, s.q, s.ix, s.lst, s.cs, colsb,
+                    B,    b,    n,     m,   K,    S,     p0,   L,     rank};
+  const int k = a.kmin;
+  const int nd = cluster_deletions<kStaged, true>(
+      d, a, l, [k](float dmin, int nat) { return nat > k && dmin < INFINITY; });
+  // a gated-off deletion's term is zero (every later one is gated off too:
+  // nactive and the scores do not change)
+  for (int j = 1 + nd; j <= l; ++j) {
+    float* vb = a.pend_u + ((size_t)j * B + b) * n + p0;
+    for (int i = tid; i < L; i += kAppendThreads) vb[i] = 0.f;
+    if (rank == 0 && tid == 0) a.pend_w[(size_t)j * B + b] = 0.f;
+  }
+  if (nd == 0) {  // the refit; the warps may still be reading the scores
+    __syncthreads();
+    cluster_matvec(s.Gs, s.atb, s.cf, K, K, K);
+    __syncthreads();
+  }
+  float rr = del_residual<kStaged>(s, colsb, a.r + (size_t)b * n, n, m, K, S,
+                                   p0, L);
+  rr = block_sum(rr, red_v);
+
+  if (C > 1) cluster_wait_acquire();  // every block has read the state
+  del_store_state(s, Gb, a.coef + (size_t)b * K, a.idx + (size_t)b * K,
+                  a.Atb + (size_t)b * K, K, C, rank);
+  if (rank != 0) {
+    if (tid == 0) {
+      *cluster.map_shared_rank(&rrs[rank], 0) = rr;
+      mbar_arrive_remote(smem_u32(&rfull), 0);
+    }
+    return;
+  }
+  if (tid == 0) {
+    if (C > 1) mbar_wait_cluster(smem_u32(&rfull), 0);
+    float res = rr;
+    for (int r_ = 1; r_ < C; ++r_) res += rrs[r_];
+    const float pv = a.prev[b];
+    const bool latch = res <= a.delta2 || pv <= res;
+    if (latch) a.done[b] = 1.f;
+    a.prev[b] = res;
+    a.fgate[b] = latch ? 0.f : 1.f;
+  }
+}
+
+// RMP's backward stage of one row and the pass's latch (engine_backward.cu),
+// run by every thread of every block of the row's cluster. The rule: with
+// kfinal >= 0, nactive > kfinal && dmin < inf; else dmin < delta2. The
+// first decision reads coef, idx and Ginv's diagonal alone (3K floats): a
+// row whose rule rejects at once writes only its latches and zero weights,
+// and neither r nor the state. A row that deletes waits for the rest of
+// the state and its slices of b and of the occupied slot columns, deletes
+// while the rule accepts (at most K + 1 times, cluster_deletions), zeroes
+// the weights of pending slots 1 + nd .. K and writes r and the state.
+// Then progressed = acc || nd > 0; done |= !progressed; fgate = progressed;
+// acc = 0; ndel = nd. A done row zeroes its weights 1..K and ndel.
+template <bool kStaged>
+__device__ __forceinline__ void rmp_backward_row(const DelArgs& a) {
+  extern __shared__ __align__(16) float smem[];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C, tid = threadIdx.x;
+  const int n = a.n, m = a.m, K = a.K, S = a.slice, B = a.B;
+  const int p0 = min(n, rank * S), L = min(n, p0 + S) - p0;
+  const DelSmem s = carve_del_smem<kStaged>(smem, S, K);
+  const float* bb = a.Bs + (size_t)b * n;
+  float* colsb = a.cols + (size_t)b * K * n;
+  float* Gb = a.Ginv + (size_t)b * K * K;
+
+  if (a.done[b] > 0.5f) {
+    if (rank == 0) {
+      for (int e = 1 + tid; e <= K; e += kAppendThreads) a.pend_w[(size_t)e * B + b] = 0.f;
+      if (tid == 0) a.ndel[b] = 0.f;
+    }
+    return;
+  }
+  // --- the first decision's loads, then the rest of the state's copies,
+  // which land while it is made ---------------------------------------------
+  float cf_r = 0.f, dg_r = 0.f;
+  int ix_r = 0;
+  if (tid < K) {
+    cf_r = a.coef[(size_t)b * K + tid];
+    ix_r = a.idx[(size_t)b * K + tid];
+    dg_r = Gb[(size_t)tid * (K + 1)];
+  }
+  const bool vec = (n & 3) == 0;
+  append_stage(s.Gs, 0, Gb, 0, 1, K * K, ((K * K) & 3) == 0 && aligned16(Gb));
+  append_stage(s.atb, 0, a.Atb + (size_t)b * K, 0, 1, K, false);
+  append_stage(s.bs, 0, bb + p0, 0, 1, L, vec && aligned16(bb));
+  cp_async_commit();
+  if (tid < K) {
+    s.cf[tid] = cf_r;
+    s.ix[tid] = ix_r;
+    s.dg[tid] = dg_r;
+  }
+  __syncthreads();
+  const float thr = a.delta2;
+  const int kfinal = a.kmin;
+  const auto accept = [thr, kfinal](float dmin, int nat) {
+    return kfinal >= 0 ? (nat > kfinal && dmin < INFINITY) : (dmin < thr);
+  };
+  // rank 0: the weights of the pending slots past the nd deletions, and
+  // the pass's latch
+  const auto finish = [&](int nd) {
+    if (rank != 0) return;
+    for (int e = 1 + nd + tid; e <= K; e += kAppendThreads) a.pend_w[(size_t)e * B + b] = 0.f;
+    if (tid == 0) {
+      const bool progressed = a.acc[b] > 0.5f || nd > 0;
+      if (!progressed) a.done[b] = 1.f;
+      a.fgate[b] = progressed ? 1.f : 0.f;
+      a.acc[b] = 0.f;
+      a.ndel[b] = (float)nd;
+    }
+  };
+  float dmin;
+  int p, nat;
+  deletion_score<true>(s.cf, s.dg, 0, s.ix, K, m, dmin, p, nat);
+  if (!accept(dmin, nat)) {
+    finish(0);
+    cp_async_wait_all();
+    return;
+  }
+  // --- a row that deletes: its slices of the occupied slot columns -------
+  if (kStaged) {
+    stage_occupied(s.cs, colsb, s.ix, K, m, n, p0, L, S, vec && aligned16(colsb));
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (C > 1) cluster_arrive_release();  // this block has read the state
+
+  const DelRow d = {s.Gs, s.cf, s.atb, s.q, s.ix, s.lst, s.cs, colsb,
+                    B,    b,    n,     m,   K,    S,     p0,   L,     rank};
+  const int nd = cluster_deletions<kStaged, true>(d, a, K + 1, accept);
+  del_residual<kStaged>(s, colsb, a.r + (size_t)b * n, n, m, K, S, p0, L);
+
+  if (C > 1) cluster_wait_acquire();  // every block has read the state
+  del_store_state(s, Gb, a.coef + (size_t)b * K, a.idx + (size_t)b * K,
+                  a.Atb + (size_t)b * K, K, C, rank);
+  finish(nd);
 }
 
 }  // namespace cstpu

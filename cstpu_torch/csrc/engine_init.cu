@@ -10,7 +10,7 @@
 //   picks = the row's top-cnt of the partials, value descending, index
 //           ascending (common.cuh::merge_topl_row, warp sorts and a tree
 //           of merges; a NaN row makes none)
-//   cnt gated appends in that order (engine.cuh::engine_append's math:
+//   cnt gated appends in that order (_Engine.append, :138-190:
 //           duplicate, capacity and d > rtol * ata gates; Atb, amask)
 //   SRR: each append's rescaling term (aperp, -dinv) into pending slot j,
 //           for the first fr_select to apply

@@ -8,8 +8,8 @@
 //   accept    = ||r||^2 > max_eps2 && dmax > min_d2   (r before the step;
 //               a NaN row has dmax NaN, so it never accepts)
 //   the gated bordered append of i into slot t with pre = accept && !done
-//   (common.cuh::bordered_append's math: dup, d > rtol*ata, Ginv, coef,
-//   idx, cols)
+//   (the math of :587-611, plain twin cstpu_torch/ops/fused_solve.py::
+//   _bordered_append_ref: dup, d > rtol*ata, Ginv, coef, idx, cols)
 //   aperp = acol - sum_s cols[s] u[s], after slot t is written (:614), and
 //   dinv go to the next fr_select, which downdates resc with them
 //   amask[b, i] = 1 if ok;  r = b - cols'coef;  done = ok ? done : 1

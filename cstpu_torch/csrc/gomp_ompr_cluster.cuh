@@ -1,11 +1,14 @@
 // GOMP's iteration (gomp_append.cu) and OMPR's replacement (ompr_swap.cu) as
 // a thread-block cluster per row over staged slot columns.
 //
-// The math is that of common.cuh::bordered_append (GOMP's cnt appends, one
-// after the other) and of engine.cuh's append, delete and refit (OMPR's
-// swap); what differs is where it runs and the order of its sums. The
-// cluster, the staging and the launch are append_cluster.cuh's, the
-// exchange, the matrix-vector product and the live slots engine_cluster.cuh's.
+// The math is that of cstpu's bordered append (cstpu/ops/fused_solve.py::
+// _gomp_kernel :757-784, GOMP's cnt appends, one after the other; plain
+// twin cstpu_torch/ops/fused_solve.py::_bordered_append_ref) and of
+// cstpu/ops/fused_twostage.py::_Engine's append, delete_ep and
+// refit_residual (:138-223, OMPR's swap); what differs is where it runs
+// and the order of its sums. The cluster, the staging and the launch are
+// append_cluster.cuh's, the exchange, the matrix-vector product and the
+// live slots engine_cluster.cuh's.
 //
 // What bounds these launches on an H100: latency. One row's work is a few
 // hundred KB (its slot columns, cnt or one dictionary columns gathered at a

@@ -10,9 +10,10 @@
 // coef (B,k), idx (B,k), r (B,n)):
 //   i     = argmax over the select kernel's (B, T) partials, lowest index on
 //           ties, INT_MAX when the row's maximum is NaN (common.cuh)
-//   the gated bordered append of i into slot t (common.cuh::
-//   bordered_append's math: cdt-rounded column, dup/degeneracy gate, Ginv,
-//   coef, idx, cols), then r = b - cols'coef
+//   the gated bordered append of i into slot t (the math of :165-201,
+//   plain twin cstpu_torch/ops/fused_solve.py::_bordered_append_ref:
+//   cdt-rounded column, dup/degeneracy gate, Ginv, coef, idx, cols), then
+//   r = b - cols'coef
 //   at t = k-1: rank sort of (idx, coef), pads (idx m) last, ties by slot
 // All of it in f32, with _degeneracy_rtol(n) in f32 whatever the cdt.
 //

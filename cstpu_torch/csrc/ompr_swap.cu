@@ -6,7 +6,7 @@
 // gated iteration changes nothing there either). Per row:
 //   (best, i) = the select partials (B, T) reduced; change = best > 0
 //   coef_pre  = coef on the occupied slots (the solution before the append)
-//   the gated append of i into the first free slot (engine.cuh's math)
+//   the gated append of i into the first free slot (_Engine.append)
 //   gcoef     = ok ? (coef_pre + eta * cols . r) * occupied : coef, with r
 //               still the residual from before the append (:1007-1016)
 //   delete the slot of min |gcoef| (lowest slot on ties, only if ok)

@@ -13,14 +13,15 @@
 //   full      = nactive >= K;  capped |= wanted && full: the only rejection
 //               the slot cap causes, decided before the append's own tests
 //   the append of i into the first free slot, gated by wanted && !full
-//   (engine.cuh::engine_append's math)
+//   (_Engine.append, :138-190; plain twin _engine_append_ref)
 //   pending slot 0 = (aperp, -dinv), the rescaling downdate of this append
 //   coef = Ginv Atb, r = b - cols' coef;  fgate *= ok;  acc |= ok
 // and with `foba`, after an accepted append, the deletions while the
-// increase stays below max(dmax, 0) / 4 (engine.cuh::engine_backward_loop's
-// rule), their restore terms in pending slots 1.., their count in ndel;
-// r is written once, after the last deletion (the refits between them
-// change only coef, which the next deletion's scores read).
+// increase stays below max(dmax, 0) / 4 (engine_cluster.cuh::
+// cluster_deletions, plain twin _backward_loop_ref), their restore terms
+// in pending slots 1.., their count in ndel; r is written once, after
+// the last deletion (the refits between them change only coef, which the
+// next deletion's scores read).
 //
 // What bounds it on an H100, and the design: engine_cluster.cuh (a
 // thread-block cluster per row, the K slot columns staged once in shared

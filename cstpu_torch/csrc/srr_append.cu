@@ -7,8 +7,8 @@
 // nothing and leaves a zero pending term (slot 0). Per row:
 //   (dmax, i) = the select partials (B, T) reduced with argmax_combine
 //   gate      = ||r||^2 > 0 && dmax > 0 && nactive < min(n, m)
-//   the gated append of i into the first free slot (engine.cuh::
-//               engine_append's math: not a duplicate, d > rtol ata)
+//   the gated append of i into the first free slot (_Engine.append,
+//               :138-190: not a duplicate, d > rtol ata)
 //   pending slot 0 = (aperp, -dinv): the rescaling downdate of this append,
 //               for the next fr_select (the TPU kernel's z GEMM, :183-189)
 //   coef = Ginv Atb, r = b - cols' coef;  fgate *= ok;  amask[i] on ok

@@ -134,11 +134,11 @@ def _check_cdt(corr_dtype):
 
 
 def _append_smem(n: int, k: int) -> int:
-    """Dynamic shared memory, bytes, of a one-block-per-row append
-    (common.cuh::carve_append_smem: gomp_append's, the slot engine's). Every
-    append wrapper admits n and k only where it fits SMEM_MAX: the domain
-    of the OMP/FR path, whose cluster kernels (`_append_plan`) take any n
-    it admits."""
+    """Dynamic shared memory, bytes, that a one-block-per-row append of
+    the first port took (the acquired column, Ginv, g, u, coef and idx).
+    Every append wrapper admits n and k only where it fits SMEM_MAX: the
+    domain of the OMP/FR path, whose cluster kernels (`_append_plan`) take
+    any n it admits."""
     return (n + k * k + 3 * k) * 4 + k * 4
 
 
@@ -432,8 +432,8 @@ def _rank_sort(idx, coef):
 
 
 def _bordered_append_ref(Ac, Bs, st, sel, slot, pre):
-    """Plain gated bordered append, the math of common.cuh::bordered_append
-    batched over rows: atom sel (B,) into slot (B,) (== k: write nothing)
+    """Plain gated bordered append, the math of cstpu's (fused_solve.py
+    :165-201, :587-611, :757-784) batched over rows: atom sel (B,) into slot (B,) (== k: write nothing)
     where pre (B,) allows, updating st.Ginv/coef/idx/cols in place.
     Returns (ok (B,), acol (B, n), u (B, k), dinv (B,))."""
     n, m = Ac.shape

@@ -50,7 +50,7 @@ ompr_swap `_ompr_plan`; cstpu_torch/csrc):
 OMPR and SRR share cstpu's slot engine (`_Engine`): an append goes to each
 row's first free slot, so after deletions the occupied slots need not be
 contiguous, and the bordered append's cross terms run over all slots
-(csrc/engine.cuh). A deletion is the Schur downdate Ginv -= q q'/q_p,
+(csrc/engine_cluster.cuh). A deletion is the Schur downdate Ginv -= q q'/q_p,
 which restores the identity pad at slot p. SRR keeps cstpu's rescaling
 through appends and deletions; a deletion never reads it, so each term
 (u, w) waits in a small pending buffer and the next select applies all of
@@ -141,10 +141,11 @@ class _SpState(NamedTuple):
 
 
 def _engine_smem(n: int, K: int) -> int:
-    """Dynamic shared memory of the one-block-per-row engine kernels, bytes
-    (csrc/engine.cuh::engine_smem_bytes). Every engine wrapper admits n and
-    K only where it fits SMEM_MAX; the cluster kernels' plans
-    (`_engine_plan`) take any n it admits."""
+    """Dynamic shared memory, bytes, that the one-block-per-row engine
+    kernels of the first port took (the row's column, Ginv and eight K-sized
+    arrays). Every engine wrapper admits n and K only where it fits
+    SMEM_MAX; the cluster kernels' plans (`_engine_plan`) take any n it
+    admits."""
     return (n + K * K + 7 * K) * 4 + K * 4
 
 
@@ -337,7 +338,9 @@ def _engine_delete_ref(Bs, st: _EngState, k: int, l: int, delta2: float):
 def _backward_loop_ref(Bs, st: _EngState, gate, thr, kfinal: int):
     """The backward stage loop of `_rmp_kernel` (:1301-1336) and
     `_foba_kernel` (:1461-1475): batch-wide steps with a per-row gate that
-    closes at the row's first rejection, at most K + 1. A step deletes the
+    closes at the row's first rejection, at most K + 1, of which the last
+    accepts nothing (a row that made K deletions has no atom left; its
+    refit changes nothing), so K are run. A step deletes the
     min coef^2 / gamma slot where the rule accepts (kfinal >= 0: more than
     kfinal atoms and a finite score; else score < thr, thr a number or
     (B,)) and refits. Deletion j of a row leaves its restore term in
@@ -349,7 +352,7 @@ def _backward_loop_ref(Bs, st: _EngState, gate, thr, kfinal: int):
     g = gate.clone()
     nd = torch.zeros_like(st.done)
     st.pend_w[1:].zero_()
-    for j in range(K + 1):
+    for j in range(K):
         if not bool(g.any()):
             break
         act = st.idx < m
@@ -722,7 +725,8 @@ def engine_delete(Bs, st: _EngState, k: int, l: int, delta2: float):
     """SRR's backward stage: l gated deletions back to k atoms with their
     restore terms (pending slots 1..l), the refits, the latch and fgate,
     updating `st` in place. On CUDA tensors this launches
-    csrc/engine_delete.cu."""
+    csrc/engine_delete.cu, a thread-block cluster per row (`_engine_plan`,
+    rmp_append's plan)."""
     if _on_cpu(Bs, *st):
         return _engine_delete_ref(Bs, st, k, l, delta2)
     if st.resc is None or not 1 <= l < st.pend_u.shape[0]:
@@ -781,7 +785,8 @@ def engine_backward(Bs, st: _EngState, delta2: float, kfinal: int):
     """RMP's backward stage (kfinal < 0: while the increase < delta2; else
     down to kfinal atoms) with its restore terms (pending slots 1..), the
     refits and the pass's latch, updating `st` in place. On CUDA tensors
-    this launches csrc/engine_backward.cu."""
+    this launches csrc/engine_backward.cu, a thread-block cluster per row
+    (`_engine_plan`, rmp_append's plan)."""
     if _on_cpu(Bs, *st):
         return _engine_backward_ref(Bs, st, delta2, kfinal)
     B, K, n, m = _expect_engine("engine_backward", st, Bs)

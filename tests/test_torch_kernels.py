@@ -4,7 +4,8 @@ select_topl (tensor-core and CUDA-core variants), gomp_append, fr_select
 (tensor-core and CUDA-core variants),
 fr_append, the two-stage ones:
 engine_init, ompr_swap, srr_append, engine_delete, sp_round, the stepwise
-ones: rmp_append, engine_backward, the backward family's: bw_select,
+ones: rmp_append, engine_backward (both also in a grid of their own,
+DELETE_CASES), the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
 stream_select.cu's top-1, masked top-1 and (n, B) argmax (each on the
 tensor-core and the CUDA-core sweep), its top-l (both sweeps, and the
@@ -2292,6 +2293,50 @@ def test_engine_plan_fills_the_card(dev, B, C):
             n += 1
         plan = ft._engine_plan(200, n, K, cnt)
         assert plan.smem <= fs.SMEM_MAX and not plan.staged, (K, cnt, plan)
+
+
+# --------------------------------------------------------------------------
+# engine_delete and engine_backward as a thread-block cluster per row
+# (csrc/engine_cluster.cuh's deletions, on the slot engine's plan)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_engine_delete_matches_plain_every_launch(dev, B, n, m, cdt):
+    # this entry's share of chip_smoke.DELETE_CASES: the plain init and
+    # forward steps, then the stage from the plain state; a NaN row, a done
+    # row, gated-off deletions, a full row, two slots tied
+    for B2, n2, K2, l2 in _share(chip_smoke.DELETE_CASES, B, n, m):
+        err, plan, _ = chip_smoke.hold_engine_delete(dev, B2, n2, K2, l2, cdt)
+        assert err <= chip_smoke.APPEND_ATOL, (B2, n2, K2, l2, plan, err)
+
+
+@pytest.mark.parametrize("B,n,m", SIZES)
+@pytest.mark.parametrize("cdt", CDTS)
+@pytest.mark.parametrize("rule", chip_smoke.DELETE_RULES)
+def test_engine_backward_matches_plain_every_launch(dev, B, n, m, cdt, rule):
+    # this entry's share of DELETE_CASES' (B, n, K): the plain forward stage,
+    # then the stage under `rule` from the plain state; rows that reject at
+    # once (NaN, empty, gains of ~100), a done row, a full row, a tie
+    cases = list(dict.fromkeys(c[:3] for c in chip_smoke.DELETE_CASES))
+    for B2, n2, K2 in _share(cases, B, n, m):
+        err, plan, _ = chip_smoke.hold_engine_backward(dev, B2, n2, K2, cdt,
+                                                       rule)
+        assert err <= chip_smoke.APPEND_ATOL, (B2, n2, K2, rule, plan, err)
+
+
+def test_engine_backward_deleting_stage_holds(dev):
+    # 3d's state after its forward stage, k rule down to DELETE_KFINAL atoms
+    # at both batch sizes: held against the plain version and timed
+    A, _, _ = chip_smoke.planted(torch.Generator(device=dev).manual_seed(0), 1,
+                                 1024, 8192, 1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    probs = {B: chip_smoke.planted_ones(gen, A, B, chip_smoke.STEP_CELL[3])[0]
+             for B in chip_smoke.BATCHES}
+    out = chip_smoke.deleting_times(A, probs)
+    for B, v in out.items():
+        assert v["ndel"] == chip_smoke.STEP_CELL[3] - chip_smoke.DELETE_KFINAL
+        assert v["ms"] > 0.0 and v["bound"]["bound_ms"] > 0.0
 
 
 def test_engine_wrappers_launch_at_the_budget_edge(dev):

@@ -13,8 +13,12 @@ the bench OMP solve, suite configs 2a (gomp_batch), 2b (sp_batch), 2c
 (ompr_batch), 3a (fr_batch), 3b (srr_batch), each profiled over three
 solves, 3e (fbr_batch at B = 8 and 64) over one, 5b (omp_batch at
 m = 131072), 3d (rmp_batch and foba_batch at B = 8 and 64) and mp
-(mp_batch at the bench size, chip_smoke.MP_CELL) over three.
-Each line gives the update kernels' registers, the device busy ms per
+(mp_batch at the bench size, chip_smoke.MP_CELL) over three; then
+engine_backward's deleting stage (chip_smoke.deleting_times: 3d's state
+after its forward stage, the k rule down to chip_smoke.DELETE_KFINAL
+atoms, at B = 8 and 64), which no path times.
+Each line gives the update kernels' registers (the deletion kernels'
+spill stores beside theirs), the device busy ms per
 solve (torch.profiler: the union of the device spans; beside it their
 sum, and the sum over key_averages that chip_smoke.py reported before,
 which counts torch's kernels twice), the wall ms per solve (host clock,
@@ -43,18 +47,31 @@ def own_chip_smoke():
 
 def update_registers(log):
     """(kernel, registers) of the update kernels' instantiations in an
-    nvcc -Xptxas -v log, by their mangled names' stems."""
+    nvcc -Xptxas -v log, by their mangled names' stems; for engine_delete
+    and engine_backward (templated on the staging alone, or, in checkouts
+    before their cluster redesign, not templated) the registers and the
+    spill stores."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
+        props = " ".join(lines[i + 1:i + 3])
+        regs = re.search(r"Used (\d+) registers", props)
         got = re.search(r"Function properties for _ZN5cstpu\d+(\w+?_kernel)"
                         r"I(13__nv_bfloat16|f)(Lb[01]E)?", line)
-        regs = re.search(r"Used (\d+) registers", " ".join(lines[i + 1:i + 3]))
         if got and regs and not got[1].startswith(
                 ("select", "fr_select", "fr_step", "stream")):
             cdt = "bf16" if got[2].startswith("13") else "f32"
             inst = {"Lb1E": " staged", "Lb0E": " streamed"}.get(got[3], "")
             out.append((f"{got[1][:-7]} {cdt}{inst}", int(regs[1])))
+        got = re.search(r"Function properties for _ZN5cstpu\d+"
+                        r"(engine_delete|engine_backward)_kernel(ILb[01]E|E)",
+                        line)
+        if got and regs:
+            inst = {"ILb1E": " staged", "ILb0E": " streamed"}.get(got[2],
+                                                                 " one block")
+            spill = re.search(r"(\d+) bytes spill stores", props)[1]
+            out.append((f"{got[1]}{inst}",
+                        f"{regs[1]} (spill stores {spill} B)"))
     return out
 
 
@@ -131,13 +148,22 @@ def main():
     _, n3, m3, k3, delta, kmax = cs.STEP_CELL
     gen3 = torch.Generator(device=dev).manual_seed(cs.SEED)
     A3, _, _ = cs.planted(gen3, 1, n3, m3, 1)
+    probs3 = {}
     for B3 in cs.BATCHES:
         Bs3, _ = cs.planted_ones(gen3, A3, B3, k3)
+        probs3[B3] = Bs3
         show(f"3d rmp B={B3}", lambda: cstpu_torch.rmp_batch(
             A3, Bs3, delta=delta, kmax=kmax))
         show(f"3d foba B={B3}", lambda: cstpu_torch.foba_batch(
             A3, Bs3, delta, kmax=kmax))
-    del A3, Bs3
+    # engine_backward deleting: 3d's forward stage, then the k rule down to
+    # DELETE_KFINAL atoms, TIMED_LAUNCHES launches on fresh copies
+    for B3, v in cs.deleting_times(A3, probs3).items():
+        print(f"[ab {tag}] 3d deleting B={B3}: engine_backward "
+              f"{v['ndel']} deletions a row, {v['ms']:.4f} ms a launch "
+              f"(bound {v['bound']['bound_ms']:.6f}, {v['bound']['bound_by']};"
+              f" plan {v['plan']._asdict()})", flush=True)
+    del A3, Bs3, probs3
     # mp on a generator of its own too: mp_batch on chip_smoke's MP problem
     # (the bench's planted rows, unit-norm dictionary)
     _, Bm, nm, mm, km = cs.MP_CELL
