@@ -35,6 +35,16 @@ it and read just after:
   rmp/foba_sharded_fused(., 1e-2, kmax=32)  config 3d at m=131072 (5c's
                        dictionary, 16 planted ones), four shards
   omp_sharded_rows     a tall dictionary (n=65536, m=512) on four row shards
+  sbl_batch, fsbl_batch, rmps_batch, rmps_estimate_noise_batch
+                       suite config 4 (B=8, n=128, m=512, k=6, sigma 1e-2 and
+                       3e-2), fsbl_traced and rmps_traced on one row of it;
+                       fsbl_batch(maxiter=4k) and rmps_batch at config 4e
+                       (B=8, n=1024, k=16, sigma 1e-2, m=131072 and 2^20),
+                       fsbl_sharded and rmps_sharded on four shards at
+                       m=131072 (the [sbl] phase: the SBL family has no TPU
+                       kernel; it holds the solves, their agreement across
+                       routes and shard counts, times, idle shares and loop
+                       counts)
 
 It checks planted-support recovery, launch counts (for the two-stage,
 stepwise, backward and sharded paths against the formulas for the
@@ -4191,6 +4201,229 @@ def sharded_fr_times(Ar, Br, A, Bo, gpu):
     return tm, split, per
 
 
+# the SBL family, suite configs 4 (benchmarks/suite.py:297-331: B, n, m, k,
+# the sigmas) and 4e (:334-392: B, n, k, sigma, the widths). cstpu has no
+# TPU kernel for it: the port runs tensor operations and cuSOLVER's
+# factorizations, and this phase holds its results, not a kernel's.
+SBL4_CELL = (8, 128, 512, 6, (1e-2, 3e-2))
+SBL4E_CELL = (8, 1024, 16, 1e-2, (131072, 1 << 20))
+# the sharded route against the single-device body, and four shards
+# against one: cstpu's own tolerance (tests/test_sharded.py:468,484)
+SBL_ATOL = 1e-4
+
+
+def top_device_ops(fn, top=4):
+    """One call of fn under torch.profiler (the caller has warmed it up),
+    device activity only: (device busy ms, the union of the device spans;
+    the `top` device operations by summed ms as (name, count, ms)). The raw
+    kineto records are read, not `prof.events()`: a noise-learning solve
+    leaves some 10^6 of them, whose event tree takes minutes to build."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, per = [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", lambda: False)()):
+            continue
+        t0, t1 = ev.start_ns(), ev.start_ns() + ev.duration_ns()
+        spans.append((t0, t1))
+        cnt, ns = per.get(ev.name(), (0, 0))
+        per[ev.name()] = (cnt + 1, ns + t1 - t0)
+    ops = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
+    return union_ms(spans) / 1e6, [(name[:60], c, ns / 1e6)
+                                   for name, (c, ns) in ops]
+
+
+def sbl_recovery(X, sup, sigma):
+    """Share of rows whose planted support lies inside {|x| > sigma}."""
+    return float((X.abs() > sigma).gather(1, sup).all(1).float().mean())
+
+
+def _timed(fn):
+    """(fn(), ms): one call bracketed by CUDA events, synced by a value
+    fetch."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    res = fn()
+    t1.record()
+    float((res[0] if isinstance(res, tuple) else res).abs().sum())
+    return res, t0.elapsed_time(t1)
+
+
+def sbl_solve(key, fn, sigma, sup, reps, out):
+    """fn() once with the loop counts set to 0 just before and read just
+    after: recovery 1.000, finite, on the card. Its time is the median of
+    `reps` more calls (with reps=0, of that one; the solves compile
+    nothing, and earlier solves warmed the libraries up), each bracketed by
+    CUDA events and synced by a value fetch; then one profiled call's
+    device busy time, idle share and top operations. fn returns x (B, m) or
+    a tuple that starts with it; returns the first call's result."""
+    from cstpu_torch.models import sbl as sb
+
+    t_start = time.perf_counter()
+    for c in sb.LOOP_COUNTS:
+        sb.LOOP_COUNTS[c] = 0
+    res, first_ms = _timed(fn)
+    counts = dict(sb.LOOP_COUNTS)
+    X = res[0] if isinstance(res, tuple) else res
+    rec = sbl_recovery(X, sup, sigma)
+    assert X.is_cuda, (key, X.device)
+    assert not bool(torch.isnan(X).any()), f"{key}: NaN in x"
+    assert rec == 1.0, f"{key}: recovery {rec} < 1.0"
+    times = [_timed(fn)[1] for _ in range(reps)] or [first_ms]
+    ms = statistics.median(times)
+    busy, ops = top_device_ops(fn)
+    assert busy > 0, f"{key}: no device time in the profile"
+    out[key] = {"recovery": rec, "ms": ms, "calls_timed": len(times),
+                "device_busy_ms": busy, "idle_share": 1.0 - busy / ms,
+                **counts, "top_ops": [[n, c, t] for n, c, t in ops]}
+    print(f"[sbl {key}] recovery {rec:.3f}, x on {X.device}, no NaN; "
+          f"{ms:.4f} ms (median of {len(times)}, events), device busy "
+          f"{busy:.4f} ms, idle share {1.0 - busy / ms:.4f}; steps "
+          f"{counts['steps']}, latch reads {counts['latch_reads']}; top: "
+          + ", ".join(f"{n} {c}x {t:.4f} ms" for n, c, t in ops)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    return res
+
+
+def sbl_paths(dev, gpu):
+    """The [sbl] phase: config 4's four batched entry points at both sigmas
+    (fsbl_batch's and rmps_batch's sharded route held against the
+    single-device body on the same card tensors), the traced solvers on
+    one row, and config 4e's fsbl_batch and rmps_batch at both widths
+    (at 131072 also fsbl_sharded and rmps_sharded on four shards, held
+    against one)."""
+    import cstpu_torch
+    from cstpu_torch.models import sbl as sb
+    from cstpu_torch.utils.data import perturb
+
+    out = {}
+    t0 = time.perf_counter()
+    B, n, m, k, sigmas = SBL4_CELL
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    A = unit_dictionary(gen, n, m)
+    Bs, sup = planted_ones(gen, A, B, k)
+    print(f"[sbl] config 4: B={B} n={n} m={m} k={k}, sigma in {sigmas}; "
+          f"config 4e: B={SBL4E_CELL[0]} n={SBL4E_CELL[1]} "
+          f"k={SBL4E_CELL[2]} sigma={SBL4E_CELL[3]} at m in "
+          f"{SBL4E_CELL[4]}; no kernel: tensor operations and cuSOLVER")
+    agree = {}
+    for sigma in sigmas:
+        Y = perturb(gen, Bs, sigma)
+        s2 = sigma ** 2
+        tag = f"4 sigma={sigma:g}"
+        xf = sbl_solve(f"{tag} fsbl_batch",
+                       lambda: cstpu_torch.fsbl_batch(A, Y, s2), sigma, sup,
+                       TIMED_SOLVES, out)
+        xr = sbl_solve(f"{tag} rmps_batch",
+                       lambda: cstpu_torch.rmps_batch(A, Y, s2), sigma, sup,
+                       TIMED_SOLVES, out)
+        sbl_solve(f"{tag} sbl_batch",
+                  lambda: cstpu_torch.sbl_batch(A, Y, s2), sigma, sup,
+                  TIMED_SLOW, out)
+        # noise learning under the reference's Inverse-Gamma(1, sigma^2)
+        # prior (its test/sbl.jl:29-40): under the flat default prior the
+        # EM drives sigma^2 to 0, and in f32 through it on some rows, in
+        # cstpu as here (ROADMAP.md Queue 3)
+        _, s2_est = sbl_solve(
+            f"{tag} rmps_estimate_noise_batch",
+            lambda: cstpu_torch.rmps_estimate_noise_batch(
+                A, Y, s2, a_sigma2=1.0, b_sigma2=s2),
+            sigma, sup, 0, out)
+        assert bool((s2_est > 0).all()), (tag, s2_est)
+        out[f"{tag} noise sigma2"] = s2_est.tolist()
+        print(f"[sbl {tag} noise] sigma^2 estimates (prior a=1, b=sigma^2) "
+              + ", ".join(f"{v:.3e}" for v in s2_est.tolist()))
+        # the sharded route against the batched single-device body
+        for name, got, want in (
+                ("fsbl", xf, sb._fsbl_rows(A, Y, s2)[0]),
+                ("rmps", xr, sb._rmps_rows(A, Y, s2))):
+            err = float((got - want).abs().max())
+            assert err <= SBL_ATOL, (tag, name, err)
+            agree[f"{tag} {name}"] = err
+        sbl_solve(f"{tag} fsbl_traced row 0",
+                  lambda: cstpu_torch.fsbl_traced(A, Y[0], s2)[0][None],
+                  sigma, sup[:1], TIMED_SLOW, out)
+        sbl_solve(f"{tag} rmps_traced row 0",
+                  lambda: cstpu_torch.rmps_traced(A, Y[0], s2)[0][None],
+                  sigma, sup[:1], TIMED_SLOW, out)
+        _, tr = cstpu_torch.fsbl_traced(A, Y[0], s2)
+        _, rtr = cstpu_torch.rmps_traced(A, Y[0], s2)
+        acted = tr.action >= 0
+        ran = rtr.n_active > 0
+        print(f"[sbl {tag} traces] fsbl_traced: {int(acted.sum())} actions "
+              f"(adds {int((tr.action == 0).sum())}, deletes "
+              f"{int((tr.action == 1).sum())}, re-estimates "
+              f"{int((tr.action == 2).sum())}), last n_active "
+              f"{int(tr.n_active[acted][-1])}; rmps_traced: "
+              f"{int(ran.sum())} outer iterations, added "
+              f"{rtr.n_added[ran].tolist()}, deleted "
+              f"{rtr.n_deleted[ran].tolist()}, updated "
+              f"{rtr.n_updated[ran].tolist()}")
+    print(f"[sbl 4] fsbl_batch and rmps_batch (the atom-sharded route on a "
+          f"one-shard mesh) == the batched single-device body on the same "
+          f"card tensors, max |err| "
+          + ", ".join(f"{key} {v:.3e}" for key, v in agree.items())
+          + f" (atol {SBL_ATOL}); {time.perf_counter() - t0:.1f} s | {gpu}")
+    del A, Bs, Y
+    torch.cuda.empty_cache()
+
+    B, n, k, sigma, widths = SBL4E_CELL
+    s2 = sigma ** 2
+    shards = {}
+    for m in widths:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        A = unit_dictionary(gen, n, m)
+        Bs, sup = planted_ones(gen, A, B, k)
+        Y = perturb(gen, Bs, sigma)
+        tag = f"4e m={m}"
+        xf = sbl_solve(f"{tag} fsbl_batch",
+                       lambda: cstpu_torch.fsbl_batch(A, Y, s2,
+                                                      maxiter=4 * k),
+                       sigma, sup, TIMED_SLOW, out)
+        xr = sbl_solve(f"{tag} rmps_batch",
+                       lambda: cstpu_torch.rmps_batch(A, Y, s2), sigma, sup,
+                       TIMED_SLOW, out)
+        if m == widths[0]:
+            mesh = cstpu_torch.make_mesh((1, SHARDS))
+            Ash = cstpu_torch.shard_dictionary(A, mesh)
+            for name, one, fn in (
+                    ("fsbl", xf, lambda: cstpu_torch.parallel.fsbl_sharded(
+                        Ash, Y, s2, mesh, maxiter=4 * k)),
+                    ("rmps", xr, lambda: cstpu_torch.parallel.rmps_sharded(
+                        Ash, Y, s2, mesh))):
+                got = sbl_solve(f"{tag} {name}_sharded s={SHARDS}", fn,
+                                sigma, sup, TIMED_SLOW, out)
+                err = float((got - one).abs().max())
+                same = bool(((got.abs() > sigma) == (one.abs() > sigma))
+                            .all())
+                assert same and err <= SBL_ATOL, (tag, name, same, err)
+                shards[f"{tag} {name}"] = err
+            del Ash
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[f"{tag} peak_gib"] = peak
+        print(f"[sbl {tag}] done in {time.perf_counter() - t0:.1f} s, peak "
+              f"device memory {peak:.2f} GiB | {gpu}")
+        del A, Bs, Y, xf, xr
+        torch.cuda.empty_cache()
+    print(f"[sbl 4e] fsbl_sharded and rmps_sharded on {SHARDS} shards == "
+          f"one shard (fsbl_batch, rmps_batch): supports {{|x| > sigma}} "
+          f"equal on every row, max |err| "
+          + ", ".join(f"{key} {v:.3e}" for key, v in shards.items())
+          + f" (atol {SBL_ATOL})")
+    out["agree_single_device"] = agree
+    out["agree_shards"] = shards
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4565,6 +4798,10 @@ def main():
     p5m, tm5m, split5m, (sweep5m, sweep5m_simt), peak5m = sharded_5m(dev,
                                                                      gpu)
     print(f"[sharded] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sbl_out = sbl_paths(dev, gpu)
+    print(f"[sbl] done in {time.perf_counter() - t0:.1f} s")
 
     sel_err, app_err, launches, tm = record["bench"]
     tm5b = record["5b"][3]
@@ -5435,6 +5672,7 @@ def main():
         "idle_share": {key: v["idle_share"]
                        for key, v in {**ssplit, **bsplit}.items()},
         "device": gpu}}))
+    print(json.dumps({"sbl": {**sbl_out, "device": gpu}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Batched-first entry points (PyTorch counterpart of the greedy,
-two-stage, stepwise and backward parts of cstpu.models.batched).
+"""Batched-first entry points (PyTorch counterpart of cstpu.models.batched:
+the greedy, two-stage, stepwise, backward and SBL entry points).
 
 A shared dictionary with a batch of measurements is the high-throughput
 workload. On CUDA, `omp_batch`, `mp_batch`, `gomp_batch` and `fr_batch` run
@@ -19,6 +19,14 @@ fails (k beyond the append kernels' 128 slots, a top-k beyond select_topl's
 `ompr_batch` run the column-sharded solver of cstpu_torch.parallel.sharded
 on a one-shard mesh on the dictionary's device (CUDA only), instead of the
 loop over rows.
+
+The SBL family has no kernel. `fsbl_batch` and `rmps_batch` take the
+atom-sharded solvers of cstpu_torch.parallel.sharded_sbl on a one-shard
+mesh under cstpu's gate read for CUDA (CUDA tensors, a float32 dictionary,
+2-D measurements, a scalar or (n, n) noise; for `rmps_batch` only the
+sharded solver's keyword arguments); everything else, and `sbl_batch` and
+`rmps_estimate_noise_batch` on either device, runs the batched bodies of
+cstpu_torch.models.sbl, never the loop over rows.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from cstpu_torch.models.backward import br, fbr, lace
 from cstpu_torch.models.forward import fr
+from cstpu_torch.models import sbl
 from cstpu_torch.models.matching_pursuit import gomp, mp, omp
 from cstpu_torch.models.stepwise import foba, rmp
 from cstpu_torch.models.twostage import ompr, sp, srr
@@ -34,7 +43,8 @@ from functools import lru_cache
 
 from cstpu_torch.ops import fused_backward, fused_solve, fused_twostage
 from cstpu_torch.ops import stream_select
-from cstpu_torch.parallel import sharded
+from cstpu_torch.ops.util import as_inputs as _inputs
+from cstpu_torch.parallel import sharded, sharded_sbl
 from cstpu_torch.parallel.mesh import Mesh
 from cstpu_torch.utils.sparse import SparseSolution
 
@@ -61,23 +71,6 @@ def batch(solver, **fixed):
         merged = {**fixed, **kw}
         return _stack([solver(A, bb, **merged) for bb in Bs])
     return batched
-
-
-def _inputs(A, Bs):
-    """The dictionary and the measurements as tensors. A tensor keeps its
-    device: that is how a caller asks for the CPU. What is not a tensor
-    goes where the other argument lies when that one is a tensor, else to
-    the CUDA device; without one this raises instead of solving on the
-    CPU unasked."""
-    given = [x.device for x in (A, Bs) if isinstance(x, torch.Tensor)]
-    if not given and not torch.cuda.is_available():
-        raise RuntimeError(
-            "cstpu_torch: the inputs are not tensors and no CUDA device is "
-            "available; pass CPU tensors (torch.as_tensor(...)) to solve "
-            "on the CPU")
-    dev = given[0] if given else torch.device("cuda")
-    return tuple(x if isinstance(x, torch.Tensor)
-                 else torch.as_tensor(x, device=dev) for x in (A, Bs))
 
 
 def _cdt(precision):
@@ -428,3 +421,75 @@ def lace_batch(A, Bs, max_residual=None, max_increase=None,
         sol = batch(lace, sparsity=sparsity, **kw)(A, Bs)
         out = sol, torch.any(~torch.isfinite(sol.val) & sol.mask, dim=-1)
     return _unpack_failed(out, return_failed)
+
+
+# --------------------------------------------------------------------------
+# The SBL family
+# --------------------------------------------------------------------------
+
+def _sbl_shard_ok(A, Bs, sigma) -> bool:
+    """cstpu's gate of the atom-sharded SBL route, read for CUDA: tensors on
+    the card, a float32 dictionary, 2-D measurements, a scalar or (n, n)
+    noise."""
+    return (_on_card(A, Bs) and A.dtype == torch.float32 and Bs.ndim == 2
+            and torch.as_tensor(sigma).ndim in (0, 2))
+
+
+def sbl_batch(A, Bs, sigma, maxiter=None, min_change: float = 1e-6):
+    """Batched Tipping-EM SBL over measurement rows Bs (B, n): the batched
+    EM body of cstpu_torch.models.sbl on either device (the family's
+    parity baseline; throughput lives in fsbl_batch/rmps_batch)."""
+    A, Bs = _inputs(A, Bs)
+    return sbl._sbl_rows(A, Bs, sigma, maxiter, min_change)
+
+
+def rmps_batch(A, Bs, sigma, **kw):
+    """Batched RMPS over measurement rows Bs (B, n); dense (B, m) out.
+
+    On CUDA, with a float32 dictionary, a scalar or (n, n) noise and only
+    the keyword arguments the sharded solver takes, this runs the
+    atom-sharded RMPS (cstpu_torch.parallel.sharded_sbl) on a one-shard
+    mesh: the same staged ascent, with the posterior mean from
+    mu = Gamma A' C^-1 b instead of an (m, m) build. Otherwise the batched
+    single-device body of cstpu_torch.models.sbl.
+    """
+    A, Bs = _inputs(A, Bs)
+    shard_kw = {k_: v for k_, v in kw.items()
+                if k_ in ("maxiter", "maxiter_acquisition",
+                          "maxiter_deletion", "min_increase")}
+    if _sbl_shard_ok(A, Bs, sigma) and shard_kw == kw:
+        return sharded_sbl.rmps_sharded(A, Bs, sigma,
+                                        _one_shard_mesh(A.device), **kw)
+    return sbl._rmps_rows(A, Bs, sigma, **kw)
+
+
+def rmps_estimate_noise_batch(A, Bs, sigma2_init: float = 1e-2,
+                              a_sigma2: float = 0.0, b_sigma2: float = 0.0,
+                              maxiter=None, min_increase: float = 1e-6,
+                              maxouteriter: int = 16,
+                              min_change: float = 1e-12):
+    """Batched RMPS noise-variance learning over measurement rows Bs
+    (B, n): the outer EM loop re-estimating sigma^2 per row under an
+    Inverse-Gamma(a, b) prior. A row that converged leaves the batch, so
+    later EM iterations solve only the rows still running.
+    Returns (X (B, m), sigma2 (B,))."""
+    A, Bs = _inputs(A, Bs)
+    return sbl._rmps_noise_rows(A, Bs, sigma2_init, a_sigma2, b_sigma2,
+                                maxiter, min_increase, maxouteriter,
+                                min_change)
+
+
+def fsbl_batch(A, Bs, sigma, maxiter=None, min_increase: float = 1e-6):
+    """Batched fast SBL over measurement rows Bs (B, n); dense (B, m) out.
+
+    On CUDA, with a float32 dictionary and a scalar or (n, n) noise, this
+    runs the atom-sharded FSBL on a one-shard mesh (the posterior mean from
+    mu = Gamma A' C^-1 b, no (m, m) build); otherwise the batched
+    single-device body of cstpu_torch.models.sbl.
+    """
+    A, Bs = _inputs(A, Bs)
+    if _sbl_shard_ok(A, Bs, sigma):
+        return sharded_sbl.fsbl_sharded(A, Bs, sigma,
+                                        _one_shard_mesh(A.device), maxiter,
+                                        min_increase)
+    return sbl._fsbl_rows(A, Bs, sigma, maxiter, min_increase)[0]

@@ -50,6 +50,33 @@ def cholesky_nan(G):
     return torch.where((info > 0)[..., None, None], torch.nan, L)
 
 
+def solve_nan(C, X):
+    """torch.linalg.solve(C, X) for a batch C (B, k, k), X (B, k) or
+    (B, k, r), without its error check (which also waits for the device): a
+    singular C gives a NaN solution, as jnp.linalg.solve gives inf/NaN,
+    instead of an exception."""
+    out, info = torch.linalg.solve_ex(C, X)
+    bad = (info > 0).view(-1, *([1] * (out.ndim - 1)))
+    return torch.where(bad, torch.nan, out)
+
+
+def as_inputs(A, Bs):
+    """The dictionary and the measurements as tensors. A tensor keeps its
+    device: that is how a caller asks for the CPU. What is not a tensor
+    goes where the other argument lies when that one is a tensor, else to
+    the CUDA device; without one this raises instead of solving on the
+    CPU unasked."""
+    given = [x.device for x in (A, Bs) if isinstance(x, torch.Tensor)]
+    if not given and not torch.cuda.is_available():
+        raise RuntimeError(
+            "cstpu_torch: the inputs are not tensors and no CUDA device is "
+            "available; pass CPU tensors (torch.as_tensor(...)) to solve "
+            "on the CPU")
+    dev = given[0] if given else torch.device("cuda")
+    return tuple(x if isinstance(x, torch.Tensor)
+                 else torch.as_tensor(x, device=dev) for x in (A, Bs))
+
+
 @contextlib.contextmanager
 def true_f32():
     """f32 matrix products in full f32 (no TF32) inside the block; the

@@ -6,8 +6,9 @@ The paths for dictionaries beyond one kernel's reach are the fused hybrids
 mp/omp/gomp/sp/fr/ompr/srr/rmp/foba_sharded_fused. The plain `omp_sharded`
 is the reference they are verified against, and the row-sharded
 `omp_sharded_rows` is the strategy for a long measurement axis (n >> m).
-cstpu's sharded SBL and convex solvers and its multi-process layer are not
-ported yet.
+`fsbl_sharded` and `rmps_sharded` are the atom-sharded SBL solvers
+(cstpu_torch.parallel.sharded_sbl). cstpu's sharded convex solvers and its
+multi-process layer are not ported yet.
 """
 
 from cstpu_torch.parallel.mesh import (
@@ -25,6 +26,7 @@ from cstpu_torch.parallel.sharded import (
     rmp_sharded_fused,
     foba_sharded_fused,
 )
+from cstpu_torch.parallel.sharded_sbl import fsbl_sharded, rmps_sharded
 
 __all__ = [
     "Mesh", "ShardedDictionary", "make_mesh", "shard_dictionary",
@@ -33,4 +35,5 @@ __all__ = [
     "gomp_sharded_fused", "sp_sharded_fused", "fr_sharded_fused",
     "mp_sharded_fused", "ompr_sharded_fused", "srr_sharded_fused",
     "rmp_sharded_fused", "foba_sharded_fused",
+    "fsbl_sharded", "rmps_sharded",
 ]
