@@ -45,6 +45,20 @@ it and read just after:
                        kernel; it holds the solves, their agreement across
                        routes and shard counts, times, idle shares and loop
                        counts)
+  bp_ard_sharded(., eps=1e-2, maxiter=4), bp_sharded
+                       suite config 5 (n=128, k=6) at m=1024 on one shard
+                       and m=4096 on four; bp, bp_candes, bp_ard, ista,
+                       fista, bp(method="simplex"), bpd and bpd(method=
+                       "homotopy") on the one-shard dictionary; bpd,
+                       bpd_ard, bpd_sharded, bpd_secant_sharded and the
+                       secant-screened bpd_ard at config 5bpd (n=1024,
+                       m=131072, k=32, delta=1e-2); bp_ard_sharded at
+                       config 5ard (m=2^20, a 4 GB dictionary, one shard);
+                       exhaustive at n=32, m=48, k=3 against the CPU (the
+                       [convex] phase: no TPU kernel either; it holds
+                       recovery, one shard against four, the certified
+                       bodies inside the delta-ball, times, idle shares
+                       and loop counts)
 
 It checks planted-support recovery, launch counts (for the two-stage,
 stepwise, backward and sharded paths against the formulas for the
@@ -90,6 +104,7 @@ once with an error.
 
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -4215,7 +4230,8 @@ SBL_ATOL = 1e-4
 def top_device_ops(fn, top=4):
     """One call of fn under torch.profiler (the caller has warmed it up),
     device activity only: (device busy ms, the union of the device spans;
-    the `top` device operations by summed ms as (name, count, ms)). The raw
+    the `top` device operations by summed ms as (name, count, ms), all of
+    them where top is None). The raw
     kineto records are read, not `prof.events()`: a noise-learning solve
     leaves some 10^6 of them, whose event tree takes minutes to build."""
     from torch.autograd import DeviceType
@@ -4234,7 +4250,9 @@ def top_device_ops(fn, top=4):
         spans.append((t0, t1))
         cnt, ns = per.get(ev.name(), (0, 0))
         per[ev.name()] = (cnt + 1, ns + t1 - t0)
-    ops = sorted(per.items(), key=lambda kv: -kv[1][1])[:top]
+    ops = sorted(per.items(), key=lambda kv: -kv[1][1])
+    if top is not None:
+        ops = ops[:top]
     return union_ms(spans) / 1e6, [(name[:60], c, ns / 1e6)
                                    for name, (c, ns) in ops]
 
@@ -4424,6 +4442,339 @@ def sbl_paths(dev, gpu):
     return out
 
 
+
+# [convex]: benchmarks/suite.py configs 5 (:395-422: bp_ard_sharded, n=128,
+# k=6, m=1024 a shard), 5bpd (:514-566: the BPD family, n=1024, m=131072,
+# k=32, delta=1e-2, y = b + noise of norm delta/2) and 5ard (:569-634: ARD
+# BP at m=2^20, a 4 GB f32 dictionary, one shard), and the oracle at
+# tests/conftest.py's sizes. cstpu's convex family has no TPU kernel: the
+# port runs tensor operations (cuBLAS GEMVs, cuSOLVER factorizations) in
+# host loops, and this phase holds its results, not a kernel's.
+CONVEX5_CELL = (128, 6, 1024)          # n, k, m a shard
+BPD5_CELL = (1024, 131072, 32, 1e-2)   # n, m, k, delta
+ARD5_CELL = (1024, 1 << 20, 32)        # n, m, k
+ORACLE_CELL = (32, 48, 3)              # n, m, k: C(48, 3) = 17296
+CONVEX_ATOL = 1e-4     # one shard against four (cstpu: tests/test_sharded.py)
+CONVEX_SUP = 1e-3      # recovery {|x| > 1e-3} (suite configs 5 and 5ard)
+BALL_RTOL = 1e-5       # the certified bodies: ||Ax - y|| <= delta (1 + 1e-5)
+OBJ_RTOL = 0.05        # bpd's l1 objective within 5% of the exact path's
+STREAM_RTOL = 0.02     # measured_stream_gbps against a 4 GB GEMV's rate
+
+
+def convex_solve(key, fn, reps, out, host=False, device_op=None):
+    """fn() once with the loop counts set to 0 just before and read just
+    after (the warm-up call; its result is returned and checked by the
+    caller), then `reps` calls (one where the warm-up took over a second)
+    each bracketed by CUDA events and synced by a value fetch (their
+    median is the wall), then one profiled call: its
+    device busy time (the union of the device spans), idle share and top
+    device operations. fn returns x or a tuple that starts with it. A
+    `host` solve (the native C++ solvers) may leave no device time. Where
+    `device_op` is given, a device operation whose name holds it must show
+    in the profile (profiled again, up to 4 tries, where the profiler lost
+    the records: a `[profile] try N` line)."""
+    from cstpu_torch.models import basis_pursuit as cbp
+
+    t_start = time.perf_counter()
+    for c in cbp.LOOP_COUNTS:
+        cbp.LOOP_COUNTS[c] = 0
+    res = fn()
+    torch.cuda.synchronize()
+    counts = dict(cbp.LOOP_COUNTS)
+    x = res[0] if isinstance(res, tuple) else res
+    assert x.is_cuda, (key, x.device)
+    if time.perf_counter() - t_start > 1.0:
+        reps = 1      # a multi-second solve: one timed call
+    times = [_timed(fn)[1] for _ in range(reps)]
+    ms = statistics.median(times)
+    for attempt in range(4):
+        busy, ops = top_device_ops(fn, top=None)
+        if device_op is None or any(device_op in n for n, _, _ in ops):
+            break
+        print(f"[profile] try {attempt + 2}: no {device_op!r} device "
+              f"operation in {key}'s profile ({len(ops)} names)")
+    else:
+        raise AssertionError(f"{key}: no {device_op!r} device operation in "
+                             "4 profiles")
+    ops = ops[:4]
+    assert busy > 0 or host, f"{key}: no device time in the profile"
+    out[key] = {"ms": ms, "calls_timed": len(times), "device_busy_ms": busy,
+                "idle_share": 1.0 - busy / ms, **counts,
+                "top_ops": [[n, c, t] for n, c, t in ops]}
+    print(f"[convex {key}] {ms:.3f} ms (median of {len(times)}, events), "
+          f"device busy {busy:.3f} ms, idle share {1.0 - busy / ms:.4f}; "
+          f"iterations {counts['iterations']}, latch reads "
+          f"{counts['latch_reads']}, graph replays {counts['replays']}; top: "
+          + ", ".join(f"{n} {c}x {t:.3f} ms" for n, c, t in ops)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    return res
+
+
+def _recovered(x, sup, thr):
+    """Every planted atom lies in {|x| > thr}; x finite."""
+    assert bool(torch.isfinite(x).all()), "x not finite"
+    got = set(torch.nonzero(x.abs() > thr)[:, 0].tolist())
+    return set(sup.tolist()) <= got, len(got)
+
+
+def _residual64(A, x, y):
+    """||A x - y|| in float64 over x's nonzeros (exact for a sparse x; no
+    float64 copy of the dictionary)."""
+    nz = torch.nonzero(x)[:, 0]
+    fit = A[:, nz].double() @ x[nz].double()
+    return float(torch.linalg.vector_norm(fit - y.double()))
+
+
+def convex_paths(dev, gpu):
+    """The [convex] phase: suite config 5 on one shard and four, the
+    single-device convex family on config 5's one-shard dictionary, config
+    5bpd's five BPD solves, config 5ard on one shard, and the oracle on
+    the card against the CPU."""
+    import cstpu_torch
+    import cstpu_torch.utils.profiling
+    from cstpu_torch import native
+    from cstpu_torch.models import basis_pursuit as cbp
+    from cstpu_torch.parallel import convex as pcv
+    from cstpu_torch.utils.data import perturb
+
+    out, agree = {}, {}
+    t0 = time.perf_counter()
+    tb = time.perf_counter()
+    lib = native._build()
+    print(f"[convex] native library (g++ {' '.join(native.CXX_FLAGS)}) "
+          f"{lib.rsplit('/', 1)[-1]} in {time.perf_counter() - tb:.1f} s; "
+          "no kernel: host loops over cuBLAS GEMVs and cuSOLVER "
+          f"factorizations | {gpu}")
+
+    # --- config 5: n=128, k=6, one planted b ---------------------------
+    n, k, m1 = CONVEX5_CELL
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    A4, Bs, sup = planted(gen, 1, n, SHARDS * m1, k)
+    b4, sup4 = Bs[0], sup[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    A1, Bs, sup = planted(gen, 1, n, m1, k)
+    b1, sup1 = Bs[0], sup[0]
+    mesh1 = cstpu_torch.make_mesh((1, 1))
+    mesh4 = cstpu_torch.make_mesh((1, SHARDS))
+    print(f"[convex] config 5: n={n} k={k}, m={m1} on one shard and "
+          f"m={SHARDS * m1} on {SHARDS}")
+    checks = {}
+    xs = {}
+    for key, fn, sup_ in (
+            (f"5 bp_ard_sharded m={m1} s=1",
+             lambda: cstpu_torch.parallel.bp_ard_sharded(
+                 A1, b1, mesh1, eps=1e-2, maxiter=4), sup1),
+            (f"5 bp_ard_sharded m={SHARDS * m1} s={SHARDS}",
+             lambda: cstpu_torch.parallel.bp_ard_sharded(
+                 A4, b4, mesh4, eps=1e-2, maxiter=4), sup4),
+            (f"5 bp_sharded m={SHARDS * m1} s=1",
+             lambda: cstpu_torch.parallel.bp_sharded(A4, b4, mesh=mesh1)[0],
+             sup4),
+            (f"5 bp_sharded m={SHARDS * m1} s={SHARDS}",
+             lambda: cstpu_torch.parallel.bp_sharded(A4, b4, mesh=mesh4)[0],
+             sup4)):
+        x = convex_solve(key, fn, TIMED_SLOW, out)
+        ok, nnz = _recovered(x, sup_, CONVEX_SUP)
+        assert ok, f"{key}: planted atoms not recovered"
+        checks[key] = nnz
+        xs[key] = x
+    one = xs[f"5 bp_sharded m={SHARDS * m1} s=1"]
+    four = xs[f"5 bp_sharded m={SHARDS * m1} s={SHARDS}"]
+    err = float((one - four).abs().max())
+    same = bool(((one.abs() > CONVEX_SUP) == (four.abs() > CONVEX_SUP)).all())
+    assert same and err <= CONVEX_ATOL, ("5 bp_sharded 1 vs 4", same, err)
+    agree["5 bp_sharded s=1 vs s=4"] = err
+
+    # the single-device family on the one-shard dictionary
+    delta = 1e-2
+    y1 = perturb(gen, b1, delta / 2)
+    xbp = convex_solve(f"5 bp m={m1}", lambda: cstpu_torch.bp(A1, b1),
+                       TIMED_SLOW, out)
+    sup_bp = torch.nonzero(xbp.abs() > CONVEX_SUP)[:, 0]
+    assert _recovered(xbp, sup1, CONVEX_SUP)[0], "5 bp: not recovered"
+    for key, fn in (
+            ("bp_candes", lambda: cstpu_torch.bp_candes(A1, b1)),
+            ("bp_ard", lambda: cstpu_torch.bp_ard(A1, b1)),
+            ("bp simplex", lambda: cstpu_torch.bp(A1, b1, method="simplex")),
+            ("ista", lambda: cstpu_torch.ista(A1, b1, 1e-3, stepsize=None)),
+            ("fista", lambda: cstpu_torch.fista(A1, b1, 1e-3,
+                                                stepsize=None))):
+        x = convex_solve(f"5 {key} m={m1}", fn, TIMED_SLOW, out,
+                         host=key == "bp simplex")
+        ok, nnz = _recovered(x, sup1, CONVEX_SUP)
+        assert ok, f"5 {key}: planted atoms not recovered"
+        if key.startswith(("ista", "fista")):
+            # the LASSO's largest entries are bp's support
+            top = torch.topk(x.abs(), len(sup_bp)).indices
+            same = set(top.tolist()) == set(sup_bp.tolist())
+        else:
+            same = torch.equal(torch.nonzero(x.abs() > CONVEX_SUP)[:, 0],
+                               sup_bp)
+        assert same, f"5 {key}: support differs from bp's"
+        checks[f"5 {key}"] = nnz
+    xsec, info = convex_solve(
+        f"5 bpd m={m1}",
+        lambda: cstpu_torch.bpd(A1, y1, delta, return_info=True),
+        TIMED_SLOW, out)
+    xhom, hinfo = convex_solve(
+        f"5 bpd homotopy m={m1}",
+        lambda: cstpu_torch.bpd(A1, y1, delta, method="homotopy",
+                                return_info=True), TIMED_SLOW, out,
+        host=True)
+    # the homotopy's exact boundary point, cast to f32, may round a few
+    # ulps outside (its own flag then reads False); both are held to the
+    # ball below
+    assert info["feasible"], info
+    obj, hobj = float(xsec.abs().sum()), float(xhom.abs().sum())
+    assert obj <= hobj * (1.0 + OBJ_RTOL) + 1e-3, ("5 bpd objective", obj,
+                                                   hobj)
+    for key, x in (("bpd", xsec), ("bpd homotopy", xhom)):
+        r = _residual64(A1, x, y1) / delta
+        assert r <= 1.0 + BALL_RTOL, (key, r)
+        assert _recovered(x, sup1, delta)[0], f"5 {key}: not recovered"
+        out[f"5 {key} m={m1}"]["feas_over_delta"] = r
+    # the loops' CUDA graphs against the same loops launched one kernel at
+    # a time, on the ADMM bodies of bp and bpd (Woodbury form)
+    graphs = {}
+    for key, fn in (("bp", lambda: cstpu_torch.bp(A1, b1)),
+                    ("bpd admm", lambda: cstpu_torch.bpd(
+                        A1, y1, delta, method="admm",
+                        on_infeasible="raw"))):
+        latched = cbp._latched
+        cbp._latched = partial(latched, graphs=False)
+        try:
+            eager = fn()
+        finally:
+            cbp._latched = latched
+        gerr = float((fn() - eager).abs().max())
+        assert gerr <= CONVEX_ATOL, (f"5 {key} graphs vs eager", gerr)
+        graphs[key] = gerr
+    agree.update({f"5 {key} graphs vs eager": v for key, v in graphs.items()})
+    print(f"[convex 5] recovery {{|x| > {CONVEX_SUP}}} includes the planted "
+          f"atoms on every solve (nnz "
+          + ", ".join(f"{key} {v}" for key, v in checks.items())
+          + f"); bp_sharded on {SHARDS} shards == one shard, max |err| "
+          f"{err:.3e} (atol {CONVEX_ATOL}); the bp family's supports == "
+          f"bp's; bpd l1 {obj:.6f} against the exact path's {hobj:.6f} "
+          f"(within {OBJ_RTOL:g}), ||Ax - y|| / delta "
+          f"{out[f'5 bpd m={m1}']['feas_over_delta']:.6f} and "
+          f"{out[f'5 bpd homotopy m={m1}']['feas_over_delta']:.6f} "
+          f"(homotopy's flag {hinfo['feasible']}); the loops replayed as "
+          "CUDA graphs == launched one kernel at a time, max |err| "
+          + ", ".join(f"{key} {v:.3e}" for key, v in graphs.items())
+          + f"; "
+          f"{time.perf_counter() - t0:.1f} s | {gpu}")
+    del A1, A4
+
+    # --- config 5bpd: n=1024, m=131072, k=32 ---------------------------
+    t1 = time.perf_counter()
+    n, m, k, delta = BPD5_CELL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    A, Bs, sup = planted(gen, 1, n, m, k)
+    b, sup = Bs[0], sup[0]
+    y = perturb(gen, b, delta / 2)
+    print(f"[convex] config 5bpd: n={n} m={m} k={k} delta={delta:g}")
+    feas = {}
+    for key, fn, certified in (
+            ("bpd", lambda: cstpu_torch.bpd(A, y, delta, maxiter=12000),
+             True),
+            ("bpd_ard", lambda: cstpu_torch.bpd_ard(
+                A, y, delta, maxiter=4, maxiter_admm=12000), False),
+            ("bpd_sharded", lambda: cstpu_torch.parallel.bpd_sharded(
+                A, y, delta, mesh=mesh1, maxiter=12000)[0], False),
+            ("bpd_secant_sharded",
+             lambda: cstpu_torch.parallel.bpd_secant_sharded(
+                 A, y, delta, mesh=mesh1), True),
+            ("bpd_ard secant screened", lambda: cstpu_torch.bpd_ard(
+                A, y, delta, maxiter=4, method="secant", screen=True),
+             False)):
+        x = convex_solve(f"5bpd {key}", fn, 1, out)
+        ok, nnz = _recovered(x, sup, delta)
+        assert ok, f"5bpd {key}: planted atoms not recovered"
+        r = _residual64(A, x, y) / delta
+        if certified:
+            assert r <= 1.0 + BALL_RTOL, (f"5bpd {key}", r)
+        feas[key] = r
+        out[f"5bpd {key}"].update(feas_over_delta=r, nnz_gt_delta=nnz)
+    print(f"[convex 5bpd] recovery {{|x| > delta}} includes the planted "
+          "atoms on all five; ||Ax - y|| / delta: "
+          + ", ".join(f"{key} {v:.6f}" for key, v in feas.items())
+          + f" (asserted <= 1 + {BALL_RTOL:g} on the certified bpd and "
+          f"bpd_secant_sharded; the rest reported: cstpu's raw ADMM "
+          f"iterate and 1.05 delta fallback); "
+          f"{time.perf_counter() - t1:.1f} s | {gpu}")
+    del A, Bs
+    torch.cuda.empty_cache()
+
+    # --- config 5ard: n=1024, m=2^20 (4 GB f32), one shard --------------
+    t2 = time.perf_counter()
+    n, m, k = ARD5_CELL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    A = unit_dictionary(gen, n, m)
+    Bs, sup = planted_ones(gen, A, 1, k)
+    b, sup = Bs[0], sup[0]
+    gbps = cstpu_torch.utils.profiling.measured_stream_gbps()
+    # the calibration must read at least what one of the solve's own 4 GB
+    # GEMV passes (r'A, the ARD loop's) streams, within the spread of one
+    # call, before any roofline fraction divides by it
+    r = torch.randn((n,), device=dev, generator=gen)
+    gemv_ms = min(_timed(lambda: r @ A)[1] for _ in range(5))
+    gemv_gbps = A.numel() * 4 / gemv_ms / 1e6
+    out["stream_gbps"], out["gemv_gbps"] = gbps, gemv_gbps
+    assert gbps >= gemv_gbps * (1.0 - STREAM_RTOL), ("stream rate", gbps,
+                                                     gemv_gbps)
+    del r
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()   # the solve's peak, A included
+    print(f"[convex] config 5ard: n={n} m={m} k={k}, one shard "
+          f"({A.numel() * 4 / 2**30:.1f} GiB f32); the card streams "
+          f"{gbps:.1f} GB/s (utils.profiling.measured_stream_gbps; "
+          f"{HBM_BYTES_PER_S / 1e9:.0f} by the data sheet), one r'A GEMV "
+          f"pass {gemv_ms:.4f} ms = {gemv_gbps:.1f} GB/s")
+    kw = dict(eps=1e-2, maxiter=4, maxiter_admm=2000, tol=3e-6,
+              admm_chunk=2000)
+    x = convex_solve("5ard bp_ard_sharded",
+                     lambda: cstpu_torch.parallel.bp_ard_sharded(
+                         A, b, mesh1, **kw), 1, out)
+    ok, nnz = _recovered(x, sup, CONVEX_SUP)
+    assert ok, "5ard: planted atoms not recovered"
+    nb = float(torch.linalg.vector_norm(b.double()))
+    raw = _residual64(A, x, b) / nb
+    xp = cstpu_torch.polish(A, b, x, tol=CONVEX_SUP)
+    pol = _residual64(A, xp, b) / nb
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["5ard bp_ard_sharded"].update(
+        feasibility_admm=raw, feasibility_polished=pol, nnz_1e3=nnz,
+        peak_gib=peak, whiten_lean=m * n * 4 > pcv._WHITEN_BYTES_MAX)
+    print(f"[convex 5ard] recovery {{|x| > {CONVEX_SUP}}} includes the "
+          f"{k} planted atoms (nnz {nnz}); ||Ax - b|| / ||b|| raw "
+          f"{raw:.3e}, after polish {pol:.3e}; peak device memory "
+          f"{peak:.2f} GiB; {time.perf_counter() - t2:.1f} s | {gpu}")
+    del A, Bs, x, xp
+    torch.cuda.empty_cache()
+
+    # --- the oracle: exhaustive at n=32, m=48, k=3 -----------------------
+    n, m, k = ORACLE_CELL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    A, Bs, sup = planted(gen, 1, n, m, k)
+    yo = perturb(gen, Bs[0], 1e-2)
+    got = convex_solve(
+        f"oracle exhaustive n={n} m={m} k={k}",
+        lambda: torch.as_tensor(cstpu_torch.exhaustive(A, yo, k),
+                                device=dev), TIMED_SLOW, out,
+        device_op="svd")
+    cpu = cstpu_torch.exhaustive(A.cpu(), yo.cpu(), k)
+    assert got.tolist() == cpu.tolist(), (got, cpu)
+    assert got.tolist() == sorted(sup[0].tolist()), (got, sup)
+    print(f"[convex oracle] exhaustive on the card == on the CPU == the "
+          f"planted support {got.tolist()} ({math.comb(m, k)} candidates; "
+          "their batched SVD ran on the card: cuSOLVER's batched Jacobi "
+          "kernels in the profile)")
+    out["agree_shards"] = agree
+    print(f"[convex] done in {time.perf_counter() - t0:.1f} s | {gpu}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4437,6 +4788,9 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)} torch "
           f"{torch.__version__} cuda {torch.version.cuda} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(f"[g++] {gxx.stdout.splitlines()[0]} (builds cstpu_torch.native)")
 
     secs, log = _build.build()
     print(f"[build] nvcc {len(_build.sources())} sources -> {_build.LIB.name} "
@@ -4802,6 +5156,7 @@ def main():
     t0 = time.perf_counter()
     sbl_out = sbl_paths(dev, gpu)
     print(f"[sbl] done in {time.perf_counter() - t0:.1f} s")
+    convex_out = convex_paths(dev, gpu)
 
     sel_err, app_err, launches, tm = record["bench"]
     tm5b = record["5b"][3]
@@ -5673,6 +6028,7 @@ def main():
                        for key, v in {**ssplit, **bsplit}.items()},
         "device": gpu}}))
     print(json.dumps({"sbl": {**sbl_out, "device": gpu}}))
+    print(json.dumps({"convex": {**convex_out, "device": gpu}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

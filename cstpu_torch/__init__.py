@@ -24,7 +24,16 @@ one kernel's reach, `omp_sharded_fused`, `mp_sharded_fused`,
 row-sharded `omp_sharded_rows` beside them, on the streaming select
 kernels (cstpu_torch.ops.stream_select, cstpu_torch.ops.corr_argmax), and
 the atom-sharded SBL solvers (cstpu_torch.parallel: `fsbl_sharded`,
-`rmps_sharded`). It imports torch, numpy and ctypes, never jax.
+`rmps_sharded`); the convex family, `bp`, `bpd` (secant, ADMM, and the
+native homotopy), their Candes and ARD reweightings and `ista`/`fista`,
+with the column-sharded convex solvers (`bp_sharded`, `bp_ard_sharded`,
+`bpd_sharded`, `bpd_candes_sharded`, `bpd_ard_sharded`,
+`bpd_secant_sharded`, `ista_sharded`, `fista_sharded`) and the native
+simplex and LASSO-path solvers (cstpu_torch.native, C++ built with g++);
+the brute-force oracle `exhaustive`; and the solver configs, checkpoints
+and profiling (`SolverConfig`, `solver_config`, `save_state`,
+`load_state`, `solve_cost`, `roofline_report`). It imports torch, numpy
+and ctypes, never jax.
 """
 
 from cstpu_torch.utils.data import (
@@ -59,6 +68,19 @@ from cstpu_torch.models.stepwise import rmp, foba
 from cstpu_torch.models.backward import br, fbr, lace
 from cstpu_torch.models.sbl import (
     sbl, fsbl, fsbl_traced, rmps, rmps_traced, rmps_estimate_noise)
+from cstpu_torch.models.basis_pursuit import (
+    bp,
+    basispursuit,
+    bp_candes,
+    bp_ard,
+    bpd,
+    basis_pursuit_denoising,
+    bpd_candes,
+    bpd_ard,
+    ista,
+    fista,
+)
+from cstpu_torch.models.exhaustive import exhaustive
 from cstpu_torch.models.batched import (
     batch,
     omp_batch,
@@ -78,8 +100,11 @@ from cstpu_torch.models.batched import (
     sbl_batch,
     rmps_estimate_noise_batch,
 )
+from cstpu_torch.utils.config import SolverConfig, solver_config
 from cstpu_torch.utils.diagnostics import (
     omp_traced, fr_traced, SolveTrace, SBLTrace, RMPSTrace)
+from cstpu_torch.utils.checkpoint import save_state, load_state
+from cstpu_torch.utils.profiling import solve_cost, roofline_report
 from cstpu_torch.parallel import (
     make_mesh,
     shard_dictionary,
@@ -111,11 +136,18 @@ __all__ = [
     "sp", "ompr", "srr", "rmp", "foba", "br", "fbr", "lace",
     "sbl", "fsbl", "fsbl_traced", "rmps", "rmps_traced",
     "rmps_estimate_noise",
+    "bp", "basispursuit", "bp_candes", "bp_ard",
+    "bpd", "basis_pursuit_denoising", "bpd_candes", "bpd_ard",
+    "ista", "fista",
+    "exhaustive",
     "batch", "omp_batch", "mp_batch", "gomp_batch", "fr_batch",
     "sp_batch", "srr_batch", "ompr_batch", "rmp_batch", "foba_batch",
     "br_batch", "fbr_batch", "lace_batch",
     "rmps_batch", "fsbl_batch", "sbl_batch", "rmps_estimate_noise_batch",
+    "SolverConfig", "solver_config",
     "omp_traced", "fr_traced", "SolveTrace", "SBLTrace", "RMPSTrace",
+    "save_state", "load_state",
+    "solve_cost", "roofline_report",
     "make_mesh", "shard_dictionary", "shard_batch",
     "omp_sharded", "omp_sharded_rows", "omp_sharded_fused",
     "mp_sharded_fused", "gomp_sharded_fused", "ompr_sharded_fused",

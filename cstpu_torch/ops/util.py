@@ -78,13 +78,13 @@ def as_inputs(A, Bs):
 
 
 @contextlib.contextmanager
-def true_f32():
-    """f32 matrix products in full f32 (no TF32) inside the block; the
-    caller's setting is put back afterwards. The backward family's deletion
-    deltas are decisions: over ~m dependent steps reduced-precision
-    products change the recovered support."""
+def true_f32(allow_tf32: bool = False):
+    """f32 matrix products in full f32 (no TF32) inside the block, or in
+    TF32 where `allow_tf32`; the caller's setting is put back afterwards.
+    The backward family's deletion deltas are decisions: over ~m dependent
+    steps reduced-precision products change the recovered support."""
     saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     try:
         yield
     finally:

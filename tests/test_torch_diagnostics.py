@@ -1,13 +1,15 @@
 """cstpu_torch's diagnostics (cstpu_torch.utils.diagnostics: omp_traced,
 fr_traced) and dictionary utilities (cstpu_torch.utils.dictionary) against
 cstpu's, in float64 on the CPU, on cstpu's seeded problems handed over
-through numpy; the exports and signatures of the names this slice adds.
+through numpy; the exports and signatures of the names the SBL slice and
+the convex slice add (cstpu's, but for the sharded solvers' `atoms_axis`).
 
 Tolerances: supports, selections, acceptance flags equal; values to 1e-10
 absolute (the traces, the Babel function, the preconditioners: the same f64
 products in another order).
 """
 
+import dataclasses
 import inspect
 
 import jax
@@ -155,8 +157,56 @@ def test_new_names_exported_with_cstpu_signatures(name):
         assert _params(got) == _params(want)
 
 
+# the names the convex slice adds: the convex family, the oracle and the
+# config, checkpoint and profiling utilities, then the sharded convex
+# solvers of cstpu.parallel
+CONVEX_NAMES = ["bp", "basispursuit", "bp_candes", "bp_ard", "bpd",
+                "basis_pursuit_denoising", "bpd_candes", "bpd_ard", "ista",
+                "fista", "exhaustive", "SolverConfig", "solver_config",
+                "save_state", "load_state", "solve_cost", "roofline_report"]
+SHARDED_CONVEX_NAMES = ["bp_sharded", "bp_ard_sharded", "bpd_sharded",
+                        "bpd_candes_sharded", "bpd_ard_sharded",
+                        "bpd_secant_sharded", "ista_sharded",
+                        "fista_sharded"]
+# the one documented difference: the port's mesh names its axes, so the
+# sharded solvers drop `atoms_axis`
+DROPPED = {"atoms_axis"}
+
+
+@pytest.mark.parametrize("name", CONVEX_NAMES + SHARDED_CONVEX_NAMES)
+def test_convex_names_exported_with_cstpu_signatures(name):
+    import cstpu.parallel
+    import cstpu_torch.parallel
+
+    sharded = name in SHARDED_CONVEX_NAMES
+    pkg_t = cstpu_torch.parallel if sharded else cstpu_torch
+    pkg_j = cstpu.parallel if sharded else cstpu
+    assert name in pkg_t.__all__
+    got, want = getattr(pkg_t, name), getattr(pkg_j, name)
+    if isinstance(want, type):
+        assert ([f.name for f in dataclasses.fields(got)]
+                == [f.name for f in dataclasses.fields(want)])
+        return
+    expect = [p for p in _params(want) if not (sharded and p[0] in DROPPED)]
+    assert _params(got) == expect
+
+
 def test_exports_follow_cstpu_order():
     ours = [x for x in cstpu.__all__ if x in cstpu_torch.__all__]
-    assert len(ours) == 64
-    mine = [x for x in cstpu_torch.__all__ if x in NEW_NAMES]
-    assert mine == [x for x in cstpu.__all__ if x in NEW_NAMES]
+    assert len(ours) == 81 == len(cstpu.__all__)
+    for names in (NEW_NAMES, CONVEX_NAMES):
+        mine = [x for x in cstpu_torch.__all__ if x in names]
+        assert mine == [x for x in cstpu.__all__ if x in names]
+
+
+def test_parallel_exports_cover_cstpu_parallel():
+    import cstpu.parallel
+    import cstpu_torch.parallel
+
+    ours = [x for x in cstpu.parallel.__all__
+            if x in cstpu_torch.parallel.__all__]
+    assert len(ours) == 24 == len(cstpu.parallel.__all__)
+    mine = [x for x in cstpu_torch.parallel.__all__
+            if x in SHARDED_CONVEX_NAMES]
+    assert mine == [x for x in cstpu.parallel.__all__
+                    if x in SHARDED_CONVEX_NAMES]
