@@ -59,6 +59,17 @@ it and read just after:
                        recovery, one shard against four, the certified
                        bodies inside the delta-ball, times, idle shares
                        and loop counts)
+  [distributed]        omp_sharded_fused (both collective forms),
+                       gomp/ompr_sharded_fused at config 5c, fr_sharded_
+                       fused at 3a-wide, rmps_sharded at 4e (m=131072) and
+                       bp_sharded at config 5 (m=4096) over a (1, 4) mesh
+                       that spans two worker processes of this script on
+                       the one card (cstpu_torch.parallel.distributed,
+                       gloo over localhost; each worker makes its own two
+                       shards), bit for bit against the one-process (1, 4)
+                       mesh, launches = a worker's shards x steps
+  [examples]           examples/torch/0*.py on the card, each in its own
+                       process: exit code 0 and a last line OK
 
 It checks planted-support recovery, launch counts (for the two-stage,
 stepwise, backward and sharded paths against the formulas for the
@@ -4775,6 +4786,410 @@ def convex_paths(dev, gpu):
     return out
 
 
+# --------------------------------------------------------------------------
+# [distributed] and [examples]
+# --------------------------------------------------------------------------
+
+# The sharded solvers over a (1, SHARDS) mesh that spans DIST_PROCS
+# processes on the one card (gloo over localhost; NCCL refuses two
+# processes on one card), each process holding SHARDS / DIST_PROCS shards
+# that it makes itself (shard_global's callback form): suite config 5c
+# (benchmarks/suite.py:447-465: B=8, n=1024, m=131072, k=32, bf16
+# correlation) for omp (both collective forms), gomp and ompr, config 3a
+# widened to 5c's width for fr, config 4e's rmps at m=131072 (k=16, sigma
+# 1e-2) on 5c's dictionary, and config 5's bp at m=4096 (n=128, k=6). Each
+# is held bit for bit against the same solve over the one-process (1,
+# SHARDS) mesh on the same card. The dictionaries are made shard by shard
+# from a seed of their own (the kinds of the earlier phases: unit-norm
+# Gaussian, correlated_data's spectrum), so that no process holds another's.
+DIST_PROCS = 2
+DIST_SEED = SEED + 1000
+DIST_TIMEOUT_S = 300    # a worker's own limit (the phase takes ~1 min)
+BP5_CELL = (128, 4096, 6)               # n, m, k: suite config 5 at 4 shards
+EXAMPLE_TIMEOUT_S = 300
+
+
+def dist_shard(seed, n, ml, j, dev, decay=None):
+    """Shard j (n, ml) of a [distributed] dictionary from its own seed:
+    unit-norm Gaussian columns, or with `decay` correlated_data's (U
+    diag(1/i^decay)) V with U (n, n) shared by every shard."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 1 + j)
+    A = torch.randn((n, ml), generator=gen, device=dev)
+    if decay is not None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        U = torch.randn((n, n), generator=gen, device=dev)
+        A = (U / torch.arange(1, n + 1, device=dev) ** decay) @ A
+    A /= torch.linalg.vector_norm(A, dim=0, keepdim=True)
+    return A
+
+
+def dist_kinds():
+    """(seed, n, m, decay) of the phase's three dictionaries: 5c's
+    unit-norm Gaussian, 3a-wide's correlated one, config 5's."""
+    _, n, m, _ = SHARD_CELLS["5c"]
+    return ((DIST_SEED, n, m, None), (DIST_SEED + 100, n, m, FR5_DECAY),
+            (DIST_SEED + 200, BP5_CELL[0], BP5_CELL[1], None))
+
+
+def dist_dictionaries(mesh, dev):
+    """The phase's three dictionaries over `mesh`, each process making its
+    own shards only: (A5, Ar5, Abp) as ShardedDictionary."""
+    from cstpu_torch.parallel import distributed as dist
+
+    def place(seed, n, m, decay):
+        ml = m // SHARDS
+        return dist.shard_global(
+            lambda index: dist_shard(seed, n, ml, index[1].start // ml, dev,
+                                     decay),
+            mesh, (None, "atoms"), global_shape=(n, m))
+
+    return tuple(place(*kind) for kind in dist_kinds())
+
+
+def dist_problem(dev):
+    """The measurements of the phase, planted on the whole dictionaries
+    (made here once from the same shards, then freed)."""
+    from cstpu_torch.utils.data import perturb
+
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    B, _, _, k = SHARD_CELLS["5c"]
+    A5, Ar5, Abp = (torch.cat([dist_shard(seed, n, m // SHARDS, j, dev, decay)
+                               for j in range(SHARDS)], dim=1)
+                    for seed, n, m, decay in dist_kinds())
+    prob = {}
+    prob["Bs5"], prob["sup5"] = planted_pm1(gen, A5, B, k)
+    prob["Bones"], prob["sup_ones"] = planted_ones(gen, A5, B, k)
+    prob["Br"], prob["supr"] = planted_ones(gen, Ar5, B, FR5_K)
+    b4e, prob["sup4e"] = planted_ones(gen, A5, B, SBL4E_CELL[2])
+    prob["Y4e"] = perturb(gen, b4e, SBL4E_CELL[3])
+    bbp, supbp = planted_pm1(gen, Abp, 1, BP5_CELL[2])
+    prob["bbp"], prob["supbp"] = bbp[0], supbp[0]
+    return prob
+
+
+def _first_tensor(res):
+    """The first tensor of a solver's result (a value to fetch)."""
+    if isinstance(res, torch.Tensor):
+        return res
+    if isinstance(res, (tuple, list)):
+        return _first_tensor(res[0])
+    return res.val
+
+
+def dist_solves(mesh, prob, dev):
+    """The phase's solves over `mesh`, each once with the launch and loop
+    counts set to 0 just before and read just after (its result is the
+    one returned), then once bracketed by CUDA events and synced by a value
+    fetch (for bp, whose solve takes seconds, that first call is the timed
+    one: every process of the mesh makes the same calls), then once under
+    torch.profiler for its device busy time. Over a mesh that spans
+    processes the time in the mesh's exchanges during the timed call (gloo
+    and the host copies around it; the device is synced before each, so
+    that its queued work is not counted) is summed too. Returns ({key:
+    result}, {key: stats})."""
+    import cstpu_torch
+    from cstpu_torch.models import basis_pursuit as cbp
+    from cstpu_torch.models import sbl as sb
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.parallel.mesh import Mesh
+
+    A5, Ar5, Abp = dist_dictionaries(mesh, dev)
+    k = SHARD_CELLS["5c"][3]
+    s2 = SBL4E_CELL[3] ** 2
+    par = cstpu_torch.parallel
+    solves = (
+        ("5c omp fuse=1", lambda: par.omp_sharded_fused(
+            A5, prob["Bs5"], k, mesh, fuse_collectives=True,
+            return_iters=True)),
+        ("5c omp fuse=0", lambda: par.omp_sharded_fused(
+            A5, prob["Bs5"], k, mesh, fuse_collectives=False,
+            return_iters=True)),
+        ("5c gomp", lambda: par.gomp_sharded_fused(
+            A5, prob["Bones"], 4, k, mesh, return_iters=True)),
+        ("5c ompr", lambda: par.ompr_sharded_fused(
+            A5, prob["Bones"], k, mesh, delta=1e-12, return_iters=True)),
+        ("3a-wide fr", lambda: par.fr_sharded_fused(
+            Ar5, prob["Br"], FR5_K, mesh, return_iters=True)),
+        ("4e rmps", lambda: par.rmps_sharded(A5, prob["Y4e"], s2, mesh)),
+        ("5 bp", lambda: par.bp_sharded(Abp, prob["bbp"], mesh=mesh)[0]),
+    )
+    spent = [0.0]
+    exchange = Mesh._exchange
+
+    def timed_exchange(self, xs, home, row):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return exchange(self, xs, home, row)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    results, stats = {}, {}
+    Mesh._exchange = timed_exchange
+    try:
+        for key, fn in solves:
+            for counts in (fs.LAUNCHES, cbp.LOOP_COUNTS, sb.LOOP_COUNTS):
+                for c in counts:
+                    counts[c] = 0
+
+            def counted(res):
+                torch.cuda.synchronize()
+                return res, {
+                    "launches": {c: v for c, v in fs.LAUNCHES.items() if v},
+                    "loop": dict(cbp.LOOP_COUNTS) if key == "5 bp" else
+                    dict(sb.LOOP_COUNTS) if key == "4e rmps" else {}}
+
+            slow = key == "5 bp"
+            if not slow:
+                res, st = counted(fn())
+            spent[0] = 0.0
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn()
+            t1.record()
+            float(_first_tensor(out).float().sum())
+            ms, ex_ms = t0.elapsed_time(t1), spent[0] * 1e3
+            if slow:
+                res, st = counted(out)
+            st.update(ms=ms, exchange_ms=ex_ms)
+            busy, _ = top_device_ops(fn)
+            st.update(device_busy_ms=busy, idle_share=1.0 - busy / ms,
+                      exchange_share=ex_ms / ms)
+            results[key], stats[key] = res, st
+    finally:
+        Mesh._exchange = exchange
+    return results, stats
+
+
+def _to_cpu(res):
+    if isinstance(res, torch.Tensor):
+        return res.cpu()
+    if isinstance(res, (tuple, list)):
+        return type(res)(_to_cpu(x) for x in res)
+    if hasattr(res, "idx"):
+        return {"idx": res.idx.cpu(), "val": res.val.cpu(),
+                "mask": res.mask.cpu()}
+    return res
+
+
+def dist_worker(argv):
+    """One process of the [distributed] phase:
+
+        python3 chip_smoke.py --dist-worker RANK PORT DIR
+
+    joins the group at localhost:PORT, builds the process-spanning mesh
+    over its SHARDS / DIST_PROCS shards on cuda:0, reads the measurements
+    from DIR/problem.pt and writes its results (rankR.pt) and counts and
+    times (rankR.json) there."""
+    import os
+
+    from cstpu_torch.parallel import distributed as dist
+
+    rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.initialize(f"localhost:{port}", DIST_PROCS, rank)
+    mesh = dist.global_mesh(devices=[dev] * (SHARDS // DIST_PROCS))
+    assert mesh.row_spans(0) and mesh.stage, mesh
+    prob = torch.load(os.path.join(out, "problem.pt"), map_location=dev)
+    results, stats = dist_solves(mesh, prob, dev)
+    torch.save({key: _to_cpu(v) for key, v in results.items()},
+               os.path.join(out, f"rank{rank}.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"local_shards": list(mesh.local(0)), "stats": stats}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _same_bits(a, b):
+    """Every tensor of two results equal entry by entry (NaN where NaN)."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and (
+            torch.equal(a, b) or (a.is_floating_point()
+                                  and torch.equal(a.isnan(), b.isnan())
+                                  and torch.equal(a.nan_to_num(),
+                                                  b.nan_to_num())))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[x], b[x])
+                                            for x in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    return a == b
+
+
+def distributed_paths(dev, gpu):
+    """The [distributed] phase: the one-process (1, SHARDS) mesh's solves
+    here, then the same solves in DIST_PROCS worker processes over a mesh
+    that spans them, held bit for bit against these; recovery; each
+    worker's launches = its shards x steps; times."""
+    import os
+    import socket
+    import tempfile
+
+    import cstpu_torch
+
+    t_start = time.perf_counter()
+    prob = dist_problem(dev)
+    one = cstpu_torch.make_mesh((1, SHARDS))
+    ref, ref_stats = dist_solves(one, prob, dev)
+    ref = {key: _to_cpu(v) for key, v in ref.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_start
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(prob, os.path.join(tmp, "problem.pt"))
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here)
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(DIST_PROCS)]
+        procs = []
+        for r in range(DIST_PROCS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dist-worker", str(r), str(port), tmp],
+                    cwd=here, env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:     # the workers started here, nothing else
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for path in logs:
+            with open(path) as f:
+                texts.append(f.read())
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, (
+                f"[distributed] worker {r} exited {p.returncode} (a "
+                f"negative code: killed past its {DIST_TIMEOUT_S} s)\n"
+                + texts[r][-6000:])
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(DIST_PROCS)]
+        meta = []
+        for r in range(DIST_PROCS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                meta.append(json.load(f))
+    t_workers = time.perf_counter() - t_start - t_ref
+
+    _, _, m, k = SHARD_CELLS["5c"]
+    local = SHARDS // DIST_PROCS
+    out = {"ref": ref_stats, "workers": [x["stats"] for x in meta]}
+    for key in ref:
+        for r in range(DIST_PROCS):
+            assert _same_bits(got[r][key], ref[key]), (
+                f"[distributed] {key}: worker {r} differs from the "
+                f"one-process mesh")
+        res = ref[key]
+        if key == "4e rmps":
+            rec = sbl_recovery(res.to(dev), prob["sup4e"], SBL4E_CELL[3])
+            assert rec == 1.0, (key, rec)
+        elif key == "5 bp":
+            ok, _ = _recovered(res.to(dev), prob["supbp"], CONVEX_SUP)
+            assert ok, key
+        else:
+            sol, iters = res
+            sup = {"5c omp fuse=1": "sup5", "5c omp fuse=0": "sup5",
+                   "3a-wide fr": "supr"}.get(key, "sup_ones")
+            sol = cstpu_torch.SparseSolution(sol["idx"], sol["val"],
+                                             sol["mask"], m)
+            rec = recovery(sol, prob[sup])
+            assert rec == 1.0, (key, rec)
+            it = iters[0]
+            want = {"5c omp fuse=1": {"select_stream_mma": it},
+                    "5c omp fuse=0": {"select_stream_mma": it},
+                    "5c gomp": {"select_topl_stream_mma": it,
+                                "stream_topl_finish": it},
+                    "5c ompr": {"select_topl_stream_mma": 1,
+                                "stream_topl_finish": 1,
+                                "select_masked_stream_mma": it},
+                    "3a-wide fr": {"fr_step_select_mma": it}}[key]
+            for shards, stats in ((SHARDS, ref_stats),
+                                  *((local, x["stats"]) for x in meta)):
+                assert stats[key]["launches"] == {
+                    c: shards * v for c, v in want.items()}, (
+                    key, shards, stats[key]["launches"])
+        for x in meta:
+            loop = x["stats"][key]["loop"]
+            assert loop == ref_stats[key]["loop"] or (
+                key == "5 bp" and loop["replays"] == 0
+                and {c: v for c, v in loop.items() if c != "replays"}
+                == {c: v for c, v in ref_stats[key]["loop"].items()
+                    if c != "replays"}), (key, loop, ref_stats[key]["loop"])
+        w = [x["stats"][key] for x in meta]
+        print(f"[distributed {key}] bit-equal to the one-process (1, "
+              f"{SHARDS}) mesh on both workers ("
+              + ", ".join(f"{c} {v}" for c, v in (
+                  ref_stats[key]["launches"] or ref_stats[key]["loop"])
+                  .items())
+              + " one-process); one-process "
+              f"{ref_stats[key]['ms']:.3f} ms (busy "
+              f"{ref_stats[key]['device_busy_ms']:.3f}); workers "
+              + "; ".join(
+                  f"{r}: {x['ms']:.3f} ms (events, value fetch), busy "
+                  f"{x['device_busy_ms']:.3f} ms, idle share "
+                  f"{x['idle_share']:.4f}, exchanges {x['exchange_ms']:.3f} "
+                  f"ms = {x['exchange_share']:.4f} of the wall"
+                  for r, x in enumerate(w)) + f" | {gpu}")
+    print(f"[distributed] {DIST_PROCS} processes x {local} shards on the "
+          f"one card (gloo over localhost), local shards "
+          f"{[x['local_shards'] for x in meta]}: every solve bit-equal, "
+          f"recovery 1.000, launches = shards x steps; one-process solves "
+          f"{t_ref:.1f} s, workers {t_workers:.1f} s | {gpu}")
+    out["seconds"] = {"one_process": t_ref, "workers": t_workers}
+    return out
+
+
+def examples_paths(gpu):
+    """The [examples] phase: examples/torch/0*.py on the card, each in a
+    process of its own: exit code 0 and a last line OK."""
+    import glob
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    scripts = sorted(glob.glob(os.path.join(here, "examples", "torch",
+                                            "0*.py")))
+    assert len(scripts) == 5, scripts
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for script in scripts]
+    out, texts = {}, []
+    try:
+        for p in procs:     # all five at once, each in its own process
+            texts.append(p.communicate(timeout=max(
+                EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0), 1.0)))
+            out[os.path.basename(p.args[1])] = time.perf_counter() - t0
+    finally:
+        for p in procs:     # the processes started here, nothing else
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (stdout, stderr) in zip(procs, texts):
+        name = os.path.basename(p.args[1])
+        assert p.returncode == 0, (
+            f"[examples] {name} exited {p.returncode}\n{stdout[-3000:]}\n"
+            f"{stderr[-3000:]}")
+        last = stdout.rstrip().splitlines()[-1]
+        assert last == "OK", (name, last)
+        print(f"[examples] {name} on the card: rc 0, last line OK, done "
+              f"{out[name]:.1f} s after the five started | {gpu}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -5157,6 +5572,12 @@ def main():
     sbl_out = sbl_paths(dev, gpu)
     print(f"[sbl] done in {time.perf_counter() - t0:.1f} s")
     convex_out = convex_paths(dev, gpu)
+    t0 = time.perf_counter()
+    dist_out = distributed_paths(dev, gpu)
+    print(f"[distributed] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    examples_out = examples_paths(gpu)
+    print(f"[examples] done in {time.perf_counter() - t0:.1f} s")
 
     sel_err, app_err, launches, tm = record["bench"]
     tm5b = record["5b"][3]
@@ -6029,6 +6450,8 @@ def main():
         "device": gpu}}))
     print(json.dumps({"sbl": {**sbl_out, "device": gpu}}))
     print(json.dumps({"convex": {**convex_out, "device": gpu}}))
+    print(json.dumps({"distributed": {**dist_out, "device": gpu},
+                      "examples_s": examples_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6036,4 +6459,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dist_worker(sys.argv[2:]) if sys.argv[1:2] == ["--dist-worker"]
+             else main())

@@ -9,8 +9,9 @@ is the reference they are verified against, and the row-sharded
 `fsbl_sharded` and `rmps_sharded` are the atom-sharded SBL solvers
 (cstpu_torch.parallel.sharded_sbl), and the column-sharded convex solvers
 (bp/bp_ard/bpd/bpd_candes/bpd_ard/bpd_secant/ista/fista_sharded) are in
-cstpu_torch.parallel.convex. cstpu's multi-process layer is not ported
-yet.
+cstpu_torch.parallel.convex. Every one of them runs over a mesh that spans
+processes as well (cstpu_torch.parallel.distributed: `initialize`,
+`global_mesh`, `shard_global`).
 """
 
 from cstpu_torch.parallel.mesh import (
@@ -29,6 +30,7 @@ from cstpu_torch.parallel.sharded import (
     foba_sharded_fused,
 )
 from cstpu_torch.parallel.sharded_sbl import fsbl_sharded, rmps_sharded
+from cstpu_torch.parallel import distributed
 from cstpu_torch.parallel.convex import (bp_sharded, bp_ard_sharded,
                                          bpd_sharded, bpd_candes_sharded,
                                          bpd_ard_sharded, bpd_secant_sharded,

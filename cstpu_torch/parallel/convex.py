@@ -5,8 +5,11 @@ cstpu's without `atoms_axis`: the port's mesh has its axes by name.
 
 The primal vectors (x, z, u, w) lie with the dictionary columns, one piece
 per shard on the shard's device; b, y and the n x n factors lie on the
-home device of the mesh's first batch row (a batch axis of the mesh
-replicates the work, as cstpu's shard_map does, so it runs once). Every
+home device of the mesh's first batch row in this process (a batch axis of
+the mesh replicates the work, as cstpu's shard_map does, so it runs once
+in each process; over a mesh that spans processes each process works on
+its own shards of that row, and every process returns the whole
+result). Every
 ADMM and FISTA iteration makes one n-length `psum` of the shards' A_s v_s
 products and one packed psum of its three scalar sums; the sums run over
 the shards in a fixed order, so one shard and four agree to rounding. The
@@ -20,7 +23,8 @@ dictionary several times over.
 
 The while loops read their latch every `CHECK_EVERY` iterations, with the
 frozen-state rule and the `LOOP_COUNTS` of cstpu_torch.models.
-basis_pursuit. `matmul_precision` keeps cstpu's strings: "float32" runs the
+basis_pursuit; a loop whose row spans processes runs eagerly (`_loop`).
+`matmul_precision` keeps cstpu's strings: "float32" runs the
 products with TF32 off, "tensorfloat32" with it on.
 """
 
@@ -35,7 +39,7 @@ from cstpu_torch.models.basis_pursuit import (
     _pareto_secant_loop, _rescale, _shrink, _sigma_max_sq)
 from cstpu_torch.ops.util import cholesky_nan, true_f32
 from cstpu_torch.parallel.mesh import Mesh, ShardedDictionary, make_mesh
-from cstpu_torch.parallel.sharded_sbl import _Row
+from cstpu_torch.parallel.sharded_sbl import _Row, _row
 
 # Above this many bytes per shard the whitening and ARD sweeps run in
 # column chunks (peak: A + one whitened buffer + a chunk temp)
@@ -77,8 +81,8 @@ def _lean(row: _Row) -> bool:
 # ---------------------------------------------------------------------------
 
 def _setup(A, mesh: Mesh):
-    """(the mesh's first batch row of shards, the dense A or an array view
-    of the shards for the host-side fallbacks)."""
+    """(this process's first batch row of shards, the dense A or an array
+    view of the shards for the host-side fallbacks)."""
     if mesh is None:
         mesh = make_mesh()
     s = mesh.shape["atoms"]
@@ -87,39 +91,51 @@ def _setup(A, mesh: Mesh):
     n, m = A.shape
     if m % s:
         raise ValueError(f"m = {m} not divisible by atom shards {s}")
+    i = mesh.rows()[0]
     if isinstance(A, ShardedDictionary):
-        shards = A.shards[0]
-        dense = _Gathered(shards, (n, m))
-    else:
-        ml = m // s
-        shards = tuple(A[:, j * ml:(j + 1) * ml].to(dev)
-                       for j, dev in enumerate(mesh.devices[0]))
-        dense = A
-    row = _Row(mesh, mesh.home(0), mesh.devices[0], shards, m // s)
-    return row, dense
+        row = _row(mesh, A, i)
+        return row, _Gathered(row)
+    ml = m // s
+    cut = {j: A[:, j * ml:(j + 1) * ml].to(mesh.devices[i][j])
+           for j in mesh.local(i)}
+    return _row(mesh, _in_row(mesh, i, cut, (n, m), A.dtype), i), A
+
+
+def _in_row(mesh: Mesh, i: int, shards: dict, shape, dtype):
+    """A ShardedDictionary whose only shards are `shards` ({shard index:
+    tensor}), in batch row i."""
+    grid = tuple(tuple(shards.get(j) if r == i else None
+                       for j in range(mesh.shape["atoms"]))
+                 for r in range(mesh.shape["batch"]))
+    return ShardedDictionary(grid, shape, dtype, mesh)
 
 
 class _Gathered:
-    """The shards of a ShardedDictionary as one host array, built only when
-    numpy reads it (the rare host-side fallbacks)."""
+    """The row's shards as one host array, built only when numpy reads it
+    (the rare host-side fallbacks; over a row that spans processes every
+    process of the row reads it at the same point)."""
 
-    def __init__(self, shards, shape):
-        self.shards = shards
-        self.shape = shape
+    def __init__(self, row: _Row):
+        self.row = row
+        self.shape = (row.A[0].shape[0], row.m)
 
     def __array__(self, dtype=None, copy=None):
-        out = torch.cat([a.cpu() for a in self.shards], dim=1).numpy()
+        row = self.row
+        if row.mesh.row_spans(row.i):
+            out = row.cat(row.A, dim=1).cpu().numpy()
+        else:
+            out = torch.cat([a.cpu() for a in row.A], dim=1).numpy()
         return out if dtype is None else out.astype(dtype)
 
 
 def _split(row: _Row, v):
-    """A full (m,) vector as its shards' pieces."""
+    """A full (m,) vector as this process's shards' pieces."""
     return [v[j * row.ml:(j + 1) * row.ml].to(dev)
-            for j, dev in enumerate(row.devs)]
+            for j, dev in zip(row.js, row.devs)]
 
 
 def _join(row: _Row, vs):
-    return torch.cat([v.to(row.home) for v in vs])
+    return row.cat(vs)
 
 
 def _on(x, row: _Row, dtype):
@@ -127,7 +143,15 @@ def _on(x, row: _Row, dtype):
 
 
 def _psum(row: _Row, xs):
-    return row.mesh.psum(xs, row.home)
+    return row.psum(xs)
+
+
+def _loop(row: _Row, body, state, maxiter: int):
+    """`_latched` over the row's devices. A row whose shards span processes
+    runs eagerly: a CUDA graph would capture its exchanges with the other
+    processes, which run on the host."""
+    return _latched(body, state, maxiter, (row.home, *row.devs),
+                    graphs=not row.mesh.row_spans(row.i))
 
 
 def _fit(row: _Row, A, vs):
@@ -234,8 +258,8 @@ def _bp_shards(row: _Row, b, w, rho, maxiter: int, tol, z0=None, u0=None):
 
     z_init = x0 if z0 is None else z0
     u_init = [torch.zeros_like(v) for v in x0] if u0 is None else u0
-    z, u, rho_f, _ = _latched(body, (z_init, u_init, rho, _latch(b)),
-                              maxiter, (row.home, *row.devs))
+    z, u, rho_f, _ = _loop(row, body, (z_init, u_init, rho, _latch(b)),
+                           maxiter)
     return z, u, rho_f
 
 
@@ -260,7 +284,7 @@ def bp_sharded(A, b, w=None, mesh: Mesh = None, rho: float = 1.0,
     row, _ = _setup(A, mesh)
     dt = row.A[0].dtype
     b = _on(b, row, dt)
-    m = row.ml * len(row.devs)
+    m = row.m
     w = (torch.ones((m,), dtype=dt, device=row.home) if w is None
          else _on(w, row, dt))
     tol = _on(_tol(tol, dt, 1e-9, 1e-6), row, dt)
@@ -303,7 +327,7 @@ def _ard_shards(row: _Row, x, w, eps, iters: int):
             parts.append(Kacc)
         L = cholesky_nan(eps * eye + _psum(row, parts))
         q = [_quad_forms(row, A_l, L.to(A_l.device), lean) for A_l in A]
-        qmax = row.mesh.pmax([torch.max(ql) for ql in q], row.home)
+        qmax = row.pmax([torch.max(ql) for ql in q])
         w = [_ard_floor(ql, qmax.to(ql.device)) for ql in q]
     return w
 
@@ -327,9 +351,8 @@ def _ard_joined(row: _Row, x, w, eps, iters: int = 8):
 
 def _sharded(row: _Row):
     """The row's shards as a ShardedDictionary (no copy)."""
-    n = row.A[0].shape[0]
-    return ShardedDictionary((row.A,), (n, row.ml * len(row.A)),
-                             row.A[0].dtype, row.mesh)
+    return _in_row(row.mesh, row.i, dict(zip(row.js, row.A)),
+                   (row.A[0].shape[0], row.m), row.A[0].dtype)
 
 
 def ard_weights_sharded(A, x, w, mesh: Mesh, eps: float, iters: int = 8):
@@ -367,7 +390,7 @@ def bp_ard_sharded(A, b, mesh: Mesh, eps: float = 1e-2, maxiter: int = 8,
     kept (0.5 keeps atoms within 50% of dual-activity)."""
     row, _ = _setup(A, mesh)
     dt = row.A[0].dtype
-    m = row.ml * len(row.devs)
+    m = row.m
     if maxiter_admm is not None:
         bp_kwargs = {**bp_kwargs, "maxiter": int(maxiter_admm)}
     mm_prec = str(bp_kwargs.get("matmul_precision", "float32"))
@@ -439,15 +462,23 @@ def _margins(row: _Row, Lk, nu):
 
 
 def _columns(row: _Row, kidx):
-    """A[:, kidx] gathered from the shards onto the home device."""
+    """A[:, kidx] gathered from the shards onto the home device (kidx
+    ascending). Over a row that spans processes each shard's columns are
+    padded to the most any shard holds and all-gathered."""
     kidx = np.asarray(kidx)
-    parts = []
-    for j, A_l in enumerate(row.A):
-        mine = kidx[(kidx >= j * row.ml) & (kidx < (j + 1) * row.ml)]
-        if mine.size:
-            sel = torch.as_tensor(mine - j * row.ml, device=A_l.device)
-            parts.append(A_l[:, sel].to(row.home))
-    return torch.cat(parts, dim=1)
+    ml = row.ml
+    mine = [kidx[(kidx >= j * ml) & (kidx < (j + 1) * ml)] - j * ml
+            for j in range(row.mesh.shape["atoms"])]
+    if not row.mesh.row_spans(row.i):
+        return torch.cat([A_l[:, torch.as_tensor(mine[j], device=A_l.device)]
+                          .to(row.home) for j, A_l in zip(row.js, row.A)
+                          if mine[j].size], dim=1)
+    most = max(x.size for x in mine)
+    parts = [A_l[:, torch.as_tensor(np.pad(mine[j], (0, most - mine[j].size)),
+                                    device=A_l.device)]
+             for j, A_l in zip(row.js, row.A)]
+    got = row.mesh.all_gather(parts, row.home, row.i)        # (s, n, most)
+    return torch.cat([got[j, :, :x.size] for j, x in enumerate(mine)], dim=1)
 
 
 def _screened_ard_continue(row: _Row, b, x, u, rho, eps: float,
@@ -607,8 +638,7 @@ def _bpd_shards(row: _Row, b, delta, w, rho, maxiter: int, tol, warm=None):
     else:
         zw, uzw, yw, uyw, rhow = warm
         state = (zw, yw, uzw, uyw, rhow)
-    z, y, uz, uy, rho_f, _ = _latched(body, (*state, _latch(b)), maxiter,
-                                      (row.home, *row.devs))
+    z, y, uz, uy, rho_f, _ = _loop(row, body, (*state, _latch(b)), maxiter)
     return z, uz, y, uy, rho_f
 
 
@@ -626,7 +656,7 @@ def bpd_sharded(A, b, delta, w=None, mesh: Mesh = None, rho: float = 1.0,
     """
     row, _ = _setup(A, mesh)
     dt = row.A[0].dtype
-    m = row.ml * len(row.devs)
+    m = row.m
     b = _on(b, row, dt)
     w = (torch.ones((m,), dtype=dt, device=row.home) if w is None
          else _on(w, row, dt))
@@ -667,7 +697,7 @@ def bpd_ard_sharded(A, b, delta, mesh: Mesh, eps: float = None,
     eps = float(delta) ** 2 if eps is None else float(eps)
     row, _ = _setup(A, mesh)
     dt = row.A[0].dtype
-    m = row.ml * len(row.devs)
+    m = row.m
     Ash = _sharded(row)
     mm_prec = str(bpd_kwargs.get("matmul_precision", "float32"))
     x = bpd_sharded(Ash, b, delta, None, mesh, **bpd_kwargs)[0]
@@ -692,8 +722,8 @@ def _sigma_max_sq_shards(row: _Row):
     n <= m (G v = psum(A_s (v' A_s))), else on the gathered A'A side."""
     A = row.A
     n = A[0].shape[0]
-    if n > row.ml * len(A):
-        return _sigma_max_sq(torch.cat([a.to(row.home) for a in A], dim=1))
+    if n > row.m:
+        return _sigma_max_sq(row.cat(A, dim=1))
     dt = A[0].dtype
 
     def G(v):
@@ -749,7 +779,7 @@ def ista_sharded(A, b, lam, mesh: Mesh, maxiter: int = 1024,
     `stepsize=None` for the spectral (power-iteration) auto step."""
     row, _ = _setup(A, mesh)
     dt = row.A[0].dtype
-    m = row.ml * len(row.devs)
+    m = row.m
     step = (_stepsize(row) if stepsize is None
             else _on(stepsize, row, dt))
     w = torch.broadcast_to(_on(lam, row, dt), (m,))
@@ -799,8 +829,7 @@ def _fista_conv_shards(row: _Row, b, w, lam, x0, stepsize, maxiter: int,
         done = torch.sqrt(glob[1]) <= rtol * (1.0 + torch.sqrt(glob[2]))
         return x_new, y_new, t_new, done
 
-    return _latched(body, (x0, x0, one, _latch(b)), maxiter,
-                    (row.home, *row.devs))[0]
+    return _loop(row, body, (x0, x0, one, _latch(b)), maxiter)[0]
 
 
 def bpd_secant_sharded(A, b, delta, w=None, mesh: Mesh = None,
@@ -816,7 +845,7 @@ def bpd_secant_sharded(A, b, delta, w=None, mesh: Mesh = None,
     `return_info=True` -> (x, info)."""
     row, dense = _setup(A, mesh)
     dt = row.A[0].dtype
-    m = row.ml * len(row.devs)
+    m = row.m
     b = _on(b, row, dt)
     delta = float(delta)
     w = (torch.ones((m,), dtype=dt, device=row.home) if w is None

@@ -45,7 +45,10 @@ the solvers report their sweeps and those reads.
 
 `A` may be a tensor or the result of `shard_dictionary` (then no shard is
 cut or cast twice); `Bs` a tensor or the result of `shard_batch`. Results
-are gathered on the first batch row's home device.
+are gathered on the home device of this process's first batch row. Over a
+mesh that spans processes each process sweeps its own shards (their global
+indices place their atoms) and solves the batch rows it has a shard of,
+and every process returns the whole result.
 
 Shape limits. What remains of cstpu's: m divisible by the atom shards, B
 by the batch shards, a per-shard atom width that is a multiple of 128 with
@@ -104,16 +107,46 @@ _PLAIN = _Selects(ss.correlate_select_stream_ref,
 
 
 class _Row(NamedTuple):
-    """One batch row's shards: devices, full-precision and correlation-dtype
-    dictionary shards, and what resolves a selection across them."""
+    """One batch row's shards in this process: their global shard indices,
+    devices, full-precision and correlation-dtype dictionary shards, and
+    what resolves a selection across the row's shards."""
     mesh: Mesh
+    i: int              # the batch row
+    js: tuple           # this process's shards of the row, ascending
     home: torch.device
     devs: tuple
-    A: tuple            # s shards (n, m_local) in the dictionary's dtype
+    A: tuple            # the shards (n, m_local) in the dictionary's dtype
     Ac: tuple           # the same in the correlation dtype
     m_local: int
     sel: _Selects
     fuse: bool
+
+    def all_gather(self, xs):
+        return self.mesh.all_gather(xs, self.home, self.i)
+
+    def pmax(self, xs):
+        return self.mesh.pmax(xs, self.home, self.i)
+
+    def pmin(self, xs):
+        return self.mesh.pmin(xs, self.home, self.i)
+
+    def psum(self, xs):
+        return self.mesh.psum(xs, self.home, self.i)
+
+
+def _rows(mesh: Mesh, Ash: ShardedDictionary, Acs, sel: _Selects,
+          fuse: bool, which=None) -> tuple:
+    """A `_Row` for each batch row in `which` (default: every row with a
+    shard in this process)."""
+    ml = Ash.shape[1] // mesh.shape["atoms"]
+    rows = []
+    for i in (mesh.rows() if which is None else which):
+        js = mesh.local(i)
+        rows.append(_Row(mesh, i, js, mesh.home(i),
+                         tuple(mesh.devices[i][j] for j in js),
+                         tuple(Ash.shards[i][j] for j in js),
+                         tuple(Acs[i][j] for j in js), ml, sel, fuse))
+    return tuple(rows)
 
 
 def _payload_dtype(dtype):
@@ -176,7 +209,8 @@ def _setup(A, Bs, mesh: Mesh, corr_dtype, fuse, sel: _Selects, entry: str):
     fuse = _resolve_fuse(fuse, m, A.dtype, entry)
     if isinstance(Bs, (tuple, list)):
         slices = tuple(Bs)
-        B = sum(x.shape[0] for x in slices)
+        held = [x.shape[0] for x in slices if x is not None]
+        B = sum(held) * b // max(len(held), 1)
         if len(slices) != b:
             raise ValueError(f"{entry}: {len(slices)} measurement slices "
                              f"for {b} batch shards")
@@ -196,25 +230,31 @@ def _setup(A, Bs, mesh: Mesh, corr_dtype, fuse, sel: _Selects, entry: str):
         Ash = shard_dictionary(A, mesh)
     if slices is None:
         slices = shard_batch(Bs, mesh)
-    Acs = Ash.corr(corr_dtype)
-    rows = tuple(_Row(mesh, mesh.home(i), mesh.devices[i], Ash.shards[i],
-                      Acs[i], m // s, sel, fuse) for i in range(b))
-    slices = tuple(x.to(row.home, Ash.dtype)
-                   for x, row in zip(slices, rows))
+    rows = _rows(mesh, Ash, Ash.corr(corr_dtype), sel, fuse)
+    slices = tuple(slices[row.i].to(row.home, Ash.dtype) for row in rows)
     return rows, slices, n, m
 
 
-def _cat_solutions(out, return_iters: bool = False):
+def _cat_rows(rows, xs):
+    """Per-row tensors of the rows this process solved as every batch
+    row's, concatenated on the first row's home device."""
+    return rows[0].mesh.cat_rows({row.i: x for row, x in zip(rows, xs)},
+                                 rows[0].home)
+
+
+def _cat_solutions(rows, out, return_iters: bool = False):
     """The batch rows' (solution, iterations) as one solution, on the first
-    row's device; with `return_iters` also the rows' iteration counts."""
+    row's home device; with `return_iters` also the rows' iteration
+    counts."""
     sols = [sol for sol, _ in out]
-    dev = sols[0].idx.device
-    sol = sols[0] if len(sols) == 1 else SparseSolution(
-        idx=torch.cat([x.idx.to(dev) for x in sols]),
-        val=torch.cat([x.val.to(dev) for x in sols]),
-        mask=torch.cat([x.mask.to(dev) for x in sols]),
-        m=sols[0].m)
-    return (sol, [it for _, it in out]) if return_iters else sol
+    sol = SparseSolution(
+        idx=_cat_rows(rows, [x.idx for x in sols]),
+        val=_cat_rows(rows, [x.val for x in sols]),
+        mask=_cat_rows(rows, [x.mask for x in sols]), m=sols[0].m)
+    if not return_iters:
+        return sol
+    return sol, rows[0].mesh.objects_rows(
+        {row.i: it for row, (_, it) in zip(rows, out)})
 
 
 # --------------------------------------------------------------------------
@@ -222,7 +262,8 @@ def _cat_solutions(out, return_iters: bool = False):
 # --------------------------------------------------------------------------
 
 def _sweep(row: _Row, select, r, *extra):
-    """`select` on every shard of the row: lists of s local (val, idx)."""
+    """`select` on every shard of the row in this process: lists of local
+    (val, idx), one a shard."""
     out = [select(Ac, r.to(dev), *(x[j] for x in extra))
            for j, (Ac, dev) in enumerate(zip(row.Ac, row.devs))]
     return [v for v, _ in out], [i for _, i in out]
@@ -231,21 +272,22 @@ def _sweep(row: _Row, select, r, *extra):
 def _global_idx(row: _Row, lidxs):
     """Local atom indices -> global ones, shard * m_local + lidx, i32."""
     return [j * row.m_local + li.to(torch.int32)
-            for j, li in enumerate(lidxs)]
+            for j, li in zip(row.js, lidxs)]
 
 
 def _bcast_cols(row: _Row, gsel):
     """Owner-gathers-then-psum broadcast of the selected columns: the
     owning shard reads its full-precision columns (an indexed read),
-    everyone psums. Returns (cols (B, n) at home, owners: s (B,) masks)."""
+    everyone psums. Returns (cols (B, n) at home, owners: a (B,) mask for
+    each shard of this process)."""
     parts, owners = [], []
-    for j, (A_local, dev) in enumerate(zip(row.A, row.devs)):
+    for j, A_local, dev in zip(row.js, row.A, row.devs):
         g = gsel.to(dev)
         owner = (g // row.m_local) == j
         lcol = A_local[:, (g % row.m_local).long()].T
         parts.append(torch.where(owner[:, None], lcol, 0))
         owners.append(owner)
-    return row.mesh.psum(parts, row.home), owners
+    return row.psum(parts), owners
 
 
 def _select_bcast_fused(row: _Row, lvals, lidxs):
@@ -263,7 +305,7 @@ def _select_bcast_fused(row: _Row, lvals, lidxs):
         lcol = A_local[:, lidx.long()].T.to(pdt)               # (B, n)
         payloads.append(torch.cat(
             [lcol, lval.to(pdt)[:, None], gidx.to(pdt)[:, None]], dim=1))
-    allp = row.mesh.all_gather(payloads, row.home)              # (s, B, n+2)
+    allp = row.all_gather(payloads)                             # (s, B, n+2)
     vals, idxs = allp[:, :, n], allp[:, :, n + 1]
     vmax = torch.amax(vals, dim=0)
     # the sentinel exceeds every valid index in either payload dtype
@@ -278,10 +320,10 @@ def _select_top1(row: _Row, lvals, lidxs):
     gmax (B,), owners or None), by the row's collective form."""
     if row.fuse:
         return (*_select_bcast_fused(row, lvals, lidxs), None)
-    gmax = row.mesh.pmax(lvals, row.home)
+    gmax = row.pmax(lvals)
     cands = [torch.where(lv == gmax.to(lv.device), gi, INT_MAX)
              for lv, gi in zip(lvals, _global_idx(row, lidxs))]
-    gsel = row.mesh.pmin(cands, row.home)
+    gsel = row.pmin(cands)
     col, owners = _bcast_cols(row, gsel)
     return col, gsel, gmax, owners
 
@@ -291,8 +333,8 @@ def _merge_topl(row: _Row, lvals, gidxs, ll: int):
     global top-`ll`, value-descending with lowest-global-index ties.
     Returns ll (B,) index tensors, best first."""
     B = lvals[0].shape[0]
-    av = row.mesh.all_gather(lvals, row.home).movedim(0, 1).reshape(B, -1)
-    ai = row.mesh.all_gather(gidxs, row.home).movedim(0, 1).reshape(B, -1)
+    av = row.all_gather(lvals).movedim(0, 1).reshape(B, -1)
+    ai = row.all_gather(gidxs).movedim(0, 1).reshape(B, -1)
     sels = []
     for _ in range(ll):
         gmax = torch.amax(av, dim=1, keepdim=True)
@@ -319,7 +361,7 @@ def _merge_topl_bcast_fused(row: _Row, lvals, lidxs, ll: int):
         payloads.append(torch.cat(
             [lcols, lval.to(pdt)[:, :, None], gidx.to(pdt)[:, :, None]],
             dim=2))
-    allp = row.mesh.all_gather(payloads, row.home)          # (s, B, ll, n+2)
+    allp = row.all_gather(payloads)                         # (s, B, ll, n+2)
     allp = allp.movedim(0, 1).reshape(B, -1, n + 2)         # (B, s*ll, n+2)
     av, ai = allp[:, :, n], allp[:, :, n + 1]
     gsels, cols = [], []
@@ -394,7 +436,7 @@ def omp_sharded_fused(A, Bs, k: int, mesh: Mesh, max_residual: float = 0.0,
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "omp_sharded_fused")
     k = int(min(k if k is not None else n, n, m))
-    return _cat_solutions([
+    return _cat_solutions(rows, [
         _omp_fused_row(row, b, k, float(max_residual), m)
         for row, b in zip(rows, slices)], return_iters)
 
@@ -416,14 +458,16 @@ def omp_sharded(A, b, k: int, mesh: Mesh, max_residual: float = 0.0):
     b = torch.as_tensor(b)
     batched = b.ndim == 2
     if batched:
+        rows = _rows(mesh, Ash, Ash.shards, _PLAIN, False)
         slices = shard_batch(b, mesh)
+        slices = [slices[row.i] for row in rows]
     else:
-        slices = (b[None],)
+        # one instance: each process solves it on its first batch row (the
+        # batch axis replicates it)
+        rows = _rows(mesh, Ash, Ash.shards, _PLAIN, False, mesh.rows()[:1])
+        slices = [b[None]]
 
-    def solve(i, bb):
-        row = _Row(mesh, mesh.home(i), mesh.devices[i], Ash.shards[i],
-                   Ash.shards[i], m // s, _PLAIN, False)
-
+    def solve(row, bb):
         def select_col(r):
             lvals, lidxs = [], []
             for A_local, dev in zip(row.A, row.devs):
@@ -436,9 +480,10 @@ def omp_sharded(A, b, k: int, mesh: Mesh, max_residual: float = 0.0):
         return _omp_steps(row, bb.to(row.home, Ash.dtype), k,
                           float(max_residual), m, select_col)
 
-    sol = _cat_solutions([solve(i, bb) for i, bb in enumerate(slices)])
+    out = [solve(row, bb) for row, bb in zip(rows, slices)]
     if batched:
-        return sol
+        return _cat_solutions(rows, out)
+    sol = out[0][0]
     return SparseSolution(sol.idx[0], sol.val[0], sol.mask[0], sol.m)
 
 
@@ -461,14 +506,14 @@ def _mp_fused_row(row: _Row, Bs, k: int):
         col, gsel, _, owners = _select_top1(
             row, *_sweep(row, row.sel.top1, r))
         p = torch.sum(r * col, dim=1)                            # signed
-        for j, (x, dev) in enumerate(zip(xs, row.devs)):
+        for c, (j, x, dev) in enumerate(zip(row.js, xs, row.devs)):
             g = gsel.to(dev)
-            owner = owners[j] if owners is not None else (g // ml) == j
+            owner = owners[c] if owners is not None else (g // ml) == j
             # a shard that does not own the atom adds 0 somewhere
             x.scatter_add_(1, (g % ml).long()[:, None],
                            torch.where(owner, p.to(dev), 0)[:, None])
         r = r - p[:, None] * col
-    return torch.cat([x.to(row.home) for x in xs], dim=1)
+    return row.mesh.cat(xs, row.home, row.i, dim=1)
 
 
 def mp_sharded_fused(A, Bs, k: int, mesh: Mesh, corr_dtype=torch.bfloat16,
@@ -480,8 +525,8 @@ def mp_sharded_fused(A, Bs, k: int, mesh: Mesh, corr_dtype=torch.bfloat16,
     row's home device. Semantics of `mp` (k fixed updates)."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "mp_sharded_fused")
-    out = [_mp_fused_row(row, b, int(k)) for row, b in zip(rows, slices)]
-    return torch.cat([x.to(out[0].device) for x in out], dim=0)
+    return _cat_rows(rows, [_mp_fused_row(row, b, int(k))
+                            for row, b in zip(rows, slices)])
 
 
 # --------------------------------------------------------------------------
@@ -532,7 +577,7 @@ def gomp_sharded_fused(A, Bs, l: int, k: int, mesh: Mesh,
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "gomp_sharded_fused")
     k = int(min(k if k is not None else m, m))
-    return _cat_solutions([
+    return _cat_solutions(rows, [
         _gomp_fused_row(row, b, int(l), k, float(max_residual), m)
         for row, b in zip(rows, slices)], return_iters)
 
@@ -628,7 +673,7 @@ def sp_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
     if 2 * k > n:
         raise ValueError(f"2k = {2 * k} > {n} = len(b) is invalid for SP")
     maxiter = int(maxiter if maxiter is not None else 16 * k)
-    return _cat_solutions([
+    return _cat_solutions(rows, [
         _sp_fused_row(row, b, k, maxiter, float(delta), m)
         for row, b in zip(rows, slices)], return_iters)
 
@@ -651,7 +696,7 @@ def _ompr_fused_row(row: _Row, Bs, k: int, maxiter: int, delta: float,
     kmax = k + 1
 
     def mask_set(Ms, gsel, on, value: float):
-        for j, (M, dev) in enumerate(zip(Ms, row.devs)):
+        for j, M, dev in zip(row.js, Ms, row.devs):
             g = gsel.to(dev)
             hit = ((g // ml) == j) & on.to(dev)       # the owning shard only
             loc = (g % ml).long()[:, None]
@@ -714,7 +759,7 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "ompr_sharded_fused")
     maxiter = int(maxiter if maxiter is not None else n)
-    return _cat_solutions([
+    return _cat_solutions(rows, [
         _ompr_fused_row(row, b, int(k), maxiter, float(delta), float(eta), m)
         for row, b in zip(rows, slices)], return_iters)
 
@@ -764,12 +809,12 @@ class _Rescaling:
         row = self.row
         restore = self.none if restore is None else restore
         lvals, lidxs = [], []
-        for j, (Ac, dev) in enumerate(zip(row.Ac, row.devs)):
+        for c, (j, Ac, dev) in enumerate(zip(row.js, row.Ac, row.devs)):
             il = torch.stack([_local_idx(mark, j, row.m_local),
                               _local_idx(restore, j, row.m_local)],
                              dim=1).to(dev)
             lv, li, _ = row.sel.fr_step(
-                Ac, r.to(dev), W.to(dev), il, self.cn2[j], self.resc[j],
+                Ac, r.to(dev), W.to(dev), il, self.cn2[c], self.resc[c],
                 self.deg, V=None if V is None else V.to(dev))
             lvals.append(lv)
             lidxs.append(li)
@@ -783,14 +828,14 @@ class _Rescaling:
         on the atoms of `active`, a list of (gsel (B,), on (B,)) pairs."""
         row = self.row
         B, n, kmax = st.cols.shape
-        for j, (A_local, dev) in enumerate(zip(row.A, row.devs)):
+        for c, (j, A_local, dev) in enumerate(zip(row.js, row.A, row.devs)):
             cols = st.cols.to(dev).float()
             Ginv = st.Ginv.to(dev)
             with true_f32():
                 Z = (cols.transpose(1, 2).reshape(B * kmax, n)
                      @ A_local.float()).view(B, kmax, -1).to(Ginv.dtype)
                 GZ = Ginv @ Z
-            resc = (self.cn2[j][None, :] - torch.sum(Z * GZ, dim=1)).float()
+            resc = (self.cn2[c][None, :] - torch.sum(Z * GZ, dim=1)).float()
             for gsel, on in active:
                 loc = _local_idx(torch.where(on, gsel, -1), j,
                                  row.m_local).to(dev).long()
@@ -798,7 +843,7 @@ class _Rescaling:
                 loc = loc.clamp(min=0)[:, None]
                 resc.scatter_(1, loc, torch.where(hit[:, None], -1.0,
                                                   resc.gather(1, loc)))
-            self.resc[j] = resc.contiguous()
+            self.resc[c] = resc.contiguous()
 
     def apply_delete(self, v, didx, eager):
         """A deletion's rescaling update, applied at once: resc_j += (v'a_j)^2
@@ -807,17 +852,17 @@ class _Rescaling:
         own (v'a)^2 being its exact rescaling after the deletion."""
         row = self.row
         ve = v * eager[:, None].to(v.dtype)
-        for j, (A_local, dev) in enumerate(zip(row.A, row.devs)):
+        for c, (j, A_local, dev) in enumerate(zip(row.js, row.A, row.devs)):
             with true_f32():
                 z = ve.to(dev) @ A_local.float()               # (B, m_local)
             zz = z * z
-            self.resc[j] += zz
+            self.resc[c] += zz
             loc = _local_idx(torch.where(eager, didx, -1), j,
                              row.m_local).to(dev).long()
             hit = loc >= 0
             loc = loc.clamp(min=0)[:, None]
-            self.resc[j].scatter_(1, loc, torch.where(
-                hit[:, None], zz.gather(1, loc), self.resc[j].gather(1, loc)))
+            self.resc[c].scatter_(1, loc, torch.where(
+                hit[:, None], zz.gather(1, loc), self.resc[c].gather(1, loc)))
 
 
 def _append_refit(st: aset.ActiveSet, col, Bs, gsel, accept):
@@ -893,7 +938,7 @@ def fr_sharded_fused(A, Bs, sparsity: int, mesh: Mesh,
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "fr_sharded_fused")
     k = int(min(sparsity, n, m))
-    return _cat_solutions([
+    return _cat_solutions(rows, [
         _fr_fused_row(row, b, k, float(max_residual) ** 2,
                       float(min_decrease) ** 2, m)
         for row, b in zip(rows, slices)], return_iters)
@@ -978,7 +1023,7 @@ def srr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                                 _select, "srr_sharded_fused")
     k = int(k)
     maxiter = int(maxiter if maxiter is not None else 4 * k)
-    return _cat_solutions([
+    return _cat_solutions(rows, [
         _srr_fused_row(row, b, k, maxiter, float(delta), m)
         for row, b in zip(rows, slices)], return_iters)
 
@@ -1098,10 +1143,10 @@ def _rmp_foba_sharded(A, Bs, mesh: Mesh, kmax: int, maxiter: int,
                                 select, "rmp/foba_sharded_fused")
     out = [_rmp_foba_row(row, b, int(kmax), int(maxiter), float(delta) ** 2,
                          m, foba) for row, b in zip(rows, slices)]
-    sol = _cat_solutions([(x, None) for x, _, _ in out])
-    capped = torch.cat([c.to(sol.idx.device) for _, c, _ in out])
+    sol, counts = _cat_solutions(rows, [(x, it) for x, _, it in out], True)
+    capped = _cat_rows(rows, [c for _, c, _ in out])
     if return_iters:
-        return sol, capped, [counts for _, _, counts in out]
+        return sol, capped, counts
     return sol, capped
 
 
@@ -1139,14 +1184,18 @@ def omp_sharded_rows(A, b, k: int, mesh: Mesh, max_residual: float = 0.0):
     global correlation; the selection and the k x k Cholesky refit are
     computed once, at home, and the Gram and A'b updates are psums of the
     shards' partial products. Plain tensor operations in the dictionary's
-    own precision, one instance b (n,). Semantics of `omp`."""
+    own precision, one instance b (n,), on the first batch row of the mesh
+    in this process. Semantics of `omp`."""
     A, b = torch.as_tensor(A), torch.as_tensor(b)
     n, m = A.shape
     k = int(min(k if k is not None else n, n, m))
-    A_loc = shard_rows(A, mesh)
-    b_loc = shard_rows(b.to(A.dtype), mesh)
-    devs, home = mesh.devices[0], mesh.home(0)
+    row = mesh.rows()[0]
+    js = mesh.local(row)
+    A_loc = [shard_rows(A, mesh)[j] for j in js]
+    b_loc = [shard_rows(b.to(A.dtype), mesh)[j] for j in js]
+    devs, home = [mesh.devices[row][j] for j in js], mesh.home(row)
     dtype = A.dtype
+    psum = partial(mesh.psum, home=home, row=row)
 
     idx = torch.full((k,), m, dtype=torch.int32, device=home)
     mask = torch.zeros((k,), dtype=torch.bool, device=home)
@@ -1163,27 +1212,25 @@ def omp_sharded_rows(A, b, k: int, mesh: Mesh, max_residual: float = 0.0):
     count = 0
     for _ in range(k):
         r_loc = residual_local(coef)
-        scores = torch.abs(mesh.psum(
-            [r @ Al for r, Al in zip(r_loc, A_loc)], home))
+        scores = torch.abs(psum([r @ Al for r, Al in zip(r_loc, A_loc)]))
         i = int(torch.argmax(scores))
         if bool(torch.any(mask & (idx == i))) or count >= k:
             break                       # stalled: present or full
         a_loc = [Al[:, i] for Al in A_loc]
         for c, a in zip(cols, a_loc):
             c[:, count] = a
-        g = mesh.psum([c.T @ a for c, a in zip(cols, a_loc)], home)
+        g = psum([c.T @ a for c, a in zip(cols, a_loc)])
         G[count, :] = g
         G[:, count] = g
         idx[count] = i
         mask[count] = True
-        Atb[count] = mesh.psum([a @ bl for a, bl in zip(a_loc, b_loc)], home)
+        Atb[count] = psum([a @ bl for a, bl in zip(a_loc, b_loc)])
         count += 1
         L = cholesky_nan(G)
         coef = torch.cholesky_solve(
             torch.where(mask, Atb, 0)[:, None], L)[:, 0]
         coef = torch.where(mask, coef, 0)
-        rn2 = mesh.psum([torch.sum(r * r).to(home)
-                         for r in residual_local(coef)], home)
+        rn2 = psum([torch.sum(r * r).to(home) for r in residual_local(coef)])
         if bool(torch.sqrt(rn2) < max_residual):
             break
 

@@ -18,7 +18,9 @@ replicates them:
 
 The posterior mean uses mu = Gamma A' C^-1 b, one local product per shard,
 with C rebuilt exactly from the final alpha (`_rebuild_C`). The noise is a
-scalar variance or a full (n, n) covariance.
+scalar variance or a full (n, n) covariance. Over a mesh that spans
+processes each process keeps the state of its own shards and solves the
+batch rows it has a shard of; every process returns the whole result.
 
 Each `lax.while_loop` of cstpu is a Python loop that reads its latch from
 the device once an action (RMPS's drift-budget refresh, `refresh_actions`,
@@ -46,12 +48,41 @@ TEMP_BYTES = 1 << 30      # most bytes of one column-chunked temporary
 
 
 class _Row(NamedTuple):
-    """One batch row of the mesh: its shards and where its state lies."""
+    """One batch row of the mesh: its shards in this process (with their
+    global shard indices) and where its state lies."""
     mesh: Mesh
+    i: int                # the batch row
+    js: tuple             # this process's shards of the row, ascending
     home: torch.device
     devs: tuple
-    A: tuple              # s shards (n, m_local)
+    A: tuple              # the shards (n, m_local)
     ml: int
+
+    def pmax(self, xs):
+        return self.mesh.pmax(xs, self.home, self.i)
+
+    def pmin(self, xs):
+        return self.mesh.pmin(xs, self.home, self.i)
+
+    def psum(self, xs):
+        return self.mesh.psum(xs, self.home, self.i)
+
+    def cat(self, xs, dim: int = 0):
+        """The row's shards' pieces, whole, at home."""
+        return self.mesh.cat(xs, self.home, self.i, dim)
+
+    @property
+    def m(self) -> int:
+        return self.ml * self.mesh.shape["atoms"]
+
+
+def _row(mesh: Mesh, Ash: ShardedDictionary, i: int) -> _Row:
+    """Batch row i's `_Row` in this process."""
+    js = mesh.local(i)
+    return _Row(mesh, i, js, mesh.home(i),
+                tuple(mesh.devices[i][j] for j in js),
+                tuple(Ash.shards[i][j] for j in js),
+                Ash.shape[1] // mesh.shape["atoms"])
 
 
 def _check_sigma(sigma, n: int, entry: str) -> None:
@@ -110,8 +141,7 @@ def _rebuild_C(row: _Row, gammas, sigma):
             parts.append(_gathered_part(A_l, g, kcap))
         else:
             parts.append(_dense_part(A_l, g))
-    return (row.mesh.psum(parts, row.home)
-            + _sigma_matrix(sigma, row.A[0].shape[0]))
+    return row.psum(parts) + _sigma_matrix(sigma, row.A[0].shape[0])
 
 
 def _gammas(alphas):
@@ -123,8 +153,8 @@ def _posterior_mean_local(row: _Row, Bs, alphas, sigma):
     (which discards the downdate chain's drift): (B, m) at home."""
     gammas = _gammas(alphas)
     Cb = solve_nan(_rebuild_C(row, gammas, sigma), Bs)
-    return torch.cat([(g * (Cb.to(dev) @ A_l)).to(row.home)
-                      for A_l, g, dev in zip(row.A, gammas, row.devs)], dim=1)
+    return row.cat([g * (Cb.to(dev) @ A_l)
+                    for A_l, g, dev in zip(row.A, gammas, row.devs)], dim=1)
 
 
 def _init_sq_empty(row: _Row, Bs, sigma):
@@ -180,15 +210,14 @@ def _gmaxmin(row: _Row, vals, mode_max: bool):
     (B,), its global index (B,) int64, INT_MAX where no shard matches)."""
     red = torch.amax if mode_max else torch.amin
     lext = [red(v, dim=1) for v in vals]
-    coll = row.mesh.pmax if mode_max else row.mesh.pmin
-    gext = coll(lext, row.home)
+    gext = (row.pmax if mode_max else row.pmin)(lext)
     cands = []
-    for j, (v, le, dev) in enumerate(zip(vals, lext, row.devs)):
+    for j, v, le, dev in zip(row.js, vals, lext, row.devs):
         ge = gext.to(dev)
         lloc = torch.amin(torch.where(v == ge[:, None], _iota(row, dev),
                                       INT_MAX), dim=1)
         cands.append(torch.where(le == ge, j * row.ml + lloc, INT_MAX))
-    return gext, row.mesh.pmin(cands, row.home)
+    return gext, row.pmin(cands)
 
 
 def _owner(row: _Row, j: int, gsel, dev):
@@ -202,12 +231,12 @@ def _owner_scalars(row: _Row, xs, gsel):
     """The owner's values of several per-atom arrays (`xs`: one list of
     per-shard (B, ml) tensors each) in ONE packed psum."""
     parts = []
-    for j, dev in enumerate(row.devs):
+    for c, (j, dev) in enumerate(zip(row.js, row.devs)):
         owner, sel = _owner(row, j, gsel, dev)
-        parts.append(torch.stack([x[j].gather(1, sel[:, None])[:, 0]
+        parts.append(torch.stack([x[c].gather(1, sel[:, None])[:, 0]
                                   for x in xs], dim=1)
-                     * owner.to(xs[0][j].dtype)[:, None])
-    packed = row.mesh.psum(parts, row.home)
+                     * owner.to(xs[0][c].dtype)[:, None])
+    packed = row.psum(parts)
     return [packed[:, i] for i in range(len(xs))]
 
 
@@ -217,11 +246,11 @@ def _apply_action(row: _Row, alpha, S, Q, Cinv, gsel, gamma_change,
     S/Q/alpha updates. gamma_change must be 0 where gate is False; S_i,
     Q_i are the owner's scalars."""
     parts, owners = [], []
-    for j, (A_l, dev) in enumerate(zip(row.A, row.devs)):
+    for j, A_l, dev in zip(row.js, row.A, row.devs):
         owner, sel = _owner(row, j, gsel, dev)
         parts.append(A_l[:, sel].T * owner.to(A_l.dtype)[:, None])
         owners.append(owner)
-    acol = row.mesh.psum(parts, row.home)                       # (B, n)
+    acol = row.psum(parts)                                      # (B, n)
     v = torch.einsum("bij,bj->bi", Cinv, acol)
     nz = gamma_change != 0
     denom = 1.0 / torch.where(nz, gamma_change, 1.0) + S_i
@@ -366,7 +395,7 @@ def _rmps_row(row: _Row, Bs, sigma, maxiter: int, maxiter_acq: int,
     def alpha_eq(a, b):
         eq = [torch.all((x == y) | (torch.isinf(x) & torch.isinf(y)), dim=1)
               .to(torch.int32) for x, y in zip(a, b)]
-        return row.mesh.pmin(eq, row.home) > 0
+        return row.pmin(eq) > 0
 
     def has_beneficial_add(alpha, S, Q):
         best = []
@@ -374,7 +403,7 @@ def _rmps_row(row: _Row, Bs, sigma, maxiter: int, maxiter_acq: int,
             s, q, active, relevant = sq(a, S_l, Q_l)
             best.append(torch.amax(_nan0(torch.where(
                 ~active & relevant, _delta_add(S_l, Q_l), 0.0)), dim=1))
-        return row.mesh.pmax(best, row.home) > 0
+        return row.pmax(best) > 0
 
     alpha = [torch.full((B, row.ml), torch.inf, dtype=Bs.dtype, device=dev)
              for dev in row.devs]
@@ -412,23 +441,29 @@ def _setup(A, Bs, sigma, mesh: Mesh, entry: str):
     s, b = mesh.shape["atoms"], mesh.shape["batch"]
     if m % s:
         raise ValueError(f"m = {m} not divisible by atom shards {s}")
-    Bs = torch.as_tensor(Bs)
-    if Bs.shape[0] % b:
-        raise ValueError(f"B = {Bs.shape[0]} not divisible by batch "
-                         f"shards {b}")
+    if isinstance(Bs, (tuple, list)):       # shard_batch's slices
+        slices = tuple(Bs)
+        if len(slices) != b:
+            raise ValueError(f"{entry}: {len(slices)} measurement slices "
+                             f"for {b} batch shards")
+    else:
+        Bs = torch.as_tensor(Bs)
+        if Bs.shape[0] % b:
+            raise ValueError(f"B = {Bs.shape[0]} not divisible by batch "
+                             f"shards {b}")
+        slices = shard_batch(Bs, mesh)
     Ash = A if isinstance(A, ShardedDictionary) else shard_dictionary(A, mesh)
-    rows = tuple(_Row(mesh, mesh.home(i), mesh.devices[i], Ash.shards[i],
-                      m // s) for i in range(b))
-    slices = tuple(x.to(row.home, Ash.dtype)
-                   for x, row in zip(shard_batch(Bs, mesh), rows))
+    rows = tuple(_row(mesh, Ash, i) for i in mesh.rows())
+    slices = tuple(slices[row.i].to(row.home, Ash.dtype) for row in rows)
     sigmas = tuple(torch.as_tensor(sigma, dtype=Ash.dtype, device=row.home)
                    for row in rows)
     return rows, slices, sigmas, n, m
 
 
-def _gather(out):
-    home = out[0].device
-    return torch.cat([x.to(home) for x in out]) if len(out) > 1 else out[0]
+def _gather(rows, out):
+    """The rows' posterior means as every batch row's, (B, m)."""
+    return rows[0].mesh.cat_rows({row.i: x for row, x in zip(rows, out)},
+                                 rows[0].home)
 
 
 def fsbl_sharded(A, Bs, sigma, mesh: Mesh, maxiter: int | None = None,
@@ -436,15 +471,16 @@ def fsbl_sharded(A, Bs, sigma, mesh: Mesh, maxiter: int | None = None,
     """Batched FSBL with the dictionary and the per-atom state
     column-sharded.
 
-    Returns the dense posterior-mean weights (B, m) on the first batch
-    row's home device. Semantics of cstpu_torch.fsbl over the rows; `sigma`
-    is a scalar noise variance or a full (n, n) covariance. `A` may be a
-    tensor or the result of `shard_dictionary`.
+    Returns the dense posterior-mean weights (B, m) on the home device of
+    this process's first batch row. Semantics of cstpu_torch.fsbl over
+    the rows; `sigma` is a scalar noise variance or a full (n, n)
+    covariance. `A` may be a tensor or the result of `shard_dictionary`,
+    `Bs` a tensor or the result of `shard_batch`.
     """
     rows, slices, sigmas, n, m = _setup(A, Bs, sigma, mesh, "fsbl_sharded")
     maxiter = int(maxiter if maxiter is not None else 2 * m)
     with true_f32():
-        return _gather([
+        return _gather(rows, [
             _fsbl_row(row, b, s2, maxiter,
                       torch.as_tensor(min_increase, dtype=b.dtype,
                                       device=row.home))
@@ -458,9 +494,9 @@ def rmps_sharded(A, Bs, sigma, mesh: Mesh, maxiter: int | None = None,
     """Batched RMPS with the dictionary and the per-atom state
     column-sharded.
 
-    Returns the dense posterior-mean weights (B, m) on the first batch
-    row's home device. Semantics of cstpu_torch.rmps over the rows; `sigma`
-    as in fsbl_sharded.
+    Returns the dense posterior-mean weights (B, m) on the home device of
+    this process's first batch row. Semantics of cstpu_torch.rmps over
+    the rows; `sigma` as in fsbl_sharded.
 
     `refresh_actions`: the exact-refresh drift budget. S/Q/C^-1 are rebuilt
     from alpha once the unrefreshed rank-one chain reaches this many
@@ -471,7 +507,7 @@ def rmps_sharded(A, Bs, sigma, mesh: Mesh, maxiter: int | None = None,
     its = tuple(int(x if x is not None else n)
                 for x in (maxiter, maxiter_acquisition, maxiter_deletion))
     with true_f32():
-        return _gather([
+        return _gather(rows, [
             _rmps_row(row, b, s2, *its,
                       torch.as_tensor(min_increase, dtype=b.dtype,
                                       device=row.home),
