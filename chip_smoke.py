@@ -27,6 +27,9 @@ it and read just after:
                        (m=1,048,576, a 4 GB dictionary) on one shard
   mp/gomp/ompr/sp_sharded_fused   on 5c's dictionary with planted ones, four
                        shards; correlate_argmax on 5c's dictionary
+  sp/ompr/srr_sharded_fused(., 160), gomp_sharded_fused(., 160, 160)
+                       5c's problem past 128 picks (5c-wide), four shards:
+                       the streamed top-l's wide route on the main path
   fr_sharded_fused(., 16, mesh)   config 3a widened to 5c's width (B=8,
                        n=1024, m=131072, correlated dictionary, decay 0.25),
                        one shard and four, both collective forms
@@ -70,13 +73,22 @@ it and read just after:
                        mesh, launches = a worker's shards x steps
   [examples]           examples/torch/0*.py on the card, each in its own
                        process: exit code 0 and a last line OK
+  [surface]            every public name of cstpu_torch and
+                       cstpu_torch.parallel on the card at small sizes
+                       (benchmarks/tpu_smoke.py's tables, extended), each
+                       result held against its oracle and against the same
+                       call on CPU tensors; one PASS/FAIL line a case
+  [fuzz]               tools/fuzz_torch.py's invariant checks on the card,
+                       FUZZ_TRIALS trials, no violation
 
 It checks planted-support recovery, launch counts (for the two-stage,
 stepwise, backward and sharded paths against the formulas for the
 iterations they ran: a streaming select per shard and step) and agreement
 with the plain solves (for the sharded paths also across shard counts,
 collective forms and with the unsharded batch solvers), and times kernels and solves with
-CUDA events. The top-1 selects, the top-l selects (select_topl, K7's sweep)
+CUDA events. K7 past 128 slots (its finish's wide route) is held against
+its plain twin in the [topl wide] phase at l in TOPL_WIDE_LS and timed at
+TOPL_WIDE_TIMED. The top-1 selects, the top-l selects (select_topl, K7's sweep)
 and the rescaled selects (fr_select, fr_step_select) have two hand-written
 variants, a tensor-core one for bf16 correlation and a CUDA-core one: both
 are held against the plain twins, the bf16 paths must have taken the first
@@ -122,6 +134,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from typing import NamedTuple
 
 import torch
 
@@ -1210,8 +1223,9 @@ KERNEL_NAMES = ("select_argmax", "top1_mma", "topl_mma", "round_rows",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
-                "stream_topl_merge", "stream_topl_fold", "fr_step_sweep",
-                "rescaled_mma")
+                "stream_topl_merge", "stream_topl_fold",
+                "stream_topl_merge_wide", "stream_topl_fold_wide",
+                "fr_step_sweep", "rescaled_mma")
 
 
 # the wrappers whose one count is one launch of one kernel: their LAUNCHES
@@ -3395,6 +3409,246 @@ def check_mma_topl(dev):
     return errs
 
 
+# K7 past 128 slots: the widths held at both shard widths of 5c, the
+# widths timed, and the cases whose keys pass the wide finish's shared
+# memory (kWideSmem), as (n, m, l): the fold's slots at l = 16384, and the
+# merge of a 16384-atom tile (n = 256 in bf16: 128 blocks a tile)
+TOPL_WIDE_LS = (129, 256, 1024)
+TOPL_WIDE_TIMED = (160, 1024)
+TOPL_WIDE_SCRATCH = ((1024, 32768, 16384), (256, 32768, 129))
+# 5c's problem past 128 picks: k of sp/ompr/srr_sharded_fused, l and k of
+# gomp_sharded_fused
+WIDE_K = 160
+
+
+def hold_topl_wide(dev, n, m, l, cdt, poison, errs):
+    """K7 at l > 128 against its plain twin on the card, B=8: one column
+    twice (within and across tiles), a NaN row, and with `poison` a NaN
+    atom (its tile skipped on every row). The select's launches by the
+    counts (the sweep the predicate picks, one finish); values as sorted
+    rows to SELECT_RTOL of the row's best score; index sets equal where the l-th best score stands
+    clear of the (l+1)-th, slot for slot where all l + 1 best stand clear
+    (`_clear_rows`); the finish alone on the sweep's partials bit for bit.
+    Returns (rows held slot for slot, rows held as sets)."""
+    from cstpu_torch.ops import stream_select as ss
+
+    B = 8
+    gen = torch.Generator(device=dev).manual_seed(SEED + l)
+    A = torch.randn((n, m), device=dev, generator=gen)
+    A = (A / A.norm(dim=0)).to(cdt)
+    R = torch.randn((B, n), device=dev, generator=gen)
+    tm = ss._tile_of(A, "hold_topl_wide")
+    a0, a1 = 70, min(tm, m // 2) + 3           # one column, within and
+    A[:, a1] = A[:, a0]                        # across tiles
+    R[0] = A[:, a0].float()
+    R[1, 5] = float("nan")
+    if poison:
+        best = int(ss._abs_scores(A, R[2:3]).argmax())
+        A[:, best] = float("nan")
+    sc = ss._abs_scores(A, R).view(B, m // tm, tm)
+    live = torch.where(torch.isnan(sc).any(dim=2, keepdim=True), -torch.inf,
+                       sc).view(B, m)
+    key = ("select_topl_stream_mma" if cdt == torch.bfloat16
+           else "select_topl_stream")
+    (kv, ki), counts = run_counted(
+        lambda: ss.correlate_select_topl_stream(A, R, l))
+    assert counts == expect_launches(**{key: 1, "stream_topl_finish": 1}), \
+        counts
+    pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
+    name = key + " wide"
+    ks, ps = kv.sort(dim=1).values, pv.sort(dim=1).values
+    fin = torch.isfinite(ps)
+    assert torch.equal(torch.isfinite(ks), fin), (name, l)
+    # past 128 slots the smallest kept scores are cancellations of products
+    # of the row's scale: the tolerance is relative to the row's best
+    scale = torch.where(fin, ps, 0.0).amax(dim=1, keepdim=True).expand_as(ps)
+    err = (ks - ps)[fin].abs()
+    assert bool((err <= SELECT_RTOL * scale[fin] + 1e-7).all()), (
+        name, l, float(err.max()))
+    errs[name] = max(errs.get(name, 0.0),
+                     float(err.max()) if err.numel() else 0.0)
+    depth = min(l, m - 1)
+    top = live.nan_to_num(nan=-1.0, neginf=-1.0).topk(depth + 1,
+                                                      dim=1).values
+    edge = ((top[:, depth - 1] - top[:, depth]) > GAP_RTOL * top[:, 0]
+            if l < m else torch.ones((B,), dtype=torch.bool, device=dev))
+    for b in torch.nonzero(edge).flatten().tolist():
+        assert set(ki[b].tolist()) == set(pi[b].tolist()), (name, l, b)
+    clear = _clear_rows(live, depth=depth)
+    assert torch.equal(ki[clear], pi[clear]), (name, l)
+    assert bool((kv[1] == -torch.inf).all()) and bool((ki[1] == 0).all())
+    if poison:
+        lo = best // tm * tm
+        assert not bool(((ki >= lo) & (ki < lo + tm)
+                         & (kv > -torch.inf)).any()), (name, l)
+    else:
+        assert {a0, a1} <= set(ki[0].tolist()), (name, l)
+    pval, pidx = ss.stream_topl_sweep(A, R, l)
+    want = ss.stream_topl_finish_ref(pval.clone(), pidx.clone(), tm // 128, l)
+    got = ss.stream_topl_finish(pval, pidx, tm // 128, l)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
+        name, l, "finish")
+    errs["stream_topl_finish wide"] = 0.0
+    return int(clear.sum()), int(edge.sum())
+
+
+def check_topl_wide(dev, gpu):
+    """The [topl wide] phase: K7 past 128 slots (`hold_topl_wide`) at l in
+    TOPL_WIDE_LS and m_local in STREAM_WIDTHS, bf16 (the tensor-core sweep)
+    and f32 (the CUDA-core one), with and without a poisoned atom, and at
+    TOPL_WIDE_SCRATCH, where the finish's keys lie in its scratch; then
+    its times at l in TOPL_WIDE_TIMED: device ms per call (profiler; the
+    sweep, merge and fold apart), ms per call (events), the plain twin's,
+    the bound (`stream_bound`) and the library's: the bf16 GEMM and
+    torch.topk(l) over the shard's scores."""
+    from cstpu_torch.ops import stream_select as ss
+
+    t0 = time.perf_counter()
+    B, n = SHARD_CELLS["5c"][:2]
+    errs, rows = {}, []
+    for m, cdt, l, poison in itertools.product(
+            STREAM_WIDTHS, (torch.bfloat16, torch.float32), TOPL_WIDE_LS,
+            (False, True)):
+        rows.append(hold_topl_wide(dev, n, m, l, cdt, poison, errs))
+    for n_, m, l in TOPL_WIDE_SCRATCH:
+        bpt = ss._stream_tile(m, n_, 2, ss.STREAM_TILE_BYTES) // 128
+        assert ss._finish_work(B, m, l, bpt) > 0, (n_, m, l)
+        rows.append(hold_topl_wide(dev, n_, m, l, torch.bfloat16, False,
+                                   errs))
+    held = time.perf_counter() - t0
+
+    bf = torch.bfloat16
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    R = torch.randn((B, n), device=dev, generator=gen)
+    for ml in STREAM_WIDTHS:
+        A = torch.randn((n, ml), device=dev, generator=gen)
+        Ac = (A / A.norm(dim=0)).to(bf)
+        del A
+        Rb = R.to(bf)
+        for l in TOPL_WIDE_TIMED:
+            fn = lambda: ss.correlate_select_topl_stream(Ac, R, l)
+            busy, got = profile_path(fn, TIMED_LAUNCHES)
+            ms = {nm: v[1] / TIMED_LAUNCHES for nm, v in got.items()}
+            rec = {
+                "device_ms": busy / TIMED_LAUNCHES,
+                "sweep_device_ms": ms.get("topl_mma", 0.0)
+                + ms.get("round_rows", 0.0),
+                "merge_device_ms": ms.get("stream_topl_merge_wide", 0.0),
+                "fold_device_ms": ms.get("stream_topl_fold_wide", 0.0),
+                "ms": per_launch_ms(R, fn),
+                "plain_ms": cuda_ms(lambda: ss.correlate_select_topl_stream_ref(
+                    Ac, R, l)[0].flatten()[0], TIMED_SLOW),
+                **stream_bound(B, n, ml, l=l),
+                "library_ms": per_launch_ms(R, lambda: torch.matmul(
+                    Rb, Ac).abs().topk(l, dim=1))}
+            if l == TOPL_WIDE_TIMED[0]:
+                busy, got = profile_path(
+                    lambda: ss.correlate_select_topl_stream(Ac.float(), R, l),
+                    TIMED_LAUNCHES)
+                rec["f32_device_ms"] = busy / TIMED_LAUNCHES
+            out[(ml, l)] = rec
+        del Ac
+        torch.cuda.empty_cache()
+    print(f"[topl wide] K7 at l > 128 == plain twin: l in {TOPL_WIDE_LS} at "
+          f"m_local in {STREAM_WIDTHS} (B={B}, n={n}), bf16 (tensor-core "
+          f"sweep) and f32 (CUDA-core sweep), with and without a poisoned "
+          f"tile, and (n, m, l) in {TOPL_WIDE_SCRATCH} (keys in the "
+          f"finish's scratch): sorted values within rtol {SELECT_RTOL}, "
+          f"index sets on {sum(e for _, e in rows)} rows whose l-th best "
+          f"stands clear, slot for slot on {sum(c for c, _ in rows)} fully "
+          f"clear rows, the finish alone bit for bit, NaN row and poisoned "
+          f"tile skipped; max |val err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; held in {held:.1f} s")
+    print("[topl wide] ms per call at B=8, n=1024, bf16 (device: profiler; "
+          "ms: events, wrapper and launches; library: bf16 GEMM + "
+          "torch.topk(l)): "
+          + "; ".join(f"m_local={ml} l={l} " + ", ".join(
+              f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+              for k, v in rec.items()) for (ml, l), rec in out.items())
+          + f" | {gpu}; {time.perf_counter() - t0:.1f} s")
+    return errs, out
+
+
+def sharded_wide_paths(A, Bs, sup):
+    """5c's problem (B=8, n=1024, m=131072, 32 planted +-1 atoms a row) past
+    128 picks on SHARDS shards: sp, ompr and srr_sharded_fused at k =
+    WIDE_K, gomp_sharded_fused at l = k = WIDE_K, each once with the launch
+    counts zeroed just before: launches against the iterations run,
+    supports equal to the plain solve's, the planted atoms inside every
+    support (GOMP, one step of k picks: inside it or below the row's k-th
+    best score); then each solve's time (events) and profiler split."""
+    import cstpu_torch
+    from cstpu_torch.parallel import sharded as sh
+
+    k, s = WIDE_K, SHARDS
+    mesh = cstpu_torch.make_mesh((1, s))
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+    out = {}
+    cases = (
+        ("gomp", lambda f, **kw: f(Ash, Bs, k, k, mesh, **kw),
+         cstpu_torch.gomp_sharded_fused, sh.gomp_sharded_fused_ref,
+         lambda it: {"select_topl_stream_mma": s * it,
+                     "stream_topl_finish": s * it}),
+        ("sp", lambda f, **kw: f(Ash, Bs, k, mesh, **kw),
+         cstpu_torch.sp_sharded_fused, sh.sp_sharded_fused_ref,
+         lambda it: {"select_topl_stream_mma": s * (1 + it),
+                     "stream_topl_finish": s * (1 + it)}),
+        ("ompr", lambda f, **kw: f(Ash, Bs, k, mesh, delta=1e-12, **kw),
+         cstpu_torch.ompr_sharded_fused, sh.ompr_sharded_fused_ref,
+         lambda it: {"select_topl_stream_mma": s, "stream_topl_finish": s,
+                     "select_masked_stream_mma": s * it}),
+        ("srr", lambda f, **kw: f(Ash, Bs, k, mesh, delta=1e-12, **kw),
+         cstpu_torch.srr_sharded_fused, sh.srr_sharded_fused_ref,
+         lambda it: {"select_topl_stream_mma": s, "stream_topl_finish": s,
+                     "fr_step_select_mma": s * it}),
+    )
+    for name, call, entry, ref, want in cases:
+        t0 = time.perf_counter()
+        (sol, iters), launches = run_counted(
+            lambda: call(entry, return_iters=True))
+        wall = time.perf_counter() - t0
+        assert launches == expect_launches(**want(iters[0])), (name, launches)
+        rec = recovery(sol, sup)
+        plain, it_plain = call(ref, return_iters=True)
+        assert _supports(plain) == _supports(sol), f"{name}: plain solve"
+        if name == "gomp":
+            # one step of k picks and no correction: a planted atom whose
+            # |score| on b lies below the row's k-th best is left out by
+            # GOMP's own rule, on every route
+            sc = (Bs @ A).abs()
+            kth = sc.topk(k, dim=1).values[:, -1]
+            for b_, (got, want) in enumerate(zip(_supports(sol),
+                                                 sup.tolist())):
+                for j in set(want) - set(got):
+                    assert float(sc[b_, j]) <= float(kth[b_]) * (1 + 1e-3), \
+                        (name, b_, j)
+        else:
+            assert rec == 1.0, f"{name}: recovery {rec}"
+        cerr = float((sol.val - plain.val).abs().max())
+        assert cerr <= COEF_ATOL, (name, cerr)
+        ms = cuda_ms(lambda: call(entry).val.sum(), TIMED_SLOW)
+        sp_ = _split(ms, lambda: call(entry))
+        out[name] = {"launches": launches, "iters": iters[0],
+                     "plain_iters": it_plain[0], "recovery": rec,
+                     "err": cerr, "first_call_s": wall, "solve_ms": ms,
+                     "device_busy_ms": sp_["device_busy_ms"],
+                     "idle_share": sp_["idle_share"],
+                     "kernels": sp_["kernels"]}
+        print(f"[main 5c-wide {name}] {entry.__name__} k={k} shards={s} "
+              f"recovery={rec:.3f} iters={iters[0]} (plain {it_plain[0]}) "
+              f"launches={ {key: v for key, v in launches.items() if v} }; "
+              f"supports == plain solve, max |coef err| {cerr:.3e} (atol "
+              f"{COEF_ATOL}); first call {wall:.2f} s")
+        print(f"[split 5c-wide {name}] wall {ms:.4f} ms, device busy "
+              f"{sp_['device_busy_ms']:.4f} ms, idle share "
+              f"{sp_['idle_share']:.4f}; "
+              + ", ".join(f"{nm} {v['launches']}x {v['ms']:.4f} ms"
+                          for nm, v in sp_["kernels"].items()))
+    return out
+
+
 def _supports(sol):
     """Per row the sorted tuple of active atom indices."""
     idx = torch.where(sol.mask, sol.idx, sol.m).cpu().numpy()
@@ -5190,6 +5444,590 @@ def examples_paths(gpu):
     return out
 
 
+# --------------------------------------------------------------------------
+# [surface]: every public name of cstpu_torch and cstpu_torch.parallel on
+# the card (benchmarks/tpu_smoke.py's tables, extended)
+# --------------------------------------------------------------------------
+
+SURFACE_DELTA = 1e-2
+SURFACE_SEED = 123
+
+
+def _same_support(card, cpu):
+    """agree: the card's and the CPU's supports, row for row."""
+    return _rows_of(card) == _rows_of(cpu)
+
+
+class SurfaceCase(NamedTuple):
+    """One case of the [surface] phase: `run(P)` calls the public names in
+    `covers` on the problems P of one device (`surface_problems`);
+    `check(P, out)` is its oracle, (ok, detail); `agree(card, cpu)` holds
+    the card's result against the CPU's: supports (`_same_support`), which
+    may part at a near-tie where the oracle holds on both, or numbers,
+    which must agree; None: the oracle on both (the generators draw other
+    numbers on each). `keys`: launch counts the call must take on the card
+    (a key or its "_mma" variant)."""
+    name: str
+    covers: tuple
+    run: object
+    check: object
+    agree: object = _same_support
+    keys: tuple = ()
+
+
+def surface_problems(dev):
+    """tpu_smoke's problems, made with numpy from SURFACE_SEED and put on
+    `dev` in f32: a 3-sparse +-1 signal on a unit-norm (64, 96) dictionary
+    with b and y = b + noise of norm delta/2; the same on a square (64, 64)
+    one (the backward family); eight rows of 3 planted ones on (64, 128)
+    and on (128, 128) (the batched kernels' small corner); eight 3-sparse
+    +-1 rows on (64, 256) (the sharded solvers, two shards of 128); 16
+    atoms of the first with 3 planted (exhaustive)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SURFACE_SEED)
+    d = SURFACE_DELTA
+
+    def unit(n, m):
+        A = rng.standard_normal((n, m))
+        return A / np.linalg.norm(A, axis=0)
+
+    def planted(m, k, ones=False):
+        sup = np.sort(rng.choice(m, k, replace=False))
+        x = np.zeros(m)
+        x[sup] = 1.0 if ones else rng.choice([-1.0, 1.0], k)
+        return x, sup
+
+    def noisy(b):
+        e = rng.standard_normal(b.shape)
+        return b + e * (d / 2) / np.linalg.norm(e)
+
+    A, As, A2, A3, Ash = (unit(64, 96), unit(64, 64), unit(64, 128),
+                          unit(128, 128), unit(64, 256))
+    x, sup = planted(96, 3)
+    xs, sups = planted(64, 3)
+    X2, sup2 = zip(*(planted(128, 3, ones=True) for _ in range(8)))
+    Xsh, supsh = zip(*(planted(256, 3) for _ in range(8)))
+    x16 = np.zeros(16)
+    x16[[2, 5, 9]] = 1.0
+    X2, Xsh = np.stack(X2), np.stack(Xsh)
+    b, bs = A @ x, As @ xs
+    P = {"A": A, "b": b, "y": noisy(b), "As": As, "bs": bs, "ys": noisy(bs),
+         "A2": A2, "Bs2": X2 @ A2.T, "A3": A3, "Bs3": X2 @ A3.T, "Ash": Ash,
+         "Bsh": Xsh @ Ash.T, "A16": A[:, :16], "b16": A[:, :16] @ x16}
+    P = {key: torch.tensor(v, dtype=torch.float32, device=dev)
+         for key, v in P.items()}
+    P.update(dev=torch.device(dev), sup=sup.tolist(), sups=sups.tolist(),
+             sup2=[s.tolist() for s in sup2],
+             supsh=[s.tolist() for s in supsh], sup16=[2, 5, 9])
+    return P
+
+
+def _gen(P, seed=7):
+    return torch.Generator(device=P["dev"]).manual_seed(seed)
+
+
+def _mesh2(P):
+    import cstpu_torch
+
+    return cstpu_torch.make_mesh((1, 2), devices=[P["dev"]])
+
+
+def _sol(out):
+    """The solution of a call's result: a tuple's first entry."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _rows_of(out):
+    """Per row the sorted active atoms of a (batched) SparseSolution, or of
+    a dense x above 10 delta; a 1-D result is one row."""
+    out = _sol(out)
+    if hasattr(out, "mask"):
+        idx = torch.where(out.mask, out.idx, -1).reshape(
+            -1, out.idx.shape[-1]).cpu().tolist()
+        return [sorted(i for i in row if i >= 0) for row in idx]
+    x = torch.as_tensor(out).detach().float().cpu().reshape(
+        -1, out.shape[-1])
+    return [sorted(torch.nonzero(row.abs() > 10 * SURFACE_DELTA).flatten()
+                   .tolist()) for row in x]
+
+
+def _dense_rows(out):
+    out = _sol(out)
+    x = out.todense() if hasattr(out, "todense") else torch.as_tensor(out)
+    return x.reshape(-1, x.shape[-1]).float()
+
+
+def _planted_check(key, held, what):
+    """The oracle: `held(planted, got)` on every row; the detail shows a
+    single row's support, or how many rows hold."""
+    def check(P, out):
+        want = P[key] if isinstance(P[key][0], list) else [P[key]]
+        got = _rows_of(out)
+        rows = sum(held(w, g) for w, g in zip(want, got))
+        ok = rows == len(want) == len(got)
+        return ok, (f"support={got[0]}" if len(want) == 1
+                    else f"{rows}/{len(want)} rows {what}")
+    return check
+
+
+def _exact(key):
+    """Every row's support equals the planted one."""
+    return _planted_check(key, lambda w, g: w == g, "recovered exactly")
+
+
+def _superset(key):
+    """Every row's support holds the planted one."""
+    return _planted_check(key, lambda w, g: set(w) <= set(g),
+                          "hold the planted atoms")
+
+
+def _fit(akey, ykey):
+    """The oracle: finite, and ||A x - y|| < 3 delta on every row."""
+    def check(P, out):
+        x = _dense_rows(out)
+        Y = P[ykey].reshape(-1, P[akey].shape[0])
+        r = torch.linalg.norm(x @ P[akey].T - Y, dim=1)
+        ok = bool(torch.isfinite(x).all()) and bool(
+            (r < 3 * SURFACE_DELTA).all())
+        return ok, f"resid={float(r.max()):.2e}"
+    return check
+
+
+def _both(*checks):
+    def check(P, out):
+        res = [c(P, out) for c in checks]
+        return all(ok for ok, _ in res), "; ".join(d for _, d in res)
+    return check
+
+
+def _close(rtol=1e-4, atol=1e-5):
+    """agree: the results' tensors close (numbers, tuples of them)."""
+    def agree(card, cpu):
+        a = card if isinstance(card, (tuple, list)) else (card,)
+        b = cpu if isinstance(cpu, (tuple, list)) else (cpu,)
+        return all(torch.allclose(torch.as_tensor(x).double().cpu(),
+                                  torch.as_tensor(y).double().cpu(),
+                                  rtol=rtol, atol=atol)
+                   for x, y in zip(a, b))
+    return agree
+
+
+def _is(kind, what="result"):
+    return lambda P, out: (isinstance(out, kind), f"{what} "
+                           f"{type(out).__name__}")
+
+
+def surface_cases():
+    """The [surface] table: every name of cstpu_torch.__all__ and
+    cstpu_torch.parallel.__all__ in at least one case's `covers`."""
+    import cstpu_torch as ct
+    import cstpu_torch.parallel as cp
+
+    d = SURFACE_DELTA
+    s2 = d ** 2
+    C = SurfaceCase
+    ex, sup_s, sup_2, sup_h = (_exact("sup"), _exact("sups"),
+                               _superset("sup2"), _superset("supsh"))
+    fit, fit_h = _fit("A", "y"), _fit("Ash", "Bsh")
+
+    def traced(fn, trace):
+        return lambda P, out: (
+            isinstance(out[1], trace) and fn(P, out[0])[0],
+            f"{fn(P, out[0])[1]}, {type(out[1]).__name__}")
+
+    cases = [
+        # per-instance solvers at n=64, m=96 (square 64 x 64 backward)
+        C("mp", ("mp",), lambda P: ct.mp(P["A"], P["y"], 30), fit),
+        C("omp", ("omp", "SparseSolution"),
+          lambda P: ct.omp(P["A"], P["y"], 3),
+          _both(ex, _is(ct.SparseSolution))),
+        C("gomp", ("gomp",), lambda P: ct.gomp(P["A"], P["y"], 2, 4),
+          _superset("sup")),
+        C("oblivious", ("oblivious",),
+          lambda P: ct.oblivious(P["A"], P["y"], 3), ex),
+        *(C(name, (name,), lambda P, f=getattr(ct, name): f(
+            P["A"], P["y"], sparsity=3), ex)
+          for name in ("fr", "ols", "oomp", "ormp", "stepwise_regression")),
+        C("br", ("br",), lambda P: ct.br(P["As"], P["ys"], sparsity=3),
+          sup_s),
+        C("br naive", ("br",),
+          lambda P: ct.br(P["As"], P["ys"], sparsity=3, naive=True), sup_s),
+        C("fbr", ("fbr",), lambda P: ct.fbr(P["As"], P["ys"], sparsity=3),
+          sup_s),
+        C("lace", ("lace",), lambda P: ct.lace(P["As"], P["ys"], sparsity=3),
+          sup_s),
+        C("sp", ("sp",), lambda P: ct.sp(P["A"], P["y"], 3, d), ex),
+        C("ompr", ("ompr",), lambda P: ct.ompr(P["A"], P["y"], 3, d), ex),
+        *(C(f"srr init={i}", ("srr",), lambda P, i=i: ct.srr(
+            P["A"], P["y"], 3, d, initialization=i,
+            key=_gen(P) if i == 3 else None), ex) for i in (1, 2, 3)),
+        C("rmp k", ("rmp",), lambda P: ct.rmp(P["A"], P["y"], k=3), ex),
+        C("rmp delta", ("rmp",), lambda P: ct.rmp(P["A"], P["y"], delta=d),
+          ex),
+        C("foba", ("foba",), lambda P: ct.foba(P["A"], P["y"], d), ex),
+        C("sbl", ("sbl",), lambda P: ct.sbl(P["A"], P["y"], s2), ex),
+        C("fsbl", ("fsbl",), lambda P: ct.fsbl(P["A"], P["y"], s2), ex),
+        C("rmps", ("rmps",), lambda P: ct.rmps(P["A"], P["y"], s2), ex),
+        C("rmps_estimate_noise", ("rmps_estimate_noise",),
+          lambda P: ct.rmps_estimate_noise(P["A"], P["y"], s2, 1.0, s2), ex),
+        C("rmps_estimate_noise_batch", ("rmps_estimate_noise_batch",),
+          lambda P: ct.rmps_estimate_noise_batch(
+              P["A"], P["y"][None], s2, 1.0, s2)[0], ex),
+        C("fsbl_traced", ("fsbl_traced", "SBLTrace"),
+          lambda P: ct.fsbl_traced(P["A"], P["y"], s2),
+          traced(ex, ct.SBLTrace)),
+        C("rmps_traced", ("rmps_traced", "RMPSTrace"),
+          lambda P: ct.rmps_traced(P["A"], P["y"], s2),
+          traced(ex, ct.RMPSTrace)),
+        C("omp_traced", ("omp_traced", "SolveTrace"),
+          lambda P: ct.omp_traced(P["A"], P["y"], 3),
+          traced(ex, ct.SolveTrace)),
+        C("fr_traced", ("fr_traced",),
+          lambda P: ct.fr_traced(P["A"], P["y"], sparsity=3),
+          traced(ex, ct.SolveTrace)),
+        *(C(name, (name,), lambda P, f=getattr(ct, name): f(P["A"], P["b"]),
+            ex) for name in ("bp", "basispursuit", "bp_candes", "bp_ard")),
+        *(C(name, (name,), lambda P, f=getattr(ct, name): f(
+            P["A"], P["y"], d), fit)
+          for name in ("bpd", "basis_pursuit_denoising", "bpd_candes",
+                       "bpd_ard")),
+        *(C(name, (name,), lambda P, f=getattr(ct, name): f(
+            P["A"], P["y"], d / 10, maxiter=2048, stepsize=None), fit)
+          for name in ("ista", "fista")),
+        C("exhaustive", ("exhaustive",),
+          lambda P: ct.exhaustive(P["A16"], P["b16"], 3),
+          lambda P, out: (sorted(int(i) for i in out) == P["sup16"],
+                          f"support={sorted(int(i) for i in out)}"),
+          _close()),
+        # the batched entry points at the kernels' small corner (n=64,
+        # m=128, B=8, k=3): the kernel route by the launch counts
+        C("omp_batch", ("omp_batch",),
+          lambda P: ct.omp_batch(P["A2"], P["Bs2"], 3), sup_2,
+          keys=("select", "append")),
+        C("fr_batch", ("fr_batch",),
+          lambda P: ct.fr_batch(P["A2"], P["Bs2"], sparsity=3), sup_2,
+          keys=("fr_select", "fr_append")),
+        C("gomp_batch", ("gomp_batch",),
+          lambda P: ct.gomp_batch(P["A2"], P["Bs2"], 2, 4), sup_2,
+          keys=("select_topl", "gomp_append")),
+        C("sp_batch", ("sp_batch",),
+          lambda P: ct.sp_batch(P["A2"], P["Bs2"], 3, d), sup_2,
+          keys=("select_topl", "sp_round")),
+        C("ompr_batch", ("ompr_batch",),
+          lambda P: ct.ompr_batch(P["A2"], P["Bs2"], 3, d), sup_2,
+          keys=("engine_init", "ompr_swap")),
+        C("srr_batch", ("srr_batch",),
+          lambda P: ct.srr_batch(P["A2"], P["Bs2"], 3, d), sup_2,
+          keys=("engine_init", "srr_append")),
+        C("rmp_batch delta", ("rmp_batch",),
+          lambda P: ct.rmp_batch(P["A2"], P["Bs2"], delta=d, kmax=8), sup_2,
+          keys=("fr_select", "rmp_append")),
+        # k at kmax = n runs the forward stage to full rank and prunes the
+        # whole basis: on bf16-rounded scores its late picks are noise and
+        # one flip reshuffles it (docs/DESIGN.md, exhaustion mode; the
+        # plain twin in bf16 misses a planted atom here too), so true f32
+        C("rmp_batch k", ("rmp_batch",),
+          lambda P: ct.rmp_batch(P["A2"], P["Bs2"], k=3, kmax=64,
+                                 precision="f32"), sup_2,
+          keys=("fr_select", "rmp_append", "engine_backward")),
+        C("foba_batch", ("foba_batch",),
+          lambda P: ct.foba_batch(P["A2"], P["Bs2"], d, kmax=8), sup_2,
+          keys=("fr_select", "rmp_append")),
+        C("fbr_batch", ("fbr_batch",),
+          lambda P: ct.fbr_batch(P["A3"], P["Bs3"], sparsity=3), sup_2,
+          keys=("bw_select", "bw_downdate")),
+        C("lace_batch", ("lace_batch",),
+          lambda P: ct.lace_batch(P["A3"], P["Bs3"], sparsity=3), sup_2,
+          keys=("bw_select", "bw_downdate")),
+        C("mp_batch", ("mp_batch",),
+          lambda P: ct.mp_batch(P["A2"], P["Bs2"], 60), _fit("A2", "Bs2"),
+          keys=("select", "mp_update")),
+        C("br_batch", ("br_batch",),
+          lambda P: ct.br_batch(P["A3"], P["Bs3"], sparsity=3), sup_2),
+        C("batch", ("batch",),
+          lambda P: ct.batch(ct.omp, k=3)(P["A2"], P["Bs2"]), sup_2),
+        *(C(name, (name,), lambda P, f=getattr(ct, name): f(
+            P["A2"], P["Bs2"], s2), sup_2)
+          for name in ("rmps_batch", "fsbl_batch", "sbl_batch")),
+        # the sharded solvers on a (1, 2) mesh at m=256
+        C("make_mesh", ("make_mesh", "Mesh", "shard_dictionary",
+                        "ShardedDictionary", "shard_batch"),
+          lambda P: (_mesh2(P), ct.shard_dictionary(P["Ash"], _mesh2(P)),
+                     ct.shard_batch(P["Bsh"], _mesh2(P))),
+          lambda P, out: (
+              isinstance(out[0], cp.Mesh)
+              and isinstance(out[1], cp.ShardedDictionary)
+              and [tuple(x.shape) for x in out[1].shards[0]]
+              == [(64, 128)] * 2 and tuple(out[2][0].shape) == (8, 64),
+              f"{type(out[0]).__name__} shards "
+              f"{[tuple(x.shape) for x in out[1].shards[0]]}"), None),
+        C("omp_sharded", ("omp_sharded",),
+          lambda P: ct.omp_sharded(P["Ash"], P["Bsh"][0], 3, _mesh2(P)),
+          lambda P, out: (_rows_of(out) == [P["supsh"][0]],
+                          f"support={_rows_of(out)}")),
+        C("omp_sharded_rows", ("omp_sharded_rows",),
+          lambda P: ct.omp_sharded_rows(P["Ash"], P["Bsh"][0], 3, _mesh2(P)),
+          lambda P, out: (_rows_of(out) == [P["supsh"][0]],
+                          f"support={_rows_of(out)}")),
+        C("omp_sharded_fused", ("omp_sharded_fused",),
+          lambda P: ct.omp_sharded_fused(P["Ash"], P["Bsh"], 3, _mesh2(P)),
+          sup_h, keys=("select_stream",)),
+        C("mp_sharded_fused", ("mp_sharded_fused",),
+          lambda P: ct.mp_sharded_fused(P["Ash"], P["Bsh"], 60, _mesh2(P)),
+          fit_h, keys=("select_stream",)),
+        C("gomp_sharded_fused", ("gomp_sharded_fused",),
+          lambda P: ct.gomp_sharded_fused(P["Ash"], P["Bsh"], 2, 4,
+                                          _mesh2(P)),
+          sup_h, keys=("select_topl_stream", "stream_topl_finish")),
+        C("ompr_sharded_fused", ("ompr_sharded_fused",),
+          lambda P: ct.ompr_sharded_fused(P["Ash"], P["Bsh"], 3, _mesh2(P),
+                                          delta=d),
+          sup_h, keys=("select_topl_stream", "select_masked_stream")),
+        C("sp_sharded_fused", ("sp_sharded_fused",),
+          lambda P: ct.sp_sharded_fused(P["Ash"], P["Bsh"], 3, _mesh2(P)),
+          sup_h, keys=("select_topl_stream",)),
+        C("fr_sharded_fused", ("fr_sharded_fused",),
+          lambda P: ct.fr_sharded_fused(P["Ash"], P["Bsh"], 3, _mesh2(P)),
+          sup_h, keys=("fr_step_select",)),
+        C("srr_sharded_fused", ("srr_sharded_fused",),
+          lambda P: ct.srr_sharded_fused(P["Ash"], P["Bsh"], 3, _mesh2(P)),
+          sup_h, keys=("select_topl_stream", "fr_step_select")),
+        C("rmp_sharded_fused", ("rmp_sharded_fused",),
+          lambda P: ct.rmp_sharded_fused(P["Ash"], P["Bsh"], d, _mesh2(P),
+                                         kmax=8),
+          sup_h, keys=("fr_step_select",)),
+        C("foba_sharded_fused", ("foba_sharded_fused",),
+          lambda P: ct.foba_sharded_fused(P["Ash"], P["Bsh"], d, _mesh2(P),
+                                          kmax=8),
+          sup_h, keys=("fr_step_select",)),
+        C("correlate_argmax", ("correlate_argmax",),
+          lambda P: ct.correlate_argmax(P["Ash"], P["Bsh"].T.contiguous()),
+          lambda P, out: (
+              out[0].tolist() == (P["Bsh"] @ P["Ash"]).abs().argmax(
+                  dim=1).tolist(), f"idx={out[0].tolist()}"),
+          lambda a, b: a[0].tolist() == b[0].tolist(),
+          keys=("corr_argmax",)),
+        *(C(name, (name,), lambda P, f=getattr(cp, name): f(
+            P["Ash"], P["Bsh"], s2, _mesh2(P)), sup_h)
+          for name in ("fsbl_sharded", "rmps_sharded")),
+        C("bp_sharded", ("bp_sharded",),
+          lambda P: cp.bp_sharded(P["A"], P["b"], mesh=_mesh2(P))[0], ex),
+        C("bp_ard_sharded", ("bp_ard_sharded",),
+          lambda P: cp.bp_ard_sharded(P["A"], P["b"], _mesh2(P)), ex),
+        C("bpd_sharded", ("bpd_sharded",),
+          lambda P: cp.bpd_sharded(P["A"], P["y"], d, mesh=_mesh2(P))[0],
+          fit),
+        *(C(name, (name,), lambda P, f=getattr(cp, name): f(
+            P["A"], P["y"], d, _mesh2(P)), fit)
+          for name in ("bpd_candes_sharded", "bpd_ard_sharded")),
+        C("bpd_secant_sharded", ("bpd_secant_sharded",),
+          lambda P: cp.bpd_secant_sharded(P["A"], P["y"], d,
+                                          mesh=_mesh2(P)), fit),
+        *(C(name, (name,), lambda P, f=getattr(cp, name): f(
+            P["A"], P["y"], d / 10, _mesh2(P), maxiter=2048,
+            stepsize=None), fit)
+          for name in ("ista_sharded", "fista_sharded")),
+        # the utilities
+        C("sparse_vector", ("sparse_vector",),
+          lambda P: ct.sparse_vector(_gen(P), 96, 3),
+          lambda P, out: (int((out != 0).sum()) == 3
+                          and bool((out.abs()[out != 0] == 1).all()),
+                          f"nnz={int((out != 0).sum())}"), None),
+        *(C(name, (name,), lambda P, f=getattr(ct, name): f(
+            _gen(P), 64, 96, 3),
+            lambda P, out: (
+                torch.allclose(out[0].norm(dim=0), torch.ones_like(
+                    out[0][0]), atol=1e-5)
+                and torch.allclose(out[0] @ out[1], out[2], atol=1e-5)
+                and int((out[1] != 0).sum()) == 3,
+                f"A {tuple(out[0].shape)}"), None)
+          for name in ("sparse_data", "gaussian_data", "correlated_data",
+                       "coherent_data")),
+        C("perturb", ("perturb",),
+          lambda P: ct.perturb(_gen(P), P["b"], d) - P["b"],
+          lambda P, out: (abs(float(out.norm()) - d) < 1e-6,
+                          f"||e||={float(out.norm()):.6f}"), None),
+        C("colnorms", ("colnorms", "normalize_columns"),
+          lambda P: (ct.colnorms(P["A"]),
+                     ct.colnorms(ct.normalize_columns(3.0 * P["A"]))),
+          lambda P, out: (torch.allclose(out[1], torch.ones_like(out[1]),
+                                         atol=1e-5), "unit columns"),
+          _close()),
+        C("babel", ("coherence", "babel", "cumbabel"),
+          lambda P: (ct.coherence(P["A"]), ct.babel(P["A"], 3),
+                     ct.cumbabel(P["A"], 3)),
+          lambda P, out: (
+              abs(float(out[2][0]) - float(out[0])) < 1e-6
+              and abs(float(out[2][2]) - float(out[1])) < 1e-6
+              and bool((out[2][1:] >= out[2][:-1]).all()),
+              f"coherence={float(out[0]):.4f}"), _close()),
+        C("preconditioners", ("mean_preconditioner", "svd_preconditioner",
+                              "precondition"),
+          lambda P: (ct.mean_preconditioner(1e-3)(P["A"]),
+                     ct.svd_preconditioner(P["A"])(P["A"]),
+                     ct.precondition(P["A"])),
+          lambda P, out: (torch.allclose(out[1], out[2], atol=1e-5)
+                          and tuple(out[0].shape) == (64, 96),
+                          "precondition == svd_preconditioner(A)(A)"),
+          _close(atol=1e-4)),
+        C("support", ("support", "samesupport", "droptol", "polish"),
+          lambda P: _support_utilities(P),
+          lambda P, out: (out[0] == P["sup"] and out[1] and out[2] == 3
+                          and out[3] < 3 * SURFACE_DELTA,
+                          f"support={out[0]} polished resid={out[3]:.2e}"),
+          lambda a, b: a[:3] == b[:3]),
+        C("solver_config", ("solver_config", "SolverConfig"),
+          lambda P: _config_roundtrip(P),
+          lambda P, out: (isinstance(out[0], ct.SolverConfig)
+                          and out[0] == out[1] and _exact("sup")(P, out[2])[0]
+                          and _superset("sup2")(P, out[3])[0],
+                          f"{out[0].to_json()}"),
+          lambda a, b: _rows_of(a[2]) == _rows_of(b[2])),
+        C("save_state", ("save_state", "load_state"),
+          lambda P: _state_roundtrip(P),
+          lambda P, out: (out, "the omp solution saved and loaded "
+                               "unchanged"), None),
+        C("solve_cost", ("solve_cost", "roofline_report"),
+          lambda P: ct.roofline_report(1e-3, ct.solve_cost(8, 64, 128, 3)),
+          lambda P, out: (out["tflops"] > 0 and out["seconds"] == 1e-3,
+                          f"tflops={out['tflops']:.3e}"),
+          lambda a, b: a == b),
+    ]
+    return cases
+
+
+def _support_utilities(P):
+    import cstpu_torch as ct
+
+    x = ct.omp(P["A"], P["y"], 3).todense()
+    exact = torch.zeros_like(x)
+    exact[P["sup"]] = 1.0
+    kept = ct.droptol(x, 0.5)
+    pol = ct.polish(P["A"], P["y"], x)
+    return ([int(i) for i in ct.support(x)], bool(ct.samesupport(x, exact)),
+            int((kept != 0).sum()),
+            float(torch.linalg.norm(P["A"] @ pol - P["y"])))
+
+
+def _config_roundtrip(P):
+    import cstpu_torch as ct
+
+    cfg = ct.solver_config("omp", k=3)
+    back = ct.SolverConfig.from_json(cfg.to_json())
+    return (cfg, back, cfg.run(P["A"], P["y"]),
+            cfg.run_batch(P["A2"], P["Bs2"]))
+
+
+def _state_roundtrip(P):
+    import os
+    import tempfile
+
+    import cstpu_torch as ct
+
+    sol = ct.omp(P["A"], P["y"], 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        ct.save_state(path, sol)
+        back = ct.load_state(path, sol)
+    return (back.idx.device == sol.idx.device
+            and torch.equal(back.idx, sol.idx)
+            and torch.equal(back.val, sol.val)
+            and torch.equal(back.mask, sol.mask) and back.m == sol.m)
+
+
+def surface_names():
+    """Every public name the [surface] phase must call: both __all__s."""
+    import cstpu_torch
+    import cstpu_torch.parallel
+
+    return set(cstpu_torch.__all__) | set(cstpu_torch.parallel.__all__)
+
+
+def _agree(case, card, cpu):
+    """True or False by the case's `agree`; None where it has none."""
+    return None if case.agree is None else bool(case.agree(card, cpu))
+
+
+def surface_paths(dev, gpu):
+    """The [surface] phase: every case of `surface_cases` on the card with
+    the launch counts zeroed just before it (its oracle; on the card the
+    kernel route by its `keys`), then the same call on CPU tensors, held
+    against the card's (supports equal, or the oracle on both where they
+    part at a near-tie). One PASS or FAIL line a case; it raises after the
+    whole table has run if any case failed, or if a public name has no
+    case."""
+    t0 = time.perf_counter()
+    cases = surface_cases()
+    covered = set().union(*(c.covers for c in cases))
+    assert covered == surface_names(), sorted(surface_names() ^ covered)
+    P = {"card": surface_problems(dev), "cpu": surface_problems("cpu")}
+    fails = []
+    for case in cases:
+        t1 = time.perf_counter()
+        try:
+            out, counts = run_counted(lambda: case.run(P["card"]))
+            ok, detail = case.check(P["card"], out)
+            missing = [key for key in case.keys
+                       if not counts.get(key, 0) + counts.get(key + "_mma",
+                                                              0)]
+            launched = {key: v for key, v in counts.items() if v}
+            out_cpu = case.run(P["cpu"])
+            ok_cpu, detail_cpu = case.check(P["cpu"], out_cpu)
+            same = _agree(case, out, out_cpu)
+            held = ("cpu agrees" if same else
+                    "cpu parts, oracle on both" if same is False
+                    else "oracle on both")
+            ok = bool(ok and ok_cpu and not missing
+                      and (same is not False
+                           or case.agree is _same_support))
+            detail = (f"{detail} | {held}"
+                      + (f" (cpu: {detail_cpu})" if not ok_cpu else "")
+                      + (f" | launches {launched}" if case.keys else "")
+                      + (f" | kernel route missing {missing}"
+                         if missing else ""))
+        except Exception as e:  # noqa: BLE001 - a FAIL line, then go on
+            ok, detail = False, f"raised {type(e).__name__}: {e}"
+        if not ok:
+            fails.append(case.name)
+        print(f"{'PASS' if ok else 'FAIL'} [surface] {case.name:26s} "
+              f"{detail} ({time.perf_counter() - t1:.2f} s)", flush=True)
+    print(f"[surface] {len(cases) - len(fails)}/{len(cases)} cases passed, "
+          f"{len(covered)} public names called on the card and on the CPU; "
+          f"{time.perf_counter() - t0:.1f} s | {gpu}")
+    if fails:
+        raise AssertionError(f"[surface] failed: {fails}")
+    return {"cases": len(cases), "names": len(covered),
+            "seconds": time.perf_counter() - t0}
+
+
+# the [fuzz] phase: tools/fuzz_torch.py's checks on the card, two trials a
+# check (the trial number seeds its problem)
+FUZZ_TRIALS = 26
+FUZZ_SEED = 0
+
+
+def fuzz_paths(gpu):
+    """The [fuzz] phase: FUZZ_TRIALS trials of tools/fuzz_torch.py from
+    FUZZ_SEED on the card, the checks in turn; raises on any violation."""
+    import importlib.util
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    path = Path(__file__).resolve().parent / "tools" / "fuzz_torch.py"
+    spec = importlib.util.spec_from_file_location("fuzz_torch", path)
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    fz = fuzz.run(FUZZ_TRIALS, FUZZ_SEED, None, "cuda")
+    secs = time.perf_counter() - t0
+    print(f"[fuzz] {FUZZ_TRIALS} trials from seed {FUZZ_SEED} over "
+          f"{len(fuzz.CHECKS)} checks on the card: {len(fz.violations)} "
+          f"violations; {secs:.1f} s | {gpu}")
+    assert not fz.violations, fz.violations
+    return {"trials": FUZZ_TRIALS, "checks": len(fuzz.CHECKS),
+            "violations": 0, "seconds": secs}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -5535,11 +6373,13 @@ def main():
     xerr = check_stream_kernels(dev)
     merr = check_mma_selects(dev)
     lerr = check_mma_topl(dev)
+    werr, wtm = check_topl_wide(dev, gpu)
     gen5 = torch.Generator(device=dev).manual_seed(SEED)
     A5 = unit_dictionary(gen5, n5, m5)
     Bs5, sup5 = planted_pm1(gen5, A5, B5, k5)
     p5c = sharded_omp_path("5c", A5, Bs5, sup5, (1, SHARDS), plain=True)
     pother, Bones, sup_ones = sharded_other_paths(A5, gen5)
+    pwide = sharded_wide_paths(A5, Bs5, sup5)
     k10_launches = corr_argmax_path(A5, Bs5)
     pf32 = sharded_f32_paths(A5, Bs5, sup5, Bones, sup_ones)
     xtm, xsplit, xper = sharded_times(A5, Bs5, Bones, gpu)
@@ -5578,6 +6418,8 @@ def main():
     t0 = time.perf_counter()
     examples_out = examples_paths(gpu)
     print(f"[examples] done in {time.perf_counter() - t0:.1f} s")
+    surface_out = surface_paths(dev, gpu)
+    fuzz_out = fuzz_paths(gpu)
 
     sel_err, app_err, launches, tm = record["bench"]
     tm5b = record["5b"][3]
@@ -6152,7 +6994,13 @@ def main():
                   for name in ("gomp", "ompr", "sp")}
     topl_paths[f"srr_sharded_fused s={SHARDS}"] = \
         pfam["srr"]["launches"]["select_topl_stream_mma"]
+    wide_paths = {f"{name}_sharded_fused 5c-wide k={WIDE_K}":
+                  v["launches"]["stream_topl_finish"]
+                  for name, v in pwide.items()}
+    topl_paths.update({key: pwide[key.split("_")[0]]["launches"][
+        "select_topl_stream_mma"] for key in wide_paths})
     finish_paths = {
+        **wide_paths,
         **{f"{name}_sharded_fused 5c": ol[name]["stream_topl_finish"]
            for name in ("gomp", "ompr", "sp")},
         f"srr_sharded_fused s={SHARDS}":
@@ -6292,7 +7140,14 @@ def main():
               whole_plain_ms=xper[("plain_stream_topl_finish l=32", whole)],
               whole_device_ms=xper[("select_topl_stream l=32 finish device",
                                     whole)],
-              whole_bound_ms=finish_bound(whole, 32)["bound_ms"]),
+              whole_bound_ms=finish_bound(whole, 32)["bound_ms"],
+              # past 128 slots (the wide route): the whole select at
+              # m_local and l, its sweep, merge and fold apart, the f32
+              # sweep's select at l=160, bound and bf16 GEMM + topk
+              wide_max_abs_err=max(v for k_, v in werr.items()
+                                   if "select" in k_),
+              wide={f"m_local={ml} l={l_}": rec
+                    for (ml, l_), rec in wtm.items()}),
         entry("select_masked_stream_mma", f"{TPU_SELECT}:385",
               ol["ompr"]["select_masked_stream_mma"],
               max(xerr["select_masked_stream_mma"],
@@ -6415,7 +7270,10 @@ def main():
             omp5c, p5c)}, **{key: p5m[(s_, f_)] for key, (s_, f_) in zip(
                 omp5m, p5m)},
             **{name: {key: v for key, v in rec.items() if key != "launches"}
-               for name, rec in pother.items()}},
+               for name, rec in pother.items()},
+            **{f"{name} 5c-wide k={WIDE_K}": {
+                key: v for key, v in rec.items() if key != "launches"}
+               for name, rec in pwide.items()}},
         "peak_gib_5m": peak5m, "device": gpu}}))
     print(json.dumps({"sharded_fr": {
         "solve_ms": ftm,
@@ -6452,6 +7310,10 @@ def main():
     print(json.dumps({"convex": {**convex_out, "device": gpu}}))
     print(json.dumps({"distributed": {**dist_out, "device": gpu},
                       "examples_s": examples_out}))
+    print(json.dumps({"surface": surface_out, "fuzz": fuzz_out,
+                      "topl_wide": {f"m_local={ml} l={l_}": rec
+                                    for (ml, l_), rec in wtm.items()},
+                      "device": gpu}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,9 @@
 //     (value descending, index ascending), each inserted over the lowest
 //     slot that holds the running minimum, only if strictly larger; a tile
 //     that holds a NaN is skipped. The slots come back in that order,
-//     unsorted, as the TPU kernel leaves them. l <= kTile, a sweep block's
-//     width.
+//     unsorted, as the TPU kernel leaves them. Any l >= 1: a sweep block
+//     offers its min(l, kTile) best, so past kTile slots its list is the
+//     whole block, sorted, and the finish takes the wide route below.
 //
 // What bounds it on an H100: a sweep reads the cdt shard once (256 MB in
 // bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and does 2 B n m
@@ -50,6 +51,15 @@
 // block per (tile, row) merges the tile's sorted block lists into the
 // tile's top l, then one block per row folds the tiles' lists in order,
 // all slots of a tile at once.
+//
+// Past l = kTile (the wide route: SP, OMPR and SRR at k > 128, GOMP at
+// l > 128) the same two launches hold more: the merge keeps lists of up
+// to the power of two >= l, and the fold keeps its slots sorted by (value,
+// slot) in a block-wide array, so that a tile costs one pass over its
+// candidates and one bitonic merge of the slots (log2 l barrier steps),
+// not l compares per slot. Both keep their keys in shared memory up to
+// kWideSmem a block, and past it in the caller's scratch
+// (cstpu_stream_topl_work says how much).
 #include <cstdint>
 
 #include "common.cuh"
@@ -64,6 +74,14 @@ constexpr int kFinishThreads = 256;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeKeys = 2048;
 constexpr int kFoldKeys = 4096;
+// The wide route: most dynamic shared memory a block takes before its keys
+// move to the caller's scratch; threads of a merge block (one block a tile
+// and row, too few to fill the card at 256: each thread's binary searches
+// are a chain of dependent shared loads, and more warps hide them) and
+// most threads of a fold block.
+constexpr size_t kWideSmem = 160 * 1024;
+constexpr int kWideMergeThreads = 1024;
+constexpr int kWideFoldThreads = 1024;
 
 // Sweep, top-1: per row and per block of kTile atoms the largest score and
 // its lowest index; a NaN score makes the block's partial (NaN, INT_MAX).
@@ -349,8 +367,195 @@ stream_topl_fold_kernel(const float* __restrict__ pval,
   }
 }
 
-// Most slots of the streamed top-l: a sweep block's width.
-constexpr int kStreamTopLMax = kTile;
+// The inverse of float_order.
+__device__ __forceinline__ float order_float(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+inline int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// The wide route's sizes for B rows, nblocks sweep blocks, l > kTile slots
+// and bpt blocks a tile.
+struct WidePlan {
+  int lo;             // candidates a tile offers: min(l, bpt kTile)
+  int Lm;             // longest list the merge keeps: pow2 >= lo
+  int nl;             // lists of the merge tree: pow2 >= bpt
+  int Lf;             // the fold's slot array: pow2 >= l
+  size_t merge_smem;  // bytes of a merge block's two buffers
+  size_t fold_smem;   // bytes of a fold block's keys and atom indices
+  bool merge_global;  // past kWideSmem: in the scratch
+  bool fold_global;
+  size_t merge_work;  // scratch bytes of the merge, then of the fold
+  size_t fold_stride;
+  size_t work;
+};
+
+inline WidePlan wide_plan(int B, int nblocks, int l, int bpt) {
+  WidePlan p{};
+  p.lo = l < bpt * kTile ? l : bpt * kTile;
+  p.Lm = pow2_at_least(p.lo);
+  p.nl = pow2_at_least(bpt);
+  p.Lf = pow2_at_least(l);
+  p.merge_smem = 2 * static_cast<size_t>(p.nl) * kTile * sizeof(uint64_t);
+  p.fold_smem = static_cast<size_t>(p.Lf) * sizeof(uint64_t) +
+                static_cast<size_t>(l) * sizeof(int);
+  p.merge_global = bpt > 1 && p.merge_smem > kWideSmem;
+  p.fold_global = p.fold_smem > kWideSmem;
+  p.merge_work = p.merge_global
+                     ? static_cast<size_t>(nblocks / bpt) * B * p.merge_smem
+                     : 0;
+  p.fold_stride = (p.fold_smem + 15) / 16 * 16;
+  p.work = p.merge_work + (p.fold_global ? B * p.fold_stride : 0);
+  return p;
+}
+
+// Finish, top-l past kTile slots, stage 1: one block per (tile, row) merges
+// the tile's bpt block lists (each its whole block, kTile keys, sorted;
+// padded with empty lists to nl) pairwise, as stream_topl_merge_kernel
+// does, each level's lists twice as long up to Lm, and writes the first lo
+// keys in place over the tile's region (NaN and INT_MAX over all lo where
+// the tile holds a NaN). The two buffers lie in shared memory, or at
+// `work` (this block's 2 nl kTile keys) where they do not fit.
+__global__ void __launch_bounds__(kWideMergeThreads)
+stream_topl_merge_wide_kernel(float* __restrict__ pval, int* __restrict__ pidx,
+                              int nblocks, int bpt, int lo, int Lm, int nl0,
+                              unsigned long long* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int t = blockIdx.x, row = blockIdx.y, tid = threadIdx.x;
+  const int keys = nl0 * kTile;
+  unsigned long long* b0 =
+      work ? work + ((size_t)row * gridDim.x + t) * 2 * keys
+           : reinterpret_cast<unsigned long long*>(wide_smem);
+  unsigned long long* buf[2] = {b0, b0 + keys};
+  const size_t at = ((size_t)row * nblocks + (size_t)t * bpt) * kTile;
+  float* pv = pval + at;
+  int* pi = pidx + at;
+
+  bool nan = false;
+  for (int e = tid; e < keys; e += kWideMergeThreads) {
+    unsigned long long key = 0;
+    if (e < bpt * kTile) {
+      const float v = pv[e];
+      nan |= isnan(v);
+      key = v == -INFINITY ? 0ull : mma::topl_key(v, pi[e]);
+    }
+    b0[e] = key;
+  }
+  __syncthreads();
+  int src = 0, len = kTile;
+  for (int nl = nl0; nl > 1; nl >>= 1) {
+    const int out_len = min(2 * len, Lm);
+    const unsigned long long* in = buf[src];
+    unsigned long long* out = buf[src ^ 1];
+    for (int e = tid; e < nl * len; e += kWideMergeThreads) {
+      const int list = e / len, i = e % len;
+      const unsigned long long key = in[e];
+      const unsigned long long* other = in + (size_t)(list ^ 1) * len;
+      // keys of the other list before this one, as in the merge above
+      int cnt = 0;
+      for (int step = len; step > 0; step >>= 1) {
+        const int k = cnt + step;
+        if (k <= len) {
+          const unsigned long long o = other[k - 1];
+          if (o > key || (o == key && (list & 1))) cnt = k;
+        }
+      }
+      if (i + cnt < out_len) out[(size_t)(list >> 1) * out_len + i + cnt] = key;
+    }
+    __syncthreads();
+    src ^= 1;
+    len = out_len;
+  }
+  nan = __syncthreads_or(nan);
+  const unsigned long long* res = buf[src];
+  for (int p = tid; p < lo; p += kWideMergeThreads) {
+    const unsigned long long key = res[p];
+    pv[p] = nan ? __int_as_float(0x7fc00000)
+                : key ? __uint_as_float(static_cast<uint32_t>(key >> 32))
+                      : -INFINITY;
+    pi[p] = nan || !key ? INT_MAX : static_cast<int>(~static_cast<uint32_t>(key));
+  }
+}
+
+// Sorts the block's L keys at K ascending (L a power of two): the bitonic
+// network from merge width k0 up; with k0 = L only its last merge, which
+// sorts a sequence that falls and then rises.
+__device__ void sort_slots(unsigned long long* K, int L, int k0) {
+  for (int k = k0; k <= L; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < L / 2; p += blockDim.x) {
+        const int a = (p & ~(j - 1)) * 2 + (p & (j - 1)), b = a + j;
+        const unsigned long long x = K[a], y = K[b];
+        if ((x > y) == ((a & k) == 0)) {
+          K[a] = y;
+          K[b] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Finish, top-l past kTile slots, stage 2: one block per row. The slots are
+// kept as keys (float_order(value) << 32 | slot) in ascending order, the
+// rule's order (value ascending, lowest slot first among equals), padded
+// to Lf with ~0, beside each slot's atom index. Per tile, by the argument
+// of stream_topl_fold_kernel: candidate i (of the tile's lo, value
+// descending) goes over the slot at place i while it is strictly larger
+// (a NaN or -inf candidate never is); then the places written hold a
+// falling run and the rest still rise, so the last merge of the bitonic
+// network restores the order, or the whole network where two written
+// candidates tie in value (their slots may then fall out of order). The
+// keys lie in shared memory, or at `work` (`stride` bytes a row) where
+// they do not fit.
+__global__ void __launch_bounds__(kWideFoldThreads)
+stream_topl_fold_wide_kernel(const float* __restrict__ pval,
+                             const int* __restrict__ pidx, int nblocks,
+                             int bpt, int lo, int l, int Lf,
+                             unsigned char* __restrict__ work, size_t stride,
+                             float* __restrict__ val, int* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int row = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  unsigned char* base = work ? work + (size_t)row * stride : wide_smem;
+  unsigned long long* K = reinterpret_cast<unsigned long long*>(base);
+  int* sidx = reinterpret_cast<int*>(K + Lf);
+  const unsigned long long empty =
+      static_cast<unsigned long long>(float_order(-INFINITY)) << 32;
+  for (int i = tid; i < Lf; i += nt) {
+    K[i] = i < l ? empty | static_cast<uint32_t>(i) : ~0ull;
+    if (i < l) sidx[i] = 0;
+  }
+  __syncthreads();
+  const int ntile = nblocks / bpt;
+  for (int t = 0; t < ntile; ++t) {
+    const size_t at = ((size_t)row * nblocks + (size_t)t * bpt) * kTile;
+    int took = 0, tie = 0;
+    for (int i = tid; i < lo; i += nt) {
+      const float c = pval[at + i];
+      const unsigned long long key = K[i];
+      if (c > order_float(static_cast<uint32_t>(key >> 32))) {
+        const uint32_t s = static_cast<uint32_t>(key);
+        K[i] = (static_cast<unsigned long long>(float_order(c)) << 32) | s;
+        sidx[s] = pidx[at + i];
+        took = 1;
+        tie |= i + 1 < lo && pval[at + i + 1] == c;
+      }
+    }
+    took = __syncthreads_or(took);
+    tie = __syncthreads_or(tie);
+    if (took) sort_slots(K, Lf, tie ? 2 : Lf);
+  }
+  for (int i = tid; i < l; i += nt) {
+    const unsigned long long key = K[i];
+    const uint32_t s = static_cast<uint32_t>(key);
+    val[(size_t)row * l + s] = order_float(static_cast<uint32_t>(key >> 32));
+    idx[(size_t)row * l + s] = sidx[s];
+  }
+}
 
 bool stream_tiling_ok(int m, int bpt) {
   return m > 0 && m % kTile == 0 && bpt >= 1 && (m / kTile) % bpt == 0;
@@ -378,6 +583,42 @@ void launch_sweep(const float* r, size_t ldr, size_t ldp, const void* A,
     stream_sweep_kernel<T, false><<<grid, kTile, 0, s>>>(
         r, ldr, ldp, a, lda, nullptr, pval, pidx, B, n, m, nblocks);
   }
+}
+
+
+// The wide finish (l > kTile) on stream s: the merge where a tile has more
+// than one block, then the fold; `work` as cstpu_stream_topl_work sizes it.
+cudaError_t launch_topl_finish_wide(float* pval, int* pidx, float* val,
+                                    int* idx, int B, int nblocks, int l,
+                                    int bpt, unsigned char* work,
+                                    cudaStream_t s) {
+  const WidePlan p = wide_plan(B, nblocks, l, bpt);
+  if (p.work && work == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (bpt > 1) {
+    const int smem = p.merge_global ? 0 : static_cast<int>(p.merge_smem);
+    err = cudaFuncSetAttribute(stream_topl_merge_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    stream_topl_merge_wide_kernel<<<dim3(nblocks / bpt, B),
+                                    kWideMergeThreads, smem, s>>>(
+        pval, pidx, nblocks, bpt, p.lo, p.Lm, p.nl,
+        p.merge_global ? reinterpret_cast<unsigned long long*>(work) : nullptr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int smem = p.fold_global ? 0 : static_cast<int>(p.fold_smem);
+  err = cudaFuncSetAttribute(stream_topl_fold_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int half = p.Lf / 2;  // a pair of the sort a thread, 128 to 1024
+  const int threads = half < kTile ? kTile
+                      : half > kWideFoldThreads ? kWideFoldThreads : half;
+  stream_topl_fold_wide_kernel<<<B, threads, smem, s>>>(
+      pval, pidx, nblocks, bpt, p.lo, l, p.Lf,
+      p.fold_global ? work + p.merge_work : nullptr, p.fold_stride, val, idx);
+  return cudaGetLastError();
 }
 
 }  // namespace cstpu
@@ -431,7 +672,8 @@ extern "C" int cstpu_stream_select(const float* r, long long ldr,
 }
 
 // Top-l sweep of one shard: r (B, n) f32 contiguous, A as above, 1 <= l <=
-// kStreamTopLMax, m a multiple of kTile. Writes the partials pval, pidx
+// kTile (a block's list: the wrapper asks for min(l, kTile) whatever the
+// select's l), m a multiple of kTile. Writes the partials pval, pidx
 // (B, m / kTile, l): per row and per kTile atoms the l best, value
 // descending then index ascending, a block holding a NaN all (NaN, INT_MAX).
 // With use_mma the sweep is the tensor-core one, with rb (B, roundup(n, 8))
@@ -443,7 +685,7 @@ extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
                                  int n, int m, int l, int use_mma, void* rb,
                                  void* stream) {
   using namespace cstpu;
-  if (!stream_tiling_ok(m, 1) || B < 1 || l < 1 || l > kStreamTopLMax) {
+  if (!stream_tiling_ok(m, 1) || B < 1 || l < 1 || l > kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -466,21 +708,40 @@ extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The scratch the top-l finish needs past kTile slots: out[0] bytes (0
+// where its keys fit shared memory, and for l <= kTile).
+extern "C" int cstpu_stream_topl_work(int B, int m, int l, int bpt,
+                                      long long* out) {
+  using namespace cstpu;
+  if (!stream_tiling_ok(m, bpt) || B < 1 || l < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = l > kTile ? static_cast<long long>(wide_plan(B, m / kTile, l, bpt).work)
+                     : 0;
+  return 0;
+}
+
 // The top-l finish of either sweep: folds the partials pval, pidx (B, m /
-// kTile, l), bpt blocks to a tile of the NaN rule, into val (B, l) f32 and
-// idx (B, l) i32, slots in the running set's own order, (-inf, 0) where
-// never filled. The partials are scratch: the merge overwrites the first
-// block list of every tile with the tile's own list. Returns the first
-// launch error.
+// kTile, min(l, kTile)), bpt blocks to a tile of the NaN rule, into val
+// (B, l) f32 and idx (B, l) i32, slots in the running set's own order,
+// (-inf, 0) where never filled. The partials are scratch: the merge
+// overwrites the head of every tile's region with the tile's own list.
+// Past kTile slots `work` is the scratch of cstpu_stream_topl_work's size
+// (null where that is 0). Returns the first launch error.
 extern "C" int cstpu_stream_topl_finish(float* pval, int* pidx, float* val,
                                         int* idx, int B, int m, int l,
-                                        int bpt, void* stream) {
+                                        int bpt, void* work, void* stream) {
   using namespace cstpu;
-  if (!stream_tiling_ok(m, bpt) || B < 1 || l < 1 || l > kStreamTopLMax) {
+  if (!stream_tiling_ok(m, bpt) || B < 1 || l < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nblocks = m / kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l > kTile) {
+    return static_cast<int>(launch_topl_finish_wide(
+        pval, pidx, val, idx, B, nblocks, l, bpt,
+        static_cast<unsigned char*>(work), s));
+  }
   if (bpt > 1) {  // one block per tile: its list is the tile's already
     stream_topl_merge_kernel<<<dim3(nblocks / bpt, B), kMergeThreads, 0, s>>>(
         pval, pidx, nblocks, bpt, l);

@@ -114,8 +114,10 @@ _SIGNATURES = {
     # stream
     "cstpu_stream_topl": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _P,
                           _P],
-    # pval, pidx, val, idx, B, m, l, bpt, stream
-    "cstpu_stream_topl_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # pval, pidx, val, idx, B, m, l, bpt, work (nullable), stream
+    "cstpu_stream_topl_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # B, m, l, bpt, out (1 long long: the finish's scratch bytes)
+    "cstpu_stream_topl_work": [_I, _I, _I, _I, _P],
     # r, w, v (nullable), A, lda, cdt_bf16, il, cn2, resc, pval, pidx, val,
     # idx, B, n, m, bpt, deg, use_mma, sb (nullable), sb_rows, stream
     "cstpu_fr_step_select": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,

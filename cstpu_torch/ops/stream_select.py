@@ -32,7 +32,11 @@ the launch):
   * top-l: l slots start at (-inf, 0); every tile offers its own top l,
     best first (lowest index on ties), each written over the lowest slot
     that holds the running minimum if it is strictly larger. The slots come
-    back in that order, NOT sorted; mask on val > -inf.
+    back in that order, NOT sorted; mask on val > -inf. Inserting them one
+    by one is the same as writing the tile's i-th best over the i-th slot
+    in (value ascending, slot ascending) order while it is strictly larger
+    (the candidates fall, the slots' values rise), which is how the plain
+    twin and the kernel fold a tile at once.
 
 On CUDA tensors each function launches csrc/stream_select.cu, or
 csrc/fr_step_select.cu for `fr_step_select` (a sweep that writes partials
@@ -51,13 +55,17 @@ sums (~1e-6 relative).
 
 What stays of cstpu's shape limits: m must be a multiple of 128 with a
 tile inside the 8 MB budget (`_stream_tile` > 0), because the tile defines
-the NaN rule. The top-l kernel serves l <= 128 (`STREAM_LMAX`, the sweep
-block's width; cstpu's has no cap, and neither has the plain twin). The TPU's `B % 8 == 0` and
+the NaN rule. The top-l select takes any l >= 1, as cstpu's does: a sweep
+block offers its min(l, 128) best, and past 128 slots the finish takes its
+wide route (csrc/stream_select.cu). The TPU's `B % 8 == 0` and
 `n % 8 == 0` are not needed: `supported_select` keeps them only so that it
 answers as cstpu's gate does.
 """
 
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -75,7 +83,6 @@ LAUNCHES.update(select_stream=0, select_stream_mma=0, select_topl_stream=0,
                 fr_step_select=0, fr_step_select_mma=0)
 
 STREAM_TILE_BYTES = 8 * 1024 * 1024
-STREAM_LMAX = TILE     # most slots of the top-l kernel (kStreamTopLMax)
 
 
 def _stream_tile(m: int, n: int, itemsize: int, target_bytes: int) -> int:
@@ -251,23 +258,23 @@ def correlate_select_masked_stream(A, R, M, mma=None):
 
 def _fold_topl(cv, ci, skip, l: int):
     """The running l slots over the tiles' own candidate lists cv, ci
-    (B, T, c; value descending, index ascending), tile by tile and candidate
-    by candidate, for all rows at once; tiles where skip (B, T) is set take
-    no part."""
+    (B, T, c; value descending, index ascending), tile by tile, for all
+    rows at once; tiles where skip (B, T) is set take no part. A tile at
+    once (the rule at the top of this module): its i-th candidate over the
+    i-th slot in (value, slot) order while strictly larger."""
     B, T, c = cv.shape
     dev = cv.device
     val = torch.full((B, l), -torch.inf, dtype=torch.float32, device=dev)
     idx = torch.zeros((B, l), dtype=torch.int32, device=dev)
-    slot = torch.arange(l, device=dev).view(1, l)
+    k = min(l, c)
     for t in range(T):
-        for k in range(min(l, c)):
-            rmin = torch.amin(val, dim=1, keepdim=True)
-            p = torch.amin(torch.where(val == rmin, slot, INT_MAX), dim=1,
-                           keepdim=True)
-            cand = cv[:, t, k:k + 1]
-            take = (slot == p) & (cand > rmin) & ~skip[:, t:t + 1]
-            val = torch.where(take, cand, val)
-            idx = torch.where(take, ci[:, t, k:k + 1].to(torch.int32), idx)
+        order = torch.sort(val, dim=1, stable=True).indices[:, :k]
+        cand = cv[:, t, :k]
+        take = (cand > val.gather(1, order)) & ~skip[:, t:t + 1]
+        val = val.scatter(1, order, torch.where(take, cand,
+                                                val.gather(1, order)))
+        idx = idx.scatter(1, order, torch.where(
+            take, ci[:, t, :k].to(torch.int32), idx.gather(1, order)))
     return val, idx
 
 
@@ -292,10 +299,10 @@ def stream_topl_finish_ref(pval, pidx, bpt: int, l: int):
     bpt block lists (value descending, index ascending; a tile holding a
     NaN skipped), then the running l slots over the tiles. Leaves the
     partials as they were."""
-    B, nblocks, _ = pval.shape
+    B, nblocks, lc = pval.shape
     T = nblocks // bpt
-    v = pval.reshape(B, T, bpt * l)
-    i = pidx.reshape(B, T, bpt * l)
+    v = pval.reshape(B, T, bpt * lc)
+    i = pidx.reshape(B, T, bpt * lc)
     o = torch.argsort(i, dim=2, stable=True)      # index ascending, then
     v, i = v.gather(2, o), i.gather(2, o)
     o = torch.sort(v, dim=2, descending=True, stable=True).indices
@@ -303,32 +310,51 @@ def stream_topl_finish_ref(pval, pidx, bpt: int, l: int):
     return _fold_topl(cv, ci, torch.isnan(v).any(dim=2), l)
 
 
+@lru_cache(maxsize=None)
+def _finish_work(B: int, m: int, l: int, bpt: int) -> int:
+    """Bytes of scratch the top-l finish takes past 128 slots, as
+    csrc/stream_select.cu::wide_plan decides it: 0 where its keys fit
+    shared memory."""
+    out = (ctypes.c_longlong * 1)()
+    _build.check(_build.load().cstpu_stream_topl_work(B, m, l, bpt, out),
+                 "cstpu_stream_topl_work")
+    return int(out[0])
+
+
 def stream_topl_finish(pval, pidx, bpt: int, l: int):
     """The finishing stage of the streamed top-l: the sweep's partials pval
-    (B, nblocks, l) f32 and pidx i32, bpt blocks to a tile of the NaN rule,
-    folded into (val (B, l) f32, idx (B, l) i32) under the rule at the top
-    of this module. On CUDA tensors this launches csrc/stream_select.cu's
-    finish (counted under "stream_topl_finish"), which overwrites the
-    partials; the same for either sweep."""
+    (B, nblocks, min(l, 128)) f32 and pidx i32, bpt blocks to a tile of the
+    NaN rule, folded into (val (B, l) f32, idx (B, l) i32) under the rule at
+    the top of this module. On CUDA tensors this launches
+    csrc/stream_select.cu's finish (counted under "stream_topl_finish"),
+    which overwrites the partials; the same for either sweep, and past 128
+    slots its wide route with the scratch `_finish_work` asks for."""
     if _on_cpu(pval, pidx):
         return stream_topl_finish_ref(pval, pidx, bpt, l)
     B, nblocks = pval.shape[:2]
+    l = int(l)
+    lc = min(l, TILE)
     dev = pval.device
-    if (tuple(pval.shape) != (B, nblocks, l) or pval.dtype != torch.float32
+    if (l < 1 or tuple(pval.shape) != (B, nblocks, lc)
+            or pval.dtype != torch.float32
             or pidx.dtype != torch.int32 or pidx.shape != pval.shape
             or pidx.device != dev or not pval.is_contiguous()
             or not pidx.is_contiguous()):
-        raise ValueError(f"stream_topl_finish: need contiguous (B, nblocks, "
-                         f"{l}) f32 and i32 partials on one device, got "
-                         f"{tuple(pval.shape)} {pval.dtype}, "
-                         f"{tuple(pidx.shape)} {pidx.dtype}")
+        raise ValueError(f"stream_topl_finish: need l >= 1 and contiguous "
+                         f"(B, nblocks, {lc}) f32 and i32 partials on one "
+                         f"device, got l={l}, {tuple(pval.shape)} "
+                         f"{pval.dtype}, {tuple(pidx.shape)} {pidx.dtype}")
     val = torch.empty((B, l), dtype=torch.float32, device=dev)
     idx = torch.empty((B, l), dtype=torch.int32, device=dev)
+    nwork = _finish_work(B, nblocks * TILE, l, int(bpt)) if l > TILE else 0
+    work = (torch.empty((nwork,), dtype=torch.uint8, device=dev)
+            if nwork else None)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.cstpu_stream_topl_finish(
             pval.data_ptr(), pidx.data_ptr(), val.data_ptr(), idx.data_ptr(),
-            B, nblocks * TILE, l, int(bpt), _stream())
+            B, nblocks * TILE, l, int(bpt),
+            None if work is None else work.data_ptr(), _stream())
     _build.check(err, "cstpu_stream_topl_finish")
     LAUNCHES["stream_topl_finish"] += 1
     return val, idx
@@ -336,24 +362,26 @@ def stream_topl_finish(pval, pidx, bpt: int, l: int):
 
 def stream_topl_sweep(A, R, l: int, mma=None):
     """The sweep of the streamed top-l on the card: the partials (pval
-    (B, m / 128, l) f32, pidx i32), per row and per 128 atoms the l best,
-    value descending then index ascending, a block holding a NaN all
-    (NaN, INT_MAX). The tensor-core variant (csrc/mma_topl.cuh) where
-    `mma_select_takes` says so, counted under "select_topl_stream_mma",
-    else the CUDA-core one ("select_topl_stream"); `mma` = True or False
-    forces one. On CPU tensors its plain twin, `fused_solve._topl_ref`."""
+    (B, m / 128, lc) f32, pidx i32), per row and per 128 atoms the lc =
+    min(l, 128) best (past 128 slots the whole block), value descending then
+    index ascending, a block holding a NaN all (NaN, INT_MAX). The
+    tensor-core variant (csrc/mma_topl.cuh) where `mma_select_takes` says
+    so, counted under "select_topl_stream_mma", else the CUDA-core one
+    ("select_topl_stream"); `mma` = True or False forces one. On CPU
+    tensors its plain twin, `fused_solve._topl_ref`."""
     name = "correlate_select_topl_stream"
     B, n, m = _check_shard(A, R, name)
     l = int(l)
-    if not 1 <= l <= STREAM_LMAX or m % TILE:
-        raise ValueError(f"{name}: need 1 <= l <= {STREAM_LMAX} and m a "
-                         f"multiple of {TILE}, got l={l}, m={m}")
+    if l < 1 or m % TILE:
+        raise ValueError(f"{name}: need l >= 1 and m a multiple of {TILE}, "
+                         f"got l={l}, m={m}")
+    lc = min(l, TILE)
     if _on_cpu(A, R):
-        return _topl_ref(R.float(), A, A.dtype, l)
+        return _topl_ref(R.float(), A, A.dtype, lc)
     R = R.float().contiguous()
     dev = A.device
-    pval = torch.empty((B, m // TILE, l), dtype=torch.float32, device=dev)
-    pidx = torch.empty((B, m // TILE, l), dtype=torch.int32, device=dev)
+    pval = torch.empty((B, m // TILE, lc), dtype=torch.float32, device=dev)
+    pidx = torch.empty((B, m // TILE, lc), dtype=torch.int32, device=dev)
     use_mma = _pick_mma(mma, A)
     rb = _rounded_scratch(B, n, dev) if use_mma else None
     lib = _build.load()
@@ -361,7 +389,7 @@ def stream_topl_sweep(A, R, l: int, mma=None):
         err = lib.cstpu_stream_topl(
             R.data_ptr(), A.data_ptr(), A.stride(0),
             int(A.dtype == torch.bfloat16), pval.data_ptr(), pidx.data_ptr(),
-            B, n, m, l, int(use_mma), None if rb is None else rb.data_ptr(),
+            B, n, m, lc, int(use_mma), None if rb is None else rb.data_ptr(),
             _stream())
     _build.check(err, "cstpu_stream_topl")
     LAUNCHES["select_topl_stream_mma" if use_mma
@@ -371,7 +399,7 @@ def stream_topl_sweep(A, R, l: int, mma=None):
 
 def correlate_select_topl_stream(A, R, l: int, mma=None):
     """Top-l selection sweep of A (n, m; pre-cast to the correlation dtype)
-    against residuals R (B, n), 1 <= l <= 128 on the card. Returns (val
+    against residuals R (B, n), any l >= 1. Returns (val
     (B, l) f32, idx (B, l) i32), NOT sorted by value: the slots are in the
     running set's own order, as cstpu leaves them; mask on val > -inf. On
     the card: `stream_topl_sweep` (`mma` forces its variant), then

@@ -53,9 +53,9 @@ and every process returns the whole result.
 Shape limits. What remains of cstpu's: m divisible by the atom shards, B
 by the batch shards, a per-shard atom width that is a multiple of 128 with
 a streamable tile (`stream_select._stream_tile`, which defines the NaN
-rule). The port's own: on the card the top-l kernel holds l <= 128 slots
-(`stream_select.STREAM_LMAX`; GOMP's l, the k of SP's, OMPR's and SRR's
-top-k). Dropped, because only the TPU's tiling needed them: n % 8 == 0 and
+rule). GOMP's l and the k of SP's, OMPR's and SRR's top-k may be any
+size, on the card too (past 128 the top-l select's finish takes its wide
+route). Dropped, because only the TPU's tiling needed them: n % 8 == 0 and
 a per-shard batch that is a multiple of 8.
 
 With `return_iters` the solvers whose loops end on the data (OMP, GOMP,
@@ -573,7 +573,7 @@ def gomp_sharded_fused(A, Bs, l: int, k: int, mesh: Mesh,
                        return_iters: bool = False, *,
                        _select: _Selects = _KERNELS):
     """Column-sharded batched GOMP on the per-shard streaming top-l kernel
-    (l <= 128 on the card). Semantics of `gomp`."""
+    (any l). Semantics of `gomp`."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "gomp_sharded_fused")
     k = int(min(k if k is not None else m, m))
@@ -665,7 +665,7 @@ def sp_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                      return_iters: bool = False, *,
                      _select: _Selects = _KERNELS):
     """Column-sharded batched Subspace Pursuit on the per-shard streaming
-    top-k kernel (k <= 128 on the card). Semantics of `sp`; the solution has
+    top-k kernel (any k). Semantics of `sp`; the solution has
     2k slots."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "sp_sharded_fused")
@@ -754,8 +754,8 @@ def ompr_sharded_fused(A, Bs, k: int, mesh: Mesh, delta: float = 1e-12,
                        return_iters: bool = False, *,
                        _select: _Selects = _KERNELS):
     """Column-sharded batched OMP with replacement on the masked streaming
-    select kernel (k <= 128 on the card, for the top-k init). Semantics of
-    `ompr`; the solution has k + 1 slots."""
+    select kernel (the top-k init on the streaming top-l kernel, any k).
+    Semantics of `ompr`; the solution has k + 1 slots."""
     rows, slices, n, m = _setup(A, Bs, mesh, corr_dtype, fuse_collectives,
                                 _select, "ompr_sharded_fused")
     maxiter = int(maxiter if maxiter is not None else n)

@@ -142,14 +142,16 @@ def test_build_sources_are_the_package_csrc():
                      "select_argmax.cu", "select_topl.cu", "sp_round.cu",
                      "srr_append.cu", "stream_select.cu"]
     # every C entry point the wrappers call has its ctypes signature: one
-    # per source, stream_select.cu's second and third ones for the top-l
-    # sweep and its finish, fr_select.cu's query of the tensor-core
-    # rescaled selects' plan, omp_append.cu's query of the cluster
-    # append's plan, rmp_append.cu's of the slot engine's, gomp_append.cu's
-    # and ompr_swap.cu's of theirs, and mp_update.cu's of its grid's
+    # per source, stream_select.cu's second, third and fourth ones for the
+    # top-l sweep, its finish and the finish's scratch query past 128
+    # slots, fr_select.cu's query of the tensor-core rescaled selects'
+    # plan, omp_append.cu's query of the cluster append's plan,
+    # rmp_append.cu's of the slot engine's, gomp_append.cu's and
+    # ompr_swap.cu's of theirs, and mp_update.cu's of its grid's
     assert set(_build._SIGNATURES) == {
         "cstpu_" + name[:-3] for name in names} | {
             "cstpu_stream_topl", "cstpu_stream_topl_finish",
+            "cstpu_stream_topl_work",
             "cstpu_rescaled_plan", "cstpu_append_plan", "cstpu_engine_plan",
             "cstpu_gomp_plan", "cstpu_ompr_plan", "cstpu_mp_plan"}
     assert all(p.parent == ROOT / "cstpu_torch" / "csrc"

@@ -9,7 +9,7 @@ DELETE_CASES), the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
 stream_select.cu's top-1, masked top-1 and (n, B) argmax (each on the
 tensor-core and the CUDA-core sweep), its top-l (both sweeps, and the
-finish), and
+finish, past 128 slots too), and
 fr_step_select.cu's rescaling update with its OLS select, in both
 variants) against their
 plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
@@ -1177,7 +1177,7 @@ def test_stream_wrappers_reject_bad_cuda_inputs(dev):
     with pytest.raises(ValueError):
         ss.correlate_select_stream(A, R.cpu())
     with pytest.raises(ValueError):
-        ss.correlate_select_topl_stream(A, R, ss.STREAM_LMAX + 1)
+        ss.correlate_select_topl_stream(A, R, 0)
     with pytest.raises(ValueError):
         ss.correlate_select_masked_stream(A, R, torch.zeros((8, 1024),
                                                             device=dev).bool())
@@ -1242,6 +1242,18 @@ def test_stream_topl_48_evicts_the_lowest_slot_among_equal_minima(dev):
     pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
     assert torch.equal(ki, pi)
     assert sorted(ki[0].tolist()) == sorted(strong + [9, 300])
+
+
+@pytest.mark.parametrize("n,m,l", [(1024, 8192, 129), (1024, 8192, 1024),
+                                   (64, 1024, 1024),
+                                   *chip_smoke.TOPL_WIDE_SCRATCH])
+@pytest.mark.parametrize("cdt", CDTS)
+def test_stream_topl_past_128_slots_matches_plain(dev, n, m, l, cdt):
+    # the wide finish: a whole tile (64 x 1024) and slots in shared memory,
+    # and both cases of chip_smoke whose keys lie in the finish's scratch
+    errs = {}
+    for poison in (False, True):
+        chip_smoke.hold_topl_wide(dev, n, m, l, cdt, poison, errs)
 
 
 # --------------------------------------------------------------------------

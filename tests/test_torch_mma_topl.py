@@ -22,8 +22,8 @@ kernels in interpret mode: the GOMP, SP, OMPR and SRR solves at the oracle
 size (tests/conftest.py's planted problem, n=32, at m=128, the Pallas
 kernels' atom multiple, and eight measurements of it), the sharded GOMP,
 SP and OMPR solves at m=512 on a one-shard and a four-shard mesh, and the
-streamed top-l at l = 128 (STREAM_LMAX) with a NaN tile and ties across
-tiles. Tolerances: supports equal; coefficients and residuals to 1e-4
+streamed top-l at l = 128 (the narrow finish's most) with a NaN tile and
+ties across tiles. Tolerances: supports equal; coefficients and residuals to 1e-4
 absolute (what cstpu holds its kernels to against its XLA paths); streamed
 values to 1e-5 relative (f32 sums of the same bf16 products in another
 order), slot for slot where no two of the l + 1 best scores lie within
@@ -167,7 +167,7 @@ def test_wrappers_reject_what_no_variant_takes(recorder):
     with pytest.raises(ValueError):
         tfs.select_topl(R, A, tfs.LMAX + 1)
     with pytest.raises(ValueError):
-        tss.correlate_select_topl_stream(A, R, tss.STREAM_LMAX + 1)
+        tss.correlate_select_topl_stream(A, R, 0)
     with pytest.raises(ValueError):
         tss.stream_topl_finish(torch.zeros((8, 8, 4)),
                                torch.zeros((8, 8, 4), dtype=torch.int64), 1, 4)
@@ -231,10 +231,10 @@ def _clear_rows(scores, depth):
 
 
 def test_stream_twin_at_the_most_slots_matches_pallas():
-    # l = 128 = STREAM_LMAX over four tiles of 128 atoms (n = 8256 in f32),
-    # one column three times (twice in tile 0, once in tile 2), a NaN tile
+    # l = 128, the narrow finish's most, over four tiles of 128 atoms
+    # (n = 8256 in f32), one column three times (twice in tile 0, once in tile 2), a NaN tile
     # (a poisoned atom in tile 1, every row) and a NaN row
-    n, m, B, l = 8256, 512, 8, tss.STREAM_LMAX
+    n, m, B, l = 8256, 512, 8, 128
     A = _dictionary(n, m, F32, seed=7)
     A[:, 70] = A[:, 3]
     A[:, 300] = A[:, 3]
