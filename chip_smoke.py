@@ -48,7 +48,7 @@ it and read just after:
                        kernel; it holds the solves, their agreement across
                        routes and shard counts, times, idle shares and loop
                        counts)
-  bp_ard_sharded(., eps=1e-2, maxiter=4), bp_sharded
+  bp_ard_sharded(., eps=1e-2, maxiter=2), bp_sharded
                        suite config 5 (n=128, k=6) at m=1024 on one shard
                        and m=4096 on four; bp, bp_candes, bp_ard, ista,
                        fista, bp(method="simplex"), bpd and bpd(method=
@@ -179,6 +179,11 @@ STEP_CELL = ("3d", 1024, 8192, 16, 1e-2, 32)
 BW_CELL = ("3e", 1024, 1024, 32)
 BATCHES = (8, 64)
 TIMED_SLOW = 3   # timed calls of the solves that take tenths of a second
+# cuda_ms's cap on the script's time: a call slower than WARM_ONCE_S is
+# warmed up once, and the timed calls stop at about TIMED_BUDGET_S (a
+# 1.7 s plain backward solve is timed once, not three times)
+WARM_ONCE_S = 0.5
+TIMED_BUDGET_S = 1.0
 # published peaks of one H100 SXM: device memory bytes/s, dense FLOP/s by
 # operand type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -282,10 +287,17 @@ def engine_bound(B, K, n, appends=0, deletes=0, refits=1, cdt_bytes=2):
 
 
 def cuda_ms(fn, reps):
-    """Median ms of `reps` timed calls of fn (after two warm-up calls); each
-    call is bracketed by CUDA events and synced by fetching a value."""
+    """Median ms of up to `reps` timed calls of fn; each call is bracketed
+    by CUDA events and synced by fetching a value. Two warm-up calls, one
+    where the first took WARM_ONCE_S or more; then as many timed calls as
+    TIMED_BUDGET_S holds at the last warm-up's time, at least one."""
     for _ in range(2):
+        t0 = time.perf_counter()
         float(fn())
+        took = time.perf_counter() - t0
+        if took >= WARM_ONCE_S:
+            break
+    reps = max(1, min(reps, int(TIMED_BUDGET_S / max(took, 1e-6))))
     times = []
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
@@ -1263,18 +1275,22 @@ def profile_path(fn, reps=1, totals=False):
     The profiler can lose kernel records: a profile whose count of a
     PROFILED_KEYS kernel differs from the wrapper's LAUNCHES count over the
     same calls is taken again, up to PROFILE_TRIES times, and then
-    fails."""
+    fails. Without `totals` the profile records device activity only and
+    its raw records are read (no host events, no event tree: a sharded
+    solve's host operations made that the most of the profile's cost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cstpu_torch.ops.fused_solve import LAUNCHES
 
+    activities = [ProfilerActivity.CUDA]
+    if totals:
+        activities.insert(0, ProfilerActivity.CPU)
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_TRIES + 1):
         before = dict(LAUNCHES)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1282,17 +1298,25 @@ def profile_path(fn, reps=1, totals=False):
                     for key, v in LAUNCHES.items()
                     if key in PROFILED_KEYS and v > before.get(key, 0)}
         per, spans = {}, []
-        for ev in prof.events():
-            if (ev.device_type != DeviceType.CUDA
-                    or getattr(ev, "is_user_annotation", False)):
+        if totals:
+            records = [(ev.device_type, ev.name, ev.time_range.start * 1000,
+                        ev.time_range.end * 1000,
+                        getattr(ev, "is_user_annotation", False))
+                       for ev in prof.events()]
+        else:
+            records = [(ev.device_type(), ev.name(), ev.start_ns(),
+                        ev.start_ns() + ev.duration_ns(),
+                        getattr(ev, "is_user_annotation", lambda: False)())
+                       for ev in prof.profiler.kineto_results.events()]
+        for dtype, ev_name, t0, t1, annotation in records:
+            if dtype != DeviceType.CUDA or annotation:
                 continue
-            t0, t1 = ev.time_range.start, ev.time_range.end
             spans.append((t0, t1))
             name = next((kn for kn in KERNEL_NAMES
-                         if kn + "_kernel" in ev.name), "other")
+                         if kn + "_kernel" in ev_name), "other")
             cnt, ms = per.get(name, (0, 0.0))
-            per[name] = (cnt + (name != "other"), ms + (t1 - t0) / 1e3)
-        busy = union_ms(spans) / 1e3
+            per[name] = (cnt + (name != "other"), ms + (t1 - t0) / 1e6)
+        busy = union_ms(spans) / 1e6
         lost = {name: (per.get(name, (0, 0.0))[0], c)
                 for name, c in launched.items()
                 if per.get(name, (0, 0.0))[0] != c}
@@ -1840,6 +1864,21 @@ APPEND_CASES = [(B, n, k) for B in (1, 8, 64, 65) for n in (1000, 1024, 1028)
                 for k in (1, 16, 32, 128)] + [
     (64, 3328, 32), (64, 3336, 32), (65, 8192, 16), (8, 4096, 128)]
 APPEND_M = 2000
+# the smoke holds the kernel grids below on half of their (B, n) cross
+# product: every B and every n once or more, both plan families (C = 8 at
+# B <= 8, C = 2 at B >= 64), and every case off the cross product (the
+# plans' edges: streamed, rounds, chunks). tests/test_torch_kernels.py holds
+# the whole grids on the card.
+SMOKE_BN = ((1, 1028), (8, 1000), (8, 1024), (64, 1024), (64, 1028),
+            (65, 1000))
+
+
+def smoke_grid(cases):
+    """The cases of a kernel grid that the smoke holds (SMOKE_BN)."""
+    return [c for c in cases if tuple(c[:2]) in SMOKE_BN
+            or c[0] not in (1, 8, 64, 65) or c[1] not in (1000, 1024, 1028)]
+
+
 # device ms per launch of the two kernels before the cluster redesign, on
 # the paths chip_smoke.py drives (PERF.md section 5, NVIDIA H100 80GB HBM3,
 # 700.00 W)
@@ -4539,14 +4578,15 @@ def _timed(fn):
     return res, t0.elapsed_time(t1)
 
 
-def sbl_solve(key, fn, sigma, sup, reps, out):
+def sbl_solve(key, fn, sigma, sup, reps, out, profile=True):
     """fn() once with the loop counts set to 0 just before and read just
     after: recovery 1.000, finite, on the card. Its time is the median of
     `reps` more calls (with reps=0, of that one; the solves compile
     nothing, and earlier solves warmed the libraries up), each bracketed by
-    CUDA events and synced by a value fetch; then one profiled call's
-    device busy time, idle share and top operations. fn returns x (B, m) or
-    a tuple that starts with it; returns the first call's result."""
+    CUDA events and synced by a value fetch; then, with `profile`, one
+    profiled call's device busy time, idle share and top operations. fn
+    returns x (B, m) or a tuple that starts with it; returns the first
+    call's result."""
     from cstpu_torch.models import sbl as sb
 
     t_start = time.perf_counter()
@@ -4561,14 +4601,16 @@ def sbl_solve(key, fn, sigma, sup, reps, out):
     assert rec == 1.0, f"{key}: recovery {rec} < 1.0"
     times = [_timed(fn)[1] for _ in range(reps)] or [first_ms]
     ms = statistics.median(times)
-    busy, ops = top_device_ops(fn)
-    assert busy > 0, f"{key}: no device time in the profile"
+    busy, ops = top_device_ops(fn) if profile else (None, [])
+    assert busy is None or busy > 0, f"{key}: no device time in the profile"
+    idle = None if busy is None else 1.0 - busy / ms
     out[key] = {"recovery": rec, "ms": ms, "calls_timed": len(times),
-                "device_busy_ms": busy, "idle_share": 1.0 - busy / ms,
+                "device_busy_ms": busy, "idle_share": idle,
                 **counts, "top_ops": [[n, c, t] for n, c, t in ops]}
+    split = ("device busy not profiled" if busy is None else
+             f"device busy {busy:.4f} ms, idle share {idle:.4f}")
     print(f"[sbl {key}] recovery {rec:.3f}, x on {X.device}, no NaN; "
-          f"{ms:.4f} ms (median of {len(times)}, events), device busy "
-          f"{busy:.4f} ms, idle share {1.0 - busy / ms:.4f}; steps "
+          f"{ms:.4f} ms (median of {len(times)}, events), {split}; steps "
           f"{counts['steps']}, latch reads {counts['latch_reads']}; top: "
           + ", ".join(f"{n} {c}x {t:.4f} ms" for n, c, t in ops)
           + f"; {time.perf_counter() - t_start:.1f} s")
@@ -4613,12 +4655,14 @@ def sbl_paths(dev, gpu):
         # noise learning under the reference's Inverse-Gamma(1, sigma^2)
         # prior (its test/sbl.jl:29-40): under the flat default prior the
         # EM drives sigma^2 to 0, and in f32 through it on some rows, in
-        # cstpu as here (ROADMAP.md Queue 3)
+        # cstpu as here (ROADMAP.md Queue 3). Profiled at the first sigma
+        # only: a solve leaves ~10^6 device records, whose profile takes
+        # three times the solve
         _, s2_est = sbl_solve(
             f"{tag} rmps_estimate_noise_batch",
             lambda: cstpu_torch.rmps_estimate_noise_batch(
                 A, Y, s2, a_sigma2=1.0, b_sigma2=s2),
-            sigma, sup, 0, out)
+            sigma, sup, 0, out, profile=sigma == sigmas[0])
         assert bool((s2_est > 0).all()), (tag, s2_est)
         out[f"{tag} noise sigma2"] = s2_est.tolist()
         print(f"[sbl {tag} noise] sigma^2 estimates (prior a=1, b=sigma^2) "
@@ -4718,6 +4762,14 @@ def sbl_paths(dev, gpu):
 CONVEX5_CELL = (128, 6, 1024)          # n, k, m a shard
 BPD5_CELL = (1024, 131072, 32, 1e-2)   # n, m, k, delta
 ARD5_CELL = (1024, 1 << 20, 32)        # n, m, k
+# the ARD solvers' reweightings: the suite runs 4 (benchmarks/suite.py:411,
+# :543); here the depth is cut to 2, which halves the phase's longest solves
+ARD_REWEIGHTS = 2
+# 5bpd's ADMM solves (bpd_sharded, bpd_ard's reweightings): the suite caps
+# them at 12000 iterations (:542-546), which bpd_sharded and bpd_ard's first
+# reweighting reach; here at 3000 (the planted atoms stand at |x| >= 0.98,
+# delta 1e-2; the profile of a 12000-iteration solve took ~36 s)
+BPD_ADMM_ITERS = 3000
 ORACLE_CELL = (32, 48, 3)              # n, m, k: C(48, 3) = 17296
 CONVEX_ATOL = 1e-4     # one shard against four (cstpu: tests/test_sharded.py)
 CONVEX_SUP = 1e-3      # recovery {|x| > 1e-3} (suite configs 5 and 5ard)
@@ -4728,10 +4780,11 @@ STREAM_RTOL = 0.02     # measured_stream_gbps against a 4 GB GEMV's rate
 
 def convex_solve(key, fn, reps, out, host=False, device_op=None):
     """fn() once with the loop counts set to 0 just before and read just
-    after (the warm-up call; its result is returned and checked by the
-    caller), then `reps` calls (one where the warm-up took over a second)
-    each bracketed by CUDA events and synced by a value fetch (their
-    median is the wall), then one profiled call: its
+    after (its result is returned and checked by the caller), then `reps`
+    calls each bracketed by CUDA events and synced by a value fetch (their
+    median is the wall; where the first call took over a second, it is
+    the one timed call: the solves compile nothing, and earlier solves
+    warmed the libraries up), then one profiled call: its
     device busy time (the union of the device spans), idle share and top
     device operations. fn returns x or a tuple that starts with it. A
     `host` solve (the native C++ solvers) may leave no device time. Where
@@ -4743,14 +4796,12 @@ def convex_solve(key, fn, reps, out, host=False, device_op=None):
     t_start = time.perf_counter()
     for c in cbp.LOOP_COUNTS:
         cbp.LOOP_COUNTS[c] = 0
-    res = fn()
-    torch.cuda.synchronize()
+    res, first_ms = _timed(fn)
     counts = dict(cbp.LOOP_COUNTS)
     x = res[0] if isinstance(res, tuple) else res
     assert x.is_cuda, (key, x.device)
-    if time.perf_counter() - t_start > 1.0:
-        reps = 1      # a multi-second solve: one timed call
-    times = [_timed(fn)[1] for _ in range(reps)]
+    times = ([first_ms] if first_ms > 1e3 else
+             [_timed(fn)[1] for _ in range(reps)])
     ms = statistics.median(times)
     for attempt in range(4):
         busy, ops = top_device_ops(fn, top=None)
@@ -4828,10 +4879,11 @@ def convex_paths(dev, gpu):
     for key, fn, sup_ in (
             (f"5 bp_ard_sharded m={m1} s=1",
              lambda: cstpu_torch.parallel.bp_ard_sharded(
-                 A1, b1, mesh1, eps=1e-2, maxiter=4), sup1),
+                 A1, b1, mesh1, eps=1e-2, maxiter=ARD_REWEIGHTS), sup1),
             (f"5 bp_ard_sharded m={SHARDS * m1} s={SHARDS}",
              lambda: cstpu_torch.parallel.bp_ard_sharded(
-                 A4, b4, mesh4, eps=1e-2, maxiter=4), sup4),
+                 A4, b4, mesh4, eps=1e-2, maxiter=ARD_REWEIGHTS),
+             sup4),
             (f"5 bp_sharded m={SHARDS * m1} s=1",
              lambda: cstpu_torch.parallel.bp_sharded(A4, b4, mesh=mesh1)[0],
              sup4),
@@ -4944,14 +4996,16 @@ def convex_paths(dev, gpu):
             ("bpd", lambda: cstpu_torch.bpd(A, y, delta, maxiter=12000),
              True),
             ("bpd_ard", lambda: cstpu_torch.bpd_ard(
-                A, y, delta, maxiter=4, maxiter_admm=12000), False),
+                A, y, delta, maxiter=ARD_REWEIGHTS,
+                maxiter_admm=BPD_ADMM_ITERS), False),
             ("bpd_sharded", lambda: cstpu_torch.parallel.bpd_sharded(
-                A, y, delta, mesh=mesh1, maxiter=12000)[0], False),
+                A, y, delta, mesh=mesh1, maxiter=BPD_ADMM_ITERS)[0], False),
             ("bpd_secant_sharded",
              lambda: cstpu_torch.parallel.bpd_secant_sharded(
                  A, y, delta, mesh=mesh1), True),
             ("bpd_ard secant screened", lambda: cstpu_torch.bpd_ard(
-                A, y, delta, maxiter=4, method="secant", screen=True),
+                A, y, delta, maxiter=ARD_REWEIGHTS, method="secant",
+                screen=True),
              False)):
         x = convex_solve(f"5bpd {key}", fn, 1, out)
         ok, nnz = _recovered(x, sup, delta)
@@ -4996,7 +5050,7 @@ def convex_paths(dev, gpu):
           f"{gbps:.1f} GB/s (utils.profiling.measured_stream_gbps; "
           f"{HBM_BYTES_PER_S / 1e9:.0f} by the data sheet), one r'A GEMV "
           f"pass {gemv_ms:.4f} ms = {gemv_gbps:.1f} GB/s")
-    kw = dict(eps=1e-2, maxiter=4, maxiter_admm=2000, tol=3e-6,
+    kw = dict(eps=1e-2, maxiter=ARD_REWEIGHTS, maxiter_admm=2000, tol=3e-6,
               admm_chunk=2000)
     x = convex_solve("5ard bp_ard_sharded",
                      lambda: cstpu_torch.parallel.bp_ard_sharded(
@@ -5058,6 +5112,9 @@ def convex_paths(dev, gpu):
 # Gaussian, correlated_data's spectrum), so that no process holds another's.
 DIST_PROCS = 2
 DIST_SEED = SEED + 1000
+# bp's ADMM iterations on the spanning mesh (it converges in ~3200, ~8 ms
+# an iteration with the exchanges): the depth is cut to this many
+DIST_BP_MAXITER = 1024
 DIST_TIMEOUT_S = 300    # a worker's own limit (the phase takes ~1 min)
 BP5_CELL = (128, 4096, 6)               # n, m, k: suite config 5 at 4 shards
 EXAMPLE_TIMEOUT_S = 300
@@ -5165,7 +5222,8 @@ def dist_solves(mesh, prob, dev):
         ("3a-wide fr", lambda: par.fr_sharded_fused(
             Ar5, prob["Br"], FR5_K, mesh, return_iters=True)),
         ("4e rmps", lambda: par.rmps_sharded(A5, prob["Y4e"], s2, mesh)),
-        ("5 bp", lambda: par.bp_sharded(Abp, prob["bbp"], mesh=mesh)[0]),
+        ("5 bp", lambda: par.bp_sharded(Abp, prob["bbp"], mesh=mesh,
+                                        maxiter=DIST_BP_MAXITER)[0]),
     )
     spent = [0.0]
     exchange = Mesh._exchange
@@ -5663,6 +5721,8 @@ def surface_cases():
             P["A"], P["y"], 3, d, initialization=i,
             key=_gen(P) if i == 3 else None), ex) for i in (1, 2, 3)),
         C("rmp k", ("rmp",), lambda P: ct.rmp(P["A"], P["y"], k=3), ex),
+        C("rmp k f64", ("rmp",), lambda P: ct.rmp(P["A"].double(),
+                                                  P["y"].double(), k=3), ex),
         C("rmp delta", ("rmp",), lambda P: ct.rmp(P["A"], P["y"], delta=d),
           ex),
         C("foba", ("foba",), lambda P: ct.foba(P["A"], P["y"], d), ex),
@@ -6001,10 +6061,177 @@ def surface_paths(dev, gpu):
             "seconds": time.perf_counter() - t0}
 
 
-# the [fuzz] phase: tools/fuzz_torch.py's checks on the card, two trials a
-# check (the trial number seeds its problem)
-FUZZ_TRIALS = 26
-FUZZ_SEED = 0
+# the [fuzz] phase: tools/fuzz_torch.py's checks on the card, one trial a
+# check (the trial number seeds its problem): the campaign's second turn,
+# the problems tests/test_torch_fuzz.py runs on the CPU (the first turn's
+# sharded BP takes 50 s on the card)
+FUZZ_TRIALS = 13
+FUZZ_SEED = 13
+
+
+# the [rows] phase: the batched bodies of the greedy, two-stage, stepwise
+# and backward solvers (what the *_batch entry points run where the kernels
+# do not), on suite problems; rows solved alone against the batch to ATOL
+ROWS_BR_B = 8
+ROWS_RMP_KMAX = 8
+ROWS_ATOL = 1e-5
+ROWS_ALONE = (0, -1)
+
+
+def rows_problems(dev):
+    """The [rows] calls' problems, each from a generator of its own seeded
+    with SEED: the bench's planted rows (MP_CELL), 3a's correlated
+    dictionary with its planted ones (FR_CELL, also 3b's), 3e's square
+    dictionary at B = ROWS_BR_B and 3d's at B = BATCHES[0]. {cell: (A, Bs,
+    planted support)}."""
+    from cstpu_torch.utils.data import correlated_data, sparse_data
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    _, B, n, m, k = MP_CELL
+    out = {"bench": planted(gen(), B, n, m, k)}
+    _, B, n, m, kf, decay = FR_CELL
+    g = gen()
+    Ar = correlated_data(g, n, m, kf, decay=decay)[0].contiguous()
+    out["3a"] = (Ar, *planted_ones(g, Ar, B, kf))
+    _, n2, m2, k2 = BW_CELL
+    g = gen()
+    A2 = sparse_data(g, n2, m2, 1)[0].contiguous()
+    out["3e"] = (A2, *planted_ones(g, A2, ROWS_BR_B, k2))
+    _, n3, m3, k3, _, _ = STEP_CELL
+    g = gen()
+    A3 = planted(g, 1, n3, m3, 1)[0]
+    out["3d"] = (A3, *planted_ones(g, A3, BATCHES[0], k3))
+    return out
+
+
+def rows_calls(probs):
+    """The [rows] calls: (name, cell, entry(A, Bs)) through the public entry
+    points, each taking the batched body (or, for rmp_batch at kmax =
+    ROWS_RMP_KMAX, the kernels and then the body for the capped rows)."""
+    import cstpu_torch as ct
+
+    k, kf, ks, kb = MP_CELL[4], FR_CELL[4], SRR_CELL[1], BW_CELL[3]
+    delta = STEP_CELL[4]
+    return [
+        ("omp_batch max_residual=1e-4", "bench",
+         lambda A, Bs: ct.omp_batch(A, Bs, k, max_residual=1e-4)),
+        ("omp_batch precision=highest", "bench",
+         lambda A, Bs: ct.omp_batch(A, Bs, k, precision="highest")),
+        ("fr_batch no sparsity", "3a", lambda A, Bs: ct.fr_batch(A, Bs)),
+        (f"srr_batch({ks}, initialization=2)", "3a",
+         lambda A, Bs: ct.srr_batch(A, Bs, ks, initialization=2,
+                                    **SRR_CELL[2])),
+        (f"br_batch(sparsity={kb})", "3e",
+         lambda A, Bs: ct.br_batch(A, Bs, sparsity=kb)),
+        (f"rmp_batch(delta={delta}, kmax={ROWS_RMP_KMAX})", "3d",
+         lambda A, Bs: ct.rmp_batch(A, Bs, delta=delta, kmax=ROWS_RMP_KMAX)),
+    ]
+
+
+def _rows_body_launches():
+    """Wrap models.batched._rmp_rows (the capped rows' body) so that the
+    kernel launches made inside it are recorded: ([launches per call],
+    restore)."""
+    from cstpu_torch.models import batched as tb
+    from cstpu_torch.ops import fused_solve as fs
+
+    body = tb._rmp_rows
+    seen = []
+
+    def counted(*a, **kw):
+        before = sum(fs.LAUNCHES.values())
+        out = body(*a, **kw)
+        torch.cuda.synchronize()
+        seen.append(sum(fs.LAUNCHES.values()) - before)
+        return out
+
+    tb._rmp_rows = counted
+    return seen, lambda: setattr(tb, "_rmp_rows", body)
+
+
+def rows_call(name, A, Bs, sup, entry):
+    """One [rows] call: ROWS_ALONE's rows solved alone, then the entry point
+    once with the launch and loop counts zeroed (wall ms by CUDA events),
+    then profiled once (device busy ms: the union of the device spans,
+    top_device_ops, which reads the raw records: a loop over 992 deletions
+    leaves ~10^5), and the alone rows against the same rows of the batch.
+    Returns its record."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops.util import LOOP_COUNTS
+
+    seen, restore = _rows_body_launches()
+    try:
+        alone = [entry(A, Bs[[r]]) for r in ROWS_ALONE]
+        for counts in (fs.LAUNCHES, LOOP_COUNTS):
+            for key in counts:
+                counts[key] = 0
+        seen.clear()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        sol = entry(A, Bs)
+        t1.record()
+        torch.cuda.synchronize()
+        wall = t0.elapsed_time(t1)
+        launches = sum(fs.LAUNCHES.values())
+        loops = dict(LOOP_COUNTS)
+        body_launches = list(seen)
+        busy, _ = top_device_ops(lambda: entry(A, Bs), top=None)
+    finally:
+        restore()
+    err, same = 0.0, True
+    for r, one in zip(ROWS_ALONE, alone):
+        same &= bool(torch.equal(sol.mask[r], one.mask[0])
+                     and torch.equal(sol.idx[r][sol.mask[r]],
+                                     one.idx[0][one.mask[0]]))
+        err = max(err, float((sol.val[r] - one.val[0]).abs().max()))
+    return {"name": name, "B": Bs.shape[0], "recovery": recovery(sol, sup),
+            "wall_ms": wall, "busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall), "launches": launches,
+            "body_launches": body_launches, "loops": loops,
+            "alone_same_support": same, "alone_max_abs_err": err}
+
+
+def rows_paths(dev, gpu):
+    """The [rows] phase: every call of rows_calls on rows_problems through
+    rows_call, then the checks: recovery 1.000; ROWS_ALONE's rows alone
+    with the same supports as in the batch and coefficients within
+    ROWS_ATOL; no kernel launched by a body (the calls that go straight to
+    the body launch nothing at all; rmp_batch's capped rows are re-solved by
+    one body call that launches nothing); one latch read a step."""
+    t0 = time.perf_counter()
+    probs = rows_problems(dev)
+    out = {}
+    for name, cell, entry in rows_calls(probs):
+        A, Bs, sup = probs[cell]
+        t1 = time.perf_counter()
+        r = rows_call(name, A, Bs, sup, entry)
+        r["seconds"] = time.perf_counter() - t1
+        loops = r["loops"]
+        print(f"[rows] {cell} {name} B={r['B']}: recovery {r['recovery']:.3f}"
+              f", wall {r['wall_ms']:.3f} ms (events), device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}; "
+              f"steps {loops['steps']}, latch reads {loops['latch_reads']};"
+              f" kernel launches {r['launches']} (in the body "
+              f"{r['body_launches']}); rows {list(ROWS_ALONE)} alone: "
+              f"supports equal {r['alone_same_support']}, max |dval| "
+              f"{r['alone_max_abs_err']:.2e}; {r['seconds']:.1f} s | {gpu}",
+              flush=True)
+        assert r["recovery"] == 1.0, r
+        assert r["alone_same_support"], r
+        assert r["alone_max_abs_err"] <= ROWS_ATOL, r
+        assert loops["latch_reads"] <= loops["steps"] + 1, r
+        if name.startswith("rmp_batch"):
+            # every row capped at kmax: one body call re-solves them all
+            assert r["body_launches"] == [0], r
+        else:
+            assert r["launches"] == 0 and r["body_launches"] == [], r
+        out[f"{cell} {name}"] = r
+    print(f"[rows] done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def fuzz_paths(gpu):
@@ -6126,10 +6353,17 @@ def main():
           f"{SRR_CELL[0]} {ft._engine_plan(Bg, ng, SRR_CELL[1] + 1)._asdict()}")
 
     dev = torch.device("cuda", 0)
+    grid_append_cases = smoke_grid(APPEND_CASES)
+    grid_engine_cases = smoke_grid(ENGINE_CASES)
+    grid_gomp_cases = smoke_grid(GOMP_CASES)
+    grid_swap_cases = smoke_grid(SWAP_CASES)
+    grid_mp_cases = smoke_grid(MP_CASES)
+    grid_srr_cases = smoke_grid(SRR_CASES)
+    grid_delete_cases = smoke_grid(DELETE_CASES)
     t0 = time.perf_counter()
     grid_err, plans = {}, {}
     for (B, n, k), cdt, fr in itertools.product(
-            APPEND_CASES, (torch.bfloat16, torch.float32), (False, True)):
+            grid_append_cases, (torch.bfloat16, torch.float32), (False, True)):
         err, plan = hold_append(dev, B, n, k, cdt, fr)
         key = ("fr_append" if fr else "omp_append",
                "staged" if plan.staged else "streamed")
@@ -6138,7 +6372,7 @@ def main():
     # both kernels held on both of the plan's instantiations
     assert len(grid_err) == 4, sorted(grid_err)
     print(f"[append grid] omp_append and fr_append against their plain "
-          f"versions at every step, (B, n, k) in {APPEND_CASES}, bf16 and "
+          f"versions at every step, (B, n, k) in {grid_append_cases}, bf16 and "
           f"f32: idx, done, amask equal; max |err| "
           + ", ".join(f"{kn} {v} {e:.3e}" for (kn, v), e in grid_err.items())
           + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
@@ -6149,7 +6383,7 @@ def main():
     t0 = time.perf_counter()
     eng_err, eng_plans, eng_ndel = {}, {}, 0
     for (B, n, K), cdt in itertools.product(
-            ENGINE_CASES, (torch.bfloat16, torch.float32)):
+            grid_engine_cases, (torch.bfloat16, torch.float32)):
         for cnt, srr in itertools.product(engine_cnts(K), (False, True)):
             err, plan = hold_engine_init(dev, B, n, K, cnt, cdt, srr)
             key = ("engine_init", "staged" if plan.staged else "streamed")
@@ -6168,7 +6402,7 @@ def main():
           f"deleting up to {eng_ndel} atoms a launch) and engine_init (cnt in "
           f"{{1, K}}, OMPR and SRR; a duplicate pick, the rtol gate, a NaN "
           f"row) against their plain versions at every launch, (B, n, K) in "
-          f"{ENGINE_CASES}, bf16 and f32: flags, idx, amask equal; max |err| "
+          f"{grid_engine_cases}, bf16 and f32: flags, idx, amask equal; max |err| "
           + ", ".join(f"{kn} {v} {e:.3e}" for (kn, v), e in eng_err.items())
           + f" (atol {APPEND_ATOL}); plans (C, slice, staged): "
           + ", ".join(f"{kn} B={B} n={n} K={K}"
@@ -6181,13 +6415,13 @@ def main():
     t0 = time.perf_counter()
     swap_err, swap_plans = {}, {}
     for (B, n, k, cnt), cdt in itertools.product(
-            GOMP_CASES, (torch.bfloat16, torch.float32)):
+            grid_gomp_cases, (torch.bfloat16, torch.float32)):
         err, plan = hold_gomp_append(dev, B, n, k, cnt, cdt)
         key = ("gomp_append", "staged" if plan.staged else "streamed")
         swap_err[key] = max(swap_err.get(key, 0.0), err)
         swap_plans[("gomp_append", B, n, k, cnt)] = plan
     for (B, n, K), cdt in itertools.product(
-            SWAP_CASES, (torch.bfloat16, torch.float32)):
+            grid_swap_cases, (torch.bfloat16, torch.float32)):
         err, plan = hold_ompr_swap(dev, B, n, K, cdt)
         key = ("ompr_swap", "staged" if plan.staged else "streamed")
         swap_err[key] = max(swap_err.get(key, 0.0), err)
@@ -6201,10 +6435,10 @@ def main():
     assert any(p.W < p.slice for _, p in gplans), "no GOMP plan in chunks"
     print(f"[swap grid] gomp_append (k // cnt iterations and the remainder: "
           f"a NaN row, a duplicate pick, the rtol gate, a done row, the eps "
-          f"latch) over (B, n, k, cnt) in {GOMP_CASES} and ompr_swap (the "
+          f"latch) over (B, n, k, cnt) in {grid_gomp_cases} and ompr_swap (the "
           f"plain init, then {SWAPS} swaps: a NaN row, a duplicate pick, the "
           f"rtol gate, a done row, change false, an appended atom deleted at "
-          f"once) over (B, n, K) in {SWAP_CASES}, bf16 and f32, against "
+          f"once) over (B, n, K) in {grid_swap_cases}, bf16 and f32, against "
           f"their plain versions at every launch: idx, kcnt, amask equal, "
           f"done equal (OMPR: where res moved clearly, the rounding-tie "
           f"rule); max |err| "
@@ -6219,11 +6453,11 @@ def main():
 
     t0 = time.perf_counter()
     mp_plans, srr_err, srr_plans = {}, {}, {}
-    for (B, n), cdt in itertools.product(MP_CASES,
+    for (B, n), cdt in itertools.product(grid_mp_cases,
                                          (torch.bfloat16, torch.float32)):
         mp_plans[(B, n)] = hold_mp_update(dev, B, n, cdt)
     for (B, n, K, l), cdt in itertools.product(
-            SRR_CASES, (torch.bfloat16, torch.float32)):
+            grid_srr_cases, (torch.bfloat16, torch.float32)):
         err, plan = hold_srr_append(dev, B, n, K, l, cdt)
         key = "staged" if plan.staged else "streamed"
         srr_err[key] = max(srr_err.get(key, 0.0), err)
@@ -6232,18 +6466,18 @@ def main():
     # in 16-byte pieces and entry by entry, and with slices capped by the
     # registers (C above ceil(132 / B))
     assert len(srr_err) == 2, sorted(srr_err)
-    assert {n % 4 == 0 for _, n in MP_CASES} == {True, False}
+    assert {n % 4 == 0 for _, n in grid_mp_cases} == {True, False}
     assert any(p.C > -(-132 // B) for (B, _), p in mp_plans.items())
     print(f"[mp srr grid] mp_update ({MP_STEPS} chained steps of the signed "
           f"select, both loops, then mp_update: a NaN row, a tie across "
-          f"tiles) over (B, n) in {MP_CASES}, m={MP_M}, bf16 and f32: x and "
+          f"tiles) over (B, n) in {grid_mp_cases}, m={MP_M}, bf16 and f32: x and "
           f"r equal to the plain version's bit for bit; plans (C, slice): "
           + ", ".join(f"B={B} n={n} {p.C}/{p.slice}"
                       for (B, n), p in mp_plans.items())
           + f". srr_append (the plain init, {SRR_ITERS} iterations of l "
           f"forward steps and the plain backward stage: a NaN row, a done "
           f"row, a shut forward gate, a duplicate pick, the rtol twin, a full "
-          f"state) over (B, n, K, l) in {SRR_CASES}, bf16 and f32, against "
+          f"state) over (B, n, K, l) in {grid_srr_cases}, bf16 and f32, against "
           f"its plain version at every launch: idx, amask, fgate, done "
           f"equal; max |err| "
           + ", ".join(f"{v} {e:.3e}" for v, e in srr_err.items())
@@ -6256,14 +6490,14 @@ def main():
     t0 = time.perf_counter()
     del_err, del_plans, del_most = {}, {}, {}
     for (B, n, K, l), cdt in itertools.product(
-            DELETE_CASES, (torch.bfloat16, torch.float32)):
+            grid_delete_cases, (torch.bfloat16, torch.float32)):
         err, plan, most = hold_engine_delete(dev, B, n, K, l, cdt)
         key = ("engine_delete", "staged" if plan.staged else "streamed")
         del_err[key] = max(del_err.get(key, 0.0), err)
         del_most["engine_delete"] = max(del_most.get("engine_delete", 0), most)
         del_plans[(B, n, K)] = plan
     for (B, n, K), cdt, rule in itertools.product(
-            dict.fromkeys(c[:3] for c in DELETE_CASES),
+            dict.fromkeys(c[:3] for c in grid_delete_cases),
             (torch.bfloat16, torch.float32), DELETE_RULES):
         err, plan, most = hold_engine_backward(dev, B, n, K, cdt, rule)
         key = ("engine_backward", "staged" if plan.staged else "streamed")
@@ -6276,7 +6510,7 @@ def main():
           f"iterations of l plain forward steps and the stage: a NaN row, a "
           f"done row, gated-off deletions, a full row, two slots tied; up to "
           f"{del_most['engine_delete']} deletions a launch) over (B, n, K, l) "
-          f"in {DELETE_CASES} and engine_backward (the plain forward stage, "
+          f"in {grid_delete_cases} and engine_backward (the plain forward stage, "
           f"then rules {DELETE_RULES}: increase < 1, and down to one atom; a "
           f"NaN row, an empty row and a row with gains of ~100 that reject "
           f"at once, a done row, a full row, two slots tied; up to "
@@ -6370,20 +6604,38 @@ def main():
     print(f"[sharded] 5c omp_sharded_fused on 1 and {SHARDS} shards, then "
           f"mp/gomp/ompr/sp_sharded_fused on {SHARDS} shards: B={B5} n={n5} "
           f"m={m5} k={k5}; 5m at m={SHARD_CELLS['5m'][2]} on one shard")
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, under `name`."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     xerr = check_stream_kernels(dev)
+    lap("stream kernels")
     merr = check_mma_selects(dev)
+    lap("mma selects")
     lerr = check_mma_topl(dev)
+    lap("mma top-l")
     werr, wtm = check_topl_wide(dev, gpu)
+    lap("topl wide")
     gen5 = torch.Generator(device=dev).manual_seed(SEED)
     A5 = unit_dictionary(gen5, n5, m5)
     Bs5, sup5 = planted_pm1(gen5, A5, B5, k5)
     p5c = sharded_omp_path("5c", A5, Bs5, sup5, (1, SHARDS), plain=True)
+    lap("5c omp")
     pother, Bones, sup_ones = sharded_other_paths(A5, gen5)
+    lap("5c others")
     pwide = sharded_wide_paths(A5, Bs5, sup5)
+    lap("5c-wide")
     k10_launches = corr_argmax_path(A5, Bs5)
     pf32 = sharded_f32_paths(A5, Bs5, sup5, Bones, sup_ones)
+    lap("corr_argmax and f32")
     xtm, xsplit, xper = sharded_times(A5, Bs5, Bones, gpu)
-    print(f"[sharded] greedy solvers done in {time.perf_counter() - t0:.1f} s")
+    lap("times")
+    print(f"[sharded] greedy solvers done in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{key} {v:.1f}" for key, v in laps.items()) + ")")
 
     t1 = time.perf_counter()
     print(f"[sharded fr] fr_sharded_fused(k={FR5_K}) on 1 and {SHARDS} "
@@ -6420,6 +6672,7 @@ def main():
     print(f"[examples] done in {time.perf_counter() - t0:.1f} s")
     surface_out = surface_paths(dev, gpu)
     fuzz_out = fuzz_paths(gpu)
+    rows_out = rows_paths(dev, gpu)
 
     sel_err, app_err, launches, tm = record["bench"]
     tm5b = record["5b"][3]
@@ -7314,6 +7567,7 @@ def main():
                       "topl_wide": {f"m_local={ml} l={l_}": rec
                                     for (ml, l_), rec in wtm.items()},
                       "device": gpu}))
+    print(json.dumps({"rows": rows_out, "device": gpu}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

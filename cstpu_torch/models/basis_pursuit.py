@@ -44,16 +44,16 @@ import functools
 import numpy as np
 import torch
 
-from cstpu_torch.ops.util import as_inputs, cholesky_nan, true_f32
+from cstpu_torch.ops.util import as_inputs, cholesky_nan, stopped, true_f32
 
 LOOP_COUNTS = {"iterations": 0, "latch_reads": 0, "replays": 0}
 CHECK_EVERY = 32          # loop iterations between two reads of the latch
 
 
 def _stopped(done) -> bool:
-    """One latch read of a device bool."""
-    LOOP_COUNTS["latch_reads"] += 1
-    return bool(done)
+    """One latch read of a device bool (counted in this module's
+    LOOP_COUNTS)."""
+    return stopped(done, LOOP_COUNTS)
 
 
 def _map(fn, *trees):

@@ -6,11 +6,14 @@ workload. On CUDA, `omp_batch`, `mp_batch`, `gomp_batch` and `fr_batch` run
 the kernels of cstpu_torch.ops.fused_solve, `sp_batch`, `ompr_batch`,
 `srr_batch`, `rmp_batch` and `foba_batch` those of
 cstpu_torch.ops.fused_twostage, and `fbr_batch` and `lace_batch` those of
-cstpu_torch.ops.fused_backward; for CPU tensors, and for options or shapes
-the kernels do not serve, they run the per-instance solver over the rows
-(`batch`, where cstpu runs `vmap`). Tensors are solved where they lie;
-inputs that are not tensors (numpy arrays, lists) go to the card, and
-without one that raises: a CPU run is asked for with CPU tensors.
+cstpu_torch.ops.fused_backward. For CPU tensors, and for options or shapes
+the kernels do not serve, they run the solver's batched body over all the
+rows at once (`_omp_rows`, `_fr_rows`, ... of cstpu_torch.models: one
+program for the batch with vmap's semantics, where cstpu runs `vmap`),
+never a loop over rows; `br_batch` always does. Tensors are solved where
+they lie; inputs that are not tensors (numpy arrays, lists) go to the
+card, and without one that raises: a CPU run is asked for with CPU
+tensors.
 
 Between the two lies cstpu's middle route: where a solver's own kernel gate
 fails (k beyond the append kernels' 128 slots, a top-k beyond select_topl's
@@ -18,7 +21,7 @@ fails (k beyond the append kernels' 128 slots, a top-k beyond select_topl's
 `fr_batch`, `mp_batch`, `sp_batch`, `gomp_batch`, `srr_batch` and
 `ompr_batch` run the column-sharded solver of cstpu_torch.parallel.sharded
 on a one-shard mesh on the dictionary's device (CUDA only), instead of the
-loop over rows.
+batched body.
 
 The SBL family has no kernel. `fsbl_batch` and `rmps_batch` take the
 atom-sharded solvers of cstpu_torch.parallel.sharded_sbl on a one-shard
@@ -27,23 +30,30 @@ mesh under cstpu's gate read for CUDA (CUDA tensors, a float32 dictionary,
 sharded solver's keyword arguments); everything else, and `sbl_batch` and
 `rmps_estimate_noise_batch` on either device, runs the batched bodies of
 cstpu_torch.models.sbl, never the loop over rows.
+
+`batch(solver, **fixed)` maps the package's own solvers to their bodies;
+any other callable it runs once a row.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cstpu_torch.models.backward import br, fbr, lace
-from cstpu_torch.models.forward import fr
+from cstpu_torch.models.backward import (_br_rows, _fbr_rows, _lace_rows, br,
+                                         fbr, lace)
+from cstpu_torch.models.forward import _fr_rows, fr
 from cstpu_torch.models import sbl
-from cstpu_torch.models.matching_pursuit import gomp, mp, omp
-from cstpu_torch.models.stepwise import foba, rmp
-from cstpu_torch.models.twostage import ompr, sp, srr
+from cstpu_torch.models.matching_pursuit import (
+    _gomp_rows, _mp_rows, _oblivious_rows, _omp_rows, gomp, mp, oblivious,
+    omp)
+from cstpu_torch.models.stepwise import _foba_rows, _rmp_rows, foba, rmp
+from cstpu_torch.models.twostage import (_ompr_rows, _sp_rows, _srr_rows,
+                                         ompr, sp, srr)
 from functools import lru_cache
 
 from cstpu_torch.ops import fused_backward, fused_solve, fused_twostage
 from cstpu_torch.ops import stream_select
-from cstpu_torch.ops.util import as_inputs as _inputs
+from cstpu_torch.ops.util import as_inputs as _inputs, true_f32
 from cstpu_torch.parallel import sharded, sharded_sbl
 from cstpu_torch.parallel.mesh import Mesh
 from cstpu_torch.utils.sparse import SparseSolution
@@ -62,13 +72,41 @@ def _stack(results):
     return torch.stack(results)
 
 
-def batch(solver, **fixed):
-    """Run `solver(A, b, ...)` on every row of Bs and stack the results.
+def _fbr_rows_out(A, Bs, return_failed: bool = False, **kw):
+    """`fbr`'s body with fbr's `return_failed` switch."""
+    sol, failed = _fbr_rows(A, Bs, **kw)
+    return (sol, failed) if return_failed else sol
 
-    Example: `batch(omp, k=8)(A, Bs)` solves all rows of Bs.
+
+# the package's per-instance solvers and their batched bodies, which take
+# (A, Bs) and the solver's keyword arguments
+_BODIES = {omp: _omp_rows, mp: _mp_rows, gomp: _gomp_rows,
+           oblivious: _oblivious_rows, fr: _fr_rows, sp: _sp_rows,
+           ompr: _ompr_rows, srr: _srr_rows, rmp: _rmp_rows,
+           foba: _foba_rows, br: _br_rows, fbr: _fbr_rows_out,
+           lace: _lace_rows, sbl.sbl: sbl._sbl_rows,
+           sbl.rmps: sbl._rmps_rows,
+           sbl.fsbl: lambda A, Bs, *a, **kw: sbl._fsbl_rows(A, Bs, *a,
+                                                           **kw)[0]}
+
+
+def batch(solver, **fixed):
+    """Solve every row of Bs with `solver(A, b, ...)` and stack the
+    results.
+
+    Example: `batch(omp, k=8)(A, Bs)` solves all rows of Bs. A solver of
+    this package (omp, mp, gomp, oblivious, fr and its aliases, sp, ompr,
+    srr, rmp, foba, br, fbr, lace, sbl, fsbl, rmps) runs as its batched
+    body, one
+    program for all the rows with vmap's semantics. Any other callable
+    runs once a row: torch cannot vmap a loop that reads the device.
     """
+    body = _BODIES.get(solver)
+
     def batched(A, Bs, **kw):
         merged = {**fixed, **kw}
+        if body is not None:
+            return body(A, Bs, **merged)
         return _stack([solver(A, bb, **merged) for bb in Bs])
     return batched
 
@@ -113,9 +151,9 @@ def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
     (max_residual == 0) this runs the select and append kernels.
     `precision` picks the dictionary dtype inside them: None/'bf16'
     (default) or 'f32' (true f32, no TF32); 'highest' takes the
-    per-instance path. Everything else (inverse Gram, coefficients,
-    residual) is f32. Otherwise, or for shapes the kernels do not take,
-    the rows run through the per-instance `omp`.
+    batched body in true f32. Everything else (inverse Gram,
+    coefficients, residual) is f32. Otherwise, or for shapes the kernels
+    do not take, the batched body `_omp_rows` solves all the rows.
     """
     A, Bs = _inputs(A, Bs)
     kk = int(min(k if k is not None else A.shape[0], *A.shape))
@@ -128,7 +166,10 @@ def omp_batch(A, Bs, k=None, max_residual: float = 0.0, precision=None):
             # dictionary beyond the L2 cache: streamed from device memory
             sol, _ = fused_solve.omp_stream_solve(A, Bs, kk, corr_dtype=cdt)
             return sol
-    return batch(omp, k=k, max_residual=max_residual)(A, Bs)
+    if precision == "highest":
+        with true_f32():
+            return _omp_rows(A, Bs, k, max_residual)
+    return _omp_rows(A, Bs, k, max_residual)
 
 
 def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
@@ -138,7 +179,7 @@ def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
     With a sparsity cap, on CUDA, this runs the fr_select and fr_append
     kernels: the OLS rescaling is kept order-recursively instead of being
     re-derived from a (k x m) product per step. `precision` as in
-    omp_batch. Otherwise the rows run through the per-instance `fr`.
+    omp_batch. Otherwise the batched body `_fr_rows` solves all the rows.
     """
     A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision) and sparsity is not None
@@ -152,15 +193,14 @@ def fr_batch(A, Bs, max_residual: float = 0.0, min_decrease: float = 0.0,
         return sharded.fr_sharded_fused(
             A, Bs, int(sparsity), _one_shard_mesh(A.device), max_residual,
             min_decrease, corr_dtype=_cdt(precision))
-    return batch(fr, max_residual=max_residual, min_decrease=min_decrease,
-                 sparsity=sparsity)(A, Bs)
+    return _fr_rows(A, Bs, max_residual, min_decrease, sparsity)
 
 
 def mp_batch(A, Bs, k: int, precision=None):
     """Batched matching pursuit; returns the dense solutions (B, m).
 
     On CUDA this runs the signed select and the mp_update kernel;
-    otherwise the rows run through the per-instance `mp`.
+    otherwise the batched body `_mp_rows`.
     """
     A, Bs = _inputs(A, Bs)
     if _kernels_ok(A, Bs, precision) and fused_solve.supported_mp(A, Bs):
@@ -171,7 +211,7 @@ def mp_batch(A, Bs, k: int, precision=None):
         return sharded.mp_sharded_fused(A, Bs, int(k),
                                         _one_shard_mesh(A.device),
                                         corr_dtype=_cdt(precision))
-    return batch(mp, k=k)(A, Bs)
+    return _mp_rows(A, Bs, k)
 
 
 def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
@@ -179,8 +219,8 @@ def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
 
     On CUDA this runs the select_topl and gomp_append kernels (top-l
     acquisitions per iteration). `precision` as in omp_batch. Otherwise
-    the rows run through the per-instance `gomp`. The slot width is
-    min(k, m) on every path.
+    the batched body `_gomp_rows`. The slot width is min(k, m) on every
+    path.
     """
     A, Bs = _inputs(A, Bs)
     kk = int(min(k if k is not None else A.shape[1], A.shape[1]))
@@ -190,7 +230,7 @@ def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
                                               max_residual,
                                               corr_dtype=_cdt(precision))
         # the kernel path clamps its slot width to min(kk, n); pad back to
-        # the per-instance path's width, so that the returned width does
+        # the batched body's width, so that the returned width does
         # not depend on the path
         pad = kk - sol.idx.shape[1]
         if pad > 0:
@@ -204,7 +244,7 @@ def gomp_batch(A, Bs, l, k=None, max_residual: float = 0.0, precision=None):
         return sharded.gomp_sharded_fused(
             A, Bs, int(l), kk, _one_shard_mesh(A.device), max_residual,
             corr_dtype=_cdt(precision))
-    return batch(gomp, l=l, k=k, max_residual=max_residual)(A, Bs)
+    return _gomp_rows(A, Bs, l, k, max_residual)
 
 
 def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
@@ -212,8 +252,8 @@ def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
 
     On CUDA this runs the select_topl and sp_round kernels (2k slots: the
     kept block's exact inverse, the acquired block by its Schur
-    complement). `precision` as in omp_batch. Otherwise the rows run
-    through the per-instance `sp`.
+    complement). `precision` as in omp_batch. Otherwise the batched body
+    `_sp_rows`.
     """
     A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision)
@@ -225,7 +265,7 @@ def sp_batch(A, Bs, k, delta: float = 1e-12, maxiter=None, precision=None):
         return sharded.sp_sharded_fused(
             A, Bs, int(k), _one_shard_mesh(A.device), delta, maxiter,
             corr_dtype=_cdt(precision))
-    return batch(sp, k=k, delta=delta, maxiter=maxiter)(A, Bs)
+    return _sp_rows(A, Bs, k, delta, maxiter)
 
 
 def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
@@ -235,8 +275,8 @@ def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
     On CUDA with the default oblivious initialization this runs the
     engine kernels (forward OLS steps and backward deletions, the
     rescaling kept through both). `precision` as in omp_batch. Other
-    initializations, and shapes the kernels do not take, run the rows
-    through the per-instance `srr`.
+    initializations, and shapes the kernels do not take, run the batched
+    body `_srr_rows`.
     """
     A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision) and initialization == 1
@@ -249,8 +289,7 @@ def srr_batch(A, Bs, k: int, delta: float = 1e-12, maxiter=None,
         return sharded.srr_sharded_fused(
             A, Bs, int(k), _one_shard_mesh(A.device), delta, maxiter,
             corr_dtype=_cdt(precision))
-    return batch(srr, k=k, delta=delta, maxiter=maxiter,
-                 initialization=initialization, l=l)(A, Bs)
+    return _srr_rows(A, Bs, k, delta, maxiter, initialization, l)
 
 
 def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
@@ -259,8 +298,7 @@ def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
 
     On CUDA this runs the engine kernels (the passive-atom select with the
     active mask, the gradient step, the Schur-downdate delete).
-    `precision` as in omp_batch. Otherwise the rows run through the
-    per-instance `ompr`.
+    `precision` as in omp_batch. Otherwise the batched body `_ompr_rows`.
     """
     A, Bs = _inputs(A, Bs)
     if (_kernels_ok(A, Bs, precision)
@@ -273,7 +311,7 @@ def ompr_batch(A, Bs, k: int, delta: float, eta: float = 1.0,
         return sharded.ompr_sharded_fused(
             A, Bs, int(k), _one_shard_mesh(A.device), delta, eta, maxiter,
             corr_dtype=_cdt(precision))
-    return batch(ompr, k=k, delta=delta, eta=eta, maxiter=maxiter)(A, Bs)
+    return _ompr_rows(A, Bs, k, delta, eta, maxiter)
 
 
 def _merge_solution_rows(sol, redo, rows, m: int):
@@ -299,9 +337,9 @@ def _merge_solution_rows(sol, redo, rows, m: int):
 
 def _resolve_capped(sol, capped, A, Bs, solver):
     """The rows the kernels report as capped (their forward stage wanted
-    an atom beyond the kmax slots) solved again by the uncapped
-    per-instance `solver` and merged in, so that the cap never changes a
-    result."""
+    an atom beyond the kmax slots) solved again, all in one call of the
+    uncapped batched body `solver`, and merged in, so that the cap never
+    changes a result."""
     rows = torch.nonzero(capped)[:, 0]
     if rows.numel() == 0:
         return sol
@@ -315,16 +353,17 @@ def rmp_batch(A, Bs, k=None, delta=None, maxiter: int = 1, kmax: int = 32,
 
     On CUDA both variants run the RMP kernels with a `kmax`-slot active
     set; rows whose forward stage outgrows the cap are reported by the
-    kernels and solved again by the per-instance `rmp`, so the cap only
-    decides where the work is done. (The k variant's forward stage runs to
-    exhaustion: where that support exceeds kmax the per-instance path does
-    the work; raise kmax to keep it on the kernels.) `precision` as in
-    omp_batch. Otherwise the rows run through the per-instance `rmp`.
+    kernels and solved again by the batched body `_rmp_rows`, so the cap
+    only decides where the work is done. (The k variant's forward stage
+    runs to exhaustion: where that support exceeds kmax the body does the
+    work; raise kmax to keep it on the kernels.) `precision` as in
+    omp_batch. Otherwise the body solves all the rows.
     """
     if (k is None) == (delta is None):
         raise ValueError("specify exactly one of k or delta")
     A, Bs = _inputs(A, Bs)
-    each = batch(rmp, k=k, delta=delta, maxiter=maxiter)
+    def each(A_, Bs_):
+        return _rmp_rows(A_, Bs_, k, delta, maxiter)
     if (_kernels_ok(A, Bs, precision) and (k is None or int(k) <= int(kmax))
             and fused_twostage.supported_rmp(A, Bs, int(kmax),
                                              _cdt(precision))):
@@ -340,11 +379,11 @@ def foba_batch(A, Bs, delta: float, kmax: int = 32, precision=None):
 
     On CUDA this runs the FoBa kernels (per iteration a forward step and
     the deletions its gain allows), with rmp_batch's kmax cap and
-    re-solve of capped rows. Otherwise the rows run through the
-    per-instance `foba`.
+    re-solve of capped rows. Otherwise the batched body `_foba_rows`.
     """
     A, Bs = _inputs(A, Bs)
-    each = batch(foba, delta=delta)
+    def each(A_, Bs_):
+        return _foba_rows(A_, Bs_, delta)
     if (_kernels_ok(A, Bs, precision)
             and fused_twostage.supported_rmp(A, Bs, int(kmax),
                                              _cdt(precision))):
@@ -363,17 +402,11 @@ def _stops(max_residual, max_increase) -> dict:
 
 def br_batch(A, Bs, max_residual=None, max_increase=None, sparsity: int = 0,
              naive: bool = False):
-    """Batched backward regression: the per-instance `br` over the rows
-    (BR re-solves its state at every deletion; it has no kernel path)."""
+    """Batched backward regression: the batched body `_br_rows` (BR
+    re-solves its state at every deletion; it has no kernel path)."""
     A, Bs = _inputs(A, Bs)
-    return batch(br, sparsity=sparsity, naive=naive,
-                 **_stops(max_residual, max_increase))(A, Bs)
-
-
-def _split_failed(results):
-    """[(solution, failed), ...] per row -> (stacked solution, (B,) bool)."""
-    return (_stack([sol for sol, _ in results]),
-            torch.stack([failed for _, failed in results]))
+    return _br_rows(A, Bs, sparsity=sparsity, naive=naive,
+                    **_stops(max_residual, max_increase))
 
 
 def _unpack_failed(out, return_failed: bool):
@@ -389,15 +422,14 @@ def fbr_batch(A, Bs, max_residual=None, max_increase=None, sparsity: int = 0,
     On CUDA this runs the deletion kernels of
     cstpu_torch.ops.fused_backward: the Gram inverse is factorized once
     for the batch, and every row downdates its own copy. Otherwise the
-    rows run through the per-instance `fbr`.
+    batched body `_fbr_rows`.
     """
     A, Bs = _inputs(A, Bs)
     kw = _stops(max_residual, max_increase)
     if _on_card(A, Bs) and fused_backward.supported_backward(A, Bs):
         out = fused_backward.fbr_fused_solve(A, Bs, sparsity=sparsity, **kw)
     else:
-        out = _split_failed([fbr(A, bb, sparsity=sparsity, return_failed=True,
-                                 **kw) for bb in Bs])
+        out = _fbr_rows(A, Bs, sparsity=sparsity, **kw)
     return _unpack_failed(out, return_failed)
 
 
@@ -405,12 +437,12 @@ def lace_batch(A, Bs, max_residual=None, max_increase=None,
                sparsity: int = 0, return_failed: bool = False):
     """Batched LACE. On CUDA this runs the deletion kernels with the
     min-|coefficient| selection (cstpu_torch.ops.fused_backward); otherwise
-    the rows run through the per-instance `lace`.
+    the batched body `_lace_rows`.
 
     With `return_failed=True` also returns per-row (B,) flags that mean
     "numerical instability was met while solving this row" on both paths:
     the kernels' downdate guard (the row stops deleting), or, on the
-    per-instance path, whose refits are exact solves with no tracked
+    batched body, whose refits are exact solves with no tracked
     factor to go indefinite, a non-finite active coefficient.
     """
     A, Bs = _inputs(A, Bs)
@@ -418,7 +450,7 @@ def lace_batch(A, Bs, max_residual=None, max_increase=None,
     if _on_card(A, Bs) and fused_backward.supported_backward(A, Bs):
         out = fused_backward.lace_fused_solve(A, Bs, sparsity=sparsity, **kw)
     else:
-        sol = batch(lace, sparsity=sparsity, **kw)(A, Bs)
+        sol = _lace_rows(A, Bs, sparsity=sparsity, **kw)
         out = sol, torch.any(~torch.isfinite(sol.val) & sol.mask, dim=-1)
     return _unpack_failed(out, return_failed)
 

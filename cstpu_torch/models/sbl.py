@@ -37,16 +37,16 @@ from typing import NamedTuple
 
 import torch
 
-from cstpu_torch.ops.util import as_inputs, cholesky_nan, true_f32
+from cstpu_torch.ops.util import as_inputs, cholesky_nan, stopped, true_f32
 from cstpu_torch.utils.diagnostics import RMPSTrace, SBLTrace
 
 LOOP_COUNTS = {"steps": 0, "latch_reads": 0}
 
 
 def _stopped(done) -> bool:
-    """One latch read: every row of `done` is True."""
-    LOOP_COUNTS["latch_reads"] += 1
-    return bool(done.all())
+    """One latch read: every row of `done` is True (counted in this
+    module's LOOP_COUNTS)."""
+    return stopped(done, LOOP_COUNTS)
 
 
 def _rows(live, x):

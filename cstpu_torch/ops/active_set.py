@@ -237,6 +237,20 @@ def finalize(st: ActiveSet, m: int):
 # of a batched solver is a fixed chain of tensor operations. Dtype-generic.
 # --------------------------------------------------------------------------
 
+def vm_rows(v, M) -> torch.Tensor:
+    """v[b] @ M[b] for every row: (B, r), (B, r, c) -> (B, c), a batch of
+    (1, r) x (r, c) products: on the CPU a row's rounding then does not
+    depend on the batch's size, where a batched matrix-vector product
+    M[b] @ v[b] picks its kernel by it."""
+    return torch.einsum("brc,br->bc", M, v)
+
+
+def mv_rows(M, v) -> torch.Tensor:
+    """M[b] @ v[b] for every row: (B, r, c), (B, c) -> (B, r), as the
+    products v[b] @ M[b]' (see vm_rows)."""
+    return torch.bmm(v[:, None, :], M.transpose(1, 2))[:, 0]
+
+
 def empty_batched(B: int, n: int, kmax: int, m: int, dtype,
                   device=None) -> ActiveSet:
     """B empty active sets with capacity kmax over an n x m dictionary."""
@@ -263,7 +277,29 @@ def where_rows(gate, new: ActiveSet, old: ActiveSet) -> ActiveSet:
     `tree_where`)."""
     def pick(x, y):
         return torch.where(gate.view((-1,) + (1,) * (x.ndim - 1)), x, y)
-    return ActiveSet(*(pick(x, y) for x, y in zip(new, old)))
+    return type(new)(*(pick(x, y) for x, y in zip(new, old)))
+
+
+def _probe_batched(a, st: ActiveSet):
+    """`_probe` for every row: (u, d, a'a) of the column a[b] (B, n)
+    against row b's active set. `a` must be contiguous: the sums over a
+    strided layout round otherwise than over a row's own, and a row's
+    result would depend on the batch."""
+    g = torch.where(st.mask, vm_rows(a, st.cols), 0)
+    ata = torch.sum(a * a, dim=1)
+    u = mv_rows(st.Ginv, g)
+    return u, ata - torch.sum(g * u, dim=1), ata
+
+
+def append_col_batched(a, b, st: ActiveSet, i, ok=None) -> ActiveSet:
+    """`append_col` for every row where ok[b] (default: every row): the
+    column a[b] goes in as atom i[b] with no degeneracy gate, d clamped at
+    1e-12 a'a. Callers guard duplicates; a row at capacity keeps its
+    state. No refit."""
+    ok = torch.ones_like(st.k, dtype=torch.bool) if ok is None else ok
+    u, d, ata = _probe_batched(a, st)
+    return _border_batched(a, b, st, i, ok & (st.k < st.idx.shape[1]),
+                           u, d, ata)
 
 
 def append_col_gated_batched(a, b, st: ActiveSet, i, ok) -> ActiveSet:
@@ -272,22 +308,34 @@ def append_col_gated_batched(a, b, st: ActiveSet, i, ok) -> ActiveSet:
     (k == kmax) or whose column is degenerate against the active span
     (d <= 8 n eps(dtype) ||a||^2) keep their state. No refit."""
     kmax = st.idx.shape[1]
-    g = torch.where(st.mask, torch.einsum("bnk,bn->bk", st.cols, a), 0)
-    ata = torch.sum(a * a, dim=1)
-    u = torch.einsum("bkj,bj->bk", st.Ginv, g)
-    d = ata - torch.sum(g * u, dim=1)
+    u, d, ata = _probe_batched(a, st)
     rtol = 8.0 * a.shape[1] * torch.finfo(a.dtype).eps
     ok = ok & (st.k < kmax) & (d > rtol * ata)
+    return _border_batched(a, b, st, i, ok, u, d, ata)
+
+
+def append_gated_batched(A, b, st: ActiveSet, i, ok) -> ActiveSet:
+    """Gated append of atom i[b] of the dictionary A into row b (see
+    append_col_gated_batched)."""
+    return append_col_gated_batched(A[:, i.long()].T.contiguous(), b, st, i,
+                                    ok)
+
+
+def _border_batched(a, b, st: ActiveSet, i, ok, u, d, ata) -> ActiveSet:
+    """`_border` on the rows where ok[b]: column a[b] written into row b's
+    first free slot with the bordered Ginv update; the other rows keep
+    their state."""
+    kmax = st.idx.shape[1]
     slot = torch.arange(kmax, device=a.device)
     at_p = (slot == st.k[:, None]) & ok[:, None]              # (B, kmax)
     row_p, col_p = at_p[:, :, None], at_p[:, None, :]
     cols = torch.where(col_p, a[:, :, None], st.cols)
-    gfull = torch.einsum("bnk,bn->bk", cols, a)  # 0 on free slots, a'a at p
+    gfull = vm_rows(a, cols)  # 0 on free slots, a'a at p
     G = torch.where(row_p, gfull[:, None, :], st.G)
     G = torch.where(col_p, gfull[:, :, None], G)
     dinv = 1.0 / torch.maximum(d, 1e-12 * torch.clamp(ata, min=1e-30))
     border = -dinv[:, None] * u
-    Ginv = st.Ginv + dinv[:, None, None] * u[:, :, None] * u[:, None, :]
+    Ginv = st.Ginv + dinv[:, None, None] * (u[:, :, None] * u[:, None, :])
     Ginv = torch.where(row_p, border[:, None, :], Ginv)
     Ginv = torch.where(col_p, border[:, :, None], Ginv)
     Ginv = torch.where(row_p & col_p, dinv[:, None, None], Ginv)
@@ -302,16 +350,52 @@ def append_col_gated_batched(a, b, st: ActiveSet, i, ok) -> ActiveSet:
     )
 
 
+def rebuild_batched(A, b, idx, mask) -> ActiveSet:
+    """`rebuild` for every row: row b's state for the padded support
+    (idx[b], mask[b]) (B, kmax) and measurement b[b], in one shot."""
+    B, kmax = idx.shape
+    safe = torch.where(mask, idx, 0).long()
+    cols = (A[:, safe].permute(1, 0, 2) * mask[:, None, :].to(A.dtype)
+            ).contiguous()
+    eye = torch.eye(kmax, dtype=A.dtype, device=A.device)
+    G = torch.where(mask[:, :, None] & mask[:, None, :],
+                    cols.transpose(1, 2) @ cols, eye)
+    st = ActiveSet(
+        idx=torch.where(mask, idx, A.shape[1]).to(torch.int32),
+        mask=mask,
+        k=mask.sum(dim=1).to(torch.int32),
+        cols=cols,
+        G=G,
+        Ginv=eye.expand(B, kmax, kmax),
+        Atb=vm_rows(b, cols),
+        coef=torch.zeros((B, kmax), dtype=A.dtype, device=A.device),
+    )
+    return refresh_batched(st)
+
+
+# from this many slots on, refresh_batched inverts as L^-T L^-1: at 1024
+# slots a batched cholesky_solve against I takes 11.2-13.6 ms for eight rows
+# on an NVIDIA H100, a batched triangular solve and product 3.4; at 321 slots
+# (5c-wide's sharded SP) the triangular route took 127-129 ms of the solve's
+# device time against 76-79 and its fused and plain solves parted in support
+TRIANGULAR_INVERSE_MIN = 512
+
+
 def refresh_batched(st: ActiveSet) -> ActiveSet:
     """Recompute every row's Ginv exactly from its padded Gram; a row whose
-    Gram is not positive definite gets a NaN inverse (no exception)."""
+    Gram is not positive definite gets a NaN inverse (no exception). Below
+    TRIANGULAR_INVERSE_MIN slots by `cholesky_solve` against the identity,
+    from it on as L^-T L^-1 (one batched triangular solve and product)."""
     from cstpu_torch.ops.util import cholesky_nan
 
     kmax = st.G.shape[1]
     eye = torch.eye(kmax, dtype=st.G.dtype, device=st.G.device)
     Gpad = torch.where(st.mask[:, :, None] & st.mask[:, None, :], st.G, eye)
     L = cholesky_nan(Gpad)
-    return st._replace(Ginv=torch.cholesky_solve(eye.expand_as(L), L))
+    if kmax < TRIANGULAR_INVERSE_MIN:
+        return st._replace(Ginv=torch.cholesky_solve(eye.expand_as(L), L))
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return st._replace(Ginv=Linv.transpose(1, 2) @ Linv)
 
 
 def delete_batched(st: ActiveSet, pos, m: int) -> ActiveSet:
@@ -343,20 +427,45 @@ def delete_batched(st: ActiveSet, pos, m: int) -> ActiveSet:
 
 def refit_batched(st: ActiveSet) -> ActiveSet:
     """coef = Ginv @ Atb for every row."""
-    coef = torch.einsum("bkj,bj->bk", st.Ginv,
-                        torch.where(st.mask, st.Atb, 0))
+    coef = mv_rows(st.Ginv, torch.where(st.mask, st.Atb, 0))
     return st._replace(coef=torch.where(st.mask, coef, 0))
 
 
 def residual_batched(st: ActiveSet, b) -> torch.Tensor:
     """r (B, n) = b - cols @ coef, from the cached active columns."""
-    return b - torch.einsum("bnk,bk->bn", st.cols, st.coef)
+    return b - mv_rows(st.cols, st.coef)
 
 
 def gamma_batched(st: ActiveSet) -> torch.Tensor:
     """(B, kmax): every row's diag((A_i'A_i)^-1) over its active slots (junk
     elsewhere; callers mask)."""
     return torch.diagonal(st.Ginv, dim1=1, dim2=2)
+
+
+def ols_rescaling_batched(A, st: ActiveSet, colnorm2) -> torch.Tensor:
+    """(B, m): every row's squared energetic norms ||a_j||^2 -
+    ||proj_active a_j||^2."""
+    W = st.cols.transpose(1, 2) @ A
+    return colnorm2 - torch.sum(W * (st.Ginv @ W), dim=1)
+
+
+def active_marker_batched(st: ActiveSet, m: int) -> torch.Tensor:
+    """(B, m) bool marking every row's active atom indices."""
+    z = torch.zeros((st.idx.shape[0], m + 1), dtype=torch.bool,
+                    device=st.idx.device)
+    z.scatter_(1, torch.where(st.mask, st.idx, m).long(), st.mask)
+    return z[:, :m]
+
+
+def one_row(st):
+    """A per-instance state (any NamedTuple of tensors) as a batch of one
+    row."""
+    return type(st)(*(x[None] for x in st))
+
+
+def row_of(st, b: int = 0):
+    """Row b of a batched state as a per-instance state."""
+    return type(st)(*(x[b] for x in st))
 
 
 def w_of(st: ActiveSet, a) -> torch.Tensor:

@@ -8,27 +8,51 @@ import contextlib
 import torch
 
 
+LOOP_COUNTS = {"steps": 0, "latch_reads": 0}
+
+
+def read_latch(*flags, counts=None) -> list:
+    """One latch read, the only place a batched solver's loop waits for the
+    device: the device bools `flags` fetched together. Counted in `counts`
+    (default: LOOP_COUNTS, the greedy, two-stage, stepwise and backward
+    bodies'; the SBL and convex loops pass their own)."""
+    (LOOP_COUNTS if counts is None else counts)["latch_reads"] += 1
+    return torch.stack(flags).tolist()
+
+
+def stopped(done, counts=None) -> bool:
+    """One latch read: True when every row of `done` is set."""
+    return read_latch(done.all(), counts=counts)[0]
+
+
+def take(x, i):
+    """x[..., i[...]]: the entry of the last axis at index i, row by row."""
+    return x.gather(-1, i.unsqueeze(-1)).squeeze(-1)
+
+
 def masked_argmax(scores, valid):
-    """(argmax, max) of `scores` restricted to `valid` slots.
+    """(argmax, max) of `scores` restricted to `valid` slots, over the last
+    axis (one per row of a batch).
 
     Lowest index wins ties (`torch.argmax` returns the first maximum, as
     `jnp.argmax` does); a NaN among the valid scores is the maximum.
     """
     s = torch.where(valid, scores, -torch.inf)
-    i = torch.argmax(s)
-    return i, s[i]
+    i = torch.argmax(s, dim=-1)
+    return i, take(s, i)
 
 
 def masked_argmin(scores, valid):
-    """(argmin, min) of `scores` restricted to `valid` slots."""
+    """(argmin, min) of `scores` restricted to `valid` slots, over the last
+    axis."""
     s = torch.where(valid, scores, torch.inf)
-    i = torch.argmin(s)
-    return i, s[i]
+    i = torch.argmin(s, dim=-1)
+    return i, take(s, i)
 
 
 def norm2(x):
-    """Squared l2 norm."""
-    return torch.sum(x * x)
+    """Squared l2 norm over the last axis."""
+    return torch.sum(x * x, dim=-1)
 
 
 def padded_to_dense(idx, val, mask, m: int):

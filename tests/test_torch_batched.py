@@ -76,20 +76,23 @@ def test_fused_solve_on_cpu_launches_nothing():
 
 
 def test_options_that_leave_the_kernels(monkeypatch):
-    # max_residual > 0 and precision="highest" take the per-instance omp
-    # even for CUDA tensors: decided by the options, not by an exception
+    # max_residual > 0 and precision="highest" take omp's batched body even
+    # for CUDA tensors: decided by the options, not by an exception; one
+    # call of the body for all the rows, and no kernel
     A, x, Bs = _batch(303)
     calls = []
     monkeypatch.setattr(tbatched.fused_solve, "omp_fused_solve",
                         lambda *a, **k: (calls.append("fused"), None))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    monkeypatch.setattr(tbatched, "omp",
-                        lambda A_, b, k=None, max_residual=0.0:
-                        calls.append("omp") or cstpu_torch.omp(A_, b, k))
+    rows = tbatched._omp_rows
+    monkeypatch.setattr(tbatched, "_omp_rows",
+                        lambda A_, Bs_, k=None, max_residual=0.0:
+                        calls.append(("rows", Bs_.shape[0]))
+                        or rows(A_, Bs_, k, max_residual))
     tA, tB = to_torch(A), to_torch(Bs)
     tbatched.omp_batch(tA, tB, 3, max_residual=1e-3)
     tbatched.omp_batch(tA, tB, 3, precision="highest")
-    assert calls == ["omp"] * 8
+    assert calls == [("rows", 4)] * 2
     tbatched.omp_batch(tA, tB, 3)
     assert calls[-1] == "fused"
 
@@ -499,23 +502,25 @@ def test_stepwise_and_backward_kernel_branches_match_cstpu(monkeypatch):
 
 def test_capped_rows_are_resolved_uncapped(monkeypatch):
     # kmax = 2 cannot hold the 3 planted atoms: the kernels report every row
-    # capped and the per-instance solver does the work, so the result is the
-    # uncapped one, at the wider slot width
+    # capped and the batched body re-solves them all in one call, so the
+    # result is the uncapped one, at the wider slot width
     A, x, Bs = _batch(327)
     calls = _fake_cuda(monkeypatch)
     tA, tB = to_torch(A), to_torch(Bs)
     redone = []
-    real_rmp, real_foba = tbatched.rmp, tbatched.foba
-    monkeypatch.setattr(tbatched, "rmp", lambda *a, **kw:
-                        redone.append("rmp") or real_rmp(*a, **kw))
-    monkeypatch.setattr(tbatched, "foba", lambda *a, **kw:
-                        redone.append("foba") or real_foba(*a, **kw))
+    real_rmp, real_foba = tbatched._rmp_rows, tbatched._foba_rows
+    monkeypatch.setattr(tbatched, "_rmp_rows", lambda A_, Bs_, *a, **kw:
+                        redone.append(("rmp", Bs_.shape[0]))
+                        or real_rmp(A_, Bs_, *a, **kw))
+    monkeypatch.setattr(tbatched, "_foba_rows", lambda A_, Bs_, *a, **kw:
+                        redone.append(("foba", Bs_.shape[0]))
+                        or real_foba(A_, Bs_, *a, **kw))
     got = tbatched.rmp_batch(tA, tB, delta=1e-2, kmax=2)
-    assert got.idx.shape == (4, 32) and redone == ["rmp"] * 4
+    assert got.idx.shape == (4, 32) and redone == [("rmp", 4)]
     np.testing.assert_allclose(
         _dense(got), _jdense(cstpu.rmp_batch(A, Bs, delta=1e-2)), atol=1e-4)
     got = tbatched.foba_batch(tA, tB, 1e-2, kmax=2)
-    assert redone[4:] == ["foba"] * 4
+    assert redone[1:] == [("foba", 4)]
     np.testing.assert_allclose(
         _dense(got), _jdense(cstpu.foba_batch(A, Bs, 1e-2)), atol=1e-4)
     assert calls == ["rmp", "foba"]

@@ -3,8 +3,8 @@
 Each of its thirteen checks runs one trial here (the trial number is the
 check's place in `CHECKS` plus 13: the problem a round-robin campaign from
 seed 0 gives it on its second turn, whose sub-cases, GOMP, FBR, FSBL and
-sharded FISTA, the chip's campaign of 26 trials runs too; the first turn's
-sharded BP takes 13 s on this CPU), with no violation; the kernel-against-
+sharded FISTA, the chip's campaign of 13 trials from 13 runs too; the first
+turn's sharded BP takes 13 s on this CPU), with no violation; the kernel-against-
 plain check says that it is skipped, since on the CPU both routes are the
 plain twin.
 A differential case feeds the same numpy problems to the cstpu calls of

@@ -82,9 +82,9 @@ def test_backward_stages_delete_on_a_correlated_dictionary(monkeypatch):
     A, x, b = cstpu.correlated_data(kd, n=32, m=128, k=4, decay=0.25,
                                     dtype=jnp.float64)
     deleted = []
-    step = tstep.backward_step
-    monkeypatch.setattr(tstep, "backward_step", lambda *a, **kw: (
-        lambda out: deleted.append(out[1]) or out)(step(*a, **kw)))
+    step = tstep.backward_step_rows
+    monkeypatch.setattr(tstep, "backward_step_rows", lambda *a, **kw: (
+        lambda out: deleted.append(int(out[1].sum())) or out)(step(*a, **kw)))
     tA = to_torch(A)
     for kk in jax.random.split(kn, 4)[2:]:
         y = cstpu.perturb(kk, b, 5e-2)

@@ -17,6 +17,23 @@ m = 131072), 3d (rmp_batch and foba_batch at B = 8 and 64) and mp
 engine_backward's deleting stage (chip_smoke.deleting_times: 3d's state
 after its forward stage, the k rule down to chip_smoke.DELETE_KFINAL
 atoms, at B = 8 and 64), which no path times.
+
+    python3 tools/ab_paths.py ROOT TAG --rows
+
+times only the calls of chip_smoke.py's [rows] phase (chip_smoke.rows_calls
+on chip_smoke.rows_problems: the entry points' paths that leave the
+kernels, which a checkout before the batched bodies runs as a loop over
+rows): per call, after a warm-up on one row, the wall ms (CUDA events) and
+the device busy ms (one profiled call), and the steps and latch reads
+where the checkout counts them.
+
+    python3 tools/ab_paths.py ROOT TAG --rows --sharded
+
+adds (or, alone, times only) 5c-wide's SP (sp_sharded_fused at k =
+chip_smoke.WIDE_K on chip_smoke.SHARDS shards of 5c's problem, the
+sharded body whose torch operations on the batched active-set engine at
+2k slots take most of its device time): wall ms (CUDA events,
+chip_smoke.cuda_ms: the median of up to chip_smoke.TIMED_SLOW solves) and device busy ms (one profiled solve).
 Each line gives the update kernels' registers (the deletion kernels'
 spill stores beside theirs), the device busy ms per
 solve (torch.profiler: the union of the device spans; beside it their
@@ -75,6 +92,70 @@ def update_registers(log):
     return out
 
 
+def rows(cs, tag):
+    """The [rows] calls, timed as chip_smoke.rows_call times them: after a
+    warm-up on one row, the wall ms of one call (CUDA events, launch and
+    loop counts zeroed just before) and the device busy ms of one profiled
+    call. A checkout before the batched bodies counts no steps or latch
+    reads (it has no ops.util.LOOP_COUNTS)."""
+    import torch
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import util
+
+    loop_counts = getattr(util, "LOOP_COUNTS", None)
+    probs = cs.rows_problems(torch.device("cuda", 0))
+    for name, cell, entry in cs.rows_calls(probs):
+        A, Bs, sup = probs[cell]
+        entry(A, Bs[:1])
+        for counts in (fs.LAUNCHES, loop_counts or {}):
+            for key in counts:
+                counts[key] = 0
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        sol = entry(A, Bs)
+        t1.record()
+        torch.cuda.synchronize()
+        wall = t0.elapsed_time(t1)
+        launches = sum(fs.LAUNCHES.values())
+        loops = (dict(loop_counts) if loop_counts is not None else
+                 {"steps": "not counted", "latch_reads": "not counted"})
+        busy, _ = cs.top_device_ops(lambda: entry(A, Bs), top=None)
+        print(f"[ab {tag}] rows {cell} {name} B={Bs.shape[0]}: wall "
+              f"{wall:.3f} ms, busy {busy:.3f} ms, idle share "
+              f"{max(0.0, 1.0 - busy / wall):.3f}, recovery "
+              f"{cs.recovery(sol, sup):.3f}, steps {loops['steps']}, latch "
+              f"reads {loops['latch_reads']}, launches {launches}",
+              flush=True)
+
+
+def sharded_sp(cs, tag):
+    """5c-wide's SP, timed as chip_smoke.sharded_wide_paths times it."""
+    import torch
+
+    import cstpu_torch
+
+    dev = torch.device("cuda", 0)
+    B, n, m, k = cs.SHARD_CELLS["5c"]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    A = cs.unit_dictionary(gen, n, m)
+    Bs, sup = cs.planted_pm1(gen, A, B, k)
+    mesh = cstpu_torch.make_mesh((1, cs.SHARDS))
+    Ash = cstpu_torch.shard_dictionary(A, mesh)
+
+    def call():
+        return cstpu_torch.sp_sharded_fused(Ash, Bs, cs.WIDE_K, mesh)
+
+    rec = cs.recovery(call(), sup)
+    ms = cs.cuda_ms(lambda: call().val.sum(), cs.TIMED_SLOW)
+    sp_ = cs._split(ms, call)
+    print(f"[ab {tag}] 5c-wide sp_sharded_fused k={cs.WIDE_K} shards="
+          f"{cs.SHARDS} B={B}: wall {ms:.3f} ms, busy "
+          f"{sp_['device_busy_ms']:.3f} ms, idle share "
+          f"{sp_['idle_share']:.3f}, recovery {rec:.3f}", flush=True)
+
+
 def main():
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, root)
@@ -92,6 +173,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     _, log = _build.build()
     print(f"[ab {tag}] {cs.gpu_line()}")
+    if {"--rows", "--sharded"} & set(sys.argv[3:]):
+        if "--rows" in sys.argv[3:]:
+            rows(cs, tag)
+        if "--sharded" in sys.argv[3:]:
+            sharded_sp(cs, tag)
+        return None
     print(f"[ab {tag}] registers: " + ", ".join(
         f"{kn} {regs}" for kn, regs in update_registers(log)))
     dev = torch.device("cuda", 0)
