@@ -184,6 +184,11 @@ TIMED_SLOW = 3   # timed calls of the solves that take tenths of a second
 # 1.7 s plain backward solve is timed once, not three times)
 WARM_ONCE_S = 0.5
 TIMED_BUDGET_S = 1.0
+# device ms a launch of the CUDA-core selects on the f32 paths before their
+# redesign on simt_select.cuh (the parent's, `tools/ab_paths.py ROOT TAG
+# --f32`; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
+F32_BEFORE_MS = {"select bench": 0.1558, "select 5b": 0.9759,
+                 "fr_select 3a": 0.3248}
 # published peaks of one H100 SXM: device memory bytes/s, dense FLOP/s by
 # operand type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -414,9 +419,18 @@ def f32_main_path(A, Bs, sup, k):
     assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
     cerr = float((sol.val - ref.val).abs().max())
     assert cerr <= COEF_ATOL, cerr
+
+    def solve():
+        return cstpu_torch.omp_batch(A, Bs, k, precision="f32")
+
+    wall = cuda_ms(lambda: solve().val.sum(), TIMED_SOLVES)
+    busy, per = profile_path(solve)
     print(f"[main f32] omp_batch(precision='f32') k={k} recovery={rec:.3f} "
           f"launches={launches}: the CUDA-core select; supports == plain "
-          f"solve, max |coef err| {cerr:.3e} (atol {COEF_ATOL})")
+          f"solve, max |coef err| {cerr:.3e} (atol {COEF_ATOL}); wall "
+          f"{wall:.4f} ms, device busy {busy:.4f} ms ("
+          + ", ".join(f"{name} {c}x {ms:.4f}" for name, (c, ms) in
+                      per.items()) + ")")
     return launches
 
 
@@ -431,24 +445,58 @@ def per_launch_ms(x, fn):
 
 
 def device_ms_per_call(fn, reps=TIMED_LAUNCHES):
-    """Device ms per call of fn under torch.profiler: the kernels' own time
-    over `reps` calls (after a warm-up), whatever the host takes between
-    them."""
+    """Device ms per call of fn under torch.profiler: the sum of the device
+    records' spans over `reps` calls (after a warm-up), whatever the host
+    takes between them; each kernel once, so a library call (torch's
+    operations) is read as our kernels are (a sum over key_averages counts
+    a torch operation's kernels twice). The profiler can lose records: the
+    calls are profiled until the highest count of records comes twice (up
+    to PROFILE_TRIES + 1 profiles), else the device time is not measured
+    (None; host time between the calls is never read as device time)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(max(getattr(ev, "self_device_time_total", 0.0), 0.0)
-               for ev in prof.key_averages())
-    return busy / 1e3 / reps
+    counts = []
+    for _ in range(PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [ev.duration_ns()
+                 for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", lambda: False)()]
+        # a lost record only lowers a profile's count of records: the
+        # highest count, seen twice, is a whole profile
+        if spans and len(spans) in counts and len(spans) >= max(counts):
+            return sum(spans) / 1e6 / reps
+        counts.append(len(spans))
+    print(f"[profile] device records of {reps} calls by profile: {counts}; "
+          "device time not measured")
+    return None
 
 
-def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
+def ms4(v):
+    """A time for a print line: four decimals, or "not measured" (None)."""
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def f32_line(ms, before, bnd, lib):
+    """A [time f32] line's numbers: device ms beside the parent's, the bound
+    and the f32 library call's device ms (either may be not measured)."""
+    parts = [(f"{ms:.4f} ms device" if ms else "device ms not measured")
+             + f" (before {before:.4f}"
+             + (f", {before / ms:.2f}x" if ms else ""),
+             f"bound {bnd['bound_ms']:.4f} by {bnd['bound_by']}"
+             + (f", {bnd['bound_ms'] / ms:.1%} of it" if ms else ""),
+             f"torch.matmul f32 {ms4(lib)}"
+             + (f", {ms / lib:.2f}x of it" if ms and lib else "")]
+    return "; ".join(parts) + ")"
+
+
+def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu, cell="bench"):
     import cstpu_torch
     from cstpu_torch.ops import fused_solve as fs
 
@@ -467,6 +515,9 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     sel_simt = launches(lambda: fs.select_argmax(r, Ac_sel, mma=False))
     sel_f32 = launches(lambda: fs.select_argmax(r, Ac_sel32))
     sel_dev = device_ms_per_call(lambda: fs.select_argmax(r, Ac_sel))
+    # the CUDA-core loop on the f32 path, on the device, beside the parent's
+    # time, its bound and the f32 library call's
+    sel_f32_dev = device_ms_per_call(lambda: fs.select_argmax(r, Ac_sel32))
     # ... and by batch rows: a block re-reads its rows of r for every tile,
     # so the time over the dictionary's bytes grows with the rows
     by_rows = {rows: device_ms_per_call(
@@ -479,6 +530,13 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     # path calls neither
     r32 = r.to(torch.bfloat16).float()
     gemm = launches(lambda: torch.matmul(r32, Ac_sel32))
+    gemm_dev = device_ms_per_call(lambda: torch.matmul(r32, Ac_sel32))
+    m = A.shape[1]
+    print(f"[time f32 {cell}] select_argmax, CUDA cores, B={B} n="
+          f"{A.shape[0]} m={m}: " + f32_line(
+              sel_f32_dev, F32_BEFORE_MS[f"select {cell}"],
+              select_bound(B, A.shape[0], m, cdt_bytes=4), gemm_dev)
+          + f" | {gpu}")
     rb = r.to(torch.bfloat16)
     gemm_bf16 = launches(lambda: torch.matmul(rb, Ac_sel))
     t = k // 2
@@ -489,8 +547,8 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     print(f"[time] solve {solve:.4f} ms (plain {plain:.4f} ms), "
           f"{B * k / (solve / 1e3):.1f} atoms/s (plain "
           f"{B * k / (plain / 1e3):.1f}); select, tensor cores {sel:.4f} ms "
-          f"per call, {sel_dev:.4f} on the device ("
-          + ", ".join(f"{v:.4f} at B={rows}" for rows, v in by_rows.items())
+          f"per call, {ms4(sel_dev)} on the device ("
+          + ", ".join(f"{ms4(v)} at B={rows}" for rows, v in by_rows.items())
           + f"; CUDA cores {sel_simt:.4f}, "
           f"in f32 {sel_f32:.4f}; plain {sel_p:.4f}; torch.matmul of the "
           f"scores alone {gemm:.4f}, in bf16 {gemm_bf16:.4f}); append "
@@ -504,6 +562,7 @@ def times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu):
     return {"solve": solve, "plain_solve": plain, "select": sel,
             "split": per,
             "select_simt": sel_simt, "select_f32": sel_f32,
+            "select_f32_device": sel_f32_dev, "select_gemm_device": gemm_dev,
             "select_device": sel_dev, "select_device_by_rows": by_rows,
             "device_busy": busy,
             "plain_select": sel_p, "select_gemm": gemm,
@@ -797,10 +856,18 @@ def fr_f32_path(Ar, Br, sup):
     assert torch.equal(sol.idx, ref.idx) and torch.equal(sol.mask, ref.mask)
     cerr = float((sol.val - ref.val).abs().max())
     assert cerr <= COEF_ATOL, cerr
+
+    def solve():
+        return cstpu_torch.fr_batch(Ar, Br, sparsity=k, precision="f32")
+
+    wall = cuda_ms(lambda: solve().val.sum(), TIMED_SOLVES)
+    busy, per = profile_path(solve)
     print(f"[main 3a f32] fr_batch(precision='f32') k={k} recovery={rec:.3f} "
           f"launches={launches['fr_select']}: the CUDA-core rescaled select; "
           f"supports == plain solve, max |coef err| {cerr:.3e} (atol "
-          f"{COEF_ATOL})")
+          f"{COEF_ATOL}); wall {wall:.4f} ms, device busy {busy:.4f} ms ("
+          + ", ".join(f"{name} {c}x {ms:.4f}" for name, (c, ms) in
+                      per.items()) + ")")
     return launches
 
 
@@ -938,8 +1005,17 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
     tm["fr_select_simt"] = launches(lambda: fs.fr_select(Arc, cn2, s,
                                                           mma=False))
     tm["fr_select_f32"] = launches(lambda: fs.fr_select(Arc32, cn2, s))
+    tm["fr_select_f32_device"] = device_ms_per_call(
+        lambda: fs.fr_select(Arc32, cn2, s))
     ru = torch.cat([stf.r, stf.aperp]).to(bf).float()
     tm["fr_select_gemm"] = launches(lambda: torch.matmul(ru, Arc32))
+    tm["fr_select_gemm_device"] = device_ms_per_call(lambda: torch.matmul(ru, Arc32))
+    Bf, nf, mf = stf.r.shape[0], Arc.shape[0], Arc.shape[1]
+    print(f"[time f32 3a] fr_select, CUDA cores, one pending term, B={Bf} "
+          f"n={nf} m={mf}: " + f32_line(
+              tm["fr_select_f32_device"], F32_BEFORE_MS["fr_select 3a"],
+              select_bound(Bf, nf, mf, cdt_bytes=4, terms=1),
+              tm["fr_select_gemm_device"]) + f" | {gpu}")
     rub = ru.to(bf)
     tm["fr_select_gemm_bf16"] = launches(lambda: torch.matmul(rub, Arc))
     for key, fn in (
@@ -1228,10 +1304,12 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 
 
 # the kernels by name (a profiler key holds "<name>_kernel"); gomp_append
-# comes before omp_append, whose name is inside its own
-KERNEL_NAMES = ("select_argmax", "top1_mma", "topl_mma", "round_rows",
-                "gomp_append", "omp_append", "fr_append", "mp_update",
-                "select_topl", "fr_select", "engine_init",
+# comes before omp_append, fr_select_simt before select_simt (the CUDA-core
+# selects; select_argmax and fr_select in checkouts before them), whose
+# names are inside their own
+KERNEL_NAMES = ("fr_select_simt", "select_simt", "select_argmax", "top1_mma",
+                "topl_mma", "round_rows", "gomp_append", "omp_append",
+                "fr_append", "mp_update", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
@@ -1457,7 +1535,7 @@ def twostage_times(A, Bg, Ar, Br, gpu):
     print("[time two-stage kernels, device ms per launch on the paths] "
           + ", ".join(f"{key} {v:.4f}" for key, v in kern.items())
           + " | plain (and the masked select's own) ms per call (events): "
-          + ", ".join(f"{key} {v:.4f}" for key, v in pl.items()))
+          + ", ".join(f"{key} {ms4(v)}" for key, v in pl.items()))
     for cell in ("2b", "2c", "3b"):
         sp_ = split[cell]
         print(f"[split {cell}] wall {sp_['wall_ms']:.4f} ms, device busy "
@@ -2322,6 +2400,124 @@ def hold_ompr_swap(dev, B, n, K, cdt):
     return err, plan
 
 
+# the CUDA-core selects' grid (csrc/simt_select.cuh under select_argmax.cu
+# and fr_select.cu): B in {1, 8, 64, 65} by n in {1000, 1024, 1028} by two
+# layouts: m = 2048 at an aligned base (an f32 dictionary and the rows by
+# TMA), and a ragged, odd m = 2001 with the dictionary and the rows one
+# entry into their storage (an unaligned base and an odd pitch: cp.async
+# for both); then an odd n (the rows by cp.async beside a TMA dictionary),
+# a narrow dictionary, and m = 8192 at B = 32 and 65 (4 and 8 warps a
+# block); each in f32 and in bf16 (the catch-all's staged words)
+SIMT_CASES = [(B, n, m, off) for B in (1, 8, 64, 65)
+              for n in (1000, 1024, 1028)
+              for m, off in ((2048, 0), (2001, 1))] + [
+    (5, 1001, 2048, 0), (3, 130, 384, 0), (32, 1024, 8192, 0),
+    (65, 1028, 8192, 1)]
+SIMT_TERMS = (0, 1, 2, 16)   # fr_select's pending terms
+SIMT_MODES = ("abs", "signed", "masked")
+SIMT_TIE = 5                 # the duplicated column's first index
+
+
+def _simt_staged(x, off, dtype):
+    """A contiguous copy of x in `dtype` whose base lies `off` entries into
+    its storage."""
+    store = torch.empty(x.numel() + off, dtype=dtype, device=x.device)
+    store[off:] = x.flatten().to(dtype)
+    return store[off:].view(x.shape)
+
+
+def _picks_equal(kern, plain, what):
+    """Every row's pick (the partials' reduction) equal, NaN partials in
+    the same places, finite ones within SELECT_RTOL."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    (kv, ki), (pv, pi) = kern[:2], plain[:2]
+    i, ir = fs._reduce_partials(kv, ki)[1], fs._reduce_partials(pv, pi)[1]
+    assert torch.equal(i, ir), (what, torch.nonzero(i != ir).flatten())
+    assert torch.equal(torch.isnan(kv), torch.isnan(pv)), what
+    fin = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(kv), fin), what
+    err = float(((kv[fin] - pv[fin]).abs()
+                 / pv[fin].abs().clamp(min=1e-30)).max()) if fin.any() else 0
+    assert err <= SELECT_RTOL, (what, err)
+    return i, err
+
+
+def hold_simt_select(dev, B, n, m, off, cdt):
+    """The CUDA-core variants of select_argmax (SIMT_MODES) and fr_select
+    (SIMT_TERMS pending terms) against their plain twins on one problem of
+    SIMT_CASES: a dictionary with column m - 1 a copy of SIMT_TIE and a
+    row of that atom (row 0: the lowest index wins), a NaN row (1: INT_MAX),
+    a row whose atoms are all masked (2: -inf and the lowest index in the
+    masked select, all 0 and index 0 in fr_select); every row's pick equal
+    to the twin's, the values within SELECT_RTOL, fr_select's rescalings
+    within RESC_ATOL. Returns (max rel value err, max resc err, the staging
+    that ran: (f32 dictionary by TMA, rows by TMA))."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    gen = torch.Generator(device=dev).manual_seed(B * 131 + n * 7 + m + off)
+    A = torch.randn(n, m, generator=gen, device=dev)
+    A = A / torch.linalg.norm(A, dim=0)
+    A[:, m - 1] = A[:, SIMT_TIE]
+    Ac = _simt_staged(A, off, cdt)
+    Ac32 = Ac.float()
+    r = torch.randn(B, n, generator=gen, device=dev)
+    r[0] = Ac32[:, SIMT_TIE]
+    if B > 1:
+        r[1, n // 2] = float("nan")
+    r = _simt_staged(r, off, torch.float32)
+    amask = (torch.rand(B, m, generator=gen, device=dev) < 0.05).to(
+        torch.uint8)
+    amask[0, SIMT_TIE] = 0
+    if B > 2:
+        amask[2] = 1
+    staging = (cdt == torch.float32 and Ac.data_ptr() % 16 == 0
+               and m % 4 == 0, r.data_ptr() % 16 == 0 and n % 4 == 0)
+    sel_err = 0.0
+    for mode in SIMT_MODES:
+        kw = ({"signed": True} if mode == "signed" else
+              {"amask": amask, "eta": 0.5} if mode == "masked" else {})
+        kern, counts = run_counted(lambda: fs.select_argmax(r, Ac, mma=False,
+                                                            **kw))
+        assert counts == expect_launches(select=1), counts
+        plain = fs._select_ref(r, Ac32, cdt, **kw)
+        i, err = _picks_equal(kern, plain, (mode, B, n, m, off, cdt))
+        sel_err = max(sel_err, err)
+        if mode != "masked":
+            assert int(i[0]) == SIMT_TIE, (mode, i[0])
+        if B > 1:
+            assert int(i[1]) == fs.INT_MAX, (mode, i[1])
+        if mode == "masked" and B > 2:
+            assert int(i[2]) == 0 and bool(torch.isinf(kern[0][2]).all())
+        if mode == "signed":
+            same = (kern[1] == plain[1]) & torch.isfinite(plain[0])
+            assert bool(((kern[2] - plain[2]).abs()[same]
+                         <= SELECT_RTOL * plain[2].abs()[same] + 1e-6).all())
+    cn2 = torch.sum(Ac32 * Ac32, dim=0)
+    resc_err = 0.0
+    for P in SIMT_TERMS:
+        U = _simt_staged(0.1 * torch.randn(P, B, n, generator=gen,
+                                           device=dev), off, torch.float32)
+        W = torch.rand(P, B, generator=gen, device=dev)
+        resc = cn2[None].repeat(B, 1) + 0.5
+        rk, rp = resc.clone(), resc.clone()
+        kern, counts = run_counted(lambda: fs.rescaled_select(
+            Ac, cn2, r, U, W, -1.0, amask, rk, mma=False))
+        assert counts == expect_launches(fr_select=1), counts
+        plain = fs._rescaled_select_ref(Ac32, cn2, r, U, W, -1.0, amask, rp,
+                                        cdt)
+        i, err = _picks_equal(kern, plain, ("fr", P, B, n, m, off, cdt))
+        sel_err = max(sel_err, err)
+        assert int(i[0]) == SIMT_TIE, (P, i[0])
+        if B > 1:
+            assert int(i[1]) == fs.INT_MAX, (P, i[1])
+        if B > 2:
+            assert int(i[2]) == 0 and float(kern[0][2].max()) == 0.0
+        resc_err = max(resc_err, float((rk - rp).abs().max()))
+        assert resc_err <= RESC_ATOL, (P, resc_err)
+    return sel_err, resc_err, staging
+
+
 # mp_update's grid (csrc/mp_update.cu: B C blocks, no cluster): B = 1 and 8
 # (C = 8), 64 and 65 (C = 3); n a multiple of 4 (16-byte pieces of r) and
 # not (1001, 1003: entry by entry); n = 8192 at B = 64 (C = 4: the slices
@@ -2941,7 +3137,7 @@ def stepwise_times(A, problems, gpu):
         sel[f"fr_select_b{B}_gemm_bf16"] = launches(
             lambda: torch.matmul(rub, Ac))
     print(f"[time 3d fr_select ms per call | {gpu}] "
-          + ", ".join(f"{key} {v:.4f}" for key, v in sel.items()))
+          + ", ".join(f"{key} {ms4(v)}" for key, v in sel.items()))
     pl.update(sel)
     return tm, split, pl
 
@@ -4053,7 +4249,7 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
     for ml in STREAM_WIDTHS:
         print(f"[time stream kernels, ms per call at B={B}, n={n}, "
               f"m_local={ml}, bf16 (events, wrapper and both launches)] "
-              + ", ".join(f"{name} {v:.4f}" for (name, w), v in per.items()
+              + ", ".join(f"{name} {ms4(v)}" for (name, w), v in per.items()
                           if w == ml) + f" | {gpu}")
     return tm, split, per
 
@@ -4515,7 +4711,7 @@ def sharded_fr_times(Ar, Br, A, Bo, gpu):
     for ml in STREAM_WIDTHS:
         print(f"[time fr_step kernel, ms per call at B={B}, n={n}, "
               f"m_local={ml}, bf16 (events, wrapper and both launches)] "
-              + ", ".join(f"{name} {v:.4f}" for (name, w), v in per.items()
+              + ", ".join(f"{name} {ms4(v)}" for (name, w), v in per.items()
                           if w == ml) + f" | {gpu}")
     return tm, split, per
 
@@ -5581,6 +5777,31 @@ def surface_problems(dev):
     return P
 
 
+def _f64(x):
+    """x in f64: a tensor, or (a problem's numpy copy) an array."""
+    return x.double() if isinstance(x, torch.Tensor) else x.astype("float64")
+
+
+def _minus(x, y):
+    """x - y with y (a tensor, or a problem's numpy copy) where x lies."""
+    return x - torch.as_tensor(y, device=x.device)
+
+
+def _columns(X):
+    """X transposed, contiguous: (B, n) rows as the (n, B) columns."""
+    import numpy as np
+
+    return (X.T.contiguous() if isinstance(X, torch.Tensor)
+            else np.ascontiguousarray(X.T))
+
+
+def surface_numpy(P):
+    """The problems P as numpy copies (what a cstpu user passes): the
+    arrays on the host, the device and the supports as they are."""
+    return {key: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for key, v in P.items()}
+
+
 def _gen(P, seed=7):
     return torch.Generator(device=P["dev"]).manual_seed(seed)
 
@@ -5721,8 +5942,8 @@ def surface_cases():
             P["A"], P["y"], 3, d, initialization=i,
             key=_gen(P) if i == 3 else None), ex) for i in (1, 2, 3)),
         C("rmp k", ("rmp",), lambda P: ct.rmp(P["A"], P["y"], k=3), ex),
-        C("rmp k f64", ("rmp",), lambda P: ct.rmp(P["A"].double(),
-                                                  P["y"].double(), k=3), ex),
+        C("rmp k f64", ("rmp",), lambda P: ct.rmp(_f64(P["A"]),
+                                                  _f64(P["y"]), k=3), ex),
         C("rmp delta", ("rmp",), lambda P: ct.rmp(P["A"], P["y"], delta=d),
           ex),
         C("foba", ("foba",), lambda P: ct.foba(P["A"], P["y"], d), ex),
@@ -5862,7 +6083,7 @@ def surface_cases():
                                           kmax=8),
           sup_h, keys=("fr_step_select",)),
         C("correlate_argmax", ("correlate_argmax",),
-          lambda P: ct.correlate_argmax(P["Ash"], P["Bsh"].T.contiguous()),
+          lambda P: ct.correlate_argmax(P["Ash"], _columns(P["Bsh"])),
           lambda P, out: (
               out[0].tolist() == (P["Bsh"] @ P["Ash"]).abs().argmax(
                   dim=1).tolist(), f"idx={out[0].tolist()}"),
@@ -5905,7 +6126,7 @@ def surface_cases():
           for name in ("sparse_data", "gaussian_data", "correlated_data",
                        "coherent_data")),
         C("perturb", ("perturb",),
-          lambda P: ct.perturb(_gen(P), P["b"], d) - P["b"],
+          lambda P: _minus(ct.perturb(_gen(P), P["b"], d), P["b"]),
           lambda P, out: (abs(float(out.norm()) - d) < 1e-6,
                           f"||e||={float(out.norm()):.6f}"), None),
         C("colnorms", ("colnorms", "normalize_columns"),
@@ -5965,9 +6186,9 @@ def _support_utilities(P):
     exact[P["sup"]] = 1.0
     kept = ct.droptol(x, 0.5)
     pol = ct.polish(P["A"], P["y"], x)
+    A, y = (torch.as_tensor(P[key], device=pol.device) for key in ("A", "y"))
     return ([int(i) for i in ct.support(x)], bool(ct.samesupport(x, exact)),
-            int((kept != 0).sum()),
-            float(torch.linalg.norm(P["A"] @ pol - P["y"])))
+            int((kept != 0).sum()), float(torch.linalg.norm(A @ pol - y)))
 
 
 def _config_roundtrip(P):
@@ -6014,14 +6235,17 @@ def surface_paths(dev, gpu):
     the launch counts zeroed just before it (its oracle; on the card the
     kernel route by its `keys`), then the same call on CPU tensors, held
     against the card's (supports equal, or the oracle on both where they
-    part at a near-tie). One PASS or FAIL line a case; it raises after the
-    whole table has run if any case failed, or if a public name has no
-    case."""
+    part at a near-tie), then on numpy copies of the card's problems
+    (`surface_numpy`), which must hold the oracle and agree with the
+    tensor call by the case's `agree`. One PASS or FAIL line a case; it
+    raises after the whole table has run if any case failed, or if a
+    public name has no case."""
     t0 = time.perf_counter()
     cases = surface_cases()
     covered = set().union(*(c.covers for c in cases))
     assert covered == surface_names(), sorted(surface_names() ^ covered)
     P = {"card": surface_problems(dev), "cpu": surface_problems("cpu")}
+    P["numpy"] = surface_numpy(P["card"])
     fails = []
     for case in cases:
         t1 = time.perf_counter()
@@ -6038,10 +6262,19 @@ def surface_paths(dev, gpu):
             held = ("cpu agrees" if same else
                     "cpu parts, oracle on both" if same is False
                     else "oracle on both")
-            ok = bool(ok and ok_cpu and not missing
+            # numpy copies of the card's problems, as a cstpu user passes
+            # them: as_inputs puts them on the card; the same result
+            out_np = case.run(P["numpy"])
+            ok_np, detail_np = case.check(P["card"], out_np)
+            same_np = _agree(case, out_np, out)
+            ok = bool(ok and ok_cpu and ok_np and same_np is not False
+                      and not missing
                       and (same is not False
                            or case.agree is _same_support))
-            detail = (f"{detail} | {held}"
+            detail = (f"{detail} | {held} | numpy "
+                      + ("agrees" if same_np else "parts" if same_np is False
+                         else "holds its oracle")
+                      + (f" (numpy: {detail_np})" if not ok_np else "")
                       + (f" (cpu: {detail_cpu})" if not ok_cpu else "")
                       + (f" | launches {launched}" if case.keys else "")
                       + (f" | kernel route missing {missing}"
@@ -6053,7 +6286,8 @@ def surface_paths(dev, gpu):
         print(f"{'PASS' if ok else 'FAIL'} [surface] {case.name:26s} "
               f"{detail} ({time.perf_counter() - t1:.2f} s)", flush=True)
     print(f"[surface] {len(cases) - len(fails)}/{len(cases)} cases passed, "
-          f"{len(covered)} public names called on the card and on the CPU; "
+          f"{len(covered)} public names called on the card (tensors and "
+          f"numpy arrays) and on the CPU; "
           f"{time.perf_counter() - t0:.1f} s | {gpu}")
     if fails:
         raise AssertionError(f"[surface] failed: {fails}")
@@ -6073,6 +6307,7 @@ FUZZ_SEED = 13
 # and backward solvers (what the *_batch entry points run where the kernels
 # do not), on suite problems; rows solved alone against the batch to ATOL
 ROWS_BR_B = 8
+ROWS_SMALL_B = 8  # the greedy and two-stage bodies' batch on the bench
 ROWS_RMP_KMAX = 8
 ROWS_ATOL = 1e-5
 ROWS_ALONE = (0, -1)
@@ -6080,10 +6315,11 @@ ROWS_ALONE = (0, -1)
 
 def rows_problems(dev):
     """The [rows] calls' problems, each from a generator of its own seeded
-    with SEED: the bench's planted rows (MP_CELL), 3a's correlated
-    dictionary with its planted ones (FR_CELL, also 3b's), 3e's square
-    dictionary at B = ROWS_BR_B and 3d's at B = BATCHES[0]. {cell: (A, Bs,
-    planted support)}."""
+    with SEED: the bench's planted rows (MP_CELL; its first ROWS_SMALL_B
+    rows too), 3a's correlated dictionary with its planted ones (FR_CELL,
+    also 3b's), 3e's square dictionary at B = ROWS_BR_B (in f32, and in f64
+    for the backward bodies, which f32 sends to the kernels) and 3d's at B
+    = BATCHES[0]. {cell: (A, Bs, planted support)}."""
     from cstpu_torch.utils.data import correlated_data, sparse_data
 
     def gen():
@@ -6091,6 +6327,9 @@ def rows_problems(dev):
 
     _, B, n, m, k = MP_CELL
     out = {"bench": planted(gen(), B, n, m, k)}
+    A, Bs, sup = out["bench"]
+    out[f"bench B={ROWS_SMALL_B}"] = (A, Bs[:ROWS_SMALL_B].contiguous(),
+                                     sup[:ROWS_SMALL_B])
     _, B, n, m, kf, decay = FR_CELL
     g = gen()
     Ar = correlated_data(g, n, m, kf, decay=decay)[0].contiguous()
@@ -6099,6 +6338,7 @@ def rows_problems(dev):
     g = gen()
     A2 = sparse_data(g, n2, m2, 1)[0].contiguous()
     out["3e"] = (A2, *planted_ones(g, A2, ROWS_BR_B, k2))
+    out["3e f64"] = (A2.double(), out["3e"][1].double(), out["3e"][2])
     _, n3, m3, k3, _, _ = STEP_CELL
     g = gen()
     A3 = planted(g, 1, n3, m3, 1)[0]
@@ -6113,7 +6353,9 @@ def rows_calls(probs):
     import cstpu_torch as ct
 
     k, kf, ks, kb = MP_CELL[4], FR_CELL[4], SRR_CELL[1], BW_CELL[3]
-    delta = STEP_CELL[4]
+    kg, l, kp, ko = GOMP_CELL[4], GOMP_CELL[5], SP_CELL[1], OMPR_CELL[1]
+    delta, kmax = STEP_CELL[4], STEP_CELL[5]
+    small = f"bench B={ROWS_SMALL_B}"
     return [
         ("omp_batch max_residual=1e-4", "bench",
          lambda A, Bs: ct.omp_batch(A, Bs, k, max_residual=1e-4)),
@@ -6127,6 +6369,25 @@ def rows_calls(probs):
          lambda A, Bs: ct.br_batch(A, Bs, sparsity=kb)),
         (f"rmp_batch(delta={delta}, kmax={ROWS_RMP_KMAX})", "3d",
          lambda A, Bs: ct.rmp_batch(A, Bs, delta=delta, kmax=ROWS_RMP_KMAX)),
+        # the bodies that ran on the card only at B = 1 ([surface]'s
+        # per-instance calls): precision="highest" takes the body; fbr_batch
+        # and lace_batch have no precision option (cstpu's neither), so an
+        # f64 dictionary, which their kernels do not take, does
+        (f"gomp_batch({l}, {kg}) precision=highest", small,
+         lambda A, Bs: ct.gomp_batch(A, Bs, l, kg, precision="highest")),
+        (f"sp_batch({kp}, maxiter=8) precision=highest", small,
+         lambda A, Bs: ct.sp_batch(A, Bs, kp, precision="highest",
+                                   **SP_CELL[2])),
+        (f"ompr_batch({ko}, 1e-12) precision=highest", small,
+         lambda A, Bs: ct.ompr_batch(A, Bs, ko, precision="highest",
+                                     **OMPR_CELL[2])),
+        (f"foba_batch({delta}, kmax={kmax}) precision=highest", "3d",
+         lambda A, Bs: ct.foba_batch(A, Bs, delta, kmax=kmax,
+                                     precision="highest")),
+        (f"fbr_batch(sparsity={kb})", "3e f64",
+         lambda A, Bs: ct.fbr_batch(A, Bs, sparsity=kb)),
+        (f"lace_batch(sparsity={kb})", "3e f64",
+         lambda A, Bs: ct.lace_batch(A, Bs, sparsity=kb)),
     ]
 
 
@@ -6295,6 +6556,14 @@ def main():
                         r"ELi(\d+)E", line)
         if got:
             print(f"[build mma] NB={got[1]} mode={got[2]}: {props}")
+        # the CUDA-core selects' loop (simt_select.cuh) by kernel, dictionary
+        # dtype and (select_argmax) epilogue mode
+        got = re.search(r"Function properties for _ZN5cstpu\d+((?:fr_)?select"
+                        r"_simt)_kernelI(13__nv_bfloat16|f)(?:Li(\d)E)?E", line)
+        if got:
+            cdt = "bf16" if got[2].startswith("13") else "f32"
+            mode = f" mode={got[3]}" if got[3] else ""
+            print(f"[build simt] {got[1]} {cdt}{mode}: {props}")
         got = re.search(r"Function properties for .*topl_mma_kernelILi(\d+)E",
                         line)
         if got:
@@ -6525,6 +6794,28 @@ def main():
                       if B in (8, 64) and (n == 1024 or n > 2000))
           + f"; {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    simt_err, simt_resc, staging = 0.0, 0.0, set()
+    grid_simt_cases = smoke_grid(SIMT_CASES)
+    for (B, n, m, off), cdt in itertools.product(
+            grid_simt_cases, (torch.float32, torch.bfloat16)):
+        err, rerr, how = hold_simt_select(dev, B, n, m, off, cdt)
+        simt_err, simt_resc = max(simt_err, err), max(simt_resc, rerr)
+        staging.add(how)
+    # the loop held on every staging: the dictionary (f32) and the rows each
+    # by TMA and by cp.async
+    assert staging == {(a, r) for a in (True, False) for r in (True, False)}
+    print(f"[simt grid] select_argmax ({', '.join(SIMT_MODES)}) and "
+          f"fr_select ({', '.join(map(str, SIMT_TERMS))} pending terms), "
+          f"CUDA-core variants (csrc/simt_select.cuh), against their plain "
+          f"versions over (B, n, m, offset) in {grid_simt_cases}, f32 and "
+          f"bf16, every staging (dictionary by TMA, rows by TMA): "
+          f"{sorted(staging)}: picks equal on every row (a duplicated column "
+          f"-> {SIMT_TIE}, a NaN row -> INT_MAX, an all-masked row), max "
+          f"rel value err {simt_err:.3e} (rtol {SELECT_RTOL}), resc max |err| "
+          f"{simt_resc:.3e} (atol {RESC_ATOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
     record = {}
     for name, B, n, m, k in CELLS:
         t0 = time.perf_counter()
@@ -6536,7 +6827,7 @@ def main():
         launches = main_path(A, Bs, sup, k)
         if name == "bench":
             f32_launches = f32_main_path(A, Bs, sup, k)
-        tm = times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu)
+        tm = times(A, Bs, k, r, Ac_sel, st, parts, Ac, gpu, name)
         record[name] = (sel_err, app_err, launches, tm)
         print(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
         del A, Bs, r, Ac_sel, st, parts, Ac
@@ -6942,6 +7233,14 @@ def main():
               library_bf16_ms=tm["select_gemm_bf16"],
               f32_ms=tm["select_f32"],
               f32_bound_ms=select_bound(B, n, m, cdt_bytes=4)["bound_ms"],
+              # the f32 path's launch on the device (simt_select.cuh),
+              # beside the f32 torch.matmul's device ms
+              grid_max_rel_err=simt_err,
+              f32_device_ms=tm["select_f32_device"],
+              f32_library_device_ms=tm["select_gemm_device"],
+              main_loop=f"{csrc}/simt_select.cuh",
+              m131072_f32_device_ms=tm5b["select_f32_device"],
+              m131072_f32_library_device_ms=tm5b["select_gemm_device"],
               signed_ms=gtm["select_signed_simt"],
               masked_ms=tplain["select_masked_simt"],
               m131072_ms=tm5b["select_simt"],
@@ -7096,6 +7395,10 @@ def main():
               f32_ms=gtm["fr_select_f32"],
               f32_bound_ms=select_bound(B, n, m, cdt_bytes=4,
                                         terms=1)["bound_ms"],
+              grid_max_rel_err=simt_err, grid_resc_err=simt_resc,
+              f32_device_ms=gtm["fr_select_f32_device"],
+              f32_library_device_ms=gtm["fr_select_gemm_device"],
+              main_loop=f"{csrc}/simt_select.cuh",
               rmp_b8_ms=splain["fr_select_b8_simt"],
               srr_16_ms=tplain["fr_select_init_simt"]),
         entry("fr_append", 532, paths["fr"]["fr_append"],

@@ -11,6 +11,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -158,7 +159,10 @@ __device__ __forceinline__ void stage_rows(float (*xs)[kRows],
   stage_rows<T>(xs, X, row0, p0, B, n, (size_t)n, (size_t)1);
 }
 
-// The select's main loop: acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
+// The CUDA-core main loop of select_topl.cu, fr_step_select.cu and the
+// streaming sweeps of stream_select.cu (select_argmax.cu and fr_select.cu
+// run simt_select.cuh's staged, register-tiled loop, whose sums are this
+// loop's bit for bit): acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
 // block's kRows rows, products and sums in f32 (FMA on CUDA cores, no
 // TF32), each atom's sum in the order p = 0 .. n-1 whatever the tile, the
 // batch or the width of the dictionary. One thread per atom column j
@@ -371,6 +375,55 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// 4 bytes from device to shared memory, or 4 zero bytes when !valid (the
+// source is not read then).
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread has issued has landed;
+// the arrival is counted in the barrier's initial count (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed; a wait
+// that never ends (a fault in the counts) traps after some 2^26 tries
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, tries = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 26)) __trap();
+  } while (!done);
+}
+
+// One box of a 2-D tensor map into shared memory; c0 is the coordinate along
+// the contiguous dimension. Completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // Arrive on the barrier at this block's shared address `bar` in block

@@ -43,122 +43,109 @@
 //     passes over the same tile from the L2. The operand is stacked by the
 //     top-1 selects' `round_rows` launch (select_argmax.cu).
 //   CUDA cores (f32 correlation, and what the tensor-core loop does not
-//     take): common.cuh::score_tile's loop, the first pass with two
-//     accumulators per (row, atom) (q and z_0, r and u_0 staged side by side
-//     in shared memory), then one pass per further term; resc stays in
-//     registers across the passes. The multiply-adds bound this one (true
-//     f32, FMA, no TF32).
+//     take): simt_select.cuh's staged, register-tiled loop over the P + 1
+//     products [u_0 .. u_{P-1}, r], two from each read of a dictionary tile
+//     (FR's step: z and q in one pass; SRR's first call, 17 products, in
+//     nine passes over the tile); resc stays in registers across the passes
+//     and takes the terms in order. The multiply-adds bound this one (true
+//     f32, FMA, no TF32); every sum is the earlier loop's bit for bit.
 #include <cstdint>
 
 #include "common.cuh"
 #include "mma_rescaled.cuh"
+#include "simt_select.cuh"
 
 namespace cstpu {
 
+// The CUDA-core variant: simt_select.cuh's loop over the P + 1 products
+// [u_0 .. u_{P-1}, r], two to a pass, so that the last pass ends with q.
+// After a pass each thread applies its terms to its 4 x 4 tile of resc in
+// term order (resc read after the first pass), and after the last one
+// scores and takes each row's (max, lowest argmax) over the warp.
 template <typename T>
-__global__ void __launch_bounds__(kTile)
-fr_select_kernel(const float* __restrict__ r, const float* __restrict__ U,
-                 const float* __restrict__ W, int P, float wsign,
-                 const T* __restrict__ A, const float* __restrict__ cn2,
-                 const uint8_t* __restrict__ amask, float* __restrict__ resc,
-                 float* __restrict__ pval, int* __restrict__ pidx, int B,
-                 int n, int m, int ntiles, float rtol) {
-  __shared__ __align__(16) float rs[kChunk][kRows];
-  __shared__ __align__(16) float zs[kChunk][kRows];
-  __shared__ float wv[kRows][kTile / 32];
-  __shared__ int wi[kRows][kTile / 32];
+__global__ void __launch_bounds__(32 * simt::kMaxWarps)
+fr_select_simt_kernel(const __grid_constant__ simt::Maps maps,
+                      const float* __restrict__ r,
+                      const float* __restrict__ U,
+                      const float* __restrict__ W, int P, float wsign,
+                      const T* __restrict__ A, const float* __restrict__ cn2,
+                      const uint8_t* __restrict__ amask,
+                      float* __restrict__ resc, float* __restrict__ pval,
+                      int* __restrict__ pidx, int B, int n, int m,
+                      int ntiles, float rtol) {
+  using simt::kAT;
+  using simt::kRT;
+  extern __shared__ unsigned char smem[];
+  const int tile = blockIdx.x, j0 = tile * kTile;
+  const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jl = j0 + kAT * lane;  // the thread's first atom
+  const int rw = row0 + kRT * warp;  // the warp's first row
 
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int j = tile * kTile + threadIdx.x;
-  const bool live = j < m;
-
-  float qa[kRows], za[kRows], rj[kRows];
+  float rj[kRT][kAT];
+  float acc[2][kRT][kAT];
+  simt::sweep<T, 2>(
+      acc, smem, maps, A, simt::Products{r, U, (size_t)B * n, P}, j0, row0,
+      B, n, m, [&](int pass, int np, float (&s)[2][kRT][kAT]) {
+        if (pass == 0) {
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) qa[q] = za[q] = 0.f;
-
-  // pass 0: q and z_0 together
-  for (int p0 = 0; p0 < n; p0 += kChunk) {
-    stage_rows<T>(rs, r, row0, p0, B, n);
-    if (P > 0) stage_rows<T>(zs, U, row0, p0, B, n);
-    __syncthreads();
-    const int pend = min(kChunk, n - p0);
-    if (live) {
-      const T* a_ptr = A + (size_t)p0 * m + j;
-#pragma unroll 2
-      for (int pp = 0; pp < pend; ++pp) {
-        const float a = to_f32(a_ptr[(size_t)pp * m]);
-        const float4* rq = reinterpret_cast<const float4*>(rs[pp]);
-        const float4* zq = reinterpret_cast<const float4*>(zs[pp]);
+          for (int i = 0; i < kRT; ++i) {
 #pragma unroll
-        for (int q4 = 0; q4 < kRows / 4; ++q4) {
-          const float4 rv = rq[q4], zv = zq[q4];
-          qa[4 * q4 + 0] = fmaf(a, rv.x, qa[4 * q4 + 0]);
-          qa[4 * q4 + 1] = fmaf(a, rv.y, qa[4 * q4 + 1]);
-          qa[4 * q4 + 2] = fmaf(a, rv.z, qa[4 * q4 + 2]);
-          qa[4 * q4 + 3] = fmaf(a, rv.w, qa[4 * q4 + 3]);
-          za[4 * q4 + 0] = fmaf(a, zv.x, za[4 * q4 + 0]);
-          za[4 * q4 + 1] = fmaf(a, zv.y, za[4 * q4 + 1]);
-          za[4 * q4 + 2] = fmaf(a, zv.z, za[4 * q4 + 2]);
-          za[4 * q4 + 3] = fmaf(a, zv.w, za[4 * q4 + 3]);
+            for (int c = 0; c < kAT; ++c) {
+              rj[i][c] = (rw + i < B && jl + c < m)
+                             ? resc[(size_t)(rw + i) * m + jl + c]
+                             : 0.f;
+            }
+          }
         }
-      }
-    }
-    __syncthreads();
-  }
-
-  // resc read after pass 0, to keep the main loop's registers free
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int row = row0 + q;
-    rj[q] = (live && row < B) ? resc[(size_t)row * m + j] : 0.f;
-  }
-  // the pending terms in order; term p >= 1 takes a pass of its own
-  for (int p = 0; p < P; ++p) {
-    if (p > 0) {
-      score_tile<T>(za, zs, U + (size_t)p * B * n, A, row0, j, live, B, n, m);
-    }
+        for (int q = 0; q < 2; ++q) {
+          const int p = 2 * pass + q;
+          if (q >= np) break;
+          if (p < P) {
+            // a pending term, in order
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int row = row0 + q;
-      if (live && row < B) {
-        const float w = wsign * W[(size_t)p * B + row];
-        rj[q] = __fadd_rn(rj[q], __fmul_rn(__fmul_rn(w, za[q]), za[q]));
-      }
-    }
-  }
-
-  const float rmin = live ? __fmul_rn(rtol, cn2[j]) : 0.f;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+            for (int i = 0; i < kRT; ++i) {
+              if (rw + i >= B) continue;
+              const float w = wsign * W[(size_t)p * B + rw + i];
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int row = row0 + q;
-    float v = -INFINITY;
-    int i = INT_MAX;
-    if (live && row < B) {
-      const size_t e = (size_t)row * m + j;
-      if (P > 0) resc[e] = rj[q];
-      v = rj[q] > rmin ? __fdiv_rn(__fmul_rn(qa[q], qa[q]), rj[q]) : -INFINITY;
-      if (amask[e]) v = 0.f;
-      i = j;
-    }
-    warp_argmax(v, i);
-    if (lane == 0) {
-      wv[q][warp] = v;
-      wi[q][warp] = i;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    const int q = threadIdx.x, row = row0 + q;
-    float v = wv[q][0];
-    int i = wi[q][0];
-    for (int w = 1; w < kTile / 32; ++w) argmax_combine(v, i, wv[q][w], wi[q][w]);
-    if (row < B) {
-      pval[(size_t)row * ntiles + tile] = v;
-      pidx[(size_t)row * ntiles + tile] = i;
-    }
-  }
+              for (int c = 0; c < kAT; ++c) {
+                if (jl + c < m) {
+                  rj[i][c] = __fadd_rn(
+                      rj[i][c], __fmul_rn(__fmul_rn(w, s[q][i][c]), s[q][i][c]));
+                }
+              }
+            }
+          } else {
+            // q, the last product: the OLS score and the tile's argmax
+#pragma unroll
+            for (int i = 0; i < kRT; ++i) {
+              const int row = rw + i;
+              float v = -INFINITY;
+              int idx = INT_MAX;
+#pragma unroll
+              for (int c = 0; c < kAT; ++c) {
+                const int j = jl + c;
+                if (j < m && row < B) {
+                  const size_t e = (size_t)row * m + j;
+                  if (P > 0) resc[e] = rj[i][c];
+                  const float qa = s[q][i][c];
+                  float d = rj[i][c] > __fmul_rn(rtol, cn2[j])
+                                ? __fdiv_rn(__fmul_rn(qa, qa), rj[i][c])
+                                : -INFINITY;
+                  if (amask[e]) d = 0.f;
+                  argmax_combine(v, idx, d, j);
+                }
+              }
+              warp_argmax(v, idx);
+              if (lane == 0 && row < B) {
+                pval[(size_t)row * ntiles + tile] = v;
+                pidx[(size_t)row * ntiles + tile] = idx;
+              }
+            }
+          }
+        }
+      });
 }
 
 }  // namespace cstpu
@@ -206,15 +193,18 @@ extern "C" int cstpu_fr_select(const float* r, const float* U, const float* W,
         resc, pval, pidx, B, n, m, ntiles, rtol,
         static_cast<__nv_bfloat16*>(sb), sb_rows, s));
   }
-  const dim3 grid(ntiles, (B + kRows - 1) / kRows);
+  const simt::Products prod{r, U, (size_t)B * n, P};
+  cudaError_t err;
   if (cdt_bf16) {
-    fr_select_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
-        r, U, W, P, wsign, static_cast<const __nv_bfloat16*>(A), cn2, amask,
+    err = simt::launch<__nv_bfloat16, 2>(
+        fr_select_simt_kernel<__nv_bfloat16>, A, prod, B, n, m, ntiles, s, r,
+        U, W, P, wsign, static_cast<const __nv_bfloat16*>(A), cn2, amask,
         resc, pval, pidx, B, n, m, ntiles, rtol);
   } else {
-    fr_select_kernel<float><<<grid, kTile, 0, s>>>(
-        r, U, W, P, wsign, static_cast<const float*>(A), cn2, amask, resc,
-        pval, pidx, B, n, m, ntiles, rtol);
+    err = simt::launch<float, 2>(
+        fr_select_simt_kernel<float>, A, prod, B, n, m, ntiles, s, r, U, W,
+        P, wsign, static_cast<const float*>(A), cn2, amask, resc, pval, pidx,
+        B, n, m, ntiles, rtol);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

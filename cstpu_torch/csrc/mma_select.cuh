@@ -4,8 +4,9 @@
 // dtype. It computes what common.cuh::score_tile computes on CUDA cores,
 // scores = round_bf16(R) . A_bf16 with f32 sums, the product the TPU kernels
 // take inside their bodies (cstpu/ops/fused_solve.py:157-163, :370-385;
-// cstpu/ops/stream_select.py:88). f32 correlation keeps score_tile: it must
-// stay true f32.
+// cstpu/ops/stream_select.py:88). f32 correlation stays on the CUDA cores in
+// true f32 (simt_select.cuh under select_argmax.cu, score_tile in the
+// streaming sweeps).
 //
 // What bounds a top-1 select on an H100: it reads the bf16 dictionary once
 // (2 n m bytes) and does 2 B n m operations, 8 to 64 per byte at B = 8 to
@@ -42,7 +43,7 @@
 // bits, so near-ties may resolve differently between the variants.
 //
 // What the loop does not take (the wrapper's predicate sends those to
-// score_tile): f32 correlation, a dictionary base that is not 16-byte
+// the CUDA-core loops): f32 correlation, a dictionary base that is not 16-byte
 // aligned, a row pitch that is not a multiple of 8 entries.
 #pragma once
 
@@ -87,18 +88,6 @@ enum Mode {
 };
 
 // ---------------------------------------------------------------- PTX ----
-
-// One box of a 2-D tensor map into shared memory; c0 is the coordinate along
-// the contiguous dimension. Completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand whose
 // groups of eight 128-byte rows lie `group_bytes` apart.

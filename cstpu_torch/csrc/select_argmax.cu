@@ -34,11 +34,12 @@
 //     B <= 64 (the bench's B = 64 is split in two row chunks of 32 so that
 //     128 blocks share the card; the second read comes from the L2).
 //   CUDA cores (f32 correlation, and what the tensor-core loop does not
-//     take): one thread per atom column, kTile atoms per block, kRows rows
-//     per block. Threads of a warp read neighbouring atoms of one
-//     dictionary row, so loads of A coalesce; the block's rows of r sit in
-//     shared memory, rounded to cdt, and every thread reads them as
-//     broadcast float4s. The multiply-adds bound this one.
+//     take): simt_select.cuh, whose note holds the design: the dictionary
+//     staged in a ring of shared-memory chunks (TMA for an aligned f32
+//     dictionary, cp.async otherwise) and a 4-row x 4-atom register tile
+//     of sums a thread, each warp over 4 rows and the whole tile, so its
+//     epilogue is a warp's shuffles. Its sums are score_tile's bit for bit
+//     (one fmaf chain over p = 0 .. n-1). The multiply-adds bound this one.
 //
 // Either epilogue reduces the block's kTile x rows scores to one (max,
 // argmax) per row, so the (B, m) score matrix never reaches device memory;
@@ -60,89 +61,96 @@
 
 #include "common.cuh"
 #include "mma_select.cuh"
+#include "simt_select.cuh"
 
 namespace cstpu {
 
-template <typename T, bool kSigned, bool kMasked>
-__global__ void __launch_bounds__(kTile)
-select_argmax_kernel(const float* __restrict__ r, const T* __restrict__ A,
-                     float* __restrict__ pval, int* __restrict__ pidx,
-                     float* __restrict__ psig,
-                     const uint8_t* __restrict__ amask, float eta, int B,
-                     int n, int m, int ntiles) {
-  __shared__ __align__(16) float rs[kChunk][kRows];
-  __shared__ float wv[kRows][kTile / 32];
-  __shared__ int wi[kRows][kTile / 32];
-  __shared__ float ws[kSigned ? kRows : 1][kTile / 32];
+// The CUDA-core variant: simt_select.cuh's loop, one product (r), and the
+// tile's per-row (max, lowest argmax) under kMode (mma::kAbs, kSigned,
+// kMasked) from each warp's registers.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(32 * simt::kMaxWarps)
+select_simt_kernel(const __grid_constant__ simt::Maps maps,
+                   const float* __restrict__ r, const T* __restrict__ A,
+                   float* __restrict__ pval, int* __restrict__ pidx,
+                   float* __restrict__ psig,
+                   const uint8_t* __restrict__ amask, float eta, int B, int n,
+                   int m, int ntiles) {
+  using simt::kAT;
+  using simt::kRT;
+  extern __shared__ unsigned char smem[];
+  constexpr bool kSig = kMode == mma::kSigned;
+  const int tile = blockIdx.x, j0 = tile * kTile;
+  const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int j = tile * kTile + threadIdx.x;
-  const bool live = j < m;
-
-  float acc[kRows];
-  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, m);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[1][kRT][kAT];
+  simt::sweep<T, 1>(
+      acc, smem, maps, A, simt::Products{r, nullptr, 0, 0}, j0, row0, B, n,
+      m, [&](int, int, float (&s)[1][kRT][kAT]) {
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    float v = live ? fabsf(acc[q]) : -INFINITY;
-    int i = live ? j : INT_MAX;
-    if constexpr (kMasked) {
-      if (live) {
-        const int row = row0 + q;
-        v = (row < B && amask[(size_t)row * m + j]) ? -INFINITY : fabsf(eta * acc[q]);
-      }
-    }
-    if constexpr (kSigned) {
-      float sg = acc[q];
-      warp_argmax(v, i, sg);
-      if (lane == 0) ws[q][warp] = sg;
-    } else {
-      warp_argmax(v, i);
-    }
-    if (lane == 0) {
-      wv[q][warp] = v;
-      wi[q][warp] = i;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    const int q = threadIdx.x, row = row0 + q;
-    float v = wv[q][0];
-    int i = wi[q][0];
-    if constexpr (kSigned) {
-      float sg = ws[q][0];
-      for (int w = 1; w < kTile / 32; ++w)
-        argmax_combine(v, i, sg, wv[q][w], wi[q][w], ws[q][w]);
-      if (row < B) psig[(size_t)row * ntiles + tile] = sg;
-    } else {
-      for (int w = 1; w < kTile / 32; ++w) argmax_combine(v, i, wv[q][w], wi[q][w]);
-    }
-    if (row < B) {
-      pval[(size_t)row * ntiles + tile] = v;
-      pidx[(size_t)row * ntiles + tile] = i;
-    }
-  }
+        for (int i = 0; i < kRT; ++i) {
+          const int row = row0 + kRT * warp + i;
+          float v = -INFINITY, sg = 0.f;
+          int idx = INT_MAX;
+#pragma unroll
+          for (int c = 0; c < kAT; ++c) {
+            const int j = j0 + kAT * lane + c;
+            if (j < m) {
+              const float x = s[0][i][c];
+              float val = fabsf(x);
+              if constexpr (kMode == mma::kMasked) {
+                val = (row < B && amask[(size_t)row * m + j])
+                          ? -INFINITY
+                          : fabsf(eta * x);
+              }
+              if constexpr (kSig) {
+                argmax_combine(v, idx, sg, val, j, x);
+              } else {
+                argmax_combine(v, idx, val, j);
+              }
+            }
+          }
+          if constexpr (kSig) {
+            warp_argmax(v, idx, sg);
+          } else {
+            warp_argmax(v, idx);
+          }
+          if (lane == 0 && row < B) {
+            pval[(size_t)row * ntiles + tile] = v;
+            pidx[(size_t)row * ntiles + tile] = idx;
+            if constexpr (kSig) psig[(size_t)row * ntiles + tile] = sg;
+          }
+        }
+      });
+}
+
+template <typename T, int kMode>
+cudaError_t launch_select_mode(const float* r, const void* A, float* pval,
+                               int* pidx, float* psig, const uint8_t* amask,
+                               float eta, int B, int n, int m,
+                               cudaStream_t s) {
+  const int ntiles = (m + kTile - 1) / kTile;
+  return simt::launch<T, 1>(select_simt_kernel<T, kMode>, A,
+                            simt::Products{r, nullptr, 0, 0}, B, n, m, ntiles,
+                            s, r, static_cast<const T*>(A), pval, pidx, psig,
+                            amask, eta, B, n, m, ntiles);
 }
 
 template <typename T>
-void launch_select(const float* r, const void* A, float* pval, int* pidx,
-                   float* psig, const uint8_t* amask, float eta, int B, int n,
-                   int m, cudaStream_t s) {
-  const int ntiles = (m + kTile - 1) / kTile;
-  const dim3 grid(ntiles, (B + kRows - 1) / kRows);
-  const T* a = static_cast<const T*>(A);
+cudaError_t launch_select(const float* r, const void* A, float* pval,
+                          int* pidx, float* psig, const uint8_t* amask,
+                          float eta, int B, int n, int m, cudaStream_t s) {
   if (psig) {
-    select_argmax_kernel<T, true, false><<<grid, kTile, 0, s>>>(
-        r, a, pval, pidx, psig, nullptr, 1.f, B, n, m, ntiles);
-  } else if (amask) {
-    select_argmax_kernel<T, false, true><<<grid, kTile, 0, s>>>(
-        r, a, pval, pidx, nullptr, amask, eta, B, n, m, ntiles);
-  } else {
-    select_argmax_kernel<T, false, false><<<grid, kTile, 0, s>>>(
-        r, a, pval, pidx, nullptr, nullptr, 1.f, B, n, m, ntiles);
+    return launch_select_mode<T, mma::kSigned>(r, A, pval, pidx, psig, nullptr,
+                                          1.f, B, n, m, s);
   }
+  if (amask) {
+    return launch_select_mode<T, mma::kMasked>(r, A, pval, pidx, nullptr, amask,
+                                          eta, B, n, m, s);
+  }
+  return launch_select_mode<T, mma::kAbs>(r, A, pval, pidx, nullptr, nullptr, 1.f,
+                                     B, n, m, s);
 }
 
 namespace mma {
@@ -218,10 +226,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// f32: the CUDA-core loop's plain f32 map (simt::tensor_map_f32); else the
+// tensor-core loops' swizzled bf16 map.
 struct MapKey {
   const void* base;
   uint64_t cols, rows, pitch;
-  uint64_t box_rows;
+  uint64_t box_cols, box_rows;
+  uint64_t f32;
 };
 
 struct MapSlot {
@@ -234,28 +245,30 @@ constexpr int kMapSlots = 64;
 std::mutex map_mutex;
 MapSlot map_cache[kMapSlots];
 
-}  // namespace
-
-cudaError_t tensor_map(CUtensorMap* out, const void* base, uint64_t cols,
-                       uint64_t rows, uint64_t pitch, uint32_t box_rows) {
-  const MapKey key{base, cols, rows, pitch, box_rows};
+cudaError_t cached_map(CUtensorMap* out, const MapKey& key) {
   const uint64_t h =
-      (reinterpret_cast<uintptr_t>(base) >> 8) * 0x9E3779B97F4A7C15ull +
-      cols * 31 + rows * 131 + pitch * 8191 + box_rows;
+      (reinterpret_cast<uintptr_t>(key.base) >> 8) * 0x9E3779B97F4A7C15ull +
+      key.cols * 31 + key.rows * 131 + key.pitch * 8191 + key.box_rows +
+      key.box_cols * 127 + key.f32 * 524287;
   std::lock_guard<std::mutex> lock(map_mutex);
   MapSlot& slot = map_cache[(h >> 32) % kMapSlots];
   if (!slot.used || std::memcmp(&slot.key, &key, sizeof(key)) != 0) {
     EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return cudaErrorInvalidValue;
-    const cuuint64_t dims[2] = {cols, rows};
-    const cuuint64_t strides[1] = {pitch * sizeof(__nv_bfloat16)};
-    const cuuint32_t box[2] = {kHalf, box_rows};
+    const size_t elem_bytes = key.f32 ? sizeof(float) : sizeof(__nv_bfloat16);
+    const cuuint64_t dims[2] = {key.cols, key.rows};
+    const cuuint64_t strides[1] = {key.pitch * elem_bytes};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(key.box_cols),
+                               static_cast<cuuint32_t>(key.box_rows)};
     const cuuint32_t elem[2] = {1, 1};
     slot.used = false;
     const CUresult res = encode(
-        &slot.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-        const_cast<void*>(base), dims, strides, box, elem,
-        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        &slot.map,
+        key.f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        2, const_cast<void*>(key.base), dims, strides, box, elem,
+        CU_TENSOR_MAP_INTERLEAVE_NONE,
+        key.f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
     slot.key = key;
@@ -265,7 +278,29 @@ cudaError_t tensor_map(CUtensorMap* out, const void* base, uint64_t cols,
   return cudaSuccess;
 }
 
+}  // namespace
+
+cudaError_t tensor_map(CUtensorMap* out, const void* base, uint64_t cols,
+                       uint64_t rows, uint64_t pitch, uint32_t box_rows) {
+  return cached_map(out, MapKey{base, cols, rows, pitch, kHalf, box_rows, 0});
+}
+
 }  // namespace mma
+
+namespace simt {
+
+cudaError_t tensor_map_f32(CUtensorMap* out, const float* base, int cols,
+                           int rows, long long pitch, int box_cols,
+                           int box_rows) {
+  return mma::cached_map(
+      out, mma::MapKey{base, static_cast<uint64_t>(cols),
+                       static_cast<uint64_t>(rows),
+                       static_cast<uint64_t>(pitch),
+                       static_cast<uint64_t>(box_cols),
+                       static_cast<uint64_t>(box_rows), 1});
+}
+
+}  // namespace simt
 
 }  // namespace cstpu
 
@@ -306,11 +341,10 @@ extern "C" int cstpu_select_argmax(const float* r, const void* A,
     }
     return static_cast<int>(err);
   }
-  if (cdt_bf16) {
-    launch_select<__nv_bfloat16>(r, A, pval, pidx, psig, amask, eta, B, n, m,
-                                 s);
-  } else {
-    launch_select<float>(r, A, pval, pidx, psig, amask, eta, B, n, m, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      cdt_bf16 ? launch_select<__nv_bfloat16>(r, A, pval, pidx, psig, amask,
+                                              eta, B, n, m, s)
+               : launch_select<float>(r, A, pval, pidx, psig, amask, eta, B,
+                                      n, m, s);
+  return static_cast<int>(err);
 }

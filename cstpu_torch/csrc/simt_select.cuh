@@ -1,0 +1,448 @@
+// The CUDA-core main loop of the true-f32 selects, shared by the CUDA-core
+// variants of select_argmax.cu (batched OMP, MP, OMPR: K1, K5, K13's masked
+// select) and fr_select.cu (FR, SRR, RMP, FoBa: K3, K14-K16). It computes
+// what common.cuh::score_tile computes, products of rows of r (and of the
+// rescaled selects' pending terms u_p) with the dictionary's atoms, bit for
+// bit: each (row, atom) sum is one fmaf chain over p = 0 .. n-1 from +0,
+// the row entry rounded to the correlation dtype (round_cdt) and the atom's
+// entry in f32, so every score, pick and partial equals score_tile's. The
+// sums stay in f32 on the CUDA cores: no TF32, no split over n, no
+// reassociation (cstpu's precision="f32", cstpu/ops/fused_solve.py:30-35).
+//
+// What bounds it on an H100: 2 B n m f32 operations per product (1.07 G for
+// the bench's select, B = 64, n = 1024, m = 8192: 0.016 ms at 67 TFLOP/s)
+// against one read of the dictionary (32 MB in f32: 0.010 ms at 3.35
+// TB/s). So the FMA pipes bound it, and the loop's job is to keep them
+// issuing: score_tile read one dictionary entry per thread from device
+// memory per step of p and one broadcast float4 of r per four FMAs, with
+// one thread per atom and 16 rows a block (about 9.5% of the bound).
+//
+// Design.
+//   Block: W warps (W in {1, 2, 4, 8}, `warps`) over 4 W measurement rows
+//     and kTile = 128 atoms. Warp w holds rows 4 w .. 4 w + 3 of the block
+//     and all 128 atoms, lane l atoms 4 l .. 4 l + 3: a thread keeps a 4 x 4
+//     register tile of (row, atom) sums per product. The warp covers the
+//     whole tile of its rows, so the argmax over the tile is a warp's
+//     shuffle tree and needs no shared memory or block barrier. At B = 64,
+//     m = 8192 that is 8 warps an SM, two a scheduler: one warp's issue of
+//     FMAs behind its shared loads bounded the 8-row tile (one warp a
+//     scheduler), which was slower on the H100 despite its 8 FMAs a load.
+//   Inner step: four entries of n at a time, from shared memory: one
+//     float4 of the dictionary per entry (the warp reads 512 contiguous
+//     bytes, no bank conflict) and one broadcast float4 of four entries per
+//     row: 8 16-byte loads feed 64 FMAs (score_tile: 4 FMAs a load).
+//   Staging: a ring of stages (two of 128 entries of n for an f32
+//     dictionary, three of 64 for bf16), filled asynchronously with
+//     completion on one mbarrier a stage:
+//     - the dictionary's chunk (entries x 128 atoms) by TMA where base and pitch
+//       allow (f32, base 16-byte aligned, m a multiple of 4; zeros past n
+//       and m from the tensor map), else by 4-byte cp.async with zero fill
+//       (f32 at any base and pitch); a bf16 dictionary (the catch-all of
+//       the tensor-core predicate: any base, any pitch) lands as the 4-byte
+//       words that cover each row's 128 entries and is widened to f32 into
+//       one of two ping-pong tiles before the chunk's products;
+//     - each product's rows (4 W rows x the chunk, [row][entry]) by TMA
+//       where n is a multiple of 4 and the bases are aligned, else by
+//       4-byte cp.async with zero fill; rounded to bf16 in place for a
+//       bf16 dictionary (then fenced for the async proxy, which may
+//       refill the stage).
+//     One thread issues every TMA box of a stage and arrives with the
+//     transaction bytes; where cp.async stages a part, every thread also
+//     arrives through cp.async.mbarrier.arrive.noinc. (4-byte cp.async of
+//     the rows cost ~1.1K SM cycles a chunk in every warp on the H100, as
+//     much as half the multiply-adds: TMA takes it off the warps.) One block barrier a chunk both publishes the
+//     widening and rounding and hands the chunk consumed before back to
+//     the producers, who then fill it with the chunk kStages - 1 ahead.
+//     (On the H100 deeper chunks were faster at every shape tried, 128 in
+//     two over 64 in three or four and 32 in four: a chunk's barrier, wait
+//     and refill are paid by the whole block. A block holds 160 KB (f32,
+//     one product) to 192 KB (f32, two); bf16's two widened tiles leave
+//     room for 64-entry chunks (139-163 KB): one block an SM.)
+//   Edges: zeros past n, past m and past B. A padded entry adds fmaf(0, 0,
+//     s) = s to a sum, exactly: a sum that starts at +0 never becomes -0
+//     under round to nearest, so the chain's bits do not change.
+//   Products: a pass reads each dictionary chunk once for up to kNP
+//     products (kNP = 2 for the rescaled selects: z_p and z_p+1, or the
+//     last term and q); a launch with more products takes more passes over
+//     the same tile, streamed through the same ring (the second and later
+//     reads come from the L2). After a pass the caller's epilogue gets the
+//     products' sums in registers.
+// Launch plan (`warps`): the rows of a block as select_argmax.cu's
+// rows_per_block picks them for the tensor-core loop: the smallest of 4,
+// 8, 16, 32 that holds min(B, 32), halved while twice the blocks would
+// still fit the card's SMs. At B = 64 and m = 8192 that is 128 blocks of 32
+// rows on 132 SMs; the second row chunk reads the dictionary from the L2.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace cstpu {
+namespace simt {
+
+// Entries of n a stage and stages of the ring, by dictionary dtype: 128 in
+// two for f32; the bf16 catch-all's widened tiles leave room for 64 in
+// three.
+template <typename T>
+constexpr int kChunkOf = std::is_same_v<T, float> ? 128 : 64;
+template <typename T>
+constexpr int kStagesOf = std::is_same_v<T, float> ? 2 : 3;
+constexpr int kRT = 4;       // rows a warp (and a thread)
+constexpr int kAT = 4;       // atoms a thread
+constexpr int kMaxWarps = 8;
+constexpr int kWordPitch = 68;  // words of a bf16 chunk row (65 used)
+
+static_assert(kTile == 32 * kAT, "a warp covers the tile");
+static_assert(kChunkOf<float> % 8 == 0 && kChunkOf<__nv_bfloat16> % 8 == 0,
+              "the inner loop takes two groups of four");
+
+// Warps of a block for a batch of B rows and a grid of ntiles tiles.
+__host__ __device__ inline int warps(int B, int ntiles) {
+  int w = 1;
+  while (w < kMaxWarps && kRT * w < B) w *= 2;
+  while (w > 1 &&
+         (long long)ntiles * ((B + kRT * w - 1) / (kRT * w)) * 2 <= kSMs) {
+    w /= 2;
+  }
+  return w;
+}
+
+template <typename T>
+__host__ __device__ constexpr uint32_t a_stage_bytes() {
+  return std::is_same_v<T, float> ? kChunkOf<T> * kTile * 4
+                                  : kChunkOf<T> * kWordPitch * 4;
+}
+
+// One stage: the dictionary's chunk, then kNP products' rows (up to
+// kMaxWarps warps' worth, so that the layout does not depend on W).
+template <typename T, int kNP>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return a_stage_bytes<T>() + kNP * kMaxWarps * kRT * kChunkOf<T> * 4;
+}
+
+// Dynamic shared memory of a block: the ring, bf16's two widened tiles,
+// the kStages barriers and slack to align the ring to 128 bytes.
+template <typename T, int kNP>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return kStagesOf<T> * stage_bytes<T, kNP>() +
+         (std::is_same_v<T, float> ? 0 : 2 * kChunkOf<T> * kTile * 4) +
+         kStagesOf<T> * 8 + 128;
+}
+
+// Entry c (0..3, a constant after unrolling) of v.
+__device__ __forceinline__ float part(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The products of a launch: product p < P is the (B, n) matrix at
+// U + p ustride, product P is r (B, n); both rows n entries apart.
+struct Products {
+  const float* r;
+  const float* U;
+  size_t ustride;
+  int P;
+  __device__ __forceinline__ const float* operator[](int p) const {
+    return p < P ? U + (size_t)p * ustride : r;
+  }
+};
+
+// The launch's tensor maps (f32): the dictionary's (boxes of kTile atoms x
+// a chunk's entries) when tma_a, and the products' rows (boxes of a chunk's
+// entries x the block's rows: r's, and U's as one (P B, n) matrix) when
+// tma_r. What a map does not cover is staged by cp.async.
+struct Maps {
+  CUtensorMap a, r, u;
+  int tma_a, tma_r;
+};
+
+// acc[q][i][c] = round_cdt<T>(product q's row row0 + 4 warp + i) . A[:, j0 +
+// 4 lane + c] for each pass's up to kNP products, every sum one fmaf chain
+// over p = 0 .. n-1. The products (P + 1 of them) are taken kNP to a pass
+// in order; after pass `pass` (products kNP pass .. + np - 1) the loop
+// calls epi(pass, np, acc). A (n, m) has rows m entries apart; `maps` says
+// what TMA stages (an f32 dictionary only). Every thread of the 32 W-wide
+// block calls it once; `smem` is the block's dynamic shared memory,
+// smem_bytes<T, kNP>() of it.
+template <typename T, int kNP, typename Epi>
+__device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
+                                      unsigned char* smem, const Maps& maps,
+                                      const T* __restrict__ A,
+                                      const Products& prod, int j0, int row0,
+                                      int B, int n, int m, Epi&& epi) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  constexpr int kChunk = kChunkOf<T>, kStages = kStagesOf<T>;
+  constexpr uint32_t kStage = stage_bytes<T, kNP>();
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int TR = kRT * (nthreads >> 5);  // rows of the block
+  const uint32_t base = (smem_u32(smem) + 127u) & ~127u;
+  unsigned char* ring = smem + (base - smem_u32(smem));
+  unsigned char* wide = ring + kStages * kStage;  // bf16's widened tiles
+  const uint32_t full = base + kStages * kStage +
+                        (kBf16 ? 2 * kChunk * kTile * 4 : 0);
+  const int nk = (n + kChunk - 1) / kChunk;
+  const int nprod = prod.P + 1;
+  const int npass = (nprod + kNP - 1) / kNP;
+  const int G = npass * nk;
+  const bool tma_a = !kBf16 && maps.tma_a, tma_r = maps.tma_r;
+  const bool tma = tma_a || tma_r, cp = !tma_a || !tma_r;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, (cp ? nthreads : 0) + (tma ? 1 : 0));
+    }
+    mbar_fence_init();
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  // chunk g = pass nk + kc into stage g % kStages
+  auto issue = [&](int g) {
+    const int s = g % kStages, pass = g / nk, p0 = (g % nk) * kChunk;
+    const int np = min(kNP, nprod - kNP * pass);
+    unsigned char* st = ring + s * kStage;
+    float* rs = reinterpret_cast<float*>(st + a_stage_bytes<T>());
+    const uint32_t bar = full + 8 * s;
+    if (tma && tid == 0) {
+      mbar_expect_tx(bar, (tma_a ? a_stage_bytes<float>() : 0) +
+                              (tma_r ? np * TR * kChunk * 4 : 0));
+      if (tma_a) tma_load_2d(base + s * kStage, &maps.a, bar, j0, p0);
+      if (tma_r) {
+        for (int q = 0; q < np; ++q) {
+          const int p = kNP * pass + q;
+          // rows of U past its product's B are the next product's (or
+          // zeros): they land in rows >= B, whose sums nobody reads
+          tma_load_2d(smem_u32(rs + q * kMaxWarps * kRT * kChunk),
+                      p < prod.P ? &maps.u : &maps.r, bar, p0,
+                      (p < prod.P ? p * B : 0) + row0);
+        }
+      }
+    }
+    if (!tma_a) {
+      if constexpr (!kBf16) {
+        float* as = reinterpret_cast<float*>(st);
+        for (int e = tid; e < kChunk * kTile; e += nthreads) {
+          const int k = e / kTile, c = e % kTile;
+          const bool ok = p0 + k < n && j0 + c < m;
+          cp_async4_zfill(as + e,
+                          ok ? A + (size_t)(p0 + k) * m + j0 + c : A, ok);
+        }
+      } else {
+        // the 4-byte words that cover entries j0 .. j0 + 127 of each row
+        uint32_t* aw = reinterpret_cast<uint32_t*>(st);
+        const uintptr_t a = reinterpret_cast<uintptr_t>(A);
+        for (int e = tid; e < kChunk * 65; e += nthreads) {
+          const int k = e / 65, q = e % 65;
+          const int p = p0 + k;
+          const uintptr_t row = a + 2 * ((uintptr_t)p * m + j0);
+          const int shift = (int)((row >> 1) & 1);
+          // the word's first entry inside the tile (its low half, or its
+          // high half for the first word of a row that starts mid-word);
+          // the word is read when that entry is live
+          const int lo = max(2 * q - shift, 0);
+          const bool ok = p < n && lo < kTile && j0 + lo < m;
+          cp_async4_zfill(
+              aw + k * kWordPitch + q,
+              ok ? reinterpret_cast<const void*>((row & ~uintptr_t(3)) + 4 * q)
+                 : static_cast<const void*>(A),
+              ok);
+        }
+      }
+    }
+    if (!tma_r) {
+      for (int q = 0; q < np; ++q) {
+        const float* src = prod[kNP * pass + q];
+        float* dst = rs + q * kMaxWarps * kRT * kChunk;
+        for (int e = tid; e < TR * kChunk; e += nthreads) {
+          const int i = e / kChunk, k = e % kChunk;
+          const bool ok = row0 + i < B && p0 + k < n;
+          cp_async4_zfill(dst + e,
+                          ok ? src + (size_t)(row0 + i) * n + p0 + k : src,
+                          ok);
+        }
+      }
+    }
+    if (cp) cp_async_arrive(bar);
+  };
+
+  for (int g = 0; g < kStages - 1 && g < G; ++g) issue(g);
+
+  for (int g = 0; g < G; ++g) {
+    const int s = g % kStages, pass = g / nk, kc = g % nk;
+    const int np = min(kNP, nprod - kNP * pass);
+    unsigned char* st = ring + s * kStage;
+    float* rs = reinterpret_cast<float*>(st + a_stage_bytes<T>());
+    if (kc == 0) {
+#pragma unroll
+      for (int q = 0; q < kNP; ++q) {
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+#pragma unroll
+          for (int c = 0; c < kAT; ++c) acc[q][i][c] = 0.f;
+        }
+      }
+    }
+    mbar_wait_bounded(full + 8 * s, (g / kStages) & 1);
+    const float* as;
+    if constexpr (kBf16) {
+      // widen the chunk into tile g & 1, and round the rows to bf16
+      float* x = reinterpret_cast<float*>(wide) + (g & 1) * kChunk * kTile;
+      const uint16_t* aw = reinterpret_cast<const uint16_t*>(st);
+      const uintptr_t a = reinterpret_cast<uintptr_t>(A);
+      const int p0 = kc * kChunk;
+      for (int e = tid; e < kChunk * kTile; e += nthreads) {
+        const int k = e / kTile, c = e % kTile;
+        const int shift =
+            (int)(((a + 2 * ((uintptr_t)(p0 + k) * m + j0)) >> 1) & 1);
+        const uint16_t h = aw[k * 2 * kWordPitch + shift + c];
+        x[e] = (p0 + k < n && j0 + c < m)
+                   ? __uint_as_float(static_cast<uint32_t>(h) << 16)
+                   : 0.f;
+      }
+      for (int q = 0; q < np; ++q) {
+        float* dst = rs + q * kMaxWarps * kRT * kChunk;
+        for (int e = tid; e < TR * kChunk; e += nthreads) {
+          dst[e] = round_cdt<T>(dst[e]);
+        }
+      }
+      // the rows were rounded in place by generic stores, and the stage's
+      // next fill may come by TMA (the async proxy): every writer orders
+      // its stores before it, and the block barrier below before the issue
+      if (tma_r) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      as = x;
+    } else {
+      as = reinterpret_cast<const float*>(st);
+    }
+    __syncthreads();
+    if (g + kStages - 1 < G) issue(g + kStages - 1);
+
+    const float* a_lane = as + kAT * lane;
+    const float* r_warp = rs + kRT * warp * kChunk;
+    // four entries of n: the dictionary's float4 of the lane's atoms for
+    // each, and a float4 of the four entries of each row of each product
+    auto load = [&](int k, float4(&av)[4], auto& rv) {
+      constexpr int NPC = sizeof(rv) / sizeof(rv[0]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        av[kk] = *reinterpret_cast<const float4*>(a_lane + (k + kk) * kTile);
+      }
+#pragma unroll
+      for (int q = 0; q < NPC; ++q) {
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+          rv[q][i] = *reinterpret_cast<const float4*>(
+              r_warp + q * kMaxWarps * kRT * kChunk + i * kChunk + k);
+        }
+      }
+    };
+    // the entries in order, each a step of every sum: 32 NPC independent
+    // chains between two steps of one
+    auto fmas = [&](const float4(&av)[4], const auto& rv) {
+      constexpr int NPC = sizeof(rv) / sizeof(rv[0]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int q = 0; q < NPC; ++q) {
+#pragma unroll
+          for (int i = 0; i < kRT; ++i) {
+            const float rk = part(rv[q][i], kk);
+#pragma unroll
+            for (int c = 0; c < kAT; ++c) {
+              acc[q][i][c] = fmaf(rk, part(av[kk], c), acc[q][i][c]);
+            }
+          }
+        }
+      }
+    };
+    auto mac = [&](auto npc) {
+      constexpr int NPC = decltype(npc)::value;
+      float4 av0[4], rv0[NPC][kRT];
+      load(0, av0, rv0);
+      if constexpr (NPC == 1) {
+        // registers allow one group in flight while the other multiplies
+        float4 av1[4], rv1[NPC][kRT];
+#pragma unroll
+        for (int k = 0; k < kChunk; k += 8) {
+          load(k + 4, av1, rv1);
+          fmas(av0, rv0);
+          if (k + 8 < kChunk) load(k + 8, av0, rv0);
+          fmas(av1, rv1);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kChunk; k += 4) {
+          if (k > 0) load(k, av0, rv0);
+          fmas(av0, rv0);
+        }
+      }
+    };
+    if (kNP == 1 || np == 1) {
+      mac(std::integral_constant<int, 1>{});
+    } else {
+      mac(std::integral_constant<int, kNP>{});
+    }
+    if (kc == nk - 1) epi(pass, np, acc);
+  }
+}
+
+// The tensor map of an f32 (rows, cols) matrix at base, rows `pitch`
+// entries apart, in boxes of box_cols x box_rows, no swizzle, zeros past
+// the edges. Encoded once per (base, shape, pitch, box) and kept
+// (select_argmax.cu); cudaErrorInvalidValue if the encoder refuses it.
+cudaError_t tensor_map_f32(CUtensorMap* out, const float* base, int cols,
+                           int rows, long long pitch, int box_cols,
+                           int box_rows);
+
+// TMA's terms for an f32 matrix: base aligned to 16 bytes, rows a multiple
+// of 16 bytes apart.
+inline bool tma_takes(const void* base, long long pitch) {
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && pitch % 4 == 0;
+}
+
+// The maps of a launch with W warps a block: the dictionary's where it is
+// f32 and TMA takes it; the rows' where TMA takes r and U (n a multiple
+// of 4, bases aligned).
+inline cudaError_t make_maps(Maps& mp, const void* A, bool a_f32,
+                             const Products& prod, int B, int n, int m,
+                             int w, int chunk) {
+  mp.tma_a = a_f32 && tma_takes(A, m);
+  mp.tma_r = tma_takes(prod.r, n) &&
+             (prod.P == 0 || tma_takes(prod.U, n));
+  cudaError_t err = cudaSuccess;
+  if (mp.tma_a) {
+    err = tensor_map_f32(&mp.a, static_cast<const float*>(A), m, n, m,
+                         kTile, chunk);
+    if (err != cudaSuccess) return err;
+  }
+  if (mp.tma_r) {
+    err = tensor_map_f32(&mp.r, prod.r, n, B, n, chunk, kRT * w);
+    if (err == cudaSuccess && prod.P > 0) {
+      err = tensor_map_f32(&mp.u, prod.U, n, prod.P * B, n, chunk, kRT * w);
+    }
+  }
+  return err;
+}
+
+// Launch kern(maps, args...) over the (ntiles, row chunks) grid of the
+// loop's plan, with its tensor maps; opts into the dynamic shared memory
+// first. Returns the first error.
+template <typename T, int kNP, typename Kern, typename... Args>
+cudaError_t launch(Kern kern, const void* A, const Products& prod, int B,
+                   int n, int m, int ntiles, cudaStream_t s, Args... args) {
+  constexpr int kSmem = static_cast<int>(smem_bytes<T, kNP>());
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int w = warps(B, ntiles);
+  Maps maps{};
+  err = make_maps(maps, A, std::is_same_v<T, float>, prod, B, n, m, w,
+                  kChunkOf<T>);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ntiles, (B + kRT * w - 1) / (kRT * w));
+  kern<<<grid, 32 * w, kSmem, s>>>(maps, args...);
+  return cudaGetLastError();
+}
+
+}  // namespace simt
+}  // namespace cstpu

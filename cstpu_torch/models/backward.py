@@ -37,7 +37,8 @@ import torch
 from cstpu_torch.models.matching_pursuit import row_solution
 from cstpu_torch.ops import active_set as aset
 from cstpu_torch.ops.util import (
-    LOOP_COUNTS, cholesky_nan, masked_argmin, norm2, stopped, true_f32)
+    LOOP_COUNTS, as_inputs, cholesky_nan, masked_argmin, norm2, stopped,
+    true_f32)
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -64,6 +65,7 @@ def backward_deltas_rows(Bs, st, m: int, naive: bool = False,
 
 def backward_deltas(b, st, m: int, naive: bool = False):
     """`backward_deltas_rows` for one instance: (kmax,)."""
+    b = as_inputs(b, st.coef)[0]
     return backward_deltas_rows(b[None], aset.one_row(st), m, naive)[0]
 
 
@@ -97,6 +99,7 @@ def backward_step_rows(A, Bs, st, max_eps, max_delta, m: int,
 def backward_step(A, b, st, max_eps, max_delta, m: int, naive: bool = False):
     """`backward_step_rows` for one instance: (state, accepted); a
     rejected step returns the state it was given."""
+    A, b = as_inputs(A, b, st.coef)[:2]
     st2, accept = backward_step_rows(A, b[None], aset.one_row(st), max_eps,
                                      max_delta, m, naive)
     return (aset.row_of(st2), True) if bool(accept[0]) else (st, False)
@@ -150,6 +153,7 @@ def br(A, b, max_residual: float = math.inf, max_increase: float = math.inf,
     least-increase atom while more than `sparsity` are active, the residual
     norm stays below `max_residual` and the increase below
     `max_increase^2`. `naive` re-solves the leave-one-out problems."""
+    A, b = as_inputs(A, b)
     return row_solution(_br_rows(A, b[None], max_residual, max_increase,
                                  sparsity, naive))
 
@@ -277,6 +281,7 @@ def fbr(A, b, max_residual: float = math.inf, max_increase: float = math.inf,
         sparsity: int = 0, return_failed: bool = False):
     """Fast backward regression on a cached Gram inverse. With
     `return_failed=True` also returns the numerical-instability flag."""
+    A, b = as_inputs(A, b)
     sol, failed = _fbr_rows(A, b[None], max_residual, max_increase,
                             sparsity)
     sol, failed = row_solution(sol), failed[0]
@@ -309,6 +314,7 @@ def lace_step_rows(A, Bs, st, max_eps, max_delta, m: int):
 def lace_step(A, b, st, max_eps, max_delta, m: int):
     """`lace_step_rows` for one instance: (state, accepted); a rejected
     step returns the state it was given."""
+    A, b = as_inputs(A, b, st.coef)[:2]
     st2, accept = lace_step_rows(A, b[None], aset.one_row(st), max_eps,
                                  max_delta, m)
     return (aset.row_of(st2), True) if bool(accept[0]) else (st, False)
@@ -328,5 +334,6 @@ def _lace_rows(A, Bs, max_residual: float = math.inf,
 def lace(A, b, max_residual: float = math.inf,
          max_increase: float = math.inf, sparsity: int = 0) -> SparseSolution:
     """Least absolute coefficient elimination (A must be overdetermined)."""
+    A, b = as_inputs(A, b)
     return row_solution(_lace_rows(A, b[None], max_residual, max_increase,
                                    sparsity))

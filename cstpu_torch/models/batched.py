@@ -104,6 +104,7 @@ def batch(solver, **fixed):
     body = _BODIES.get(solver)
 
     def batched(A, Bs, **kw):
+        A, Bs = _inputs(A, Bs)
         merged = {**fixed, **kw}
         if body is not None:
             return body(A, Bs, **merged)

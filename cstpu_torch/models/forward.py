@@ -21,7 +21,7 @@ import torch
 from cstpu_torch.models.matching_pursuit import row_solution
 from cstpu_torch.ops import active_set as aset
 from cstpu_torch.ops.select import top1
-from cstpu_torch.ops.util import LOOP_COUNTS, stopped
+from cstpu_torch.ops.util import LOOP_COUNTS, as_inputs, stopped
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -41,6 +41,7 @@ def forward_deltas_rows(A, Bs, st, colnorm2, m: int):
 
 def forward_deltas(A, b, st, colnorm2, m: int):
     """`forward_deltas_rows` for one instance: (delta^2 (m,), ||r||)."""
+    A, b, colnorm2 = as_inputs(A, b, colnorm2)
     d2, normr = forward_deltas_rows(A, b[None], aset.one_row(st), colnorm2, m)
     return d2[0], normr[0]
 
@@ -50,6 +51,7 @@ def exhaustion_floor(A, b):
     ||b||, the backward-error scale of an n-dimensional LS residual. Below
     it the fit is exact to rounding and further additions would pick
     degenerate atoms. b (n,) or rows (B, n) (then one floor a row)."""
+    A, b = as_inputs(A, b)
     n = A.shape[0]
     return (8.0 * torch.sqrt(torch.tensor(float(n), dtype=A.dtype,
                                           device=A.device))
@@ -82,6 +84,7 @@ def forward_step_rows(A, Bs, st, max_eps, min_delta, colnorm2, m: int):
 
 def forward_step(A, b, st, max_eps, min_delta, colnorm2, m: int):
     """`forward_step_rows` for one instance: (state, accepted, deltas)."""
+    A, b, colnorm2 = as_inputs(A, b, colnorm2)
     st2, accepted, d2 = forward_step_rows(A, b[None], aset.one_row(st),
                                           max_eps, min_delta, colnorm2, m)
     return aset.row_of(st2), accepted[0], d2[0]
@@ -131,6 +134,7 @@ def fr(A, b, max_residual: float = 0.0, min_decrease: float = 0.0,
     floored at `exhaustion_floor`; with it, exactly k atoms are accepted
     when the criteria allow, as on the kernel path.
     """
+    A, b = as_inputs(A, b)
     return row_solution(_fr_rows(A, b[None], max_residual, min_decrease,
                                  sparsity))
 
@@ -153,5 +157,6 @@ def _fr_warm_rows(A, Bs, nzind) -> SparseSolution:
 def fr_warm(A, b, nzind) -> SparseSolution:
     """Restricted LS fit on a given support, the warm-start constructor
     `FR(A, b, nzind)` of the reference."""
+    A, b = as_inputs(A, b)
     nz = torch.as_tensor(nzind, dtype=torch.int32, device=A.device)
     return row_solution(_fr_warm_rows(A, b[None], nz[None]))

@@ -25,7 +25,7 @@ import torch
 
 from cstpu_torch.ops import active_set as aset
 from cstpu_torch.ops.select import abs_correlate, top1, topl
-from cstpu_torch.ops.util import LOOP_COUNTS, stopped
+from cstpu_torch.ops.util import LOOP_COUNTS, as_inputs, stopped
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -52,6 +52,7 @@ def mp(A, b, k: int):
 
     Requires unit-norm columns. Returns a dense (m,) vector.
     """
+    A, b = as_inputs(A, b)
     return _mp_rows(A, b[None], k)[0]
 
 
@@ -91,6 +92,7 @@ def omp(A, b, k: int | None = None, max_residual: float = 0.0) -> SparseSolution
     `k` caps the sparsity (default min(n, m)); `max_residual` is the epsilon
     stopping rule on the post-step residual norm.
     """
+    A, b = as_inputs(A, b)
     return row_solution(_omp_rows(A, b[None], k, max_residual))
 
 
@@ -134,6 +136,7 @@ def _gomp_rows(A, Bs, l: int, k: int | None = None,
 def gomp(A, b, l: int, k: int | None = None,
          max_residual: float = 0.0) -> SparseSolution:
     """Generalized OMP: add the top-l correlated atoms per iteration."""
+    A, b = as_inputs(A, b)
     return row_solution(_gomp_rows(A, b[None], l, k, max_residual))
 
 
@@ -152,4 +155,5 @@ def _oblivious_rows(A, Bs, k: int) -> SparseSolution:
 def oblivious(A, b, k: int) -> SparseSolution:
     """One-shot thresholding: LS fit on the k atoms most correlated with b.
     Requires 0 < k <= min(n, m)."""
+    A, b = as_inputs(A, b)
     return row_solution(_oblivious_rows(A, b[None], k))

@@ -34,7 +34,8 @@ from cstpu_torch.models.backward import backward_step_rows
 from cstpu_torch.models.forward import exhaustion_floor, forward_step_rows
 from cstpu_torch.models.matching_pursuit import row_solution
 from cstpu_torch.ops import active_set as aset
-from cstpu_torch.ops.util import LOOP_COUNTS, padded_to_dense, read_latch
+from cstpu_torch.ops.util import (LOOP_COUNTS, as_inputs, padded_to_dense,
+                                  read_latch)
 from cstpu_torch.utils.sparse import SparseSolution
 
 FORWARD, BACKWARD, DONE = 0, 1, 2
@@ -223,6 +224,7 @@ def rmp(A, b, k: int | None = None, delta: float | None = None,
     coefficient vector would be read as indices: pass coefficients as
     floats.
     """
+    A, b = as_inputs(A, b)
     return row_solution(_rmp_rows(A, b[None], k, delta, maxiter, x0))
 
 
@@ -237,4 +239,5 @@ def foba(A, b, delta: float) -> SparseSolution:
     forward step, backward steps are taken only while their residual
     increase is at most half the forward decrease; at most n iterations,
     ending at the first rejected forward step."""
+    A, b = as_inputs(A, b)
     return row_solution(_foba_rows(A, b[None], delta))

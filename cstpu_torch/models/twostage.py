@@ -23,8 +23,8 @@ from cstpu_torch.models.forward import forward_deltas_rows, forward_step_rows
 from cstpu_torch.models.matching_pursuit import _add_absent_rows, row_solution
 from cstpu_torch.ops import active_set as aset
 from cstpu_torch.ops.select import abs_correlate, top1, topl
-from cstpu_torch.ops.util import (LOOP_COUNTS, masked_argmax, masked_argmin,
-                                  padded_to_dense, stopped)
+from cstpu_torch.ops.util import (LOOP_COUNTS, as_inputs, masked_argmax,
+                                  masked_argmin, padded_to_dense, stopped)
 from cstpu_torch.utils.sparse import SparseSolution
 
 
@@ -102,6 +102,7 @@ def sp(A, b, k: int, delta: float = 1e-12,
     `delta`. As the reference, 2k <= n is required, maxiter defaults to
     16k, and the last pruned iterate is kept even if it did not improve.
     """
+    A, b = as_inputs(A, b)
     return row_solution(_sp_rows(A, b[None], k, delta, maxiter))
 
 
@@ -141,6 +142,7 @@ def ompr(A, b, k: int, delta: float, eta: float = 1.0,
     |coefficient|, LS refit; stop when no passive atom scores above 0, the
     residual norm is <= delta, or it does not improve. maxiter defaults to
     n."""
+    A, b = as_inputs(A, b)
     return row_solution(_ompr_rows(A, b[None], k, delta, eta, maxiter))
 
 
@@ -223,5 +225,6 @@ def srr(A, b, k: int, delta: float = 1e-12, maxiter: int | None = None,
     forward-regression adds, 3 = k atoms drawn at random with `key`, a
     torch.Generator (required; its draws are torch's, not cstpu's).
     """
+    A, b = as_inputs(A, b)
     return row_solution(_srr_rows(A, b[None], k, delta, maxiter,
                                   initialization, l, key))

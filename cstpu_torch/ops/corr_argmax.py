@@ -32,6 +32,7 @@ import torch
 from cstpu_torch.ops.fused_solve import _CDTS, LAUNCHES, TILE, _on_cpu
 from cstpu_torch.ops.stream_select import (
     _abs_scores, _fold_top1, _launch_top1)
+from cstpu_torch.ops.util import as_inputs
 
 LAUNCHES.update(corr_argmax=0, corr_argmax_mma=0)
 
@@ -82,6 +83,7 @@ def correlate_argmax(A, r, mma=None):
     0-d tensors for a single residual or (B,) i32 and f32 tensors for a
     batch. m must have a 128-multiple divisor tile (see `supported`).
     `mma` = True or False forces a kernel variant."""
+    A, r = as_inputs(A, r)
     if _on_cpu(A, r):
         return correlate_argmax_ref(A, r)
     R, single = _as_columns(A, r)

@@ -84,13 +84,14 @@ def solve_nan(C, X):
     return torch.where(bad, torch.nan, out)
 
 
-def as_inputs(A, Bs):
-    """The dictionary and the measurements as tensors. A tensor keeps its
-    device: that is how a caller asks for the CPU. What is not a tensor
-    goes where the other argument lies when that one is a tensor, else to
-    the CUDA device; without one this raises instead of solving on the
-    CPU unasked."""
-    given = [x.device for x in (A, Bs) if isinstance(x, torch.Tensor)]
+def as_inputs(*arrays):
+    """The arrays as tensors, by one rule for every public entry point. A
+    tensor keeps its device: that is how a caller asks for the CPU. What is
+    not a tensor (a numpy array, a list, a number) goes where the first
+    tensor among the arguments lies, else to the CUDA device; without one
+    this raises instead of solving on the CPU unasked. Returns a tuple in
+    the arguments' order."""
+    given = [x.device for x in arrays if isinstance(x, torch.Tensor)]
     if not given and not torch.cuda.is_available():
         raise RuntimeError(
             "cstpu_torch: the inputs are not tensors and no CUDA device is "
@@ -98,7 +99,7 @@ def as_inputs(A, Bs):
             "on the CPU")
     dev = given[0] if given else torch.device("cuda")
     return tuple(x if isinstance(x, torch.Tensor)
-                 else torch.as_tensor(x, device=dev) for x in (A, Bs))
+                 else torch.as_tensor(x, device=dev) for x in arrays)
 
 
 @contextlib.contextmanager

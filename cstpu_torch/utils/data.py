@@ -79,7 +79,10 @@ coherent_data = correlated_data
 
 def perturb(gen: torch.Generator, b, delta: float):
     """Add Gaussian noise rescaled to exact l2 norm `delta` (per row for a
-    batched (B, n) measurement matrix)."""
+    batched (B, n) measurement matrix). A b that is not a tensor goes
+    where the generator lies."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(b, device=gen.device)
     e = torch.randn(b.shape, generator=gen, device=b.device, dtype=b.dtype)
     if b.ndim == 2:
         e = e * (delta / torch.linalg.norm(e, dim=1, keepdim=True))

@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import torch
 
+from cstpu_torch.ops.util import as_inputs
+
 
 def colnorms(A):
     """l2 norm of every column of A."""
+    (A,) = as_inputs(A)
     return torch.sqrt(torch.sum(A * A, dim=0))
 
 
 def normalize_columns(A):
     """Return A with unit-l2-norm columns."""
+    (A,) = as_inputs(A)
     return A / colnorms(A)[None, :]
 
 
@@ -28,6 +32,7 @@ def cumbabel(A, k: int):
     mu_1(j) = max_i max_{|Lambda|=j, i not in Lambda} sum_{l in Lambda}
     |<a_i, a_l>| (Tropp, "Greed is Good").
     """
+    (A,) = as_inputs(A)
     G = torch.abs(A.T @ A)
     m = G.shape[0]
     G = G * (1.0 - torch.eye(m, dtype=G.dtype, device=G.device))
@@ -52,7 +57,7 @@ def mean_preconditioner(eps: float):
     vectors or matrices alike.
     """
     def apply(x):
-        x = torch.as_tensor(x)
+        (x,) = as_inputs(x)
         if x.ndim == 1:
             mu = torch.mean(x)
         else:
@@ -67,6 +72,7 @@ def svd_preconditioner(A, min_sigma: float = 1e-6):
     Applying it to the dictionary (and the measurements) flattens the
     spectrum, which helps greedy selection on coherent dictionaries.
     """
+    (A,) = as_inputs(A)
     U, S, _ = torch.linalg.svd(A, full_matrices=False)
     Sinv = 1.0 / torch.clamp(S, min=min_sigma)
 

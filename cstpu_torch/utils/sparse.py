@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cstpu_torch.ops.util import as_inputs
+
 
 @dataclass(frozen=True)
 class SparseSolution:
@@ -49,7 +51,9 @@ class SparseSolution:
 
 
 def from_dense(x, kmax: int | None = None, tol: float = 0.0) -> SparseSolution:
-    """Build a SparseSolution from a dense (m,) vector."""
+    """Build a SparseSolution from a dense (m,) vector (a host-side helper,
+    as cstpu's: a tensor keeps its device, anything else stays on the
+    host)."""
     x = torch.as_tensor(x)
     m = x.shape[0]
     nz = torch.nonzero(x.abs() > tol).flatten()
@@ -67,7 +71,7 @@ def from_dense(x, kmax: int | None = None, tol: float = 0.0) -> SparseSolution:
 
 def droptol(x, tol: float):
     """Drop entries with |value| <= tol: masks a SparseSolution's entries,
-    zeroes a dense tensor's."""
+    zeroes a dense tensor's (a non-tensor's on the host)."""
     if isinstance(x, SparseSolution):
         keep = x.mask & (x.val.abs() > tol)
         return SparseSolution(
@@ -85,13 +89,14 @@ def polish(A, b, x, tol: float = 1e-3):
 
     Returns a dense vector for dense input, a SparseSolution for
     SparseSolution input (same slot width)."""
-    A = torch.as_tensor(A)
-    b = torch.as_tensor(b, dtype=A.dtype, device=A.device)
+    sparse = isinstance(x, SparseSolution)
+    A, b, dense = as_inputs(A, b, x.val if sparse else x)
+    b = b.to(A.dtype)
     m = A.shape[1]
-    if isinstance(x, SparseSolution):
+    if sparse:
         nz = torch.as_tensor(droptol(x, tol).nzind, dtype=torch.long)
     else:
-        nz = torch.nonzero(torch.as_tensor(x).abs() > tol).flatten().cpu()
+        nz = torch.nonzero(dense.abs() > tol).flatten().cpu()
     if len(nz) == 0:
         return (x if isinstance(x, SparseSolution)
                 else torch.zeros((m,), dtype=A.dtype, device=A.device))
@@ -112,7 +117,8 @@ def polish(A, b, x, tol: float = 1e-3):
 
 
 def support(x, tol: float = 0.0) -> np.ndarray:
-    """Sorted support of a dense vector or SparseSolution (host numpy)."""
+    """Sorted support of a dense vector or SparseSolution (host numpy; a
+    non-tensor is read on the host, as cstpu reads it)."""
     if isinstance(x, SparseSolution):
         return x.nzind
     x = torch.as_tensor(x)

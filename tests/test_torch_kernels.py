@@ -1,5 +1,6 @@
 """The CUDA kernels of cstpu_torch (select_argmax in its tensor-core and
-CUDA-core variants, omp_append, mp_update,
+CUDA-core variants, the CUDA-core loop of select_argmax and fr_select over
+chip_smoke.SIMT_CASES, omp_append, mp_update,
 select_topl (tensor-core and CUDA-core variants), gomp_append, fr_select
 (tensor-core and CUDA-core variants),
 fr_append, the two-stage ones:
@@ -2382,3 +2383,23 @@ def test_engine_wrappers_launch_at_the_budget_edge(dev):
         ft._rmp_append_ref(*parts, Ac32, Bs, st, 0.0, floor2, True)
         torch.cuda.synchronize()
         _same_state(stk, st, slice(0, None))
+
+
+# --------------------------------------------------------------------------
+# the CUDA-core variants of select_argmax and fr_select on their staged,
+# register-tiled loop (csrc/simt_select.cuh)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,n,m,off", chip_smoke.SIMT_CASES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_simt_selects_match_plain_on_every_row(dev, B, n, m, off, cdt):
+    # select_argmax's three modes and fr_select with 0, 1, 2 and 16 pending
+    # terms, forced onto the CUDA-core variant: every row's pick equal to
+    # the plain twin's (a duplicated column -> its lower index, a NaN row
+    # -> INT_MAX, an all-masked row), values within SELECT_RTOL, the
+    # rescalings within RESC_ATOL; at an aligned base and m = 2048, and at
+    # an unaligned base with a ragged, odd pitch
+    sel_err, resc_err, _ = chip_smoke.hold_simt_select(dev, B, n, m, off,
+                                                       cdt)
+    assert sel_err <= chip_smoke.SELECT_RTOL
+    assert resc_err <= chip_smoke.RESC_ATOL

@@ -34,6 +34,19 @@ chip_smoke.WIDE_K on chip_smoke.SHARDS shards of 5c's problem, the
 sharded body whose torch operations on the batched active-set engine at
 2k slots take most of its device time): wall ms (CUDA events,
 chip_smoke.cuda_ms: the median of up to chip_smoke.TIMED_SLOW solves) and device busy ms (one profiled solve).
+    python3 tools/ab_paths.py ROOT TAG --f32 [OUT]
+
+times only the true-f32 selects (the CUDA-core variants of select_argmax
+and fr_select): device ms per launch (chip_smoke.device_ms_per_call) of the top-1
+select at the bench shape (B = 64, n = 1024, m = 8192; |s|, signed and
+masked) and at 5b's (m = 131072), of fr_select at 3a's (one pending term)
+and with SRR's first
+call's 16 terms, beside the f32 torch.matmul of the same products; and the
+f32 solves omp_batch(precision="f32") and fr_batch(precision="f32") (wall
+ms by events, device busy ms). It saves every output (partials,
+rescalings, solutions) to OUT/ab_f32_TAG.pt (OUT: this checkout's
+build/ab_f32 by default) and holds them bit for bit against every other
+TAG's file there: run the parent and the change in turn on one machine.
 Each line gives the update kernels' registers (the deletion kernels'
 spill stores beside theirs), the device busy ms per
 solve (torch.profiler: the union of the device spans; beside it their
@@ -156,6 +169,102 @@ def sharded_sp(cs, tag):
           f"{sp_['idle_share']:.3f}, recovery {rec:.3f}", flush=True)
 
 
+def f32_selects(cs, tag, out_dir):
+    """The --f32 mode (see the module's note)."""
+    import torch
+
+    def bits(x):
+        """A tensor's bits: floats as int32 (NaNs compare equal)."""
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    import cstpu_torch
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.utils.data import correlated_data
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    _, B, n, m, k = cs.CELLS[0]
+    A, Bs, _ = cs.planted(gen, B, n, m, k)
+    amask = (torch.rand(B, m, generator=gen, device=dev) < 0.01).to(
+        torch.uint8)
+    _, _, _, _, kf, decay = cs.FR_CELL
+    Ar = correlated_data(gen, n, m, kf, decay=decay)[0].contiguous()
+    Br, _ = cs.planted_ones(gen, Ar, B, kf)
+    cn2 = torch.sum(Ar * Ar, dim=0)
+    st = fs._init_fr(Br, kf, cn2)
+    for t in range(kf // 2):   # 3a's state half way, by the plain twins
+        fs._fr_append_ref(*fs._fr_select_ref(Ar, cn2, st, torch.float32),
+                          Ar, Br, st, t, 0.0, 0.0)
+    P = 16   # SRR's first call: 16 pending terms
+    U = 0.1 * torch.randn(P, B, n, generator=gen, device=dev)
+    W = torch.rand(P, B, generator=gen, device=dev)
+
+    def fr_call(s, pend=None):
+        if pend is None:
+            return [*fs.fr_select(Ar, cn2, s, mma=False), s.resc]
+        return [*fs.rescaled_select(Ar, cn2, s.r, *pend, -1.0, s.amask,
+                                    s.resc, mma=False), s.resc]
+
+    def fresh():
+        return fs._FrState(*(x.clone() for x in st))
+
+    timed = fresh()   # the rescalings the timed calls downdate
+    calls = {   # name: (the launch, on a given state for fr, the library call)
+        "select bench": (lambda: fs.select_argmax(Bs, A, mma=False),
+                         lambda: torch.matmul(Bs, A)),
+        "select signed bench": (
+            lambda: fs.select_argmax(Bs, A, signed=True, mma=False),
+            lambda: torch.matmul(Bs, A)),
+        "select masked bench": (
+            lambda: fs.select_argmax(Bs, A, amask=amask, eta=0.5, mma=False),
+            lambda: torch.matmul(Bs, A)),
+        "fr_select 3a": (lambda s=None: fr_call(s or timed),
+                         lambda: torch.matmul(torch.cat([st.r, st.aperp]),
+                                              Ar)),
+        "fr_select 3a 16 terms": (
+            lambda s=None: fr_call(s or timed, (U, W)),
+            lambda: torch.matmul(torch.cat([st.r, *U]), Ar)),
+    }
+    # 5b's dictionary (m = 131072) on a generator of its own
+    _, B5, n5, m5, k5 = cs.CELLS[1]
+    A5, Bs5, _ = cs.planted(torch.Generator(device=dev).manual_seed(cs.SEED),
+                            B5, n5, m5, k5)
+    calls["select 5b"] = (lambda: fs.select_argmax(Bs5, A5, mma=False),
+                          lambda: torch.matmul(Bs5, A5))
+    outputs = {}
+    for name, (kern, lib) in calls.items():
+        ms, lib_ms = cs.device_ms_per_call(kern), cs.device_ms_per_call(lib)
+        got = kern(fresh()) if name.startswith("fr") else kern()
+        outputs[name] = [x.cpu() for x in got]
+        print(f"[ab {tag}] f32 {name}: {cs.ms4(ms)} ms a launch on the "
+              f"device, torch.matmul f32 of its products {cs.ms4(lib_ms)}",
+              flush=True)
+    for name, solve in (
+            ("omp_batch f32 bench", lambda: cstpu_torch.omp_batch(
+                A, Bs, k, precision="f32")),
+            ("fr_batch f32 3a", lambda: cstpu_torch.fr_batch(
+                Ar, Br, sparsity=kf, precision="f32"))):
+        sol = solve()
+        outputs[name] = [sol.idx.cpu(), sol.val.cpu(), sol.mask.cpu()]
+        wall = cs.cuda_ms(lambda: solve().val.sum(), cs.TIMED_SOLVES)
+        busy, _ = cs.profile_path(solve)
+        print(f"[ab {tag}] {name}: wall {wall:.4f} ms, device busy "
+              f"{busy:.4f} ms", flush=True)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(outputs, out_dir / f"ab_f32_{tag}.pt")
+    for other in sorted(out_dir.glob("ab_f32_*.pt")):
+        if other.name == f"ab_f32_{tag}.pt":
+            continue
+        theirs = torch.load(other)
+        same = {name: all(torch.equal(bits(a), bits(b))
+                          for a, b in zip(mine, theirs[name]))
+                for name, mine in outputs.items() if name in theirs}
+        print(f"[ab {tag}] f32 outputs bit for bit equal to "
+              f"{other.stem[len('ab_f32_'):]}'s: {all(same.values())} "
+              f"({same})", flush=True)
+
+
 def main():
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, root)
@@ -173,6 +282,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     _, log = _build.build()
     print(f"[ab {tag}] {cs.gpu_line()}")
+    if "--f32" in sys.argv[3:]:
+        rest = [a for a in sys.argv[3:] if a != "--f32"]
+        f32_selects(cs, tag, rest[0] if rest else
+                    Path(__file__).resolve().parent.parent / "build"
+                    / "ab_f32")
+        return None
     if {"--rows", "--sharded"} & set(sys.argv[3:]):
         if "--rows" in sys.argv[3:]:
             rows(cs, tag)
