@@ -185,10 +185,16 @@ TIMED_SLOW = 3   # timed calls of the solves that take tenths of a second
 WARM_ONCE_S = 0.5
 TIMED_BUDGET_S = 1.0
 # device ms a launch of the CUDA-core selects on the f32 paths before their
-# redesign on simt_select.cuh (the parent's, `tools/ab_paths.py ROOT TAG
-# --f32`; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
+# redesign on simt_select.cuh (each the parent commit's, by `tools/
+# ab_paths.py ROOT TAG --f32`; for K4 and K8, a call is the sweep and the
+# finish, and the time the mean of the A/B's two parent runs; PERF.md,
+# NVIDIA H100 80GB HBM3, 700.00 W)
 F32_BEFORE_MS = {"select bench": 0.1558, "select 5b": 0.9759,
-                 "fr_select 3a": 0.3248}
+                 "fr_select 3a": 0.3248, "select_topl 2a": 0.1795,
+                 "select_topl 2b": 0.2608, "fr_step_select 131072": 0.7066,
+                 "fr_step_select V 131072": 1.4320,
+                 "fr_step_select 32768": 0.3163,
+                 "fr_step_select V 32768": 0.4702}
 # published peaks of one H100 SXM: device memory bytes/s, dense FLOP/s by
 # operand type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -483,7 +489,7 @@ def ms4(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def f32_line(ms, before, bnd, lib):
+def f32_line(ms, before, bnd, lib, lib_name="torch.matmul f32"):
     """A [time f32] line's numbers: device ms beside the parent's, the bound
     and the f32 library call's device ms (either may be not measured)."""
     parts = [(f"{ms:.4f} ms device" if ms else "device ms not measured")
@@ -491,7 +497,7 @@ def f32_line(ms, before, bnd, lib):
              + (f", {before / ms:.2f}x" if ms else ""),
              f"bound {bnd['bound_ms']:.4f} by {bnd['bound_by']}"
              + (f", {bnd['bound_ms'] / ms:.1%} of it" if ms else ""),
-             f"torch.matmul f32 {ms4(lib)}"
+             f"{lib_name} {ms4(lib)}"
              + (f", {ms / lib:.2f}x of it" if ms and lib else "")]
     return "; ".join(parts) + ")"
 
@@ -983,6 +989,27 @@ def greedy_times(A, Bs, Bg, Ar, Br, parts, gpu):
                 lv, dim=2))
     # the f32 path's dictionary, and half the rows (16 a block, not 32)
     tm["select_topl_f32"] = launches(lambda: fs.select_topl(r, Ac32, l))
+    # the CUDA-core variant on the f32 path's f32 dictionary at 2a's l and
+    # 2b's, on the device, beside the parent's time, its f32 bound and one
+    # f32 torch.matmul followed by torch.topk a tile (the matmul alone too)
+    n, m = A.shape
+    tm["select_topl_f32_gemm_device"] = device_ms_per_call(
+        lambda: torch.matmul(r, A))
+    for lv, sfx, cell in ((l, "", "2a"), (SP_CELL[1], "32", "2b")):
+        tm["select_topl" + sfx + "_f32_device"] = device_ms_per_call(
+            lambda: fs.select_topl(r, A, lv))
+        tm["select_topl" + sfx + "_f32_topk_device"] = device_ms_per_call(
+            lambda: torch.matmul(r, A).view(B, T, fs.TILE).abs().topk(
+                lv, dim=2))
+        print(f"[time f32 {cell}] select_topl l={lv}, CUDA cores, B={B} n={n}"
+              f" m={m}: " + f32_line(
+                  tm["select_topl" + sfx + "_f32_device"],
+                  F32_BEFORE_MS[f"select_topl {cell}"],
+                  select_bound(B, n, m, cdt_bytes=4, outs=lv),
+                  tm["select_topl" + sfx + "_f32_topk_device"],
+                  "torch.matmul f32 + torch.topk")
+              + f"; the matmul alone {ms4(tm['select_topl_f32_gemm_device'])}"
+              f" | {gpu}")
     r_half = r[:B // 2].contiguous()
     tm["select_topl_device_half"] = device_ms_per_call(
         lambda: fs.select_topl(r_half, Ac, l))
@@ -1306,8 +1333,11 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 # the kernels by name (a profiler key holds "<name>_kernel"); gomp_append
 # comes before omp_append, fr_select_simt before select_simt (the CUDA-core
 # selects; select_argmax and fr_select in checkouts before them), whose
-# names are inside their own
-KERNEL_NAMES = ("fr_select_simt", "select_simt", "select_argmax", "top1_mma",
+# names are inside their own; select_topl_simt and fr_step_simt are the
+# CUDA-core top-l select and K8 sweep (select_topl and fr_step_sweep in
+# checkouts before them)
+KERNEL_NAMES = ("fr_select_simt", "select_simt", "select_topl_simt",
+                "fr_step_simt", "select_argmax", "top1_mma",
                 "topl_mma", "round_rows", "gomp_append", "omp_append",
                 "fr_append", "mp_update", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
@@ -2400,19 +2430,22 @@ def hold_ompr_swap(dev, B, n, K, cdt):
     return err, plan
 
 
-# the CUDA-core selects' grid (csrc/simt_select.cuh under select_argmax.cu
-# and fr_select.cu): B in {1, 8, 64, 65} by n in {1000, 1024, 1028} by two
-# layouts: m = 2048 at an aligned base (an f32 dictionary and the rows by
-# TMA), and a ragged, odd m = 2001 with the dictionary and the rows one
-# entry into their storage (an unaligned base and an odd pitch: cp.async
-# for both); then an odd n (the rows by cp.async beside a TMA dictionary),
-# a narrow dictionary, and m = 8192 at B = 32 and 65 (4 and 8 warps a
-# block); each in f32 and in bf16 (the catch-all's staged words)
+# the CUDA-core selects' grid (csrc/simt_select.cuh under select_argmax.cu,
+# fr_select.cu, select_topl.cu and fr_step_select.cu): B in {1, 8, 64, 65}
+# by n in {1000, 1024, 1028} by two layouts: m = 2048 at an aligned base
+# (an f32 dictionary and the rows by TMA), and a ragged, odd m = 2001 with
+# the dictionary and the rows one entry into their storage (an unaligned
+# base and an odd pitch: cp.async for both); then an odd n (the rows by
+# cp.async beside a TMA dictionary), a narrow dictionary, m = 8192 at B =
+# 32 and 65 (4 and 8 warps a block), and m = 36864 and 40960 at B = 3 and
+# 8 (fr_step_select's few-row plan for grids past two blocks an SM; the
+# smaller grids above take its other one); each in f32 and in bf16 (the
+# catch-all's staged words)
 SIMT_CASES = [(B, n, m, off) for B in (1, 8, 64, 65)
               for n in (1000, 1024, 1028)
               for m, off in ((2048, 0), (2001, 1))] + [
     (5, 1001, 2048, 0), (3, 130, 384, 0), (32, 1024, 8192, 0),
-    (65, 1028, 8192, 1)]
+    (65, 1028, 8192, 1), (3, 1024, 36864, 0), (8, 1024, 40960, 1)]
 SIMT_TERMS = (0, 1, 2, 16)   # fr_select's pending terms
 SIMT_MODES = ("abs", "signed", "masked")
 SIMT_TIE = 5                 # the duplicated column's first index
@@ -2516,6 +2549,165 @@ def hold_simt_select(dev, B, n, m, off, cdt):
         resc_err = max(resc_err, float((rk - rp).abs().max()))
         assert resc_err <= RESC_ATOL, (P, resc_err)
     return sel_err, resc_err, staging
+
+
+# the top-l select's CUDA-core variant over the grid: each l of SIMT_TOPL_LS
+SIMT_TOPL_LS = (1, 4, 32)
+
+
+def _bits(x):
+    """A tensor's bits: floats as int32, so that NaNs compare equal."""
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def hold_simt_topl(dev, B, n, m, off, cdt):
+    """select_topl's CUDA-core variant (csrc/select_topl.cu on
+    simt_select.cuh) against its plain twin at each l of SIMT_TOPL_LS on
+    one problem of SIMT_CASES, built as hold_simt_select builds it (column
+    m - 1 a copy of SIMT_TIE and row 0 that atom, row 1 a NaN row): values
+    to SELECT_RTOL, the same entries infinite or NaN, indices wherever a
+    pick's value stands clear of its neighbours'; each tile's first entry
+    the top-1 select's CUDA-core partial bit for bit (the same sums); row 0
+    picks SIMT_TIE then m - 1, row 1 l (NaN, INT_MAX) a tile; a tile of 2
+    atoms pads with (-inf, INT_MAX). Returns (max rel value err, the staging
+    that ran: (f32 dictionary by TMA, rows by TMA))."""
+    from cstpu_torch.ops import fused_solve as fs
+
+    gen = torch.Generator(device=dev).manual_seed(B * 131 + n * 7 + m + off)
+    A = torch.randn(n, m, generator=gen, device=dev)
+    A = A / torch.linalg.norm(A, dim=0)
+    A[:, m - 1] = A[:, SIMT_TIE]
+    Ac = _simt_staged(A, off, cdt)
+    Ac32 = Ac.float()
+    r = torch.randn(B, n, generator=gen, device=dev)
+    r[0] = Ac32[:, SIMT_TIE]
+    if B > 1:
+        r[1, n // 2] = float("nan")
+    r = _simt_staged(r, off, torch.float32)
+    staging = (cdt == torch.float32 and Ac.data_ptr() % 16 == 0
+               and m % 4 == 0, r.data_ptr() % 16 == 0 and n % 4 == 0)
+    top1 = fs.select_argmax(r, Ac, mma=False)
+    err = 0.0
+    for l in SIMT_TOPL_LS:
+        (kv, ki), counts = run_counted(lambda: fs.select_topl(r, Ac, l,
+                                                              mma=False))
+        assert counts == expect_launches(select_topl=1), counts
+        pv, pi = fs._topl_ref(r, Ac32, cdt, l)
+        what = ("topl", l, B, n, m, off, cdt)
+        assert kv.shape == pv.shape == (B, -(-m // fs.TILE), l), what
+        assert torch.equal(_bits(kv[..., 0]), _bits(top1[0])), what
+        assert torch.equal(ki[..., 0], top1[1]), what
+        fin = torch.isfinite(pv)
+        assert torch.equal(torch.isfinite(kv), fin), what
+        assert torch.equal(torch.isnan(kv), torch.isnan(pv)), what
+        rel = ((kv[fin] - pv[fin]).abs()
+               / pv[fin].abs().clamp(min=1e-30)).max() if fin.any() else 0
+        err = max(err, float(rel))
+        assert err <= SELECT_RTOL, (what, err)
+        # a pick is clear where its value stands apart from its neighbours',
+        # the (l + 1)-th candidate's included
+        nxt = fs._topl_ref(r, Ac32, cdt, l + 1)[0]
+        d = (nxt[..., 1:] - nxt[..., :-1]).abs()
+        gap = d[..., :l].clone()
+        gap[..., 1:] = torch.minimum(gap[..., 1:], d[..., :l - 1])
+        clear = ~fin | (gap.nan_to_num(torch.inf) > GAP_RTOL * pv.abs())
+        assert bool(((ki == pi) | ~clear).all()), what
+        picks = fs._merge_topl(kv, ki, l)
+        assert int(picks[0, 0]) == SIMT_TIE, (what, picks[0])
+        if l > 1:
+            assert int(picks[0, 1]) == m - 1, (what, picks[0])
+        if B > 1:
+            assert bool((ki[1] == fs.INT_MAX).all()), what
+            assert bool(torch.isnan(kv[1]).all()), what
+    if off == 0:
+        l = SIMT_TOPL_LS[-1]
+        kv, ki = fs.select_topl(r[:1], Ac[:, :2].contiguous(), l, mma=False)
+        assert ki[0, 0, 2:].tolist() == [fs.INT_MAX] * (l - 2)
+        assert bool(torch.isneginf(kv[0, 0, 2:]).all())
+    return err, staging
+
+
+def hold_simt_fr_step(dev, B, n, m, off, cdt):
+    """fr_step_select's CUDA-core sweep (csrc/fr_step_select.cu on
+    simt_select.cuh) against its plain twin on one problem of SIMT_CASES,
+    its width cut to m8 = a multiple of 128 (the stream tiling), with and
+    without V, on a contiguous shard and on a column view of a 4 m8 + off
+    wide dictionary (lda = 4 m8 + off), the shard and the rows `off`
+    entries into their storage: column m8 - 1 a copy of SIMT_TIE and row 0
+    that atom (it picks SIMT_TIE), row 1 a NaN row and row 2 an
+    all-degenerate one ((-inf, 0) each), row 3 marks atom 77 (-1 written),
+    row 4 restores atom 40 (active elsewhere: -1). Picks on the clear rows
+    and values to SELECT_RTOL, the written-back resc to RESC_ATOL with its
+    -1 marks and NaNs in the same places. Returns (max abs d2 err, max resc
+    err, the stagings that ran)."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    m8 = m // fs.TILE * fs.TILE
+    gen = torch.Generator(device=dev).manual_seed(B * 17 + n * 3 + m + off)
+    A = torch.randn(n, m8, generator=gen, device=dev)
+    A = A / torch.linalg.norm(A, dim=0)
+    A[:, m8 - 1] = A[:, SIMT_TIE]
+    R = torch.randn(B, n, generator=gen, device=dev)
+    R[0] = A[:, SIMT_TIE] + 0.01 * R[0]
+    if B > 1:
+        R[1, n // 2] = float("nan")
+    W = 0.5 * torch.randn(B, n, generator=gen, device=dev) / n ** 0.5
+    V = 0.5 * torch.randn(B, n, generator=gen, device=dev) / n ** 0.5
+    W[0] = V[0] = 0.0            # the tied row keeps equal rescalings
+    W[2:3] = V[2:3] = 0.0        # the all-degenerate row stays at 0
+    R, W, V = (_simt_staged(x, off, torch.float32) for x in (R, W, V))
+    il = torch.full((B, 2), -1, dtype=torch.int32, device=dev)
+    if B > 3:
+        il[3, 0] = 77
+    if B > 4:
+        il[4, 1] = 40
+    wide = torch.zeros(n, 4 * m8 + off, device=dev, dtype=cdt)
+    wide[:, off + m8:off + 2 * m8] = A.to(cdt)
+    shards = {"contiguous": _simt_staged(A, off, cdt),
+              "view": wide[:, off + m8:off + 2 * m8]}
+    deg = fs._degeneracy_rtol(n)
+    errs, rerr, stagings = {}, 0.0, set()
+    for (layout, Ac), use_v in itertools.product(shards.items(),
+                                                 (False, True)):
+        Af = Ac.float()
+        cn2 = torch.sum(Af * Af, dim=0)
+        resc0 = cn2.repeat(B, 1)
+        resc0[:, 40] = -1.0                # an atom already active
+        if B > 2:
+            resc0[2] = 0.0                 # an all-degenerate row
+        rk, rp = resc0.clone(), resc0.clone()
+        Vv = V if use_v else None
+        (kv, ki, _), counts = run_counted(lambda: ss.fr_step_select(
+            Ac, R, W, il, cn2, rk, deg, V=Vv, mma=False))
+        assert counts == expect_launches(fr_step_select=1), counts
+        pv, pi, _ = ss.fr_step_select_ref(Ac, R, W, il, cn2, rp, deg, V=Vv)
+        what = ("fr_step", layout, use_v, B, n, m8, off, cdt)
+        q = R.to(cdt).float() @ Af
+        d2 = torch.where(rp > deg * cn2, q * q / rp, -torch.inf)
+        tm = ss._stream_tile(m8, n, Ac.element_size(), ss.STREAM_TILE_BYTES)
+        nan_tile = torch.isnan(d2.view(B, m8 // tm, tm)).any(dim=2)
+        live = torch.where(nan_tile[:, :, None], -torch.inf,
+                           d2.view(B, m8 // tm, tm)).view(B, m8)
+        _hold(str(what), (kv, ki), (pv, pi), _clear_rows(live), errs)
+        assert torch.equal(rk == -1.0, rp == -1.0), what
+        assert torch.equal(torch.isnan(rk), torch.isnan(rp)), what
+        rerr = max(rerr, float((rk - rp).nan_to_num(nan=0.0).abs().max()))
+        assert rerr <= RESC_ATOL, (what, rerr)
+        assert int(ki[0]) == SIMT_TIE, (what, int(ki[0]))
+        if B > 1:
+            assert float(kv[1]) == float("-inf") and int(ki[1]) == 0, what
+        if B > 2:
+            assert float(kv[2]) == float("-inf") and int(ki[2]) == 0, what
+        if B > 3:
+            assert float(rk[3, 77]) == -1.0, what
+        if B > 4:
+            assert float(rk[4, 40]) > -1.0, what
+        lda = Ac.stride(0)
+        stagings.add((cdt == torch.float32 and Ac.data_ptr() % 16 == 0
+                      and lda % 4 == 0,
+                      R.data_ptr() % 16 == 0 and n % 4 == 0))
+    return max(errs.values()), rerr, stagings
 
 
 # mp_update's grid (csrc/mp_update.cu: B C blocks, no cluster): B = 1 and 8
@@ -4246,6 +4438,44 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
             per[(f"plain_stream_topl_finish l={l}", ml)] = once(
                 lambda: ss.stream_topl_finish_ref(pv, pi, bpt, l))
         del Ac, M, Af
+    # the CUDA-core sweeps that still run common.cuh::score_tile (K6, K7,
+    # K9, K10) on the f32 dictionary (a column view of it at 32768, lda =
+    # 131072), as the f32 paths run them: device ms a call (sweep and
+    # finish) beside the f32 bound and one f32 torch.matmul R . A_shard
+    for ml in STREAM_WIDTHS:
+        Af = A5c[:, :ml]
+        M = torch.zeros((B, ml), device=A5c.device)
+        M[:, :k] = -torch.inf
+        RT = Bs5c.T.contiguous()
+        lib = device_ms_per_call(lambda: torch.matmul(Bs5c, Af))
+        per[("f32 gemm", ml)] = lib
+        line = []
+        for name, call, bnd in (
+                ("select_stream", lambda: ss.correlate_select_stream(
+                    Af, Bs5c), stream_bound(B, n, ml, 4)),
+                ("select_masked_stream",
+                 lambda: ss.correlate_select_masked_stream(Af, Bs5c, M),
+                 stream_bound(B, n, ml, 4, masked=True)),
+                ("select_topl_stream l=4",
+                 lambda: ss.correlate_select_topl_stream(Af, Bs5c, 4),
+                 stream_bound(B, n, ml, 4, l=4)),
+                ("select_topl_stream l=32",
+                 lambda: ss.correlate_select_topl_stream(Af, Bs5c, 32),
+                 stream_bound(B, n, ml, 4, l=32)),
+                ("corr_argmax", lambda: ca.correlate_argmax(Af, RT),
+                 stream_bound(B, n, ml, 4))):
+            ms = device_ms_per_call(call)
+            per[(name + " f32 device", ml)] = ms
+            per[(name + " f32 bound", ml)] = bnd["bound_ms"]
+            line.append(f"{name} {ms4(ms)} (bound {bnd['bound_ms']:.4f} by "
+                        f"{bnd['bound_by']}"
+                        + (f", {ms / lib:.2f}x the matmul" if ms and lib
+                           else "") + ")")
+        print(f"[time f32 5c] CUDA-core sweeps on common.cuh::score_tile, "
+              f"B={B} n={n} m_local={ml} (lda {Af.stride(0)}), device ms a "
+              f"call: " + ", ".join(line) + f"; torch.matmul f32 {ms4(lib)}"
+              f" | {gpu}")
+        del M
     for ml in STREAM_WIDTHS:
         print(f"[time stream kernels, ms per call at B={B}, n={n}, "
               f"m_local={ml}, bf16 (events, wrapper and both launches)] "
@@ -4551,27 +4781,52 @@ def sharded_srr_rmp_foba_paths(Ar, Br, sup_r, A, Bo, sup_o):
 
 
 def sharded_fr_f32_path(Ar, Br, sup):
-    """fr_sharded_fused with f32 correlation on one shard at 5c's width,
-    once with zeroed launch counts: true f32 stays on K8's CUDA-core sweep;
-    recovery and the plain f32 solve's supports."""
+    """fr_sharded_fused with f32 correlation on one shard and on SHARDS
+    (column views of the dictionary) at 5c's width, and srr_sharded_fused
+    on SHARDS (3b-wide's problem), each once with zeroed launch counts: true
+    f32 stays on K8's CUDA-core sweep (with V in SRR); recovery, launches by
+    the formulas, the plain f32 solve's supports. Returns {path:
+    fr_step_select launches}."""
     import cstpu_torch
     from cstpu_torch.parallel import sharded as sh
 
     k, f32 = FR5_K, torch.float32
-    mesh = cstpu_torch.make_mesh((1, 1))
-    Ash = cstpu_torch.shard_dictionary(Ar, mesh)
-    sol, launches = run_counted(lambda: cstpu_torch.fr_sharded_fused(
-        Ash, Br, k, mesh, corr_dtype=f32))
-    assert launches == expect_launches(fr_step_select=k), launches
+    out = {}
+    for s in (1, SHARDS):
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(Ar, mesh)
+        sol, launches = run_counted(lambda: cstpu_torch.fr_sharded_fused(
+            Ash, Br, k, mesh, corr_dtype=f32))
+        assert launches == expect_launches(fr_step_select=s * k), launches
+        rec = recovery(sol, sup)
+        assert rec == 1.0, f"fr f32 s={s}: recovery {rec}"
+        ref = sh.fr_sharded_fused_ref(Ash, Br, k, mesh, corr_dtype=f32)
+        assert _supports(ref) == _supports(sol), ("fr f32: plain solve", s)
+        out[f"fr_sharded_fused s={s} corr_dtype=f32"] = launches[
+            "fr_step_select"]
+        print(f"[main 3a-wide f32] fr_sharded_fused(corr_dtype=f32) shards="
+              f"{s} recovery={rec:.3f} fr_step_select launches="
+              f"{launches['fr_step_select']}: the CUDA-core sweep; supports "
+              f"== plain solve")
+    (sol, iters), launches = run_counted(
+        lambda: cstpu_torch.srr_sharded_fused(Ash, Br, k, mesh, **SRR5_KW,
+                                              corr_dtype=f32,
+                                              return_iters=True))
+    assert launches == expect_launches(
+        select_topl_stream=SHARDS, stream_topl_finish=SHARDS,
+        fr_step_select=SHARDS * iters[0]), launches
     rec = recovery(sol, sup)
-    assert rec == 1.0, f"fr f32: recovery {rec}"
-    ref = sh.fr_sharded_fused_ref(Ash, Br, k, mesh, corr_dtype=f32)
-    assert _supports(ref) == _supports(sol), "fr f32: plain solve"
-    print(f"[main 3a-wide f32] fr_sharded_fused(corr_dtype=f32) shards=1 "
-          f"recovery={rec:.3f} fr_step_select launches="
-          f"{launches['fr_step_select']}: the CUDA-core sweep; supports == "
-          f"plain solve")
-    return launches["fr_step_select"]
+    assert rec == 1.0, f"srr f32: recovery {rec}"
+    ref = sh.srr_sharded_fused_ref(Ash, Br, k, mesh, **SRR5_KW,
+                                   corr_dtype=f32)
+    assert _supports(ref) == _supports(sol), "srr f32: plain solve"
+    out[f"srr_sharded_fused s={SHARDS} corr_dtype=f32"] = launches[
+        "fr_step_select"]
+    print(f"[main 3b-wide f32] srr_sharded_fused(corr_dtype=f32) shards="
+          f"{SHARDS} recovery={rec:.3f} iters={iters[0]} launches="
+          f"{ {key: v for key, v in launches.items() if v} }: the CUDA-core "
+          f"sweep with V; supports == plain solve")
+    return out
 
 
 def sharded_rows_path(dev):
@@ -4708,6 +4963,29 @@ def sharded_fr_times(Ar, Br, A, Bo, gpu):
             per[(name + " gemm bf16", ml)] = launches(
                 lambda: torch.matmul(RWb, Ac))
         del Ac, Af, resc
+    # the CUDA-core sweep on the f32 path's shard (the whole dictionary at
+    # 131072, a column view of it at 32768, lda = 131072) on the device,
+    # beside the parent's time, its f32 bound and one f32 torch.matmul of
+    # its products
+    for ml in STREAM_WIDTHS:
+        Af = Ar[:, :ml]
+        cn2 = torch.sum(Af * Af, dim=0)
+        resc = cn2.repeat(B, 1)
+        for name, V in (("fr_step_select", None), ("fr_step_select V", W)):
+            call = partial(ss.fr_step_select, Af, Br, 1e-2 * W, il, cn2, resc,
+                           deg, V=V)
+            prods = torch.cat([Br, 1e-2 * W] + ([V] if V is not None else []))
+            per[(name + " f32 device", ml)] = device_ms_per_call(call)
+            per[(name + " f32 gemm", ml)] = device_ms_per_call(
+                lambda: torch.matmul(prods, Af))
+            print(f"[time f32 3a-wide] {name}, CUDA cores, B={B} n={n} "
+                  f"m_local={ml} (lda {Af.stride(0)}): " + f32_line(
+                      per[(name + " f32 device", ml)],
+                      F32_BEFORE_MS[f"{name} {ml}"],
+                      fr_step_bound(B, n, ml, cdt_bytes=4,
+                                    use_v=V is not None),
+                      per[(name + " f32 gemm", ml)]) + f" | {gpu}")
+        del resc
     for ml in STREAM_WIDTHS:
         print(f"[time fr_step kernel, ms per call at B={B}, n={n}, "
               f"m_local={ml}, bf16 (events, wrapper and both launches)] "
@@ -6557,12 +6835,17 @@ def main():
         if got:
             print(f"[build mma] NB={got[1]} mode={got[2]}: {props}")
         # the CUDA-core selects' loop (simt_select.cuh) by kernel, dictionary
-        # dtype and (select_argmax) epilogue mode
+        # dtype, (select_argmax) epilogue mode, (fr_step_select) V and plan
+        # (entries a stage x stages x warps)
         got = re.search(r"Function properties for _ZN5cstpu\d+((?:fr_)?select"
-                        r"_simt)_kernelI(13__nv_bfloat16|f)(?:Li(\d)E)?E", line)
+                        r"_simt|select_topl_simt|fr_step_simt)_kernelI"
+                        r"(13__nv_bfloat16|f)(?:Li(\d)E)?(?:Lb([01])ENS_4simt"
+                        r"4PlanILi(\d+)ELi(\d+)ELi(\d+)E)?", line)
         if got:
             cdt = "bf16" if got[2].startswith("13") else "f32"
             mode = f" mode={got[3]}" if got[3] else ""
+            if got[4]:
+                mode = (f" V={got[4]} plan={got[5]}x{got[6]}x{got[7]}")
             print(f"[build simt] {got[1]} {cdt}{mode}: {props}")
         got = re.search(r"Function properties for .*topl_mma_kernelILi(\d+)E",
                         line)
@@ -6796,24 +7079,40 @@ def main():
 
     t0 = time.perf_counter()
     simt_err, simt_resc, staging = 0.0, 0.0, set()
+    topl_err, step_err, step_resc = 0.0, 0.0, 0.0
+    topl_staging, step_staging = set(), set()
     grid_simt_cases = smoke_grid(SIMT_CASES)
     for (B, n, m, off), cdt in itertools.product(
             grid_simt_cases, (torch.float32, torch.bfloat16)):
         err, rerr, how = hold_simt_select(dev, B, n, m, off, cdt)
         simt_err, simt_resc = max(simt_err, err), max(simt_resc, rerr)
         staging.add(how)
+        err, how = hold_simt_topl(dev, B, n, m, off, cdt)
+        topl_err = max(topl_err, err)
+        topl_staging.add(how)
+        err, rerr, how = hold_simt_fr_step(dev, B, n, m, off, cdt)
+        step_err, step_resc = max(step_err, err), max(step_resc, rerr)
+        step_staging |= how
     # the loop held on every staging: the dictionary (f32) and the rows each
-    # by TMA and by cp.async
-    assert staging == {(a, r) for a in (True, False) for r in (True, False)}
-    print(f"[simt grid] select_argmax ({', '.join(SIMT_MODES)}) and "
+    # by TMA and by cp.async, under each kernel
+    every = {(a, r) for a in (True, False) for r in (True, False)}
+    assert staging == topl_staging == step_staging == every, (
+        staging, topl_staging, step_staging)
+    print(f"[simt grid] select_argmax ({', '.join(SIMT_MODES)}), "
           f"fr_select ({', '.join(map(str, SIMT_TERMS))} pending terms), "
-          f"CUDA-core variants (csrc/simt_select.cuh), against their plain "
-          f"versions over (B, n, m, offset) in {grid_simt_cases}, f32 and "
-          f"bf16, every staging (dictionary by TMA, rows by TMA): "
-          f"{sorted(staging)}: picks equal on every row (a duplicated column "
-          f"-> {SIMT_TIE}, a NaN row -> INT_MAX, an all-masked row), max "
-          f"rel value err {simt_err:.3e} (rtol {SELECT_RTOL}), resc max |err| "
-          f"{simt_resc:.3e} (atol {RESC_ATOL}); "
+          f"select_topl (l in {SIMT_TOPL_LS}) and fr_step_select (with and "
+          f"without V, a contiguous shard and a column view, lda = 4 m + "
+          f"offset), CUDA-core variants (csrc/simt_select.cuh), against "
+          f"their plain versions over (B, n, m, offset) in "
+          f"{grid_simt_cases}, f32 and bf16, every staging (dictionary by "
+          f"TMA, rows by TMA) under each: {sorted(staging)}: picks equal on "
+          f"every row (a duplicated column -> {SIMT_TIE}, a NaN row -> "
+          f"INT_MAX, an all-masked row; the step's mark, restore, NaN and "
+          f"all-degenerate rows), each tile's first top-l entry the top-1 "
+          f"partial bit for bit, max rel value err {simt_err:.3e}, top-l "
+          f"{topl_err:.3e} (rtol {SELECT_RTOL}), fr_step_select max |d2 "
+          f"err| {step_err:.3e}, resc max |err| {simt_resc:.3e}, the step's "
+          f"{step_resc:.3e} (atol {RESC_ATOL}); "
           f"{time.perf_counter() - t0:.1f} s")
 
     record = {}
@@ -7318,10 +7617,17 @@ def main():
               library_bf16_ms=gtm["select_topl_gemm_bf16"],
               device_ms=gtm["select_topl_simt_device"],
               f32_ms=gtm["select_topl_f32"],
+              f32_device_ms=gtm["select_topl_f32_device"],
               f32_bound_ms=select_bound(B, n, m, cdt_bytes=4,
                                         outs=l)["bound_ms"],
+              f32_library_ms=gtm["select_topl_f32_gemm_device"],
+              f32_library_topk_ms=gtm["select_topl_f32_topk_device"],
               l32_ms=gtm["select_topl32_simt"],
-              l32_device_ms=gtm["select_topl32_simt_device"]),
+              l32_device_ms=gtm["select_topl32_simt_device"],
+              l32_f32_device_ms=gtm["select_topl32_f32_device"],
+              l32_f32_bound_ms=select_bound(B, n, m, cdt_bytes=4,
+                                            outs=ks)["bound_ms"],
+              l32_f32_library_topk_ms=gtm["select_topl32_f32_topk_device"]),
         entry("gomp_append", 714, paths["gomp"]["gomp_append"],
               gerr["gomp_append"], gtm["gomp_append"],
               gtm["plain_gomp_append"], swap_bound["gomp_append 2a"],
@@ -7599,6 +7905,18 @@ def main():
                     f"select_topl_stream l={l} gemm topk", width)]
         return out
 
+    def f32_sweep(name, tag=""):
+        """A CUDA-core sweep's device ms a call on the f32 dictionary
+        (f32_ at the whole width, f32_shard_ at the shard's, a column
+        view), its f32 bound and one f32 torch.matmul R . A_shard."""
+        out = {}
+        for prefix, width in ((f"f32_{tag}", whole),
+                              (f"f32_shard_{tag}", part)):
+            out[prefix + "device_ms"] = xper[(name + " f32 device", width)]
+            out[prefix + "bound_ms"] = xper[(name + " f32 bound", width)]
+            out[prefix + "library_ms"] = xper[("f32 gemm", width)]
+        return out
+
     def finish_bound(width, l):
         """The finish reads the sweep's partials (B, width / 128, l) pairs
         once and writes l pairs a row; a few operations a candidate."""
@@ -7639,7 +7957,8 @@ def main():
               shard_ms=xper[("select_stream simt", part)],
               shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
               m5_ms=sweep5m_simt,
-              m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"]),
+              m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"],
+              **f32_sweep("select_stream")),
         # the top-l select (K7) at the shard's width, l=32 (sp, ompr): its
         # tensor-core sweep and the finish, per call by events; device_ms
         # the profiler's, sweep and finish apart; l4_ at gomp's l, whole_
@@ -7676,7 +7995,9 @@ def main():
                      pf32["ompr_topl"]},
               **stream_library(part, whole, "whole_"),
               **topl_times(part, "", " simt "),
-              **topl_times(whole, "whole_", " simt ")),
+              **topl_times(whole, "whole_", " simt "),
+              **f32_sweep("select_topl_stream l=32"),
+              **f32_sweep("select_topl_stream l=4", "l4_")),
         # the finish of both sweeps: merge and fold, per call by events on
         # the sweep's partials at the shard's width; device_ms the
         # profiler's within a select
@@ -7732,7 +8053,8 @@ def main():
               paths={"ompr_sharded_fused 5c corr_dtype=f32": pf32["ompr"]},
               whole_ms=xper[("select_masked_stream simt", whole)],
               whole_bound_ms=stream_bound(B5, n5, whole,
-                                          masked=True)["bound_ms"]),
+                                          masked=True)["bound_ms"],
+              **f32_sweep("select_masked_stream")),
         entry("corr_argmax_mma", f"{TPU_ARGMAX}:86", k10_launches,
               max(xerr["corr_argmax_mma"], merr["corr_argmax_mma"]),
               xper[("corr_argmax", whole)],
@@ -7753,7 +8075,8 @@ def main():
               xper[("plain_corr_argmax", whole)],
               stream_bound(B5, n5, whole), source=stream_src,
               paths={"correlate_argmax 5c f32": pf32["corr_argmax"]},
-              shard_ms=xper[("corr_argmax simt", part)]),
+              shard_ms=xper[("corr_argmax simt", part)],
+              **f32_sweep("corr_argmax")),
     ]
     # fr_step_select: as the streaming selects, at B=8, bf16, the whole 5c
     # width without V; the shard's width and the V variant beside it. Its
@@ -7801,18 +8124,30 @@ def main():
                                        "fuse=1", *k8_kernels),
         srr_path_device_ms=device_ms(fsplit, f"3b-wide srr s={SHARDS}",
                                      *k8_kernels)))
-    # its CUDA-core variant: the f32-correlation path runs it; ms is its
-    # time on the bf16 inputs above
+    # its CUDA-core variant: the f32-correlation paths run it; ms is its
+    # time on the bf16 inputs above, f32_* its device times on the f32
+    # shard (at `part`, a column view) beside the f32 bound and library call
+    def k8_f32(prefix, name, width):
+        return {f"{prefix}device_ms": fper[(name + " f32 device", width)],
+                f"{prefix}library_ms": fper[(name + " f32 gemm", width)],
+                f"{prefix}bound_ms": fr_step_bound(
+                    B5, n5, width, cdt_bytes=4,
+                    use_v=" V" in name)["bound_ms"]}
+
     kernels.append(entry(
-        "fr_step_select", f"{TPU_SELECT}:322", pfr32, frerr["fr_step_select"],
-        fper[("fr_step_select simt", whole)],
+        "fr_step_select", f"{TPU_SELECT}:322", sum(pfr32.values()),
+        frerr["fr_step_select"], fper[("fr_step_select simt", whole)],
         fper[("plain_fr_step_select", whole)], fr_step_bound(B5, n5, whole),
-        paths={"fr_sharded_fused s=1 corr_dtype=f32": pfr32},
+        paths=pfr32, main_loop=f"{csrc}/simt_select.cuh",
         library_ms=fper[("fr_step_select gemm", whole)],
         library_bf16_ms=fper[("fr_step_select gemm bf16", whole)],
         v_ms=fper[("fr_step_select V simt", whole)],
         shard_ms=fper[("fr_step_select simt", part)],
-        shard_v_ms=fper[("fr_step_select V simt", part)]))
+        shard_v_ms=fper[("fr_step_select V simt", part)],
+        **k8_f32("f32_", "fr_step_select", whole),
+        **k8_f32("f32_v_", "fr_step_select V", whole),
+        **k8_f32("f32_shard_", "fr_step_select", part),
+        **k8_f32("f32_shard_v_", "fr_step_select V", part)))
     assert all(kn["launches"] > 0 for kn in kernels)
     assert all({"bound_ms", "bound_by", "library_ms"} <= set(kn)
                for kn in kernels)

@@ -2,8 +2,9 @@
 // rounding, the argmax rule of cstpu/ops/fused_solve.py::_solve_kernel
 // (:157-163), the staging of the select's rows of r, warp and block sums,
 // the cp.async, mbarrier and cluster-barrier PTX, the top-l epilogue of a
-// select block and the merge of select_topl partials (a warp-sorted top 32
-// and a tree of merges).
+// select block, the top-l sort key and the warp's sort of a tile's 128
+// keys, and the merge of select_topl partials (a warp-sorted top 32 and a
+// tree of merges).
 #pragma once
 
 #include <climits>
@@ -151,18 +152,10 @@ __device__ __forceinline__ void stage_rows(float (*xs)[kRows],
   }
 }
 
-// The same for a contiguous (B, n) matrix.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float (*xs)[kRows],
-                                           const float* __restrict__ X,
-                                           int row0, int p0, int B, int n) {
-  stage_rows<T>(xs, X, row0, p0, B, n, (size_t)n, (size_t)1);
-}
-
-// The CUDA-core main loop of select_topl.cu, fr_step_select.cu and the
-// streaming sweeps of stream_select.cu (select_argmax.cu and fr_select.cu
-// run simt_select.cuh's staged, register-tiled loop, whose sums are this
-// loop's bit for bit): acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
+// The CUDA-core main loop of the streaming sweeps of stream_select.cu (K6,
+// K7, K9, K10; select_argmax.cu, fr_select.cu, select_topl.cu and
+// fr_step_select.cu run simt_select.cuh's staged, register-tiled loop,
+// whose sums are this loop's bit for bit): acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
 // block's kRows rows, products and sums in f32 (FMA on CUDA cores, no
 // TF32), each atom's sum in the order p = 0 .. n-1 whatever the tile, the
 // batch or the width of the dictionary. One thread per atom column j
@@ -205,19 +198,8 @@ __device__ __forceinline__ void score_tile(float (&acc)[kRows],
   }
 }
 
-// The same for a contiguous (n, m) dictionary and a contiguous (B, n) r.
-template <typename T>
-__device__ __forceinline__ void score_tile(float (&acc)[kRows],
-                                           float (*rs)[kRows],
-                                           const float* __restrict__ r,
-                                           const T* __restrict__ A, int row0,
-                                           int j, bool live, int B, int n,
-                                           int m) {
-  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, (size_t)m, (size_t)n,
-                (size_t)1);
-}
-
-// The top-l epilogue of a select block: from the block's scores ss[q][c]
+// The top-l epilogue of stream_select.cu's CUDA-core top-l sweep (K7;
+// select_topl.cu sorts its scores in registers): from the block's scores ss[q][c]
 // (-inf past the atom edge) the l largest of every row, ordered by value
 // descending and then by index ascending, into pval/pidx (B, ntiles, l). A
 // tile holding a NaN writes l (NaN, INT_MAX); a tile with fewer than l
@@ -489,6 +471,62 @@ __device__ __forceinline__ void merge_unkey(TopKey key, float& v, int& j) {
   u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
   v = __uint_as_float(u);
   j = static_cast<int>(~static_cast<unsigned>(key));
+}
+
+// The sort key of a top-l score v (|s| >= 0, +inf or NaN: its bits order
+// as unsigned integers) of atom j: a larger key is a larger score, then a
+// lower index. Key 0 is no atom's: it marks a pad. The sorting epilogues
+// of the tensor-core top-l loop (mma_topl.cuh) and of the CUDA-core one
+// (select_topl.cu) key their scores so.
+__device__ __forceinline__ TopKey topl_key(float v, int j) {
+  return (static_cast<TopKey>(__float_as_uint(v)) << 32) |
+         static_cast<uint32_t>(~static_cast<uint32_t>(j));
+}
+
+// Rows a warp sorts at once in the top-l epilogues (two interleave for ILP).
+constexpr int kSortRows = 2;
+
+// Sorts R rows of 128 keys, descending, across the warp: lane t holds
+// entries 4 t .. 4 t + 3 of each row in x[r][0..3]. A bitonic network:
+// stage k merges runs of k, step j compares entries j apart; steps with j
+// >= 4 pair lanes j / 4 apart, the others pair entries within a lane. 28
+// compare-exchange steps, 15 of them across lanes, whatever l.
+template <int R>
+__device__ __forceinline__ void warp_sort128_desc(TopKey (&x)[R][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= kTile; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= 4) {
+        const int lj = j >> 2;
+        const bool upper = (lane & lj) != 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool desc = ((lane * 4 + c) & k) == 0;
+          const bool keep_max = desc != upper;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const TopKey y = __shfl_xor_sync(0xffffffffu, x[r][c], lj);
+            x[r][c] = (x[r][c] > y) == keep_max ? x[r][c] : y;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c & j) continue;
+          const bool desc = ((lane * 4 + c) & k) == 0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const TopKey a = x[r][c], b = x[r][c | j];
+            const bool keep = (a > b) == desc;  // a stays first
+            x[r][c] = keep ? a : b;
+            x[r][c | j] = keep ? b : a;
+          }
+        }
+      }
+    }
+  }
 }
 
 // The key of (-inf, INT_MAX): what an exhausted merge returns.

@@ -85,8 +85,8 @@ fr_select_simt_kernel(const __grid_constant__ simt::Maps maps,
   float rj[kRT][kAT];
   float acc[2][kRT][kAT];
   simt::sweep<T, 2>(
-      acc, smem, maps, A, simt::Products{r, U, (size_t)B * n, P}, j0, row0,
-      B, n, m, [&](int pass, int np, float (&s)[2][kRT][kAT]) {
+      acc, smem, maps, A, (size_t)m, simt::Products{r, U, (size_t)B * n, P},
+      j0, row0, B, n, m, [&](int pass, int np, float (&s)[2][kRT][kAT]) {
         if (pass == 0) {
 #pragma unroll
           for (int i = 0; i < kRT; ++i) {

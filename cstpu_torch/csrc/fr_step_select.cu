@@ -30,9 +30,12 @@
 // in-place update needs no atomics.
 //
 // What bounds it on an H100: the sweep reads the cdt shard once (256 MB in
-// bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and reads and writes resc
-// (B, m) f32; it does 2 (2 or 3) B n m operations, at B=8 16-24 per shard
-// byte, far under the tensor cores' 295, so the bytes bound it.
+// bf16, 537 MB in f32 at n=1024, m=131072: 0.08 / 0.16 ms at 3.35 TB/s) and
+// reads and writes resc (B, m) f32 (8.4 MB at B=8); it does 2 (2 or 3) B n m
+// operations, at B=8 4-6 per f32 shard byte: far under the tensor cores'
+// 295, and under the CUDA cores' 20 (67 TFLOP/s over 3.35 TB/s), so the
+// bytes bound it in either dtype (the f32 FMAs alone take 0.064 ms, 0.096
+// with V).
 //
 // Two hand-written variants; the Python wrapper picks one by the top-1
 // selects' predicate (fused_solve.mma_select_takes) and passes `use_mma`:
@@ -44,143 +47,174 @@
 //     so one thread holds all three products of its (row, atom) entries and
 //     updates resc and scores them in registers. The shard's pitch is the
 //     tensor map's: a column slice is read in place.
-//   CUDA cores (f32 correlation, and a base or pitch the bulk loads cannot
-//     address): fr_select.cu's loop (q and z share the first pass over the
-//     shard, two accumulators per (row, atom); V takes a pass of its own,
-//     which re-reads the block's columns; resc stays in registers across the
-//     passes) with stream_select.cu's strided reads of a column slice, kRows
-//     = 16 rows per block whatever B is. The multiply-adds bound it (true
-//     f32, FMA, no TF32).
+//   CUDA cores (f32 correlation, and a base or pitch the tensor-core loop
+//     does not take): simt_select.cuh's staged, register-tiled loop with
+//     the products [w, v, r] in ONE pass (kNP = 3 with V, 2 without), so
+//     the shard is read once; each thread holds z, zv and q of its 4 rows x
+//     4 atoms, updates that 4 x 4 tile of resc in registers (one float4 a
+//     row in and out, in place: each (row, atom) has one owner, no atomics)
+//     and scores it; the warp's shuffles take each row's (max, lowest
+//     argmax) over the tile. The shard's rows are lda entries apart: TMA
+//     where the base is 16-byte aligned and lda % 4 == 0 (a column view of
+//     the cdt dictionary, parallel/sharded.py), else cp.async. The paths'
+//     B = 8 gives 2 warps a block: under the loop's Wide plan (a 192-224 KB
+//     block, one an SM) that is 2 warps an SM, which can neither stream the
+//     shard nor issue the FMAs (0.37 ms at m = 131072 against 0.21 in a
+//     probe of the plans). So for W <= 2 a stage holds 2 warps' rows and
+//     the ring is picked by the grid: a grid of more than two blocks an SM
+//     (m = 131072: 1024 blocks) takes 32 entries in 3 stages (`StepFew`,
+//     55-58 KB a block, 3-4 blocks an SM: more warps for the later waves),
+//     a smaller one (32768, one of four shards: 256 blocks, all resident)
+//     64 in 2 (`StepFewSmall`, fewer barriers a block). 16 x 4, 32 x 4 and
+//     the Wide plan's 128 x 2 were slower at both widths (PERF.md §6).
+//     Wider batches take the Wide plan. Every sum is one fmaf chain from
+//     +0 in p order, as before the redesign, so resc, the partials and the
+//     picks are unchanged bit for bit.
 #include <cstdint>
 
 #include "common.cuh"
 #include "mma_rescaled.cuh"
+#include "simt_select.cuh"
 
 namespace cstpu {
 
-template <typename T, bool kUseV>
-__global__ void __launch_bounds__(kTile)
-fr_step_sweep_kernel(const float* __restrict__ r, const float* __restrict__ w,
-                     const float* __restrict__ v, const T* __restrict__ A,
-                     size_t lda, const int* __restrict__ il,
-                     const float* __restrict__ cn2, float* __restrict__ resc,
-                     float* __restrict__ pval, int* __restrict__ pidx, int B,
-                     int n, int m, int nblocks, float deg) {
-  __shared__ __align__(16) float rs[kChunk][kRows];
-  __shared__ __align__(16) float zs[kChunk][kRows];
-  __shared__ float wv[kRows][kTile / 32];
-  __shared__ int wi[kRows][kTile / 32];
+// K8's plans for a block of up to 2 warps (B <= 8 rows a block): StepFew
+// for a grid of more than two blocks an SM, StepFewSmall for a smaller one.
+// Defining CSTPU_FR_STEP_CHUNK and CSTPU_FR_STEP_STAGES gives both grids
+// that one plan (tools/ab_paths.py --fr-step-plans builds each so).
+#if defined(CSTPU_FR_STEP_CHUNK) && defined(CSTPU_FR_STEP_STAGES)
+using StepFew = simt::Plan<CSTPU_FR_STEP_CHUNK, CSTPU_FR_STEP_STAGES, 2>;
+using StepFewSmall = StepFew;
+#else
+using StepFew = simt::Plan<32, 3, 2>;
+using StepFewSmall = simt::Plan<64, 2, 2>;
+#endif
 
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int j = tile * kTile + threadIdx.x;
-  const bool live = j < m;
+// The CUDA-core sweep: the products [w, (v,) r] in one pass under plan P;
+// then each thread applies the step to its 4 x 4 tile of resc and scores
+// it, in the order and rounding of the note above, and each warp writes its
+// rows' (max d2, lowest argmax) of the tile.
+template <typename T, bool kUseV, typename P>
+__global__ void __launch_bounds__(32 * P::kWarps)
+fr_step_simt_kernel(const __grid_constant__ simt::Maps maps,
+                    const float* __restrict__ r, const float* __restrict__ w,
+                    const float* __restrict__ v, const T* __restrict__ A,
+                    size_t lda, const int* __restrict__ il,
+                    const float* __restrict__ cn2, float* __restrict__ resc,
+                    float* __restrict__ pval, int* __restrict__ pidx, int B,
+                    int n, int m, int ntiles, float deg) {
+  using simt::kAT;
+  using simt::kRT;
+  constexpr int kNP = kUseV ? 3 : 2;  // z, (zv,) q
+  extern __shared__ unsigned char smem[];
+  const int tile = blockIdx.x, j0 = tile * kTile;
+  const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jl = j0 + kAT * lane;    // the thread's first atom (m % kTile == 0)
+  const int rw = row0 + kRT * warp;  // the warp's first row
+  const bool vec = (reinterpret_cast<uintptr_t>(resc) & 15) == 0;
 
-  float qa[kRows], za[kRows], rj[kRows];
+  float acc[kNP][kRT][kAT];
+  simt::sweep<T, kNP, P>(
+      acc, smem, maps, A, lda,
+      simt::Products{r, w, 0, 1, kUseV ? v : nullptr}, j0, row0, B, n, m,
+      [&](int, int, float (&s)[kNP][kRT][kAT]) {
+        float rmin[kAT];
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) qa[q] = za[q] = 0.f;
-
-  // pass 0: q and z together
-  for (int p0 = 0; p0 < n; p0 += kChunk) {
-    stage_rows<T>(rs, r, row0, p0, B, n);
-    stage_rows<T>(zs, w, row0, p0, B, n);
-    __syncthreads();
-    const int pend = min(kChunk, n - p0);
-    if (live) {
-      const T* a_ptr = A + (size_t)p0 * lda + j;
-#pragma unroll 2
-      for (int pp = 0; pp < pend; ++pp) {
-        const float a = to_f32(a_ptr[(size_t)pp * lda]);
-        const float4* rq = reinterpret_cast<const float4*>(rs[pp]);
-        const float4* zq = reinterpret_cast<const float4*>(zs[pp]);
+        for (int c = 0; c < kAT; ++c) rmin[c] = __fmul_rn(deg, cn2[jl + c]);
 #pragma unroll
-        for (int q4 = 0; q4 < kRows / 4; ++q4) {
-          const float4 rv = rq[q4], zv = zq[q4];
-          qa[4 * q4 + 0] = fmaf(a, rv.x, qa[4 * q4 + 0]);
-          qa[4 * q4 + 1] = fmaf(a, rv.y, qa[4 * q4 + 1]);
-          qa[4 * q4 + 2] = fmaf(a, rv.z, qa[4 * q4 + 2]);
-          qa[4 * q4 + 3] = fmaf(a, rv.w, qa[4 * q4 + 3]);
-          za[4 * q4 + 0] = fmaf(a, zv.x, za[4 * q4 + 0]);
-          za[4 * q4 + 1] = fmaf(a, zv.y, za[4 * q4 + 1]);
-          za[4 * q4 + 2] = fmaf(a, zv.z, za[4 * q4 + 2]);
-          za[4 * q4 + 3] = fmaf(a, zv.w, za[4 * q4 + 3]);
+        for (int i = 0; i < kRT; ++i) {
+          const int row = rw + i;
+          if (row >= B) break;  // the warp's rows: uniform in the warp
+          const int mark = il[2 * row], restore = il[2 * row + 1];
+          float* rp = resc + (size_t)row * m + jl;
+          float x[kAT];
+          if (vec) {
+            const float4 t = *reinterpret_cast<const float4*>(rp);
+            x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < kAT; ++c) x[c] = rp[c];
+          }
+          float best = -INFINITY;
+          int idx = INT_MAX;
+#pragma unroll
+          for (int c = 0; c < kAT; ++c) {
+            const int j = jl + c;
+            const float z = s[0][i][c], q = s[kNP - 1][i][c];
+            float xv = j == restore ? 0.f : x[c];
+            xv = __fadd_rn(xv, -__fmul_rn(z, z));
+            if constexpr (kUseV) {
+              xv = __fadd_rn(xv, __fmul_rn(s[1][i][c], s[1][i][c]));
+            }
+            if (j == mark) xv = -1.f;
+            x[c] = xv;
+            const float d = xv > rmin[c] ? __fdiv_rn(__fmul_rn(q, q), xv)
+                                         : -INFINITY;
+            argmax_combine(best, idx, d, j);
+          }
+          if (vec) {
+            *reinterpret_cast<float4*>(rp) = make_float4(x[0], x[1], x[2], x[3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < kAT; ++c) rp[c] = x[c];
+          }
+          warp_argmax(best, idx);
+          if (lane == 0) {
+            pval[(size_t)row * ntiles + tile] = best;
+            pidx[(size_t)row * ntiles + tile] = idx;
+          }
         }
-      }
-    }
-    __syncthreads();
-  }
+      });
+}
 
-  // resc read after pass 0, to keep the main loop's registers free: the
-  // restore on a zero base, then the append's downdate
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int row = row0 + q;
-    float x = 0.f;
-    if (live && row < B) {
-      x = resc[(size_t)row * m + j];
-      if (j == il[2 * row + 1]) x = 0.f;
-      x = __fadd_rn(x, -__fmul_rn(za[q], za[q]));
+// The sweep's launch: a few-row plan for an f32 shard at W <= 2 (by the
+// grid's blocks, see the note at the top), else the Wide plan (and for the
+// bf16 catch-all).
+template <typename T, bool kUseV>
+cudaError_t launch_step_sweep(const float* r, const float* w, const float* v,
+                           const void* A, long long lda, const int* il,
+                           const float* cn2, float* resc, float* pval,
+                           int* pidx, int B, int n, int m, float deg,
+                           cudaStream_t s) {
+  constexpr int kNP = kUseV ? 3 : 2;
+  const int ntiles = m / kTile;
+  const simt::Products prod{r, w, 0, 1, kUseV ? v : nullptr};
+  const int wp = simt::warps(B, ntiles);
+  const T* a = static_cast<const T*>(A);
+  if constexpr (std::is_same_v<T, float>) {
+    const long long blocks =
+        (long long)ntiles * ((B + simt::kRT * wp - 1) / (simt::kRT * wp));
+    if (wp <= StepFew::kWarps && blocks > 2 * kSMs) {
+      return simt::launch_plan<T, kNP, StepFew>(
+          fr_step_simt_kernel<T, kUseV, StepFew>, A, lda, prod, B, n, m,
+          ntiles, wp, s, r, w, v, a, (size_t)lda, il, cn2, resc, pval, pidx,
+          B, n, m, ntiles, deg);
     }
-    rj[q] = x;
-  }
-  if constexpr (kUseV) {  // the deletion's update, a pass of its own
-    score_tile<T>(za, zs, v, A, row0, j, live, B, n, lda, (size_t)n,
-                  (size_t)1);
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      rj[q] = __fadd_rn(rj[q], __fmul_rn(za[q], za[q]));
-    }
-  }
-
-  const float rmin = live ? __fmul_rn(deg, cn2[j]) : 0.f;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int row = row0 + q;
-    float val = -INFINITY;
-    int i = INT_MAX;
-    if (live && row < B) {
-      float x = rj[q];
-      if (j == il[2 * row]) x = -1.f;
-      resc[(size_t)row * m + j] = x;
-      val = x > rmin ? __fdiv_rn(__fmul_rn(qa[q], qa[q]), x) : -INFINITY;
-      i = j;
-    }
-    warp_argmax(val, i);
-    if (lane == 0) {
-      wv[q][warp] = val;
-      wi[q][warp] = i;
+    if (wp <= StepFewSmall::kWarps) {
+      return simt::launch_plan<T, kNP, StepFewSmall>(
+          fr_step_simt_kernel<T, kUseV, StepFewSmall>, A, lda, prod, B, n, m,
+          ntiles, wp, s, r, w, v, a, (size_t)lda, il, cn2, resc, pval, pidx,
+          B, n, m, ntiles, deg);
     }
   }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    const int q = threadIdx.x, row = row0 + q;
-    float val = wv[q][0];
-    int i = wi[q][0];
-    for (int k = 1; k < kTile / 32; ++k) argmax_combine(val, i, wv[q][k], wi[q][k]);
-    if (row < B) {
-      pval[(size_t)row * nblocks + tile] = val;
-      pidx[(size_t)row * nblocks + tile] = i;
-    }
-  }
+  using Wide = simt::Wide<T>;
+  return simt::launch_plan<T, kNP, Wide>(
+      fr_step_simt_kernel<T, kUseV, Wide>, A, lda, prod, B, n, m, ntiles, wp,
+      s, r, w, v, a, (size_t)lda, il, cn2, resc, pval, pidx, B, n, m, ntiles,
+      deg);
 }
 
 template <typename T>
-void launch_fr_step(const float* r, const float* w, const float* v,
-                    const void* A, size_t lda, const int* il, const float* cn2,
-                    float* resc, float* pval, int* pidx, int B, int n, int m,
-                    float deg, cudaStream_t s) {
-  const int nblocks = m / kTile;
-  const dim3 grid(nblocks, (B + kRows - 1) / kRows);
-  const T* a = static_cast<const T*>(A);
-  if (v) {
-    fr_step_sweep_kernel<T, true><<<grid, kTile, 0, s>>>(
-        r, w, v, a, lda, il, cn2, resc, pval, pidx, B, n, m, nblocks, deg);
-  } else {
-    fr_step_sweep_kernel<T, false><<<grid, kTile, 0, s>>>(
-        r, w, nullptr, a, lda, il, cn2, resc, pval, pidx, B, n, m, nblocks,
-        deg);
-  }
+cudaError_t launch_fr_step(const float* r, const float* w, const float* v,
+                           const void* A, long long lda, const int* il,
+                           const float* cn2, float* resc, float* pval,
+                           int* pidx, int B, int n, int m, float deg,
+                           cudaStream_t s) {
+  return v ? launch_step_sweep<T, true>(r, w, v, A, lda, il, cn2, resc,
+                                        pval, pidx, B, n, m, deg, s)
+           : launch_step_sweep<T, false>(r, w, v, A, lda, il, cn2, resc,
+                                         pval, pidx, B, n, m, deg, s);
 }
 
 }  // namespace cstpu
@@ -217,14 +251,11 @@ extern "C" int cstpu_fr_step_select(const float* r, const float* w,
         resc, pval, pidx, B, n, m, m / kTile, deg,
         static_cast<__nv_bfloat16*>(sb), sb_rows, s);
   } else {
-    if (cdt_bf16) {
-      launch_fr_step<__nv_bfloat16>(r, w, v, A, lda, il, cn2, resc, pval,
-                                    pidx, B, n, m, deg, s);
-    } else {
-      launch_fr_step<float>(r, w, v, A, lda, il, cn2, resc, pval, pidx, B, n,
-                            m, deg, s);
-    }
-    err = cudaGetLastError();
+    err = cdt_bf16 ? launch_fr_step<__nv_bfloat16>(r, w, v, A, lda, il, cn2,
+                                                   resc, pval, pidx, B, n, m,
+                                                   deg, s)
+                   : launch_fr_step<float>(r, w, v, A, lda, il, cn2, resc,
+                                           pval, pidx, B, n, m, deg, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(

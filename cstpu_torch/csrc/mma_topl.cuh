@@ -22,12 +22,12 @@
 //     block needs no shared memory beyond the loop's (an extra buffer would
 //     cost a block per SM at NB = 64);
 //   * every warp of the block, the producer's too, takes rows two at a
-//     time: a lane holds four scores of each row as 64-bit keys, the
-//     score's bits high (|s| >= 0, +inf or NaN: the bits order as unsigned
-//     integers) and ~index low, pads past m keyed 0, and a bitonic sort of
-//     the row's 128 keys across the warp orders them. That is 28
-//     compare-exchange steps, 15 of them across lanes, whatever l (1 to
-//     128): the cost is flat in l. The two rows interleave for ILP;
+//     time: a lane holds four scores of each row as 64-bit keys
+//     (common.cuh::topl_key: the score's bits high, ~index low), pads past
+//     m keyed 0, and common.cuh::warp_sort128_desc orders the row's 128
+//     keys across the warp: 28 compare-exchange steps, 15 of them across
+//     lanes, whatever l (1 to 128), so the cost is flat in l. The two rows
+//     interleave for ILP;
 //   * the first l keys are written as (value, index): a tile holding a NaN
 //     writes l (NaN, INT_MAX), a pad (-inf, INT_MAX), as common.cuh::
 //     topl_partials does. Rows >= B and atoms >= m are never written.
@@ -43,58 +43,6 @@ namespace cstpu {
 namespace mma {
 
 constexpr int kSsRow = kTile + 4;  // floats of a staged score row
-constexpr int kSortRows = 2;       // rows a warp sorts at once
-
-using Key = unsigned long long;
-
-// The sort key of score v (|s| or NaN) of atom j: larger key = larger score,
-// then lower index.
-__device__ __forceinline__ Key topl_key(float v, int j) {
-  return (static_cast<Key>(__float_as_uint(v)) << 32) |
-         static_cast<uint32_t>(~static_cast<uint32_t>(j));
-}
-
-// Sorts R rows of 128 keys, descending, across the warp: lane t holds
-// entries 4 t .. 4 t + 3 of each row in x[r][0..3]. A bitonic network:
-// stage k merges runs of k, step j compares entries j apart; steps with j
-// >= 4 pair lanes j / 4 apart, the others pair entries within a lane.
-template <int R>
-__device__ __forceinline__ void warp_sort128_desc(Key (&x)[R][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 2; k <= kTile; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j >= 4) {
-        const int lj = j >> 2;
-        const bool upper = (lane & lj) != 0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const bool desc = ((lane * 4 + c) & k) == 0;
-          const bool keep_max = desc != upper;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const Key y = __shfl_xor_sync(0xffffffffu, x[r][c], lj);
-            x[r][c] = (x[r][c] > y) == keep_max ? x[r][c] : y;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c & j) continue;
-          const bool desc = ((lane * 4 + c) & k) == 0;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const Key a = x[r][c], b = x[r][c | j];
-            const bool keep = (a > b) == desc;  // a stays first
-            x[r][c] = keep ? a : b;
-            x[r][c | j] = keep ? b : a;
-          }
-        }
-      }
-    }
-  }
-}
 
 // One block of a top-l select: for rows row0 .. row0 + NB - 1 and the tile
 // at atom j0 = blockIdx.x * kTile, the l best of |round_bf16(r) . A| into
@@ -145,7 +93,7 @@ topl_mma_kernel(const __grid_constant__ CUtensorMap mapA,
   const int rows = min(NB, B - row0);
   for (int q0 = kSortRows * warp; q0 < rows;
        q0 += kSortRows * (kThreads / 32)) {
-    Key x[kSortRows][4];
+    TopKey x[kSortRows][4];
     bool nan[kSortRows];
 #pragma unroll
     for (int r = 0; r < kSortRows; ++r) {
@@ -170,7 +118,7 @@ topl_mma_kernel(const __grid_constant__ CUtensorMap mapA,
       for (int c = 0; c < 4; ++c) {
         const int p = 4 * lane + c;
         if (p < l) {
-          const Key key = x[r][c];
+          const TopKey key = x[r][c];
           float v = key ? __uint_as_float(static_cast<uint32_t>(key >> 32))
                         : -INFINITY;
           int i = key ? static_cast<int>(~static_cast<uint32_t>(key))

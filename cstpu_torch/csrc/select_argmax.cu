@@ -86,8 +86,8 @@ select_simt_kernel(const __grid_constant__ simt::Maps maps,
 
   float acc[1][kRT][kAT];
   simt::sweep<T, 1>(
-      acc, smem, maps, A, simt::Products{r, nullptr, 0, 0}, j0, row0, B, n,
-      m, [&](int, int, float (&s)[1][kRT][kAT]) {
+      acc, smem, maps, A, (size_t)m, simt::Products{r, nullptr, 0, 0}, j0,
+      row0, B, n, m, [&](int, int, float (&s)[1][kRT][kAT]) {
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
           const int row = row0 + kRT * warp + i;

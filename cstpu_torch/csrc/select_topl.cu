@@ -17,46 +17,103 @@
 // edge, and a tile with fewer than l atoms, give (-inf, INT_MAX) pads, which
 // lose to every score.
 //
-// What bounds it on an H100: the bytes of the dictionary, as for the top-1
-// select (B n m multiply-adds per call, 0.54 G at B=64, n=1024, m=8192,
-// against 16 MB of bf16), plus a top-l epilogue. Two hand-written variants;
-// the Python wrapper picks one by the top-1 selects' predicate on dtype,
-// alignment and pitch and passes it as `use_mma`:
+// What bounds it on an H100: B n m multiply-adds per call (at suite config
+// 2a, B=64, n=1024, m=8192: 1.07 GFLOP) against one read of the dictionary
+// (16 MB in bf16, 32 MB in f32), plus a top-l epilogue. On the tensor cores
+// the bytes bound it; in true f32 on the CUDA cores the multiply-adds do
+// (0.016 ms at 67 TFLOP/s, the dictionary 0.010 ms at 3.35 TB/s). Two
+// hand-written variants; the Python wrapper picks one by the top-1 selects'
+// predicate on dtype, alignment and pitch and passes it as `use_mma`:
 //
 //   tensor cores (bf16 correlation): mma_topl.cuh, the top-1 selects' wgmma
 //     loop (mma_select.cuh) with an epilogue that sorts each row's 128
 //     scores of the tile across a warp; its cost does not grow with l.
-//   CUDA cores (f32 correlation, and what the loop does not take):
-//     common.cuh::score_tile (one thread per atom, kRows rows of r staged in
-//     shared memory) and common.cuh::topl_partials, l rounds of a warp argmax
-//     per row. That epilogue is NOT small beside the loop: at l = 32 it is
-//     about as long as the multiply-adds.
+//   CUDA cores (f32 correlation, and what the tensor-core loop does not
+//     take): simt_select.cuh's staged, register-tiled loop, one product, as
+//     select_argmax.cu's |s| mode runs it and under the same launch plan
+//     (`simt::warps`: at 2a 128 blocks of 8 warps). Its sums are the top-1
+//     select's bit for bit. The epilogue stays in registers: a thread's
+//     4 x 4 tile of sums is (row 4 w + i, atoms 4 lane .. 4 lane + 3), the
+//     layout that common.cuh::warp_sort128_desc sorts (lane t holds entries
+//     4 t .. 4 t + 3 of a row), so each warp keys its four rows' |s|
+//     (common.cuh::topl_key; past m the pad key 0), sorts them two rows at
+//     a time and writes the first l of each. Its cost is flat in l (1-32);
+//     the earlier epilogue, l rounds of a warp argmax over scores staged in
+//     shared memory (common.cuh::topl_partials), cost about as much as the
+//     multiply-adds at l = 32.
 #include "common.cuh"
 #include "mma_topl.cuh"
+#include "simt_select.cuh"
 
 namespace cstpu {
 
+// The CUDA-core variant: simt_select.cuh's loop over r, then each warp's
+// rows sorted in registers and their first l written. The rules are
+// topl_partials's: value descending, then index ascending; a tile holding
+// a NaN writes l (NaN, INT_MAX); pads write (-inf, INT_MAX).
 template <typename T>
-__global__ void __launch_bounds__(kTile)
-select_topl_kernel(const float* __restrict__ r, const T* __restrict__ A,
-                   float* __restrict__ pval, int* __restrict__ pidx, int B,
-                   int n, int m, int ntiles, int l) {
-  __shared__ __align__(16) float rs[kChunk][kRows];
-  __shared__ float ss[kRows][kTile];
+__global__ void __launch_bounds__(32 * simt::kMaxWarps)
+select_topl_simt_kernel(const __grid_constant__ simt::Maps maps,
+                        const float* __restrict__ r, const T* __restrict__ A,
+                        float* __restrict__ pval, int* __restrict__ pidx,
+                        int B, int n, int m, int ntiles, int l) {
+  using simt::kAT;
+  using simt::kRT;
+  extern __shared__ unsigned char smem[];
+  const int tile = blockIdx.x, j0 = tile * kTile;
+  const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jl = j0 + kAT * lane;    // the thread's first atom
+  const int rw = row0 + kRT * warp;  // the warp's first row
 
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int j = tile * kTile + threadIdx.x;
-  const bool live = j < m;
-
-  float acc[kRows];
-  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, m);
-
+  float acc[1][kRT][kAT];
+  simt::sweep<T, 1>(
+      acc, smem, maps, A, (size_t)m, simt::Products{r, nullptr, 0, 0}, j0,
+      row0, B, n, m, [&](int, int, float (&s)[1][kRT][kAT]) {
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) ss[q][threadIdx.x] = live ? fabsf(acc[q]) : -INFINITY;
-  __syncthreads();
-
-  topl_partials(ss, tile, row0, B, m, ntiles, l, pval, pidx);
+        for (int h = 0; h < kRT; h += kSortRows) {
+          if (rw + h >= B) break;  // the warp's rows: uniform in the warp
+          TopKey x[kSortRows][4];
+          bool nan[kSortRows];
+#pragma unroll
+          for (int q = 0; q < kSortRows; ++q) {
+            bool any = false;
+#pragma unroll
+            for (int c = 0; c < kAT; ++c) {
+              const float v = fabsf(s[0][h + q][c]);
+              const bool live = jl + c < m;
+              x[q][c] = live ? topl_key(v, jl + c) : 0ull;
+              any |= live && isnan(v);
+            }
+            nan[q] = __any_sync(0xffffffffu, any);
+          }
+          warp_sort128_desc<kSortRows>(x);
+#pragma unroll
+          for (int q = 0; q < kSortRows; ++q) {
+            const int row = rw + h + q;
+            if (row >= B) break;
+            const size_t base = ((size_t)row * ntiles + tile) * l;
+#pragma unroll
+            for (int c = 0; c < kAT; ++c) {
+              const int p = kAT * lane + c;
+              if (p < l) {
+                const TopKey key = x[q][c];
+                float v = key ? __uint_as_float(
+                                    static_cast<uint32_t>(key >> 32))
+                              : -INFINITY;
+                int i = key ? static_cast<int>(~static_cast<uint32_t>(key))
+                            : INT_MAX;
+                if (nan[q]) {
+                  v = __int_as_float(0x7fc00000);
+                  i = INT_MAX;
+                }
+                pval[base + p] = v;
+                pidx[base + p] = i;
+              }
+            }
+          }
+        }
+      });
 }
 
 }  // namespace cstpu
@@ -82,14 +139,16 @@ extern "C" int cstpu_select_topl(const float* r, const void* A, int cdt_bf16,
         l, s));
   }
   const int ntiles = (m + kTile - 1) / kTile;
-  const dim3 grid(ntiles, (B + kRows - 1) / kRows);
-  if (cdt_bf16) {
-    select_topl_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
-        r, static_cast<const __nv_bfloat16*>(A), pval, pidx, B, n, m, ntiles,
-        l);
-  } else {
-    select_topl_kernel<float><<<grid, kTile, 0, s>>>(
-        r, static_cast<const float*>(A), pval, pidx, B, n, m, ntiles, l);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const simt::Products prod{r, nullptr, 0, 0};
+  const cudaError_t err =
+      cdt_bf16
+          ? simt::launch<__nv_bfloat16, 1>(
+                select_topl_simt_kernel<__nv_bfloat16>, A, prod, B, n, m,
+                ntiles, s, r, static_cast<const __nv_bfloat16*>(A), pval,
+                pidx, B, n, m, ntiles, l)
+          : simt::launch<float, 1>(select_topl_simt_kernel<float>, A, prod,
+                                   B, n, m, ntiles, s, r,
+                                   static_cast<const float*>(A), pval, pidx,
+                                   B, n, m, ntiles, l);
+  return static_cast<int>(err);
 }

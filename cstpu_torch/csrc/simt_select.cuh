@@ -1,6 +1,8 @@
 // The CUDA-core main loop of the true-f32 selects, shared by the CUDA-core
 // variants of select_argmax.cu (batched OMP, MP, OMPR: K1, K5, K13's masked
-// select) and fr_select.cu (FR, SRR, RMP, FoBa: K3, K14-K16). It computes
+// select), fr_select.cu (FR, SRR, RMP, FoBa: K3, K14-K16), select_topl.cu
+// (GOMP, SP, the OMPR/SRR init: K4, K12-K14) and fr_step_select.cu (the
+// sharded FR family's step over a shard: K8). It computes
 // what common.cuh::score_tile computes, products of rows of r (and of the
 // rescaled selects' pending terms u_p) with the dictionary's atoms, bit for
 // bit: each (row, atom) sum is one fmaf chain over p = 0 .. n-1 from +0,
@@ -32,15 +34,19 @@
 //     bytes, no bank conflict) and one broadcast float4 of four entries per
 //     row: 8 16-byte loads feed 64 FMAs (score_tile: 4 FMAs a load).
 //   Staging: a ring of stages (two of 128 entries of n for an f32
-//     dictionary, three of 64 for bf16), filled asynchronously with
-//     completion on one mbarrier a stage:
-//     - the dictionary's chunk (entries x 128 atoms) by TMA where base and pitch
-//       allow (f32, base 16-byte aligned, m a multiple of 4; zeros past n
-//       and m from the tensor map), else by 4-byte cp.async with zero fill
-//       (f32 at any base and pitch); a bf16 dictionary (the catch-all of
-//       the tensor-core predicate: any base, any pitch) lands as the 4-byte
-//       words that cover each row's 128 entries and is widened to f32 into
-//       one of two ping-pong tiles before the chunk's products;
+//     dictionary, three of 64 for bf16, under the `Wide` plan), filled
+//     asynchronously with completion on one mbarrier a stage:
+//     - the dictionary's chunk (entries x 128 atoms) by TMA where base and
+//       pitch allow (f32, base 16-byte aligned, the row pitch lda a
+//       multiple of 4 entries; zeros past n and m from the tensor map),
+//       else by 4-byte cp.async with zero fill (f32 at any base and
+//       pitch); a bf16 dictionary (the catch-all of the tensor-core
+//       predicate: any base, any pitch) lands as the 4-byte words that
+//       cover each row's 128 entries and is widened to f32 into one of two
+//       ping-pong tiles before the chunk's products. Rows of the dictionary
+//       are lda entries apart, so a column slice of a wider dictionary (a
+//       shard, parallel/sharded.py) is read in place; the selects of whole
+//       dictionaries pass lda = m;
 //     - each product's rows (4 W rows x the chunk, [row][entry]) by TMA
 //       where n is a multiple of 4 and the bases are aligned, else by
 //       4-byte cp.async with zero fill; rounded to bf16 in place for a
@@ -63,15 +69,20 @@
 //     under round to nearest, so the chain's bits do not change.
 //   Products: a pass reads each dictionary chunk once for up to kNP
 //     products (kNP = 2 for the rescaled selects: z_p and z_p+1, or the
-//     last term and q); a launch with more products takes more passes over
-//     the same tile, streamed through the same ring (the second and later
-//     reads come from the L2). After a pass the caller's epilogue gets the
-//     products' sums in registers.
+//     last term and q; 3 for K8's step with V: z, zv and q); a launch with
+//     more products takes more passes over the same tile, streamed through
+//     the same ring (the second and later reads come from the L2). After a
+//     pass the caller's epilogue gets the products' sums in registers.
 // Launch plan (`warps`): the rows of a block as select_argmax.cu's
 // rows_per_block picks them for the tensor-core loop: the smallest of 4,
 // 8, 16, 32 that holds min(B, 32), halved while twice the blocks would
 // still fit the card's SMs. At B = 64 and m = 8192 that is 128 blocks of 32
 // rows on 132 SMs; the second row chunk reads the dictionary from the L2.
+// A `Plan` fixes a stage's entries, the ring's stages and the most warps a
+// block holds (which sizes a stage's rows): `Wide` (128 x 2 for f32, 64 x 3
+// for bf16, rows for 8 warps) fills the SM with one block; a plan for few
+// rows (fr_step_select.cu's, at B <= 8: 1-2 warps a block) takes shallower
+// chunks, so that several blocks share an SM.
 #pragma once
 
 #include <cstdint>
@@ -94,8 +105,19 @@ constexpr int kMaxWarps = 8;
 constexpr int kWordPitch = 68;  // words of a bf16 chunk row (65 used)
 
 static_assert(kTile == 32 * kAT, "a warp covers the tile");
-static_assert(kChunkOf<float> % 8 == 0 && kChunkOf<__nv_bfloat16> % 8 == 0,
-              "the inner loop takes two groups of four");
+
+// A launch plan: entries of n a stage, stages of the ring, and the most
+// warps a block holds (a stage holds that many warps' rows of each product).
+template <int kChunk_, int kStages_, int kWarps_>
+struct Plan {
+  static constexpr int kChunk = kChunk_, kStages = kStages_, kWarps = kWarps_;
+  static_assert(kChunk % 8 == 0, "the inner loop takes two groups of four");
+  static_assert(kWarps >= 1 && kWarps <= kMaxWarps, "warps of a block");
+};
+
+// The plan of a block of up to kMaxWarps warps, one block an SM.
+template <typename T>
+using Wide = Plan<kChunkOf<T>, kStagesOf<T>, kMaxWarps>;
 
 // Warps of a block for a batch of B rows and a grid of ntiles tiles.
 __host__ __device__ inline int warps(int B, int ntiles) {
@@ -108,26 +130,26 @@ __host__ __device__ inline int warps(int B, int ntiles) {
   return w;
 }
 
-template <typename T>
+template <typename T, typename P>
 __host__ __device__ constexpr uint32_t a_stage_bytes() {
-  return std::is_same_v<T, float> ? kChunkOf<T> * kTile * 4
-                                  : kChunkOf<T> * kWordPitch * 4;
+  return std::is_same_v<T, float> ? P::kChunk * kTile * 4
+                                  : P::kChunk * kWordPitch * 4;
 }
 
 // One stage: the dictionary's chunk, then kNP products' rows (up to
-// kMaxWarps warps' worth, so that the layout does not depend on W).
-template <typename T, int kNP>
+// P::kWarps warps' worth, so that the layout does not depend on W).
+template <typename T, int kNP, typename P>
 __host__ __device__ constexpr uint32_t stage_bytes() {
-  return a_stage_bytes<T>() + kNP * kMaxWarps * kRT * kChunkOf<T> * 4;
+  return a_stage_bytes<T, P>() + kNP * P::kWarps * kRT * P::kChunk * 4;
 }
 
 // Dynamic shared memory of a block: the ring, bf16's two widened tiles,
 // the kStages barriers and slack to align the ring to 128 bytes.
-template <typename T, int kNP>
+template <typename T, int kNP, typename P = Wide<T>>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return kStagesOf<T> * stage_bytes<T, kNP>() +
-         (std::is_same_v<T, float> ? 0 : 2 * kChunkOf<T> * kTile * 4) +
-         kStagesOf<T> * 8 + 128;
+  return P::kStages * stage_bytes<T, kNP, P>() +
+         (std::is_same_v<T, float> ? 0 : 2 * P::kChunk * kTile * 4) +
+         P::kStages * 8 + 128;
 }
 
 // Entry c (0..3, a constant after unrolling) of v.
@@ -135,44 +157,50 @@ __device__ __forceinline__ float part(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-// The products of a launch: product p < P is the (B, n) matrix at
-// U + p ustride, product P is r (B, n); both rows n entries apart.
+// The products of a launch, in order: product p < P is the (B, n) matrix
+// at U + p ustride, then V (B, n) where V is not null, then r (B, n); all
+// rows n entries apart.
 struct Products {
   const float* r;
   const float* U;
   size_t ustride;
   int P;
+  const float* V = nullptr;
+  __host__ __device__ __forceinline__ int count() const {
+    return P + (V != nullptr) + 1;
+  }
   __device__ __forceinline__ const float* operator[](int p) const {
-    return p < P ? U + (size_t)p * ustride : r;
+    return p < P ? U + (size_t)p * ustride : (V != nullptr && p == P ? V : r);
   }
 };
 
 // The launch's tensor maps (f32): the dictionary's (boxes of kTile atoms x
 // a chunk's entries) when tma_a, and the products' rows (boxes of a chunk's
-// entries x the block's rows: r's, and U's as one (P B, n) matrix) when
-// tma_r. What a map does not cover is staged by cp.async.
+// entries x the block's rows: r's, V's, and U's as one (P B, n) matrix)
+// when tma_r. What a map does not cover is staged by cp.async.
 struct Maps {
-  CUtensorMap a, r, u;
+  CUtensorMap a, r, u, v;
   int tma_a, tma_r;
 };
 
 // acc[q][i][c] = round_cdt<T>(product q's row row0 + 4 warp + i) . A[:, j0 +
 // 4 lane + c] for each pass's up to kNP products, every sum one fmaf chain
-// over p = 0 .. n-1. The products (P + 1 of them) are taken kNP to a pass
-// in order; after pass `pass` (products kNP pass .. + np - 1) the loop
-// calls epi(pass, np, acc). A (n, m) has rows m entries apart; `maps` says
-// what TMA stages (an f32 dictionary only). Every thread of the 32 W-wide
-// block calls it once; `smem` is the block's dynamic shared memory,
-// smem_bytes<T, kNP>() of it.
-template <typename T, int kNP, typename Epi>
+// over p = 0 .. n-1. The products (prod.count() of them) are taken kNP to
+// a pass in order; after pass `pass` (products kNP pass .. + np - 1) the
+// loop calls epi(pass, np, acc). A (n, m) has rows lda entries apart;
+// `maps` says what TMA stages (an f32 dictionary only). Every thread of the
+// 32 W-wide block (W <= P::kWarps) calls it once; `smem` is the block's
+// dynamic shared memory, smem_bytes<T, kNP, P>() of it.
+template <typename T, int kNP, typename P = Wide<T>, typename Epi>
 __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
                                       unsigned char* smem, const Maps& maps,
-                                      const T* __restrict__ A,
+                                      const T* __restrict__ A, size_t lda,
                                       const Products& prod, int j0, int row0,
                                       int B, int n, int m, Epi&& epi) {
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  constexpr int kChunk = kChunkOf<T>, kStages = kStagesOf<T>;
-  constexpr uint32_t kStage = stage_bytes<T, kNP>();
+  constexpr int kChunk = P::kChunk, kStages = P::kStages;
+  constexpr int kRowCap = P::kWarps * kRT;  // rows a stage holds a product
+  constexpr uint32_t kStage = stage_bytes<T, kNP, P>();
   const int nthreads = blockDim.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int TR = kRT * (nthreads >> 5);  // rows of the block
@@ -182,7 +210,7 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
   const uint32_t full = base + kStages * kStage +
                         (kBf16 ? 2 * kChunk * kTile * 4 : 0);
   const int nk = (n + kChunk - 1) / kChunk;
-  const int nprod = prod.P + 1;
+  const int nprod = prod.count();
   const int npass = (nprod + kNP - 1) / kNP;
   const int G = npass * nk;
   const bool tma_a = !kBf16 && maps.tma_a, tma_r = maps.tma_r;
@@ -202,10 +230,10 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
     const int s = g % kStages, pass = g / nk, p0 = (g % nk) * kChunk;
     const int np = min(kNP, nprod - kNP * pass);
     unsigned char* st = ring + s * kStage;
-    float* rs = reinterpret_cast<float*>(st + a_stage_bytes<T>());
+    float* rs = reinterpret_cast<float*>(st + a_stage_bytes<T, P>());
     const uint32_t bar = full + 8 * s;
     if (tma && tid == 0) {
-      mbar_expect_tx(bar, (tma_a ? a_stage_bytes<float>() : 0) +
+      mbar_expect_tx(bar, (tma_a ? a_stage_bytes<float, P>() : 0) +
                               (tma_r ? np * TR * kChunk * 4 : 0));
       if (tma_a) tma_load_2d(base + s * kStage, &maps.a, bar, j0, p0);
       if (tma_r) {
@@ -213,8 +241,11 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
           const int p = kNP * pass + q;
           // rows of U past its product's B are the next product's (or
           // zeros): they land in rows >= B, whose sums nobody reads
-          tma_load_2d(smem_u32(rs + q * kMaxWarps * kRT * kChunk),
-                      p < prod.P ? &maps.u : &maps.r, bar, p0,
+          const CUtensorMap* map =
+              p < prod.P ? &maps.u
+                         : (prod.V != nullptr && p == prod.P ? &maps.v
+                                                             : &maps.r);
+          tma_load_2d(smem_u32(rs + q * kRowCap * kChunk), map, bar, p0,
                       (p < prod.P ? p * B : 0) + row0);
         }
       }
@@ -226,7 +257,7 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
           const int k = e / kTile, c = e % kTile;
           const bool ok = p0 + k < n && j0 + c < m;
           cp_async4_zfill(as + e,
-                          ok ? A + (size_t)(p0 + k) * m + j0 + c : A, ok);
+                          ok ? A + (size_t)(p0 + k) * lda + j0 + c : A, ok);
         }
       } else {
         // the 4-byte words that cover entries j0 .. j0 + 127 of each row
@@ -235,7 +266,7 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
         for (int e = tid; e < kChunk * 65; e += nthreads) {
           const int k = e / 65, q = e % 65;
           const int p = p0 + k;
-          const uintptr_t row = a + 2 * ((uintptr_t)p * m + j0);
+          const uintptr_t row = a + 2 * ((uintptr_t)p * lda + j0);
           const int shift = (int)((row >> 1) & 1);
           // the word's first entry inside the tile (its low half, or its
           // high half for the first word of a row that starts mid-word);
@@ -253,7 +284,7 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
     if (!tma_r) {
       for (int q = 0; q < np; ++q) {
         const float* src = prod[kNP * pass + q];
-        float* dst = rs + q * kMaxWarps * kRT * kChunk;
+        float* dst = rs + q * kRowCap * kChunk;
         for (int e = tid; e < TR * kChunk; e += nthreads) {
           const int i = e / kChunk, k = e % kChunk;
           const bool ok = row0 + i < B && p0 + k < n;
@@ -272,7 +303,7 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
     const int s = g % kStages, pass = g / nk, kc = g % nk;
     const int np = min(kNP, nprod - kNP * pass);
     unsigned char* st = ring + s * kStage;
-    float* rs = reinterpret_cast<float*>(st + a_stage_bytes<T>());
+    float* rs = reinterpret_cast<float*>(st + a_stage_bytes<T, P>());
     if (kc == 0) {
 #pragma unroll
       for (int q = 0; q < kNP; ++q) {
@@ -294,14 +325,14 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
       for (int e = tid; e < kChunk * kTile; e += nthreads) {
         const int k = e / kTile, c = e % kTile;
         const int shift =
-            (int)(((a + 2 * ((uintptr_t)(p0 + k) * m + j0)) >> 1) & 1);
+            (int)(((a + 2 * ((uintptr_t)(p0 + k) * lda + j0)) >> 1) & 1);
         const uint16_t h = aw[k * 2 * kWordPitch + shift + c];
         x[e] = (p0 + k < n && j0 + c < m)
                    ? __uint_as_float(static_cast<uint32_t>(h) << 16)
                    : 0.f;
       }
       for (int q = 0; q < np; ++q) {
-        float* dst = rs + q * kMaxWarps * kRT * kChunk;
+        float* dst = rs + q * kRowCap * kChunk;
         for (int e = tid; e < TR * kChunk; e += nthreads) {
           dst[e] = round_cdt<T>(dst[e]);
         }
@@ -332,7 +363,7 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
           rv[q][i] = *reinterpret_cast<const float4*>(
-              r_warp + q * kMaxWarps * kRT * kChunk + i * kChunk + k);
+              r_warp + q * kRowCap * kChunk + i * kChunk + k);
         }
       }
     };
@@ -400,18 +431,19 @@ inline bool tma_takes(const void* base, long long pitch) {
   return reinterpret_cast<uintptr_t>(base) % 16 == 0 && pitch % 4 == 0;
 }
 
-// The maps of a launch with W warps a block: the dictionary's where it is
-// f32 and TMA takes it; the rows' where TMA takes r and U (n a multiple
-// of 4, bases aligned).
-inline cudaError_t make_maps(Maps& mp, const void* A, bool a_f32,
-                             const Products& prod, int B, int n, int m,
-                             int w, int chunk) {
-  mp.tma_a = a_f32 && tma_takes(A, m);
+// The maps of a launch with W warps a block: the dictionary's (rows lda
+// entries apart) where it is f32 and TMA takes it; the rows' where TMA
+// takes r, U and V (n a multiple of 4, bases aligned).
+inline cudaError_t make_maps(Maps& mp, const void* A, long long lda,
+                             bool a_f32, const Products& prod, int B, int n,
+                             int m, int w, int chunk) {
+  mp.tma_a = a_f32 && tma_takes(A, lda);
   mp.tma_r = tma_takes(prod.r, n) &&
-             (prod.P == 0 || tma_takes(prod.U, n));
+             (prod.P == 0 || tma_takes(prod.U, n)) &&
+             (prod.V == nullptr || tma_takes(prod.V, n));
   cudaError_t err = cudaSuccess;
   if (mp.tma_a) {
-    err = tensor_map_f32(&mp.a, static_cast<const float*>(A), m, n, m,
+    err = tensor_map_f32(&mp.a, static_cast<const float*>(A), m, n, lda,
                          kTile, chunk);
     if (err != cudaSuccess) return err;
   }
@@ -420,28 +452,43 @@ inline cudaError_t make_maps(Maps& mp, const void* A, bool a_f32,
     if (err == cudaSuccess && prod.P > 0) {
       err = tensor_map_f32(&mp.u, prod.U, n, prod.P * B, n, chunk, kRT * w);
     }
+    if (err == cudaSuccess && prod.V != nullptr) {
+      err = tensor_map_f32(&mp.v, prod.V, n, B, n, chunk, kRT * w);
+    }
   }
   return err;
 }
 
-// Launch kern(maps, args...) over the (ntiles, row chunks) grid of the
-// loop's plan, with its tensor maps; opts into the dynamic shared memory
-// first. Returns the first error.
-template <typename T, int kNP, typename Kern, typename... Args>
-cudaError_t launch(Kern kern, const void* A, const Products& prod, int B,
-                   int n, int m, int ntiles, cudaStream_t s, Args... args) {
-  constexpr int kSmem = static_cast<int>(smem_bytes<T, kNP>());
+// Launch kern(maps, args...) over the (ntiles, row chunks) grid of blocks
+// of w warps (w <= P::kWarps; by default the loop's plan, `warps`), with
+// its tensor maps for A's rows lda entries apart; opts into the dynamic
+// shared memory first. Returns the first error.
+template <typename T, int kNP, typename P = Wide<T>, typename Kern,
+          typename... Args>
+cudaError_t launch_plan(Kern kern, const void* A, long long lda,
+                        const Products& prod, int B, int n, int m,
+                        int ntiles, int w, cudaStream_t s, Args... args) {
+  constexpr int kSmem = static_cast<int>(smem_bytes<T, kNP, P>());
+  if (w < 1 || w > P::kWarps) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  const int w = warps(B, ntiles);
   Maps maps{};
-  err = make_maps(maps, A, std::is_same_v<T, float>, prod, B, n, m, w,
-                  kChunkOf<T>);
+  err = make_maps(maps, A, lda, std::is_same_v<T, float>, prod, B, n, m, w,
+                  P::kChunk);
   if (err != cudaSuccess) return err;
   const dim3 grid(ntiles, (B + kRT * w - 1) / (kRT * w));
   kern<<<grid, 32 * w, kSmem, s>>>(maps, args...);
   return cudaGetLastError();
+}
+
+// launch_plan under the Wide plan and the loop's rows (`warps`) for a
+// dictionary whose rows are m entries apart.
+template <typename T, int kNP, typename Kern, typename... Args>
+cudaError_t launch(Kern kern, const void* A, const Products& prod, int B,
+                   int n, int m, int ntiles, cudaStream_t s, Args... args) {
+  return launch_plan<T, kNP>(kern, A, m, prod, B, n, m, ntiles,
+                             warps(B, ntiles), s, args...);
 }
 
 }  // namespace simt

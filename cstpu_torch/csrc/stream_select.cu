@@ -261,7 +261,7 @@ stream_topl_merge_kernel(float* __restrict__ pval, int* __restrict__ pidx,
         const size_t at = (size_t)(first + c) * l + p;
         const float v = pv[at];
         nan |= isnan(v);
-        key = v == -INFINITY ? 0ull : mma::topl_key(v, pi[at]);
+        key = v == -INFINITY ? 0ull : topl_key(v, pi[at]);
       }
       buf[src][e] = key;
     }
@@ -342,7 +342,7 @@ stream_topl_fold_kernel(const float* __restrict__ pval,
       const size_t at = ((size_t)row * nblocks + (size_t)(t0 + tt) * bpt) * l + p;
       const float cv = pval[at];  // a skipped (NaN) tile is keyed 0
       cand[e] = (isnan(cv) || cv == -INFINITY) ? 0ull
-                                               : mma::topl_key(cv, pidx[at]);
+                                               : topl_key(cv, pidx[at]);
     }
     for (int tt = 0; tt < nt; ++tt) {
       if (s < l) okey[s] = (static_cast<unsigned long long>(float_order(v)) << 32) | s;
@@ -441,7 +441,7 @@ stream_topl_merge_wide_kernel(float* __restrict__ pval, int* __restrict__ pidx,
     if (e < bpt * kTile) {
       const float v = pv[e];
       nan |= isnan(v);
-      key = v == -INFINITY ? 0ull : mma::topl_key(v, pi[e]);
+      key = v == -INFINITY ? 0ull : topl_key(v, pi[e]);
     }
     b0[e] = key;
   }

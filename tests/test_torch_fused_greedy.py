@@ -128,6 +128,28 @@ def test_gomp_nan_row_masked_and_duplicate_skipped():
     assert j0 in _active(t, 1) and 127 not in _active(t, 1)
 
 
+def test_gomp_topl_32_nan_row_and_a_column_repeated_across_tiles():
+    # l = k = 32 (LMAX) picks in one step, in true f32, m = 512 (four
+    # tiles): a NaN row picks nothing, and a column repeated in another
+    # tile ties with its twin: the lower index is picked, the copy rejected
+    # as degenerate
+    A, sup, Bs = _noisy_batch(607, n=64, m=512)
+    j0 = int(sup[1][0])
+    twin = (j0 // 128 + 2) % 4 * 128 + 17
+    A[:, twin] = A[:, j0]
+    Bs[0, 5] = np.nan
+    js, jr = jfs.gomp_fused_solve(A, Bs, tfs.LMAX, tfs.LMAX,
+                                  corr_dtype=jnp.float32, interpret=True)
+    ts, tr = tfs.gomp_fused_solve_ref(to_torch(A), to_torch(Bs), tfs.LMAX,
+                                      tfs.LMAX, corr_dtype=torch.float32)
+    t = _compare(ts, js, ATOL["f32"])
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=ATOL["f32"])
+    assert not t["mask"][0].any()
+    assert j0 in _active(t, 1) and twin not in _active(t, 1)
+    for row in range(2, 8):
+        assert set(sup[row].tolist()) <= _active(t, row)
+
+
 def test_gomp_k_beyond_n_is_clamped():
     # the tests/test_fused_solve.py:238 pattern: k > n clamps the slot
     # width to n, and the planted atoms are all found

@@ -1,6 +1,7 @@
 """The CUDA kernels of cstpu_torch (select_argmax in its tensor-core and
-CUDA-core variants, the CUDA-core loop of select_argmax and fr_select over
-chip_smoke.SIMT_CASES, omp_append, mp_update,
+CUDA-core variants, the CUDA-core loop of select_argmax, fr_select,
+select_topl and fr_step_select over chip_smoke.SIMT_CASES, omp_append,
+mp_update,
 select_topl (tensor-core and CUDA-core variants), gomp_append, fr_select
 (tensor-core and CUDA-core variants),
 fr_append, the two-stage ones:
@@ -2386,8 +2387,8 @@ def test_engine_wrappers_launch_at_the_budget_edge(dev):
 
 
 # --------------------------------------------------------------------------
-# the CUDA-core variants of select_argmax and fr_select on their staged,
-# register-tiled loop (csrc/simt_select.cuh)
+# the CUDA-core variants of select_argmax, fr_select, select_topl and
+# fr_step_select on their staged, register-tiled loop (csrc/simt_select.cuh)
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B,n,m,off", chip_smoke.SIMT_CASES)
@@ -2402,4 +2403,21 @@ def test_simt_selects_match_plain_on_every_row(dev, B, n, m, off, cdt):
     sel_err, resc_err, _ = chip_smoke.hold_simt_select(dev, B, n, m, off,
                                                        cdt)
     assert sel_err <= chip_smoke.SELECT_RTOL
+    assert resc_err <= chip_smoke.RESC_ATOL
+
+
+@pytest.mark.parametrize("B,n,m,off", chip_smoke.SIMT_CASES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_simt_topl_and_fr_step_match_plain_on_every_row(dev, B, n, m, off,
+                                                        cdt):
+    # select_topl at l = 1, 4, 32 and fr_step_select with and without V, on
+    # a contiguous shard and on a column view (lda = 4 m + off), forced onto
+    # the CUDA-core variants on the same loop: each tile's first top-l entry
+    # the top-1 select's partial bit for bit, the rest against the plain
+    # twin (a duplicated column, a NaN row, a tile of 2 atoms' pads); the
+    # step's picks on the clear rows, its mark, restore, NaN and
+    # all-degenerate rows, and its written-back rescalings
+    topl_err, _ = chip_smoke.hold_simt_topl(dev, B, n, m, off, cdt)
+    assert topl_err <= chip_smoke.SELECT_RTOL
+    _, resc_err, _ = chip_smoke.hold_simt_fr_step(dev, B, n, m, off, cdt)
     assert resc_err <= chip_smoke.RESC_ATOL

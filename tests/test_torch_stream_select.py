@@ -439,6 +439,29 @@ def test_fr_step_select_matches_pallas(n, m, use_v, cdt):
     assert not np.any(got[1][:4] == 77)
 
 
+@pytest.mark.parametrize("n,m", SIZES)
+def test_fr_step_select_on_a_column_slice_with_v_matches_pallas(n, m):
+    # an f32 shard read in place as a column view of a dictionary four
+    # shards wide (rows 4 m entries apart), with V, a mark and a restore:
+    # the same update of resc and the same pick as cstpu's kernel on the
+    # shard alone, and the rest of the wide dictionary untouched
+    A, R, W, V, il, cn2, resc = _fr_inputs(25, n, m)
+    resc[:, 40] = -1.0                            # an atom already active
+    il[:3, 0] = 77                                # rows 0-2 mark atom 77
+    il[3:5, 1] = 40                               # rows 3-4 restore atom 40
+    rng = np.random.default_rng(26)
+    wide = rng.standard_normal((n, 4 * m)).astype(np.float32)
+    wide[:, m:2 * m] = A
+    tw = torch.from_numpy(wide)
+    tA = tw[:, m:2 * m]
+    assert tA.stride() == (4 * m, 1) and not tA.is_contiguous()
+    got, want = _fr_both(tA, jnp.asarray(A), R, W, V, il, cn2, resc)
+    _same_step(got, want)
+    assert np.all(got[2][:3, 77] == -1.0)
+    assert np.all(got[2][3:5, 40] > -1.0)
+    np.testing.assert_array_equal(tw.numpy(), wide)
+
+
 @pytest.mark.parametrize("cdt", ["f32", "bf16"])
 def test_fr_step_select_nan_row_poisoned_atom_degenerate_row(cdt):
     n, m = 1024, 8192

@@ -36,17 +36,32 @@ sharded body whose torch operations on the batched active-set engine at
 chip_smoke.cuda_ms: the median of up to chip_smoke.TIMED_SLOW solves) and device busy ms (one profiled solve).
     python3 tools/ab_paths.py ROOT TAG --f32 [OUT]
 
-times only the true-f32 selects (the CUDA-core variants of select_argmax
-and fr_select): device ms per launch (chip_smoke.device_ms_per_call) of the top-1
-select at the bench shape (B = 64, n = 1024, m = 8192; |s|, signed and
-masked) and at 5b's (m = 131072), of fr_select at 3a's (one pending term)
-and with SRR's first
-call's 16 terms, beside the f32 torch.matmul of the same products; and the
-f32 solves omp_batch(precision="f32") and fr_batch(precision="f32") (wall
-ms by events, device busy ms). It saves every output (partials,
+times only the true-f32 selects (the CUDA-core variants of select_argmax,
+fr_select, select_topl and fr_step_select): device ms per launch
+(chip_smoke.device_ms_per_call) of the top-1 select at the bench shape
+(B = 64, n = 1024, m = 8192; |s|, signed and masked) and at 5b's (m =
+131072), of fr_select at 3a's (one pending term) and with SRR's first
+call's 16 terms, beside the f32 torch.matmul of the same products; of
+select_topl at 2a (l = 4) and 2b (l = 32), beside the f32 torch.matmul
+and torch.topk a tile and the matmul alone; of fr_step_select (sweep and
+finish) with and without V on 3a-wide's problem at m_local = 131072 and
+on a four-shard column view at 32768, beside the f32 matmul of its
+products and its bound; and the f32 solves omp_batch, fr_batch and
+gomp_batch (precision="f32", at the bench, 3a and 2a) and
+fr_sharded_fused (one shard and four) and srr_sharded_fused (four) with
+corr_dtype=f32 on 3a-wide's problem (wall ms by events, device busy ms,
+per kernel launches and device ms). It saves every output (partials,
 rescalings, solutions) to OUT/ab_f32_TAG.pt (OUT: this checkout's
 build/ab_f32 by default) and holds them bit for bit against every other
 TAG's file there: run the parent and the change in turn on one machine.
+
+    python3 tools/ab_paths.py ROOT TAG --fr-step-plans C,S [C,S ...]
+
+times fr_step_select's f32 sweep (as --f32 does) under each few-row plan
+of C entries of n a stage in a ring of S stages: a process a plan, each
+building ROOT's library with -DCSTPU_FR_STEP_CHUNK=C
+-DCSTPU_FR_STEP_STAGES=S into cstpu_torch/build/plan_CxS; the outputs
+go to build/ab_plans and are held bit for bit across the plans.
 Each line gives the update kernels' registers (the deletion kernels'
 spill stores beside theirs), the device busy ms per
 solve (torch.profiler: the union of the device spans; beside it their
@@ -169,13 +184,111 @@ def sharded_sp(cs, tag):
           f"{sp_['idle_share']:.3f}, recovery {rec:.3f}", flush=True)
 
 
+def wide_problem(cs, dev):
+    """3a-wide's problem (chip_smoke.FR5_K on correlated_data(decay=
+    chip_smoke.FR5_DECAY) at 5c's shape, B = 8, n = 1024, m = 131072) on a
+    generator of its own: (A, Br, sup)."""
+    import torch
+
+    from cstpu_torch.utils.data import correlated_data
+
+    B, n, m, _ = cs.SHARD_CELLS["5c"]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    A = correlated_data(gen, n, m, cs.FR5_K, decay=cs.FR5_DECAY)[0]
+    A = A.contiguous()
+    Br, sup = cs.planted_ones(gen, A, B, cs.FR5_K)
+    return A, Br, sup
+
+
+def fr_steps(cs, tag, dev):
+    """K8's CUDA-core sweep in f32 on 3a-wide's problem, with and without
+    V: on the whole dictionary as one shard (m_local = 131072, contiguous)
+    and on its first quarter as a column view (m_local = 32768, lda = 4
+    m_local, one of four shards); device ms a call (the sweep and the
+    finish) beside one f32 torch.matmul of its products [R; W (; V)] . A.
+    Returns the outputs of one call from a fresh rescaling each."""
+    import torch
+
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    A, Br, _ = wide_problem(cs, dev)
+    B, n = Br.shape
+    deg = fs._degeneracy_rtol(n)
+    il = torch.full((B, 2), -1, dtype=torch.int32, device=dev)
+    il[1, 0], il[2, 1] = 77, 40          # a mark and a restore
+    W = 1e-2 * Br / n ** 0.5
+    V = 0.5 * W.flip(0)
+    outputs = {}
+    for width in cs.STREAM_WIDTHS:
+        As = A[:, :width]
+        cn2 = torch.sum(As * As, dim=0)
+        resc0 = cn2.repeat(B, 1)
+        resc0[:, 40] = -1.0
+        for name, Vv in (("fr_step_select", None), ("fr_step_select V", V)):
+            resc = resc0.clone()
+
+            def call(resc=resc, Vv=Vv):
+                return ss.fr_step_select(As, Br, W, il, cn2, resc, deg, V=Vv)
+
+            prods = torch.cat([Br, W] + ([Vv] if Vv is not None else []))
+            ms = cs.device_ms_per_call(call)
+            lib = cs.device_ms_per_call(lambda: torch.matmul(prods, As))
+            key = f"{name} {width}"
+            got = ss.fr_step_select(As, Br, W, il, cn2, resc0.clone(), deg,
+                                    V=Vv)
+            outputs[key] = [x.cpu() for x in got]
+            bnd = cs.fr_step_bound(B, n, width, cdt_bytes=4,
+                                   use_v=Vv is not None)
+            print(f"[ab {tag}] f32 {key} (lda {As.stride(0)}): {cs.ms4(ms)} "
+                  f"ms a call on the device (sweep and finish), torch.matmul "
+                  f"f32 of its products {cs.ms4(lib)}; bound "
+                  f"{bnd['bound_ms']:.4f} by {bnd['bound_by']}", flush=True)
+    return outputs
+
+
+def sharded_f32_solves(cs, dev):
+    """fr_sharded_fused on one shard and on four and srr_sharded_fused on
+    four, corr_dtype=f32, on 3a-wide's problem: (name, solve) pairs."""
+    import torch
+
+    import cstpu_torch
+
+    A, Br, _ = wide_problem(cs, dev)
+    f32 = torch.float32
+    out = []
+    for s in (1, cs.SHARDS):
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(A, mesh)
+        out.append((f"fr_sharded_fused f32 shards={s}",
+                    lambda Ash=Ash, mesh=mesh: cstpu_torch.fr_sharded_fused(
+                        Ash, Br, cs.FR5_K, mesh, corr_dtype=f32)))
+    out.append((f"srr_sharded_fused f32 shards={cs.SHARDS}",
+                lambda: cstpu_torch.srr_sharded_fused(
+                    Ash, Br, cs.FR5_K, mesh, **cs.SRR5_KW, corr_dtype=f32)))
+    return out
+
+
+def fr_step_plans(cs, tag, plans):
+    """The --fr-step-plans mode: K8's f32 sweep under each (entries a
+    stage, stages) plan of few rows, each built into a library of its own
+    (fr_step_select.cu's CSTPU_FR_STEP_CHUNK and CSTPU_FR_STEP_STAGES) and
+    timed in a process of its own by fr_steps; the outputs are held bit for
+    bit across the plans."""
+    import subprocess
+
+    for chunk, stages in plans:
+        sub = subprocess.run(
+            [sys.executable, __file__, os.getcwd(), f"{tag}-{chunk}x{stages}",
+             "--fr-step-plan", f"{chunk},{stages}"], check=False)
+        if sub.returncode != 0:
+            print(f"[ab {tag}] plan {chunk}x{stages} failed: rc "
+                  f"{sub.returncode}", flush=True)
+
+
 def f32_selects(cs, tag, out_dir):
     """The --f32 mode (see the module's note)."""
     import torch
-
-    def bits(x):
-        """A tensor's bits: floats as int32 (NaNs compare equal)."""
-        return x.view(torch.int32) if x.is_floating_point() else x
 
     import cstpu_torch
     from cstpu_torch.ops import fused_solve as fs
@@ -231,25 +344,60 @@ def f32_selects(cs, tag, out_dir):
                             B5, n5, m5, k5)
     calls["select 5b"] = (lambda: fs.select_argmax(Bs5, A5, mma=False),
                           lambda: torch.matmul(Bs5, A5))
+    # the top-l select at 2a (l = 4) and 2b (l = 32): suite config 2a's
+    # planted ones on the bench's dictionary, on a generator of its own;
+    # its library call is the f32 torch.matmul and torch.topk a tile (the
+    # bare matmul beside it)
+    gen2 = torch.Generator(device=dev).manual_seed(cs.SEED)
+    Bg, supg = cs.planted_ones(gen2, A, B, cs.GOMP_CELL[4])
+    T = -(-m // fs.TILE)
+    for cell, lv in (("2a", cs.GOMP_CELL[5]), ("2b", cs.SP_CELL[1])):
+        calls[f"select_topl {cell}"] = (
+            lambda lv=lv: fs.select_topl(Bg, A, lv, mma=False),
+            lambda lv=lv: torch.matmul(Bg, A).view(B, T, fs.TILE).abs().topk(
+                lv, dim=2),
+            lambda: torch.matmul(Bg, A))
     outputs = {}
-    for name, (kern, lib) in calls.items():
+    for name, (kern, lib, *bare) in calls.items():
         ms, lib_ms = cs.device_ms_per_call(kern), cs.device_ms_per_call(lib)
         got = kern(fresh()) if name.startswith("fr") else kern()
         outputs[name] = [x.cpu() for x in got]
+        what = "and torch.topk a tile " if bare else ""
         print(f"[ab {tag}] f32 {name}: {cs.ms4(ms)} ms a launch on the "
-              f"device, torch.matmul f32 of its products {cs.ms4(lib_ms)}",
-              flush=True)
-    for name, solve in (
-            ("omp_batch f32 bench", lambda: cstpu_torch.omp_batch(
-                A, Bs, k, precision="f32")),
-            ("fr_batch f32 3a", lambda: cstpu_torch.fr_batch(
-                Ar, Br, sparsity=kf, precision="f32"))):
+              f"device, torch.matmul f32 of its products {what}"
+              f"{cs.ms4(lib_ms)}" + (f", the matmul alone "
+                                     f"{cs.ms4(cs.device_ms_per_call(bare[0]))}"
+                                     if bare else ""), flush=True)
+    outputs.update(fr_steps(cs, tag, dev))
+    solves = [
+        ("omp_batch f32 bench", lambda: cstpu_torch.omp_batch(
+            A, Bs, k, precision="f32")),
+        ("fr_batch f32 3a", lambda: cstpu_torch.fr_batch(
+            Ar, Br, sparsity=kf, precision="f32")),
+        ("gomp_batch f32 2a", lambda: cstpu_torch.gomp_batch(
+            A, Bg, cs.GOMP_CELL[5], cs.GOMP_CELL[4], precision="f32"))]
+    solves += sharded_f32_solves(cs, dev)
+    for name, solve in solves:
         sol = solve()
         outputs[name] = [sol.idx.cpu(), sol.val.cpu(), sol.mask.cpu()]
         wall = cs.cuda_ms(lambda: solve().val.sum(), cs.TIMED_SOLVES)
-        busy, _ = cs.profile_path(solve)
+        busy, per = cs.profile_path(solve)
         print(f"[ab {tag}] {name}: wall {wall:.4f} ms, device busy "
-              f"{busy:.4f} ms", flush=True)
+              f"{busy:.4f} ms (" + ", ".join(
+                  f"{kn} {c}x {ms:.4f}" for kn, (c, ms) in per.items())
+              + ")", flush=True)
+    compare(outputs, tag, out_dir)
+
+
+def compare(outputs, tag, out_dir):
+    """Save the outputs to OUT/ab_f32_TAG.pt and hold them bit for bit
+    against every other TAG's file there."""
+    import torch
+
+    def bits(x):
+        """A tensor's bits: floats as int32 (NaNs compare equal)."""
+        return x.view(torch.int32) if x.is_floating_point() else x
+
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.save(outputs, out_dir / f"ab_f32_{tag}.pt")
@@ -280,13 +428,33 @@ def main():
 
     assert _build.PKG.parent == Path(root), _build.PKG
     torch.backends.cuda.matmul.allow_tf32 = False
+    args = sys.argv[3:]
+    own_build = Path(__file__).resolve().parent.parent / "build"
+    if "--fr-step-plans" in args:
+        # a process a plan, each building its own library
+        plans = [tuple(map(int, a.split(","))) for a in
+                 args[args.index("--fr-step-plans") + 1:]]
+        fr_step_plans(cs, tag, plans)
+        return None
+    if "--fr-step-plan" in args:
+        chunk, stages = args[args.index("--fr-step-plan") + 1].split(",")
+        _build.NVCC_FLAGS = [*_build.NVCC_FLAGS,
+                             f"-DCSTPU_FR_STEP_CHUNK={int(chunk)}",
+                             f"-DCSTPU_FR_STEP_STAGES={int(stages)}"]
+        _build.BUILD = _build.BUILD / f"plan_{int(chunk)}x{int(stages)}"
+        _build.LIB = _build.BUILD / _build.LIB.name
     _, log = _build.build()
     print(f"[ab {tag}] {cs.gpu_line()}")
-    if "--f32" in sys.argv[3:]:
-        rest = [a for a in sys.argv[3:] if a != "--f32"]
-        f32_selects(cs, tag, rest[0] if rest else
-                    Path(__file__).resolve().parent.parent / "build"
-                    / "ab_f32")
+    if "--fr-step-plan" in args:
+        for line in log.splitlines():
+            if "fr_step_simt" in line and "Function properties" in line:
+                print(f"[ab {tag}] {line.strip()[:160]}")
+        compare(fr_steps(cs, tag, torch.device("cuda", 0)), tag,
+                own_build / "ab_plans")
+        return None
+    if "--f32" in args:
+        rest = [a for a in args if a != "--f32"]
+        f32_selects(cs, tag, rest[0] if rest else own_build / "ab_f32")
         return None
     if {"--rows", "--sharded"} & set(sys.argv[3:]):
         if "--rows" in sys.argv[3:]:
