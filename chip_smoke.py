@@ -1335,11 +1335,12 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 # selects; select_argmax and fr_select in checkouts before them), whose
 # names are inside their own; select_topl_simt and fr_step_simt are the
 # CUDA-core top-l select and K8 sweep (select_topl and fr_step_sweep in
-# checkouts before them)
+# checkouts before them), stream_top1_simt the CUDA-core top-1 sweep of K6,
+# K9 and K10 (stream_sweep before it)
 KERNEL_NAMES = ("fr_select_simt", "select_simt", "select_topl_simt",
-                "fr_step_simt", "select_argmax", "top1_mma",
-                "topl_mma", "round_rows", "gomp_append", "omp_append",
-                "fr_append", "mp_update", "select_topl", "fr_select", "engine_init",
+                "fr_step_simt", "stream_top1_simt", "select_argmax",
+                "top1_mma", "topl_mma", "round_rows", "gomp_append",
+                "omp_append", "fr_append", "mp_update", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
                 "rmp_append", "engine_backward", "bw_select", "bw_downdate",
                 "stream_sweep", "stream_finish", "stream_topl_sweep",
@@ -2708,6 +2709,131 @@ def hold_simt_fr_step(dev, B, n, m, off, cdt):
                       and lda % 4 == 0,
                       R.data_ptr() % 16 == 0 and n % 4 == 0))
     return max(errs.values()), rerr, stagings
+
+
+def hold_simt_stream(dev, B, n, m, off, cdt):
+    """stream_select.cu's CUDA-core top-1 sweep (stream_top1_simt_kernel on
+    simt_select.cuh) under K6 (correlate_select_stream), K9
+    (correlate_select_masked_stream) and K10 (correlate_argmax, R given as
+    (n, B) and read through its strides), forced onto it with mma=False, on
+    one problem of SIMT_CASES, its width cut to m8 = a multiple of 128 (the
+    stream tiling), on a contiguous shard and on a column view of a 4 m8 +
+    off wide dictionary (lda = 4 m8 + off), the shard and the rows `off`
+    entries into their storage; column m8 - 1 a copy of SIMT_TIE and row 0
+    that atom (a tie: SIMT_TIE wins), row 1 a NaN row, row 2 every atom
+    excluded (K9: (-inf, 0)), M otherwise 0 or -inf on 5% of the atoms;
+    then again with atom m8 // 3 poisoned (NaN; then excluded nowhere).
+    Each tile's partial equals select_argmax's CUDA-core partial of the
+    same rows on the shard's contiguous copy bit for bit (K6 and K10 its |s|
+    mode, K9 its masked mode with the excluded atoms as amask and eta = 1:
+    the same function for M in {0, -inf} where no excluded atom is NaN);
+    the finished picks against the plain twins (indices on the clear rows,
+    values to SELECT_RTOL, the same entries infinite or NaN), row 1 (-inf,
+    0) under K6 and K9 and NaN under K10. Returns (max rel value err, the
+    stagings that ran: (f32 dictionary by TMA, rows by TMA) of K6, and
+    whether K10's R, stored as columns (B > 1), came by TMA)."""
+    from cstpu_torch.ops import corr_argmax as ca
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    m8 = m // fs.TILE * fs.TILE
+    gen = torch.Generator(device=dev).manual_seed(B * 23 + n * 5 + m + off)
+    A = torch.randn(n, m8, generator=gen, device=dev)
+    A = A / torch.linalg.norm(A, dim=0)
+    A[:, m8 - 1] = A[:, SIMT_TIE]
+    r = torch.randn(B, n, generator=gen, device=dev)
+    r[0] = A[:, SIMT_TIE].to(cdt).float()
+    if B > 1:
+        r[1, n // 2] = float("nan")
+    poison = m8 // 3
+    M = torch.where(torch.rand(B, m8, generator=gen, device=dev) < 0.05,
+                    -torch.inf, 0.0)
+    M[0, SIMT_TIE] = M[0, m8 - 1] = 0.0
+    if B > 2:
+        M[2] = -torch.inf
+    R = _simt_staged(r, off, torch.float32)
+    RT = _simt_staged(r.T, off, torch.float32)     # (n, B): ldr 1, ldp B
+    tm = ss._stream_tile(m8, n, torch.empty((), dtype=cdt).element_size(),
+                         ss.STREAM_TILE_BYTES)
+    t10 = ca._pick_tile(m8)
+    errs, stagings, col_stagings = {}, set(), set()
+    for poisoned in (False, True):
+        Ap = A.clone()
+        if poisoned:
+            # the poisoned atom excluded nowhere (row 2 keeps it alone, in a
+            # tile the NaN rule skips)
+            Ap[:, poison] = float("nan")
+            M[:, poison] = 0.0
+        amask = torch.isinf(M).to(torch.uint8)
+        wide = torch.zeros(n, 4 * m8 + off, device=dev, dtype=cdt)
+        wide[:, off + m8:off + 2 * m8] = Ap.to(cdt)
+        contiguous = _simt_staged(Ap, off, cdt)
+        k1 = fs.select_argmax(R, contiguous, mma=False)
+        k1m = fs.select_argmax(R, contiguous, amask=amask, eta=1.0,
+                               mma=False)
+        sc = ss._abs_scores(contiguous, R)
+        for layout, Ac in (("contiguous", contiguous),
+                           ("view", wide[:, off + m8:off + 2 * m8])):
+            what = (layout, poisoned, B, n, m8, off, cdt)
+            got = {}
+            for name, count, call, part in (
+                    ("K6", "select_stream", lambda: ss._launch_top1(
+                        Ac, R, n, 1, B, None, tm // fs.TILE, False,
+                        "select_stream", False, partials=True), k1),
+                    ("K9", "select_masked_stream", lambda: ss._launch_top1(
+                        Ac, R, n, 1, B, M, tm // fs.TILE, False,
+                        "select_masked_stream", False, partials=True), k1m),
+                    ("K10", "corr_argmax", lambda: ss._launch_top1(
+                        Ac, RT, RT.stride(1), RT.stride(0), B, None,
+                        t10 // fs.TILE, True, "corr_argmax", False,
+                        partials=True), k1)):
+                (kv, ki, pv, pi), counts = run_counted(call)
+                assert counts == expect_launches(**{count: 1}), counts
+                assert torch.equal(_bits(pv), _bits(part[0])), (name, what)
+                assert torch.equal(pi, part[1]), (name, what)
+                got[name] = (kv, ki)
+            # the public entry points on the same inputs: the same picks
+            for name, kern in (
+                    ("K6", ss.correlate_select_stream(Ac, R, mma=False)),
+                    ("K9", ss.correlate_select_masked_stream(Ac, R, M,
+                                                             mma=False)),
+                    ("K10", ca.correlate_argmax(Ac, RT, mma=False)[::-1])):
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(kern, got[name])), (name, what)
+            stagings.add((cdt == torch.float32 and Ac.data_ptr() % 16 == 0
+                          and Ac.stride(0) % 4 == 0,
+                          R.data_ptr() % 16 == 0 and n % 4 == 0))
+            if B > 1:
+                col_stagings.add(RT.data_ptr() % 16 == 0 and B % 4 == 0)
+            nan_tile = torch.isnan(sc.view(B, m8 // tm, tm)).any(dim=2)
+            live = torch.where(nan_tile[:, :, None], -torch.inf,
+                               sc.view(B, m8 // tm, tm)).view(B, m8)
+            _hold(str(("K6",) + what), got["K6"],
+                  ss.correlate_select_stream_ref(Ac, R), _clear_rows(live),
+                  errs)
+            _hold(str(("K9",) + what), got["K9"],
+                  ss.correlate_select_masked_stream_ref(Ac, R, M),
+                  _clear_rows(live + M), errs)
+            first = torch.isnan(sc.view(B, m8 // t10, t10)).any(
+                dim=2).int().argmax(dim=1) * t10
+            seen = torch.where(
+                (torch.arange(m8, device=dev)[None, :] < first[:, None])
+                | ~torch.isnan(sc).any(dim=1, keepdim=True), sc, -torch.inf)
+            wi, wv = ca.correlate_argmax_ref(Ac, RT)
+            _hold(str(("K10",) + what), got["K10"], (wv, wi),
+                  _clear_rows(seen), errs)
+            (v6, i6), (v9, i9), (v10, i10) = (got[k] for k in ("K6", "K9",
+                                                                "K10"))
+            if not poisoned:
+                assert int(i6[0]) == int(i10[0]) == SIMT_TIE, what
+                assert int(i9[0]) == SIMT_TIE, what
+            if B > 1:
+                for v, i in ((v6, i6), (v9, i9)):
+                    assert float(v[1]) == float("-inf") and int(i[1]) == 0
+                assert bool(torch.isnan(v10[1])), what
+            if B > 2:
+                assert float(v9[2]) == float("-inf") and int(i9[2]) == 0
+    return max(errs.values()), stagings, col_stagings
 
 
 # mp_update's grid (csrc/mp_update.cu: B C blocks, no cluster): B = 1 and 8
@@ -4438,10 +4564,12 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
             per[(f"plain_stream_topl_finish l={l}", ml)] = once(
                 lambda: ss.stream_topl_finish_ref(pv, pi, bpt, l))
         del Ac, M, Af
-    # the CUDA-core sweeps that still run common.cuh::score_tile (K6, K7,
-    # K9, K10) on the f32 dictionary (a column view of it at 32768, lda =
-    # 131072), as the f32 paths run them: device ms a call (sweep and
-    # finish) beside the f32 bound and one f32 torch.matmul R . A_shard
+    # the CUDA-core sweeps of stream_select.cu (K6, K9, K10 on
+    # simt_select.cuh, K7 on common.cuh::score_tile) on the f32 dictionary
+    # (a column view of it at 32768, lda = 131072), as the f32 paths run
+    # them: device ms a call (sweep and finish) beside the f32 bound and one
+    # f32 torch.matmul R . A_shard
+    simt, score = "simt_select.cuh", "score_tile"
     for ml in STREAM_WIDTHS:
         Af = A5c[:, :ml]
         M = torch.zeros((B, ml), device=A5c.device)
@@ -4450,31 +4578,30 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
         lib = device_ms_per_call(lambda: torch.matmul(Bs5c, Af))
         per[("f32 gemm", ml)] = lib
         line = []
-        for name, call, bnd in (
-                ("select_stream", lambda: ss.correlate_select_stream(
+        for name, loop, call, bnd in (
+                ("select_stream", simt, lambda: ss.correlate_select_stream(
                     Af, Bs5c), stream_bound(B, n, ml, 4)),
-                ("select_masked_stream",
+                ("select_masked_stream", simt,
                  lambda: ss.correlate_select_masked_stream(Af, Bs5c, M),
                  stream_bound(B, n, ml, 4, masked=True)),
-                ("select_topl_stream l=4",
+                ("select_topl_stream l=4", score,
                  lambda: ss.correlate_select_topl_stream(Af, Bs5c, 4),
                  stream_bound(B, n, ml, 4, l=4)),
-                ("select_topl_stream l=32",
+                ("select_topl_stream l=32", score,
                  lambda: ss.correlate_select_topl_stream(Af, Bs5c, 32),
                  stream_bound(B, n, ml, 4, l=32)),
-                ("corr_argmax", lambda: ca.correlate_argmax(Af, RT),
+                ("corr_argmax", simt, lambda: ca.correlate_argmax(Af, RT),
                  stream_bound(B, n, ml, 4))):
             ms = device_ms_per_call(call)
             per[(name + " f32 device", ml)] = ms
             per[(name + " f32 bound", ml)] = bnd["bound_ms"]
-            line.append(f"{name} {ms4(ms)} (bound {bnd['bound_ms']:.4f} by "
-                        f"{bnd['bound_by']}"
+            line.append(f"{name} on {loop} {ms4(ms)} (bound "
+                        f"{bnd['bound_ms']:.4f} by {bnd['bound_by']}"
                         + (f", {ms / lib:.2f}x the matmul" if ms and lib
                            else "") + ")")
-        print(f"[time f32 5c] CUDA-core sweeps on common.cuh::score_tile, "
-              f"B={B} n={n} m_local={ml} (lda {Af.stride(0)}), device ms a "
-              f"call: " + ", ".join(line) + f"; torch.matmul f32 {ms4(lib)}"
-              f" | {gpu}")
+        print(f"[time f32 5c] CUDA-core sweeps of stream_select.cu, B={B} "
+              f"n={n} m_local={ml} (lda {Af.stride(0)}), device ms a call: "
+              + ", ".join(line) + f"; torch.matmul f32 {ms4(lib)} | {gpu}")
         del M
     for ml in STREAM_WIDTHS:
         print(f"[time stream kernels, ms per call at B={B}, n={n}, "
@@ -6835,17 +6962,21 @@ def main():
         if got:
             print(f"[build mma] NB={got[1]} mode={got[2]}: {props}")
         # the CUDA-core selects' loop (simt_select.cuh) by kernel, dictionary
-        # dtype, (select_argmax) epilogue mode, (fr_step_select) V and plan
-        # (entries a stage x stages x warps)
+        # dtype, (select_argmax) epilogue mode, (fr_step_select) V or
+        # (stream_top1_simt) the mask and the rows stored as columns, and
+        # plan (entries a stage x stages x warps)
         got = re.search(r"Function properties for _ZN5cstpu\d+((?:fr_)?select"
-                        r"_simt|select_topl_simt|fr_step_simt)_kernelI"
-                        r"(13__nv_bfloat16|f)(?:Li(\d)E)?(?:Lb([01])ENS_4simt"
-                        r"4PlanILi(\d+)ELi(\d+)ELi(\d+)E)?", line)
+                        r"_simt|select_topl_simt|fr_step_simt|stream_top1_simt)"
+                        r"_kernelI(13__nv_bfloat16|f)(?:Li(\d)E)?(?:Lb([01])E)?"
+                        r"(?:Lb([01])E)?(?:NS_4simt4PlanILi(\d+)ELi(\d+)ELi"
+                        r"(\d+)E)?", line)
         if got:
             cdt = "bf16" if got[2].startswith("13") else "f32"
             mode = f" mode={got[3]}" if got[3] else ""
-            if got[4]:
-                mode = (f" V={got[4]} plan={got[5]}x{got[6]}x{got[7]}")
+            if got[6]:
+                flags = (f"M={got[4]} cols={got[5]}"
+                         if got[1].startswith("stream") else f"V={got[4]}")
+                mode = f" {flags} plan={got[6]}x{got[7]}x{got[8]}"
             print(f"[build simt] {got[1]} {cdt}{mode}: {props}")
         got = re.search(r"Function properties for .*topl_mma_kernelILi(\d+)E",
                         line)
@@ -7079,8 +7210,9 @@ def main():
 
     t0 = time.perf_counter()
     simt_err, simt_resc, staging = 0.0, 0.0, set()
-    topl_err, step_err, step_resc = 0.0, 0.0, 0.0
-    topl_staging, step_staging = set(), set()
+    topl_err, step_err, step_resc, stream_err = 0.0, 0.0, 0.0, 0.0
+    topl_staging, step_staging, stream_staging = set(), set(), set()
+    col_staging = set()
     grid_simt_cases = smoke_grid(SIMT_CASES)
     for (B, n, m, off), cdt in itertools.product(
             grid_simt_cases, (torch.float32, torch.bfloat16)):
@@ -7093,27 +7225,36 @@ def main():
         err, rerr, how = hold_simt_fr_step(dev, B, n, m, off, cdt)
         step_err, step_resc = max(step_err, err), max(step_resc, rerr)
         step_staging |= how
+        err, how, col = hold_simt_stream(dev, B, n, m, off, cdt)
+        stream_err = max(stream_err, err)
+        stream_staging |= how
+        col_staging |= col
     # the loop held on every staging: the dictionary (f32) and the rows each
-    # by TMA and by cp.async, under each kernel
+    # by TMA and by cp.async, under each kernel; K10's rows stored as
+    # columns by both
     every = {(a, r) for a in (True, False) for r in (True, False)}
-    assert staging == topl_staging == step_staging == every, (
-        staging, topl_staging, step_staging)
+    assert (staging == topl_staging == step_staging == stream_staging
+            == every), (staging, topl_staging, step_staging, stream_staging)
+    assert col_staging == {True, False}, col_staging
     print(f"[simt grid] select_argmax ({', '.join(SIMT_MODES)}), "
           f"fr_select ({', '.join(map(str, SIMT_TERMS))} pending terms), "
-          f"select_topl (l in {SIMT_TOPL_LS}) and fr_step_select (with and "
-          f"without V, a contiguous shard and a column view, lda = 4 m + "
-          f"offset), CUDA-core variants (csrc/simt_select.cuh), against "
-          f"their plain versions over (B, n, m, offset) in "
-          f"{grid_simt_cases}, f32 and bf16, every staging (dictionary by "
-          f"TMA, rows by TMA) under each: {sorted(staging)}: picks equal on "
-          f"every row (a duplicated column -> {SIMT_TIE}, a NaN row -> "
-          f"INT_MAX, an all-masked row; the step's mark, restore, NaN and "
-          f"all-degenerate rows), each tile's first top-l entry the top-1 "
-          f"partial bit for bit, max rel value err {simt_err:.3e}, top-l "
-          f"{topl_err:.3e} (rtol {SELECT_RTOL}), fr_step_select max |d2 "
-          f"err| {step_err:.3e}, resc max |err| {simt_resc:.3e}, the step's "
-          f"{step_resc:.3e} (atol {RESC_ATOL}); "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"select_topl (l in {SIMT_TOPL_LS}), fr_step_select (with and "
+          f"without V) and the stream top-1 sweep (K6, K9, K10; R as (n, B) "
+          f"for K10; the last two each on a contiguous shard and a column "
+          f"view, lda = 4 m + offset), CUDA-core variants "
+          f"(csrc/simt_select.cuh), against their plain versions over (B, "
+          f"n, m, offset) in {grid_simt_cases}, f32 and bf16, every staging "
+          f"(dictionary by TMA, rows by TMA) under each: {sorted(staging)}: "
+          f"picks equal on every row (a duplicated column -> {SIMT_TIE}, a "
+          f"NaN row -> INT_MAX, an all-masked row; the step's mark, restore, "
+          f"NaN and all-degenerate rows; the stream sweep's NaN row, "
+          f"all-excluded row and poisoned atom), each tile's first top-l "
+          f"entry and each stream sweep partial the top-1 partial bit for "
+          f"bit, max rel value err {simt_err:.3e}, top-l {topl_err:.3e} "
+          f"(rtol {SELECT_RTOL}), fr_step_select max |d2 err| "
+          f"{step_err:.3e}, the stream top-1 max |val err| {stream_err:.3e}, "
+          f"resc max |err| {simt_resc:.3e}, the step's {step_resc:.3e} (atol "
+          f"{RESC_ATOL}); {time.perf_counter() - t0:.1f} s")
 
     record = {}
     for name, B, n, m, k in CELLS:
@@ -7833,6 +7974,11 @@ def main():
     # call (the wrapper, the sweep and the finishing stage) at 5c's shard
     # shapes, B=8, bf16; the bound is that call's
     stream_src = f"{csrc}/stream_select.cu"
+    # the CUDA-core top-1 sweep of K6, K9, K10: its loop, its name in the
+    # profile and its largest value error over [simt grid]
+    top1_simt = {"main_loop": f"{csrc}/simt_select.cuh",
+                 "profile_name": "stream_top1_simt",
+                 "grid_max_abs_err": stream_err}
     whole, part = STREAM_WIDTHS
     m5m = SHARD_CELLS["5m"][2]
     omp5c = {f"omp_sharded_fused 5c s={s_} fuse={int(f_)}": v["launches"]
@@ -7958,6 +8104,7 @@ def main():
               shard_bound_ms=stream_bound(B5, n5, part)["bound_ms"],
               m5_ms=sweep5m_simt,
               m5_bound_ms=stream_bound(B5, n5, m5m)["bound_ms"],
+              **top1_simt,
               **f32_sweep("select_stream")),
         # the top-l select (K7) at the shard's width, l=32 (sp, ompr): its
         # tensor-core sweep and the finish, per call by events; device_ms
@@ -8054,6 +8201,7 @@ def main():
               whole_ms=xper[("select_masked_stream simt", whole)],
               whole_bound_ms=stream_bound(B5, n5, whole,
                                           masked=True)["bound_ms"],
+              **top1_simt,
               **f32_sweep("select_masked_stream")),
         entry("corr_argmax_mma", f"{TPU_ARGMAX}:86", k10_launches,
               max(xerr["corr_argmax_mma"], merr["corr_argmax_mma"]),
@@ -8076,6 +8224,7 @@ def main():
               stream_bound(B5, n5, whole), source=stream_src,
               paths={"correlate_argmax 5c f32": pf32["corr_argmax"]},
               shard_ms=xper[("corr_argmax simt", part)],
+              **top1_simt,
               **f32_sweep("corr_argmax")),
     ]
     # fr_step_select: as the streaming selects, at B=8, bf16, the whole 5c

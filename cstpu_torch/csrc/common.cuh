@@ -135,47 +135,44 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return acc;
 }
 
-// Stage rows row0 .. row0+kRows-1, entries p0 .. p0+kChunk-1 of the (B, n)
-// matrix X into xs[kChunk][kRows], rounded to T; zeros past the edges.
-// Entry (row, p) of X lies at X[row * ldr + p * ldp], so that an (n, B)
-// matrix is read in place with ldr = 1, ldp = B.
+// Stage rows row0 .. row0+kRows-1, entries p0 .. p0+kChunk-1 of the
+// contiguous (B, n) matrix X into xs[kChunk][kRows], rounded to T; zeros
+// past the edges.
 template <typename T>
 __device__ __forceinline__ void stage_rows(float (*xs)[kRows],
                                            const float* __restrict__ X,
-                                           int row0, int p0, int B, int n,
-                                           size_t ldr, size_t ldp) {
+                                           int row0, int p0, int B, int n) {
   for (int e = threadIdx.x; e < kChunk * kRows; e += blockDim.x) {
     const int q = e / kChunk, pp = e % kChunk;
     const int row = row0 + q, p = p0 + pp;
-    xs[pp][q] = (row < B && p < n) ? round_cdt<T>(X[row * ldr + p * ldp])
+    xs[pp][q] = (row < B && p < n) ? round_cdt<T>(X[(size_t)row * n + p])
                                    : 0.f;
   }
 }
 
-// The CUDA-core main loop of the streaming sweeps of stream_select.cu (K6,
-// K7, K9, K10; select_argmax.cu, fr_select.cu, select_topl.cu and
-// fr_step_select.cu run simt_select.cuh's staged, register-tiled loop,
-// whose sums are this loop's bit for bit): acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
+// The CUDA-core main loop of stream_select.cu's top-l sweep (K7; the
+// other CUDA-core selects, stream_select.cu's top-1 sweep among them, run
+// simt_select.cuh's staged, register-tiled loop, whose sums are this loop's
+// bit for bit): acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
 // block's kRows rows, products and sums in f32 (FMA on CUDA cores, no
 // TF32), each atom's sum in the order p = 0 .. n-1 whatever the tile, the
 // batch or the width of the dictionary. One thread per atom column j
 // (`live` = j < m), so loads of A coalesce; the rows of r are staged in rs,
 // rounded to T, and read back as broadcast float4s. Rows of A are lda
-// entries apart (a column slice of a wider dictionary is read in place),
-// entry (row, p) of r lies at r[row * ldr + p * ldp]. Every thread of the
-// block calls it (it has barriers).
+// entries apart (a column slice of a wider dictionary is read in place), r
+// is a contiguous (B, n). Every thread of the block calls it (it has
+// barriers).
 template <typename T>
 __device__ __forceinline__ void score_tile(float (&acc)[kRows],
                                            float (*rs)[kRows],
                                            const float* __restrict__ r,
                                            const T* __restrict__ A, int row0,
                                            int j, bool live, int B, int n,
-                                           size_t lda, size_t ldr,
-                                           size_t ldp) {
+                                           size_t lda) {
 #pragma unroll
   for (int q = 0; q < kRows; ++q) acc[q] = 0.f;
   for (int p0 = 0; p0 < n; p0 += kChunk) {
-    stage_rows<T>(rs, r, row0, p0, B, n, ldr, ldp);
+    stage_rows<T>(rs, r, row0, p0, B, n);
     __syncthreads();
     const int pend = min(kChunk, n - p0);
     if (live) {

@@ -57,19 +57,14 @@
 //     argmax) over the tile. The shard's rows are lda entries apart: TMA
 //     where the base is 16-byte aligned and lda % 4 == 0 (a column view of
 //     the cdt dictionary, parallel/sharded.py), else cp.async. The paths'
-//     B = 8 gives 2 warps a block: under the loop's Wide plan (a 192-224 KB
-//     block, one an SM) that is 2 warps an SM, which can neither stream the
-//     shard nor issue the FMAs (0.37 ms at m = 131072 against 0.21 in a
-//     probe of the plans). So for W <= 2 a stage holds 2 warps' rows and
-//     the ring is picked by the grid: a grid of more than two blocks an SM
-//     (m = 131072: 1024 blocks) takes 32 entries in 3 stages (`StepFew`,
-//     55-58 KB a block, 3-4 blocks an SM: more warps for the later waves),
-//     a smaller one (32768, one of four shards: 256 blocks, all resident)
-//     64 in 2 (`StepFewSmall`, fewer barriers a block). 16 x 4, 32 x 4 and
-//     the Wide plan's 128 x 2 were slower at both widths (PERF.md §6).
-//     Wider batches take the Wide plan. Every sum is one fmaf chain from
-//     +0 in p order, as before the redesign, so resc, the partials and the
-//     picks are unchanged bit for bit.
+//     B = 8 gives 2 warps a block: for W <= 2 the sweep takes the loop's
+//     plans for few rows, picked by the grid (simt::launch_by_grid, shared
+//     with stream_select.cu's top-1 sweep: 32 entries in 3 stages, 2 for
+//     bf16, past two blocks an SM, 64 in 2 below; 0.37 ms at m = 131072
+//     under the Wide plan against 0.21 under these, PERF.md §6). Wider
+//     batches take the Wide plan. Every sum is one fmaf chain from +0 in p
+//     order, as before the redesign, so resc, the partials and the picks
+//     are unchanged bit for bit.
 #include <cstdint>
 
 #include "common.cuh"
@@ -77,18 +72,6 @@
 #include "simt_select.cuh"
 
 namespace cstpu {
-
-// K8's plans for a block of up to 2 warps (B <= 8 rows a block): StepFew
-// for a grid of more than two blocks an SM, StepFewSmall for a smaller one.
-// Defining CSTPU_FR_STEP_CHUNK and CSTPU_FR_STEP_STAGES gives both grids
-// that one plan (tools/ab_paths.py --fr-step-plans builds each so).
-#if defined(CSTPU_FR_STEP_CHUNK) && defined(CSTPU_FR_STEP_STAGES)
-using StepFew = simt::Plan<CSTPU_FR_STEP_CHUNK, CSTPU_FR_STEP_STAGES, 2>;
-using StepFewSmall = StepFew;
-#else
-using StepFew = simt::Plan<32, 3, 2>;
-using StepFewSmall = simt::Plan<64, 2, 2>;
-#endif
 
 // The CUDA-core sweep: the products [w, (v,) r] in one pass under plan P;
 // then each thread applies the step to its 4 x 4 tile of resc and scores
@@ -168,41 +151,19 @@ fr_step_simt_kernel(const __grid_constant__ simt::Maps maps,
       });
 }
 
-// The sweep's launch: a few-row plan for an f32 shard at W <= 2 (by the
-// grid's blocks, see the note at the top), else the Wide plan (and for the
-// bf16 catch-all).
+// The sweep's launch under the plan the grid picks (simt::launch_by_grid).
 template <typename T, bool kUseV>
 cudaError_t launch_step_sweep(const float* r, const float* w, const float* v,
-                           const void* A, long long lda, const int* il,
-                           const float* cn2, float* resc, float* pval,
-                           int* pidx, int B, int n, int m, float deg,
-                           cudaStream_t s) {
-  constexpr int kNP = kUseV ? 3 : 2;
+                              const void* A, long long lda, const int* il,
+                              const float* cn2, float* resc, float* pval,
+                              int* pidx, int B, int n, int m, float deg,
+                              cudaStream_t s) {
   const int ntiles = m / kTile;
-  const simt::Products prod{r, w, 0, 1, kUseV ? v : nullptr};
-  const int wp = simt::warps(B, ntiles);
-  const T* a = static_cast<const T*>(A);
-  if constexpr (std::is_same_v<T, float>) {
-    const long long blocks =
-        (long long)ntiles * ((B + simt::kRT * wp - 1) / (simt::kRT * wp));
-    if (wp <= StepFew::kWarps && blocks > 2 * kSMs) {
-      return simt::launch_plan<T, kNP, StepFew>(
-          fr_step_simt_kernel<T, kUseV, StepFew>, A, lda, prod, B, n, m,
-          ntiles, wp, s, r, w, v, a, (size_t)lda, il, cn2, resc, pval, pidx,
-          B, n, m, ntiles, deg);
-    }
-    if (wp <= StepFewSmall::kWarps) {
-      return simt::launch_plan<T, kNP, StepFewSmall>(
-          fr_step_simt_kernel<T, kUseV, StepFewSmall>, A, lda, prod, B, n, m,
-          ntiles, wp, s, r, w, v, a, (size_t)lda, il, cn2, resc, pval, pidx,
-          B, n, m, ntiles, deg);
-    }
-  }
-  using Wide = simt::Wide<T>;
-  return simt::launch_plan<T, kNP, Wide>(
-      fr_step_simt_kernel<T, kUseV, Wide>, A, lda, prod, B, n, m, ntiles, wp,
-      s, r, w, v, a, (size_t)lda, il, cn2, resc, pval, pidx, B, n, m, ntiles,
-      deg);
+  return simt::launch_by_grid<T, kUseV ? 3 : 2>(
+      [](auto plan) { return fr_step_simt_kernel<T, kUseV, decltype(plan)>; },
+      A, lda, simt::Products{r, w, 0, 1, kUseV ? v : nullptr}, B, n, m,
+      ntiles, s, r, w, v, static_cast<const T*>(A), (size_t)lda, il, cn2,
+      resc, pval, pidx, B, n, m, ntiles, deg);
 }
 
 template <typename T>

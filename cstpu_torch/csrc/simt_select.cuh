@@ -1,8 +1,10 @@
 // The CUDA-core main loop of the true-f32 selects, shared by the CUDA-core
 // variants of select_argmax.cu (batched OMP, MP, OMPR: K1, K5, K13's masked
 // select), fr_select.cu (FR, SRR, RMP, FoBa: K3, K14-K16), select_topl.cu
-// (GOMP, SP, the OMPR/SRR init: K4, K12-K14) and fr_step_select.cu (the
-// sharded FR family's step over a shard: K8). It computes
+// (GOMP, SP, the OMPR/SRR init: K4, K12-K14), fr_step_select.cu (the
+// sharded FR family's step over a shard: K8) and stream_select.cu's top-1
+// sweep (the sharded greedy solvers' select, the masked one of sharded OMPR
+// and correlate_argmax: K6, K9, K10). It computes
 // what common.cuh::score_tile computes, products of rows of r (and of the
 // rescaled selects' pending terms u_p) with the dictionary's atoms, bit for
 // bit: each (row, atom) sum is one fmaf chain over p = 0 .. n-1 from +0,
@@ -42,15 +44,20 @@
 //       else by 4-byte cp.async with zero fill (f32 at any base and
 //       pitch); a bf16 dictionary (the catch-all of the tensor-core
 //       predicate: any base, any pitch) lands as the 4-byte words that
-//       cover each row's 128 entries and is widened to f32 into one of two
-//       ping-pong tiles before the chunk's products. Rows of the dictionary
+//       cover each row's 128 entries and is widened to f32, four atoms a
+//       thread at a time (a float4 out), into one of two ping-pong tiles
+//       before the chunk's products. Rows of the dictionary
 //       are lda entries apart, so a column slice of a wider dictionary (a
 //       shard, parallel/sharded.py) is read in place; the selects of whole
 //       dictionaries pass lda = m;
 //     - each product's rows (4 W rows x the chunk, [row][entry]) by TMA
-//       where n is a multiple of 4 and the bases are aligned, else by
-//       4-byte cp.async with zero fill; rounded to bf16 in place for a
-//       bf16 dictionary (then fenced for the async proxy, which may
+//       where their pitch is a multiple of 4 and the bases are aligned,
+//       else by 4-byte cp.async with zero fill; rows stored as columns
+//       (K10's R (n, B), `kColR`) land as they lie, [entry][row], by TMA
+//       where B's pitch is a multiple of 4, else by cp.async along the
+//       rows, and the inner step reads a float4 of the warp's four rows
+//       an entry and transposes it in registers; rounded to bf16 in place
+//       for a bf16 dictionary (then fenced for the async proxy, which may
 //       refill the stage).
 //     One thread issues every TMA box of a stage and arrives with the
 //     transaction bytes; where cp.async stages a part, every thread also
@@ -80,9 +87,10 @@
 // rows on 132 SMs; the second row chunk reads the dictionary from the L2.
 // A `Plan` fixes a stage's entries, the ring's stages and the most warps a
 // block holds (which sizes a stage's rows): `Wide` (128 x 2 for f32, 64 x 3
-// for bf16, rows for 8 warps) fills the SM with one block; a plan for few
-// rows (fr_step_select.cu's, at B <= 8: 1-2 warps a block) takes shallower
-// chunks, so that several blocks share an SM.
+// for bf16, rows for 8 warps) fills the SM with one block; the plans for
+// few rows (`Few`, `FewSmall`: the sweeps over a shard, K8 and the top-1
+// sweep, at B <= 8, 1-2 warps a block; `launch_by_grid` picks one by the
+// grid) take shallower chunks, so that several blocks share an SM.
 #pragma once
 
 #include <cstdint>
@@ -158,16 +166,23 @@ __device__ __forceinline__ float part(const float4& v, int c) {
 }
 
 // The products of a launch, in order: product p < P is the (B, n) matrix
-// at U + p ustride, then V (B, n) where V is not null, then r (B, n); all
-// rows n entries apart.
+// at U + p ustride, then V (B, n) where V is not null, then r (B, n); rows
+// n entries apart, unit entry stride. Where ldr >= 0, r's entry (b, p) lies
+// at b ldr + p ldp instead: ldp = 1 keeps the rows (a row pitch of ldr),
+// ldp != 1 stores them as columns (K10's R (n, B): ldr = 1, ldp = B; r is
+// then the launch's one product).
 struct Products {
   const float* r;
   const float* U;
   size_t ustride;
   int P;
   const float* V = nullptr;
+  long long ldr = -1, ldp = 1;
   __host__ __device__ __forceinline__ int count() const {
     return P + (V != nullptr) + 1;
+  }
+  __host__ __device__ __forceinline__ size_t row_pitch(int n) const {
+    return ldr < 0 ? (size_t)n : (size_t)ldr;
   }
   __device__ __forceinline__ const float* operator[](int p) const {
     return p < P ? U + (size_t)p * ustride : (V != nullptr && p == P ? V : r);
@@ -188,15 +203,20 @@ struct Maps {
 // over p = 0 .. n-1. The products (prod.count() of them) are taken kNP to
 // a pass in order; after pass `pass` (products kNP pass .. + np - 1) the
 // loop calls epi(pass, np, acc). A (n, m) has rows lda entries apart;
-// `maps` says what TMA stages (an f32 dictionary only). Every thread of the
-// 32 W-wide block (W <= P::kWarps) calls it once; `smem` is the block's
-// dynamic shared memory, smem_bytes<T, kNP, P>() of it.
-template <typename T, int kNP, typename P = Wide<T>, typename Epi>
+// `maps` says what TMA stages (an f32 dictionary only). With kColR the one
+// product r is stored as columns (ldp != 1, K10's R (n, B)) and lands as
+// [entry][row], as it lies; else each product's rows land as [row][entry].
+// Every thread of the 32 W-wide block (W <= P::kWarps) calls it once;
+// `smem` is the block's dynamic shared memory, smem_bytes<T, kNP, P>() of
+// it.
+template <typename T, int kNP, typename P = Wide<T>, bool kColR = false,
+          typename Epi>
 __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
                                       unsigned char* smem, const Maps& maps,
                                       const T* __restrict__ A, size_t lda,
                                       const Products& prod, int j0, int row0,
                                       int B, int n, int m, Epi&& epi) {
+  static_assert(!kColR || kNP == 1, "rows stored as columns: r alone");
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   constexpr int kChunk = P::kChunk, kStages = P::kStages;
   constexpr int kRowCap = P::kWarps * kRT;  // rows a stage holds a product
@@ -245,8 +265,12 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
               p < prod.P ? &maps.u
                          : (prod.V != nullptr && p == prod.P ? &maps.v
                                                              : &maps.r);
-          tma_load_2d(smem_u32(rs + q * kRowCap * kChunk), map, bar, p0,
-                      (p < prod.P ? p * B : 0) + row0);
+          if constexpr (kColR) {  // the box: the block's rows x a chunk
+            tma_load_2d(smem_u32(rs), &maps.r, bar, row0, p0);
+          } else {
+            tma_load_2d(smem_u32(rs + q * kRowCap * kChunk), map, bar, p0,
+                        (p < prod.P ? p * B : 0) + row0);
+          }
         }
       }
     }
@@ -282,15 +306,21 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
       }
     }
     if (!tma_r) {
+      const size_t pitch = prod.row_pitch(n), ldp = (size_t)prod.ldp;
       for (int q = 0; q < np; ++q) {
         const float* src = prod[kNP * pass + q];
         float* dst = rs + q * kRowCap * kChunk;
         for (int e = tid; e < TR * kChunk; e += nthreads) {
-          const int i = e / kChunk, k = e % kChunk;
+          // consecutive threads along a row ([row][entry]) or, for rows
+          // stored as columns, along an entry's rows ([entry][row])
+          const int i = kColR ? e % TR : e / kChunk;
+          const int k = kColR ? e / TR : e % kChunk;
           const bool ok = row0 + i < B && p0 + k < n;
-          cp_async4_zfill(dst + e,
-                          ok ? src + (size_t)(row0 + i) * n + p0 + k : src,
-                          ok);
+          cp_async4_zfill(
+              dst + e,
+              ok ? src + (size_t)(row0 + i) * pitch + (size_t)(p0 + k) * ldp
+                 : src,
+              ok);
         }
       }
     }
@@ -317,19 +347,30 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
     mbar_wait_bounded(full + 8 * s, (g / kStages) & 1);
     const float* as;
     if constexpr (kBf16) {
-      // widen the chunk into tile g & 1, and round the rows to bf16
+      // widen the chunk into tile g & 1, four atoms of a row an item (one
+      // float4 out), and round the rows to bf16. A row's entries start at
+      // its first staged word, or at that word's high half (`shift`), so
+      // the four lie in words c/2, c/2 + 1 (and c/2 + 2 when shifted)
       float* x = reinterpret_cast<float*>(wide) + (g & 1) * kChunk * kTile;
-      const uint16_t* aw = reinterpret_cast<const uint16_t*>(st);
+      const uint32_t* aw = reinterpret_cast<const uint32_t*>(st);
       const uintptr_t a = reinterpret_cast<uintptr_t>(A);
       const int p0 = kc * kChunk;
-      for (int e = tid; e < kChunk * kTile; e += nthreads) {
-        const int k = e / kTile, c = e % kTile;
-        const int shift =
-            (int)(((a + 2 * ((uintptr_t)(p0 + k) * lda + j0)) >> 1) & 1);
-        const uint16_t h = aw[k * 2 * kWordPitch + shift + c];
-        x[e] = (p0 + k < n && j0 + c < m)
-                   ? __uint_as_float(static_cast<uint32_t>(h) << 16)
-                   : 0.f;
+      constexpr int kQuads = kTile / 4;
+      for (int e = tid; e < kChunk * kQuads; e += nthreads) {
+        const int k = e / kQuads, c = 4 * (e % kQuads);
+        const uint32_t* wr = aw + k * kWordPitch + c / 2;
+        const bool shift =
+            ((a + 2 * ((uintptr_t)(p0 + k) * lda + j0)) >> 1) & 1;
+        const uint2 u = *reinterpret_cast<const uint2*>(wr);
+        const uint32_t lo = shift ? __funnelshift_r(u.x, u.y, 16) : u.x;
+        const uint32_t hi = shift ? __funnelshift_r(u.y, wr[2], 16) : u.y;
+        const bool row = p0 + k < n;
+        float4 v;
+        v.x = row && j0 + c < m ? __uint_as_float(lo << 16) : 0.f;
+        v.y = row && j0 + c + 1 < m ? __uint_as_float(lo & 0xffff0000u) : 0.f;
+        v.z = row && j0 + c + 2 < m ? __uint_as_float(hi << 16) : 0.f;
+        v.w = row && j0 + c + 3 < m ? __uint_as_float(hi & 0xffff0000u) : 0.f;
+        *reinterpret_cast<float4*>(x + k * kTile + c) = v;
       }
       for (int q = 0; q < np; ++q) {
         float* dst = rs + q * kRowCap * kChunk;
@@ -349,21 +390,36 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
     if (g + kStages - 1 < G) issue(g + kStages - 1);
 
     const float* a_lane = as + kAT * lane;
-    const float* r_warp = rs + kRT * warp * kChunk;
+    const float* r_warp = rs + kRT * warp * (kColR ? 1 : kChunk);
     // four entries of n: the dictionary's float4 of the lane's atoms for
     // each, and a float4 of the four entries of each row of each product
+    // (for rows stored as columns, a float4 of the warp's four rows at each
+    // entry, transposed in registers)
     auto load = [&](int k, float4(&av)[4], auto& rv) {
       constexpr int NPC = sizeof(rv) / sizeof(rv[0]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         av[kk] = *reinterpret_cast<const float4*>(a_lane + (k + kk) * kTile);
       }
+      if constexpr (kColR) {
+        float4 t[4];
 #pragma unroll
-      for (int q = 0; q < NPC; ++q) {
+        for (int kk = 0; kk < 4; ++kk) {
+          t[kk] = *reinterpret_cast<const float4*>(r_warp + (k + kk) * TR);
+        }
 #pragma unroll
         for (int i = 0; i < kRT; ++i) {
-          rv[q][i] = *reinterpret_cast<const float4*>(
-              r_warp + q * kRowCap * kChunk + i * kChunk + k);
+          rv[0][i] = make_float4(part(t[0], i), part(t[1], i), part(t[2], i),
+                                 part(t[3], i));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < NPC; ++q) {
+#pragma unroll
+          for (int i = 0; i < kRT; ++i) {
+            rv[q][i] = *reinterpret_cast<const float4*>(
+                r_warp + q * kRowCap * kChunk + i * kChunk + k);
+          }
         }
       }
     };
@@ -433,22 +489,30 @@ inline bool tma_takes(const void* base, long long pitch) {
 
 // The maps of a launch with W warps a block: the dictionary's (rows lda
 // entries apart) where it is f32 and TMA takes it; the rows' where TMA
-// takes r, U and V (n a multiple of 4, bases aligned).
+// takes r, U and V (r's rows `row_pitch` entries apart, U's and V's n, the
+// pitches at least n and multiples of 4, bases aligned), or, with col_r, r
+// stored as columns (entry p a row of B values, ldp entries apart, ldp a
+// multiple of 4: boxes of the block's rows x a chunk).
 inline cudaError_t make_maps(Maps& mp, const void* A, long long lda,
                              bool a_f32, const Products& prod, int B, int n,
-                             int m, int w, int chunk) {
+                             int m, int w, int chunk, bool col_r) {
+  const long long pitch = static_cast<long long>(prod.row_pitch(n));
   mp.tma_a = a_f32 && tma_takes(A, lda);
-  mp.tma_r = tma_takes(prod.r, n) &&
-             (prod.P == 0 || tma_takes(prod.U, n)) &&
-             (prod.V == nullptr || tma_takes(prod.V, n));
+  mp.tma_r = col_r ? prod.ldr == 1 && prod.ldp >= B &&
+                         tma_takes(prod.r, prod.ldp)
+                   : pitch >= n && tma_takes(prod.r, pitch) &&
+                         (prod.P == 0 || tma_takes(prod.U, n)) &&
+                         (prod.V == nullptr || tma_takes(prod.V, n));
   cudaError_t err = cudaSuccess;
   if (mp.tma_a) {
     err = tensor_map_f32(&mp.a, static_cast<const float*>(A), m, n, lda,
                          kTile, chunk);
     if (err != cudaSuccess) return err;
   }
-  if (mp.tma_r) {
-    err = tensor_map_f32(&mp.r, prod.r, n, B, n, chunk, kRT * w);
+  if (mp.tma_r && col_r) {
+    err = tensor_map_f32(&mp.r, prod.r, B, n, prod.ldp, kRT * w, chunk);
+  } else if (mp.tma_r) {
+    err = tensor_map_f32(&mp.r, prod.r, n, B, pitch, chunk, kRT * w);
     if (err == cudaSuccess && prod.P > 0) {
       err = tensor_map_f32(&mp.u, prod.U, n, prod.P * B, n, chunk, kRT * w);
     }
@@ -461,25 +525,79 @@ inline cudaError_t make_maps(Maps& mp, const void* A, long long lda,
 
 // Launch kern(maps, args...) over the (ntiles, row chunks) grid of blocks
 // of w warps (w <= P::kWarps; by default the loop's plan, `warps`), with
-// its tensor maps for A's rows lda entries apart; opts into the dynamic
-// shared memory first. Returns the first error.
-template <typename T, int kNP, typename P = Wide<T>, typename Kern,
-          typename... Args>
+// its tensor maps for A's rows lda entries apart and the products' layout
+// (kColR: r alone, stored as columns; else rows of unit entry stride);
+// opts into the dynamic shared memory first. Returns the first error.
+template <typename T, int kNP, typename P = Wide<T>, bool kColR = false,
+          typename Kern, typename... Args>
 cudaError_t launch_plan(Kern kern, const void* A, long long lda,
                         const Products& prod, int B, int n, int m,
                         int ntiles, int w, cudaStream_t s, Args... args) {
   constexpr int kSmem = static_cast<int>(smem_bytes<T, kNP, P>());
   if (w < 1 || w > P::kWarps) return cudaErrorInvalidValue;
+  if (kColR ? prod.P != 0 || prod.V != nullptr : prod.ldp != 1) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   Maps maps{};
   err = make_maps(maps, A, lda, std::is_same_v<T, float>, prod, B, n, m, w,
-                  P::kChunk);
+                  P::kChunk, kColR);
   if (err != cudaSuccess) return err;
   const dim3 grid(ntiles, (B + kRT * w - 1) / (kRT * w));
   kern<<<grid, 32 * w, kSmem, s>>>(maps, args...);
   return cudaGetLastError();
+}
+
+// The plans of a block of up to 2 warps (B <= 8 rows a block), shared by
+// the sweeps over a shard (fr_step_select.cu's K8, stream_select.cu's
+// top-1): under the Wide plan (a 139-229 KB block, one an SM) 2 warps an SM
+// can neither stream the dictionary nor issue the FMAs (nor, for the bf16
+// catch-all, stage and widen its words), so a stage holds 2 warps' rows
+// and the ring is picked by the grid: a grid of more than two blocks an SM
+// (m = 131072: 1024 blocks) takes `Few` (32 entries in 3 stages for f32, in
+// 2 for the bf16 catch-all, whose widened tiles take room: 51-68 KB a
+// block, 3-4 blocks an SM, more warps for the later waves), a smaller one
+// (32768, one of four shards: 256 blocks, all resident) `FewSmall` (64 in
+// 2, fewer barriers a block). 16 x 4, 32 x 4 and the Wide plan's 128 x 2
+// were slower at both widths for K8, 32 x 4, 64 x 3 and 16 x 6 for the
+// top-1 sweep, 32 x 2 in f32 and 32 x 3 in bf16 at 131072 (PERF.md §6,
+// `tools/ab_paths.py --fr-step-plans`). Defining CSTPU_FEW_CHUNK and
+// CSTPU_FEW_STAGES gives both grids that one plan (the probe builds each
+// so).
+#if defined(CSTPU_FEW_CHUNK) && defined(CSTPU_FEW_STAGES)
+template <typename T>
+using Few = Plan<CSTPU_FEW_CHUNK, CSTPU_FEW_STAGES, 2>;
+using FewSmall = Few<float>;
+#else
+template <typename T>
+using Few = Plan<32, std::is_same_v<T, float> ? 3 : 2, 2>;
+using FewSmall = Plan<64, 2, 2>;
+#endif
+
+// launch_plan for a dictionary whose rows are lda entries apart, under the
+// plan the grid picks: at W <= 2 (`warps`) Few or FewSmall as above, else
+// the Wide plan. kern_of(P{}) is the kernel's instantiation for plan P.
+template <typename T, int kNP, bool kColR = false, typename KernOf,
+          typename... Args>
+cudaError_t launch_by_grid(KernOf kern_of, const void* A, long long lda,
+                           const Products& prod, int B, int n, int m,
+                           int ntiles, cudaStream_t s, Args... args) {
+  const int w = warps(B, ntiles);
+  const long long blocks = (long long)ntiles * ((B + kRT * w - 1) / (kRT * w));
+  if (w <= Few<T>::kWarps && blocks > 2 * kSMs) {
+    return launch_plan<T, kNP, Few<T>, kColR>(kern_of(Few<T>{}), A, lda, prod,
+                                              B, n, m, ntiles, w, s, args...);
+  }
+  if (w <= FewSmall::kWarps) {
+    return launch_plan<T, kNP, FewSmall, kColR>(kern_of(FewSmall{}), A, lda,
+                                                prod, B, n, m, ntiles, w, s,
+                                                args...);
+  }
+  return launch_plan<T, kNP, Wide<T>, kColR>(kern_of(Wide<T>{}), A, lda,
+                                             prod, B, n, m, ntiles, w, s,
+                                             args...);
 }
 
 // launch_plan under the Wide plan and the loop's rows (`warps`) for a

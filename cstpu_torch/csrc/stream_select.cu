@@ -16,10 +16,17 @@
 // Python wrapper's predicate and passed as `use_mma`: for bf16 correlation
 // the tensor-core loop of mma_select.cuh, the one select_argmax.cu runs
 // (with mma_topl.cuh's epilogue for the top-l sweep, the one select_topl.cu
-// runs), and otherwise the CUDA-core loop common.cuh::score_tile (each
-// atom's sum in the order p = 0 .. n-1). In either loop an atom scores the
-// same whatever the shard it lies in, so merged selections do not depend on
-// the shard count.
+// runs); otherwise (f32 correlation, and the bf16 catch-all) a CUDA-core
+// loop, each atom's sum one fmaf chain in the order p = 0 .. n-1:
+//   top-1 (K6, K9, K10): simt_select.cuh's staged, register-tiled loop
+//     (`stream_top1_simt_kernel`), the one select_argmax.cu's CUDA-core
+//     variant runs, with its epilogue: each thread's 4 rows x 4 atoms
+//     scored and reduced in registers, then across the warp;
+//   top-l (K7): common.cuh::score_tile, one thread an atom, 16 rows a
+//     block whatever B is (`stream_topl_sweep_kernel`).
+// The two loops' sums are equal bit for bit. In either variant an atom
+// scores the same whatever the shard it lies in, so merged selections do
+// not depend on the shard count.
 //
 // The rules of the finishing stages. The TPU kernels' tile is `bpt` sweep
 // blocks wide (the wrapper computes it from `_stream_tile` or `_pick_tile`);
@@ -39,11 +46,15 @@
 //
 // What bounds it on an H100: a sweep reads the cdt shard once (256 MB in
 // bf16 at n=1024, m=131072: 0.08 ms at 3.35 TB/s) and does 2 B n m
-// operations; at B=8 that is 8 FLOP per byte, so the bytes bound it. The
-// tensor-core sweeps fit their row count to B (N = 8 there) and stream the
-// shard through a TMA-fed ring; the CUDA-core sweeps compute kRows = 16
-// rows whatever B is, so at B=8 half their multiply-adds are spent on
-// padding and they run over their byte bound. The top-1 partials are
+// operations; at B=8 that is 8 FLOP per byte, so the bytes bound it (in
+// f32 too: 537 MB, 0.16 ms, against 0.03 ms of f32 FMAs). The tensor-core
+// sweeps fit their row count to B (N = 8 there) and stream the shard
+// through a TMA-fed ring; so does the CUDA-core top-1 sweep (4 rows a warp,
+// 2 warps a block at B=8, the few-row plans of simt_select.cuh picked by
+// the grid, TMA for the shard where its base and pitch allow). The
+// CUDA-core top-l sweep computes kRows = 16 rows whatever B is, so at B=8
+// half its multiply-adds are spent on padding, and it reads each entry of
+// the shard from device memory for 16 of them. The top-1 partials are
 // (B, m / kTile) pairs, 64 KB at that size, and its finishing stage is one
 // block per row. The top-l partials are l times as many; its finishing
 // stage (cstpu_stream_topl_finish, one for both sweeps) is two launches,
@@ -65,6 +76,7 @@
 #include "common.cuh"
 #include "mma_select.cuh"
 #include "mma_topl.cuh"
+#include "simt_select.cuh"
 
 namespace cstpu {
 
@@ -83,52 +95,71 @@ constexpr size_t kWideSmem = 160 * 1024;
 constexpr int kWideMergeThreads = 1024;
 constexpr int kWideFoldThreads = 1024;
 
-// Sweep, top-1: per row and per block of kTile atoms the largest score and
-// its lowest index; a NaN score makes the block's partial (NaN, INT_MAX).
-template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kTile)
-stream_sweep_kernel(const float* __restrict__ r, size_t ldr, size_t ldp,
-                    const T* __restrict__ A, size_t lda,
-                    const float* __restrict__ M, float* __restrict__ pval,
-                    int* __restrict__ pidx, int B, int n, int m, int nblocks) {
-  __shared__ __align__(16) float rs[kChunk][kRows];
-  __shared__ float wv[kRows][kTile / 32];
-  __shared__ int wi[kRows][kTile / 32];
+// Sweep, top-1, on the CUDA cores: per row and per block of kTile atoms the
+// largest score and its lowest index; a NaN score makes the block's partial
+// (NaN, INT_MAX). simt_select.cuh's loop with one product, r read through
+// its strides (entry (b, p) at b ldr + p ldp; with kColR, ldp != 1, stored
+// as columns), under plan P; then the
+// epilogue of select_argmax.cu's select_simt_kernel: each thread scores its
+// 4 rows x 4 atoms (|s|, with kMasked plus M[row, j] in f32, as the TPU
+// kernel adds it), reduces each row's four with argmax_combine, and the
+// warp's shuffles take the row's (max, lowest argmax) over the tile.
+// argmax_combine is a total order with an absorbing NaN, so the order of
+// the reduction does not change a partial. m is a multiple of kTile: every
+// atom of a block is live.
+template <typename T, bool kMasked, bool kColR, typename P>
+__global__ void __launch_bounds__(32 * P::kWarps)
+stream_top1_simt_kernel(const __grid_constant__ simt::Maps maps,
+                        const float* __restrict__ r, long long ldr,
+                        long long ldp, const T* __restrict__ A, size_t lda,
+                        const float* __restrict__ M,
+                        float* __restrict__ pval, int* __restrict__ pidx,
+                        int B, int n, int m, int ntiles) {
+  using simt::kAT;
+  using simt::kRT;
+  extern __shared__ unsigned char smem[];
+  const int tile = blockIdx.x, j0 = tile * kTile;
+  const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jl = j0 + kAT * lane;    // the thread's first atom
+  const int rw = row0 + kRT * warp;  // the warp's first row
+  const bool vec = (reinterpret_cast<uintptr_t>(M) & 15) == 0;
 
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int j = tile * kTile + threadIdx.x;
-  const bool live = j < m;
-
-  float acc[kRows];
-  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, lda, ldr, ldp);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[1][kRT][kAT];
+  simt::sweep<T, 1, P, kColR>(
+      acc, smem, maps, A, lda,
+      simt::Products{r, nullptr, 0, 0, nullptr, ldr, ldp}, j0, row0, B, n,
+      m, [&](int, int, float (&s)[1][kRT][kAT]) {
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    float v = live ? fabsf(acc[q]) : -INFINITY;
-    int i = live ? j : INT_MAX;
-    if constexpr (kMasked) {
-      const int row = row0 + q;
-      if (live && row < B) v += M[(size_t)row * m + j];
-    }
-    warp_argmax(v, i);
-    if (lane == 0) {
-      wv[q][warp] = v;
-      wi[q][warp] = i;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    const int q = threadIdx.x, row = row0 + q;
-    float v = wv[q][0];
-    int i = wi[q][0];
-    for (int w = 1; w < kTile / 32; ++w) argmax_combine(v, i, wv[q][w], wi[q][w]);
-    if (row < B) {
-      pval[(size_t)row * nblocks + tile] = v;
-      pidx[(size_t)row * nblocks + tile] = i;
-    }
-  }
+        for (int i = 0; i < kRT; ++i) {
+          const int row = rw + i;
+          if (row >= B) break;  // the warp's rows: uniform in the warp
+          float add[kAT] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (kMasked) {
+            const float* mp = M + (size_t)row * m + jl;
+            if (vec) {
+              const float4 t = *reinterpret_cast<const float4*>(mp);
+              add[0] = t.x, add[1] = t.y, add[2] = t.z, add[3] = t.w;
+            } else {
+#pragma unroll
+              for (int c = 0; c < kAT; ++c) add[c] = mp[c];
+            }
+          }
+          float v = -INFINITY;
+          int idx = INT_MAX;
+#pragma unroll
+          for (int c = 0; c < kAT; ++c) {
+            float x = fabsf(s[0][i][c]);
+            if constexpr (kMasked) x = __fadd_rn(x, add[c]);
+            argmax_combine(v, idx, x, jl + c);
+          }
+          warp_argmax(v, idx);
+          if (lane == 0) {
+            pval[(size_t)row * ntiles + tile] = v;
+            pidx[(size_t)row * ntiles + tile] = idx;
+          }
+        }
+      });
 }
 
 // Finish, top-1: one block per row folds the row's nblocks partials, bpt to
@@ -196,8 +227,8 @@ stream_finish_kernel(const float* __restrict__ pval,
   }
 }
 
-// Sweep, top-l: per row and per block of kTile atoms the l largest scores
-// (common.cuh::topl_partials), the main loop as above.
+// Sweep, top-l, on the CUDA cores: per row and per block of kTile atoms the
+// l largest scores (common.cuh::topl_partials), on common.cuh::score_tile.
 template <typename T>
 __global__ void __launch_bounds__(kTile)
 stream_topl_sweep_kernel(const float* __restrict__ r,
@@ -213,8 +244,7 @@ stream_topl_sweep_kernel(const float* __restrict__ r,
   const bool live = j < m;
 
   float acc[kRows];
-  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, lda, (size_t)n,
-                (size_t)1);
+  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, lda);
 
 #pragma unroll
   for (int q = 0; q < kRows; ++q) ss[q][threadIdx.x] = live ? fabsf(acc[q]) : -INFINITY;
@@ -569,22 +599,39 @@ cudaError_t launch_stream_finish(const float* pval, const int* pidx, int B,
   return cudaGetLastError();
 }
 
-template <typename T>
-void launch_sweep(const float* r, size_t ldr, size_t ldp, const void* A,
-                  size_t lda, const float* M, float* pval, int* pidx, int B,
-                  int n, int m, cudaStream_t s) {
-  const int nblocks = m / kTile;
-  const dim3 grid(nblocks, (B + kRows - 1) / kRows);
-  const T* a = static_cast<const T*>(A);
-  if (M) {
-    stream_sweep_kernel<T, true><<<grid, kTile, 0, s>>>(
-        r, ldr, ldp, a, lda, M, pval, pidx, B, n, m, nblocks);
-  } else {
-    stream_sweep_kernel<T, false><<<grid, kTile, 0, s>>>(
-        r, ldr, ldp, a, lda, nullptr, pval, pidx, B, n, m, nblocks);
-  }
+// The CUDA-core top-1 sweep's launch under the plan the grid picks
+// (simt::launch_by_grid: a few-row plan at B <= 8, else the Wide plan).
+template <typename T, bool kMasked, bool kColR>
+cudaError_t launch_top1_sweep(const float* r, long long ldr, long long ldp,
+                              const void* A, long long lda, const float* M,
+                              float* pval, int* pidx, int B, int n, int m,
+                              cudaStream_t s) {
+  const int ntiles = m / kTile;
+  return simt::launch_by_grid<T, 1, kColR>(
+      [](auto plan) {
+        return stream_top1_simt_kernel<T, kMasked, kColR, decltype(plan)>;
+      },
+      A, lda, simt::Products{r, nullptr, 0, 0, nullptr, ldr, ldp}, B, n, m,
+      ntiles, s, r, ldr, ldp, static_cast<const T*>(A), (size_t)lda, M, pval,
+      pidx, B, n, m, ntiles);
 }
 
+// K6 (rows of r), K9 (rows of r, a mask), K10 (r (n, B): stored as columns;
+// its B = 1 and an (n, B) view of a (B, n) matrix have ldp = 1, rows).
+template <typename T>
+cudaError_t launch_sweep(const float* r, long long ldr, long long ldp,
+                         const void* A, long long lda, const float* M,
+                         float* pval, int* pidx, int B, int n, int m,
+                         cudaStream_t s) {
+  if (M) {
+    return launch_top1_sweep<T, true, false>(r, ldr, ldp, A, lda, M, pval,
+                                             pidx, B, n, m, s);
+  }
+  return ldp != 1 ? launch_top1_sweep<T, false, true>(
+                        r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s)
+                  : launch_top1_sweep<T, false, false>(
+                        r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
+}
 
 // The wide finish (l > kTile) on stream s: the merge where a tile has more
 // than one block, then the fold; `work` as cstpu_stream_topl_work sizes it.
@@ -626,15 +673,16 @@ cudaError_t launch_topl_finish_wide(float* pval, int* pidx, float* val,
 // Top-1 select of one shard. Entry (b, p) of the f32 residuals lies at
 // r[b * ldr + p * ldp]; A (n, m) in cdt (bf16 if cdt_bf16 else f32) has unit
 // column stride and rows lda entries apart; M, when not null, is a
-// contiguous (B, m) f32 mask added to the scores. m is a multiple of kTile
-// and bpt sweep blocks make one tile of the NaN rule. Scratch pval (B,
-// m / kTile) f32 and pidx i32; writes val (B,) f32 and idx (B,) i32. With
-// nan_visible a NaN score makes val NaN (K10's rule), else its tile is
-// skipped (K6's and K9's). With use_mma the sweep is the tensor-core one,
-// with rb (B, roundup(n, 8)) bf16 as its scratch for the rounded r; it
-// takes bf16 only, A aligned to 16 bytes and lda a multiple of 8, and the
-// call returns cudaErrorInvalidValue otherwise. Returns the first launch
-// error.
+// contiguous (B, m) f32 mask added to the scores (the CUDA-core sweep takes
+// it with ldp = 1 only, and returns cudaErrorInvalidValue otherwise). m is
+// a multiple of kTile and bpt sweep blocks make one tile of the NaN rule.
+// Scratch pval (B, m / kTile) f32 and pidx i32; writes val (B,) f32 and idx
+// (B,) i32. With nan_visible a NaN score makes val NaN (K10's rule), else
+// its tile is skipped (K6's and K9's). With use_mma the sweep is the
+// tensor-core one, with rb (B, roundup(n, 8)) bf16 as its scratch for the
+// rounded r; it takes bf16 only, A aligned to 16 bytes and lda a multiple
+// of 8, and the call returns cudaErrorInvalidValue otherwise. Returns the
+// first launch error.
 extern "C" int cstpu_stream_select(const float* r, long long ldr,
                                    long long ldp, const void* A,
                                    long long lda, int cdt_bf16,
@@ -659,12 +707,10 @@ extern "C" int cstpu_stream_select(const float* r, long long ldr,
                                         m, m / kTile, s);
     }
   } else {
-    if (cdt_bf16) {
-      launch_sweep<__nv_bfloat16>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
-    } else {
-      launch_sweep<float>(r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
-    }
-    err = cudaGetLastError();
+    err = cdt_bf16 ? launch_sweep<__nv_bfloat16>(r, ldr, ldp, A, lda, M, pval,
+                                                 pidx, B, n, m, s)
+                   : launch_sweep<float>(r, ldr, ldp, A, lda, M, pval, pidx,
+                                         B, n, m, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_stream_finish(pval, pidx, B, m / kTile, bpt,

@@ -47,7 +47,10 @@ own) apart. Every sweep has a tensor-core variant for a bf16 shard
 (csrc/mma_select.cuh, mma_topl.cuh, mma_rescaled.cuh; counted under
 "select_stream_mma", "select_topl_stream_mma", "select_masked_stream_mma"
 and "fr_step_select_mma") and a CUDA-core variant for f32 correlation and
-for what the first does not take (`fused_solve.mma_select_takes`). On CPU
+for what the first does not take (`fused_solve.mma_select_takes`): the
+top-1 sweeps and the step on csrc/simt_select.cuh's staged, register-tiled
+loop (profile names `stream_top1_simt` and `fr_step_simt`), the top-l
+sweep on common.cuh::score_tile (`stream_topl_sweep`). On CPU
 tensors, and only there, it runs its plain twin (`*_ref`), which reproduces
 the rule tile by tile in torch operations. Products and sums are f32
 whatever the dtype of R; the scores of the two differ by the order of the
@@ -185,12 +188,13 @@ def _check_shard(A, R, name: str):
 
 
 def _launch_top1(A, R, ldr: int, ldp: int, B: int, M, bpt: int,
-                 nan_visible: bool, count: str, mma=None):
+                 nan_visible: bool, count: str, mma=None, partials=False):
     """Sweep and finish one top-1 select on the card; R's entry (b, p) lies
     at R.data_ptr() + 4 (b ldr + p ldp). The sweep is the tensor-core
     variant where `mma_select_takes` says so, counted under `count` +
     "_mma", else the CUDA-core one, counted under `count`; `mma` = True or
-    False forces one."""
+    False forces one. With `partials` also the sweep's (pval, pidx)
+    (B, m / 128): each block's (max, lowest argmax)."""
     n, m = A.shape
     dev = A.device
     pval = torch.empty((B, m // TILE), dtype=torch.float32, device=dev)
@@ -210,7 +214,7 @@ def _launch_top1(A, R, ldr: int, ldp: int, B: int, M, bpt: int,
             None if rb is None else rb.data_ptr(), _stream())
     _build.check(err, "cstpu_stream_select")
     LAUNCHES[count + "_mma" if use_mma else count] += 1
-    return val, idx
+    return (val, idx, pval, pidx) if partials else (val, idx)
 
 
 def correlate_select_stream_ref(A, R):

@@ -2421,3 +2421,16 @@ def test_simt_topl_and_fr_step_match_plain_on_every_row(dev, B, n, m, off,
     assert topl_err <= chip_smoke.SELECT_RTOL
     _, resc_err, _ = chip_smoke.hold_simt_fr_step(dev, B, n, m, off, cdt)
     assert resc_err <= chip_smoke.RESC_ATOL
+
+
+@pytest.mark.parametrize("B,n,m,off", chip_smoke.SIMT_CASES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_simt_stream_top1_matches_plain_on_every_row(dev, B, n, m, off, cdt):
+    # stream_select.cu's CUDA-core top-1 sweep under K6, K9 and K10 (R as
+    # (n, B), read through its strides), forced onto simt_select.cuh, on a
+    # contiguous shard and on a column view (lda = 4 m + off): each tile's
+    # partial select_argmax's CUDA-core partial bit for bit, the finished
+    # picks against the plain twins (a duplicated column, a NaN row, an
+    # all-excluded row, then a poisoned atom)
+    err, _, _ = chip_smoke.hold_simt_stream(dev, B, n, m, off, cdt)
+    assert err <= chip_smoke.SELECT_RTOL

@@ -462,6 +462,78 @@ def test_fr_step_select_on_a_column_slice_with_v_matches_pallas(n, m):
     np.testing.assert_array_equal(tw.numpy(), wide)
 
 
+def _quarter_view(A, seed):
+    """A (n, m) as the second shard of an f32 dictionary four shards wide
+    (rows 4 m entries apart): (the wide array, its tensor, the view)."""
+    n, m = A.shape
+    wide = np.random.default_rng(seed).standard_normal(
+        (n, 4 * m)).astype(np.float32)
+    wide[:, m:2 * m] = A
+    tw = torch.from_numpy(wide)
+    tA = tw[:, m:2 * m]
+    assert tA.stride() == (4 * m, 1) and not tA.is_contiguous()
+    return wide.copy(), tw, tA
+
+
+@pytest.mark.parametrize("n,m", SIZES)
+def test_select_stream_on_a_column_slice_matches_pallas(n, m):
+    # an f32 shard read in place as a column view of a dictionary four
+    # shards wide: the same pick as cstpu's kernel on the shard alone, and
+    # the wide dictionary untouched
+    A, R = _inputs(31, n, m)
+    wide, tw, tA = _quarter_view(A, 32)
+    tv, ti = tss.correlate_select_stream(tA, torch.from_numpy(R))
+    jv, ji = jss.correlate_select_stream(jnp.asarray(A), jnp.asarray(R),
+                                         interpret=True)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL)
+    clear = _clear(np.abs(R @ A))
+    assert clear.sum() >= 6
+    np.testing.assert_array_equal(ti.numpy()[clear], np.asarray(ji)[clear])
+    np.testing.assert_array_equal(tw.numpy(), wide)
+
+
+@pytest.mark.parametrize("n,m", SIZES)
+def test_select_masked_stream_on_a_column_slice_matches_pallas(n, m):
+    # the masked select on the same kind of view: each row's four best
+    # atoms excluded, and every atom of the last row ((-inf, 0) on both)
+    A, R = _inputs(33, n, m)
+    wide, tw, tA = _quarter_view(A, 34)
+    sc = np.abs(R @ A)
+    M = np.zeros((8, m), np.float32)
+    M[np.arange(8)[:, None], np.argsort(-sc, axis=1)[:, :4]] = -np.inf
+    M[7] = -np.inf
+    tv, ti = tss.correlate_select_masked_stream(
+        tA, torch.from_numpy(R), torch.from_numpy(M))
+    jv, ji = jss.correlate_select_masked_stream(
+        jnp.asarray(A), jnp.asarray(R), jnp.asarray(M), interpret=True)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL)
+    clear = _clear(sc + M)
+    clear[7] = True
+    np.testing.assert_array_equal(ti.numpy()[clear], np.asarray(ji)[clear])
+    assert tv[7] == -torch.inf and ti[7] == 0
+    assert np.all(M[np.arange(7), ti.numpy()[:7]] == 0)
+    np.testing.assert_array_equal(tw.numpy(), wide)
+
+
+@pytest.mark.parametrize("n,m", SIZES)
+def test_correlate_argmax_on_a_column_slice_matches_pallas(n, m):
+    # correlate_argmax on the same kind of view, R given as (n, B) (a
+    # contiguous tensor, read through its strides on the card)
+    A, R = _inputs(35, n, m)
+    wide, tw, tA = _quarter_view(A, 36)
+    RT = torch.from_numpy(np.ascontiguousarray(R.T))
+    assert RT.stride() == (8, 1)
+    assert tca._pick_tile(m) == jpk._pick_tile(m)
+    ki, kv = tca.correlate_argmax(tA, RT)
+    gi, gv = jpk.correlate_argmax(jnp.asarray(A), jnp.asarray(R.T),
+                                  interpret=True)
+    np.testing.assert_allclose(kv.numpy(), np.asarray(gv), rtol=RTOL)
+    clear = _clear(np.abs(R @ A))
+    assert clear.sum() >= 6
+    np.testing.assert_array_equal(ki.numpy()[clear], np.asarray(gi)[clear])
+    np.testing.assert_array_equal(tw.numpy(), wide)
+
+
 @pytest.mark.parametrize("cdt", ["f32", "bf16"])
 def test_fr_step_select_nan_row_poisoned_atom_degenerate_row(cdt):
     n, m = 1024, 8192

@@ -37,7 +37,8 @@ chip_smoke.cuda_ms: the median of up to chip_smoke.TIMED_SLOW solves) and device
     python3 tools/ab_paths.py ROOT TAG --f32 [OUT]
 
 times only the true-f32 selects (the CUDA-core variants of select_argmax,
-fr_select, select_topl and fr_step_select): device ms per launch
+fr_select, select_topl, fr_step_select and the streaming top-1 and top-l
+selects): device ms per launch
 (chip_smoke.device_ms_per_call) of the top-1 select at the bench shape
 (B = 64, n = 1024, m = 8192; |s|, signed and masked) and at 5b's (m =
 131072), of fr_select at 3a's (one pending term) and with SRR's first
@@ -46,22 +47,32 @@ select_topl at 2a (l = 4) and 2b (l = 32), beside the f32 torch.matmul
 and torch.topk a tile and the matmul alone; of fr_step_select (sweep and
 finish) with and without V on 3a-wide's problem at m_local = 131072 and
 on a four-shard column view at 32768, beside the f32 matmul of its
-products and its bound; and the f32 solves omp_batch, fr_batch and
-gomp_batch (precision="f32", at the bench, 3a and 2a) and
+products and its bound; of the top-1 sweep under K6, K9 and K10 (K10 also
+on a contiguous copy of R) at the 32768 view and at 131072 on one shard,
+B = 8, and at the view at B = 64, and of K7 at l = 32 (B = 8, both widths)
+beside the f32 matmul and torch.topk a tile, on 5c's f32 dictionary (a
+generator of its own); of the same top-1 sweep and of fr_step_select on a
+bf16 copy forced onto CUDA cores (the catch-all; B = 8, both widths); and
+the f32 solves omp_batch, fr_batch and
+gomp_batch (precision="f32", at the bench, 3a and 2a),
 fr_sharded_fused (one shard and four) and srr_sharded_fused (four) with
-corr_dtype=f32 on 3a-wide's problem (wall ms by events, device busy ms,
-per kernel launches and device ms). It saves every output (partials,
+corr_dtype=f32 on 3a-wide's problem, and omp_sharded_fused,
+ompr_sharded_fused and mp_sharded_fused (one shard and four) with
+corr_dtype=f32 on 5c's (wall ms by events, device busy ms, per kernel
+launches and device ms). It saves every output (partials,
 rescalings, solutions) to OUT/ab_f32_TAG.pt (OUT: this checkout's
 build/ab_f32 by default) and holds them bit for bit against every other
 TAG's file there: run the parent and the change in turn on one machine.
 
     python3 tools/ab_paths.py ROOT TAG --fr-step-plans C,S [C,S ...]
 
-times fr_step_select's f32 sweep (as --f32 does) under each few-row plan
-of C entries of n a stage in a ring of S stages: a process a plan, each
-building ROOT's library with -DCSTPU_FR_STEP_CHUNK=C
--DCSTPU_FR_STEP_STAGES=S into cstpu_torch/build/plan_CxS; the outputs
-go to build/ab_plans and are held bit for bit across the plans.
+times fr_step_select's sweep and the top-1 sweep (K6, K9, K10 at B = 8),
+in f32 and on a bf16 copy (the catch-all), as --f32 does, under each
+few-row plan of C entries of n a stage
+in a ring of S stages: a process a plan, each building ROOT's library with
+-DCSTPU_FEW_CHUNK=C -DCSTPU_FEW_STAGES=S into cstpu_torch/build/plan_CxS
+(simt_select.cuh); the outputs go to build/ab_plans and are held bit for
+bit across the plans.
 Each line gives the update kernels' registers (the deletion kernels'
 spill stores beside theirs), the device busy ms per
 solve (torch.profiler: the union of the device spans; beside it their
@@ -200,19 +211,24 @@ def wide_problem(cs, dev):
     return A, Br, sup
 
 
-def fr_steps(cs, tag, dev):
-    """K8's CUDA-core sweep in f32 on 3a-wide's problem, with and without
-    V: on the whole dictionary as one shard (m_local = 131072, contiguous)
-    and on its first quarter as a column view (m_local = 32768, lda = 4
-    m_local, one of four shards); device ms a call (the sweep and the
-    finish) beside one f32 torch.matmul of its products [R; W (; V)] . A.
-    Returns the outputs of one call from a fresh rescaling each."""
+def fr_steps(cs, tag, dev, cdt=None):
+    """K8's CUDA-core sweep in f32 (or, with cdt = torch.bfloat16, on a bf16
+    copy: the catch-all, forced with mma=False) on 3a-wide's problem, with
+    and without V: on the whole dictionary as one shard (m_local = 131072,
+    contiguous) and on its first quarter as a column view (m_local = 32768,
+    lda = 4 m_local, one of four shards); device ms a call (the sweep and
+    the finish) beside one torch.matmul of its products [R; W (; V)] . A in
+    the dictionary's dtype. Returns the outputs of one call from a fresh
+    rescaling each."""
     import torch
 
     from cstpu_torch.ops import fused_solve as fs
     from cstpu_torch.ops import stream_select as ss
 
     A, Br, _ = wide_problem(cs, dev)
+    bf16 = cdt == torch.bfloat16
+    if bf16:
+        A = A.to(cdt)
     B, n = Br.shape
     deg = fs._degeneracy_rtol(n)
     il = torch.full((B, 2), -1, dtype=torch.int32, device=dev)
@@ -220,30 +236,34 @@ def fr_steps(cs, tag, dev):
     W = 1e-2 * Br / n ** 0.5
     V = 0.5 * W.flip(0)
     outputs = {}
+    what = "bf16 catch-all" if bf16 else "f32"
     for width in cs.STREAM_WIDTHS:
         As = A[:, :width]
-        cn2 = torch.sum(As * As, dim=0)
+        cn2 = torch.sum(As.float() ** 2, dim=0)
         resc0 = cn2.repeat(B, 1)
         resc0[:, 40] = -1.0
         for name, Vv in (("fr_step_select", None), ("fr_step_select V", V)):
             resc = resc0.clone()
 
             def call(resc=resc, Vv=Vv):
-                return ss.fr_step_select(As, Br, W, il, cn2, resc, deg, V=Vv)
+                return ss.fr_step_select(As, Br, W, il, cn2, resc, deg, V=Vv,
+                                         mma=False)
 
             prods = torch.cat([Br, W] + ([Vv] if Vv is not None else []))
             ms = cs.device_ms_per_call(call)
-            lib = cs.device_ms_per_call(lambda: torch.matmul(prods, As))
-            key = f"{name} {width}"
+            lib = cs.device_ms_per_call(
+                lambda: torch.matmul(prods.to(As.dtype), As))
+            key = f"{name} {width}" + (" bf16" if bf16 else "")
             got = ss.fr_step_select(As, Br, W, il, cn2, resc0.clone(), deg,
-                                    V=Vv)
+                                    V=Vv, mma=False)
             outputs[key] = [x.cpu() for x in got]
-            bnd = cs.fr_step_bound(B, n, width, cdt_bytes=4,
+            bnd = cs.fr_step_bound(B, n, width, cdt_bytes=As.element_size(),
                                    use_v=Vv is not None)
-            print(f"[ab {tag}] f32 {key} (lda {As.stride(0)}): {cs.ms4(ms)} "
-                  f"ms a call on the device (sweep and finish), torch.matmul "
-                  f"f32 of its products {cs.ms4(lib)}; bound "
-                  f"{bnd['bound_ms']:.4f} by {bnd['bound_by']}", flush=True)
+            print(f"[ab {tag}] {what} {key} (lda {As.stride(0)}): "
+                  f"{cs.ms4(ms)} ms a call on the device (sweep and finish), "
+                  f"torch.matmul {what[:4]} of its products {cs.ms4(lib)}; "
+                  f"bound {bnd['bound_ms']:.4f} by {bnd['bound_by']}",
+                  flush=True)
     return outputs
 
 
@@ -269,12 +289,118 @@ def sharded_f32_solves(cs, dev):
     return out
 
 
+def stream_top1(cs, tag, dev, widths=((32768, 8), (131072, 8),
+                                       (32768, 64)), topl=True, cdt=None):
+    """K6, K9 and K10 forced onto the CUDA cores (mma=False) in f32 on 5c's
+    f32 dictionary (chip_smoke.unit_dictionary, on a generator of its own;
+    with cdt = torch.bfloat16 on its bf16 copy, the catch-all, alone):
+    at each (m_local, B) of `widths`, m_local = 32768 as its first quarter
+    (a column view, lda = 131072: one of four shards) and 131072 as one
+    shard; device ms a call (the sweep and the finish) beside the f32 bound
+    and one f32 torch.matmul R . A_shard. At B = 8 also K10 with R made a
+    contiguous (B, n) copy first (the wrapper's other choice to the sweep's
+    strided read of R (n, B); the copy is timed with the call) and, with
+    `topl`, K7 at l = 32 (its CUDA-core sweep on common.cuh::score_tile and
+    the finish) beside the f32 matmul and torch.topk a tile. Returns the
+    outputs of one call each."""
+    import torch
+
+    from cstpu_torch.ops import corr_argmax as ca
+    from cstpu_torch.ops import stream_select as ss
+
+    _, n, m, k = cs.SHARD_CELLS["5c"]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    A = cs.unit_dictionary(gen, n, m)
+    Rall = torch.randn(max(b for _, b in widths), n, generator=gen,
+                       device=dev)
+    bf16 = cdt == torch.bfloat16
+    if bf16:
+        A, topl = A.to(cdt), False
+    what = "bf16 catch-all" if bf16 else "f32"
+    outputs = {}
+    for width, B in widths:
+        Af = A[:, :width]
+        R = Rall[:B].contiguous()
+        RT = R.T.contiguous()
+        M = torch.zeros((B, width), device=dev)
+        M[:, :k] = -torch.inf
+        M[B - 1] = -torch.inf                 # a row with every atom excluded
+        bpt10 = ca._pick_tile(width) // 128
+        nb = Af.element_size()
+        calls = {
+            "K6": (lambda: ss.correlate_select_stream(Af, R, mma=False),
+                   cs.stream_bound(B, n, width, nb)),
+            "K9": (lambda: ss.correlate_select_masked_stream(Af, R, M,
+                                                              mma=False),
+                   cs.stream_bound(B, n, width, nb, masked=True)),
+            "K10": (lambda: ca.correlate_argmax(Af, RT, mma=False),
+                    cs.stream_bound(B, n, width, nb))}
+        if B == 8 and not bf16:
+            calls["K10 copied"] = (
+                lambda: ss._launch_top1(Af, RT.T.contiguous(), n, 1, B, None,
+                                        bpt10, True, "corr_argmax", False),
+                cs.stream_bound(B, n, width, 4))
+            if topl:
+                calls["K7 l=32"] = (
+                    lambda: ss.correlate_select_topl_stream(Af, R, 32,
+                                                            mma=False),
+                    cs.stream_bound(B, n, width, 4, l=32))
+        lib = cs.device_ms_per_call(lambda: torch.matmul(R.to(A.dtype), Af))
+        topk = cs.device_ms_per_call(
+            lambda: torch.matmul(R, Af).view(B, width // 128, 128).abs()
+            .topk(32, dim=2)) if B == 8 and topl else None
+        for name, (call, bnd) in calls.items():
+            ms = cs.device_ms_per_call(call)
+            key = f"{name} {what[:4]} {width} B={B}"
+            outputs[key] = [x.cpu() for x in call()]
+            extra = (f", torch.matmul f32 + torch.topk a tile "
+                     f"{cs.ms4(topk)}" if name.startswith("K7") else "")
+            print(f"[ab {tag}] {what} {key} (lda {Af.stride(0)}), CUDA cores: "
+                  f"{cs.ms4(ms)} ms a call on the device (sweep and finish), "
+                  f"torch.matmul {what[:4]} {cs.ms4(lib)}{extra}; bound "
+                  f"{bnd['bound_ms']:.4f} by {bnd['bound_by']}", flush=True)
+    return outputs
+
+
+def sharded_top1_solves(cs, dev):
+    """The f32 sharded solves on the top-1 sweep, on one shard and on
+    four: omp_sharded_fused (5c's +-1 rows, k = 32), ompr_sharded_fused and
+    mp_sharded_fused (5c's planted ones) with corr_dtype=f32, on 5c's
+    dictionary from a generator of its own: (name, solve) pairs."""
+    import torch
+
+    import cstpu_torch
+
+    B, n, m, k = cs.SHARD_CELLS["5c"]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    A = cs.unit_dictionary(gen, n, m)
+    Bs, _ = cs.planted_pm1(gen, A, B, k)
+    Bones, _ = cs.planted_ones(gen, A, B, k)
+    f32 = torch.float32
+    out = []
+    for s in (1, cs.SHARDS):
+        mesh = cstpu_torch.make_mesh((1, s))
+        Ash = cstpu_torch.shard_dictionary(A, mesh)
+        out += [
+            (f"omp_sharded_fused f32 shards={s}",
+             lambda Ash=Ash, mesh=mesh: cstpu_torch.omp_sharded_fused(
+                 Ash, Bs, k, mesh, corr_dtype=f32)),
+            (f"ompr_sharded_fused f32 shards={s}",
+             lambda Ash=Ash, mesh=mesh: cstpu_torch.ompr_sharded_fused(
+                 Ash, Bones, k, mesh, delta=1e-12, corr_dtype=f32)),
+            (f"mp_sharded_fused f32 shards={s}",
+             lambda Ash=Ash, mesh=mesh: cstpu_torch.mp_sharded_fused(
+                 Ash, Bones, k, mesh, corr_dtype=f32))]
+    return out
+
+
 def fr_step_plans(cs, tag, plans):
-    """The --fr-step-plans mode: K8's f32 sweep under each (entries a
-    stage, stages) plan of few rows, each built into a library of its own
-    (fr_step_select.cu's CSTPU_FR_STEP_CHUNK and CSTPU_FR_STEP_STAGES) and
-    timed in a process of its own by fr_steps; the outputs are held bit for
-    bit across the plans."""
+    """The --fr-step-plans mode: K8's f32 sweep and the f32 top-1 sweep (K6,
+    K9, K10 at B = 8) under each (entries a stage, stages) plan of few
+    rows, each built into a library of its own (simt_select.cuh's
+    CSTPU_FEW_CHUNK and CSTPU_FEW_STAGES) and timed in a process of its own
+    by fr_steps and stream_top1; the outputs are held bit for bit across
+    the plans."""
     import subprocess
 
     for chunk, stages in plans:
@@ -377,10 +503,21 @@ def f32_selects(cs, tag, out_dir):
         ("gomp_batch f32 2a", lambda: cstpu_torch.gomp_batch(
             A, Bg, cs.GOMP_CELL[5], cs.GOMP_CELL[4], precision="f32"))]
     solves += sharded_f32_solves(cs, dev)
+    outputs.update(stream_top1(cs, tag, dev))
+    torch.cuda.empty_cache()
+    # the same sweeps' bf16 catch-all (a bf16 shard forced onto CUDA cores)
+    outputs.update(stream_top1(cs, tag, dev, ((32768, 8), (131072, 8)),
+                               cdt=torch.bfloat16))
+    outputs.update(fr_steps(cs, tag, dev, torch.bfloat16))
+    torch.cuda.empty_cache()
+    solves += sharded_top1_solves(cs, dev)
     for name, solve in solves:
         sol = solve()
-        outputs[name] = [sol.idx.cpu(), sol.val.cpu(), sol.mask.cpu()]
-        wall = cs.cuda_ms(lambda: solve().val.sum(), cs.TIMED_SOLVES)
+        # MP returns its coefficients (B, m); the others a solution
+        outputs[name] = ([sol.cpu()] if torch.is_tensor(sol) else
+                         [sol.idx.cpu(), sol.val.cpu(), sol.mask.cpu()])
+        wall = cs.cuda_ms(lambda: (lambda x: x if torch.is_tensor(x) else
+                                   x.val)(solve()).sum(), cs.TIMED_SOLVES)
         busy, per = cs.profile_path(solve)
         print(f"[ab {tag}] {name}: wall {wall:.4f} ms, device busy "
               f"{busy:.4f} ms (" + ", ".join(
@@ -439,18 +576,28 @@ def main():
     if "--fr-step-plan" in args:
         chunk, stages = args[args.index("--fr-step-plan") + 1].split(",")
         _build.NVCC_FLAGS = [*_build.NVCC_FLAGS,
-                             f"-DCSTPU_FR_STEP_CHUNK={int(chunk)}",
-                             f"-DCSTPU_FR_STEP_STAGES={int(stages)}"]
+                             f"-DCSTPU_FEW_CHUNK={int(chunk)}",
+                             f"-DCSTPU_FEW_STAGES={int(stages)}"]
         _build.BUILD = _build.BUILD / f"plan_{int(chunk)}x{int(stages)}"
         _build.LIB = _build.BUILD / _build.LIB.name
     _, log = _build.build()
     print(f"[ab {tag}] {cs.gpu_line()}")
     if "--fr-step-plan" in args:
-        for line in log.splitlines():
-            if "fr_step_simt" in line and "Function properties" in line:
-                print(f"[ab {tag}] {line.strip()[:160]}")
-        compare(fr_steps(cs, tag, torch.device("cuda", 0)), tag,
-                own_build / "ab_plans")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if (("fr_step_simt" in line or "stream_top1_simt" in line)
+                    and "Function properties" in line):
+                print(f"[ab {tag}] {line.strip()[:160]}: "
+                      + " ".join(x.strip() for x in lines[i + 1:i + 3]))
+        dev = torch.device("cuda", 0)
+        outputs = fr_steps(cs, tag, dev)
+        outputs.update(stream_top1(cs, tag, dev, ((32768, 8), (131072, 8)),
+                                   topl=False))
+        # the bf16 catch-all takes the plans too
+        outputs.update(fr_steps(cs, tag, dev, torch.bfloat16))
+        outputs.update(stream_top1(cs, tag, dev, ((32768, 8), (131072, 8)),
+                                   cdt=torch.bfloat16))
+        compare(outputs, tag, own_build / "ab_plans")
         return None
     if "--f32" in args:
         rest = [a for a in args if a != "--f32"]
