@@ -1336,9 +1336,11 @@ def twostage_paths(A, Bg, sup_g, Ar, Br, sup_f):
 # names are inside their own; select_topl_simt and fr_step_simt are the
 # CUDA-core top-l select and K8 sweep (select_topl and fr_step_sweep in
 # checkouts before them), stream_top1_simt the CUDA-core top-1 sweep of K6,
-# K9 and K10 (stream_sweep before it)
+# K9 and K10 (stream_sweep before it), stream_topl_simt K7's CUDA-core
+# sweep (stream_topl_sweep before it)
 KERNEL_NAMES = ("fr_select_simt", "select_simt", "select_topl_simt",
-                "fr_step_simt", "stream_top1_simt", "select_argmax",
+                "fr_step_simt", "stream_top1_simt", "stream_topl_simt",
+                "select_argmax",
                 "top1_mma", "topl_mma", "round_rows", "gomp_append",
                 "omp_append", "fr_append", "mp_update", "select_topl", "fr_select", "engine_init",
                 "ompr_swap", "srr_append", "engine_delete", "sp_round",
@@ -2836,6 +2838,126 @@ def hold_simt_stream(dev, B, n, m, off, cdt):
     return max(errs.values()), stagings, col_stagings
 
 
+# K7's CUDA-core sweep over the grid: each l of SIMT_STREAM_TOPL_LS, the
+# last past 128 slots (a block's whole list, the wide finish)
+SIMT_STREAM_TOPL_LS = (1, 4, 32, 128, 160)
+
+
+def hold_simt_stream_topl(dev, B, n, m, off, cdt):
+    """stream_select.cu's CUDA-core top-l sweep (stream_topl_simt_kernel on
+    simt_select.cuh, K7), forced onto it with mma=False, on one problem of
+    SIMT_CASES, its width cut to m8 = a multiple of 128 (the stream tiling),
+    on a contiguous shard and on a column view of a 4 m8 + off wide
+    dictionary (lda = 4 m8 + off), the shard and the rows `off` entries
+    into their storage; column m8 - 1 a copy of SIMT_TIE and row 0 that
+    atom, row 1 a NaN row; then again with atom m8 // 3 poisoned (NaN). At
+    each l of SIMT_STREAM_TOPL_LS: the sweep's partials for l <= LMAX equal
+    select_topl's CUDA-core partials of the same rows on the shard's
+    contiguous copy bit for bit, and each tile's first entry select_argmax's
+    CUDA-core partial; every list (up to 128 entries) against the plain twin
+    (`_topl_ref`: the same entries NaN, values within SELECT_RTOL of the
+    tile's best, indices wherever an entry stands clear of its
+    neighbours); the finish on those partials equal to its plain twin's bit
+    for bit and the public entry point's select to both; the select against
+    the plain select (`correlate_select_topl_stream_ref`: sorted values
+    within SELECT_RTOL of the row's best, index sets where the l-th best
+    stands clear of the next, slot for slot on fully clear rows), row 0
+    holding SIMT_TIE (l = 1) or both copies, row 1 all (-inf, 0), no slot
+    in the poisoned atom's tile. Returns (max |value err| of the lists and
+    the selects, the stagings that ran: (f32 dictionary by TMA, rows by
+    TMA))."""
+    from cstpu_torch.ops import fused_solve as fs
+    from cstpu_torch.ops import stream_select as ss
+
+    m8 = m // fs.TILE * fs.TILE
+    gen = torch.Generator(device=dev).manual_seed(B * 29 + n * 11 + m + off)
+    A = torch.randn(n, m8, generator=gen, device=dev)
+    A = A / torch.linalg.norm(A, dim=0)
+    A[:, m8 - 1] = A[:, SIMT_TIE]
+    r = torch.randn(B, n, generator=gen, device=dev)
+    r[0] = A[:, SIMT_TIE].to(cdt).float()
+    if B > 1:
+        r[1, n // 2] = float("nan")
+    R = _simt_staged(r, off, torch.float32)
+    poison = m8 // 3
+    tm = ss._stream_tile(m8, n, torch.empty((), dtype=cdt).element_size(),
+                         ss.STREAM_TILE_BYTES)
+    bpt, err, stagings = tm // fs.TILE, 0.0, set()
+    for poisoned in (False, True):
+        Ap = A.clone()
+        if poisoned:
+            Ap[:, poison] = float("nan")
+        wide = torch.zeros(n, 4 * m8 + off, device=dev, dtype=cdt)
+        wide[:, off + m8:off + 2 * m8] = Ap.to(cdt)
+        contiguous = _simt_staged(Ap, off, cdt)
+        top1 = fs.select_argmax(R, contiguous, mma=False)
+        k4 = {l: fs.select_topl(R, contiguous, l, mma=False)
+              for l in SIMT_STREAM_TOPL_LS if l <= fs.LMAX}
+        # the plain lists: each tile whole, sorted; an entry is clear where
+        # it stands apart from both neighbours
+        full_v, full_i = fs._topl_ref(R, contiguous.float(), cdt, fs.TILE)
+        d = torch.nn.functional.pad((full_v[..., 1:] - full_v[..., :-1]).abs(),
+                                    (1, 1), value=torch.inf)
+        gap = torch.minimum(d[..., :-1], d[..., 1:]).nan_to_num(torch.inf)
+        sc = ss._abs_scores(contiguous, R).view(B, m8 // tm, tm)
+        live = torch.where(torch.isnan(sc).any(dim=2, keepdim=True),
+                           -torch.inf, sc).view(B, m8)
+        for layout, Ac in (("contiguous", contiguous),
+                           ("view", wide[:, off + m8:off + 2 * m8])):
+            for l in SIMT_STREAM_TOPL_LS:
+                what = ("K7", layout, poisoned, l, B, n, m8, off, cdt)
+                lc = min(l, fs.TILE)
+                (kv, ki), counts = run_counted(
+                    lambda: ss.stream_topl_sweep(Ac, R, l, mma=False))
+                assert counts == expect_launches(select_topl_stream=1), counts
+                assert kv.shape == (B, m8 // fs.TILE, lc), what
+                assert torch.equal(_bits(kv[..., 0]), _bits(top1[0])), what
+                assert torch.equal(ki[..., 0], top1[1]), what
+                if l in k4:
+                    assert torch.equal(_bits(kv), _bits(k4[l][0])), what
+                    assert torch.equal(ki, k4[l][1]), what
+                pv, pi = full_v[..., :lc], full_i[..., :lc]
+                assert torch.equal(torch.isnan(kv), torch.isnan(pv)), what
+                fin = ~torch.isnan(pv)
+                e = (kv - pv).abs()[fin]
+                scale = full_v[..., :1].expand_as(pv)[fin]
+                assert bool((e <= SELECT_RTOL * scale + 1e-7).all()), (
+                    what, float(e.max()))
+                err = max(err, float(e.max()) if e.numel() else 0.0)
+                clear = ~fin | (gap[..., :lc] > GAP_RTOL * full_v[..., :1])
+                assert bool(((ki == pi) | ~clear).all()), what
+                # the finish on these partials, and the public entry point
+                want = ss.stream_topl_finish_ref(kv.clone(), ki.clone(), bpt,
+                                                 l)
+                got, counts = run_counted(
+                    lambda: ss.stream_topl_finish(kv, ki, bpt, l))
+                assert counts == expect_launches(stream_topl_finish=1), counts
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(got, want)), what
+                pub = ss.correlate_select_topl_stream(Ac, R, l, mma=False)
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(pub, got)), what
+                err = max(err, _hold_topl(
+                    what, got, ss.correlate_select_topl_stream_ref(Ac, R, l),
+                    live, l)[0])
+                gv, gi = got
+                if B > 1:
+                    assert bool((gv[1] == -torch.inf).all()), what
+                    assert bool((gi[1] == 0).all()), what
+                if poisoned:
+                    lo = poison // tm * tm
+                    assert not bool(((gi >= lo) & (gi < lo + tm)
+                                     & (gv > -torch.inf)).any()), what
+                elif l == 1:
+                    assert int(gi[0, 0]) == SIMT_TIE, what
+                else:
+                    assert {SIMT_TIE, m8 - 1} <= set(gi[0].tolist()), what
+            stagings.add((cdt == torch.float32 and Ac.data_ptr() % 16 == 0
+                          and Ac.stride(0) % 4 == 0,
+                          R.data_ptr() % 16 == 0 and n % 4 == 0))
+    return err, stagings
+
+
 # mp_update's grid (csrc/mp_update.cu: B C blocks, no cluster): B = 1 and 8
 # (C = 8), 64 and 65 (C = 3); n a multiple of 4 (16-byte pieces of r) and
 # not (1001, 1003: entry by entry); n = 8192 at B = 64 (C = 4: the slices
@@ -3974,6 +4096,38 @@ TOPL_WIDE_SCRATCH = ((1024, 32768, 16384), (256, 32768, 129))
 WIDE_K = 160
 
 
+def _hold_topl(what, kern, plain, live, l):
+    """A finished top-l select (val, idx) against its plain twin's, on the
+    scores `live` (B, m; -inf where the NaN rule skips a tile): values as
+    sorted rows within SELECT_RTOL of the row's best score, index sets
+    equal where the l-th best score stands clear of the (l+1)-th, slot for
+    slot where all l + 1 best stand clear (`_clear_rows`). Returns (the
+    largest |value err|, rows held slot for slot, rows held as sets)."""
+    (kv, ki), (pv, pi) = kern, plain
+    B, m = live.shape
+    ks, ps = kv.sort(dim=1).values, pv.sort(dim=1).values
+    fin = torch.isfinite(ps)
+    assert torch.equal(torch.isfinite(ks), fin), what
+    # past 128 slots the smallest kept scores are cancellations of products
+    # of the row's scale: the tolerance is relative to the row's best
+    scale = torch.where(fin, ps, 0.0).amax(dim=1, keepdim=True).expand_as(ps)
+    err = (ks - ps)[fin].abs()
+    assert bool((err <= SELECT_RTOL * scale[fin] + 1e-7).all()), (
+        what, float(err.max()))
+    depth = min(l, m - 1)
+    top = live.nan_to_num(nan=-1.0, neginf=-1.0).topk(depth + 1,
+                                                      dim=1).values
+    edge = ((top[:, depth - 1] - top[:, depth]) > GAP_RTOL * top[:, 0]
+            if l < m else torch.ones((B,), dtype=torch.bool,
+                                     device=live.device))
+    for b in torch.nonzero(edge).flatten().tolist():
+        assert set(ki[b].tolist()) == set(pi[b].tolist()), (what, b)
+    clear = _clear_rows(live, depth=depth)
+    assert torch.equal(ki[clear], pi[clear]), what
+    return (float(err.max()) if err.numel() else 0.0, int(clear.sum()),
+            int(edge.sum()))
+
+
 def hold_topl_wide(dev, n, m, l, cdt, poison, errs):
     """K7 at l > 128 against its plain twin on the card, B=8: one column
     twice (within and across tiles), a NaN row, and with `poison` a NaN
@@ -4007,28 +4161,11 @@ def hold_topl_wide(dev, n, m, l, cdt, poison, errs):
         lambda: ss.correlate_select_topl_stream(A, R, l))
     assert counts == expect_launches(**{key: 1, "stream_topl_finish": 1}), \
         counts
-    pv, pi = ss.correlate_select_topl_stream_ref(A, R, l)
     name = key + " wide"
-    ks, ps = kv.sort(dim=1).values, pv.sort(dim=1).values
-    fin = torch.isfinite(ps)
-    assert torch.equal(torch.isfinite(ks), fin), (name, l)
-    # past 128 slots the smallest kept scores are cancellations of products
-    # of the row's scale: the tolerance is relative to the row's best
-    scale = torch.where(fin, ps, 0.0).amax(dim=1, keepdim=True).expand_as(ps)
-    err = (ks - ps)[fin].abs()
-    assert bool((err <= SELECT_RTOL * scale[fin] + 1e-7).all()), (
-        name, l, float(err.max()))
-    errs[name] = max(errs.get(name, 0.0),
-                     float(err.max()) if err.numel() else 0.0)
-    depth = min(l, m - 1)
-    top = live.nan_to_num(nan=-1.0, neginf=-1.0).topk(depth + 1,
-                                                      dim=1).values
-    edge = ((top[:, depth - 1] - top[:, depth]) > GAP_RTOL * top[:, 0]
-            if l < m else torch.ones((B,), dtype=torch.bool, device=dev))
-    for b in torch.nonzero(edge).flatten().tolist():
-        assert set(ki[b].tolist()) == set(pi[b].tolist()), (name, l, b)
-    clear = _clear_rows(live, depth=depth)
-    assert torch.equal(ki[clear], pi[clear]), (name, l)
+    err, clear, edge = _hold_topl(
+        (name, l), (kv, ki), ss.correlate_select_topl_stream_ref(A, R, l),
+        live, l)
+    errs[name] = max(errs.get(name, 0.0), err)
     assert bool((kv[1] == -torch.inf).all()) and bool((ki[1] == 0).all())
     if poison:
         lo = best // tm * tm
@@ -4042,7 +4179,7 @@ def hold_topl_wide(dev, n, m, l, cdt, poison, errs):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
         name, l, "finish")
     errs["stream_topl_finish wide"] = 0.0
-    return int(clear.sum()), int(edge.sum())
+    return clear, edge
 
 
 def check_topl_wide(dev, gpu):
@@ -4376,13 +4513,15 @@ def corr_argmax_path(A, Bs):
 F32_STEPS = 8   # depth of the f32-correlation sharded paths
 
 
-def sharded_f32_paths(A, Bs, sup, Bones, sup_ones):
+def sharded_f32_paths(A, Bs, sup, Bones, sup_ones, gpu):
     """The sharded paths with f32 correlation, at a smaller depth: they must
     run on the CUDA-core sweeps (true f32). omp_sharded_fused (F32_STEPS
-    steps of 5c's problem: every pick a planted atom), ompr_sharded_fused on
-    the planted ones (recovery 1.000, supports equal to the plain solve's)
-    and correlate_argmax on the f32 dictionary, each with the launch counts
-    zeroed just before."""
+    steps of 5c's problem: every pick a planted atom), ompr_sharded_fused,
+    gomp_sharded_fused (l = 4) and sp_sharded_fused on the planted ones
+    (recovery 1.000, supports equal to the plain solve's; GOMP and SP on
+    K7's CUDA-core sweep alone, with the device busy time and idle share of
+    a solve) and correlate_argmax on the f32 dictionary, each with the
+    launch counts zeroed just before."""
     import cstpu_torch
     from cstpu_torch.ops import stream_select as ss
     from cstpu_torch.parallel import sharded as sh
@@ -4413,6 +4552,33 @@ def sharded_f32_paths(A, Bs, sup, Bones, sup_ones):
     out["ompr"] = launches["select_masked_stream"]
     out["ompr_topl"] = launches["select_topl_stream"]
     out["ompr_finish"] = launches["stream_topl_finish"]
+    topl = {}
+    for name, call, ref, sweeps in (
+            ("gomp", lambda f, **kw: f(Ash, Bones, 4, k, mesh, **kw),
+             sh.gomp_sharded_fused_ref, lambda it: s * it),
+            ("sp", lambda f, **kw: f(Ash, Bones, k, mesh, **kw),
+             sh.sp_sharded_fused_ref, lambda it: s * (1 + it))):
+        entry = getattr(cstpu_torch, f"{name}_sharded_fused")
+        (sol, iters), launches = run_counted(lambda: call(
+            entry, corr_dtype=f32, return_iters=True))
+        want = sweeps(iters[0])
+        assert launches == expect_launches(
+            select_topl_stream=want, stream_topl_finish=want), (name, launches)
+        rec = recovery(sol, sup_ones)
+        assert rec == 1.0, f"{name} f32: recovery {rec}"
+        assert _supports(call(ref, corr_dtype=f32)) == _supports(sol), name
+        wall = cuda_ms(lambda: call(entry, corr_dtype=f32).val.sum(),
+                       TIMED_SOLVES)
+        split = _split(wall, lambda: call(entry, corr_dtype=f32))
+        out[name] = want
+        topl[name] = (iters[0], rec, split)
+        print(f"[time f32 5c {name}] {name}_sharded_fused corr_dtype=f32 "
+              f"shards={s}: wall {wall:.4f} ms, device busy "
+              f"{split['device_busy_ms']:.4f} ms, idle share "
+              f"{split['idle_share']:.4f}; "
+              + ", ".join(f"{nm} {v['launches']}x {v['ms']:.4f} ms"
+                          for nm, v in split["kernels"].items())
+              + f" | {gpu}")
     R = Bs.T.contiguous()
     (idx, val), launches = run_counted(
         lambda: cstpu_torch.correlate_argmax(A, R))
@@ -4426,7 +4592,11 @@ def sharded_f32_paths(A, Bs, sup, Bones, sup_ones):
           f"launches={out['omp']}, every pick planted, supports == plain "
           f"solve; ompr_sharded_fused recovery={rec:.3f} iters={iters[0]} "
           f"select_masked_stream launches={out['ompr']}, supports == plain "
-          f"solve; correlate_argmax launches={out['corr_argmax']}, == "
+          f"solve; "
+          + "; ".join(f"{name}_sharded_fused recovery={rec:.3f} iters={it} "
+                      f"select_topl_stream launches={out[name]}, supports == "
+                      f"plain solve" for name, (it, rec, _) in topl.items())
+          + f"; correlate_argmax launches={out['corr_argmax']}, == "
           f"select_stream's")
     return out
 
@@ -4546,7 +4716,7 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
                 lambda: ss.correlate_select_topl_stream(Ac, Bs5c, l,
                                                         mma=False))
             for sfx, mma, sweep in ((" ", None, ("topl_mma", "round_rows")),
-                                    (" simt ", False, ("stream_topl_sweep",))):
+                                    (" simt ", False, ("stream_topl_simt",))):
                 busy, got = profile_path(
                     lambda: ss.correlate_select_topl_stream(Ac, Bs5c, l,
                                                             mma=mma),
@@ -4564,12 +4734,12 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
             per[(f"plain_stream_topl_finish l={l}", ml)] = once(
                 lambda: ss.stream_topl_finish_ref(pv, pi, bpt, l))
         del Ac, M, Af
-    # the CUDA-core sweeps of stream_select.cu (K6, K9, K10 on
-    # simt_select.cuh, K7 on common.cuh::score_tile) on the f32 dictionary
-    # (a column view of it at 32768, lda = 131072), as the f32 paths run
-    # them: device ms a call (sweep and finish) beside the f32 bound and one
-    # f32 torch.matmul R . A_shard
-    simt, score = "simt_select.cuh", "score_tile"
+    # the CUDA-core sweeps of stream_select.cu (K6, K9, K10, K7, all on
+    # simt_select.cuh) on the f32 dictionary (a column view of it at 32768,
+    # lda = 131072), as the f32 paths run them: device ms a call (sweep and
+    # finish) beside the f32 bound and one f32 torch.matmul R . A_shard; for
+    # K7 also that matmul followed by torch.topk(l) a tile of 128
+    simt = "simt_select.cuh"
     for ml in STREAM_WIDTHS:
         Af = A5c[:, :ml]
         M = torch.zeros((B, ml), device=A5c.device)
@@ -4577,6 +4747,10 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
         RT = Bs5c.T.contiguous()
         lib = device_ms_per_call(lambda: torch.matmul(Bs5c, Af))
         per[("f32 gemm", ml)] = lib
+        for l in (4, 32):
+            per[(f"f32 gemm topk l={l}", ml)] = device_ms_per_call(
+                lambda: torch.matmul(Bs5c, Af).view(B, ml // 128, 128).abs()
+                .topk(l, dim=2))
         line = []
         for name, loop, call, bnd in (
                 ("select_stream", simt, lambda: ss.correlate_select_stream(
@@ -4584,10 +4758,10 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
                 ("select_masked_stream", simt,
                  lambda: ss.correlate_select_masked_stream(Af, Bs5c, M),
                  stream_bound(B, n, ml, 4, masked=True)),
-                ("select_topl_stream l=4", score,
+                ("select_topl_stream l=4", simt,
                  lambda: ss.correlate_select_topl_stream(Af, Bs5c, 4),
                  stream_bound(B, n, ml, 4, l=4)),
-                ("select_topl_stream l=32", score,
+                ("select_topl_stream l=32", simt,
                  lambda: ss.correlate_select_topl_stream(Af, Bs5c, 32),
                  stream_bound(B, n, ml, 4, l=32)),
                 ("corr_argmax", simt, lambda: ca.correlate_argmax(Af, RT),
@@ -4595,10 +4769,15 @@ def sharded_times(A5c, Bs5c, Bones, gpu):
             ms = device_ms_per_call(call)
             per[(name + " f32 device", ml)] = ms
             per[(name + " f32 bound", ml)] = bnd["bound_ms"]
+            topk = per.get((f"f32 gemm topk {name.split()[-1]}", ml))
             line.append(f"{name} on {loop} {ms4(ms)} (bound "
                         f"{bnd['bound_ms']:.4f} by {bnd['bound_by']}"
                         + (f", {ms / lib:.2f}x the matmul" if ms and lib
-                           else "") + ")")
+                           else "")
+                        + (f", torch.matmul + torch.topk a tile "
+                           f"{ms4(topk)}" + (f", {ms / topk:.2f}x it"
+                                             if ms and topk else "")
+                           if "topl" in name else "") + ")")
         print(f"[time f32 5c] CUDA-core sweeps of stream_select.cu, B={B} "
               f"n={n} m_local={ml} (lda {Af.stride(0)}), device ms a call: "
               + ", ".join(line) + f"; torch.matmul f32 {ms4(lib)} | {gpu}")
@@ -6964,9 +7143,10 @@ def main():
         # the CUDA-core selects' loop (simt_select.cuh) by kernel, dictionary
         # dtype, (select_argmax) epilogue mode, (fr_step_select) V or
         # (stream_top1_simt) the mask and the rows stored as columns, and
-        # plan (entries a stage x stages x warps)
+        # plan (entries a stage x stages x warps; the stream sweeps and K8)
         got = re.search(r"Function properties for _ZN5cstpu\d+((?:fr_)?select"
-                        r"_simt|select_topl_simt|fr_step_simt|stream_top1_simt)"
+                        r"_simt|select_topl_simt|fr_step_simt|stream_top1_simt"
+                        r"|stream_topl_simt)"
                         r"_kernelI(13__nv_bfloat16|f)(?:Li(\d)E)?(?:Lb([01])E)?"
                         r"(?:Lb([01])E)?(?:NS_4simt4PlanILi(\d+)ELi(\d+)ELi"
                         r"(\d+)E)?", line)
@@ -6974,9 +7154,10 @@ def main():
             cdt = "bf16" if got[2].startswith("13") else "f32"
             mode = f" mode={got[3]}" if got[3] else ""
             if got[6]:
-                flags = (f"M={got[4]} cols={got[5]}"
-                         if got[1].startswith("stream") else f"V={got[4]}")
-                mode = f" {flags} plan={got[6]}x{got[7]}x{got[8]}"
+                flags = ("" if got[4] is None else
+                         f"M={got[4]} cols={got[5]} "
+                         if got[1].startswith("stream") else f"V={got[4]} ")
+                mode = f" {flags}plan={got[6]}x{got[7]}x{got[8]}"
             print(f"[build simt] {got[1]} {cdt}{mode}: {props}")
         got = re.search(r"Function properties for .*topl_mma_kernelILi(\d+)E",
                         line)
@@ -7212,7 +7393,7 @@ def main():
     simt_err, simt_resc, staging = 0.0, 0.0, set()
     topl_err, step_err, step_resc, stream_err = 0.0, 0.0, 0.0, 0.0
     topl_staging, step_staging, stream_staging = set(), set(), set()
-    col_staging = set()
+    col_staging, stream_topl_staging, stream_topl_err = set(), set(), 0.0
     grid_simt_cases = smoke_grid(SIMT_CASES)
     for (B, n, m, off), cdt in itertools.product(
             grid_simt_cases, (torch.float32, torch.bfloat16)):
@@ -7229,19 +7410,25 @@ def main():
         stream_err = max(stream_err, err)
         stream_staging |= how
         col_staging |= col
+        err, how = hold_simt_stream_topl(dev, B, n, m, off, cdt)
+        stream_topl_err = max(stream_topl_err, err)
+        stream_topl_staging |= how
     # the loop held on every staging: the dictionary (f32) and the rows each
     # by TMA and by cp.async, under each kernel; K10's rows stored as
     # columns by both
     every = {(a, r) for a in (True, False) for r in (True, False)}
     assert (staging == topl_staging == step_staging == stream_staging
-            == every), (staging, topl_staging, step_staging, stream_staging)
+            == stream_topl_staging == every), (
+        staging, topl_staging, step_staging, stream_staging,
+        stream_topl_staging)
     assert col_staging == {True, False}, col_staging
     print(f"[simt grid] select_argmax ({', '.join(SIMT_MODES)}), "
           f"fr_select ({', '.join(map(str, SIMT_TERMS))} pending terms), "
           f"select_topl (l in {SIMT_TOPL_LS}), fr_step_select (with and "
-          f"without V) and the stream top-1 sweep (K6, K9, K10; R as (n, B) "
-          f"for K10; the last two each on a contiguous shard and a column "
-          f"view, lda = 4 m + offset), CUDA-core variants "
+          f"without V), the stream top-1 sweep (K6, K9, K10; R as (n, B) "
+          f"for K10) and the stream top-l sweep (K7, l in "
+          f"{SIMT_STREAM_TOPL_LS}; the last three each on a contiguous shard "
+          f"and a column view, lda = 4 m + offset), CUDA-core variants "
           f"(csrc/simt_select.cuh), against their plain versions over (B, "
           f"n, m, offset) in {grid_simt_cases}, f32 and bf16, every staging "
           f"(dictionary by TMA, rows by TMA) under each: {sorted(staging)}: "
@@ -7250,9 +7437,12 @@ def main():
           f"NaN and all-degenerate rows; the stream sweep's NaN row, "
           f"all-excluded row and poisoned atom), each tile's first top-l "
           f"entry and each stream sweep partial the top-1 partial bit for "
-          f"bit, max rel value err {simt_err:.3e}, top-l {topl_err:.3e} "
+          f"bit, the stream top-l partials select_topl's at l <= 32 bit for "
+          f"bit and its finish the plain finish's, max rel value err "
+          f"{simt_err:.3e}, top-l {topl_err:.3e} "
           f"(rtol {SELECT_RTOL}), fr_step_select max |d2 err| "
           f"{step_err:.3e}, the stream top-1 max |val err| {stream_err:.3e}, "
+          f"the stream top-l {stream_topl_err:.3e}, "
           f"resc max |err| {simt_resc:.3e}, the step's {step_resc:.3e} (atol "
           f"{RESC_ATOL}); {time.perf_counter() - t0:.1f} s")
 
@@ -7361,7 +7551,7 @@ def main():
     pwide = sharded_wide_paths(A5, Bs5, sup5)
     lap("5c-wide")
     k10_launches = corr_argmax_path(A5, Bs5)
-    pf32 = sharded_f32_paths(A5, Bs5, sup5, Bones, sup_ones)
+    pf32 = sharded_f32_paths(A5, Bs5, sup5, Bones, sup_ones, gpu)
     lap("corr_argmax and f32")
     xtm, xsplit, xper = sharded_times(A5, Bs5, Bones, gpu)
     lap("times")
@@ -8014,6 +8204,13 @@ def main():
         f"srr_sharded_fused s={SHARDS}":
         pfam["srr"]["launches"]["stream_topl_finish"],
         "ompr_sharded_fused 5c corr_dtype=f32": pf32["ompr_finish"]}
+    # the f32-correlation paths on K7's CUDA-core sweep (a sweep and a
+    # finish a select)
+    topl32_paths = {"ompr_sharded_fused 5c corr_dtype=f32": pf32["ompr_topl"],
+                    **{f"{name}_sharded_fused 5c corr_dtype=f32": pf32[name]
+                       for name in ("gomp", "sp")}}
+    finish_paths.update({f"{name}_sharded_fused 5c corr_dtype=f32": pf32[name]
+                         for name in ("gomp", "sp")})
     finish_launches = sum(finish_paths.values())
 
     def stream_library(width, other, prefix="shard_"):
@@ -8054,13 +8251,17 @@ def main():
     def f32_sweep(name, tag=""):
         """A CUDA-core sweep's device ms a call on the f32 dictionary
         (f32_ at the whole width, f32_shard_ at the shard's, a column
-        view), its f32 bound and one f32 torch.matmul R . A_shard."""
+        view), its f32 bound and one f32 torch.matmul R . A_shard (for the
+        top-l, also that matmul + torch.topk(l) a tile)."""
         out = {}
         for prefix, width in ((f"f32_{tag}", whole),
                               (f"f32_shard_{tag}", part)):
             out[prefix + "device_ms"] = xper[(name + " f32 device", width)]
             out[prefix + "bound_ms"] = xper[(name + " f32 bound", width)]
             out[prefix + "library_ms"] = xper[("f32 gemm", width)]
+            if "topl" in name:
+                out[prefix + "library_topk_ms"] = xper[(
+                    f"f32 gemm topk {name.split()[-1]}", width)]
         return out
 
     def finish_bound(width, l):
@@ -8131,15 +8332,20 @@ def main():
                                           "stream_topl_merge",
                                           "stream_topl_fold"),
               **topl_times(whole, "whole_", " ")),
-        # its CUDA-core sweep: the f32-correlation path runs it; ms is its
-        # time on the bf16 inputs above, with the same finish
-        entry("select_topl_stream", f"{TPU_SELECT}:187", pf32["ompr_topl"],
-              max(xerr["select_topl_stream"], lerr["select_topl_stream"]),
+        # its CUDA-core sweep (simt_select.cuh): the f32-correlation paths
+        # run it; ms is its time on the bf16 inputs above (the catch-all),
+        # with the same finish
+        entry("select_topl_stream", f"{TPU_SELECT}:187",
+              sum(topl32_paths.values()),
+              max(xerr["select_topl_stream"], lerr["select_topl_stream"],
+                  stream_topl_err),
               xper[("select_topl_stream l=32 simt", part)],
               xper[("plain_select_topl_stream l=32", part)],
               stream_bound(B5, n5, part, l=32), source=stream_src,
-              paths={"ompr_sharded_fused 5c corr_dtype=f32":
-                     pf32["ompr_topl"]},
+              main_loop=f"{csrc}/simt_select.cuh",
+              profile_name="stream_topl_simt",
+              grid_max_abs_err=stream_topl_err,
+              paths=topl32_paths,
               **stream_library(part, whole, "whole_"),
               **topl_times(part, "", " simt "),
               **topl_times(whole, "whole_", " simt "),

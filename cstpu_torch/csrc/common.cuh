@@ -1,10 +1,9 @@
 // Shared device helpers of the batched kernels: the select tile width, cdt
 // rounding, the argmax rule of cstpu/ops/fused_solve.py::_solve_kernel
-// (:157-163), the staging of the select's rows of r, warp and block sums,
-// the cp.async, mbarrier and cluster-barrier PTX, the top-l epilogue of a
-// select block, the top-l sort key and the warp's sort of a tile's 128
-// keys, and the merge of select_topl partials (a warp-sorted top 32 and a
-// tree of merges).
+// (:157-163), warp and block sums, the cp.async, mbarrier and
+// cluster-barrier PTX, the top-l sort key and the warp's sort of a tile's
+// 128 keys, and the merge of select_topl partials (a warp-sorted top 32
+// and a tree of merges).
 #pragma once
 
 #include <climits>
@@ -20,9 +19,6 @@ namespace cstpu {
 
 // Atoms per select block, and per partial (value, index) it writes.
 constexpr int kTile = 128;
-// Measurement rows per select block, and entries of r staged at once.
-constexpr int kRows = 16;
-constexpr int kChunk = 64;
 // Most picks per GOMP iteration (the l of select_topl, LMAX).
 constexpr int kTopLMax = 32;
 // SMs of the card the launch plans fill (an H100 SXM).
@@ -133,125 +129,6 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) acc += red[w];
   __syncthreads();
   return acc;
-}
-
-// Stage rows row0 .. row0+kRows-1, entries p0 .. p0+kChunk-1 of the
-// contiguous (B, n) matrix X into xs[kChunk][kRows], rounded to T; zeros
-// past the edges.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float (*xs)[kRows],
-                                           const float* __restrict__ X,
-                                           int row0, int p0, int B, int n) {
-  for (int e = threadIdx.x; e < kChunk * kRows; e += blockDim.x) {
-    const int q = e / kChunk, pp = e % kChunk;
-    const int row = row0 + q, p = p0 + pp;
-    xs[pp][q] = (row < B && p < n) ? round_cdt<T>(X[(size_t)row * n + p])
-                                   : 0.f;
-  }
-}
-
-// The CUDA-core main loop of stream_select.cu's top-l sweep (K7; the
-// other CUDA-core selects, stream_select.cu's top-1 sweep among them, run
-// simt_select.cuh's staged, register-tiled loop, whose sums are this loop's
-// bit for bit): acc[q] = round_cdt(r[row0 + q]) . A[:, j] for the
-// block's kRows rows, products and sums in f32 (FMA on CUDA cores, no
-// TF32), each atom's sum in the order p = 0 .. n-1 whatever the tile, the
-// batch or the width of the dictionary. One thread per atom column j
-// (`live` = j < m), so loads of A coalesce; the rows of r are staged in rs,
-// rounded to T, and read back as broadcast float4s. Rows of A are lda
-// entries apart (a column slice of a wider dictionary is read in place), r
-// is a contiguous (B, n). Every thread of the block calls it (it has
-// barriers).
-template <typename T>
-__device__ __forceinline__ void score_tile(float (&acc)[kRows],
-                                           float (*rs)[kRows],
-                                           const float* __restrict__ r,
-                                           const T* __restrict__ A, int row0,
-                                           int j, bool live, int B, int n,
-                                           size_t lda) {
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) acc[q] = 0.f;
-  for (int p0 = 0; p0 < n; p0 += kChunk) {
-    stage_rows<T>(rs, r, row0, p0, B, n);
-    __syncthreads();
-    const int pend = min(kChunk, n - p0);
-    if (live) {
-      const T* a_ptr = A + (size_t)p0 * lda + j;
-#pragma unroll 4
-      for (int pp = 0; pp < pend; ++pp) {
-        const float a = to_f32(a_ptr[(size_t)pp * lda]);
-        const float4* rq = reinterpret_cast<const float4*>(rs[pp]);
-#pragma unroll
-        for (int q4 = 0; q4 < kRows / 4; ++q4) {
-          const float4 rv = rq[q4];
-          acc[4 * q4 + 0] = fmaf(a, rv.x, acc[4 * q4 + 0]);
-          acc[4 * q4 + 1] = fmaf(a, rv.y, acc[4 * q4 + 1]);
-          acc[4 * q4 + 2] = fmaf(a, rv.z, acc[4 * q4 + 2]);
-          acc[4 * q4 + 3] = fmaf(a, rv.w, acc[4 * q4 + 3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The top-l epilogue of stream_select.cu's CUDA-core top-l sweep (K7;
-// select_topl.cu sorts its scores in registers): from the block's scores ss[q][c]
-// (-inf past the atom edge) the l largest of every row, ordered by value
-// descending and then by index ascending, into pval/pidx (B, ntiles, l). A
-// tile holding a NaN writes l (NaN, INT_MAX); a tile with fewer than l
-// atoms pads with (-inf, INT_MAX). Each warp takes whole rows: l rounds in
-// which every lane offers its best candidate after the previous pick and a
-// warp argmax picks the next. Call after a barrier that follows the writes
-// to ss.
-__device__ __forceinline__ void topl_partials(float (*ss)[kTile],
-                                              int tile, int row0, int B,
-                                              int m, int ntiles, int l,
-                                              float* __restrict__ pval,
-                                              int* __restrict__ pidx) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kPer = kTile / 32;  // candidates per lane
-  for (int q = warp; q < kRows; q += kTile / 32) {
-    const int row = row0 + q;
-    if (row >= B) break;
-    float cv[kPer];
-    int ci[kPer];
-    bool nan = false;
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int col = lane + 32 * c;
-      cv[c] = ss[q][col];
-      ci[c] = (tile * kTile + col < m) ? tile * kTile + col : INT_MAX;
-      nan |= isnan(cv[c]);
-    }
-    nan = __any_sync(0xffffffffu, nan);
-    float* pv = pval + ((size_t)row * ntiles + tile) * l;
-    int* pi = pidx + ((size_t)row * ntiles + tile) * l;
-    float pv_prev = INFINITY;
-    int pi_prev = -1;
-    for (int p = 0; p < l; ++p) {
-      float v = -INFINITY;
-      int i = INT_MAX;
-      if (!nan) {
-#pragma unroll
-        for (int c = 0; c < kPer; ++c) {
-          const bool after = cv[c] < pv_prev || (cv[c] == pv_prev && ci[c] > pi_prev);
-          if (after) argmax_combine(v, i, cv[c], ci[c]);
-        }
-        warp_argmax(v, i);
-        v = __shfl_sync(0xffffffffu, v, 0);
-        i = __shfl_sync(0xffffffffu, i, 0);
-      } else {
-        v = __int_as_float(0x7fc00000);
-      }
-      if (lane == 0) {
-        pv[p] = v;
-        pi[p] = i;
-      }
-      pv_prev = v;
-      pi_prev = i;
-    }
-  }
 }
 
 // Ask CUDA for the largest L1 a kernel's shared memory leaves. A

@@ -238,11 +238,11 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
 // both pitches and both bases multiples of 4 floats); else append_stage's
 // cp.async copies in the open group, and thread 0 arrives expecting none.
 // A wait on `bar` then covers the rows. Every thread calls it.
-__device__ __forceinline__ void stage_rows_bulk(float* dst, int dpitch,
-                                                const float* src,
-                                                size_t spitch, int rows,
-                                                int len, bool vec,
-                                                uint64_t* bar) {
+__device__ __forceinline__ void stage_slices_bulk(float* dst, int dpitch,
+                                                  const float* src,
+                                                  size_t spitch, int rows,
+                                                  int len, bool vec,
+                                                  uint64_t* bar) {
   if (vec && len > 0) {
     if (threadIdx.x < 32) {
       if (threadIdx.x == 0) {
@@ -394,8 +394,8 @@ __device__ __forceinline__ void gomp_cluster_row(const GompArgs& a) {
   const bool vec = (n & 3) == 0;  // then a row's slices are 16-byte pieces
   if (kStaged) append_stage(smem + bs, 0, bb + p0, 0, 1, L, vec && aligned16(bb));
   // the old slot columns' slices, which land during the merge
-  stage_rows_bulk(smem + cs, S, colsb + p0, (size_t)n, kStaged ? kold : 0, L,
-                  vec && aligned16(colsb), &stage);
+  stage_slices_bulk(smem + cs, S, colsb + p0, (size_t)n, kStaged ? kold : 0,
+                    L, vec && aligned16(colsb), &stage);
   cp_async_commit();
   // the row's top-cnt picks, alike in every block (NaN rule: all INT_MAX)
   merge_topl_row(a.pval + (size_t)b * a.ntiles * cnt,
@@ -753,8 +753,8 @@ __device__ __forceinline__ void swap_cluster_row(const SwapArgs& a) {
   const bool vec = (n & 3) == 0;  // then a row's slices are 16-byte pieces
   append_stage(smem + bs, 0, bb + p0, 0, 1, L, vec && aligned16(bb));
   append_stage(smem + rs, 0, rb + p0, 0, 1, L, vec && aligned16(rb));
-  stage_rows_bulk(smem + cs, S, colsb + p0, (size_t)n, kStaged ? K : 0, L,
-                  vec && aligned16(colsb), &stage);
+  stage_slices_bulk(smem + cs, S, colsb + p0, (size_t)n, kStaged ? K : 0,
+                    L, vec && aligned16(colsb), &stage);
   cp_async_commit();
   if (tid < K) {
     ix[tid] = ix_r;

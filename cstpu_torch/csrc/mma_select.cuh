@@ -1,12 +1,12 @@
 // The tensor-core main loop of the top-1 selects, shared by
 // select_argmax.cu (batched OMP, MP, OMPR) and the top-1 sweep of
 // stream_select.cu (the column-sharded solvers), for the bf16 correlation
-// dtype. It computes what common.cuh::score_tile computes on CUDA cores,
+// dtype. It computes what simt_select.cuh's loop computes on CUDA cores,
 // scores = round_bf16(R) . A_bf16 with f32 sums, the product the TPU kernels
 // take inside their bodies (cstpu/ops/fused_solve.py:157-163, :370-385;
 // cstpu/ops/stream_select.py:88). f32 correlation stays on the CUDA cores in
-// true f32 (simt_select.cuh under select_argmax.cu, score_tile in the
-// streaming sweeps).
+// true f32 (simt_select.cuh, under the batched selects and the streaming
+// sweeps alike).
 //
 // What bounds a top-1 select on an H100: it reads the bf16 dictionary once
 // (2 n m bytes) and does 2 B n m operations, 8 to 64 per byte at B = 8 to
@@ -39,7 +39,7 @@
 // offset, the batch size or the kernel that calls the loop. So equal columns
 // give equal scores, scores do not depend on shard, tile or B, and the
 // lowest index wins a tie (argmax_combine). What is NOT guaranteed: bits
-// equal to score_tile's or the plain twin's; the sums differ in their last
+// equal to simt_select.cuh's or the plain twin's; the sums differ in their last
 // bits, so near-ties may resolve differently between the variants.
 //
 // What the loop does not take (the wrapper's predicate sends those to
@@ -57,6 +57,7 @@ namespace cstpu {
 namespace mma {
 
 constexpr int kHalf = 64;        // atoms per wgmma (its M); two per tile
+constexpr int kChunk = 64;       // entries of n a stage
 constexpr int kStages = 4;       // ring depth
 constexpr int kConsumers = 128;  // one warpgroup
 constexpr int kThreads = kConsumers + 32;

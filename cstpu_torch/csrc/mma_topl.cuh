@@ -13,8 +13,8 @@
 //
 // What bounds it: the loop is the top-1 select's (the bytes of the bf16
 // dictionary, mma_select.cuh's note). The epilogue must not cost l rounds of
-// a warp argmax, as common.cuh::topl_partials does on CUDA cores (at l = 32
-// that epilogue took about 60% of the CUDA-core kernel). Design:
+// a warp argmax, as the CUDA-core epilogue once did (at l = 32 that
+// epilogue took about 60% of the CUDA-core kernel). Design:
 //   * the consumers stage the accumulator fragments as |s| in f32, ss[NB]
 //     [kTile + 4] (the pad of 4 puts the 32 lanes of a fragment store on 32
 //     banks), in the ring: the last wgmma has retired and every stage has
@@ -29,8 +29,9 @@
 //     lanes, whatever l (1 to 128), so the cost is flat in l. The two rows
 //     interleave for ILP;
 //   * the first l keys are written as (value, index): a tile holding a NaN
-//     writes l (NaN, INT_MAX), a pad (-inf, INT_MAX), as common.cuh::
-//     topl_partials does. Rows >= B and atoms >= m are never written.
+//     writes l (NaN, INT_MAX), a pad (-inf, INT_MAX), as the CUDA-core
+//     epilogue (simt_select.cuh::topl_epilogue) does. Rows >= B and atoms
+//     >= m are never written.
 // The first entry of a tile is the top-1 select's partial bit for bit: the
 // largest key is the largest score with its lowest index.
 #pragma once

@@ -38,8 +38,9 @@
 //     staged in a ring of shared-memory chunks (TMA for an aligned f32
 //     dictionary, cp.async otherwise) and a 4-row x 4-atom register tile
 //     of sums a thread, each warp over 4 rows and the whole tile, so its
-//     epilogue is a warp's shuffles. Its sums are score_tile's bit for bit
-//     (one fmaf chain over p = 0 .. n-1). The multiply-adds bound this one.
+//     epilogue is a warp's shuffles. Each sum is one fmaf chain over p = 0
+//     .. n-1 from +0, as in every kernel on that loop. The multiply-adds
+//     bound this one.
 //
 // Either epilogue reduces the block's kTile x rows scores to one (max,
 // argmax) per row, so the (B, m) score matrix never reaches device memory;

@@ -32,25 +32,25 @@
 //     take): simt_select.cuh's staged, register-tiled loop, one product, as
 //     select_argmax.cu's |s| mode runs it and under the same launch plan
 //     (`simt::warps`: at 2a 128 blocks of 8 warps). Its sums are the top-1
-//     select's bit for bit. The epilogue stays in registers: a thread's
-//     4 x 4 tile of sums is (row 4 w + i, atoms 4 lane .. 4 lane + 3), the
-//     layout that common.cuh::warp_sort128_desc sorts (lane t holds entries
-//     4 t .. 4 t + 3 of a row), so each warp keys its four rows' |s|
-//     (common.cuh::topl_key; past m the pad key 0), sorts them two rows at
-//     a time and writes the first l of each. Its cost is flat in l (1-32);
-//     the earlier epilogue, l rounds of a warp argmax over scores staged in
-//     shared memory (common.cuh::topl_partials), cost about as much as the
-//     multiply-adds at l = 32.
+//     select's bit for bit. The epilogue stays in registers
+//     (simt::topl_epilogue, shared with stream_select.cu's top-l sweep): a
+//     thread's 4 x 4 tile of sums is (row 4 w + i, atoms 4 lane .. 4 lane
+//     + 3), the layout that common.cuh::warp_sort128_desc sorts (lane t
+//     holds entries 4 t .. 4 t + 3 of a row), so each warp keys its four
+//     rows' |s| (common.cuh::topl_key; past m the pad key 0), sorts them
+//     two rows at a time and writes the first l of each. Its cost is flat
+//     in l; an epilogue of l rounds of a warp argmax over scores staged in
+//     shared memory cost about as much as the multiply-adds at l = 32.
 #include "common.cuh"
 #include "mma_topl.cuh"
 #include "simt_select.cuh"
 
 namespace cstpu {
 
-// The CUDA-core variant: simt_select.cuh's loop over r, then each warp's
-// rows sorted in registers and their first l written. The rules are
-// topl_partials's: value descending, then index ascending; a tile holding
-// a NaN writes l (NaN, INT_MAX); pads write (-inf, INT_MAX).
+// The CUDA-core variant: simt_select.cuh's loop over r, then its top-l
+// epilogue (simt::topl_epilogue: each warp's rows sorted in registers and
+// their first l written, value descending, then index ascending; a tile
+// holding a NaN writes l (NaN, INT_MAX); pads write (-inf, INT_MAX)).
 template <typename T>
 __global__ void __launch_bounds__(32 * simt::kMaxWarps)
 select_topl_simt_kernel(const __grid_constant__ simt::Maps maps,
@@ -62,57 +62,14 @@ select_topl_simt_kernel(const __grid_constant__ simt::Maps maps,
   extern __shared__ unsigned char smem[];
   const int tile = blockIdx.x, j0 = tile * kTile;
   const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int jl = j0 + kAT * lane;    // the thread's first atom
-  const int rw = row0 + kRT * warp;  // the warp's first row
+  const int jl = j0 + kAT * (threadIdx.x & 31);    // the thread's first atom
+  const int rw = row0 + kRT * (threadIdx.x >> 5);  // the warp's first row
 
   float acc[1][kRT][kAT];
   simt::sweep<T, 1>(
       acc, smem, maps, A, (size_t)m, simt::Products{r, nullptr, 0, 0}, j0,
       row0, B, n, m, [&](int, int, float (&s)[1][kRT][kAT]) {
-#pragma unroll
-        for (int h = 0; h < kRT; h += kSortRows) {
-          if (rw + h >= B) break;  // the warp's rows: uniform in the warp
-          TopKey x[kSortRows][4];
-          bool nan[kSortRows];
-#pragma unroll
-          for (int q = 0; q < kSortRows; ++q) {
-            bool any = false;
-#pragma unroll
-            for (int c = 0; c < kAT; ++c) {
-              const float v = fabsf(s[0][h + q][c]);
-              const bool live = jl + c < m;
-              x[q][c] = live ? topl_key(v, jl + c) : 0ull;
-              any |= live && isnan(v);
-            }
-            nan[q] = __any_sync(0xffffffffu, any);
-          }
-          warp_sort128_desc<kSortRows>(x);
-#pragma unroll
-          for (int q = 0; q < kSortRows; ++q) {
-            const int row = rw + h + q;
-            if (row >= B) break;
-            const size_t base = ((size_t)row * ntiles + tile) * l;
-#pragma unroll
-            for (int c = 0; c < kAT; ++c) {
-              const int p = kAT * lane + c;
-              if (p < l) {
-                const TopKey key = x[q][c];
-                float v = key ? __uint_as_float(
-                                    static_cast<uint32_t>(key >> 32))
-                              : -INFINITY;
-                int i = key ? static_cast<int>(~static_cast<uint32_t>(key))
-                            : INT_MAX;
-                if (nan[q]) {
-                  v = __int_as_float(0x7fc00000);
-                  i = INT_MAX;
-                }
-                pval[base + p] = v;
-                pidx[base + p] = i;
-              }
-            }
-          }
-        }
+        simt::topl_epilogue(s[0], jl, rw, B, m, tile, ntiles, l, pval, pidx);
       });
 }
 

@@ -2,24 +2,25 @@
 // variants of select_argmax.cu (batched OMP, MP, OMPR: K1, K5, K13's masked
 // select), fr_select.cu (FR, SRR, RMP, FoBa: K3, K14-K16), select_topl.cu
 // (GOMP, SP, the OMPR/SRR init: K4, K12-K14), fr_step_select.cu (the
-// sharded FR family's step over a shard: K8) and stream_select.cu's top-1
-// sweep (the sharded greedy solvers' select, the masked one of sharded OMPR
-// and correlate_argmax: K6, K9, K10). It computes
-// what common.cuh::score_tile computes, products of rows of r (and of the
-// rescaled selects' pending terms u_p) with the dictionary's atoms, bit for
-// bit: each (row, atom) sum is one fmaf chain over p = 0 .. n-1 from +0,
-// the row entry rounded to the correlation dtype (round_cdt) and the atom's
-// entry in f32, so every score, pick and partial equals score_tile's. The
-// sums stay in f32 on the CUDA cores: no TF32, no split over n, no
-// reassociation (cstpu's precision="f32", cstpu/ops/fused_solve.py:30-35).
+// sharded FR family's step over a shard: K8) and stream_select.cu's
+// sweeps (the sharded solvers' top-1 select, the masked one of sharded
+// OMPR and correlate_argmax: K6, K9, K10; their top-l select: K7). It
+// computes products of rows of r (and of the rescaled selects' pending
+// terms u_p) with the dictionary's atoms: each (row, atom) sum is one fmaf
+// chain over p = 0 .. n-1 from +0, the row entry rounded to the
+// correlation dtype (round_cdt) and the atom's entry in f32, so every
+// kernel on it scores an atom with the same bits, whatever its tile, shard
+// or batch. The sums stay in f32 on the CUDA cores: no TF32, no split over
+// n, no reassociation (cstpu's precision="f32",
+// cstpu/ops/fused_solve.py:30-35).
 //
 // What bounds it on an H100: 2 B n m f32 operations per product (1.07 G for
 // the bench's select, B = 64, n = 1024, m = 8192: 0.016 ms at 67 TFLOP/s)
 // against one read of the dictionary (32 MB in f32: 0.010 ms at 3.35
 // TB/s). So the FMA pipes bound it, and the loop's job is to keep them
-// issuing: score_tile read one dictionary entry per thread from device
-// memory per step of p and one broadcast float4 of r per four FMAs, with
-// one thread per atom and 16 rows a block (about 9.5% of the bound).
+// issuing: the loop it replaced read one dictionary entry per thread from
+// device memory per step of p and one broadcast float4 of r per four FMAs,
+// with one thread per atom and 16 rows a block (about 9.5% of the bound).
 //
 // Design.
 //   Block: W warps (W in {1, 2, 4, 8}, `warps`) over 4 W measurement rows
@@ -34,7 +35,8 @@
 //   Inner step: four entries of n at a time, from shared memory: one
 //     float4 of the dictionary per entry (the warp reads 512 contiguous
 //     bytes, no bank conflict) and one broadcast float4 of four entries per
-//     row: 8 16-byte loads feed 64 FMAs (score_tile: 4 FMAs a load).
+//     row: 8 16-byte loads feed 64 FMAs (the loop it replaced: 4 FMAs a
+//     load).
 //   Staging: a ring of stages (two of 128 entries of n for an f32
 //     dictionary, three of 64 for bf16, under the `Wide` plan), filled
 //     asynchronously with completion on one mbarrier a stage:
@@ -89,8 +91,8 @@
 // block holds (which sizes a stage's rows): `Wide` (128 x 2 for f32, 64 x 3
 // for bf16, rows for 8 warps) fills the SM with one block; the plans for
 // few rows (`Few`, `FewSmall`: the sweeps over a shard, K8 and the top-1
-// sweep, at B <= 8, 1-2 warps a block; `launch_by_grid` picks one by the
-// grid) take shallower chunks, so that several blocks share an SM.
+// and top-l sweeps, at B <= 8, 1-2 warps a block; `launch_by_grid` picks
+// one by the grid) take shallower chunks, so that several blocks share an SM.
 #pragma once
 
 #include <cstdint>
@@ -473,6 +475,64 @@ __device__ __forceinline__ void sweep(float (&acc)[kNP][kRT][kAT],
   }
 }
 
+// The top-l epilogue of the CUDA-core top-l selects (select_topl.cu's K4,
+// stream_select.cu's K7 sweep), called from sweep's epilogue with one
+// product's sums s: thread (warp, lane) holds rows rw .. rw + 3 by atoms
+// jl .. jl + 3 (jl = j0 + 4 lane), the layout warp_sort128_desc sorts. Each
+// warp keys its rows' |s| (topl_key; atoms >= m the pad key 0), sorts them
+// kSortRows rows at a time in registers and writes the first l (<= kTile)
+// of each row to pval/pidx (B, ntiles, l) at `tile`: value descending, then
+// index ascending; pads (-inf, INT_MAX); a tile holding a NaN all l (NaN,
+// INT_MAX). The sort is the whole tile's, so its cost does not grow with l.
+__device__ __forceinline__ void topl_epilogue(const float (&s)[kRT][kAT],
+                                              int jl, int rw, int B, int m,
+                                              int tile, int ntiles, int l,
+                                              float* __restrict__ pval,
+                                              int* __restrict__ pidx) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < kRT; h += kSortRows) {
+    if (rw + h >= B) break;  // the warp's rows: uniform in the warp
+    TopKey x[kSortRows][4];
+    bool nan[kSortRows];
+#pragma unroll
+    for (int q = 0; q < kSortRows; ++q) {
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < kAT; ++c) {
+        const float v = fabsf(s[h + q][c]);
+        const bool live = jl + c < m;
+        x[q][c] = live ? topl_key(v, jl + c) : 0ull;
+        any |= live && isnan(v);
+      }
+      nan[q] = __any_sync(0xffffffffu, any);
+    }
+    warp_sort128_desc<kSortRows>(x);
+#pragma unroll
+    for (int q = 0; q < kSortRows; ++q) {
+      const int row = rw + h + q;
+      if (row >= B) break;
+      const size_t base = ((size_t)row * ntiles + tile) * l;
+#pragma unroll
+      for (int c = 0; c < kAT; ++c) {
+        const int p = kAT * lane + c;
+        if (p < l) {
+          const TopKey key = x[q][c];
+          float v = key ? __uint_as_float(static_cast<uint32_t>(key >> 32))
+                        : -INFINITY;
+          int i = key ? static_cast<int>(~static_cast<uint32_t>(key)) : INT_MAX;
+          if (nan[q]) {
+            v = __int_as_float(0x7fc00000);
+            i = INT_MAX;
+          }
+          pval[base + p] = v;
+          pidx[base + p] = i;
+        }
+      }
+    }
+  }
+}
+
 // The tensor map of an f32 (rows, cols) matrix at base, rows `pitch`
 // entries apart, in boxes of box_cols x box_rows, no swizzle, zeros past
 // the edges. Encoded once per (base, shape, pitch, box) and kept
@@ -552,20 +612,20 @@ cudaError_t launch_plan(Kern kern, const void* A, long long lda,
 
 // The plans of a block of up to 2 warps (B <= 8 rows a block), shared by
 // the sweeps over a shard (fr_step_select.cu's K8, stream_select.cu's
-// top-1): under the Wide plan (a 139-229 KB block, one an SM) 2 warps an SM
-// can neither stream the dictionary nor issue the FMAs (nor, for the bf16
-// catch-all, stage and widen its words), so a stage holds 2 warps' rows
-// and the ring is picked by the grid: a grid of more than two blocks an SM
-// (m = 131072: 1024 blocks) takes `Few` (32 entries in 3 stages for f32, in
-// 2 for the bf16 catch-all, whose widened tiles take room: 51-68 KB a
-// block, 3-4 blocks an SM, more warps for the later waves), a smaller one
-// (32768, one of four shards: 256 blocks, all resident) `FewSmall` (64 in
-// 2, fewer barriers a block). 16 x 4, 32 x 4 and the Wide plan's 128 x 2
-// were slower at both widths for K8, 32 x 4, 64 x 3 and 16 x 6 for the
-// top-1 sweep, 32 x 2 in f32 and 32 x 3 in bf16 at 131072 (PERF.md §6,
-// `tools/ab_paths.py --fr-step-plans`). Defining CSTPU_FEW_CHUNK and
-// CSTPU_FEW_STAGES gives both grids that one plan (the probe builds each
-// so).
+// top-1 and top-l): under the Wide plan (a 139-229 KB block, one an SM) 2
+// warps an SM can neither stream the dictionary nor issue the FMAs (nor,
+// for the bf16 catch-all, stage and widen its words), so a stage holds 2
+// warps' rows and the ring is picked by the grid: a grid of more than two
+// blocks an SM (m = 131072: 1024 blocks) takes `Few` (32 entries in 3
+// stages for f32, in 2 for the bf16 catch-all, whose widened tiles take
+// room: 51-68 KB a block, 3-4 blocks an SM, more warps for the later
+// waves), a smaller one (32768, one of four shards: 256 blocks, all
+// resident) `FewSmall` (64 in 2, fewer barriers a block). 16 x 4, 32 x 4
+// and the Wide plan's 128 x 2 were slower at both widths for K8, 32 x 4,
+// 64 x 3 and 16 x 6 for the top-1 sweep, 32 x 2 in f32 and 32 x 3 in bf16
+// at 131072 (PERF.md §6, `tools/ab_paths.py --fr-step-plans`). Defining
+// CSTPU_FEW_CHUNK and CSTPU_FEW_STAGES gives both grids that one plan (the
+// probe builds each so).
 #if defined(CSTPU_FEW_CHUNK) && defined(CSTPU_FEW_STAGES)
 template <typename T>
 using Few = Plan<CSTPU_FEW_CHUNK, CSTPU_FEW_STAGES, 2>;

@@ -16,17 +16,18 @@
 // Python wrapper's predicate and passed as `use_mma`: for bf16 correlation
 // the tensor-core loop of mma_select.cuh, the one select_argmax.cu runs
 // (with mma_topl.cuh's epilogue for the top-l sweep, the one select_topl.cu
-// runs); otherwise (f32 correlation, and the bf16 catch-all) a CUDA-core
-// loop, each atom's sum one fmaf chain in the order p = 0 .. n-1:
-//   top-1 (K6, K9, K10): simt_select.cuh's staged, register-tiled loop
-//     (`stream_top1_simt_kernel`), the one select_argmax.cu's CUDA-core
-//     variant runs, with its epilogue: each thread's 4 rows x 4 atoms
-//     scored and reduced in registers, then across the warp;
-//   top-l (K7): common.cuh::score_tile, one thread an atom, 16 rows a
-//     block whatever B is (`stream_topl_sweep_kernel`).
-// The two loops' sums are equal bit for bit. In either variant an atom
-// scores the same whatever the shard it lies in, so merged selections do
-// not depend on the shard count.
+// runs); otherwise (f32 correlation, and the bf16 catch-all)
+// simt_select.cuh's staged, register-tiled CUDA-core loop, each atom's sum
+// one fmaf chain in the order p = 0 .. n-1, with the epilogue of the
+// CUDA-core select it mirrors:
+//   top-1 (K6, K9, K10; `stream_top1_simt_kernel`): select_argmax.cu's,
+//     each thread's 4 rows x 4 atoms scored and reduced in registers, then
+//     across the warp;
+//   top-l (K7; `stream_topl_simt_kernel`): select_topl.cu's
+//     (simt::topl_epilogue), each warp's rows sorted in registers.
+// So every partial equals the CUDA-core select's on the shard's contiguous
+// copy bit for bit. In either variant an atom scores the same whatever the
+// shard it lies in, so merged selections do not depend on the shard count.
 //
 // The rules of the finishing stages. The TPU kernels' tile is `bpt` sweep
 // blocks wide (the wrapper computes it from `_stream_tile` or `_pick_tile`);
@@ -49,12 +50,11 @@
 // operations; at B=8 that is 8 FLOP per byte, so the bytes bound it (in
 // f32 too: 537 MB, 0.16 ms, against 0.03 ms of f32 FMAs). The tensor-core
 // sweeps fit their row count to B (N = 8 there) and stream the shard
-// through a TMA-fed ring; so does the CUDA-core top-1 sweep (4 rows a warp,
-// 2 warps a block at B=8, the few-row plans of simt_select.cuh picked by
-// the grid, TMA for the shard where its base and pitch allow). The
-// CUDA-core top-l sweep computes kRows = 16 rows whatever B is, so at B=8
-// half its multiply-adds are spent on padding, and it reads each entry of
-// the shard from device memory for 16 of them. The top-1 partials are
+// through a TMA-fed ring; so do the CUDA-core sweeps (4 rows a warp, 2
+// warps a block at B=8, the few-row plans of simt_select.cuh picked by the
+// grid, TMA for the shard where its base and pitch allow). The top-l
+// sweep's sort is a whole tile's whatever l, so its epilogue costs the same
+// from l = 1 to kTile. The top-1 partials are
 // (B, m / kTile) pairs, 64 KB at that size, and its finishing stage is one
 // block per row. The top-l partials are l times as many; its finishing
 // stage (cstpu_stream_topl_finish, one for both sweeps) is two launches,
@@ -228,29 +228,34 @@ stream_finish_kernel(const float* __restrict__ pval,
 }
 
 // Sweep, top-l, on the CUDA cores: per row and per block of kTile atoms the
-// l largest scores (common.cuh::topl_partials), on common.cuh::score_tile.
-template <typename T>
-__global__ void __launch_bounds__(kTile)
-stream_topl_sweep_kernel(const float* __restrict__ r,
-                         const T* __restrict__ A, size_t lda,
-                         float* __restrict__ pval, int* __restrict__ pidx,
-                         int B, int n, int m, int nblocks, int l) {
-  __shared__ __align__(16) float rs[kChunk][kRows];
-  __shared__ float ss[kRows][kTile];
+// l best scores, value descending then index ascending, a block holding a
+// NaN all l (NaN, INT_MAX). simt_select.cuh's loop with one product, r a
+// contiguous (B, n), under plan P; then the epilogue of select_topl.cu's
+// CUDA-core variant (simt::topl_epilogue: each warp's rows sorted in
+// registers, the first l written). m is a multiple of kTile: every atom of
+// a block is live, so no pads.
+template <typename T, typename P>
+__global__ void __launch_bounds__(32 * P::kWarps)
+stream_topl_simt_kernel(const __grid_constant__ simt::Maps maps,
+                        const float* __restrict__ r, const T* __restrict__ A,
+                        size_t lda, float* __restrict__ pval,
+                        int* __restrict__ pidx, int B, int n, int m,
+                        int ntiles, int l) {
+  using simt::kAT;
+  using simt::kRT;
+  extern __shared__ unsigned char smem[];
+  const int tile = blockIdx.x, j0 = tile * kTile;
+  const int row0 = blockIdx.y * kRT * (blockDim.x >> 5);
+  const int jl = j0 + kAT * (threadIdx.x & 31);    // the thread's first atom
+  const int rw = row0 + kRT * (threadIdx.x >> 5);  // the warp's first row
 
-  const int tile = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int j = tile * kTile + threadIdx.x;
-  const bool live = j < m;
-
-  float acc[kRows];
-  score_tile<T>(acc, rs, r, A, row0, j, live, B, n, lda);
-
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) ss[q][threadIdx.x] = live ? fabsf(acc[q]) : -INFINITY;
-  __syncthreads();
-
-  topl_partials(ss, tile, row0, B, m, nblocks, l, pval, pidx);
+  float acc[1][kRT][kAT];
+  simt::sweep<T, 1, P>(
+      acc, smem, maps, A, lda,
+      simt::Products{r, nullptr, 0, 0, nullptr, n, 1}, j0, row0, B, n, m,
+      [&](int, int, float (&s)[1][kRT][kAT]) {
+        simt::topl_epilogue(s[0], jl, rw, B, m, tile, ntiles, l, pval, pidx);
+      });
 }
 
 // Finish, top-l, stage 1: one block per (tile, row) merges the tile's bpt
@@ -633,6 +638,20 @@ cudaError_t launch_sweep(const float* r, long long ldr, long long ldp,
                         r, ldr, ldp, A, lda, M, pval, pidx, B, n, m, s);
 }
 
+// K7's CUDA-core sweep (r a contiguous (B, n)) under the plan the grid
+// picks, as the top-1 sweep's.
+template <typename T>
+cudaError_t launch_topl_sweep(const float* r, const void* A, long long lda,
+                              float* pval, int* pidx, int B, int n, int m,
+                              int l, cudaStream_t s) {
+  const int ntiles = m / kTile;
+  return simt::launch_by_grid<T, 1>(
+      [](auto plan) { return stream_topl_simt_kernel<T, decltype(plan)>; },
+      A, lda, simt::Products{r, nullptr, 0, 0, nullptr, n, 1}, B, n, m,
+      ntiles, s, r, static_cast<const T*>(A), (size_t)lda, pval, pidx, B, n,
+      m, ntiles, l);
+}
+
 // The wide finish (l > kTile) on stream s: the merge where a tile has more
 // than one block, then the fold; `work` as cstpu_stream_topl_work sizes it.
 cudaError_t launch_topl_finish_wide(float* pval, int* pidx, float* val,
@@ -741,17 +760,11 @@ extern "C" int cstpu_stream_topl(const float* r, const void* A, long long lda,
         r, n, 1, static_cast<__nv_bfloat16*>(rb), A, lda, pval, pidx, B, n,
         m, l, s));
   }
-  const int nblocks = m / kTile;
-  const dim3 grid(nblocks, (B + kRows - 1) / kRows);
-  if (cdt_bf16) {
-    stream_topl_sweep_kernel<__nv_bfloat16><<<grid, kTile, 0, s>>>(
-        r, static_cast<const __nv_bfloat16*>(A), lda, pval, pidx, B, n, m,
-        nblocks, l);
-  } else {
-    stream_topl_sweep_kernel<float><<<grid, kTile, 0, s>>>(
-        r, static_cast<const float*>(A), lda, pval, pidx, B, n, m, nblocks, l);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      cdt_bf16 ? launch_topl_sweep<__nv_bfloat16>(r, A, lda, pval, pidx, B,
+                                                  n, m, l, s)
+               : launch_topl_sweep<float>(r, A, lda, pval, pidx, B, n, m, l,
+                                          s));
 }
 
 // The scratch the top-l finish needs past kTile slots: out[0] bytes (0

@@ -47,10 +47,9 @@ own) apart. Every sweep has a tensor-core variant for a bf16 shard
 (csrc/mma_select.cuh, mma_topl.cuh, mma_rescaled.cuh; counted under
 "select_stream_mma", "select_topl_stream_mma", "select_masked_stream_mma"
 and "fr_step_select_mma") and a CUDA-core variant for f32 correlation and
-for what the first does not take (`fused_solve.mma_select_takes`): the
-top-1 sweeps and the step on csrc/simt_select.cuh's staged, register-tiled
-loop (profile names `stream_top1_simt` and `fr_step_simt`), the top-l
-sweep on common.cuh::score_tile (`stream_topl_sweep`). On CPU
+for what the first does not take (`fused_solve.mma_select_takes`): every
+sweep on csrc/simt_select.cuh's staged, register-tiled loop (profile names
+`stream_top1_simt`, `stream_topl_simt` and `fr_step_simt`). On CPU
 tensors, and only there, it runs its plain twin (`*_ref`), which reproduces
 the rule tile by tile in torch operations. Products and sums are f32
 whatever the dtype of R; the scores of the two differ by the order of the

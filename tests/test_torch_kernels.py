@@ -10,8 +10,9 @@ ones: rmp_append, engine_backward (both also in a grid of their own,
 DELETE_CASES), the backward family's: bw_select,
 bw_downdate, and the streaming selects of the sharded solvers:
 stream_select.cu's top-1, masked top-1 and (n, B) argmax (each on the
-tensor-core and the CUDA-core sweep), its top-l (both sweeps, and the
-finish, past 128 slots too), and
+tensor-core and the CUDA-core sweep), its top-l (both sweeps, the
+CUDA-core one also over chip_smoke.SIMT_CASES, and the finish, past 128
+slots too), and
 fr_step_select.cu's rescaling update with its OLS select, in both
 variants) against their
 plain PyTorch versions, on the card. Marked `gpu`: without a CUDA
@@ -2433,4 +2434,19 @@ def test_simt_stream_top1_matches_plain_on_every_row(dev, B, n, m, off, cdt):
     # picks against the plain twins (a duplicated column, a NaN row, an
     # all-excluded row, then a poisoned atom)
     err, _, _ = chip_smoke.hold_simt_stream(dev, B, n, m, off, cdt)
+    assert err <= chip_smoke.SELECT_RTOL
+
+
+@pytest.mark.parametrize("B,n,m,off", chip_smoke.SIMT_CASES)
+@pytest.mark.parametrize("cdt", CDTS)
+def test_simt_stream_topl_matches_plain_on_every_row(dev, B, n, m, off, cdt):
+    # stream_select.cu's CUDA-core top-l sweep (K7) forced onto
+    # simt_select.cuh, on a contiguous shard and on a column view (lda =
+    # 4 m + off), at l = 1, 4, 32, 128 and 160 (the wide finish): the
+    # partials select_topl's CUDA-core partials bit for bit up to l = 32 and
+    # select_argmax's in each tile's first entry, every list against the
+    # plain twin, the finish the plain finish's bit for bit, the select
+    # against the plain select (a duplicated column, a NaN row, then a
+    # poisoned atom); values within SELECT_RTOL of the best score
+    err, _ = chip_smoke.hold_simt_stream_topl(dev, B, n, m, off, cdt)
     assert err <= chip_smoke.SELECT_RTOL

@@ -515,6 +515,30 @@ def test_select_masked_stream_on_a_column_slice_matches_pallas(n, m):
     np.testing.assert_array_equal(tw.numpy(), wide)
 
 
+@pytest.mark.parametrize("l", [1, 4, 32, 48])
+@pytest.mark.parametrize("n,m", SIZES)
+def test_select_topl_stream_on_a_column_slice_matches_pallas(n, m, l):
+    # the top-l select on the same kind of view: the same slots as cstpu's
+    # kernel on the shard alone where nothing ties, the same values as
+    # sorted sets on every row, and the wide dictionary untouched
+    A, R = _inputs(41, n, m)
+    wide, tw, tA = _quarter_view(A, 42)
+    tv, ti = tss.correlate_select_topl_stream(tA, torch.from_numpy(R), l)
+    jv, ji = jss.correlate_select_topl_stream(jnp.asarray(A), jnp.asarray(R),
+                                              l, interpret=True)
+    assert tuple(tv.shape) == tuple(ti.shape) == (8, l)
+    # at l = 48 over 8192 atoms few rows have all 49 best scores apart
+    clear = _clear(np.abs(R @ A), depth=l)
+    assert clear.sum() >= 2
+    tv, ti, jv, ji = tv.numpy(), ti.numpy(), np.asarray(jv), np.asarray(ji)
+    for b in np.flatnonzero(clear):
+        np.testing.assert_array_equal(ti[b], ji[b])
+        np.testing.assert_allclose(tv[b], jv[b], rtol=RTOL)
+    for b in range(8):
+        np.testing.assert_allclose(np.sort(tv[b]), np.sort(jv[b]), rtol=RTOL)
+    np.testing.assert_array_equal(tw.numpy(), wide)
+
+
 @pytest.mark.parametrize("n,m", SIZES)
 def test_correlate_argmax_on_a_column_slice_matches_pallas(n, m):
     # correlate_argmax on the same kind of view, R given as (n, B) (a

@@ -49,16 +49,18 @@ finish) with and without V on 3a-wide's problem at m_local = 131072 and
 on a four-shard column view at 32768, beside the f32 matmul of its
 products and its bound; of the top-1 sweep under K6, K9 and K10 (K10 also
 on a contiguous copy of R) at the 32768 view and at 131072 on one shard,
-B = 8, and at the view at B = 64, and of K7 at l = 32 (B = 8, both widths)
-beside the f32 matmul and torch.topk a tile, on 5c's f32 dictionary (a
-generator of its own); of the same top-1 sweep and of fr_step_select on a
-bf16 copy forced onto CUDA cores (the catch-all; B = 8, both widths); and
-the f32 solves omp_batch, fr_batch and
-gomp_batch (precision="f32", at the bench, 3a and 2a),
-fr_sharded_fused (one shard and four) and srr_sharded_fused (four) with
-corr_dtype=f32 on 3a-wide's problem, and omp_sharded_fused,
-ompr_sharded_fused and mp_sharded_fused (one shard and four) with
-corr_dtype=f32 on 5c's (wall ms by events, device busy ms, per kernel
+B = 8, and at the view at B = 64, and of K7's CUDA-core sweep and finish
+at l = 4, 32 and 160 (B = 8, both widths) and at l = 32 at B = 64 (the
+view) beside the f32 matmul and torch.topk(l) a tile (past 128, a row),
+on 5c's f32 dictionary (a generator of its own); of the same top-1 and
+top-l sweeps and of fr_step_select on a bf16 copy forced onto CUDA cores
+(the catch-all; B = 8, both widths; beside the bf16 matmul); and the f32
+solves omp_batch, fr_batch and gomp_batch (precision="f32", at the bench,
+3a and 2a), fr_sharded_fused (one shard and four) and srr_sharded_fused
+(four) with corr_dtype=f32 on 3a-wide's problem, and omp_sharded_fused,
+ompr_sharded_fused, mp_sharded_fused, gomp_sharded_fused (l = 4) and
+sp_sharded_fused (one shard and four) with corr_dtype=f32 on 5c's (wall
+ms by events, device busy ms, per kernel
 launches and device ms). It saves every output (partials,
 rescalings, solutions) to OUT/ab_f32_TAG.pt (OUT: this checkout's
 build/ab_f32 by default) and holds them bit for bit against every other
@@ -66,8 +68,9 @@ TAG's file there: run the parent and the change in turn on one machine.
 
     python3 tools/ab_paths.py ROOT TAG --fr-step-plans C,S [C,S ...]
 
-times fr_step_select's sweep and the top-1 sweep (K6, K9, K10 at B = 8),
-in f32 and on a bf16 copy (the catch-all), as --f32 does, under each
+times fr_step_select's sweep, the top-1 sweep (K6, K9, K10) and the top-l
+sweep (K7 at l = 4, 32, 160) at B = 8, in f32 and on a bf16 copy (the
+catch-all), as --f32 does, under each
 few-row plan of C entries of n a stage
 in a ring of S stages: a process a plan, each building ROOT's library with
 -DCSTPU_FEW_CHUNK=C -DCSTPU_FEW_STAGES=S into cstpu_torch/build/plan_CxS
@@ -289,20 +292,27 @@ def sharded_f32_solves(cs, dev):
     return out
 
 
-def stream_top1(cs, tag, dev, widths=((32768, 8), (131072, 8),
-                                       (32768, 64)), topl=True, cdt=None):
-    """K6, K9 and K10 forced onto the CUDA cores (mma=False) in f32 on 5c's
-    f32 dictionary (chip_smoke.unit_dictionary, on a generator of its own;
-    with cdt = torch.bfloat16 on its bf16 copy, the catch-all, alone):
+# K7's l at B = 8 (GOMP's, SP's at 5c, and 5c-wide's past 128 slots), and
+# at B = 64
+STREAM_TOPL_LS = (4, 32, 160)
+STREAM_TOPL_L64 = 32
+
+
+def stream_sweeps(cs, tag, dev, widths=((32768, 8), (131072, 8),
+                                        (32768, 64)), cdt=None):
+    """K6, K9, K10 and K7 forced onto the CUDA cores (mma=False) in f32 on
+    5c's f32 dictionary (chip_smoke.unit_dictionary, on a generator of its
+    own; with cdt = torch.bfloat16 on its bf16 copy, the catch-all, alone):
     at each (m_local, B) of `widths`, m_local = 32768 as its first quarter
     (a column view, lda = 131072: one of four shards) and 131072 as one
-    shard; device ms a call (the sweep and the finish) beside the f32 bound
-    and one f32 torch.matmul R . A_shard. At B = 8 also K10 with R made a
-    contiguous (B, n) copy first (the wrapper's other choice to the sweep's
-    strided read of R (n, B); the copy is timed with the call) and, with
-    `topl`, K7 at l = 32 (its CUDA-core sweep on common.cuh::score_tile and
-    the finish) beside the f32 matmul and torch.topk a tile. Returns the
-    outputs of one call each."""
+    shard; device ms a call (the sweep and the finish) beside the bound and
+    one torch.matmul R . A_shard in the dictionary's dtype. At B = 8 in f32
+    also K10 with R made a contiguous (B, n) copy first (the wrapper's other
+    choice to the sweep's strided read of R (n, B); the copy is timed with
+    the call). K7 (its CUDA-core sweep and the finish) at each l of
+    STREAM_TOPL_LS at B = 8 and at STREAM_TOPL_L64 at B = 64, beside that
+    matmul and torch.topk(l) a tile of 128 (past 128, of the row).
+    Returns the outputs of one call each."""
     import torch
 
     from cstpu_torch.ops import corr_argmax as ca
@@ -315,7 +325,7 @@ def stream_top1(cs, tag, dev, widths=((32768, 8), (131072, 8),
                        device=dev)
     bf16 = cdt == torch.bfloat16
     if bf16:
-        A, topl = A.to(cdt), False
+        A = A.to(cdt)
     what = "bf16 catch-all" if bf16 else "f32"
     outputs = {}
     for width, B in widths:
@@ -340,21 +350,24 @@ def stream_top1(cs, tag, dev, widths=((32768, 8), (131072, 8),
                 lambda: ss._launch_top1(Af, RT.T.contiguous(), n, 1, B, None,
                                         bpt10, True, "corr_argmax", False),
                 cs.stream_bound(B, n, width, 4))
-            if topl:
-                calls["K7 l=32"] = (
-                    lambda: ss.correlate_select_topl_stream(Af, R, 32,
+        topk = {}
+        for l in STREAM_TOPL_LS if B == 8 else (STREAM_TOPL_L64,):
+            calls[f"K7 l={l}"] = (
+                lambda l=l: ss.correlate_select_topl_stream(Af, R, l,
                                                             mma=False),
-                    cs.stream_bound(B, n, width, 4, l=32))
+                cs.stream_bound(B, n, width, nb, l=l))
+            topk[f"K7 l={l}"] = cs.device_ms_per_call(
+                lambda l=l: (torch.matmul(R.to(A.dtype), Af).view(
+                    B, width // 128, 128) if l <= 128 else torch.matmul(
+                    R.to(A.dtype), Af)[:, None]).abs().topk(l, dim=2))
         lib = cs.device_ms_per_call(lambda: torch.matmul(R.to(A.dtype), Af))
-        topk = cs.device_ms_per_call(
-            lambda: torch.matmul(R, Af).view(B, width // 128, 128).abs()
-            .topk(32, dim=2)) if B == 8 and topl else None
         for name, (call, bnd) in calls.items():
             ms = cs.device_ms_per_call(call)
             key = f"{name} {what[:4]} {width} B={B}"
             outputs[key] = [x.cpu() for x in call()]
-            extra = (f", torch.matmul f32 + torch.topk a tile "
-                     f"{cs.ms4(topk)}" if name.startswith("K7") else "")
+            extra = (f", torch.matmul {what[:4]} + torch.topk "
+                     + ("a tile " if int(name[5:]) <= 128 else "a row ")
+                     + cs.ms4(topk[name]) if name in topk else "")
             print(f"[ab {tag}] {what} {key} (lda {Af.stride(0)}), CUDA cores: "
                   f"{cs.ms4(ms)} ms a call on the device (sweep and finish), "
                   f"torch.matmul {what[:4]} {cs.ms4(lib)}{extra}; bound "
@@ -362,11 +375,12 @@ def stream_top1(cs, tag, dev, widths=((32768, 8), (131072, 8),
     return outputs
 
 
-def sharded_top1_solves(cs, dev):
-    """The f32 sharded solves on the top-1 sweep, on one shard and on
-    four: omp_sharded_fused (5c's +-1 rows, k = 32), ompr_sharded_fused and
-    mp_sharded_fused (5c's planted ones) with corr_dtype=f32, on 5c's
-    dictionary from a generator of its own: (name, solve) pairs."""
+def sharded_stream_solves(cs, dev):
+    """The f32 sharded solves on the stream sweeps, on one shard and on
+    four: omp_sharded_fused (5c's +-1 rows, k = 32), ompr_sharded_fused,
+    mp_sharded_fused, gomp_sharded_fused (l = 4) and sp_sharded_fused (5c's
+    planted ones) with corr_dtype=f32, on 5c's dictionary from a generator
+    of its own: (name, solve) pairs."""
     import torch
 
     import cstpu_torch
@@ -390,16 +404,23 @@ def sharded_top1_solves(cs, dev):
                  Ash, Bones, k, mesh, delta=1e-12, corr_dtype=f32)),
             (f"mp_sharded_fused f32 shards={s}",
              lambda Ash=Ash, mesh=mesh: cstpu_torch.mp_sharded_fused(
+                 Ash, Bones, k, mesh, corr_dtype=f32)),
+            (f"gomp_sharded_fused f32 shards={s}",
+             lambda Ash=Ash, mesh=mesh: cstpu_torch.gomp_sharded_fused(
+                 Ash, Bones, 4, k, mesh, corr_dtype=f32)),
+            (f"sp_sharded_fused f32 shards={s}",
+             lambda Ash=Ash, mesh=mesh: cstpu_torch.sp_sharded_fused(
                  Ash, Bones, k, mesh, corr_dtype=f32))]
     return out
 
 
 def fr_step_plans(cs, tag, plans):
-    """The --fr-step-plans mode: K8's f32 sweep and the f32 top-1 sweep (K6,
-    K9, K10 at B = 8) under each (entries a stage, stages) plan of few
+    """The --fr-step-plans mode: K8's sweep, the top-1 sweep (K6, K9, K10)
+    and the top-l sweep (K7) at B = 8, f32 and the bf16 catch-all, under
+    each (entries a stage, stages) plan of few
     rows, each built into a library of its own (simt_select.cuh's
     CSTPU_FEW_CHUNK and CSTPU_FEW_STAGES) and timed in a process of its own
-    by fr_steps and stream_top1; the outputs are held bit for bit across
+    by fr_steps and stream_sweeps; the outputs are held bit for bit across
     the plans."""
     import subprocess
 
@@ -503,14 +524,14 @@ def f32_selects(cs, tag, out_dir):
         ("gomp_batch f32 2a", lambda: cstpu_torch.gomp_batch(
             A, Bg, cs.GOMP_CELL[5], cs.GOMP_CELL[4], precision="f32"))]
     solves += sharded_f32_solves(cs, dev)
-    outputs.update(stream_top1(cs, tag, dev))
+    outputs.update(stream_sweeps(cs, tag, dev))
     torch.cuda.empty_cache()
     # the same sweeps' bf16 catch-all (a bf16 shard forced onto CUDA cores)
-    outputs.update(stream_top1(cs, tag, dev, ((32768, 8), (131072, 8)),
-                               cdt=torch.bfloat16))
+    outputs.update(stream_sweeps(cs, tag, dev, ((32768, 8), (131072, 8)),
+                                 cdt=torch.bfloat16))
     outputs.update(fr_steps(cs, tag, dev, torch.bfloat16))
     torch.cuda.empty_cache()
-    solves += sharded_top1_solves(cs, dev)
+    solves += sharded_stream_solves(cs, dev)
     for name, solve in solves:
         sol = solve()
         # MP returns its coefficients (B, m); the others a solution
@@ -585,18 +606,19 @@ def main():
     if "--fr-step-plan" in args:
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if (("fr_step_simt" in line or "stream_top1_simt" in line)
+            if (("fr_step_simt" in line or "stream_top1_simt" in line
+                 or "stream_topl_simt" in line)
                     and "Function properties" in line):
                 print(f"[ab {tag}] {line.strip()[:160]}: "
                       + " ".join(x.strip() for x in lines[i + 1:i + 3]))
         dev = torch.device("cuda", 0)
         outputs = fr_steps(cs, tag, dev)
-        outputs.update(stream_top1(cs, tag, dev, ((32768, 8), (131072, 8)),
-                                   topl=False))
+        outputs.update(stream_sweeps(cs, tag, dev,
+                                     ((32768, 8), (131072, 8))))
         # the bf16 catch-all takes the plans too
         outputs.update(fr_steps(cs, tag, dev, torch.bfloat16))
-        outputs.update(stream_top1(cs, tag, dev, ((32768, 8), (131072, 8)),
-                                   cdt=torch.bfloat16))
+        outputs.update(stream_sweeps(cs, tag, dev, ((32768, 8), (131072, 8)),
+                                     cdt=torch.bfloat16))
         compare(outputs, tag, own_build / "ab_plans")
         return None
     if "--f32" in args:
